@@ -1,0 +1,97 @@
+"""3D sliding-window inference with overlap stitching (counterpart of
+`icl_tpu/eval/infer3d.py`, BraTS protocol).
+
+Reference protocol (val_3D.py:15-82): pad the volume to at least the
+patch, lay out start positions xs = min(stride*i, dim - patch), softmax
+each patch, mean-stitch through score and count maps, argmax, unpad.
+The volume is uploaded once; patches are cut, forwarded sw_batch at a
+time, and stitched on the device; only the label map comes back.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from icl_tpu_torch.device import resolve_device
+from icl_tpu_torch.metrics import calculate_metric_percase
+
+
+def _grid_starts(dim: int, patch: int, stride: int) -> list[int]:
+    n = math.ceil((dim - patch) / stride) + 1
+    return [min(stride * i, dim - patch) for i in range(n)]
+
+
+def make_patch_predictor(model: torch.nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
+    """fn(patches [n, in_chns, *patch]) -> softmax probabilities
+    [n, classes, *patch] in f32, computed without autograd."""
+
+    @torch.inference_mode()
+    def _probs(x: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(model(x).float(), dim=1)
+
+    return _probs
+
+
+def sliding_window_predict(
+    probs_fn: Callable[[torch.Tensor], torch.Tensor],
+    image: np.ndarray,
+    num_classes: int,
+    patch_size: Sequence[int] = (96, 96, 96),
+    stride_xy: int = 64,
+    stride_z: int = 64,
+    sw_batch: int = 4,
+    device=None,
+) -> np.ndarray:
+    """Label map [W, H, D] (uint8) for one volume, reference semantics."""
+    device = resolve_device(device)
+    w, h, d = image.shape
+    pw, ph, pd = patch_size
+    wp, hp, dp = max(pw - w, 0), max(ph - h, 0), max(pd - d, 0)
+    pads = ((wp // 2, wp - wp // 2), (hp // 2, hp - hp // 2), (dp // 2, dp - dp // 2))
+    padded = np.pad(image, pads, mode="constant", constant_values=0) if (wp or hp or dp) else image
+    ww, hh, dd = padded.shape
+    volume = torch.from_numpy(np.ascontiguousarray(padded, dtype=np.float32)).to(device)
+
+    starts = [(xs, ys, zs)
+              for xs in _grid_starts(ww, pw, stride_xy)
+              for ys in _grid_starts(hh, ph, stride_xy)
+              for zs in _grid_starts(dd, pd, stride_z)]
+    score = torch.zeros((num_classes, ww, hh, dd), dtype=torch.float32, device=device)
+    cnt = torch.zeros((ww, hh, dd), dtype=torch.float32, device=device)
+    for c0 in range(0, len(starts), sw_batch):
+        chunk = starts[c0:c0 + sw_batch]
+        patches = torch.stack([volume[xs:xs + pw, ys:ys + ph, zs:zs + pd] for xs, ys, zs in chunk])
+        probs = probs_fn(patches[:, None])
+        for (xs, ys, zs), p in zip(chunk, probs):
+            score[:, xs:xs + pw, ys:ys + ph, zs:zs + pd] += p
+            cnt[xs:xs + pw, ys:ys + ph, zs:zs + pd] += 1.0
+    label_map = torch.argmax(score / cnt, dim=0).to(torch.uint8).cpu().numpy()
+    if wp or hp or dp:
+        label_map = label_map[pads[0][0]:pads[0][0] + w, pads[1][0]:pads[1][0] + h,
+                              pads[2][0]:pads[2][0] + d]
+    return label_map
+
+
+def evaluate_brats_cases(
+    probs_fn,
+    dataset,
+    num_classes: int,
+    patch_size=(96, 96, 96),
+    stride_xy: int = 64,
+    stride_z: int = 64,
+    sw_batch: int = 4,
+    device=None,
+):
+    """test_all_case_base protocol (val_3D.py:100-118): per case and per
+    foreground class (dice, hd95); returns metric_cal[class][case]."""
+    metric_cal = [[] for _ in range(num_classes - 1)]
+    for i in range(len(dataset)):
+        item = dataset[i]
+        prediction = sliding_window_predict(probs_fn, item["image"], num_classes, patch_size,
+                                            stride_xy, stride_z, sw_batch, device)
+        for cls in range(1, num_classes):
+            metric_cal[cls - 1].append(calculate_metric_percase(prediction == cls, item["label"] == cls))
+    return metric_cal

@@ -1,0 +1,59 @@
+"""Binary Dice + HD95 with the reference's empty-mask sentinels (a copy of
+`icl_tpu/metrics.py:21-79`, medpy semantics, computed with scipy on the
+host):
+
+    pred and gt both empty      -> (dice 1, hd95 0)
+    exactly one of them empty   -> (dice 0, hd95 373.128664)
+"""
+from __future__ import annotations
+
+import numpy as np
+from scipy import ndimage
+
+EMPTY_SENTINEL_HD95 = 373.128664
+
+
+def dice_binary(pred: np.ndarray, gt: np.ndarray) -> float:
+    """2|A n B| / (|A| + |B|), as medpy.metric.binary.dc."""
+    pred = np.asarray(pred).astype(bool)
+    gt = np.asarray(gt).astype(bool)
+    size_sum = np.count_nonzero(pred) + np.count_nonzero(gt)
+    if size_sum == 0:
+        return 0.0
+    return 2.0 * np.count_nonzero(pred & gt) / float(size_sum)
+
+
+def _surface_distances(result, reference, voxelspacing=None, connectivity: int = 1) -> np.ndarray:
+    """Distances from the border voxels of `result` to the border of
+    `reference` (medpy __surface_distances)."""
+    result = np.atleast_1d(np.asarray(result).astype(bool))
+    reference = np.atleast_1d(np.asarray(reference).astype(bool))
+    footprint = ndimage.generate_binary_structure(result.ndim, connectivity)
+    if not np.any(result):
+        raise RuntimeError("result is empty; surface distance undefined")
+    if not np.any(reference):
+        raise RuntimeError("reference is empty; surface distance undefined")
+    result_border = result ^ ndimage.binary_erosion(result, structure=footprint, iterations=1)
+    reference_border = reference ^ ndimage.binary_erosion(reference, structure=footprint, iterations=1)
+    dt = ndimage.distance_transform_edt(~reference_border, sampling=voxelspacing)
+    return dt[result_border]
+
+
+def hd95_binary(pred: np.ndarray, gt: np.ndarray, voxelspacing=None) -> float:
+    """95th-percentile symmetric Hausdorff distance, as medpy hd95."""
+    hd1 = _surface_distances(pred, gt, voxelspacing)
+    hd2 = _surface_distances(gt, pred, voxelspacing)
+    return float(np.percentile(np.hstack((hd1, hd2)), 95))
+
+
+def calculate_metric_percase(pred: np.ndarray, gt: np.ndarray) -> tuple[float, float]:
+    """(dice, hd95) for one binary class, with the reference sentinels."""
+    pred = np.asarray(pred) > 0
+    gt = np.asarray(gt) > 0
+    pred_any = bool(pred.any())
+    gt_any = bool(gt.any())
+    if pred_any and gt_any:
+        return dice_binary(pred, gt), hd95_binary(pred, gt)
+    if pred_any != gt_any:
+        return 0.0, EMPTY_SENTINEL_HD95
+    return 1.0, 0.0

@@ -1,0 +1,53 @@
+"""Shared layers (counterpart of `icl_tpu/models/layers.py` and the norms
+of `models/unet3d.py` and `models/swin2d.py`), with torch's default
+initialisation drawn from an explicit generator."""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+EPS = 1e-5
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """torch nn.GELU default (exact erf form)."""
+    return F.gelu(x)
+
+
+def instance_norm(x: torch.Tensor) -> torch.Tensor:
+    """InstanceNorm without affine or running stats, eps 1e-5, over the
+    spatial dims of an N C ... tensor (`InstanceNorm`, unet3d.py:29-38).
+    Written out because F.instance_norm refuses a 1-voxel map, which
+    encoder10 sees at a 32^3 patch; there it gives 0, as the JAX one."""
+    var, mean = torch.var_mean(x, dim=tuple(range(2, x.ndim)), correction=0, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + EPS)
+
+
+def layer_norm_no_affine(x: torch.Tensor) -> torch.Tensor:
+    """Parameterless LayerNorm over the last axis (swinunetr.py:393)."""
+    return F.layer_norm(x, x.shape[-1:], eps=EPS)
+
+
+def layer_norm(dim: int) -> nn.LayerNorm:
+    """LayerNorm with eps 1e-5 (`SwinLayerNorm`, swin2d.py:59-62)."""
+    return nn.LayerNorm(dim, eps=EPS)
+
+
+def torch_default_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """torch's default init for a conv or linear layer:
+    kaiming_uniform(a=sqrt(5)) weight, U(+-1/sqrt(fan_in)) bias."""
+    nn.init.kaiming_uniform_(module.weight, a=math.sqrt(5), generator=generator)
+    if module.bias is not None:
+        fan_in, _ = nn.init._calculate_fan_in_and_fan_out(module.weight)
+        bound = 1.0 / math.sqrt(fan_in)
+        nn.init.uniform_(module.bias, -bound, bound, generator=generator)
+
+
+def swin_linear_init_(module: nn.Linear, generator: torch.Generator) -> None:
+    """Swin linears: trunc_normal(0.02) weight, zero bias (`SwinDense`)."""
+    nn.init.trunc_normal_(module.weight, std=0.02, a=-0.04, b=0.04, generator=generator)
+    if module.bias is not None:
+        nn.init.zeros_(module.bias)

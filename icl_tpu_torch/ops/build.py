@@ -1,0 +1,78 @@
+"""Build step for the port's CUDA kernels.
+
+Each kernel source under `ops/csrc/` has a plain C interface and is
+compiled with `nvcc` into a shared library that `ctypes` loads: no
+PyTorch headers, so a build takes seconds. The library lands in
+`<repo>/build/<name>-<hash>/`, keyed by the hash of the source and the
+flags, and is built at first use. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+def find_nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.isfile(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return nvcc
+
+
+def build_library(name: str) -> tuple[Path, str]:
+    """Compile `csrc/<name>.cu` into `lib<name>.so` unless a build of the
+    same source and flags exists. Returns (library path, compiler log);
+    the log is empty when the library was already built."""
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = BUILD_ROOT / f"{name}-{digest}"
+    lib = out_dir / f"lib{name}.so"
+    if lib.exists():
+        return lib, ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a reader never sees half a file
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, proc.stdout + proc.stderr
+
+
+@functools.cache
+def load_window_attention() -> ctypes.CDLL:
+    """The window-attention library, built on first use, with its C
+    signatures declared."""
+    path, _ = build_library("window_attention")
+    lib = ctypes.CDLL(str(path))
+    fn = lib.icl_window_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    lib.icl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.icl_cuda_error_string.restype = ctypes.c_char_p
+    return lib

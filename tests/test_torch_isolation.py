@@ -1,0 +1,80 @@
+"""icl_tpu_torch (and chip_smoke.py, which drives it on the card) stands
+alone: it imports neither JAX nor the icl_tpu package, and its entry
+points refuse to fall back to the CPU."""
+import ast
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import icl_tpu_torch
+
+PKG = pathlib.Path(icl_tpu_torch.__file__).resolve().parent
+ROOT = PKG.parent
+
+_CHILD = r"""
+import importlib, pkgutil, sys
+import icl_tpu_torch, torch
+for m in pkgutil.walk_packages(icl_tpu_torch.__path__, "icl_tpu_torch."):
+    importlib.import_module(m.name)
+from icl_tpu_torch.models.registry import net_factory
+from icl_tpu_torch.eval.infer3d import make_patch_predictor
+model = net_factory("swinunetr", 1, 2, device="cpu", feature_size=12,
+                    generator=torch.Generator().manual_seed(0))
+x = torch.randn(1, 1, 32, 32, 32, generator=torch.Generator().manual_seed(1))
+probs = make_patch_predictor(model)(x)
+assert probs.shape == (1, 2, 32, 32, 32) and torch.isfinite(probs).all()
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "icl_tpu"))
+print("LEAKED", bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_icl_tpu():
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, capture_output=True,
+                          text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert "LEAKED []" in proc.stdout, proc.stdout
+
+
+_IMPORT_LINE = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|flax|optax|icl_tpu)(?![\w])", re.M)
+
+
+def _imported_modules(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_has_no_jax_or_icl_tpu_import(path):
+    for name in _imported_modules(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "flax", "optax", "icl_tpu"), f"{path}: imports {name}"
+    # also imports inside strings handed to exec or a subprocess
+    leak = _IMPORT_LINE.search(path.read_text())
+    assert leak is None, f"{path}: {leak.group(0).strip()}"
+
+
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
+    import numpy as np
+
+    from icl_tpu_torch.device import resolve_device
+    from icl_tpu_torch.eval.infer3d import sliding_window_predict
+    from icl_tpu_torch.models.registry import net_factory
+    from icl_tpu_torch.scripts import test_3D_BraTS
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        net_factory("swinunetr", 1, 2, feature_size=12)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sliding_window_predict(lambda x: x, np.zeros((8, 8, 8), np.float32), 2, (8, 8, 8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        test_3D_BraTS.main(["--checkpoint", "unused.pth"])
+    assert resolve_device("cpu") == torch.device("cpu")
