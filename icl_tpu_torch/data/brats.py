@@ -1,16 +1,24 @@
-"""BraTS2019 h5 volumes for evaluation (counterpart of the dataset class
-of `icl_tpu/data/brats.py` and the manifest lookup of
+"""BraTS2019 h5 volumes and the training batches cut from them
+(counterpart of `icl_tpu/data/brats.py` and the manifest lookup of
 `icl_tpu/data/manifests.py`).
 
 On-disk layout: {root}/{split list}.txt and {root}/data/{case}.h5 with
 'image' [W, H, D] float and 'label' [W, H, D]. A split list missing from
 the root is taken from the repo's vendored copy under `data/BraTS2019/`.
+
+Training transforms (RandomRotFlip, then RandomCrop to the patch) draw
+from numpy generators seeded as the JAX package's, in the same order, so
+one seed gives the same batches in both packages; the batches here are
+channel-first.
 """
 from __future__ import annotations
 
 import os
+from typing import Iterator, Sequence
 
 import numpy as np
+
+from icl_tpu_torch.data.sampler import two_stream_batches
 
 VENDORED_ROOT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "data", "BraTS2019"
@@ -45,3 +53,52 @@ class BraTS2019Dataset:
             image = f["image"][:]
             label = f["label"][:].astype(np.uint8)
         return {"image": image, "label": label, "case": case}
+
+
+def _pad_to_fit(image, label, output_size):
+    """Reference padding rule: if any dim <= target, pad both sides of
+    every dim by (target - dim) // 2 + 3, clipped at 0."""
+    if any(label.shape[i] <= output_size[i] for i in range(3)):
+        pads = [(p, p) for p in (max((output_size[i] - label.shape[i]) // 2 + 3, 0) for i in range(3))]
+        image = np.pad(image, pads, mode="constant", constant_values=0)
+        label = np.pad(label, pads, mode="constant", constant_values=0)
+    return image, label
+
+
+def random_crop_3d(image, label, output_size, rng: np.random.Generator):
+    """RandomCrop with the padding rule above."""
+    image, label = _pad_to_fit(image, label, output_size)
+    starts = [int(rng.integers(0, image.shape[i] - output_size[i])) for i in range(3)]
+    sl = tuple(slice(s, s + o) for s, o in zip(starts, output_size))
+    return image[sl], label[sl]
+
+
+def random_rot_flip_3d(image, label, rng: np.random.Generator):
+    """rot90 by k in {0..3} over the leading two axes, then a flip along
+    axis 0 or 1."""
+    k = int(rng.integers(0, 4))
+    axis = int(rng.integers(0, 2))
+    image = np.flip(np.rot90(image, k), axis=axis).copy()
+    label = np.flip(np.rot90(label, k), axis=axis).copy()
+    return image, label
+
+
+def brats_train_batches(dataset, labeled_count: int, total_count: int, batch_size: int,
+                        labeled_bs: int, patch_size: Sequence[int] = (96, 96, 96),
+                        seed: int = 1337) -> Iterator[dict]:
+    """Endless [labeled..., unlabeled...] batches: "image" [B, 1, *patch]
+    f32 and "label" [B, *patch] uint8. `dataset` is anything indexable
+    whose items hold "image" and "label" volumes (a BraTS2019Dataset, or
+    a list of in-memory cases); indices below `labeled_count` are the
+    labeled ones, the rest up to `total_count` the unlabeled ones."""
+    aug_rng = np.random.default_rng(seed + 1)
+    for idxs in two_stream_batches(list(range(labeled_count)), list(range(labeled_count, total_count)),
+                                   batch_size, batch_size - labeled_bs, seed=seed):
+        imgs, labs = [], []
+        for i in idxs:
+            item = dataset[i]
+            img, lab = random_rot_flip_3d(item["image"], item["label"], aug_rng)
+            img, lab = random_crop_3d(img, lab, patch_size, aug_rng)
+            imgs.append(img.astype(np.float32)[None])
+            labs.append(lab.astype(np.uint8))
+        yield {"image": np.stack(imgs), "label": np.stack(labs)}

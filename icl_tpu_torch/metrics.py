@@ -57,3 +57,28 @@ def calculate_metric_percase(pred: np.ndarray, gt: np.ndarray) -> tuple[float, f
     if pred_any != gt_any:
         return 0.0, EMPTY_SENTINEL_HD95
     return 1.0, 0.0
+
+
+def aggregate_case_metrics(metric_cal: list[list[tuple[float, float]]]) -> dict:
+    """Per-class mean and std over cases of (dice, hd95), then the mean
+    over classes (a copy of `icl_tpu/metrics.py:aggregate_case_metrics`).
+    Returns mean_dice, mean_hd95, std_dice, std_hd95, class_mean and
+    class_std (each class entry an array [dice, hd95])."""
+    num_fg = len(metric_cal)
+    mean_cal = 0.0
+    std_cal = 0.0
+    class_mean, class_std = [], []
+    for per_case in metric_cal:
+        arr = np.asarray(per_case, dtype=np.float64)
+        mean_cal = mean_cal + arr.mean(axis=0)
+        std_cal = std_cal + arr.std(axis=0)
+        class_mean.append(arr.mean(axis=0))
+        class_std.append(arr.std(axis=0))
+    return {
+        "mean_dice": float(mean_cal[0] / num_fg),
+        "mean_hd95": float(mean_cal[1] / num_fg),
+        "std_dice": float(std_cal[0] / num_fg),
+        "std_hd95": float(std_cal[1] / num_fg),
+        "class_mean": class_mean,
+        "class_std": class_std,
+    }

@@ -1,0 +1,184 @@
+"""Inherent Consistent Learning heads (SSPA / USCL) in PyTorch,
+channel-first (counterpart of `icl_tpu/models/icl.py`, 3D as SwinUNETR-ICL
+uses them).
+
+Module names follow the reference key layout (`guide_Q`,
+`proj_layers.{i}`, `norm_layers.{i}`, `class_decoders.{i}.attn.fc_q`,
+`attn_convs0.{i}.block.depthwise`, `attn_convs1.{i}`, `query_convs.{i}`),
+so a state_dict in that layout loads with `strict=True`.
+
+Kept quirks of the reference:
+  * `QueryAttention` reshapes the projected query [B, cls, C] straight to
+    [B, heads, cls, C/heads] and the attended value straight back, so
+    heads interleave class and channel (icl.py:72-82);
+  * `ClassDecoder` adds a self-residual q = q_out + drop_path(q_out) and
+    runs `mlp2` over the pre-softmax attention map (icl.py:104-118);
+  * the learned query starts at zero, and every scale uses the drop-path
+    rate dpr[1] (icl.py:190-199).
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from icl_tpu_torch.models.layers import DropPath, batch_norm, gelu_exact, layer_norm, torch_default_init_
+
+
+class MLP(nn.Module):
+    """fc1 -> GELU -> fc2 (icl.py:41-53)."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, out_features)
+
+    def forward(self, x):
+        return self.fc2(gelu_exact(self.fc1(x)))
+
+
+class QueryAttention(nn.Module):
+    """Cross-attention from class queries to feature tokens that also
+    returns the pre-softmax logits (icl.py:56-85)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        self.num_heads = num_heads
+        self.fc_q = nn.Linear(dim, dim, bias=qkv_bias)
+        self.fc_kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, q, x):
+        B, N, C = x.shape
+        num_classes = q.shape[1]
+        H = self.num_heads
+        head_dim = C // H
+        q = self.fc_q(q).reshape(B, H, num_classes, head_dim)  # straight reshape (quirk)
+        k, v = self.fc_kv(x).reshape(B, N, 2, H, head_dim).permute(2, 0, 3, 1, 4)
+        attn1 = torch.einsum("bhcd,bhnd->bhcn", q, k) * head_dim**-0.5  # [B, H, cls, N]
+        out = torch.einsum("bhcn,bhnd->bhcd", attn1.softmax(-1), v)
+        out = self.proj(out.reshape(B, num_classes, C))  # straight reshape back (quirk)
+        return out, attn1.transpose(1, 2)  # [B, cls, H, N] pre-softmax logits
+
+
+class ClassDecoder(nn.Module):
+    """Pre-norm cross-attention over the class queries; the attention map
+    gets a LayerNorm(N) + MLP(N) residual (icl.py:88-119)."""
+
+    def __init__(self, dim: int, n_patch: int, num_heads: int, mlp_ratio: float = 4.0,
+                 drop_path: float = 0.0):
+        super().__init__()
+        self.norm1 = layer_norm(dim)
+        self.norm1_query = layer_norm(dim)
+        self.attn = QueryAttention(dim, num_heads)
+        self.drop_path = DropPath(drop_path)
+        self.norm2 = layer_norm(dim)
+        self.mlp = MLP(dim, int(dim * mlp_ratio), dim)
+        self.norm3 = layer_norm(n_patch)
+        self.mlp2 = MLP(n_patch, n_patch, n_patch)
+
+    def forward(self, query, feat):
+        dp = self.drop_path
+        q_out, attn = self.attn(self.norm1_query(query), self.norm1(feat))
+        query = q_out + dp(q_out)  # self-residual (quirk)
+        query = query + dp(self.mlp(self.norm2(query)))
+        attn = attn + dp(attn)
+        attn = attn + dp(self.mlp2(self.norm3(attn)))
+        return query, attn
+
+
+class SeparableConv(nn.Module):
+    """Depthwise 3^d conv, BN, ReLU, pointwise conv, BN, ReLU, no biases
+    (icl.py:122-146); its modules sit under `.block` as in the reference."""
+
+    def __init__(self, cin: int, features: int, spatial_dims: int = 3):
+        super().__init__()
+        conv = {2: nn.Conv2d, 3: nn.Conv3d}[spatial_dims]
+        self.block = nn.ModuleDict({
+            "depthwise": conv(cin, cin, 3, padding=1, groups=cin, bias=False),
+            "bn_depth": batch_norm(cin, spatial_dims),
+            "pointwise": conv(cin, features, 1, bias=False),
+            "bn_point": batch_norm(features, spatial_dims),
+        })
+
+    def forward(self, x):
+        b = self.block
+        x = F.relu(b["bn_depth"](b["depthwise"](x)))
+        return F.relu(b["bn_point"](b["pointwise"](x)))
+
+
+class InherentConsistent(nn.Module):
+    """Multi-scale class-decoder head (icl.py:149-268).
+
+    feats: channel-first maps [B, C_i, *spatial_i] (at least len(depths)
+    of them; the rest are ignored). In 'labeled' mode the learned query
+    `guide_Q` seeds scale 0 and a pointwise projection halves it for the
+    next scale; in 'unlabeled' mode each scale's query is `guided_Q[i]`,
+    taken from the labeled pass. Returns (feat_maps, updated_Qs):
+    class maps [B, cls, *spatial_i] and batch-mean queries [1, cls, C_i].
+    """
+
+    def __init__(self, in_chans: Sequence[int], num_classes: int, num_heads: Sequence[int],
+                 input_resolution: Sequence[int], spatial_dims: int = 3,
+                 depths: Sequence[int] = (2, 2, 2), drop_path_rate: float = 0.1):
+        super().__init__()
+        self.in_chans = tuple(in_chans)
+        self.num_classes = num_classes
+        self.input_resolution = tuple(input_resolution)
+        self.spatial_dims = spatial_dims
+        self.num_scales = len(depths)
+        # every scale uses dpr[1] (icl.py:190-193)
+        drop_path = float(np.linspace(0.0, drop_path_rate, sum(depths))[1])
+        conv = {2: nn.Conv2d, 3: nn.Conv3d}[spatial_dims]
+        scales = range(self.num_scales)
+        self.guide_Q = nn.Parameter(torch.zeros(1, num_classes, self.in_chans[0]))
+        self.proj_layers = nn.ModuleList(conv(in_chans[i], in_chans[i], 1) for i in scales)
+        self.norm_layers = nn.ModuleList(layer_norm(in_chans[i]) for i in scales)
+        self.class_decoders = nn.ModuleList(
+            ClassDecoder(in_chans[i], input_resolution[i] ** spatial_dims, num_heads[i],
+                         drop_path=drop_path) for i in scales)
+        self.attn_convs0 = nn.ModuleList(
+            SeparableConv(num_heads[i], num_heads[i], spatial_dims) for i in scales)
+        self.attn_convs1 = nn.ModuleList(conv(num_heads[i], 1, 1) for i in scales)
+        # Conv1d k=1 over the class axis, applied as a per-class linear map
+        self.query_convs = nn.ModuleList(nn.Conv1d(in_chans[i], in_chans[i] // 2, 1) for i in scales)
+
+    def init_weights_(self, generator: torch.Generator) -> None:
+        """torch's default init from `generator` (the JAX package's
+        TorchConv / TorchDense), unit norms, fresh BN stats, zero query."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
+                torch_default_init_(m, generator)
+            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d, nn.BatchNorm3d)):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+                if isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
+                    m.reset_running_stats()
+        nn.init.zeros_(self.guide_Q)
+
+    def forward(self, feats, guided_Q: Optional[Sequence[torch.Tensor]] = None,
+                modal: str = "labeled"):
+        if modal not in ("labeled", "unlabeled"):
+            raise ValueError(f"modal {modal!r}: want 'labeled' or 'unlabeled'")
+        BS = feats[0].shape[0]
+        ncls = self.num_classes
+        next_Q = self.guide_Q.expand(BS, ncls, self.in_chans[0])
+        feat_maps, updated_Qs = [], []
+        for i in range(self.num_scales):
+            C = self.in_chans[i]
+            tok = self.proj_layers[i](feats[i]).flatten(2).transpose(1, 2)  # [B, N, C]
+            tok = self.norm_layers[i](tok)
+            q_in = next_Q if modal == "labeled" else guided_Q[i].expand(BS, ncls, C)
+            updated_Q, attn = self.class_decoders[i](q_in, tok)
+            # [B, cls, H, N] -> [B*cls, H, *spatial]
+            bs, _, nheads, _ = attn.shape
+            spatial = (self.input_resolution[i],) * self.spatial_dims
+            attn = self.attn_convs0[i](attn.reshape(bs * ncls, nheads, *spatial))
+            feat_maps.append(self.attn_convs1[i](attn).reshape(bs, ncls, *spatial))
+            qc = self.query_convs[i]
+            next_Q = F.linear(updated_Q, qc.weight[..., 0], qc.bias)
+            updated_Qs.append(updated_Q.mean(0, keepdim=True))
+        return feat_maps, updated_Qs

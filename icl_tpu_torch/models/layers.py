@@ -51,3 +51,31 @@ def swin_linear_init_(module: nn.Linear, generator: torch.Generator) -> None:
     nn.init.trunc_normal_(module.weight, std=0.02, a=-0.04, b=0.04, generator=generator)
     if module.bias is not None:
         nn.init.zeros_(module.bias)
+
+
+def batch_norm(num_features: int, spatial_dims: int) -> nn.Module:
+    """BatchNorm with torch's defaults, eps 1e-5 and momentum 0.1
+    (`BatchNorm`, layers.py:110-118). Its running_var takes the unbiased
+    batch variance; the JAX package's takes the biased one."""
+    cls = {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}[spatial_dims]
+    return cls(num_features, eps=EPS, momentum=0.1)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth (`DropPath`, layers.py:129-147): in training, keep
+    each sample's whole branch with probability 1 - rate and scale it by
+    1 / (1 - rate); the identity in eval or at rate 0. The keep mask comes
+    from `generator` (on the tensor's device) or else torch's default RNG."""
+
+    def __init__(self, rate: float, generator: torch.Generator | None = None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=self.generator)
+        return torch.where(mask.bool(), x / keep, torch.zeros_like(x))

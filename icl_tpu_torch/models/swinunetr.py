@@ -5,7 +5,12 @@ MONAI's SwinViT does. The module tree follows the reference key layout
 (`swinViT.layers1.0.blocks.0.attn.qkv`, `encoder1.layer.conv1.conv`,
 `decoder5.transp_conv.conv`, `out.conv.conv`, ...), so a state_dict in
 that layout loads with `strict=True`. Window attention goes through the
-fused kernel (`ops.window_attention`).
+fused kernels (`ops.window_attention`), forward and backward.
+
+Train mode: `return_feats` also returns the ICL taps [dec3, dec2, dec1,
+dec0]; `remat` recomputes each Swin block, UnetResBlock encoder and
+UnetrUpBlock decoder in the backward (`torch.utils.checkpoint`, where the
+JAX package uses `nn.remat`, swinunetr.py:303-305, :503-504).
 
 Kept quirks of the reference: the relative-position bias table is always
 (2*7-1)^3 rows and a stage whose window shrinks slices `[:N, :N]` of the
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from icl_tpu_torch.models.layers import (
     gelu_exact,
@@ -91,9 +97,14 @@ def window_region_ids_3d(dims, ws, ss) -> Optional[np.ndarray]:
 
 @functools.lru_cache(maxsize=32)
 def _region_ids_on(dims, ws, ss, device: torch.device) -> Optional[torch.Tensor]:
-    """Region ids as a device tensor, made once per stage geometry."""
+    """Region ids as a device tensor, made once per stage geometry. Made
+    outside inference mode even when the first call is inside it, so that
+    a later training step may save the cached tensor for its backward."""
     ids = window_region_ids_3d(dims, ws, ss)
-    return None if ids is None else torch.from_numpy(ids).to(device)
+    if ids is None:
+        return None
+    with torch.inference_mode(False):
+        return torch.from_numpy(ids).to(device)
 
 
 class WindowAttention3D(nn.Module):
@@ -191,13 +202,23 @@ class PatchMerging3D(nn.Module):
         return self.reduction(self.norm(torch.cat(parts, dim=-1)))
 
 
+def call_remat(remat: bool, fn, *args):
+    """fn(*args), recomputed in the backward when `remat` is set and
+    autograd records (non-reentrant checkpoint)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 class BasicLayer(nn.Module):
     """One Swin stage: a plain loop over its blocks (odd blocks shift),
     then PatchMerging. Channel-last in and out."""
 
-    def __init__(self, dim: int, depth: int, num_heads: int, window_size: Sequence[int]):
+    def __init__(self, dim: int, depth: int, num_heads: int, window_size: Sequence[int],
+                 remat: bool = False):
         super().__init__()
         self.window_size = tuple(window_size)
+        self.remat = remat
         self.blocks = nn.ModuleList(SwinBlock3D(dim, num_heads, window_size) for _ in range(depth))
         self.downsample = PatchMerging3D(dim)
 
@@ -208,9 +229,9 @@ class BasicLayer(nn.Module):
         region_ids = _region_ids_on(padded, ws, ss, x.device)
         for b, blk in enumerate(self.blocks):
             if b % 2 == 1 and region_ids is not None:
-                x = blk(x, ws, ss, region_ids)
+                x = call_remat(self.remat, blk, x, ws, ss, region_ids)
             else:
-                x = blk(x, ws, (0, 0, 0), None)
+                x = call_remat(self.remat, blk, x, ws, (0, 0, 0), None)
         return self.downsample(x)
 
 
@@ -230,11 +251,11 @@ class SwinViT3D(nn.Module):
     (swinunetr.py:401)."""
 
     def __init__(self, in_chans: int, embed_dim: int, depths: Sequence[int],
-                 num_heads: Sequence[int], window_size: Sequence[int]):
+                 num_heads: Sequence[int], window_size: Sequence[int], remat: bool = False):
         super().__init__()
         self.patch_embed = PatchEmbed(in_chans, embed_dim)
         for i, (depth, heads) in enumerate(zip(depths, num_heads)):
-            layer = BasicLayer(embed_dim * 2**i, depth, heads, window_size)
+            layer = BasicLayer(embed_dim * 2**i, depth, heads, window_size, remat)
             self.add_module(f"layers{i + 1}", nn.ModuleList([layer]))
         self.num_layers = len(depths)
 
@@ -302,15 +323,19 @@ class UnetrUpBlock(nn.Module):
 
 class SwinUNETR(nn.Module):
     """Reference SwinUNETR forward graph (swinunetr.py:486-522). Input
-    [B, in_chns, D, H, W], logits [B, class_num, D, H, W]."""
+    [B, in_chns, D, H, W], logits [B, class_num, D, H, W]; with
+    `return_feats`, (logits, [dec3, dec2, dec1, dec0])."""
 
     def __init__(self, in_chns: int, class_num: int, feature_size: int = 48,
                  depths: Sequence[int] = (2, 2, 2, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24),
-                 window_size: Sequence[int] = (7, 7, 7)):
+                 window_size: Sequence[int] = (7, 7, 7),
+                 return_feats: bool = False, remat: bool = False):
         super().__init__()
         fs = feature_size
-        self.swinViT = SwinViT3D(in_chns, fs, depths, num_heads, window_size)
+        self.return_feats = return_feats
+        self.remat = remat
+        self.swinViT = SwinViT3D(in_chns, fs, depths, num_heads, window_size, remat)
         self.encoder1 = UnetrBasicBlock(in_chns, fs)
         self.encoder2 = UnetrBasicBlock(fs, fs)
         self.encoder3 = UnetrBasicBlock(2 * fs, 2 * fs)
@@ -324,23 +349,35 @@ class SwinUNETR(nn.Module):
         self.out = ConvOnly(ConvOnly(nn.Conv3d(fs, class_num, 1)))
 
     def forward(self, x):
+        def run(block, *args):
+            return call_remat(self.remat, block, *args)
+
         hs = self.swinViT(x)
-        enc0 = self.encoder1(x)
-        enc1 = self.encoder2(hs[0])
-        enc2 = self.encoder3(hs[1])
-        enc3 = self.encoder4(hs[2])
-        dec4 = self.encoder10(hs[4])
-        dec3 = self.decoder5(dec4, hs[3])
-        dec2 = self.decoder4(dec3, enc3)
-        dec1 = self.decoder3(dec2, enc2)
-        dec0 = self.decoder2(dec1, enc1)
-        return self.out(self.decoder1(dec0, enc0))
+        enc0 = run(self.encoder1.layer, x)
+        enc1 = run(self.encoder2.layer, hs[0])
+        enc2 = run(self.encoder3.layer, hs[1])
+        enc3 = run(self.encoder4.layer, hs[2])
+        dec4 = run(self.encoder10.layer, hs[4])
+        dec3 = run(self.decoder5, dec4, hs[3])
+        dec2 = run(self.decoder4, dec3, enc3)
+        dec1 = run(self.decoder3, dec2, enc2)
+        dec0 = run(self.decoder2, dec1, enc1)
+        logits = self.out(run(self.decoder1, dec0, enc0))
+        if self.return_feats:
+            return logits, [dec3, dec2, dec1, dec0]
+        return logits
 
 
 def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """The reference init, drawn from `generator`: trunc_normal(0.02) Swin
-    linears and bias tables, unit LayerNorms, torch-default convs."""
+    linears and bias tables, unit LayerNorms, torch-default convs. A
+    submodule with its own `init_weights_` (an ICL head) is skipped here
+    and initialised by that method afterwards, in module order."""
+    heads = [m for m in model.modules() if m is not model and hasattr(m, "init_weights_")]
+    in_heads = {id(sub) for head in heads for sub in head.modules()}
     for m in model.modules():
+        if id(m) in in_heads:
+            continue
         if isinstance(m, WindowAttention3D):
             nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02, a=-0.04, b=0.04,
                                   generator=generator)
@@ -353,15 +390,18 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
         elif isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
             torch_default_init_(m, generator)
+    for head in heads:
+        head.init_weights_(generator)
 
 
-def build_swinunetr(in_chns: int, class_num: int, *, device: torch.device,
-                    generator: torch.Generator, **kwargs) -> SwinUNETR:
-    """A SwinUNETR with the reference init from a CPU `generator` (so the
-    same seed gives the same weights on every device), moved to `device`."""
+def build_model(cls: type, *args, device: torch.device, generator: torch.Generator,
+                **kwargs) -> nn.Module:
+    """`cls(*args, **kwargs)` with the reference init from a CPU
+    `generator` (so the same seed gives the same weights on every device),
+    moved to `device`, in torch's default train mode."""
     with torch.device("meta"):
-        model = SwinUNETR(in_chns, class_num, **kwargs)
+        model = cls(*args, **kwargs)
     model = model.to_empty(device="cpu")
     with torch.no_grad():
         init_weights_(model, generator)
-    return model.to(device).eval()
+    return model.to(device)

@@ -73,6 +73,25 @@ def load_window_attention() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    _declare_error_string(lib)
+    return lib
+
+
+@functools.cache
+def load_window_attention_bwd() -> ctypes.CDLL:
+    """The window-attention backward library, built on first use, with its
+    C signatures declared."""
+    path, _ = build_library("window_attention_bwd")
+    lib = ctypes.CDLL(str(path))
+    fn = lib.icl_window_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    _declare_error_string(lib)
+    return lib
+
+
+def _declare_error_string(lib: ctypes.CDLL) -> None:
     lib.icl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.icl_cuda_error_string.restype = ctypes.c_char_p
-    return lib

@@ -20,13 +20,23 @@ import torch
 from icl_tpu_torch.eval.infer3d import make_patch_predictor
 from icl_tpu_torch.models.registry import net_factory
 
-# kernel-name substrings -> group, first match wins
+# kernel-name substrings -> group, first match wins. cuDNN names its
+# convolutions' implicit GEMMs fprop/dgrad/wgrad; cuBLAS's kernels say gemm.
 GROUPS = (
+    ("window_attention_bwd", "window attention backward (this port's kernel)"),
+    ("dbias_reduce", "window attention backward (this port's kernel)"),
     ("window_attention", "window attention (this port's kernel)"),
     ("conv", "convolution"),
-    ("xmma", "convolution"),
+    ("fprop", "convolution"),
+    ("dgrad", "convolution"),
+    ("wgrad", "convolution"),
     ("gemm", "matmul (linears)"),
     ("gemv", "matmul (linears)"),
+    ("xmma", "convolution"),
+    ("multi_tensor", "optimizer (SGD)"),
+    ("upsample", "trilinear resize (loss maps)"),
+    ("nchwtonhwc", "copies and layout"),
+    ("nhwctonchw", "copies and layout"),
     ("reduce", "reductions (norms, softmax, argmax)"),
     ("norm", "reductions (norms, softmax, argmax)"),
     ("softmax", "reductions (norms, softmax, argmax)"),
@@ -46,6 +56,25 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def device_time_by_group(prof) -> tuple[float, dict, dict, int]:
+    """(busy ms, {group: ms}, {kernel name: [ms, calls]}, kernel count) of
+    the device kernels a `torch.profiler.profile` recorded. The device-side
+    spans of user annotations (`Optimizer.step#SGD.step`) cover kernels
+    counted already and are left out."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    by_group: dict[str, float] = {}
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        ms = e.device_time / 1e3  # device_time is in us
+        g = group_of(e.name)
+        by_group[g] = by_group.get(g, 0.0) + ms
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += ms
+        entry[1] += 1
+    return sum(by_group.values()), by_group, by_name, len(kernels)
+
+
 FEATURE_SIZE, SW_BATCH, PATCH = 48, 4, 96
 
 
@@ -58,7 +87,7 @@ def main():
                           capture_output=True, text=True, timeout=60).stdout.strip()
 
     model = net_factory("swinunetr_icl", 1, 2, device="cuda", feature_size=FEATURE_SIZE,
-                        generator=torch.Generator().manual_seed(0))
+                        generator=torch.Generator().manual_seed(0), inference=True).eval()
     probs_fn = make_patch_predictor(model)
     x = torch.randn(SW_BATCH, 1, PATCH, PATCH, PATCH, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(1))
@@ -73,20 +102,11 @@ def main():
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time for e in kernels) / 1e3  # device_time is in us
-    by_group: dict[str, float] = {}
-    by_name: dict[str, list] = {}
-    for e in kernels:
-        g = group_of(e.name)
-        by_group[g] = by_group.get(g, 0.0) + e.device_time / 1e3
-        entry = by_name.setdefault(e.name, [0.0, 0])
-        entry[0] += e.device_time / 1e3
-        entry[1] += 1
+    busy_ms, by_group, by_name, n_kernels = device_time_by_group(prof)
 
     print(f"card: {card}")
     print(f"forward fs{FEATURE_SIZE} sw_batch {SW_BATCH} at {PATCH}^3: wall {wall_ms:.3f} ms, "
-          f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, {len(kernels)} kernels")
+          f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, {n_kernels} kernels")
     for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:10.3f} ms  {ms / busy_ms:6.1%}  {g}")
     print("top kernels:")

@@ -4,8 +4,9 @@ sliding-window (96^3, stride 64) whole-tumour Dice/HD95 over val_test.
     python -m icl_tpu_torch.scripts.test_3D_BraTS --root_path ... --exp ...
 
 The checkpoint is a torch state_dict in the reference key layout (default
-`<snapshot>/model/model_best.pth`); the JAX package's msgpack checkpoints
-need flax and are not read here.
+`<snapshot>/model/model_best.pth`, as the trainer saves it: ICL heads
+stripped); the JAX package's msgpack checkpoints need flax and are not
+read here.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ def parse_args(argv=None):
     p.add_argument("--root_path", type=str, default="../data/BraTS2019")
     p.add_argument("--exp", type=str, default="BraTS2019/Inherent_Consistent_Learning")
     p.add_argument("--model", type=str, default="swinunetr_icl")
+    p.add_argument("--feature_size", type=int, default=48)
     p.add_argument("--num_classes", type=int, default=2)
     p.add_argument("--patch_size", type=int, nargs=3, default=[96, 96, 96])
     p.add_argument("--stride_xy", type=int, default=64)
@@ -39,6 +41,16 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def load_eval_model(model: str, checkpoint: str, num_classes: int, device,
+                    feature_size: int = 48):
+    """The inference graph of `model`, in eval mode, with the (stripped)
+    checkpoint loaded strictly."""
+    net = net_factory(model, in_chns=1, class_num=num_classes, device=device,
+                      feature_size=feature_size, inference=True)
+    net.load_state_dict(load_state_dict_file(checkpoint), strict=True)
+    return net.eval()
+
+
 def main(argv=None):
     args = parse_args(argv)
     cfg = ExperimentConfig(
@@ -48,8 +60,7 @@ def main(argv=None):
     )
     ckpt_path = args.checkpoint or os.path.join(cfg.snapshot_path, "model", "model_best.pth")
     device = resolve_device(args.device)
-    model = net_factory(args.model, in_chns=1, class_num=args.num_classes, device=device)
-    model.load_state_dict(load_state_dict_file(ckpt_path), strict=True)
+    model = load_eval_model(args.model, ckpt_path, args.num_classes, device, args.feature_size)
 
     db = BraTS2019Dataset(args.root_path, args.test_list)
     metric_cal = evaluate_brats_cases(

@@ -1,0 +1,60 @@
+"""The ICL semi-supervised train step (counterpart of `make_icl_step`,
+`icl_tpu/train/steps.py:73-141`):
+
+    loss = (CE + Dice)             on the labeled main output
+         + AuxLoss(fm_lab, gt)     ICL labeled maps against the labels
+         + w_pse * PseudoSoftLoss  ICL unlabeled maps against the detached
+                                   main unlabeled prediction
+         + w_consis * softmax_mse  USCL against the detached SSPA maps
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Sequence
+
+import torch
+
+from icl_tpu_torch import losses
+from icl_tpu_torch.train.optim import PolySGD
+
+METRIC_KEYS = ("loss", "loss_seg", "loss_ce", "loss_dice", "loss_aux", "loss_pse",
+               "loss_aux_consis")
+
+
+def make_icl_step(model: torch.nn.Module, optimizer: PolySGD, num_classes: int, labeled_bs: int,
+                  patch_size: Sequence[int], consis_weight: float, pse_weight: float = 1.0,
+                  precision: str = "float32") -> Callable[[dict], dict]:
+    """step(batch) -> metrics: one forward of the two branches, the losses,
+    backward and one optimizer update. `batch` holds "image" [B, 1,
+    *patch] f32 and "label" [B, *patch] integers on the model's device,
+    the first `labeled_bs` samples labeled. With precision "bfloat16" the
+    forward runs under autocast; the losses take f32 maps. Metrics are
+    detached 0-d tensors (reading them syncs the device)."""
+    patch = tuple(patch_size)
+    if precision not in ("float32", "bfloat16"):
+        raise ValueError(f"precision {precision!r}: want float32 or bfloat16")
+
+    def step(batch: dict) -> dict:
+        x, y = batch["image"], batch["label"]
+        x_lab, x_unlab = x[:labeled_bs], x[labeled_bs:]
+        y_lab = y[:labeled_bs]
+        optimizer.zero_grad()
+        cast = (torch.autocast(x.device.type, dtype=torch.bfloat16) if precision == "bfloat16"
+                else contextlib.nullcontext())
+        with cast:
+            outs = model(x_lab, x_unlab)
+        out_lab, out_unlab, fm_lab, fm_unlab, fm_consis = (
+            o.float() if torch.is_tensor(o) else [m.float() for m in o] for o in outs)
+        loss_ce = losses.cross_entropy_loss(out_lab, y_lab)
+        loss_dice = losses.multiclass_dice_loss(out_lab, y_lab, num_classes, softmax=True)
+        loss_aux = losses.aux_loss(fm_lab, y_lab, num_classes, patch)
+        loss_pse = losses.pseudo_soft_loss(fm_unlab, out_unlab, patch)
+        loss_consis = losses.softmax_mse_loss(fm_unlab, fm_consis)
+        loss_seg = loss_ce + loss_dice
+        loss = loss_seg + loss_aux + pse_weight * loss_pse + consis_weight * loss_consis
+        loss.backward()
+        optimizer.step()
+        values = (loss, loss_seg, loss_ce, loss_dice, loss_aux, loss_pse, consis_weight * loss_consis)
+        return {k: v.detach() for k, v in zip(METRIC_KEYS, values)}
+
+    return step

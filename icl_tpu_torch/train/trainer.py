@@ -1,0 +1,121 @@
+"""Trainer: the ICL semi-supervised train loop (counterpart of
+`icl_tpu/train/trainer.py:45-524`, cut to what the SwinUNETR-ICL CLI
+uses): steps, metric logging every `log_interval` steps, validation every
+`val_interval` steps, and the best checkpoint (ICL heads stripped) in the
+reference snapshot layout:
+
+    {experiments_dir}/{exp}_{labeled_num}_labeled/{model}_exp_{num_tries}/
+        log.txt
+        model/model_best.pth
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Iterable, Optional
+
+import torch
+
+from icl_tpu_torch.config import ExperimentConfig
+from icl_tpu_torch.device import resolve_device
+from icl_tpu_torch.models.registry import net_factory
+from icl_tpu_torch.train.optim import PolySGD
+from icl_tpu_torch.train.steps import make_icl_step
+from icl_tpu_torch.utils.checkpoint import save_best_model
+from icl_tpu_torch.utils.logging_utils import setup_logging
+
+
+class Trainer:
+    """Model, optimizer and step of one experiment, on `device` (the CUDA
+    card unless the caller passes "cpu"). Weights come from `generator`
+    (default: a CPU generator seeded with cfg.seed). With precision
+    "float32" on the card, TF32 is switched off for matmuls and cuDNN."""
+
+    def __init__(self, cfg: ExperimentConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        if cfg.model != "swinunetr_icl":
+            raise KeyError(f"model {cfg.model!r}: the port trains swinunetr_icl only")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if cfg.precision == "float32" and self.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        if generator is None:
+            generator = torch.Generator().manual_seed(cfg.seed)
+        self.model = net_factory(cfg.model, cfg.in_chns, cfg.num_classes, device=self.device,
+                                 generator=generator, feature_size=cfg.feature_size,
+                                 patch_size=int(cfg.patch_size[0]), remat=cfg.remat)
+        self.optimizer = PolySGD(self.model.parameters(), cfg.base_lr, cfg.max_iterations,
+                                 cfg.momentum, cfg.weight_decay, cfg.poly_power)
+        self.step_fn = make_icl_step(self.model, self.optimizer, cfg.num_classes, cfg.labeled_bs,
+                                     cfg.patch_size, cfg.consis_weight, cfg.pse_weight,
+                                     cfg.precision)
+        self.iteration = 0
+
+    def to_device(self, batch: dict) -> dict:
+        return {"image": torch.as_tensor(batch["image"], dtype=torch.float32).to(self.device),
+                "label": torch.as_tensor(batch["label"]).to(self.device, torch.long)}
+
+    def fit(self, train_batches: Iterable[dict],
+            evaluate: Optional[Callable[[torch.nn.Module], dict]] = None,
+            class_names: Optional[list[str]] = None) -> dict:
+        """Run up to cfg.max_iterations steps. `evaluate(model)` runs every
+        cfg.val_interval steps, with the model in eval mode, and returns
+        the aggregate of `metrics.aggregate_case_metrics`; a new best
+        mean dice saves the best checkpoint. Returns {"log": one dict per
+        logged step (iteration, seconds since the start, lr, metrics),
+        "vals": one dict per validation, "best_mean_dice", "best_path"}."""
+        cfg = self.cfg
+        snapshot = cfg.snapshot_path
+        logger = setup_logging(snapshot)
+        if class_names is None:
+            class_names = [str(i) for i in range(1, cfg.num_classes)]
+        log, vals = [], []
+        best, best_path = 0.0, None
+        batch_iter = iter(train_batches)
+        self.model.train()
+        t_start = time.perf_counter()
+        while self.iteration < cfg.max_iterations:
+            try:
+                batch = self.to_device(next(batch_iter))
+            except StopIteration:
+                break
+            metrics = self.step_fn(batch)
+            self.iteration += 1
+            it = self.iteration
+            if it % cfg.log_interval == 0:
+                host = {k: float(v) for k, v in metrics.items()}  # syncs the card
+                log.append({"iteration": it, "seconds": time.perf_counter() - t_start,
+                            "lr": self.optimizer.schedule(it - 1), **host})
+                logger.info("iteration %d : " + ", ".join(f"{k}: {v:f}" for k, v in host.items()), it)
+            if evaluate is not None and cfg.val_interval and it % cfg.val_interval == 0:
+                self.model.eval()
+                agg = evaluate(self.model)
+                self.model.train()
+                vals.append({"iteration": it, "mean_dice": agg["mean_dice"],
+                             "mean_hd95": agg["mean_hd95"]})
+                for name, (dice, hd95) in zip(class_names, agg["class_mean"]):
+                    logger.info("iteration %d : class %s : dice %f  hd95 %f", it, name, dice, hd95)
+                logger.info("iteration %d : mean_dice : %f  mean_hd95 : %f",
+                            it, agg["mean_dice"], agg["mean_hd95"])
+                if agg["mean_dice"] > best:
+                    best = agg["mean_dice"]
+                    best_path = save_best_model(snapshot, self.model)
+                    logger.info("saving best model at iter %d -> %s", it, best_path)
+        elapsed = time.perf_counter() - t_start
+        logger.info("Training finished: %d iters in %.1fs (%.2f it/s)",
+                    self.iteration, elapsed, self.iteration / max(elapsed, 1e-9))
+        return {"log": log, "vals": vals, "best_mean_dice": best, "best_path": best_path}
+
+
+def brats_evaluator(dataset, num_classes: int, patch_size, device) -> Callable[[torch.nn.Module], dict]:
+    """evaluate(model) for `fit`: the BraTS sliding window (stride 64,
+    sw_batch 4) over `dataset`, aggregated per class."""
+    from icl_tpu_torch.eval.infer3d import evaluate_brats_cases, make_patch_predictor
+    from icl_tpu_torch.metrics import aggregate_case_metrics
+
+    def evaluate(model: torch.nn.Module) -> dict:
+        metric_cal = evaluate_brats_cases(make_patch_predictor(model), dataset, num_classes,
+                                          tuple(patch_size), 64, 64, sw_batch=4, device=device)
+        return aggregate_case_metrics(metric_cal)
+
+    return evaluate

@@ -115,7 +115,8 @@ def test_cli_evaluates_synthetic_brats_on_cpu(tmp_path):
             f["image"] = image
             f["label"] = (image > 1.0).astype(np.uint8)
     (tmp_path / "val_test.txt").write_text("\n".join(names) + "\n")
-    model = net_factory("swinunetr_icl", 1, 2, device="cpu", generator=torch.Generator().manual_seed(8))
+    model = net_factory("swinunetr_icl", 1, 2, device="cpu", generator=torch.Generator().manual_seed(8),
+                        inference=True)
     ckpt = tmp_path / "model_best.pth"
     torch.save({"module." + k: v for k, v in model.state_dict().items()}, ckpt)
 

@@ -125,16 +125,50 @@ def test_forward_matches_jax(jax_path, monkeypatch):
 
 
 def test_registry_builds_swinunetr_for_both_keys_and_names_ported_keys():
+    """`swinunetr` and the inference graph of `swinunetr_icl` are the same
+    SwinUNETR; the training `swinunetr_icl` is SwinUNETRICL, whose
+    state_dict without its ICL heads is that SwinUNETR's, weight for
+    weight, from the same seed."""
+    from icl_tpu_torch.models.swinunetr_icl import SwinUNETRICL, strip_icl_heads
+
     g = lambda: torch.Generator().manual_seed(7)  # noqa: E731
     a = net_factory("swinunetr", 1, 2, device="cpu", generator=g(), feature_size=FS)
-    b = net_factory("swinunetr_icl", 1, 2, device="cpu", generator=g(), feature_size=FS)
+    b = net_factory("swinunetr_icl", 1, 2, device="cpu", generator=g(), feature_size=FS,
+                    inference=True)
+    c = net_factory("swinunetr_icl", 1, 2, device="cpu", generator=g(), feature_size=FS,
+                    patch_size=PATCH)
     assert type(a) is type(b) is port_swin.SwinUNETR
-    for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
-        assert ka == kb
-        torch.testing.assert_close(va, vb, rtol=0, atol=0)
+    assert type(c) is SwinUNETRICL
+    stripped = strip_icl_heads(c.state_dict())
+    assert list(stripped) == list(a.state_dict())
+    for sd in (b.state_dict(), stripped):
+        for (ka, va), (kb, vb) in zip(a.state_dict().items(), sd.items()):
+            assert ka == kb
+            torch.testing.assert_close(va, vb, rtol=0, atol=0)
     attn = a.swinViT.layers1[0].blocks[0].attn
     np.testing.assert_array_equal(attn.relative_position_index.numpy(),
                                   jax_swin.relative_position_index_3d((7, 7, 7)))
     assert all(torch.isfinite(p).all() for p in a.parameters())
     with pytest.raises(KeyError, match="swinunetr_icl"):
         net_factory("unet_3D_icl", 1, 2, device="cpu")
+
+
+def test_training_step_after_an_inference_mode_forward():
+    """The region ids cached by a forward under `torch.inference_mode` (the
+    sliding window's) can be saved for the backward of a later training
+    forward in the same process, with and without recompute."""
+    port_swin._region_ids_on.cache_clear()
+    model = net_factory("swinunetr", 1, 2, device="cpu", generator=torch.Generator().manual_seed(3),
+                        feature_size=FS)
+    x = torch.randn(1, 1, PATCH, PATCH, PATCH, generator=torch.Generator().manual_seed(4))
+    with torch.inference_mode():
+        model.eval()(x)
+    for remat in (False, True):
+        model.train().remat = remat
+        for layer in model.swinViT.modules():
+            if isinstance(layer, port_swin.BasicLayer):
+                layer.remat = remat
+        model.zero_grad()
+        model(x).square().mean().backward()
+        grad = model.swinViT.layers1[0].blocks[1].attn.relative_position_bias_table.grad
+        assert grad is not None and torch.isfinite(grad).all() and grad.abs().max() > 0

@@ -1,7 +1,8 @@
 """icl_tpu_torch window attention against the JAX package's: the plain
 version against `window_attention_fused` (Pallas, interpret mode) and
 `window_attention_reference`, with no mask and with shift-region ids.
-The CUDA kernel itself runs only on the card (last test).
+The CUDA kernel itself runs only on the card (last test). The backward
+has its own file, `test_torch_window_attention_bwd.py`.
 
 Tolerance atol 2e-5 in f32, the JAX package's own kernel tolerance
 (tests/test_pallas_attention.py).
@@ -77,12 +78,21 @@ def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
     assert wa.window_attention.launches_by_mode == {"none": 0, "region": 0}
 
 
-def test_wrapper_raises_on_tensor_that_requires_grad():
-    q, k, v, bias, _, _ = _inputs(16, seed=2)
-    args = [torch.from_numpy(a) for a in (q, k, v, bias)]
-    args[0].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        wa.window_attention(*args, scale=0.25)
+@pytest.mark.parametrize("masked", [False, True], ids=["none", "region"])
+def test_wrapper_gradients_flow_on_cpu_and_equal_plain_backward(masked):
+    """Autograd through `window_attention` on CPU tensors gives exactly
+    what `window_attention_plain_bwd` gives, and launches no kernel."""
+    q, k, v, bias, ids, _ = _inputs(16, seed=2)
+    args = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v, bias)]
+    rid = torch.from_numpy(ids) if masked else None
+    dout = torch.from_numpy(np.random.default_rng(5).standard_normal(q.shape).astype(np.float32))
+    wa.reset_launch_counts()
+    out = wa.window_attention(*args, rid, scale=0.25)
+    got = torch.autograd.grad(out, args, dout)
+    want = wa.window_attention_plain_bwd(*(a.detach() for a in args), rid, dout, scale=0.25)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert wa.window_attention.launches == wa.window_attention_bwd.launches == 0
 
 
 def test_plain_keeps_bf16_output_dtype():
