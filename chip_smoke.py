@@ -12,11 +12,10 @@ Phases, each fatal on failure:
   4. times at those shapes: the kernel, the plain version, and
      F.scaled_dot_product_attention as the one PyTorch call that computes
      the same function, beside the kernel's bound;
-  5. the main path: BraTS sliding-window inference with SwinUNETR fs48
-     (1 channel, 2 classes, seeded init) on a seeded 160x160x128 volume,
-     96^3 patches, stride 64, sw_batch 4: 8 patches in 2 forwards; the
-     kernel launches are counted and must be 16 (5 no-mask + 3 region per
-     forward);
+  5. BraTS sliding-window inference with SwinUNETR fs48 (1 channel, 2
+     classes, seeded init) on a seeded 160x160x128 volume, 96^3 patches,
+     stride 64, sw_batch 4: 8 patches in 2 forwards; the kernel launches
+     are counted and must be 16 (5 no-mask + 3 region per forward);
   6. one sw_batch forward's probabilities against the same weights with
      the plain attention;
   7. the backward kernel against its plain version at the four attention
@@ -26,19 +25,42 @@ Phases, each fatal on failure:
   8. times at those shapes: the backward kernel, the plain backward, and
      the backward of F.scaled_dot_product_attention (q, k, v and the mask),
      beside the bound;
-  9. the training path: SwinUNETR-ICL fs48 at 96^3, batch 4 (2 labeled),
-     f32 with TF32 off, recompute on, through Trainer.fit for 3 steps on
-     seeded in-memory 128^3 cases, with a validation at step 3 on one
-     held-out case; s/step after the warm-up step, peak memory, every loss
-     term, and the kernel launches per step (asserted: 16 backward, 10
-     no-mask + 6 region; 32 forward, the 16 of the two passes and their
-     recompute); then one step under bfloat16 autocast;
+  9. SwinUNETR-ICL training: fs48 at 96^3, batch 4 (2 labeled), f32 with
+     TF32 off, recompute on, through Trainer.fit for 3 steps on seeded
+     in-memory 128^3 cases, with a validation at step 3 on one held-out
+     case; s/step after the warm-up step, peak memory, every loss term,
+     and the kernel launches per step (asserted: 16 backward, 10 no-mask +
+     6 region; 32 forward, the 16 of the two passes and their recompute);
+     then one step under bfloat16 autocast;
  10. one training step through the kernels against the same step with the
      plain attention (same weights and batch, f32, drop path off): every
      loss term, and the updated bias tables and qkv weights of stages 1
      and 4;
  11. train -> eval: the stripped best checkpoint loads strictly through
      the eval CLI's loader and gives the trainer's validation dice;
+ 12. the dense-mask (MASK) and no-mask forward kernels at head dim 32
+     against their plain versions at the attention shapes of one
+     Swin-UNet 2D backbone pass at 384^2, window 12, batch 8, and at the
+     reference's 224^2 / window-7 stage 1, with the shift mask and a
+     random dense mask, f32 and bf16; f32 times beside the bound, the
+     plain version and SDPA;
+ 13. the backward kernel in both modes at head dim 32 at the 384^2
+     shapes, both masks, f32 and bf16, bitwise equal across two runs;
+     f32 times beside the bound, the plain backward and SDPA's backward;
+ 14. Swin-UNet-ICL training on ACDC, the main path of this slice: embed
+     96, depths 2-2-2-2, heads 3-6-12-24, 384^2, window 12, 4 classes,
+     batch 16 (8 labeled), consistency weight 50, f32 with TF32 off, no
+     recompute, through Trainer.fit for 3 steps on seeded in-memory
+     256^2 slices, with a validation at step 3 on two seeded volumes;
+     s/step after the warm-up step, the host's batch time, the validation
+     time, peak memory, every loss term, and the kernel launches (asserted
+     per step: 28 forward and 28 backward, each 16 no-mask + 12 mask; per
+     validation chunk 14 forward, 8 + 6);
+ 15. one 2D training step through the kernels against the same step with
+     the plain attention, beside a control step, as in 10;
+ 16. 2D train -> eval: the stripped best checkpoint loads strictly
+     through the 2D eval CLI's loader and gives the trainer's validation
+     dice;
 then a `kernels` JSON line, the card line, and the result line. Exits
 non-zero without a result when CUDA is absent.
 """
@@ -99,7 +121,8 @@ HEAD_DIM = 16
 PER_FORWARD = {"none": {"stage1": 1, "stage2": 1, "stage3": 1, "stage4": 2},
                "region": {"stage1": 1, "stage2": 1, "stage3": 1}}
 REPLACES = {"none": "icl_tpu/ops/pallas/window_attention.py:44",
-            "region": "icl_tpu/ops/pallas/window_attention.py:60"}
+            "region": "icl_tpu/ops/pallas/window_attention.py:60",
+            "mask": "icl_tpu/ops/pallas/window_attention.py:28"}
 BWD_REPLACES = "icl_tpu/ops/pallas/window_attention.py:290"
 
 # The training path: SwinUNETR-ICL fs48 at 96^3, batch 4 of which 2
@@ -108,8 +131,30 @@ BWD_REPLACES = "icl_tpu/ops/pallas/window_attention.py:290"
 TRAIN_BATCH, LABELED_BS, TRAIN_STEPS, CASE_SIZE = 4, 2, 3, 128
 # kernel launches per training step: two backbone passes, each with
 # PER_FORWARD's calls, and recompute runs every Swin block's forward again
-BWD_PER_STEP = {m: 2 * sum(PER_FORWARD[m].values()) for m in ("none", "region")}
+BWD_PER_STEP_BY_STAGE = {m: {st: 2 * n for st, n in PER_FORWARD[m].items()} for m in ("none", "region")}
+BWD_PER_STEP = {m: sum(w.values()) for m, w in BWD_PER_STEP_BY_STAGE.items()}
 FWD_PER_STEP = {m: 2 * n for m, n in BWD_PER_STEP.items()}
+
+# This slice: Swin-UNet-ICL 2D, Swin-T lite widths (embed 96, depths
+# 2-2-2-2, heads 3-6-12-24: head dim 32) at 384^2 with window 12 (N = 144),
+# the window/size pair of Swin's public 384-px configs; batch 16 of which
+# 8 labeled, so each backbone pass runs batch 8.
+IMG_2D, WINDOW_2D, CLASSES_2D, BATCH_2D, LABELED_2D, HEAD_DIM_2D = 384, 12, 4, 16, 8, 32
+SLICE_SIZE_2D, SLICES_2D, LABELED_SLICES_2D, VOLUMES_2D, VOL_DEPTH_2D = 256, 32, 16, 2, 10
+# The attention calls of one backbone pass at batch 8: per shape the grid
+# side, the window, the heads and the launches of each mode. Stages 1-3
+# shift in their odd block, in the encoder and in the decoder stage of the
+# same size (layers_up.3, .2, .1); stage 4 (12^2) is one unshifted window.
+STAGES_2D = [
+    ("stage1", 96, 12, 3, {"none": 2, "mask": 2}),
+    ("stage2", 48, 12, 6, {"none": 2, "mask": 2}),
+    ("stage3", 24, 12, 12, {"none": 2, "mask": 2}),
+    ("stage4", 12, 12, 24, {"none": 2}),
+]
+# stage 1 of the reference's 224^2 / window-7 configuration (N = 49)
+REF_STAGE_2D = ("ref224_stage1", 56, 7, 3, {"none": 2, "mask": 2})
+PER_FORWARD_2D = {m: sum(st[4].get(m, 0) for st in STAGES_2D) for m in ("none", "mask")}
+PER_STEP_2D = {m: 2 * n for m, n in PER_FORWARD_2D.items()}  # two passes, no recompute
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXPERIMENTS = os.path.join(ROOT, "build", "chip_smoke", "experiments")
 
@@ -148,31 +193,38 @@ def stage_inputs(torch, stage, dtype, gen):
     return q, k, v, bias, None if ids is None else torch.from_numpy(ids).to(DEVICE)
 
 
-def bound(B, H, N, D, nW, masked, backward=False):
+def bound(B, H, N, D, mask_floats=0, backward=False):
     """(ms at the f32 rate, ms at the memory rate). Forward: two N x N x D
     products per (window, head); q, k, v read and out written once, bias
     read once. Backward: five products; q, k, v, dO read and dq, dk, dv
-    written once, bias read and dbias written once. Region ids read once."""
+    written once, bias read and dbias written once. The region ids [nW, N]
+    or the dense mask [nW, N, N] (`mask_floats` values) read once."""
     products, tensors, bias_arrays = (5, 7, 2) if backward else (2, 4, 1)
     flops = 2 * products * B * H * N * N * D
-    nbytes = (tensors * B * H * N * D + bias_arrays * H * N * N + (nW * N if masked else 0)) * 4
+    nbytes = (tensors * B * H * N * D + bias_arrays * H * N * N + mask_floats) * 4
     return flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def bound_fields(flop_ms, byte_ms) -> dict:
+    return {"flop_ms": flop_ms, "byte_ms": byte_ms, "bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
 
 
 def rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-def sdpa_backward_ms(torch, F, wa, q, k, v, bias, ids, g, scale) -> float:
+def sdpa_backward_ms(torch, F, q, k, v, bias, mask, g, scale) -> float:
     """The backward of F.scaled_dot_product_attention with attn_mask =
-    bias (+ mask) for q, k, v and the mask, timed on a retained graph."""
+    bias (+ the dense mask [nW, N, N]) for q, k, v and the bias, timed on
+    a retained graph."""
     B, H, N, D = q.shape
-    nW = ids.shape[0] if ids is not None else B
-    shape = (B // nW, nW, H, N, D) if ids is not None else (B, H, N, D)
+    nW = mask.shape[0] if mask is not None else B
+    shape = (B // nW, nW, H, N, D) if mask is not None else (B, H, N, D)
     qs, ks, vs = (t.detach().view(shape).requires_grad_(True) for t in (q, k, v))
     mask_leaf = bias.detach().clone().requires_grad_(True)
-    mask = mask_leaf if ids is None else mask_leaf[None] + wa.mask_from_region_ids(ids)[:, None]
-    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)
+    attn = mask_leaf if mask is None else mask_leaf[None] + mask[:, None]
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn, scale=scale)
     gout = g.view(shape)
     return cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs, mask_leaf), gout, retain_graph=True))
 
@@ -211,15 +263,14 @@ def phase_backward_kernel(torch, F, wa) -> list[dict]:
                     fail(f"backward kernel disagrees with plain or is not repeatable: {row}")
                 if dtype == torch.float32:
                     B, H, N, D = q.shape
-                    flop_ms, byte_ms = bound(B, H, N, D, ids.shape[0] if ids is not None else B,
-                                             ids is not None, backward=True)
+                    dense = wa.mask_from_region_ids(ids) if ids is not None else None
                     row.update(
                         ms=cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale)),
                         plain_ms=cuda_ms(lambda: wa.window_attention_plain_bwd(
                             q, k, v, bias, ids, g, scale=scale), reps=3),
-                        library_ms=sdpa_backward_ms(torch, F, wa, q, k, v, bias, ids, g, scale),
-                        flop_ms=flop_ms, byte_ms=byte_ms, bound_ms=max(flop_ms, byte_ms),
-                        bound_by="operations" if flop_ms >= byte_ms else "bytes",
+                        library_ms=sdpa_backward_ms(torch, F, q, k, v, bias, dense, g, scale),
+                        **bound_fields(*bound(B, H, N, D, ids.numel() if ids is not None else 0,
+                                              backward=True)),
                     )
                 rows.append(row)
                 print(f"[bwd] {json.dumps(row)}", flush=True)
@@ -295,7 +346,7 @@ def phase_training(torch, wa, cases, held_out) -> dict:
           f"{result['best_path']}", flush=True)
     want = {"fwd": FWD_PER_STEP, "bwd": BWD_PER_STEP}
     for kind in ("fwd", "bwd"):
-        if per_steps[kind] != {m: TRAIN_STEPS * n for m, n in want[kind].items()}:
+        if per_steps[kind] != {**{m: TRAIN_STEPS * n for m, n in want[kind].items()}, "mask": 0}:
             fail(f"{kind} launches over {TRAIN_STEPS} steps: {per_steps[kind]}, expected "
                  f"{want[kind]} per step")
     if result["best_path"] is None:
@@ -320,29 +371,36 @@ def phase_training(torch, wa, cases, held_out) -> dict:
 
 
 def phase_step_parity(torch, wa, cases) -> None:
-    """10: one f32 step through the kernels against the same step (same
-    weights, same batch, drop path off) with the plain attention, beside
-    a control: the kernel step on the batch scaled by 1 + 1e-7, which
-    shows how far f32 rounding of the forward alone moves the step."""
-    import gc
-
+    """10: one SwinUNETR-ICL step through the kernels against the plain
+    attention (stages 1 and 4 watched)."""
     from icl_tpu_torch.data.brats import brats_train_batches
-    from icl_tpu_torch.models.layers import DropPath
     from icl_tpu_torch.models.swinunetr import WindowAttention3D
-    from icl_tpu_torch.train.trainer import Trainer
 
     cfg = train_config("float32", 1, 0, "step")
     batch = next(brats_train_batches(cases, 2, len(cases), TRAIN_BATCH, LABELED_BS, cfg.patch_size,
                                      seed=cfg.seed))
     watched = [f"swinViT.layers{i}.0.blocks.{b}.attn.{t}" for i in (1, 4) for b in (0, 1)
                for t in ("relative_position_bias_table", "qkv.weight", "qkv.bias")]
+    kernel_launches = (sum(FWD_PER_STEP.values()), sum(BWD_PER_STEP.values()))
+    step_parity(torch, wa, cfg, batch, watched, WindowAttention3D, kernel_launches, "[step]")
+
+
+def step_parity(torch, wa, cfg, batch, watched, attention_type, kernel_launches, tag) -> None:
+    """One f32 step through the kernels against the same step (same
+    weights, same batch, drop path off) with the plain attention, beside a
+    control: the kernel step on the batch scaled by 1 + 1e-7, which shows
+    how far f32 rounding of the forward alone moves the step."""
+    import gc
+
+    from icl_tpu_torch.models.layers import DropPath
+    from icl_tpu_torch.train.trainer import Trainer
 
     def one_step(plain: bool, input_scale: float = 1.0):
         trainer = Trainer(cfg, device=DEVICE)
         for m in trainer.model.modules():
             if isinstance(m, DropPath):
                 m.rate = 0.0
-            if plain and isinstance(m, WindowAttention3D):
+            if plain and isinstance(m, attention_type):
                 m.attention = wa.window_attention_plain
         params = dict(trainer.model.named_parameters())
         before = {n: params[n].detach().clone() for n in watched}
@@ -358,7 +416,6 @@ def phase_step_parity(torch, wa, cases) -> None:
         return metrics, before, after, launches
 
     kern, plain, ctl = one_step(False), one_step(True), one_step(False, 1.0 + 1e-7)
-    kernel_launches = (sum(FWD_PER_STEP.values()), sum(BWD_PER_STEP.values()))
     launches = [run[3] for run in (kern, plain, ctl)]
     if launches != [kernel_launches, (0, 0), kernel_launches]:
         fail(f"(forward, backward) launches of the kernel, plain and control steps: {launches}, "
@@ -382,9 +439,10 @@ def phase_step_parity(torch, wa, cases) -> None:
 
     errs = {"kernel_vs_plain": (loss_err(kern, plain), update_err(kern, plain)),
             "control_vs_kernel": (loss_err(ctl, kern), update_err(ctl, kern))}
-    print(f"[step] one f32 step, kernel vs plain attention: loss terms {kern[0]} vs {plain[0]}", flush=True)
+    print(f"{tag} one f32 step, kernel vs plain attention: loss terms {kern[0]} vs {plain[0]}",
+          flush=True)
     for name, (le, ue) in errs.items():
-        print(f"[step] {name}: loss terms' relative errors {le} (tolerance {STEP_LOSS_RTOL}); "
+        print(f"{tag} {name}: loss terms' relative errors {le} (tolerance {STEP_LOSS_RTOL}); "
               f"updated tensors' errors as fractions of their allowance {ue}", flush=True)
     le, ue = errs["kernel_vs_plain"]
     if any(e > STEP_LOSS_RTOL for e in le.values()) or any(e > 1.0 for e in ue.values()):
@@ -405,6 +463,237 @@ def phase_train_to_eval(torch, held_out, training: dict) -> None:
           f"{agg['mean_dice']!r}, the trainer's validation {training['val_dice']!r}", flush=True)
     if agg["mean_dice"] != training["val_dice"]:
         fail("the eval path does not reproduce the trainer's validation dice")
+    del model
+    torch.cuda.empty_cache()
+
+
+def inputs_2d(torch, stage, dtype, gen, kind):
+    """q, k, v, bias and the mask of one Swin-UNet 2D attention shape at
+    batch LABELED_2D: `kind` None (no mask), "shift" (the shifted block's
+    mask) or "random" (a dense mask N(0, 3^2): the kernels take any)."""
+    from icl_tpu_torch.models.swin2d import shifted_window_mask
+
+    _, side, ws, heads, _ = stage
+    nW, N = (side // ws) ** 2, ws * ws
+    q, k, v = (torch.randn(LABELED_2D * nW, heads, N, HEAD_DIM_2D, device=DEVICE, generator=gen)
+               .to(dtype) for _ in range(3))
+    bias = torch.randn(heads, N, N, device=DEVICE, generator=gen)
+    mask = None
+    if kind == "shift":
+        mask = torch.from_numpy(shifted_window_mask(side, side, ws, ws // 2)).to(DEVICE)
+    elif kind == "random":
+        mask = 3.0 * torch.randn(nW, N, N, device=DEVICE, generator=gen)
+    return q, k, v, bias, mask
+
+
+def phase_kernels_2d(torch, F, wa) -> tuple[list[dict], list[dict]]:
+    """12 + 13: the forward kernel at the 2D shapes (384^2 and the
+    reference's 224^2 stage 1) and the backward kernel at the 384^2 ones,
+    against their plain versions; f32 times with the shift mask."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    scale = HEAD_DIM_2D ** -0.5
+    fwd_rows, bwd_rows = [], []
+    for stage in STAGES_2D + [REF_STAGE_2D]:
+        for mode in stage[4]:
+            for kind in ((None,) if mode == "none" else ("shift", "random")):
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v, bias, mask = inputs_2d(torch, stage, dtype, gen, kind)
+                    B, H, N, D = q.shape
+                    nW = mask.shape[0] if mask is not None else B
+                    timed = dtype == torch.float32 and kind != "random"
+                    got = wa.window_attention(q, k, v, bias, mask=mask, scale=scale)
+                    torch.cuda.synchronize()
+                    want = wa.window_attention_plain(q, k, v, bias, mask=mask, scale=scale)
+                    err = (got.float() - want.float()).abs()
+                    if dtype == torch.float32:
+                        ok = float(err.max()) <= F32_ATOL
+                    else:
+                        ok = bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+                    row = {"stage": stage[0], "mode": mode, "mask": kind,
+                           "dtype": str(dtype).split(".")[-1], "shape": list(q.shape),
+                           "nW": nW if mask is not None else None, "max_abs_err": float(err.max())}
+                    if not ok or not torch.isfinite(got).all():
+                        fail(f"2D kernel disagrees with plain: {row}")
+                    if timed:
+                        shape = (B // nW, nW, H, N, D) if mask is not None else (B, H, N, D)
+                        qs, ks, vs = (t.view(shape) for t in (q, k, v))
+                        attn = bias if mask is None else bias[None] + mask[:, None]
+                        lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn, scale=scale)
+                        row.update(
+                            ms=cuda_ms(lambda: wa.window_attention(q, k, v, bias, mask=mask, scale=scale)),
+                            plain_ms=cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, mask=mask,
+                                                                               scale=scale)),
+                            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                                qs, ks, vs, attn_mask=attn, scale=scale)),
+                            library_max_abs_err=float((lib_out.reshape(q.shape) - want).abs().max()),
+                            **bound_fields(*bound(B, H, N, D, mask.numel() if mask is not None else 0)),
+                        )
+                        del lib_out, attn
+                    fwd_rows.append(row)
+                    print(f"[kernel2d] {json.dumps(row)}", flush=True)
+                    if stage is REF_STAGE_2D:
+                        continue  # the backward at the training shapes only
+                    g = torch.randn(q.shape, device=DEVICE, generator=gen).to(dtype)
+                    got = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
+                    again = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
+                    torch.cuda.synchronize()
+                    want = wa.window_attention_plain_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
+                    names = ("dq", "dk", "dv", "dbias")
+                    errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+                    tols = {n: BWD_F32_RTOL if dtype == torch.float32 or n == "dbias" else BWD_BF16_RTOL
+                            for n in names}
+                    brow = {k: row[k] for k in ("stage", "mode", "mask", "dtype", "shape", "nW")}
+                    brow.update(rel_err=errs, tolerance=tols,
+                                max_abs_err=max(float((a.float() - b.float()).abs().max())
+                                                for a, b in zip(got, want)),
+                                bitwise_repeat=all(torch.equal(a, b) for a, b in zip(got, again)))
+                    finite = all(bool(torch.isfinite(a).all()) for a in got)
+                    if not finite or not brow["bitwise_repeat"] or any(errs[n] > tols[n] for n in names):
+                        fail(f"2D backward kernel disagrees with plain or is not repeatable: {brow}")
+                    if timed:
+                        brow.update(
+                            ms=cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale,
+                                                                       mask=mask)),
+                            plain_ms=cuda_ms(lambda: wa.window_attention_plain_bwd(
+                                q, k, v, bias, None, g, scale=scale, mask=mask), reps=3),
+                            library_ms=sdpa_backward_ms(torch, F, q, k, v, bias, mask, g, scale),
+                            **bound_fields(*bound(B, H, N, D, mask.numel() if mask is not None else 0,
+                                                  backward=True)),
+                        )
+                    bwd_rows.append(brow)
+                    print(f"[bwd2d] {json.dumps(brow)}", flush=True)
+                    del g, got, again, want
+                del q, k, v, bias, mask
+                torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+def train_config_2d(max_iterations: int, val_interval: int, tries: str):
+    from icl_tpu_torch.config import ExperimentConfig
+    from icl_tpu_torch.models.swin2d import SwinConfig
+
+    return ExperimentConfig(
+        root_path="in-memory", exp="ACDC_chip_smoke/SwinICL", model="icl_swinunet",
+        num_classes=CLASSES_2D, max_iterations=max_iterations, batch_size=BATCH_2D,
+        labeled_bs=LABELED_2D, base_lr=0.01, patch_size=(IMG_2D, IMG_2D), seed=1337, labeled_num=7,
+        num_tries=tries, consis_weight=50.0, val_interval=val_interval, log_interval=1,
+        precision="float32", experiments_dir=EXPERIMENTS,
+        model_kwargs={"swin_cfg": SwinConfig(img_size=IMG_2D, window_size=WINDOW_2D)})
+
+
+def acdc_batches(slices, cfg):
+    from icl_tpu_torch.data.pipeline import acdc_train_batches
+
+    return acdc_train_batches(slices, LABELED_SLICES_2D, BATCH_2D, LABELED_2D, cfg.patch_size,
+                              seed=cfg.seed)
+
+
+def phase_training_2d(torch, wa, slices, volumes) -> dict:
+    """14: Trainer.fit of Swin-UNet-ICL at full width, the main path of
+    this slice."""
+    import gc
+
+    from icl_tpu_torch.train.steps import METRIC_KEYS
+    from icl_tpu_torch.train.trainer import Trainer, acdc_evaluator
+
+    cfg = train_config_2d(TRAIN_STEPS, TRAIN_STEPS, "float32")
+    torch.manual_seed(0)  # drop-path masks
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    probe = acdc_batches(slices, cfg)  # the host's time per batch, apart from the run
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        next(probe)
+    host_batch_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    validate = acdc_evaluator(volumes, CLASSES_2D, cfg.patch_size, trainer.device)
+    per_steps, val_s = {}, []
+
+    def evaluate(model):
+        per_steps["fwd"] = dict(wa.window_attention.launches_by_mode)
+        per_steps["bwd"] = dict(wa.window_attention_bwd.launches_by_mode)
+        t0 = time.perf_counter()
+        agg = validate(model)  # ends with the label maps on the host
+        val_s.append(time.perf_counter() - t0)
+        return agg
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wa.reset_launch_counts()
+    result = trainer.fit(acdc_batches(slices, cfg), evaluate=evaluate)
+    torch.cuda.synchronize()
+    path = {"fwd": dict(wa.window_attention.launches_by_mode),
+            "bwd": dict(wa.window_attention_bwd.launches_by_mode)}
+    peak = torch.cuda.max_memory_allocated()
+    log = result["log"]
+    if len(log) != TRAIN_STEPS or not result["vals"]:
+        fail(f"expected {TRAIN_STEPS} logged 2D steps and a validation, got {result}")
+    bad = [(r["iteration"], k) for r in log for k in METRIC_KEYS if not math.isfinite(r[k])]
+    if bad:
+        fail(f"non-finite 2D loss terms {bad}")
+    s_per_step = (log[-1]["seconds"] - log[0]["seconds"]) / (len(log) - 1)
+    chunks = sum(math.ceil(v["image"].shape[0] / 32) for v in volumes)
+    val_launches = {m: path["fwd"][m] - per_steps["fwd"][m] for m in PER_FORWARD_2D}
+    print(f"[train2d] Swin-UNet-ICL embed 96, {n_params} params, built in {build_s:.1f} s; "
+          f"{IMG_2D}^2 window {WINDOW_2D}, batch {BATCH_2D} ({LABELED_2D} labeled), f32, TF32 off: "
+          f"{s_per_step:.4f} s/step after the warm-up step (step times "
+          f"{[round(r['seconds'], 4) for r in log]} s from the start; host batch "
+          f"{host_batch_s:.4f} s of it); peak memory {peak / 2**30:.2f} GiB; launches over the "
+          f"steps {per_steps}, validation ({chunks} chunks) {val_launches}", flush=True)
+    for r in log:
+        print(f"[train2d] step {r['iteration']} lr {r['lr']:.6f} "
+              + " ".join(f"{k} {r[k]:.6f}" for k in METRIC_KEYS), flush=True)
+    val = result["vals"][-1]
+    print(f"[train2d] validation at step {val['iteration']} on {len(volumes)} volumes of "
+          f"{VOL_DEPTH_2D} {SLICE_SIZE_2D}^2 slices in {val_s[0]:.4f} s: mean dice "
+          f"{val['mean_dice']!r} hd95 {val['mean_hd95']!r}; best checkpoint {result['best_path']}",
+          flush=True)
+    for kind in ("fwd", "bwd"):
+        if per_steps[kind] != {"none": TRAIN_STEPS * PER_STEP_2D["none"], "region": 0,
+                               "mask": TRAIN_STEPS * PER_STEP_2D["mask"]}:
+            fail(f"2D {kind} launches over {TRAIN_STEPS} steps: {per_steps[kind]}, expected "
+                 f"{PER_STEP_2D} per step")
+    if val_launches != {m: chunks * n for m, n in PER_FORWARD_2D.items()} or path["bwd"] != per_steps["bwd"]:
+        fail(f"2D validation launches {val_launches} over {chunks} chunks, expected "
+             f"{PER_FORWARD_2D} per chunk and no backward")
+    if result["best_path"] is None:
+        fail(f"2D validation dice {val['mean_dice']}: no best checkpoint was saved")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"s_per_step": s_per_step, "host_batch_s": host_batch_s, "peak_bytes": peak,
+            "path_launches": path, "val_dice": val["mean_dice"], "best_path": result["best_path"],
+            "swin_cfg": cfg.model_kwargs["swin_cfg"]}
+
+
+def phase_step_parity_2d(torch, wa, slices) -> None:
+    """15: one Swin-UNet-ICL step through the kernels against the plain
+    attention (encoder stages 1 and 4 and the masked decoder block)."""
+    from icl_tpu_torch.models.swin2d import WindowAttention
+
+    cfg = train_config_2d(1, 0, "step")
+    blocks = [f"layers.{i}.blocks.{b}" for i in (0, 3) for b in (0, 1)] + ["layers_up.3.blocks.1"]
+    watched = [f"swin_unet.{blk}.attn.{t}" for blk in blocks
+               for t in ("relative_position_bias_table", "qkv.weight", "qkv.bias")]
+    per_step = sum(PER_STEP_2D.values())
+    step_parity(torch, wa, cfg, next(acdc_batches(slices, cfg)), watched, WindowAttention,
+                (per_step, per_step), "[step2d]")
+
+
+def phase_train_to_eval_2d(torch, volumes, training: dict) -> None:
+    """16: the stripped best checkpoint through the 2D eval CLI's loader."""
+    from icl_tpu_torch.eval.infer2d import evaluate_acdc_volumes, make_slice_predictor
+    from icl_tpu_torch.scripts.test_2D_ACDC import load_eval_model
+
+    patch = (IMG_2D, IMG_2D)
+    model = load_eval_model("icl_swinunet", training["best_path"], CLASSES_2D, DEVICE, patch,
+                            {"swin_cfg": training["swin_cfg"]})
+    agg = evaluate_acdc_volumes(make_slice_predictor(model, patch, DEVICE), volumes, CLASSES_2D)
+    print(f"[eval2d] stripped best checkpoint, loaded strictly into {type(model).__name__}: mean "
+          f"dice {agg['mean_dice']!r}, the trainer's validation {training['val_dice']!r}", flush=True)
+    if agg["mean_dice"] != training["val_dice"]:
+        fail("the 2D eval path does not reproduce the trainer's validation dice")
     del model
     torch.cuda.empty_cache()
 
@@ -490,15 +779,13 @@ def main() -> int:
                         qs, ks, vs = (t.view(B // nW, nW, H, N, D) for t in (q, k, v))
                     lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)
                     lib_err = float((lib_out.reshape(q.shape) - want).abs().max())
-                    flop_ms, byte_ms = bound(B, H, N, D, nW, ids is not None)
                     row.update(
                         ms=cuda_ms(lambda: wa.window_attention(q, k, v, bias, ids, scale=scale)),
                         plain_ms=cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, ids, scale=scale)),
                         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                             qs, ks, vs, attn_mask=mask, scale=scale)),
                         library_max_abs_err=lib_err,
-                        flop_ms=flop_ms, byte_ms=byte_ms, bound_ms=max(flop_ms, byte_ms),
-                        bound_by="operations" if flop_ms >= byte_ms else "bytes",
+                        **bound_fields(*bound(B, H, N, D, ids.numel() if ids is not None else 0)),
                     )
                     del mask, lib_out
                 per_shape.append(row)
@@ -528,6 +815,7 @@ def main() -> int:
         fail(f"label map {labels.shape} max {labels.max()}")
     n_forwards = math.ceil(math.prod(len(_grid_starts(d, PATCH, STRIDE)) for d in VOLUME) / SW_BATCH)
     expected = {mode: n_forwards * sum(PER_FORWARD[mode].values()) for mode in ("none", "region")}
+    expected["mask"] = 0
     if total != sum(expected.values()) or launches != expected:
         fail(f"expected {sum(expected.values())} launches {expected}, got {total} {launches}")
 
@@ -563,48 +851,77 @@ def main() -> int:
     phase_step_parity(torch, wa, cases)
     phase_train_to_eval(torch, held_out, training)
 
-    # the kernels line. Forward entries: times per inference forward at its
-    # shapes (phase 4); backward entries: times per training step (2
-    # passes) at the training shapes (phase 8). `launches`: the training
-    # path's run (phase 9, 3 steps and one validation); the forward
-    # kernels' launches on the inference path (phase 5) beside it.
+    # 12 - 16. this slice: the 2D kernels, the Swin-UNet-ICL training path,
+    # its step against plain attention, train -> eval
+    from icl_tpu_torch.data.synth import synthetic_acdc
+
+    fwd_rows_2d, bwd_rows_2d = phase_kernels_2d(torch, F, wa)
+    slices, volumes = synthetic_acdc(SLICES_2D, VOLUMES_2D, SLICE_SIZE_2D, VOL_DEPTH_2D, CLASSES_2D,
+                                     seed=0)
+    training_2d = phase_training_2d(torch, wa, slices, volumes)
+    phase_step_parity_2d(torch, wa, slices)
+    phase_train_to_eval_2d(torch, volumes, training_2d)
+
+    # The kernels line, one entry per kernel and mode. Times are sums over
+    # the shapes of a unit of work, each f32 launch time times its launches
+    # there: for no-mask and mask one Swin-UNet-ICL training step at 384^2
+    # (two passes at batch 8; this slice's path, phases 12-13), for region
+    # one SwinUNETR inference forward (forward, phase 4) or training step
+    # (backward, phase 8); `paths` holds the other units. `launches`: the
+    # training run of the same path (3 steps and a validation, phases 14 or
+    # 9), the other paths' runs beside it in `launches_by_path`.
+    def totals(rows, weights):
+        by_stage = {r["stage"]: r for r in rows}
+        tot = {key: sum(by_stage[st][key] * n for st, n in weights.items())
+               for key in ("ms", "plain_ms", "library_ms", "flop_ms", "byte_ms")}
+        return {"ms": tot["ms"], "plain_ms": tot["plain_ms"], "library_ms": tot["library_ms"],
+                **bound_fields(tot["flop_ms"], tot["byte_ms"])}
+
+    def timed(rows, mode):
+        return [r for r in rows if r["mode"] == mode and "ms" in r]
+
+    step_2d = {m: {st[0]: 2 * st[4][m] for st in STAGES_2D if m in st[4]} for m in PER_FORWARD_2D}
+    units = {
+        "fwd": {"region": totals(timed(per_shape, "region"), PER_FORWARD["region"]),
+                "none": totals(timed(fwd_rows_2d, "none"), step_2d["none"]),
+                "mask": totals(timed(fwd_rows_2d, "mask"), step_2d["mask"])},
+        "bwd": {"region": totals(timed(bwd_rows, "region"), BWD_PER_STEP_BY_STAGE["region"]),
+                "none": totals(timed(bwd_rows_2d, "none"), step_2d["none"]),
+                "mask": totals(timed(bwd_rows_2d, "mask"), step_2d["mask"])},
+    }
+    ref_224 = {m: {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")}
+               for m in PER_FORWARD_2D for r in timed(fwd_rows_2d, m) if r["stage"] == REF_STAGE_2D[0]}
+    paths = {
+        "fwd": {"none": {"swinunetr_inference_forward": totals(timed(per_shape, "none"), PER_FORWARD["none"]),
+                         "swinunet2d_224_w7_stage1_launch": ref_224["none"]},
+                "mask": {"swinunet2d_224_w7_stage1_launch": ref_224["mask"]}},
+        "bwd": {"none": {"swinunetr_training_step": totals(timed(bwd_rows, "none"),
+                                                           BWD_PER_STEP_BY_STAGE["none"])}},
+    }
+    per = {"region": {"fwd": "SwinUNETR inference forward", "bwd": "SwinUNETR-ICL training step"},
+           "none": "Swin-UNet-ICL training step", "mask": "Swin-UNet-ICL training step"}
     kernels = []
-    for mode in ("region", "none"):
-        rows = {r["stage"]: r for r in per_shape if r["mode"] == mode and r["dtype"] == "float32"}
-        w = PER_FORWARD[mode]
-        tot = {key: sum(rows[s][key] * n for s, n in w.items())
-               for key in ("ms", "plain_ms", "library_ms", "flop_ms", "byte_ms")}
-        kernels.append({
-            "name": f"window_attention[{mode}]",
-            "route": "cuda",
-            "source": "icl_tpu_torch/ops/csrc/window_attention.cu",
-            "replaces": REPLACES[mode],
-            "launches": training["path_launches"]["fwd"][mode],
-            "launches_by_path": {"inference": launches[mode],
-                                 "training": training["path_launches"]["fwd"][mode]},
-            "max_abs_err": max(rows[s]["max_abs_err"] for s in w),
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": max(tot["flop_ms"], tot["byte_ms"]),
-            "bound_by": "operations" if tot["flop_ms"] >= tot["byte_ms"] else "bytes",
-            "library_ms": tot["library_ms"],
-        })
-    for mode in ("region", "none"):
-        rows = {r["stage"]: r for r in bwd_rows if r["mode"] == mode and r["dtype"] == "float32"}
-        per_step = {s: 2 * n for s, n in PER_FORWARD[mode].items()}
-        tot = {key: sum(rows[s][key] * n for s, n in per_step.items())
-               for key in ("ms", "plain_ms", "library_ms", "flop_ms", "byte_ms")}
-        kernels.append({
-            "name": f"window_attention_bwd[{mode}]",
-            "route": "cuda",
-            "source": "icl_tpu_torch/ops/csrc/window_attention_bwd.cu",
-            "replaces": BWD_REPLACES,
-            "launches": training["path_launches"]["bwd"][mode],
-            "max_abs_err": max(r["max_abs_err"] for r in bwd_rows if r["mode"] == mode),
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": max(tot["flop_ms"], tot["byte_ms"]),
-            "bound_by": "operations" if tot["flop_ms"] >= tot["byte_ms"] else "bytes",
-            "library_ms": tot["library_ms"],
-        })
+    for direction, source, rows_3d, rows_2d in (("fwd", "window_attention", per_shape, fwd_rows_2d),
+                                                ("bwd", "window_attention_bwd", bwd_rows, bwd_rows_2d)):
+        for mode in ("none", "region", "mask"):
+            by_path = {"training_3d": training["path_launches"][direction][mode],
+                       "training_2d": training_2d["path_launches"][direction][mode]}
+            if direction == "fwd":
+                by_path["inference_3d"] = launches.get(mode, 0)
+            errs = [r["max_abs_err"] for r in rows_3d + rows_2d if r["mode"] == mode
+                    and (direction == "bwd" or r["dtype"] == "float32")]
+            kernels.append({
+                "name": f"{source}[{mode}]",
+                "route": "cuda",
+                "source": f"icl_tpu_torch/ops/csrc/{source}.cu",
+                "replaces": REPLACES[mode] if direction == "fwd" else BWD_REPLACES,
+                "launches": by_path["training_3d" if mode == "region" else "training_2d"],
+                "launches_by_path": by_path,
+                "max_abs_err": max(errs),
+                **units[direction][mode],
+                "per": per[mode][direction] if mode == "region" else per[mode],
+                "paths": paths[direction].get(mode, {}),
+            })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

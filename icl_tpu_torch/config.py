@@ -43,6 +43,8 @@ class ExperimentConfig:
     remat: bool = False  # recompute blocks in the backward
     feature_size: int = 48
     experiments_dir: str = "../experiments"
+    # extra net_factory kwargs (the Swin CLIs' --cfg: {"swin_cfg": SwinConfig})
+    model_kwargs: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if self.labeled_bs == -1:

@@ -1,11 +1,12 @@
 """Inherent Consistent Learning heads (SSPA / USCL) in PyTorch,
-channel-first (counterpart of `icl_tpu/models/icl.py`, 3D as SwinUNETR-ICL
-uses them).
+channel-first (counterpart of `icl_tpu/models/icl.py`): 3D as SwinUNETR-ICL
+uses them, and the tokenized 2D variant of Swin-UNet-ICL.
 
-Module names follow the reference key layout (`guide_Q`,
-`proj_layers.{i}`, `norm_layers.{i}`, `class_decoders.{i}.attn.fc_q`,
-`attn_convs0.{i}.block.depthwise`, `attn_convs1.{i}`, `query_convs.{i}`),
-so a state_dict in that layout loads with `strict=True`.
+Module names follow the reference key layout (`guide_Q` in SwinUNETR-ICL,
+`guided_Q` in Swin-UNet-ICL, `proj_layers.{i}`, `norm_layers.{i}`,
+`class_decoders.{i}.attn.fc_q`, `attn_convs0.{i}.block.depthwise`,
+`attn_convs1.{i}`, `query_convs.{i}`), so a state_dict in that layout
+loads with `strict=True`.
 
 Kept quirks of the reference:
   * `QueryAttention` reshapes the projected query [B, cls, C] straight to
@@ -114,16 +115,21 @@ class InherentConsistent(nn.Module):
     """Multi-scale class-decoder head (icl.py:149-268).
 
     feats: channel-first maps [B, C_i, *spatial_i] (at least len(depths)
-    of them; the rest are ignored). In 'labeled' mode the learned query
-    `guide_Q` seeds scale 0 and a pointwise projection halves it for the
-    next scale; in 'unlabeled' mode each scale's query is `guided_Q[i]`,
-    taken from the labeled pass. Returns (feat_maps, updated_Qs):
-    class maps [B, cls, *spatial_i] and batch-mean queries [1, cls, C_i].
+    of them; the rest are ignored), or with `tokenized_input` tokens
+    [B, N_i, C_i] that go to the class decoder as they are, with no proj
+    conv and no norm (the Swin-UNet 2D variant; it has neither module,
+    icl.py:210-214). In 'labeled' mode the learned query (named
+    `query_name`) seeds scale 0 and a pointwise projection halves it for
+    the next scale; in 'unlabeled' mode each scale's query is
+    `guided_Q[i]`, taken from the labeled pass. Returns (feat_maps,
+    updated_Qs): class maps [B, cls, *spatial_i] and batch-mean queries
+    [1, cls, C_i].
     """
 
     def __init__(self, in_chans: Sequence[int], num_classes: int, num_heads: Sequence[int],
                  input_resolution: Sequence[int], spatial_dims: int = 3,
-                 depths: Sequence[int] = (2, 2, 2), drop_path_rate: float = 0.1):
+                 depths: Sequence[int] = (2, 2, 2), drop_path_rate: float = 0.1,
+                 tokenized_input: bool = False, query_name: str = "guide_Q"):
         super().__init__()
         self.in_chans = tuple(in_chans)
         self.num_classes = num_classes
@@ -134,9 +140,12 @@ class InherentConsistent(nn.Module):
         drop_path = float(np.linspace(0.0, drop_path_rate, sum(depths))[1])
         conv = {2: nn.Conv2d, 3: nn.Conv3d}[spatial_dims]
         scales = range(self.num_scales)
-        self.guide_Q = nn.Parameter(torch.zeros(1, num_classes, self.in_chans[0]))
-        self.proj_layers = nn.ModuleList(conv(in_chans[i], in_chans[i], 1) for i in scales)
-        self.norm_layers = nn.ModuleList(layer_norm(in_chans[i]) for i in scales)
+        self.tokenized_input = tokenized_input
+        self.query_name = query_name
+        self.register_parameter(query_name, nn.Parameter(torch.zeros(1, num_classes, self.in_chans[0])))
+        if not tokenized_input:
+            self.proj_layers = nn.ModuleList(conv(in_chans[i], in_chans[i], 1) for i in scales)
+            self.norm_layers = nn.ModuleList(layer_norm(in_chans[i]) for i in scales)
         self.class_decoders = nn.ModuleList(
             ClassDecoder(in_chans[i], input_resolution[i] ** spatial_dims, num_heads[i],
                          drop_path=drop_path) for i in scales)
@@ -157,7 +166,7 @@ class InherentConsistent(nn.Module):
                 nn.init.zeros_(m.bias)
                 if isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
                     m.reset_running_stats()
-        nn.init.zeros_(self.guide_Q)
+        nn.init.zeros_(getattr(self, self.query_name))
 
     def forward(self, feats, guided_Q: Optional[Sequence[torch.Tensor]] = None,
                 modal: str = "labeled"):
@@ -165,12 +174,15 @@ class InherentConsistent(nn.Module):
             raise ValueError(f"modal {modal!r}: want 'labeled' or 'unlabeled'")
         BS = feats[0].shape[0]
         ncls = self.num_classes
-        next_Q = self.guide_Q.expand(BS, ncls, self.in_chans[0])
+        next_Q = getattr(self, self.query_name).expand(BS, ncls, self.in_chans[0])
         feat_maps, updated_Qs = [], []
         for i in range(self.num_scales):
             C = self.in_chans[i]
-            tok = self.proj_layers[i](feats[i]).flatten(2).transpose(1, 2)  # [B, N, C]
-            tok = self.norm_layers[i](tok)
+            if self.tokenized_input:
+                tok = feats[i].reshape(BS, -1, C)
+            else:
+                tok = self.proj_layers[i](feats[i]).flatten(2).transpose(1, 2)  # [B, N, C]
+                tok = self.norm_layers[i](tok)
             q_in = next_Q if modal == "labeled" else guided_Q[i].expand(BS, ncls, C)
             updated_Q, attn = self.class_decoders[i](q_in, tok)
             # [B, cls, H, N] -> [B*cls, H, *spatial]

@@ -79,3 +79,44 @@ class DropPath(nn.Module):
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
         mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=self.generator)
         return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
+
+
+def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
+    """The reference init, drawn from `generator`: trunc_normal(0.02) Swin
+    linears and relative-position bias tables, unit LayerNorms,
+    torch-default convs. A submodule with its own `init_weights_` (an ICL
+    head) is skipped here and initialised by that method afterwards, in
+    module order. Buffers that a module makes from its geometry are remade
+    by its `reset_buffers_` (`build_model` builds on the meta device)."""
+    heads = [m for m in model.modules() if m is not model and hasattr(m, "init_weights_")]
+    in_heads = {id(sub) for head in heads for sub in head.modules()}
+    for m in model.modules():
+        if id(m) in in_heads:
+            continue
+        if hasattr(m, "relative_position_bias_table"):
+            nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02, a=-0.04, b=0.04,
+                                  generator=generator)
+        elif isinstance(m, nn.Linear):
+            swin_linear_init_(m, generator)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+            torch_default_init_(m, generator)
+        if hasattr(m, "reset_buffers_"):
+            m.reset_buffers_()
+    for head in heads:
+        head.init_weights_(generator)
+
+
+def build_model(cls: type, *args, device: torch.device, generator: torch.Generator,
+                **kwargs) -> nn.Module:
+    """`cls(*args, **kwargs)` with the reference init from a CPU
+    `generator` (so the same seed gives the same weights on every device),
+    moved to `device`, in torch's default train mode."""
+    with torch.device("meta"):
+        model = cls(*args, **kwargs)
+    model = model.to_empty(device="cpu")
+    with torch.no_grad():
+        init_weights_(model, generator)
+    return model.to(device)

@@ -6,28 +6,49 @@ import torch
 
 from icl_tpu_torch.device import resolve_device
 
-PORTED = ("swinunetr", "swinunetr_icl")
+PORTED = ("swinunetr", "swinunetr_icl", "swinunet", "icl_swinunet")
 
 
 def net_factory(net_type: str, in_chns: int, class_num: int, *, device=None,
                 generator: torch.Generator | None = None, feature_size: int = 48,
-                patch_size: int = 96, remat: bool = False, inference: bool = False):
+                patch_size: int | None = None, remat: bool = False, img_size: int = 224,
+                window_size: int = 7, swin_cfg=None, inference: bool = False):
     """String -> initialised model on `device` (the CUDA card by default),
     in torch's default train mode, with weights drawn from `generator`
-    (default: seed 0). `swinunetr_icl` builds `SwinUNETRICL`; with
-    `inference=True` it builds the `SwinUNETR` it runs at inference, which
-    is what its best checkpoint (ICL heads stripped) loads into. The same
-    seed gives the same backbone weights either way."""
+    (default: seed 0). The same seed gives the same backbone weights with
+    and without `inference`.
+
+    3D: `swinunetr_icl` builds `SwinUNETRICL` (patch side `patch_size`,
+    default 96); with `inference=True` it builds the `SwinUNETR` it runs
+    at inference, which its best checkpoint (ICL heads stripped) loads
+    into. `swinunetr` builds that SwinUNETR.
+
+    2D: `icl_swinunet` builds `SwinUNetICL`, `swinunet` and `icl_swinunet`
+    with `inference=True` the `SwinUnetWrapper`. The image side is
+    `img_size`, or `patch_size` when `img_size` keeps its default 224 (the
+    trainers pass the patch, registry.py:85-91); a full `swin_cfg`
+    (`SwinConfig`, e.g. from a `--cfg` yaml) wins over both and over
+    `window_size`."""
     if net_type not in PORTED:
         raise KeyError(f"net_type {net_type!r} is not ported yet; ported: {list(PORTED)}")
-    from icl_tpu_torch.models.swinunetr import SwinUNETR, build_model
-    from icl_tpu_torch.models.swinunetr_icl import SwinUNETRICL
+    from icl_tpu_torch.models.layers import build_model
 
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     device = resolve_device(device)
+    if net_type in ("swinunet", "icl_swinunet"):
+        from icl_tpu_torch.models.swin2d import SwinUnetWrapper
+        from icl_tpu_torch.models.swin2d_icl import SwinUNetICL
+
+        side = img_size if img_size != 224 or patch_size is None else patch_size
+        cls = SwinUNetICL if net_type == "icl_swinunet" and not inference else SwinUnetWrapper
+        return build_model(cls, in_chns, class_num, img_size=side, window_size=window_size,
+                           cfg=swin_cfg, device=device, generator=generator)
+    from icl_tpu_torch.models.swinunetr import SwinUNETR
+    from icl_tpu_torch.models.swinunetr_icl import SwinUNETRICL
+
     if net_type == "swinunetr_icl" and not inference:
-        return build_model(SwinUNETRICL, in_chns, class_num, img_size=patch_size,
+        return build_model(SwinUNETRICL, in_chns, class_num, img_size=patch_size or 96,
                            feature_size=feature_size, remat=remat, device=device,
                            generator=generator)
     return build_model(SwinUNETR, in_chns, class_num, feature_size=feature_size, remat=remat,

@@ -27,14 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from icl_tpu_torch.models.layers import (
-    gelu_exact,
-    instance_norm,
-    layer_norm,
-    layer_norm_no_affine,
-    swin_linear_init_,
-    torch_default_init_,
-)
+from icl_tpu_torch.models.layers import gelu_exact, instance_norm, layer_norm, layer_norm_no_affine
 from icl_tpu_torch.ops.window_attention import window_attention
 
 
@@ -126,6 +119,9 @@ class WindowAttention3D(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.attention = window_attention
+
+    def reset_buffers_(self) -> None:
+        self.relative_position_index.copy_(torch.from_numpy(relative_position_index_3d(self.window_size)))
 
     def forward(self, x: torch.Tensor, region_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         B_, N, C = x.shape
@@ -366,42 +362,3 @@ class SwinUNETR(nn.Module):
         if self.return_feats:
             return logits, [dec3, dec2, dec1, dec0]
         return logits
-
-
-def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
-    """The reference init, drawn from `generator`: trunc_normal(0.02) Swin
-    linears and bias tables, unit LayerNorms, torch-default convs. A
-    submodule with its own `init_weights_` (an ICL head) is skipped here
-    and initialised by that method afterwards, in module order."""
-    heads = [m for m in model.modules() if m is not model and hasattr(m, "init_weights_")]
-    in_heads = {id(sub) for head in heads for sub in head.modules()}
-    for m in model.modules():
-        if id(m) in in_heads:
-            continue
-        if isinstance(m, WindowAttention3D):
-            nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02, a=-0.04, b=0.04,
-                                  generator=generator)
-            m.relative_position_index.copy_(torch.from_numpy(
-                relative_position_index_3d(m.window_size)))
-        elif isinstance(m, nn.Linear):
-            swin_linear_init_(m, generator)
-        elif isinstance(m, nn.LayerNorm):
-            nn.init.ones_(m.weight)
-            nn.init.zeros_(m.bias)
-        elif isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
-            torch_default_init_(m, generator)
-    for head in heads:
-        head.init_weights_(generator)
-
-
-def build_model(cls: type, *args, device: torch.device, generator: torch.Generator,
-                **kwargs) -> nn.Module:
-    """`cls(*args, **kwargs)` with the reference init from a CPU
-    `generator` (so the same seed gives the same weights on every device),
-    moved to `device`, in torch's default train mode."""
-    with torch.device("meta"):
-        model = cls(*args, **kwargs)
-    model = model.to_empty(device="cpu")
-    with torch.no_grad():
-        init_weights_(model, generator)
-    return model.to(device)

@@ -69,7 +69,7 @@ def load_window_attention() -> ctypes.CDLL:
     path, _ = build_library("window_attention")
     lib = ctypes.CDLL(str(path))
     fn = lib.icl_window_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -84,7 +84,7 @@ def load_window_attention_bwd() -> ctypes.CDLL:
     path, _ = build_library("window_attention_bwd")
     lib = ctypes.CDLL(str(path))
     fn = lib.icl_window_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int

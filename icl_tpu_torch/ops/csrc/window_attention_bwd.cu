@@ -9,19 +9,24 @@
 //   dQ = scale * dS.K      dK = scale * dS^T.Q
 //   dbias[h] = sum over all B windows of dS[b, h]
 //
-// for every (window, head). Two variants, as the forward: NONE and REGION
+// for every (window, head). Three variants, as the forward: NONE, REGION
 // (M = -100 where the shift-region ids of key and query differ, built here
-// from ids [nW, N]; window index = b % nW). f32 or bf16 q, k, v, dO; f32
-// math; dq, dk, dv in the input type; dbias in f32.
+// from ids [nW, N]) and MASK (any dense additive mask [nW, N, N], the
+// branch at :331-332); window index = b % nW. Head dim D = 16 or 32. f32
+// or bf16 q, k, v, dO; f32 math; dq, dk, dv in the input type; dbias in
+// f32. The mask and the ids get no gradient.
 //
 // Layout: q, k, v, dO, dq, dk, dv [B, H, N, D] contiguous; bias [H, N, N]
 // and its transpose bias_t [H, N, N] (bias_t[h, m, n] = bias[h, n, m], so
-// that the key-major pass reads it coalesced); region ids [nW, N] f32.
+// that the key-major pass reads it coalesced); region ids [nW, N] f32;
+// mask [nW, N, N] f32 and its transpose mask_t (mask_t[w, m, n] =
+// mask[w, n, m]), for the same reason.
 //
 // Design (simple and right first, CUDA cores, f32):
 //   * One CTA per (group of windows, head). It walks its windows in order;
 //     q, k, v and dO of one window sit in shared memory as f32 with a
-//     padded row stride (D + 1), about 99 KB at N = 343, D = 16.
+//     padded row stride (D + 1), about 99 KB at N = 343, D = 16, and
+//     78 KB at N = 144, D = 32.
 //   * Row pass, one warp per query row n, lanes over keys: a first sweep
 //     gives the row max, 1 / row sum and rowsum(P o dP) (an online
 //     softmax merged over the warp with xor shuffles; kept in shared
@@ -81,15 +86,22 @@ __device__ __forceinline__ void warp_sum(float (&acc)[D]) {
   }
 }
 
-template <typename T, int D, bool REGION>
+// mask modes
+constexpr int kNone = 0;
+constexpr int kRegion = 1;
+constexpr int kMask = 2;
+
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(kThreads)
 window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ dout,
                             const float* __restrict__ bias, const float* __restrict__ bias_t,
-                            const float* __restrict__ region_ids, T* __restrict__ dq,
+                            const float* __restrict__ region_ids, const float* __restrict__ mask,
+                            const float* __restrict__ mask_t, T* __restrict__ dq,
                             T* __restrict__ dk, T* __restrict__ dv,
                             float* __restrict__ dbias_part, int B, int H, int N, int nW,
                             int windows_per_cta, float scale) {
+  static_assert(D <= 32, "lane d writes dq column d");
   extern __shared__ float smem[];
   constexpr int S = D + 1;
   float* qs = smem;             // [N, D + 1]
@@ -99,7 +111,7 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* row_max = gs + N * S;  // [N]
   float* row_inv = row_max + N;  // [N], 1 / row sum
   float* row_dlt = row_inv + N;  // [N], rowsum(P o dP)
-  float* ids = row_dlt + N;     // [N], REGION only
+  float* ids = row_dlt + N;     // [N], kRegion only
 
   const int group = blockIdx.x;
   const int h = blockIdx.y;
@@ -123,7 +135,9 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       vs[r * S + c] = to_float(v[base + i]);
       gs[r * S + c] = to_float(dout[base + i]);
     }
-    if (REGION) {
+    const float* mask_w = MODE == kMask ? mask + static_cast<size_t>(b % nW) * N * N : nullptr;
+    const float* mask_t_w = MODE == kMask ? mask_t + static_cast<size_t>(b % nW) * N * N : nullptr;
+    if (MODE == kRegion) {
       const float* w_ids = region_ids + static_cast<size_t>(b % nW) * N;
       for (int i = threadIdx.x; i < N; i += kThreads) ids[i] = w_ids[i];
     }
@@ -137,8 +151,9 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         qr[d] = qs[n * S + d];
         gr[d] = gs[n * S + d];
       }
-      const float id_n = REGION ? ids[n] : 0.f;
+      const float id_n = MODE == kRegion ? ids[n] : 0.f;
       const float* brow = bias_h + static_cast<size_t>(n) * N;
+      const float* mrow = MODE == kMask ? mask_w + static_cast<size_t>(n) * N : nullptr;
 
       // Sweep 1: row max m, row sum l and t = sum_j e^(s_j - m) dp_j.
       float m = -INFINITY;
@@ -155,7 +170,8 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dp = fmaf(gr[d], vj[d], dp);
         }
         s = s * scale + brow[j];
-        if (REGION && ids[j] != id_n) s += -100.f;
+        if (MODE == kRegion && ids[j] != id_n) s += -100.f;
+        if (MODE == kMask) s += mrow[j];
         const float m_new = fmaxf(m, s);
         const float corr = __expf(m - m_new);  // 0 on the first key (m = -inf)
         const float p = __expf(s - m_new);
@@ -202,7 +218,8 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dp = fmaf(gr[d], vj[d], dp);
         }
         s = s * scale + brow[j];
-        if (REGION && ids[j] != id_n) s += -100.f;
+        if (MODE == kRegion && ids[j] != id_n) s += -100.f;
+        if (MODE == kMask) s += mrow[j];
         const float p = __expf(s - m) * inv_l;
         const float ds = p * (dp - delta);
 #pragma unroll
@@ -225,8 +242,9 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         kr[d] = ks[mk * S + d];
         vr[d] = vs[mk * S + d];
       }
-      const float id_m = REGION ? ids[mk] : 0.f;
+      const float id_m = MODE == kRegion ? ids[mk] : 0.f;
       const float* bcol = bias_t_h + static_cast<size_t>(mk) * N;  // bias[h, :, mk]
+      const float* mcol = MODE == kMask ? mask_t_w + static_cast<size_t>(mk) * N : nullptr;
       float dk_acc[D], dv_acc[D];
 #pragma unroll
       for (int d = 0; d < D; ++d) {
@@ -247,7 +265,8 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dp = fmaf(gv[d], vr[d], dp);
         }
         s = s * scale + bcol[i];
-        if (REGION && ids[i] != id_m) s += -100.f;
+        if (MODE == kRegion && ids[i] != id_m) s += -100.f;
+        if (MODE == kMask) s += mcol[i];
         const float p = __expf(s - row_max[i]) * row_inv[i];
         const float ds = p * (dp - row_dlt[i]);
 #pragma unroll
@@ -258,16 +277,20 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       warp_sum<D>(dk_acc);
       warp_sum<D>(dv_acc);
-      // lanes 0..D-1 write dK_m, lanes D..2D-1 write dV_m
-      float o = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        o = (lane == d) ? dk_acc[d] * scale : o;
-        o = (lane == D + d) ? dv_acc[d] : o;
-      }
+      // column c = lane + 32 r of [dK_m, dV_m]: c < D is dK, the rest dV
       const size_t row = base + static_cast<size_t>(mk) * D;
-      if (lane < D) dk[row + lane] = from_float<T>(o);
-      else if (lane < 2 * D) dv[row + lane - D] = from_float<T>(o);
+#pragma unroll
+      for (int r = 0; r < (2 * D + 31) / 32; ++r) {
+        const int c = lane + 32 * r;
+        float o = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          o = (c == d) ? dk_acc[d] * scale : o;
+          o = (c == D + d) ? dv_acc[d] : o;
+        }
+        if (c < D) dk[row + c] = from_float<T>(o);
+        else if (c < 2 * D) dv[row + c - D] = from_float<T>(o);
+      }
     }
   }
 }
@@ -284,43 +307,53 @@ __global__ void dbias_reduce_kernel(const float* __restrict__ part, float* __res
   }
 }
 
-template <typename T, int D, bool REGION>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const float* bias, const float* bias_t, const float* region_ids, void* dq,
-                   void* dk, void* dv, float* dbias_part, float* dbias, int B, int H, int N,
-                   int nW, int windows_per_cta, float scale, cudaStream_t stream) {
-  const size_t smem = (4 * static_cast<size_t>(N) * (D + 1) + 3 * N + (REGION ? N : 0)) * sizeof(float);
-  auto kernel = window_attention_bwd_kernel<T, D, REGION>;
+// The pointers and sizes of one backward call.
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *bias, *bias_t, *region_ids, *mask, *mask_t;
+  void *dq, *dk, *dv;
+  float *dbias_part, *dbias;
+  int B, H, N, nW, windows_per_cta;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int MODE>
+cudaError_t launch(const Args& a) {
+  const size_t smem =
+      (4 * static_cast<size_t>(a.N) * (D + 1) + 3 * a.N + (MODE == kRegion ? a.N : 0)) *
+      sizeof(float);
+  auto kernel = window_attention_bwd_kernel<T, D, MODE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int groups = (B + windows_per_cta - 1) / windows_per_cta;
-  kernel<<<dim3(groups, H), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), bias, bias_t, region_ids, static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), dbias_part, B, H, N, nW, windows_per_cta, scale);
+  const int groups = (a.B + a.windows_per_cta - 1) / a.windows_per_cta;
+  kernel<<<dim3(groups, a.H), kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.bias, a.bias_t, a.region_ids, a.mask, a.mask_t,
+      static_cast<T*>(a.dq), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.dbias_part, a.B,
+      a.H, a.N, a.nW, a.windows_per_cta, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t hnn = static_cast<size_t>(H) * N * N;
+  const size_t hnn = static_cast<size_t>(a.H) * a.N * a.N;
   const int threads = 256;
   size_t blocks = (hnn + threads - 1) / threads;
   if (blocks > 4096) blocks = 4096;
-  dbias_reduce_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(dbias_part, dbias,
-                                                                             groups, hnn);
+  dbias_reduce_kernel<<<static_cast<unsigned>(blocks), threads, 0, a.stream>>>(a.dbias_part,
+                                                                               a.dbias, groups, hnn);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch_mode(const void* q, const void* k, const void* v, const void* dout,
-                        const float* bias, const float* bias_t, const float* region_ids,
-                        void* dq, void* dk, void* dv, float* dbias_part, float* dbias, int B,
-                        int H, int N, int nW, int windows_per_cta, float scale,
-                        cudaStream_t stream) {
-  if (region_ids != nullptr)
-    return launch<T, D, true>(q, k, v, dout, bias, bias_t, region_ids, dq, dk, dv, dbias_part,
-                              dbias, B, H, N, nW, windows_per_cta, scale, stream);
-  return launch<T, D, false>(q, k, v, dout, bias, bias_t, nullptr, dq, dk, dv, dbias_part, dbias,
-                             B, H, N, nW, windows_per_cta, scale, stream);
+cudaError_t launch_mode(const Args& a) {
+  if (a.region_ids != nullptr) return launch<T, D, kRegion>(a);
+  if (a.mask != nullptr) return launch<T, D, kMask>(a);
+  return launch<T, D, kNone>(a);
+}
+
+template <int D>
+cudaError_t launch_type(const Args& a, int is_bf16) {
+  return is_bf16 ? launch_mode<__nv_bfloat16, D>(a) : launch_mode<float, D>(a);
 }
 
 }  // namespace
@@ -328,26 +361,25 @@ cudaError_t launch_mode(const void* q, const void* k, const void* v, const void*
 extern "C" {
 
 // Returns a cudaError_t: 0 when both launches were accepted. `region_ids`
-// null selects the no-mask variant; `is_bf16` the input type. The scratch
-// `dbias_part` holds ceil(B / windows_per_cta) * H * N * N floats. The head
-// dim D must be 16 (SwinUNETR fs48).
+// set selects REGION, else `mask` set (with `mask_t`) selects MASK, else
+// NONE; `is_bf16` the input type. The scratch `dbias_part` holds
+// ceil(B / windows_per_cta) * H * N * N floats. The head dim D must be 16
+// (SwinUNETR fs48) or 32 (Swin-UNet 2D, embed 96).
 int icl_window_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const void* bias, const void* bias_t, const void* region_ids,
-                             void* dq, void* dk, void* dv, void* dbias_part, void* dbias, int B,
-                             int H, int N, int D, int nW, int windows_per_cta, float scale,
-                             int is_bf16, void* stream) {
-  if (D != 16 || windows_per_cta < 1) return cudaErrorInvalidValue;
-  const float* bias_f = static_cast<const float*>(bias);
-  const float* bias_t_f = static_cast<const float*>(bias_t);
-  const float* ids_f = static_cast<const float*>(region_ids);
-  float* part_f = static_cast<float*>(dbias_part);
-  float* dbias_f = static_cast<float*>(dbias);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_mode<__nv_bfloat16, 16>(q, k, v, dout, bias_f, bias_t_f, ids_f, dq, dk, dv,
-                                          part_f, dbias_f, B, H, N, nW, windows_per_cta, scale, s);
-  return launch_mode<float, 16>(q, k, v, dout, bias_f, bias_t_f, ids_f, dq, dk, dv, part_f,
-                                dbias_f, B, H, N, nW, windows_per_cta, scale, s);
+                             const void* mask, const void* mask_t, void* dq, void* dk, void* dv,
+                             void* dbias_part, void* dbias, int B, int H, int N, int D, int nW,
+                             int windows_per_cta, float scale, int is_bf16, void* stream) {
+  if (windows_per_cta < 1 || (mask != nullptr && mask_t == nullptr)) return cudaErrorInvalidValue;
+  const Args a{q, k, v, dout,
+               static_cast<const float*>(bias), static_cast<const float*>(bias_t),
+               static_cast<const float*>(region_ids), static_cast<const float*>(mask),
+               static_cast<const float*>(mask_t), dq, dk, dv,
+               static_cast<float*>(dbias_part), static_cast<float*>(dbias),
+               B, H, N, nW, windows_per_cta, scale, static_cast<cudaStream_t>(stream)};
+  if (D == 16) return launch_type<16>(a, is_bf16);
+  if (D == 32) return launch_type<32>(a, is_bf16);
+  return cudaErrorInvalidValue;
 }
 
 const char* icl_cuda_error_string(int err) {

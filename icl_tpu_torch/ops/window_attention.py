@@ -6,8 +6,10 @@ head) the forward computes
 
     out = softmax(q.k^T * scale + bias[h] [+ M]) . v
 
-where M = -100 wherever the shift-region ids of key and query differ
-(`region_ids` [nW, N], window index = b % nW). Layout is that of
+where M is either built from shift-region ids (`region_ids` [nW, N]: -100
+wherever the ids of key and query differ) or given as a dense additive
+`mask` [nW, N, N]; the window index is b % nW, and the two are mutually
+exclusive, as in `window_attention_fused`. Layout is that of
 `window_attention_fused`: q, k, v [B*nW, H, N, D], bias [H, N, N].
 
 `window_attention` is differentiable through `WindowAttentionFn`, which
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-HEAD_DIM = 16  # the kernels are compiled for this head dim only (SwinUNETR fs48)
+HEAD_DIMS = (16, 32)  # the kernels' compiled head dims (SwinUNETR fs48, Swin-UNet 2D embed 96)
 _MAX_SMEM_BYTES = 232_448  # per CTA on Hopper
 _CHUNK_BYTES = 32 << 20  # the plain backward's score chunk (the JAX backward's rule)
 
@@ -39,36 +41,50 @@ def _compute_dtype(q: torch.Tensor) -> torch.dtype:
     return torch.promote_types(q.dtype, torch.float32)
 
 
-def window_attention_plain(q, k, v, bias, region_ids=None, *, scale: float):
-    """Plain PyTorch version: einsum, + bias, + mask from ids, softmax,
-    einsum. f32 arithmetic (f64 for f64 inputs), output in the dtype of q."""
+def _mode(region_ids, mask) -> str:
+    if region_ids is not None and mask is not None:
+        raise ValueError("window_attention: region_ids and mask are mutually exclusive")
+    return "region" if region_ids is not None else "mask" if mask is not None else "none"
+
+
+def window_attention_plain(q, k, v, bias, region_ids=None, mask=None, *, scale: float):
+    """Plain PyTorch version: einsum, + bias, + mask (from ids or dense),
+    softmax, einsum. f32 arithmetic (f64 for f64 inputs), output in the
+    dtype of q."""
     B, H, N, _ = q.shape
     ct = _compute_dtype(q)
     s = torch.einsum("bhnd,bhmd->bhnm", q.to(ct), k.to(ct)) * scale
     s = s + bias.to(ct)[None]
-    if region_ids is not None:
-        nW = region_ids.shape[0]
-        mask = mask_from_region_ids(region_ids.float())
-        s = (s.view(B // nW, nW, H, N, N) + mask[None, :, None]).view(B, H, N, N)
+    if _mode(region_ids, mask) != "none":
+        if region_ids is not None:
+            mask = mask_from_region_ids(region_ids.float())
+        nW = mask.shape[0]
+        s = (s.view(B // nW, nW, H, N, N) + mask.to(ct)[None, :, None]).view(B, H, N, N)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhnm,bhmd->bhnd", p, v.to(ct)).to(q.dtype)
 
 
-def _chunk_scores(qc, kc, bias, region_ids, b0: int, scale: float) -> torch.Tensor:
+def _chunk_scores(qc, kc, bias, region_ids, mask, b0: int, scale: float) -> torch.Tensor:
     """f32 scores [b, H, N, N] of the windows b0 .. b0 + len(qc) - 1."""
     s = torch.einsum("bhnd,bhmd->bhnm", qc, kc) * scale + bias.to(qc.dtype)[None]
-    if region_ids is not None:
-        widx = torch.arange(b0, b0 + qc.shape[0], device=qc.device) % region_ids.shape[0]
-        s = s + mask_from_region_ids(region_ids.float()[widx]).to(s.dtype)[:, None]
+    if _mode(region_ids, mask) != "none":
+        nW = (region_ids if region_ids is not None else mask).shape[0]
+        widx = torch.arange(b0, b0 + qc.shape[0], device=qc.device) % nW
+        if region_ids is not None:
+            mask = mask_from_region_ids(region_ids.float()[widx])
+        else:
+            mask = mask[widx]
+        s = s + mask.to(s.dtype)[:, None]
     return s
 
 
-def window_attention_plain_bwd(q, k, v, bias, region_ids, dout, *, scale: float,
+def window_attention_plain_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=None,
                                chunk_bytes: int = _CHUNK_BYTES):
     """Plain PyTorch backward, a copy of `_fused_attention_bwd`: recompute
     the softmax over chunks of windows (chunk * H * N * N * 4 bytes <=
     `chunk_bytes`), ds = p * (dp - sum(dp * p)), dbias = sum of ds over
-    windows. Returns (dq, dk, dv in the dtype of q, dbias in f32, or f64
+    windows. The mask (from `region_ids` or dense `mask`) takes no
+    gradient. Returns (dq, dk, dv in the dtype of q, dbias in f32, or f64
     for f64 inputs)."""
     B, H, N, _ = q.shape
     ct = _compute_dtype(q)
@@ -78,7 +94,7 @@ def window_attention_plain_bwd(q, k, v, bias, region_ids, dout, *, scale: float,
     for b0 in range(0, B, chunk):
         sl = slice(b0, b0 + chunk)
         qc, kc, vc, gc = (t[sl].to(ct) for t in (q, k, v, dout))
-        p = torch.softmax(_chunk_scores(qc, kc, bias, region_ids, b0, scale), dim=-1)
+        p = torch.softmax(_chunk_scores(qc, kc, bias, region_ids, mask, b0, scale), dim=-1)
         dv[sl] = torch.einsum("bhnm,bhnd->bhmd", p, gc).to(q.dtype)
         dp = torch.einsum("bhnd,bhmd->bhnm", gc, vc)
         ds = p * (dp - (dp * p).sum(-1, keepdim=True))
@@ -88,7 +104,7 @@ def window_attention_plain_bwd(q, k, v, bias, region_ids, dout, *, scale: float,
     return dq, dk, dv, dbias
 
 
-def _check(q, k, v, bias, region_ids, dout=None):
+def _check(q, k, v, bias, region_ids, mask, dout=None):
     B, H, N, D = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"window_attention: q dtype {q.dtype}, want float32 or bfloat16")
@@ -100,8 +116,8 @@ def _check(q, k, v, bias, region_ids, dout=None):
     if bias.shape != (H, N, N) or bias.dtype != torch.float32:
         raise ValueError(f"window_attention: bias {tuple(bias.shape)} {bias.dtype}, "
                          f"want ({H}, {N}, {N}) float32")
-    if D != HEAD_DIM:
-        raise ValueError(f"window_attention: head dim {D}, the kernel takes {HEAD_DIM}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"window_attention: head dim {D}, the kernels take {HEAD_DIMS}")
     smem_floats = (4 * N * (D + 1) + 4 * N) if dout is not None else (2 * N * (D + 1) + N)
     if smem_floats * 4 > _MAX_SMEM_BYTES:
         raise ValueError(f"window_attention: window of {N} tokens does not fit shared memory")
@@ -112,6 +128,12 @@ def _check(q, k, v, bias, region_ids, dout=None):
             raise ValueError(f"window_attention: region_ids {tuple(region_ids.shape)} "
                              f"{region_ids.dtype}, want (nW, {N}) float32 with nW | {B}")
         tensors.append(region_ids)
+    if mask is not None:
+        nW = mask.shape[0]
+        if mask.shape != (nW, N, N) or mask.dtype != torch.float32 or B % nW:
+            raise ValueError(f"window_attention: mask {tuple(mask.shape)} {mask.dtype}, "
+                             f"want (nW, {N}, {N}) float32 with nW | {B}")
+        tensors.append(mask)
     for t in tensors:
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("window_attention: all inputs must be contiguous on one device")
@@ -128,27 +150,35 @@ def _raise_on(err: int, lib, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: " + lib.icl_cuda_error_string(err).decode())
 
 
-def window_attention_fwd(q, k, v, bias, region_ids=None, *, scale: float):
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _windows(B, region_ids, mask) -> int:
+    """nW: the windows of the ids or the mask, else B."""
+    t = region_ids if region_ids is not None else mask
+    return B if t is None else t.shape[0]
+
+
+def window_attention_fwd(q, k, v, bias, region_ids=None, mask=None, *, scale: float):
     """The forward alone, without autograd: the kernel on CUDA tensors
     (built on first use), `window_attention_plain` on CPU tensors."""
+    mode = _mode(region_ids, mask)
     if _device_of(q) == "cpu":
-        return window_attention_plain(q, k, v, bias, region_ids, scale=scale)
-    _check(q, k, v, bias, region_ids)
+        return window_attention_plain(q, k, v, bias, region_ids, mask, scale=scale)
+    _check(q, k, v, bias, region_ids, mask)
     from icl_tpu_torch.ops.build import load_window_attention
 
     lib = load_window_attention()
     B, H, N, D = q.shape
-    nW = region_ids.shape[0] if region_ids is not None else B
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.icl_window_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            region_ids.data_ptr() if region_ids is not None else None, out.data_ptr(),
-            B, H, N, D, nW, float(scale), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _ptr(region_ids),
+            _ptr(mask), out.data_ptr(), B, H, N, D, _windows(B, region_ids, mask), float(scale),
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, lib, "window_attention")
-    mode = "region" if region_ids is not None else "none"
     window_attention.launches += 1
     window_attention.launches_by_mode[mode] += 1
     return out
@@ -163,33 +193,34 @@ def _bwd_groups(B: int, H: int, device: torch.device) -> tuple[int, int]:
     return per_cta, -(-B // per_cta)
 
 
-def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float):
+def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=None):
     """(dq, dk, dv, dbias) of the fused attention: the backward kernel on
     CUDA tensors (built on first use), `window_attention_plain_bwd` on
     CPU tensors. dbias is f32; the rest keep the dtype of q."""
+    mode = _mode(region_ids, mask)
     if _device_of(q) == "cpu":
-        return window_attention_plain_bwd(q, k, v, bias, region_ids, dout, scale=scale)
-    _check(q, k, v, bias, region_ids, dout)
+        return window_attention_plain_bwd(q, k, v, bias, region_ids, dout, scale=scale, mask=mask)
+    _check(q, k, v, bias, region_ids, mask, dout)
     from icl_tpu_torch.ops.build import load_window_attention_bwd
 
     lib = load_window_attention_bwd()
     B, H, N, D = q.shape
-    nW = region_ids.shape[0] if region_ids is not None else B
     per_cta, groups = _bwd_groups(B, H, q.device)
+    # the column pass reads bias[h, :, m] and mask[w, :, m] as rows
     bias_t = bias.transpose(1, 2).contiguous()
+    mask_t = mask.transpose(1, 2).contiguous() if mask is not None else None
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
     part = torch.empty((groups, H, N, N), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.icl_window_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(),
-            bias_t.data_ptr(), region_ids.data_ptr() if region_ids is not None else None,
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(), dbias.data_ptr(),
-            B, H, N, D, nW, per_cta, float(scale), int(q.dtype == torch.bfloat16),
+            bias_t.data_ptr(), _ptr(region_ids), _ptr(mask), _ptr(mask_t), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), part.data_ptr(), dbias.data_ptr(), B, H, N, D,
+            _windows(B, region_ids, mask), per_cta, float(scale), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, lib, "window_attention_bwd")
-    mode = "region" if region_ids is not None else "none"
     window_attention_bwd.launches += 1
     window_attention_bwd.launches_by_mode[mode] += 1
     return dq, dk, dv, dbias
@@ -197,31 +228,36 @@ def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float):
 
 class WindowAttentionFn(torch.autograd.Function):
     """The fused op under autograd (`_fused_attention`, a custom_vjp in the
-    JAX package): saves q, k, v, bias and the region ids; its backward
-    returns dq, dk, dv, dbias and no grad for the ids. Both directions
-    run with autocast off, so the plain versions keep their f32 math."""
+    JAX package): saves q, k, v, bias and the region ids or the mask; its
+    backward returns dq, dk, dv, dbias, and None for the ids and the mask,
+    which is torch's spelling of the zero gradients the JAX backward
+    returns for them (:346-347). Both directions run with autocast off, so
+    the plain versions keep their f32 math."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, region_ids, scale):
-        ctx.save_for_backward(q, k, v, bias, region_ids)
+    def forward(ctx, q, k, v, bias, region_ids, mask, scale):
+        ctx.save_for_backward(q, k, v, bias, region_ids, mask)
         ctx.scale = scale
         with torch.autocast(q.device.type, enabled=False):
-            return window_attention_fwd(q, k, v, bias, region_ids, scale=scale)
+            return window_attention_fwd(q, k, v, bias, region_ids, mask, scale=scale)
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, bias, region_ids = ctx.saved_tensors
+        q, k, v, bias, region_ids, mask = ctx.saved_tensors
         with torch.autocast(q.device.type, enabled=False):
             dq, dk, dv, dbias = window_attention_bwd(
-                q, k, v, bias, region_ids, dout.contiguous().to(q.dtype), scale=ctx.scale)
-        return dq, dk, dv, dbias, None, None
+                q, k, v, bias, region_ids, dout.contiguous().to(q.dtype), scale=ctx.scale,
+                mask=mask)
+        return dq, dk, dv, dbias, None, None, None
 
 
-def window_attention(q, k, v, bias, region_ids=None, *, scale: float):
+def window_attention(q, k, v, bias, region_ids=None, mask=None, *, scale: float):
     """Fused window attention, differentiable in q, k, v and bias. CUDA
-    tensors go to the kernels; CPU tensors to the plain versions."""
+    tensors go to the kernels; CPU tensors to the plain versions.
+    `region_ids` and `mask` are mutually exclusive."""
     _device_of(q)
-    return WindowAttentionFn.apply(q, k, v, bias, region_ids, float(scale))
+    _mode(region_ids, mask)
+    return WindowAttentionFn.apply(q, k, v, bias, region_ids, mask, float(scale))
 
 
 def reset_launch_counts() -> None:
@@ -229,7 +265,7 @@ def reset_launch_counts() -> None:
     mask mode (the CPU path counts nothing)."""
     for fn in (window_attention, window_attention_bwd):
         fn.launches = 0
-        fn.launches_by_mode = {"none": 0, "region": 0}
+        fn.launches_by_mode = {"none": 0, "region": 0, "mask": 0}
 
 
 reset_launch_counts()

@@ -34,7 +34,7 @@ GROUPS = (
     ("gemv", "matmul (linears)"),
     ("xmma", "convolution"),
     ("multi_tensor", "optimizer (SGD)"),
-    ("upsample", "trilinear resize (loss maps)"),
+    ("upsample", "linear resize (loss maps)"),
     ("nchwtonhwc", "copies and layout"),
     ("nhwctonchw", "copies and layout"),
     ("reduce", "reductions (norms, softmax, argmax)"),

@@ -1,13 +1,17 @@
-"""Where the time of one SwinUNETR-ICL training step goes on the card.
+"""Where the time of one ICL training step goes on the card.
 
-    python -m icl_tpu_torch.scripts.profile_train_step [--precision float32]
+    python -m icl_tpu_torch.scripts.profile_train_step [--model swinunetr_icl]
+        [--precision float32]
 
-Builds the trainer of the BraTS CLI (SwinUNETR-ICL fs48, 96^3 patches,
-batch 4 of which 2 labeled, recompute on; seeded weights and seeded
-synthetic 128^3 cases), runs two warm-up steps and then one profiled
-step, and prints the device time by kernel group, the top kernels, the
-step's wall time, the card's idle share over it and the peak memory,
-then one JSON line with the same numbers. Needs a CUDA device.
+Builds the trainer of one training CLI with seeded weights and seeded
+synthetic data: `swinunetr_icl`, the BraTS CLI's (SwinUNETR-ICL fs48, 96^3
+patches, batch 4 of which 2 labeled, recompute on, 128^3 cases), or
+`icl_swinunet`, the ACDC Swin CLI's at 384^2 with window 12 (Swin-UNet-ICL
+embed 96, batch 16 of which 8 labeled, consistency weight 50, 256^2
+slices). Runs two warm-up steps and then one profiled step, and prints the
+device time by kernel group, the top kernels, the step's wall time, the
+card's idle share over it and the peak memory, then one JSON line with
+the same numbers. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -19,28 +23,52 @@ import time
 import torch
 
 from icl_tpu_torch.config import ExperimentConfig
-from icl_tpu_torch.data.brats import brats_train_batches
-from icl_tpu_torch.data.synth import synthetic_brats_cases
 from icl_tpu_torch.scripts.profile_forward import device_time_by_group
 from icl_tpu_torch.train.trainer import Trainer
 
 
+def brats_setup(precision: str):
+    from icl_tpu_torch.data.brats import brats_train_batches
+    from icl_tpu_torch.data.synth import synthetic_brats_cases
+
+    cfg = ExperimentConfig(root_path="in-memory", exp="profile", model="swinunetr_icl",
+                           max_iterations=3, batch_size=4, labeled_bs=2, patch_size=(96, 96, 96),
+                           labeled_num=2, consis_weight=10.0, precision=precision,
+                           remat=True, feature_size=48)
+    cases = synthetic_brats_cases(4, 128, seed=0)
+    batches = brats_train_batches(cases, 2, len(cases), cfg.batch_size, cfg.labeled_bs,
+                                  cfg.patch_size, seed=cfg.seed)
+    return cfg, batches, "SwinUNETR-ICL fs48, 96^3, batch 4 (2 labeled), recompute on"
+
+
+def acdc_setup(precision: str):
+    from icl_tpu_torch.data.pipeline import acdc_train_batches
+    from icl_tpu_torch.data.synth import synthetic_acdc
+    from icl_tpu_torch.models.swin2d import SwinConfig
+
+    cfg = ExperimentConfig(root_path="in-memory", exp="profile", model="icl_swinunet",
+                           num_classes=4, max_iterations=3, batch_size=16, labeled_bs=8,
+                           patch_size=(384, 384), labeled_num=7, consis_weight=50.0,
+                           precision=precision,
+                           model_kwargs={"swin_cfg": SwinConfig(img_size=384, window_size=12)})
+    slices, _ = synthetic_acdc(32, 0, 256, 1, 4, seed=0)
+    batches = acdc_train_batches(slices, 16, cfg.batch_size, cfg.labeled_bs, cfg.patch_size,
+                                 seed=cfg.seed)
+    return cfg, batches, "Swin-UNet-ICL embed 96, 384^2, window 12, batch 16 (8 labeled)"
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
+    p.add_argument("--model", default="swinunetr_icl", choices=["swinunetr_icl", "icl_swinunet"])
     p.add_argument("--precision", default="float32", choices=["float32", "bfloat16"])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    cfg = ExperimentConfig(root_path="in-memory", exp="profile", model="swinunetr_icl",
-                           max_iterations=3, batch_size=4, labeled_bs=2, patch_size=(96, 96, 96),
-                           labeled_num=2, consis_weight=10.0, precision=args.precision,
-                           remat=True, feature_size=48)
+    setup = brats_setup if args.model == "swinunetr_icl" else acdc_setup
+    cfg, batches, what = setup(args.precision)
     trainer = Trainer(cfg, device="cuda")
-    cases = synthetic_brats_cases(4, 128, seed=0)
-    batches = brats_train_batches(cases, 2, len(cases), cfg.batch_size, cfg.labeled_bs,
-                                  cfg.patch_size, seed=cfg.seed)
     for _ in range(2):  # the first step makes the momentum buffers and cuDNN plans
         trainer.step_fn(trainer.to_device(next(batches)))
     batch = trainer.to_device(next(batches))
@@ -59,8 +87,8 @@ def main(argv=None):
     busy_ms, by_group, by_name, n_kernels = device_time_by_group(prof)
 
     print(f"card: {card}")
-    print(f"training step SwinUNETR-ICL fs48, 96^3, batch 4 (2 labeled), {args.precision}, "
-          f"recompute on: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+    print(f"training step {what}, {args.precision}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {n_kernels} kernels, peak memory "
           f"{peak / 2**30:.3f} GiB, loss {loss:.6f}")
     for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
@@ -68,7 +96,8 @@ def main(argv=None):
     print("top kernels:")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {ms:10.3f} ms  x{n:<4d} {name[:110]}")
-    print(json.dumps({"card": card, "precision": args.precision, "wall_ms": wall_ms,
+    print(json.dumps({"card": card, "model": args.model, "precision": args.precision,
+                      "wall_ms": wall_ms,
                       "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
                       "peak_bytes": peak, "by_group_ms": by_group}))
 

@@ -1,6 +1,6 @@
 """Trainer: the ICL semi-supervised train loop (counterpart of
-`icl_tpu/train/trainer.py:45-524`, cut to what the SwinUNETR-ICL CLI
-uses): steps, metric logging every `log_interval` steps, validation every
+`icl_tpu/train/trainer.py:45-524`, cut to what the SwinUNETR-ICL and
+Swin-UNet-ICL CLIs use): steps, metric logging every `log_interval` steps, validation every
 `val_interval` steps, and the best checkpoint (ICL heads stripped) in the
 reference snapshot layout:
 
@@ -23,6 +23,8 @@ from icl_tpu_torch.train.steps import make_icl_step
 from icl_tpu_torch.utils.checkpoint import save_best_model
 from icl_tpu_torch.utils.logging_utils import setup_logging
 
+ICL_MODELS = ("swinunetr_icl", "icl_swinunet")
+
 
 class Trainer:
     """Model, optimizer and step of one experiment, on `device` (the CUDA
@@ -32,8 +34,8 @@ class Trainer:
 
     def __init__(self, cfg: ExperimentConfig, device=None,
                  generator: Optional[torch.Generator] = None):
-        if cfg.model != "swinunetr_icl":
-            raise KeyError(f"model {cfg.model!r}: the port trains swinunetr_icl only")
+        if cfg.model not in ICL_MODELS:
+            raise KeyError(f"model {cfg.model!r}: the port trains {list(ICL_MODELS)} only")
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.precision == "float32" and self.device.type == "cuda":
@@ -41,9 +43,11 @@ class Trainer:
             torch.backends.cudnn.allow_tf32 = False
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
+        # ICL models take the training patch (icl_tpu/train/trainer.py:58-61)
         self.model = net_factory(cfg.model, cfg.in_chns, cfg.num_classes, device=self.device,
                                  generator=generator, feature_size=cfg.feature_size,
-                                 patch_size=int(cfg.patch_size[0]), remat=cfg.remat)
+                                 patch_size=int(cfg.patch_size[0]), remat=cfg.remat,
+                                 **cfg.model_kwargs)
         self.optimizer = PolySGD(self.model.parameters(), cfg.base_lr, cfg.max_iterations,
                                  cfg.momentum, cfg.weight_decay, cfg.poly_power)
         self.step_fn = make_icl_step(self.model, self.optimizer, cfg.num_classes, cfg.labeled_bs,
@@ -117,5 +121,17 @@ def brats_evaluator(dataset, num_classes: int, patch_size, device) -> Callable[[
         metric_cal = evaluate_brats_cases(make_patch_predictor(model), dataset, num_classes,
                                           tuple(patch_size), 64, 64, sw_batch=4, device=device)
         return aggregate_case_metrics(metric_cal)
+
+    return evaluate
+
+
+def acdc_evaluator(dataset, num_classes: int, patch_size, device) -> Callable[[torch.nn.Module], dict]:
+    """evaluate(model) for `fit`: the 2D slice predictor over the volumes
+    of `dataset`, aggregated per class."""
+    from icl_tpu_torch.eval.infer2d import evaluate_acdc_volumes, make_slice_predictor
+
+    def evaluate(model: torch.nn.Module) -> dict:
+        return evaluate_acdc_volumes(make_slice_predictor(model, patch_size, device), dataset,
+                                     num_classes)
 
     return evaluate

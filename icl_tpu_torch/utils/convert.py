@@ -1,11 +1,13 @@
-"""Carry SwinUNETR and SwinUNETR-ICL weights from the JAX package's
-parameter tree to the port's state_dict (the reference key layout).
+"""Carry SwinUNETR, SwinUNETR-ICL, Swin-UNet 2D and Swin-UNet-ICL weights
+from the JAX package's parameter tree to the port's state_dict (the
+reference key layout).
 
 Input: the JAX params (and, for the ICL heads, batch_stats) as nested
 dicts of numpy arrays; SwinUNETR in the stacked `nn.scan` layout.
 Output: a state_dict of CPU tensors that the port's `load_state_dict(...,
 strict=True)` takes. A copy of `export_swinunetr`,
-`swinunetr_conv_key_table`, `icl_head_key_table` and `export_icl_heads` of
+`swinunetr_conv_key_table`, `swinunet2d_full_key_table`,
+`export_swinunet2d`, `icl_head_key_table` and `export_icl_heads` of
 `icl_tpu/utils/torch_import.py`, with the layout transforms they need:
 
     Conv:   flax (*k, I, O) -> torch (O, I, *k)
@@ -114,11 +116,13 @@ def swinunetr_state_dict_from_jax(params: dict, depths=(2, 2, 2, 2)) -> Dict[str
 BATCH_STATS = "__bs__"  # first element of a flax path that lives in batch_stats
 
 
-def icl_head_key_table(torch_prefix: str = "", num_scales: int = 3):
+def icl_head_key_table(torch_prefix: str = "", num_scales: int = 3, tokenized: bool = False,
+                       query_name: str = "guide_Q"):
     """torch key -> (flax path, transform) for one `InherentConsistent`
-    head of SwinUNETR-ICL (its query spelled `guide_Q`), flax paths taken
-    from the head's own subtree. BatchNorm running stats have paths that
-    start with BATCH_STATS."""
+    head, flax paths taken from the head's own subtree: SwinUNETR-ICL's
+    (query `guide_Q`), or with `tokenized` and `query_name="guided_Q"`
+    Swin-UNet-ICL's, which has no proj conv or norm. BatchNorm running
+    stats have paths that start with BATCH_STATS."""
     table = []
     p = torch_prefix
 
@@ -136,11 +140,12 @@ def icl_head_key_table(torch_prefix: str = "", num_scales: int = 3):
         table.append((f"{t_key}.running_mean", (BATCH_STATS,) + f_path + ("BatchNorm_0", "mean"), None))
         table.append((f"{t_key}.running_var", (BATCH_STATS,) + f_path + ("BatchNorm_0", "var"), None))
 
-    table.append((f"{p}guide_Q", ("guided_Q",), None))
+    table.append((f"{p}{query_name}", ("guided_Q",), None))
     for i in range(num_scales):
-        table.append((f"{p}proj_layers.{i}.weight", (f"proj{i}", "Conv_0", "kernel"), f2t_conv))
-        table.append((f"{p}proj_layers.{i}.bias", (f"proj{i}", "Conv_0", "bias"), None))
-        lnorm(f"{p}norm_layers.{i}", (f"norm{i}",))
+        if not tokenized:
+            table.append((f"{p}proj_layers.{i}.weight", (f"proj{i}", "Conv_0", "kernel"), f2t_conv))
+            table.append((f"{p}proj_layers.{i}.bias", (f"proj{i}", "Conv_0", "bias"), None))
+            lnorm(f"{p}norm_layers.{i}", (f"norm{i}",))
         cd_t, cd_f = f"{p}class_decoders.{i}", (f"class_decoder{i}",)
         for nm in ("norm1", "norm1_query", "norm2", "norm3"):
             lnorm(f"{cd_t}.{nm}", cd_f + (nm,))
@@ -162,13 +167,11 @@ def icl_head_key_table(torch_prefix: str = "", num_scales: int = 3):
     return table
 
 
-def icl_head_state_dict_from_jax(params: dict, batch_stats: dict,
-                                 torch_prefix: str = "") -> Dict[str, torch.Tensor]:
-    """One JAX `InherentConsistent` head's params and batch_stats -> the
-    port's state_dict of it, keys prefixed with `torch_prefix`
-    (`num_batches_tracked` 0: flax keeps no count)."""
+def _state_dict_from_table(table, params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
+    """Apply a (torch key, flax path, transform) table to a params tree and
+    a batch_stats tree (`num_batches_tracked` 0: flax keeps no count)."""
     out: Dict[str, torch.Tensor] = {}
-    for t_key, f_path, tf in icl_head_key_table(torch_prefix):
+    for t_key, f_path, tf in table:
         node, path = (batch_stats, f_path[1:]) if f_path[0] == BATCH_STATS else (params, f_path)
         for k in path:
             node = node[k]
@@ -179,6 +182,15 @@ def icl_head_state_dict_from_jax(params: dict, batch_stats: dict,
     return out
 
 
+def icl_head_state_dict_from_jax(params: dict, batch_stats: dict, torch_prefix: str = "",
+                                 tokenized: bool = False,
+                                 query_name: str = "guide_Q") -> Dict[str, torch.Tensor]:
+    """One JAX `InherentConsistent` head's params and batch_stats -> the
+    port's state_dict of it, keys prefixed with `torch_prefix`."""
+    table = icl_head_key_table(torch_prefix, tokenized=tokenized, query_name=query_name)
+    return _state_dict_from_table(table, params, batch_stats)
+
+
 def swinunetr_icl_state_dict_from_jax(params: dict, batch_stats: dict,
                                       depths=(2, 2, 2, 2)) -> Dict[str, torch.Tensor]:
     """JAX SwinUNETRICL params (backbone under "backbone", heads under
@@ -186,6 +198,103 @@ def swinunetr_icl_state_dict_from_jax(params: dict, batch_stats: dict,
     out = swinunetr_state_dict_from_jax(params["backbone"], depths)
     for name in ("sspa", "uscl"):
         out.update(icl_head_state_dict_from_jax(params[name], batch_stats[name], f"{name}."))
+    return out
+
+
+def _swin_block_entries(t: str, f: str):
+    """One 2D Swin block: norms, rel-pos table, qkv / proj, mlp."""
+    table = [(f"{t}.attn.relative_position_bias_table", (f, "attn", "relative_position_bias_table"),
+              None)]
+    for nm in ("norm1", "norm2"):
+        table += [(f"{t}.{nm}.weight", (f, nm, "LayerNorm_0", "scale"), None),
+                  (f"{t}.{nm}.bias", (f, nm, "LayerNorm_0", "bias"), None)]
+    for t_key, f_path in (("attn.qkv", ("attn", "qkv")), ("attn.proj", ("attn", "proj")),
+                          ("mlp.fc1", ("mlp", "fc1")), ("mlp.fc2", ("mlp", "fc2"))):
+        table += [(f"{t}.{t_key}.weight", (f,) + f_path + ("Dense_0", "kernel"), f2t_dense),
+                  (f"{t}.{t_key}.bias", (f,) + f_path + ("Dense_0", "bias"), None)]
+    return table
+
+
+def swinunet2d_full_key_table(depths=(2, 2, 2, 2)):
+    """torch key -> (flax path, transform) for the whole SwinTransformerSys:
+    patch embed, encoder blocks and downsamples, bottleneck norm, decoder
+    (PatchExpand, concat_back_dim, blocks, upsamples), FinalPatchExpand_X4
+    and the output conv."""
+    table = []
+
+    def lnorm(t, f):
+        table.extend([(f"{t}.weight", f + ("LayerNorm_0", "scale"), None),
+                      (f"{t}.bias", f + ("LayerNorm_0", "bias"), None)])
+
+    def dense(t, f, bias=True):
+        table.append((f"{t}.weight", f + ("Dense_0", "kernel"), f2t_dense))
+        if bias:
+            table.append((f"{t}.bias", f + ("Dense_0", "bias"), None))
+
+    table.append(("patch_embed.proj.weight", ("patch_embed_proj", "Conv_0", "kernel"), f2t_conv))
+    table.append(("patch_embed.proj.bias", ("patch_embed_proj", "Conv_0", "bias"), None))
+    lnorm("patch_embed.norm", ("patch_embed_norm",))
+    n = len(depths)
+    for i in range(n):
+        for b in range(depths[i]):
+            table += _swin_block_entries(f"layers.{i}.blocks.{b}", f"layers{i}_block{b}")
+        if i < n - 1:
+            dense(f"layers.{i}.downsample.reduction", (f"layers{i}_downsample", "reduction"),
+                  bias=False)
+            lnorm(f"layers.{i}.downsample.norm", (f"layers{i}_downsample", "norm"))
+    lnorm("norm", ("norm",))
+    dense("layers_up.0.expand", ("layers_up0_expand", "expand"), bias=False)
+    lnorm("layers_up.0.norm", ("layers_up0_expand", "norm"))
+    for i in range(1, n):
+        dense(f"concat_back_dim.{i}", (f"concat_back_dim{i}",))
+        for b in range(depths[n - 1 - i]):
+            table += _swin_block_entries(f"layers_up.{i}.blocks.{b}", f"layers_up{i}_block{b}")
+        if i < n - 1:
+            dense(f"layers_up.{i}.upsample.expand", (f"layers_up{i}_expand", "expand"), bias=False)
+            lnorm(f"layers_up.{i}.upsample.norm", (f"layers_up{i}_expand", "norm"))
+    lnorm("norm_up", ("norm_up",))
+    dense("up.expand", ("up_x4", "expand"), bias=False)
+    lnorm("up.norm", ("up_x4", "norm"))
+    table.append(("output.weight", ("output", "Conv_0", "kernel"), f2t_conv))
+    return table
+
+
+def swinunet2d_state_dict_from_jax(params: dict, img_size: int = 224, window: int = 7,
+                                   depths=(2, 2, 2, 2), torch_prefix: str = "",
+                                   patch_size: int = 4) -> Dict[str, torch.Tensor]:
+    """JAX SwinUNet2D params -> the port's state_dict, with the buffers
+    `export_swinunet2d` writes (each block's relative-position index and
+    each shifted block's mask) made anew from the geometry."""
+    from icl_tpu_torch.models.swin2d import relative_position_index_2d, shifted_window_mask
+
+    sd = _state_dict_from_table(swinunet2d_full_key_table(depths), params, {})
+    n, pr = len(depths), img_size // patch_size
+
+    def buffers(t, res, b):
+        ws = min(window, res)
+        sd[f"{t}.attn.relative_position_index"] = torch.from_numpy(relative_position_index_2d(ws))
+        if b % 2 == 1 and res > window:
+            sd[f"{t}.attn_mask"] = torch.from_numpy(shifted_window_mask(res, res, ws, window // 2))
+
+    for i in range(n):
+        for b in range(depths[i]):
+            buffers(f"layers.{i}.blocks.{b}", pr // 2**i, b)
+    for i in range(1, n):
+        for b in range(depths[n - 1 - i]):
+            buffers(f"layers_up.{i}.blocks.{b}", pr // 2 ** (n - 1 - i), b)
+    return {torch_prefix + k: v for k, v in sd.items()}
+
+
+def icl_swinunet2d_state_dict_from_jax(params: dict, batch_stats: dict, img_size: int = 224,
+                                       window: int = 7,
+                                       depths=(2, 2, 2, 2)) -> Dict[str, torch.Tensor]:
+    """JAX SwinUNetICL params (backbone under "swin_unet", tokenized heads
+    under "sspa" and "uscl") and batch_stats -> the port's full state_dict."""
+    out = swinunet2d_state_dict_from_jax(params["swin_unet"], img_size, window, depths,
+                                         torch_prefix="swin_unet.")
+    for name in ("sspa", "uscl"):
+        out.update(icl_head_state_dict_from_jax(params[name], batch_stats[name], f"{name}.",
+                                                tokenized=True, query_name="guided_Q"))
     return out
 
 

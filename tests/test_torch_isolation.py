@@ -27,6 +27,16 @@ model = net_factory("swinunetr", 1, 2, device="cpu", feature_size=12,
 x = torch.randn(1, 1, 32, 32, 32, generator=torch.Generator().manual_seed(1))
 probs = make_patch_predictor(model)(x)
 assert probs.shape == (1, 2, 32, 32, 32) and torch.isfinite(probs).all()
+import numpy as np
+from icl_tpu_torch.eval.infer2d import make_slice_predictor
+from icl_tpu_torch.models.swin2d import SwinConfig
+from icl_tpu_torch.scripts import test_2D_ACDC, train_inherent_consistent_swinunet_2D
+cfg = SwinConfig(img_size=64, window_size=4, embed_dim=12)
+model2d = net_factory("icl_swinunet", 1, 4, device="cpu", swin_cfg=cfg)
+outs = model2d(torch.randn(2, 1, 64, 64), torch.randn(2, 1, 64, 64))
+assert len(outs) == 5 and outs[0].shape == (2, 4, 64, 64)
+labels = make_slice_predictor(model2d.eval(), (64, 64), "cpu")(np.zeros((3, 40, 40), np.float32))
+assert labels.shape == (3, 40, 40)
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "icl_tpu"))
 print("LEAKED", bad)

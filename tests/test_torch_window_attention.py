@@ -75,7 +75,7 @@ def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
     want = wa.window_attention_plain(*args, torch.from_numpy(ids), scale=0.25)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert wa.window_attention.launches == 0
-    assert wa.window_attention.launches_by_mode == {"none": 0, "region": 0}
+    assert wa.window_attention.launches_by_mode == {"none": 0, "region": 0, "mask": 0}
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["none", "region"])

@@ -104,7 +104,7 @@ def test_backward_on_cpu_counts_no_launch():
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert wa.window_attention_bwd.launches == 0
-    assert wa.window_attention_bwd.launches_by_mode == {"none": 0, "region": 0}
+    assert wa.window_attention_bwd.launches_by_mode == {"none": 0, "region": 0, "mask": 0}
 
 
 @pytest.mark.cuda
