@@ -6,7 +6,11 @@
 Phases, each fatal on failure:
   1. the card: name and power limit (nvidia-smi), torch's device name;
   2. the builds of the window-attention CUDA kernels (forward and
-     backward) from ops/csrc, one nvcc each, started together;
+     backward) from ops/csrc, one nvcc each, started together; each
+     kernel instance's registers and spills from the ptxas log, and the
+     backward's warps, shared memory and resident CTAs per SM at the
+     paths' window sizes, as the kernel reports them, and its refusal of
+     a window that cannot fit;
   3. the kernel against its plain PyTorch version at the four shapes of
      one SwinUNETR fs48 sw_batch-4 forward at 96^3, f32 and bf16;
   4. times at those shapes: the kernel, the plain version, and
@@ -24,7 +28,8 @@ Phases, each fatal on failure:
      across two runs;
   8. times at those shapes: the backward kernel, the plain backward, and
      the backward of F.scaled_dot_product_attention (q, k, v and the mask),
-     beside the bound;
+     beside the bound and the kernel's time before its tensor-core
+     redesign (a constant from PERF.md);
   9. SwinUNETR-ICL training: fs48 at 96^3, batch 4 (2 labeled), f32 with
      TF32 off, recompute on, through Trainer.fit for 3 steps on seeded
      in-memory 128^3 cases, with a validation at step 3 on one held-out
@@ -40,13 +45,14 @@ Phases, each fatal on failure:
      the eval CLI's loader and gives the trainer's validation dice;
  12. the dense-mask (MASK) and no-mask forward kernels at head dim 32
      against their plain versions at the attention shapes of one
-     Swin-UNet 2D backbone pass at 384^2, window 12, batch 8, and at the
-     reference's 224^2 / window-7 stage 1, with the shift mask and a
-     random dense mask, f32 and bf16; f32 times beside the bound, the
-     plain version and SDPA;
- 13. the backward kernel in both modes at head dim 32 at the 384^2
-     shapes, both masks, f32 and bf16, bitwise equal across two runs;
-     f32 times beside the bound, the plain backward and SDPA's backward;
+     Swin-UNet 2D backbone pass at 384^2, window 12, batch 8, at the
+     reference's 224^2 / window-7 stage 1 and at a 2 x 2 window, with the
+     shift mask and a random dense mask, f32 and bf16; f32 times beside
+     the bound, the plain version and SDPA;
+ 13. the backward kernel in both modes at head dim 32 at the same shapes,
+     both masks, f32 and bf16, bitwise equal across two runs;
+     f32 times beside the bound, the plain backward, SDPA's backward and
+     the time before the redesign;
  14. Swin-UNet-ICL training on ACDC, the main path of this slice: embed
      96, depths 2-2-2-2, heads 3-6-12-24, 384^2, window 12, 4 classes,
      batch 16 (8 labeled), consistency weight 50, f32 with TF32 off, no
@@ -80,7 +86,10 @@ F32_ATOL = 1e-5  # f32 rounding of 343-term sums in another order; 2e-6 seen on 
 # at most one bf16 ulp apart, i.e. 2^-7 relative
 BF16_ATOL, BF16_RTOL = 1e-3, 1e-2
 PROBS_ATOL = 1e-4  # end-to-end probabilities, f32 with TF32 off
-F32_PEAK_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+# The card's fastest f32-accurate rate, for the bound of both kernels: TF32
+# on the tensor cores (H100 SXM, 495 TFLOP/s dense) over the three MMAs of a
+# 3xTF32 product, above the 67 TFLOP/s of f32 outside the tensor cores.
+F32_ACCURATE_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
 # Backward kernel against the plain backward, each grad's max error over
 # its reference's largest magnitude. f32: sums of 343 terms in another
@@ -124,6 +133,14 @@ REPLACES = {"none": "icl_tpu/ops/pallas/window_attention.py:44",
             "region": "icl_tpu/ops/pallas/window_attention.py:60",
             "mask": "icl_tpu/ops/pallas/window_attention.py:28"}
 BWD_REPLACES = "icl_tpu/ops/pallas/window_attention.py:290"
+# The backward kernel before its tensor-core redesign: f32 ms per launch by
+# (stage, mode), on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel
+# table, the earlier kernel's column). The 3D stages 2-4 and the extra 2D
+# windows were not written down one by one.
+BWD_BEFORE_MS = {("stage1", "none"): 5.178, ("stage1", "region"): 5.353}
+BWD2D_BEFORE_MS = {("stage1", "none"): 1.849, ("stage2", "none"): 0.948, ("stage3", "none"): 0.651,
+                   ("stage4", "none"): 0.339, ("stage1", "mask"): 1.961, ("stage2", "mask"): 0.949,
+                   ("stage3", "mask"): 0.631}
 
 # The training path: SwinUNETR-ICL fs48 at 96^3, batch 4 of which 2
 # labeled; each backbone pass runs batch 2, so the attention shapes are
@@ -151,8 +168,12 @@ STAGES_2D = [
     ("stage3", 24, 12, 12, {"none": 2, "mask": 2}),
     ("stage4", 12, 12, 24, {"none": 2}),
 ]
-# stage 1 of the reference's 224^2 / window-7 configuration (N = 49)
+# stage 1 of the reference's 224^2 / window-7 configuration (N = 49), and
+# a window of 2 x 2 tokens (N = 4, fewer keys than a lane's first tile of the
+# backward holds: a stage of 2 x 2 tokens shrinks the window to 2), shifted
+# by 1 on a 4 x 4 grid for the mask
 REF_STAGE_2D = ("ref224_stage1", 56, 7, 3, {"none": 2, "mask": 2})
+TINY_STAGE_2D = ("window2", 4, 2, 24, {"none": 2, "mask": 2})
 PER_FORWARD_2D = {m: sum(st[4].get(m, 0) for st in STAGES_2D) for m in ("none", "mask")}
 PER_STEP_2D = {m: 2 * n for m, n in PER_FORWARD_2D.items()}  # two passes, no recompute
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -194,7 +215,7 @@ def stage_inputs(torch, stage, dtype, gen):
 
 
 def bound(B, H, N, D, mask_floats=0, backward=False):
-    """(ms at the f32 rate, ms at the memory rate). Forward: two N x N x D
+    """(ms at the f32-accurate rate, ms at the memory rate). Forward: two N x N x D
     products per (window, head); q, k, v read and out written once, bias
     read once. Backward: five products; q, k, v, dO read and dq, dk, dv
     written once, bias read and dbias written once. The region ids [nW, N]
@@ -202,7 +223,26 @@ def bound(B, H, N, D, mask_floats=0, backward=False):
     products, tensors, bias_arrays = (5, 7, 2) if backward else (2, 4, 1)
     flops = 2 * products * B * H * N * N * D
     nbytes = (tensors * B * H * N * D + bias_arrays * H * N * N + mask_floats) * 4
-    return flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return flops / F32_ACCURATE_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """{"<type> D<d> <mode>": [registers, spill stores in bytes]} of each
+    instance of `kernel`, from the `-Xptxas -v` build log."""
+    import re
+
+    out, name = {}, None
+    modes = ("none", "region", "mask")
+    for line in log.splitlines():
+        m = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", line)
+        if m:
+            name = f"{'f32' if m[1] == 'f' else 'bf16'} D{m[2]} {modes[int(m[3])]}"
+        elif name and "spill stores" in line:
+            out[name] = [None, int(re.search(r"(\d+) bytes spill stores", line)[1])]
+        elif name and "registers" in line:
+            out.setdefault(name, [None, 0])[0] = int(re.search(r"Used (\d+) registers", line)[1])
+            name = None
+    return out
 
 
 def bound_fields(flop_ms, byte_ms) -> dict:
@@ -269,6 +309,7 @@ def phase_backward_kernel(torch, F, wa) -> list[dict]:
                         plain_ms=cuda_ms(lambda: wa.window_attention_plain_bwd(
                             q, k, v, bias, ids, g, scale=scale), reps=3),
                         library_ms=sdpa_backward_ms(torch, F, q, k, v, bias, dense, g, scale),
+                        before_ms=BWD_BEFORE_MS.get((name, mode)),
                         **bound_fields(*bound(B, H, N, D, ids.numel() if ids is not None else 0,
                                               backward=True)),
                     )
@@ -487,13 +528,13 @@ def inputs_2d(torch, stage, dtype, gen, kind):
 
 
 def phase_kernels_2d(torch, F, wa) -> tuple[list[dict], list[dict]]:
-    """12 + 13: the forward kernel at the 2D shapes (384^2 and the
-    reference's 224^2 stage 1) and the backward kernel at the 384^2 ones,
-    against their plain versions; f32 times with the shift mask."""
+    """12 + 13: the forward and backward kernels at the 2D shapes (384^2,
+    the reference's 224^2 stage 1 and a 2 x 2 window) against their plain
+    versions; f32 times with the shift mask."""
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     scale = HEAD_DIM_2D ** -0.5
     fwd_rows, bwd_rows = [], []
-    for stage in STAGES_2D + [REF_STAGE_2D]:
+    for stage in STAGES_2D + [REF_STAGE_2D, TINY_STAGE_2D]:
         for mode in stage[4]:
             for kind in ((None,) if mode == "none" else ("shift", "random")):
                 for dtype in (torch.float32, torch.bfloat16):
@@ -531,8 +572,6 @@ def phase_kernels_2d(torch, F, wa) -> tuple[list[dict], list[dict]]:
                         del lib_out, attn
                     fwd_rows.append(row)
                     print(f"[kernel2d] {json.dumps(row)}", flush=True)
-                    if stage is REF_STAGE_2D:
-                        continue  # the backward at the training shapes only
                     g = torch.randn(q.shape, device=DEVICE, generator=gen).to(dtype)
                     got = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
                     again = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
@@ -557,6 +596,7 @@ def phase_kernels_2d(torch, F, wa) -> tuple[list[dict], list[dict]]:
                             plain_ms=cuda_ms(lambda: wa.window_attention_plain_bwd(
                                 q, k, v, bias, None, g, scale=scale, mask=mask), reps=3),
                             library_ms=sdpa_backward_ms(torch, F, q, k, v, bias, mask, g, scale),
+                            before_ms=BWD2D_BEFORE_MS.get((stage[0], mode)),
                             **bound_fields(*bound(B, H, N, D, mask.numel() if mask is not None else 0,
                                                   backward=True)),
                         )
@@ -731,12 +771,20 @@ def main() -> int:
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(build_library, sources))
     build_s = time.perf_counter() - t0
-    for lib_path, log in builds:
-        print(f"[build] {lib_path}{' (already built)' if not log else ''}", flush=True)
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"[build] {line.strip()}")
+    for source, (lib_path, log) in zip(sources, builds):
+        usage = ptxas_usage(log, f"{source}_kernel") if log else "already built"
+        print(f"[build] {lib_path}: registers and spill stores (bytes) per instance {json.dumps(usage)}",
+              flush=True)
     print(f"[build] both libraries in {build_s:.2f} s", flush=True)
+    geometry = {f"N{n} D{d}": dict(zip(("warps", "smem_bytes", "ctas_per_sm"),
+                                       wa._bwd_geometry(n, d, False, True, False, 0)))
+                for n, d in ((343, 16), (216, 16), (144, 32), (49, 32), (4, 32))}
+    print(f"[build] window_attention_bwd f32 MASK geometry per CTA: {json.dumps(geometry)}", flush=True)
+    try:
+        wa._bwd_geometry(450, HEAD_DIM_2D, False, False, False, 0)
+        fail("the backward kernel's geometry took a window of 450 tokens at head dim 32")
+    except ValueError as e:
+        print(f"[build] refused as it should be: {e}", flush=True)
     z = [torch.zeros(1, 1, 8, HEAD_DIM, device=DEVICE) for _ in range(4)]
     wa.window_attention(*z[:3], torch.zeros(1, 8, 8, device=DEVICE), scale=1.0)
     wa.window_attention_bwd(*z[:3], torch.zeros(1, 8, 8, device=DEVICE), None, z[3], scale=1.0)

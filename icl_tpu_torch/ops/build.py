@@ -84,10 +84,13 @@ def load_window_attention_bwd() -> ctypes.CDLL:
     path, _ = build_library("window_attention_bwd")
     lib = ctypes.CDLL(str(path))
     fn = lib.icl_window_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    geo = lib.icl_window_attention_bwd_geometry
+    geo.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
+    geo.restype = ctypes.c_int
     _declare_error_string(lib)
     return lib
 

@@ -21,6 +21,9 @@ on CPU tensors they run `window_attention_plain` and
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 HEAD_DIMS = (16, 32)  # the kernels' compiled head dims (SwinUNETR fs48, Swin-UNet 2D embed 96)
@@ -118,8 +121,8 @@ def _check(q, k, v, bias, region_ids, mask, dout=None):
                          f"want ({H}, {N}, {N}) float32")
     if D not in HEAD_DIMS:
         raise ValueError(f"window_attention: head dim {D}, the kernels take {HEAD_DIMS}")
-    smem_floats = (4 * N * (D + 1) + 4 * N) if dout is not None else (2 * N * (D + 1) + N)
-    if smem_floats * 4 > _MAX_SMEM_BYTES:
+    # the forward's shared memory; the backward kernel reports its own (_bwd_geometry)
+    if dout is None and (2 * N * (D + 1) + N) * 4 > _MAX_SMEM_BYTES:
         raise ValueError(f"window_attention: window of {N} tokens does not fit shared memory")
     tensors = [q, k, v, bias] + ([dout] if dout is not None else [])
     if region_ids is not None:
@@ -184,13 +187,37 @@ def window_attention_fwd(q, k, v, bias, region_ids=None, mask=None, *, scale: fl
     return out
 
 
-def _bwd_groups(B: int, H: int, device: torch.device) -> tuple[int, int]:
-    """(windows per CTA, number of window groups): about two CTAs per SM
-    over the (group, head) grid, every group non-empty."""
-    target = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-    groups = max(1, min(B, -(-target // H)))
+def _bwd_groups(B: int, H: int, slots: int) -> tuple[int, int]:
+    """(windows per CTA, number of window groups): the (group, head) grid
+    fills the card's `slots` resident CTAs (CTAs per SM, from the
+    compiled kernel's registers and the window's shared memory, times
+    the SMs) once, every group non-empty."""
+    groups = max(1, min(B, -(-slots // H)))
     per_cta = -(-B // groups)
     return per_cta, -(-B // per_cta)
+
+
+@functools.cache
+def _bwd_geometry(N: int, D: int, has_ids: bool, has_mask: bool, bf16: bool,
+                  device: int) -> tuple[int, int, int]:
+    """(warps per CTA, shared memory per CTA in bytes, resident CTAs per
+    SM) of the backward kernel for windows of N tokens at head dim D, as
+    the kernel chooses them and the CUDA runtime's occupancy of the
+    compiled kernel gives. Raises ValueError when the window does not fit
+    an SM."""
+    from icl_tpu_torch.ops.build import load_window_attention_bwd
+
+    lib = load_window_attention_bwd()
+    warps, smem, ctas = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.icl_window_attention_bwd_geometry(N, D, int(has_ids), int(has_mask), int(bf16),
+                                                    ctypes.byref(warps), ctypes.byref(smem),
+                                                    ctypes.byref(ctas))
+    _raise_on(err, lib, "window_attention_bwd geometry")
+    if ctas.value < 1:
+        raise ValueError(f"window_attention: window of {N} tokens at head dim {D} does not fit "
+                         f"the backward kernel's shared memory ({smem.value} bytes per CTA)")
+    return warps.value, smem.value, ctas.value
 
 
 def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=None):
@@ -205,19 +232,19 @@ def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=
 
     lib = load_window_attention_bwd()
     B, H, N, D = q.shape
-    per_cta, groups = _bwd_groups(B, H, q.device)
-    # the column pass reads bias[h, :, m] and mask[w, :, m] as rows
-    bias_t = bias.transpose(1, 2).contiguous()
-    mask_t = mask.transpose(1, 2).contiguous() if mask is not None else None
+    _, _, ctas = _bwd_geometry(N, D, region_ids is not None, mask is not None,
+                               q.dtype == torch.bfloat16, q.device.index)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    per_cta, groups = _bwd_groups(B, H, ctas * sms)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
     part = torch.empty((groups, H, N, N), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.icl_window_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(),
-            bias_t.data_ptr(), _ptr(region_ids), _ptr(mask), _ptr(mask_t), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), part.data_ptr(), dbias.data_ptr(), B, H, N, D,
-            _windows(B, region_ids, mask), per_cta, float(scale), int(q.dtype == torch.bfloat16),
+            _ptr(region_ids), _ptr(mask), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            part.data_ptr(), dbias.data_ptr(), B, H, N, D, _windows(B, region_ids, mask), per_cta,
+            float(scale), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, lib, "window_attention_bwd")

@@ -8,10 +8,14 @@ synthetic data: `swinunetr_icl`, the BraTS CLI's (SwinUNETR-ICL fs48, 96^3
 patches, batch 4 of which 2 labeled, recompute on, 128^3 cases), or
 `icl_swinunet`, the ACDC Swin CLI's at 384^2 with window 12 (Swin-UNet-ICL
 embed 96, batch 16 of which 8 labeled, consistency weight 50, 256^2
-slices). Runs two warm-up steps and then one profiled step, and prints the
-device time by kernel group, the top kernels, the step's wall time, the
-card's idle share over it and the peak memory, then one JSON line with
-the same numbers. Needs a CUDA device.
+slices). Runs two warm-up steps, three timed steps without the profiler
+and then one profiled step, each on a batch made before its clock
+starts, and prints the timed steps' seconds, the device time by kernel
+group, the top kernels, the profiled step's wall time, the card's idle
+share over it and the peak memory, then one JSON line with the same
+numbers. Needs a CUDA device. Run as a file, it imports `icl_tpu_torch`
+from PYTHONPATH, so that another checkout's step can be timed by the same
+code.
 """
 from __future__ import annotations
 
@@ -71,6 +75,14 @@ def main(argv=None):
     trainer = Trainer(cfg, device="cuda")
     for _ in range(2):  # the first step makes the momentum buffers and cuDNN plans
         trainer.step_fn(trainer.to_device(next(batches)))
+    step_s = []
+    for _ in range(3):
+        batch = trainer.to_device(next(batches))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step_fn(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
     batch = trainer.to_device(next(batches))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -87,6 +99,7 @@ def main(argv=None):
     busy_ms, by_group, by_name, n_kernels = device_time_by_group(prof)
 
     print(f"card: {card}")
+    print(f"training step without the profiler: {step_s} s, mean {sum(step_s) / len(step_s):.4f} s")
     print(f"training step {what}, {args.precision}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {n_kernels} kernels, peak memory "
@@ -97,7 +110,7 @@ def main(argv=None):
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {ms:10.3f} ms  x{n:<4d} {name[:110]}")
     print(json.dumps({"card": card, "model": args.model, "precision": args.precision,
-                      "wall_ms": wall_ms,
+                      "step_s": step_s, "wall_ms": wall_ms,
                       "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
                       "peak_bytes": peak, "by_group_ms": by_group}))
 

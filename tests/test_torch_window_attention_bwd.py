@@ -107,25 +107,41 @@ def test_backward_on_cpu_counts_no_launch():
     assert wa.window_attention_bwd.launches_by_mode == {"none": 0, "region": 0, "mask": 0}
 
 
+# (mode, N, head dim, batch of windows): the 3D stage-3 shape, the 2D
+# Swin-UNet stage-3 shape with its shift mask, the 224^2 / window-7 N, and
+# a window of 2 x 2 tokens (fewer keys than a lane's first tile holds)
+CARD_CASES = {"none": ("none", 343, 16, 16), "region": ("region", 343, 16, 16),
+              "mask2d": ("mask", 144, 32, 32), "none49": ("none", 49, 32, 64), "mask49": ("mask", 49, 32, 64),
+              "none4": ("none", 4, 32, 8), "mask4": ("mask", 4, 32, 8)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("masked", [False, True], ids=["none", "region"])
-def test_backward_kernel_matches_plain_on_card(masked):
-    """f32, N = 343: each grad within 1e-5 of its reference's largest
-    magnitude (f32 sums in another order, __expf), and bitwise equal
-    across two runs."""
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_backward_kernel_matches_plain_on_card(case):
+    """f32, each grad within 1e-5 of its reference's largest magnitude
+    (f32 sums in another order, __expf), and bitwise equal across two
+    runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from icl_tpu_torch.models.swin2d import shifted_window_mask
+
     torch.backends.cuda.matmul.allow_tf32 = False
-    dims, ws, ss = (14, 14, 14), (7, 7, 7), (3, 3, 3)
-    ids = torch.from_numpy(window_region_ids_3d(dims, ws, ss)).cuda() if masked else None
+    mode, N, d, B = CARD_CASES[case]
+    ids = mask = None
+    if mode == "region":
+        ids = torch.from_numpy(window_region_ids_3d((14, 14, 14), (7, 7, 7), (3, 3, 3))).cuda()
+    elif mode == "mask":
+        ws = int(round(N ** 0.5))
+        mask = torch.from_numpy(shifted_window_mask(2 * ws, 2 * ws, ws, ws // 2)).cuda()
     gen = torch.Generator(device="cuda").manual_seed(4)
-    q, k, v, g = (torch.randn(16, H, 343, D, device="cuda", generator=gen) for _ in range(4))
-    bias = torch.randn(H, 343, 343, device="cuda", generator=gen)
+    q, k, v, g = (torch.randn(B, H, N, d, device="cuda", generator=gen) for _ in range(4))
+    bias = torch.randn(H, N, N, device="cuda", generator=gen)
+    scale = d ** -0.5
     wa.reset_launch_counts()
-    got = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=SCALE)
-    again = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=SCALE)
+    got = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
+    again = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
     torch.cuda.synchronize()
-    want = wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=SCALE)
+    want = wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b)
         assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
