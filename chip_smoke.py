@@ -7,15 +7,17 @@ Phases, each fatal on failure:
   1. the card: name and power limit (nvidia-smi), torch's device name;
   2. the builds of the window-attention CUDA kernels (forward and
      backward) from ops/csrc, one nvcc each, started together; each
-     kernel instance's registers and spills from the ptxas log, and the
-     backward's warps, shared memory and resident CTAs per SM at the
-     paths' window sizes, as the kernel reports them, and its refusal of
-     a window that cannot fit;
-  3. the kernel against its plain PyTorch version at the four shapes of
-     one SwinUNETR fs48 sw_batch-4 forward at 96^3, f32 and bf16;
+     kernel instance's registers and spills from the ptxas log, and each
+     kernel's warps, shared memory and resident CTAs per SM at the paths'
+     window sizes, as the kernel reports them, and their refusal of a
+     window that cannot fit;
+  3. the forward kernel against its plain PyTorch version at the four
+     shapes of one SwinUNETR fs48 sw_batch-4 forward at 96^3, f32 and
+     bf16, and bitwise equal across two runs;
   4. times at those shapes: the kernel, the plain version, and
      F.scaled_dot_product_attention as the one PyTorch call that computes
-     the same function, beside the kernel's bound;
+     the same function, beside the kernel's bound and its time before its
+     tensor-core redesign (a constant from PERF.md);
   5. BraTS sliding-window inference with SwinUNETR fs48 (1 channel, 2
      classes, seeded init) on a seeded 160x160x128 volume, 96^3 patches,
      stride 64, sw_batch 4: 8 patches in 2 forwards; the kernel launches
@@ -47,8 +49,9 @@ Phases, each fatal on failure:
      against their plain versions at the attention shapes of one
      Swin-UNet 2D backbone pass at 384^2, window 12, batch 8, at the
      reference's 224^2 / window-7 stage 1 and at a 2 x 2 window, with the
-     shift mask and a random dense mask, f32 and bf16; f32 times beside
-     the bound, the plain version and SDPA;
+     shift mask and a random dense mask, f32 and bf16, bitwise equal
+     across two runs; f32 times beside the bound, the plain version, SDPA
+     and the time before the redesign;
  13. the backward kernel in both modes at head dim 32 at the same shapes,
      both masks, f32 and bf16, bitwise equal across two runs;
      f32 times beside the bound, the plain backward, SDPA's backward and
@@ -133,6 +136,14 @@ REPLACES = {"none": "icl_tpu/ops/pallas/window_attention.py:44",
             "region": "icl_tpu/ops/pallas/window_attention.py:60",
             "mask": "icl_tpu/ops/pallas/window_attention.py:28"}
 BWD_REPLACES = "icl_tpu/ops/pallas/window_attention.py:290"
+# The forward kernel before its tensor-core redesign: f32 ms per launch by
+# (stage, mode), on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel
+# table, the column before the redesign). The 3D stages 2-4 were not
+# written down one by one.
+FWD_BEFORE_MS = {("stage1", "none"): 2.944, ("stage1", "region"): 3.006}
+FWD2D_BEFORE_MS = {("stage1", "none"): 0.559, ("stage2", "none"): 0.291, ("stage3", "none"): 0.156,
+                   ("stage4", "none"): 0.101, ("ref224_stage1", "none"): 0.147, ("stage1", "mask"): 0.797,
+                   ("stage2", "mask"): 0.410, ("stage3", "mask"): 0.265, ("ref224_stage1", "mask"): 0.190}
 # The backward kernel before its tensor-core redesign: f32 ms per launch by
 # (stage, mode), on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel
 # table, the earlier kernel's column). The 3D stages 2-4 and the extra 2D
@@ -185,6 +196,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# Set by `bench_kernels.py --device-time`: cuda_ms then queues the timed
+# launches behind a GPU sleep (~25 ms at the H100's clock), so that the
+# events time the device's work alone, not the host's time to issue each
+# launch, which sets the time of the smallest shapes.
+QUEUE_BEHIND_SLEEP = False
+SLEEP_CYCLES = 50_000_000
+
+
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     import torch
 
@@ -192,6 +211,8 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if QUEUE_BEHIND_SLEEP:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -267,6 +288,64 @@ def sdpa_backward_ms(torch, F, q, k, v, bias, mask, g, scale) -> float:
     out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn, scale=scale)
     gout = g.view(shape)
     return cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs, mask_leaf), gout, retain_graph=True))
+
+
+def phase_kernel_3d(torch, F, wa) -> list[dict]:
+    """3 + 4: the forward kernel against its plain version at the shapes of
+    one SwinUNETR inference forward, f32 and bf16, bitwise-repeatable; f32
+    times beside the bound."""
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    per_shape = []
+    for stage in STAGES:
+        name = stage[0]
+        for mode in ("none", "region"):
+            if name not in PER_FORWARD[mode]:
+                continue
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, bias, ids = stage_inputs(torch, stage, dtype, gen)
+                ids = ids if mode == "region" else None
+                scale = HEAD_DIM ** -0.5
+                got = wa.window_attention(q, k, v, bias, ids, scale=scale)
+                again = wa.window_attention(q, k, v, bias, ids, scale=scale)
+                torch.cuda.synchronize()
+                want = wa.window_attention_plain(q, k, v, bias, ids, scale=scale)
+                err = (got.float() - want.float()).abs()
+                max_err = float(err.max())
+                if dtype == torch.float32:
+                    ok = max_err <= F32_ATOL
+                else:
+                    ok = bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+                row = {"stage": name, "mode": mode, "dtype": str(dtype).split(".")[-1],
+                       "shape": list(q.shape), "nW": ids.shape[0] if ids is not None else None,
+                       "max_abs_err": max_err, "bitwise_repeat": torch.equal(got, again)}
+                if not ok or not row["bitwise_repeat"] or not torch.isfinite(got).all():
+                    fail(f"kernel disagrees with plain or is not repeatable: {row}")
+                if dtype == torch.float32:
+                    B, H, N, D = q.shape
+                    nW = ids.shape[0] if ids is not None else B
+                    if ids is None:
+                        mask = bias
+                        qs, ks, vs = q, k, v
+                    else:
+                        mask = bias[None] + wa.mask_from_region_ids(ids)[:, None]  # [nW, H, N, N]
+                        qs, ks, vs = (t.view(B // nW, nW, H, N, D) for t in (q, k, v))
+                    lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)
+                    lib_err = float((lib_out.reshape(q.shape) - want).abs().max())
+                    row.update(
+                        ms=cuda_ms(lambda: wa.window_attention(q, k, v, bias, ids, scale=scale)),
+                        plain_ms=cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, ids, scale=scale)),
+                        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                            qs, ks, vs, attn_mask=mask, scale=scale)),
+                        library_max_abs_err=lib_err,
+                        before_ms=FWD_BEFORE_MS.get((name, mode)),
+                        **bound_fields(*bound(B, H, N, D, ids.numel() if ids is not None else 0)),
+                    )
+                    del mask, lib_out
+                per_shape.append(row)
+                print(f"[kernel] {json.dumps(row)}", flush=True)
+                del q, k, v, bias, got, again, want, err
+    torch.cuda.empty_cache()
+    return per_shape
 
 
 def phase_backward_kernel(torch, F, wa) -> list[dict]:
@@ -543,6 +622,7 @@ def phase_kernels_2d(torch, F, wa) -> tuple[list[dict], list[dict]]:
                     nW = mask.shape[0] if mask is not None else B
                     timed = dtype == torch.float32 and kind != "random"
                     got = wa.window_attention(q, k, v, bias, mask=mask, scale=scale)
+                    again = wa.window_attention(q, k, v, bias, mask=mask, scale=scale)
                     torch.cuda.synchronize()
                     want = wa.window_attention_plain(q, k, v, bias, mask=mask, scale=scale)
                     err = (got.float() - want.float()).abs()
@@ -552,9 +632,10 @@ def phase_kernels_2d(torch, F, wa) -> tuple[list[dict], list[dict]]:
                         ok = bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
                     row = {"stage": stage[0], "mode": mode, "mask": kind,
                            "dtype": str(dtype).split(".")[-1], "shape": list(q.shape),
-                           "nW": nW if mask is not None else None, "max_abs_err": float(err.max())}
-                    if not ok or not torch.isfinite(got).all():
-                        fail(f"2D kernel disagrees with plain: {row}")
+                           "nW": nW if mask is not None else None, "max_abs_err": float(err.max()),
+                           "bitwise_repeat": torch.equal(got, again)}
+                    if not ok or not row["bitwise_repeat"] or not torch.isfinite(got).all():
+                        fail(f"2D kernel disagrees with plain or is not repeatable: {row}")
                     if timed:
                         shape = (B // nW, nW, H, N, D) if mask is not None else (B, H, N, D)
                         qs, ks, vs = (t.view(shape) for t in (q, k, v))
@@ -567,11 +648,13 @@ def phase_kernels_2d(torch, F, wa) -> tuple[list[dict], list[dict]]:
                             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                                 qs, ks, vs, attn_mask=attn, scale=scale)),
                             library_max_abs_err=float((lib_out.reshape(q.shape) - want).abs().max()),
+                            before_ms=FWD2D_BEFORE_MS.get((stage[0], mode)),
                             **bound_fields(*bound(B, H, N, D, mask.numel() if mask is not None else 0)),
                         )
                         del lib_out, attn
                     fwd_rows.append(row)
                     print(f"[kernel2d] {json.dumps(row)}", flush=True)
+                    del again
                     g = torch.randn(q.shape, device=DEVICE, generator=gen).to(dtype)
                     got = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
                     again = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
@@ -773,73 +856,28 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for source, (lib_path, log) in zip(sources, builds):
         usage = ptxas_usage(log, f"{source}_kernel") if log else "already built"
-        print(f"[build] {lib_path}: registers and spill stores (bytes) per instance {json.dumps(usage)}",
-              flush=True)
+        spills = sorted(n for n, (_, spill) in usage.items() if spill) if log else "not read"
+        print(f"[build] {lib_path}: registers and spill stores (bytes) per instance {json.dumps(usage)}; "
+              f"instances that spill: {spills or 'none'}", flush=True)
     print(f"[build] both libraries in {build_s:.2f} s", flush=True)
-    geometry = {f"N{n} D{d}": dict(zip(("warps", "smem_bytes", "ctas_per_sm"),
-                                       wa._bwd_geometry(n, d, False, True, False, 0)))
-                for n, d in ((343, 16), (216, 16), (144, 32), (49, 32), (4, 32))}
-    print(f"[build] window_attention_bwd f32 MASK geometry per CTA: {json.dumps(geometry)}", flush=True)
-    try:
-        wa._bwd_geometry(450, HEAD_DIM_2D, False, False, False, 0)
-        fail("the backward kernel's geometry took a window of 450 tokens at head dim 32")
-    except ValueError as e:
-        print(f"[build] refused as it should be: {e}", flush=True)
+    for what, query, too_large in (("window_attention", wa._fwd_geometry, 1000),
+                                   ("window_attention_bwd", wa._bwd_geometry, 450)):
+        geometry = {f"N{n} D{d}": dict(zip(("warps", "smem_bytes", "ctas_per_sm"),
+                                           query(n, d, False, True, False, 0)))
+                    for n, d in ((343, 16), (216, 16), (144, 32), (49, 32), (4, 32))}
+        print(f"[build] {what} f32 MASK geometry per CTA: {json.dumps(geometry)}", flush=True)
+        try:
+            query(too_large, HEAD_DIM_2D, False, False, False, 0)
+            fail(f"{what}'s geometry took a window of {too_large} tokens at head dim 32")
+        except ValueError as e:
+            print(f"[build] refused as it should be: {e}", flush=True)
     z = [torch.zeros(1, 1, 8, HEAD_DIM, device=DEVICE) for _ in range(4)]
     wa.window_attention(*z[:3], torch.zeros(1, 8, 8, device=DEVICE), scale=1.0)
     wa.window_attention_bwd(*z[:3], torch.zeros(1, 8, 8, device=DEVICE), None, z[3], scale=1.0)
     torch.cuda.synchronize()
 
-    # 3 + 4. the kernel against its plain version, and times
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-    per_shape = []
-    for stage in STAGES:
-        name = stage[0]
-        for mode in ("none", "region"):
-            if name not in PER_FORWARD[mode]:
-                continue
-            for dtype in (torch.float32, torch.bfloat16):
-                q, k, v, bias, ids = stage_inputs(torch, stage, dtype, gen)
-                ids = ids if mode == "region" else None
-                scale = HEAD_DIM ** -0.5
-                got = wa.window_attention(q, k, v, bias, ids, scale=scale)
-                torch.cuda.synchronize()
-                want = wa.window_attention_plain(q, k, v, bias, ids, scale=scale)
-                err = (got.float() - want.float()).abs()
-                max_err = float(err.max())
-                if dtype == torch.float32:
-                    ok = max_err <= F32_ATOL
-                else:
-                    ok = bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
-                row = {"stage": name, "mode": mode, "dtype": str(dtype).split(".")[-1],
-                       "shape": list(q.shape), "nW": ids.shape[0] if ids is not None else None,
-                       "max_abs_err": max_err}
-                if not ok or not torch.isfinite(got).all():
-                    fail(f"kernel disagrees with plain: {row}")
-                if dtype == torch.float32:
-                    B, H, N, D = q.shape
-                    nW = ids.shape[0] if ids is not None else B
-                    if ids is None:
-                        mask = bias
-                        qs, ks, vs = q, k, v
-                    else:
-                        mask = bias[None] + wa.mask_from_region_ids(ids)[:, None]  # [nW, H, N, N]
-                        qs, ks, vs = (t.view(B // nW, nW, H, N, D) for t in (q, k, v))
-                    lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)
-                    lib_err = float((lib_out.reshape(q.shape) - want).abs().max())
-                    row.update(
-                        ms=cuda_ms(lambda: wa.window_attention(q, k, v, bias, ids, scale=scale)),
-                        plain_ms=cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, ids, scale=scale)),
-                        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                            qs, ks, vs, attn_mask=mask, scale=scale)),
-                        library_max_abs_err=lib_err,
-                        **bound_fields(*bound(B, H, N, D, ids.numel() if ids is not None else 0)),
-                    )
-                    del mask, lib_out
-                per_shape.append(row)
-                print(f"[kernel] {json.dumps(row)}", flush=True)
-                del q, k, v, bias, got, want, err
-    torch.cuda.empty_cache()
+    # 3 + 4. the forward kernel against its plain version, and times
+    per_shape = phase_kernel_3d(torch, F, wa)
 
     # 5. the main path
     model = net_factory("swinunetr_icl", 1, 2, device=DEVICE, feature_size=FEATURE_SIZE,

@@ -3,8 +3,9 @@
 Each kernel source under `ops/csrc/` has a plain C interface and is
 compiled with `nvcc` into a shared library that `ctypes` loads: no
 PyTorch headers, so a build takes seconds. The library lands in
-`<repo>/build/<name>-<hash>/`, keyed by the hash of the source and the
-flags, and is built at first use. Nothing here runs at import time.
+`<repo>/build/<name>-<hash>/`, keyed by the hash of the source, the
+headers under `ops/csrc/` and the flags, and is built at first use.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -41,10 +42,11 @@ def find_nvcc() -> str:
 
 def build_library(name: str) -> tuple[Path, str]:
     """Compile `csrc/<name>.cu` into `lib<name>.so` unless a build of the
-    same source and flags exists. Returns (library path, compiler log);
-    the log is empty when the library was already built."""
+    same source, headers and flags exists. Returns (library path,
+    compiler log); the log is empty when the library was already built."""
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(key + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / f"{name}-{digest}"
     lib = out_dir / f"lib{name}.so"
     if lib.exists():
@@ -69,10 +71,11 @@ def load_window_attention() -> ctypes.CDLL:
     path, _ = build_library("window_attention")
     lib = ctypes.CDLL(str(path))
     fn = lib.icl_window_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    _declare_geometry(lib.icl_window_attention_fwd_geometry)
     _declare_error_string(lib)
     return lib
 
@@ -88,11 +91,14 @@ def load_window_attention_bwd() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    geo = lib.icl_window_attention_bwd_geometry
-    geo.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
-    geo.restype = ctypes.c_int
+    _declare_geometry(lib.icl_window_attention_bwd_geometry)
     _declare_error_string(lib)
     return lib
+
+
+def _declare_geometry(fn) -> None:
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
 
 
 def _declare_error_string(lib: ctypes.CDLL) -> None:

@@ -17,7 +17,9 @@ saves its inputs (as `_fused_attention_fwd` does) and recomputes the
 softmax in the backward. On CUDA tensors the forward launches
 `csrc/window_attention.cu` and the backward `csrc/window_attention_bwd.cu`;
 on CPU tensors they run `window_attention_plain` and
-`window_attention_plain_bwd`.
+`window_attention_plain_bwd`. Each kernel chooses its CTA's warps and
+shared memory and reports them with its resident CTAs per SM
+(`_fwd_geometry`, `_bwd_geometry`); `_window_groups` sizes both grids.
 """
 from __future__ import annotations
 
@@ -107,6 +109,14 @@ def window_attention_plain_bwd(q, k, v, bias, region_ids, dout, *, scale: float,
     return dq, dk, dv, dbias
 
 
+def _fwd_smem_bytes(N: int, D: int) -> int:
+    """The forward kernel's shared memory per CTA (`smem_bytes` in
+    `csrc/window_attention.cu`): two buffers of K and V [Np, D] and the
+    region ids [Np] in f32, Np = N padded to a multiple of 16."""
+    Np = -(-N // 16) * 16
+    return 2 * (2 * Np * D + Np) * 4
+
+
 def _check(q, k, v, bias, region_ids, mask, dout=None):
     B, H, N, D = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -122,7 +132,7 @@ def _check(q, k, v, bias, region_ids, mask, dout=None):
     if D not in HEAD_DIMS:
         raise ValueError(f"window_attention: head dim {D}, the kernels take {HEAD_DIMS}")
     # the forward's shared memory; the backward kernel reports its own (_bwd_geometry)
-    if dout is None and (2 * N * (D + 1) + N) * 4 > _MAX_SMEM_BYTES:
+    if dout is None and _fwd_smem_bytes(N, D) > _MAX_SMEM_BYTES:
         raise ValueError(f"window_attention: window of {N} tokens does not fit shared memory")
     tensors = [q, k, v, bias] + ([dout] if dout is not None else [])
     if region_ids is not None:
@@ -163,6 +173,71 @@ def _windows(B, region_ids, mask) -> int:
     return B if t is None else t.shape[0]
 
 
+def _window_groups(B: int, H: int, slots: int) -> tuple[int, int]:
+    """(windows per CTA, number of window groups) of either kernel: the
+    (group, head) grid fills the card's `slots` resident CTAs (CTAs per
+    SM, from the compiled kernel's registers and the window's shared
+    memory, times the SMs) once, every group non-empty."""
+    groups = max(1, min(B, -(-slots // H)))
+    per_cta = -(-B // groups)
+    return per_cta, -(-B // per_cta)
+
+
+def _geometry(lib, what: str, N: int, D: int, has_ids: bool, has_mask: bool, bf16: bool,
+              device: int) -> tuple[int, int, int]:
+    """(warps per CTA, shared memory per CTA in bytes, resident CTAs per
+    SM) of kernel `what` for windows of N tokens at head dim D, as the
+    kernel chooses them and the CUDA runtime's occupancy of the compiled
+    kernel gives. Raises ValueError when the window does not fit an SM."""
+    warps, smem, ctas = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = getattr(lib, f"icl_{what}_geometry")(N, D, int(has_ids), int(has_mask), int(bf16),
+                                                   ctypes.byref(warps), ctypes.byref(smem),
+                                                   ctypes.byref(ctas))
+    _raise_on(err, lib, f"{what} geometry")
+    if ctas.value < 1:
+        raise ValueError(f"window_attention: window of {N} tokens at head dim {D} does not fit "
+                         f"the {what} kernel's shared memory ({smem.value} bytes per CTA)")
+    return warps.value, smem.value, ctas.value
+
+
+@functools.cache
+def _fwd_geometry(N: int, D: int, has_ids: bool, has_mask: bool, bf16: bool,
+                  device: int) -> tuple[int, int, int]:
+    """`_geometry` of the forward kernel."""
+    from icl_tpu_torch.ops.build import load_window_attention
+
+    return _geometry(load_window_attention(), "window_attention_fwd", N, D, has_ids, has_mask, bf16,
+                     device)
+
+
+@functools.cache
+def _bwd_geometry(N: int, D: int, has_ids: bool, has_mask: bool, bf16: bool,
+                  device: int) -> tuple[int, int, int]:
+    """`_geometry` of the backward kernel."""
+    from icl_tpu_torch.ops.build import load_window_attention_bwd
+
+    return _geometry(load_window_attention_bwd(), "window_attention_bwd", N, D, has_ids, has_mask,
+                     bf16, device)
+
+
+@functools.cache
+def _cached_grid(geometry, B: int, H: int, N: int, D: int, has_ids: bool, has_mask: bool,
+                 bf16: bool, device: int) -> tuple[int, int]:
+    _, _, ctas = geometry(N, D, has_ids, has_mask, bf16, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _window_groups(B, H, ctas * sms)
+
+
+def _grid(geometry, q, region_ids, mask) -> tuple[int, int]:
+    """`_window_groups` of a call on q [B, H, N, D] to the kernel whose
+    geometry query is `geometry` (`_fwd_geometry` or `_bwd_geometry`),
+    worked out once per call shape: the wrapper's host time sets the time
+    per call at the smallest windows."""
+    return _cached_grid(geometry, *q.shape, region_ids is not None, mask is not None,
+                        q.dtype == torch.bfloat16, q.device.index)
+
+
 def window_attention_fwd(q, k, v, bias, region_ids=None, mask=None, *, scale: float):
     """The forward alone, without autograd: the kernel on CUDA tensors
     (built on first use), `window_attention_plain` on CPU tensors."""
@@ -174,50 +249,19 @@ def window_attention_fwd(q, k, v, bias, region_ids=None, mask=None, *, scale: fl
 
     lib = load_window_attention()
     B, H, N, D = q.shape
+    per_cta, _ = _grid(_fwd_geometry, q, region_ids, mask)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.icl_window_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _ptr(region_ids),
-            _ptr(mask), out.data_ptr(), B, H, N, D, _windows(B, region_ids, mask), float(scale),
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+            _ptr(mask), out.data_ptr(), B, H, N, D, _windows(B, region_ids, mask), per_cta,
+            float(scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, lib, "window_attention")
     window_attention.launches += 1
     window_attention.launches_by_mode[mode] += 1
     return out
-
-
-def _bwd_groups(B: int, H: int, slots: int) -> tuple[int, int]:
-    """(windows per CTA, number of window groups): the (group, head) grid
-    fills the card's `slots` resident CTAs (CTAs per SM, from the
-    compiled kernel's registers and the window's shared memory, times
-    the SMs) once, every group non-empty."""
-    groups = max(1, min(B, -(-slots // H)))
-    per_cta = -(-B // groups)
-    return per_cta, -(-B // per_cta)
-
-
-@functools.cache
-def _bwd_geometry(N: int, D: int, has_ids: bool, has_mask: bool, bf16: bool,
-                  device: int) -> tuple[int, int, int]:
-    """(warps per CTA, shared memory per CTA in bytes, resident CTAs per
-    SM) of the backward kernel for windows of N tokens at head dim D, as
-    the kernel chooses them and the CUDA runtime's occupancy of the
-    compiled kernel gives. Raises ValueError when the window does not fit
-    an SM."""
-    from icl_tpu_torch.ops.build import load_window_attention_bwd
-
-    lib = load_window_attention_bwd()
-    warps, smem, ctas = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = lib.icl_window_attention_bwd_geometry(N, D, int(has_ids), int(has_mask), int(bf16),
-                                                    ctypes.byref(warps), ctypes.byref(smem),
-                                                    ctypes.byref(ctas))
-    _raise_on(err, lib, "window_attention_bwd geometry")
-    if ctas.value < 1:
-        raise ValueError(f"window_attention: window of {N} tokens at head dim {D} does not fit "
-                         f"the backward kernel's shared memory ({smem.value} bytes per CTA)")
-    return warps.value, smem.value, ctas.value
 
 
 def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=None):
@@ -232,10 +276,7 @@ def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=
 
     lib = load_window_attention_bwd()
     B, H, N, D = q.shape
-    _, _, ctas = _bwd_geometry(N, D, region_ids is not None, mask is not None,
-                               q.dtype == torch.bfloat16, q.device.index)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    per_cta, groups = _bwd_groups(B, H, ctas * sms)
+    per_cta, groups = _grid(_bwd_geometry, q, region_ids, mask)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
     part = torch.empty((groups, H, N, N), dtype=torch.float32, device=q.device)

@@ -1,6 +1,6 @@
-"""icl_tpu_torch (and chip_smoke.py, which drives it on the card) stands
-alone: it imports neither JAX nor the icl_tpu package, and its entry
-points refuse to fall back to the CPU."""
+"""icl_tpu_torch (and chip_smoke.py, which drives it on the card, and the
+card's kernel tests) stands alone: it imports neither JAX nor the icl_tpu
+package, and its entry points refuse to fall back to the CPU."""
 import ast
 import pathlib
 import re
@@ -61,7 +61,8 @@ def _imported_modules(path: pathlib.Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                 ROOT / "tests" / "test_torch_window_attention_card.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_has_no_jax_or_icl_tpu_import(path):
     for name in _imported_modules(path):

@@ -1,8 +1,9 @@
 """icl_tpu_torch window attention against the JAX package's: the plain
 version against `window_attention_fused` (Pallas, interpret mode) and
 `window_attention_reference`, with no mask and with shift-region ids.
-The CUDA kernel itself runs only on the card (last test). The backward
-has its own file, `test_torch_window_attention_bwd.py`.
+The CUDA kernels run only on the card, against the plain versions, in
+`test_torch_window_attention_card.py`. The backward has its own file,
+`test_torch_window_attention_bwd.py`.
 
 Tolerance atol 2e-5 in f32, the JAX package's own kernel tolerance
 (tests/test_pallas_attention.py).
@@ -100,20 +101,3 @@ def test_plain_keeps_bf16_output_dtype():
     args = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)] + [torch.from_numpy(bias)]
     out = wa.window_attention_plain(*args, torch.from_numpy(ids), scale=0.25)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("masked", [False, True], ids=["none", "region"])
-def test_kernel_matches_plain_on_card(masked):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    q, k, v, bias, ids, _ = _inputs(343, seed=4)
-    args = [torch.from_numpy(a).cuda() for a in (q, k, v, bias)]
-    rid = torch.from_numpy(ids).cuda() if masked else None
-    wa.reset_launch_counts()
-    got = wa.window_attention(*args, rid, scale=0.25)
-    torch.cuda.synchronize()
-    want = wa.window_attention_plain(*args, rid, scale=0.25)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
-    assert wa.window_attention.launches == 1

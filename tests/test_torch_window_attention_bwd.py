@@ -3,8 +3,9 @@ package's: `window_attention_plain_bwd` against `jax.vjp` of
 `window_attention_fused` (Pallas forward in interpret mode, its custom_vjp
 backward) and of `window_attention_reference`, with no mask, with
 shift-region ids, and with the equivalent dense mask on the JAX side;
-`torch.autograd.gradcheck` of `WindowAttentionFn` in f64; and, on the card
-only, the CUDA backward kernel against the plain backward.
+and `torch.autograd.gradcheck` of `WindowAttentionFn` in f64. The CUDA
+backward kernel is held against the plain backward on the card, in
+`test_torch_window_attention_card.py`.
 
 Tolerance 2e-5 absolute in f32 (the JAX package's own attention
 tolerance, tests/test_pallas_attention.py) on dq, dk, dv, and 1e-4 on
@@ -105,44 +106,3 @@ def test_backward_on_cpu_counts_no_launch():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert wa.window_attention_bwd.launches == 0
     assert wa.window_attention_bwd.launches_by_mode == {"none": 0, "region": 0, "mask": 0}
-
-
-# (mode, N, head dim, batch of windows): the 3D stage-3 shape, the 2D
-# Swin-UNet stage-3 shape with its shift mask, the 224^2 / window-7 N, and
-# a window of 2 x 2 tokens (fewer keys than a lane's first tile holds)
-CARD_CASES = {"none": ("none", 343, 16, 16), "region": ("region", 343, 16, 16),
-              "mask2d": ("mask", 144, 32, 32), "none49": ("none", 49, 32, 64), "mask49": ("mask", 49, 32, 64),
-              "none4": ("none", 4, 32, 8), "mask4": ("mask", 4, 32, 8)}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", list(CARD_CASES))
-def test_backward_kernel_matches_plain_on_card(case):
-    """f32, each grad within 1e-5 of its reference's largest magnitude
-    (f32 sums in another order, __expf), and bitwise equal across two
-    runs."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    from icl_tpu_torch.models.swin2d import shifted_window_mask
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    mode, N, d, B = CARD_CASES[case]
-    ids = mask = None
-    if mode == "region":
-        ids = torch.from_numpy(window_region_ids_3d((14, 14, 14), (7, 7, 7), (3, 3, 3))).cuda()
-    elif mode == "mask":
-        ws = int(round(N ** 0.5))
-        mask = torch.from_numpy(shifted_window_mask(2 * ws, 2 * ws, ws, ws // 2)).cuda()
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    q, k, v, g = (torch.randn(B, H, N, d, device="cuda", generator=gen) for _ in range(4))
-    bias = torch.randn(H, N, N, device="cuda", generator=gen)
-    scale = d ** -0.5
-    wa.reset_launch_counts()
-    got = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
-    again = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
-    torch.cuda.synchronize()
-    want = wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
-    for a, b, w in zip(got, again, want):
-        assert torch.equal(a, b)
-        assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
-    assert wa.window_attention_bwd.launches == 2

@@ -3,9 +3,9 @@ counterpart of `_kernel_masked` and of the dense-mask branch of
 `_fused_attention_bwd`) against the JAX package's: the plain forward
 against `window_attention_fused(..., mask, interpret=True)` (the Pallas
 kernel in interpret mode) and `window_attention_reference`; the plain
-backward against `jax.vjp` of both; an f64 `gradcheck` of
-`WindowAttentionFn` with a mask; and, on the card only, the CUDA kernels
-against the plain versions.
+backward against `jax.vjp` of both; and an f64 `gradcheck` of
+`WindowAttentionFn` with a mask. The CUDA kernels are held against the
+plain versions on the card, in `test_torch_window_attention_card.py`.
 
 Masks: the Swin-UNet 2D shift mask (0 / -100) of a 14^2 grid with window 7
 (N = 49) and of a 24^2 grid with window 12 (N = 144), and a random dense
@@ -150,28 +150,3 @@ def test_region_ids_and_mask_are_mutually_exclusive():
     for fn in (wa.window_attention, wa.window_attention_plain):
         with pytest.raises(ValueError, match="mutually exclusive"):
             fn(*args, ids, torch.from_numpy(mask), scale=0.25)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["shift", "random"])
-def test_masked_kernels_match_plain_on_card(kind):
-    """f32, N = 144, D = 32: the forward within 1e-5 absolute, each grad
-    of the backward within 1e-5 of its reference's largest magnitude
-    (f32 sums in another order, __expf), bitwise equal across two runs."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    q, k, v, bias, mask, g = (torch.from_numpy(a).cuda() for a in _inputs(144, 32, kind, seed=8,
-                                                                           batch=8))
-    wa.reset_launch_counts()
-    out = wa.window_attention_fwd(q, k, v, bias, mask=mask, scale=32**-0.5)
-    got = wa.window_attention_bwd(q, k, v, bias, None, g, scale=32**-0.5, mask=mask)
-    again = wa.window_attention_bwd(q, k, v, bias, None, g, scale=32**-0.5, mask=mask)
-    torch.cuda.synchronize()
-    want_out = wa.window_attention_plain(q, k, v, bias, mask=mask, scale=32**-0.5)
-    want = wa.window_attention_plain_bwd(q, k, v, bias, None, g, scale=32**-0.5, mask=mask)
-    torch.testing.assert_close(out, want_out, rtol=0, atol=1e-5)
-    for a, b, w in zip(got, again, want):
-        assert torch.equal(a, b)
-        assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
-    assert wa.window_attention.launches_by_mode["mask"] == 1
-    assert wa.window_attention_bwd.launches_by_mode["mask"] == 2
