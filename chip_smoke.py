@@ -70,6 +70,25 @@ Phases, each fatal on failure:
  16. 2D train -> eval: the stripped best checkpoint loads strictly
      through the 2D eval CLI's loader and gives the trainer's validation
      dice;
+ 17. U-Net-ICL training on ACDC, the main path of this slice and the JAX
+     package's default model: U-Net features (16, 32, 64, 128, 256),
+     dropout (0.05, 0.1, 0.2, 0.3, 0.5), ICL heads on (128, 64, 32)
+     channels, heads (8, 4, 2), resolutions (32, 64, 128) (`mlp2` 16384^2
+     at the finest), 256^2, 4 classes, batch 16 (8 labeled), consistency
+     weight 50, f32 with TF32 off, through Trainer.fit for 3 steps on
+     phase 14's slices made on a `Prefetcher` thread, with a validation
+     at step 3 on its two volumes; s/step after the warm-up step, the
+     step thread's wait for each batch, the validation time, the time to
+     build the model, peak memory, every loss term, and the
+     window-attention launches (asserted: none);
+ 18. one U-Net-ICL step at 64^2 on the card against the same step on the
+     CPU (same weights and batch, dropout and drop path off), beside a
+     control step, the rule of 10 over every parameter;
+ 19. one full-width U-Net-ICL step with the two `sspa` calls fused
+     against the two-call step on the card, in f64, the rule of 10;
+ 20. U-Net train -> eval: the stripped best checkpoint loads strictly into
+     UNet through the 2D eval CLI's loader and gives the trainer's
+     validation dice;
 then a `kernels` JSON line, the card line, and the result line. Exits
 non-zero without a result when CUDA is absent.
 """
@@ -187,6 +206,10 @@ REF_STAGE_2D = ("ref224_stage1", 56, 7, 3, {"none": 2, "mask": 2})
 TINY_STAGE_2D = ("window2", 4, 2, 24, {"none": 2, "mask": 2})
 PER_FORWARD_2D = {m: sum(st[4].get(m, 0) for st in STAGES_2D) for m in ("none", "mask")}
 PER_STEP_2D = {m: 2 * n for m, n in PER_FORWARD_2D.items()}  # two passes, no recompute
+# This slice: U-Net-ICL 2D at the JAX U-Net CLI's defaults (256^2, batch 16
+# of which 8 labeled, 4 classes) on phase 14's slices and volumes; its step
+# on the card against the CPU at 64^2.
+IMG_UNET, IMG_UNET_CPU = 256, 64
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXPERIMENTS = os.path.join(ROOT, "build", "chip_smoke", "experiments")
 
@@ -821,6 +844,221 @@ def phase_train_to_eval_2d(torch, volumes, training: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def unet_config(max_iterations: int, val_interval: int, tries: str, side: int | None = None,
+                **model_kwargs):
+    from icl_tpu_torch.config import ExperimentConfig
+
+    side = side or IMG_UNET
+    return ExperimentConfig(
+        root_path="in-memory", exp="ACDC_chip_smoke/ICL", model="icl_unet", num_classes=CLASSES_2D,
+        max_iterations=max_iterations, batch_size=BATCH_2D, labeled_bs=LABELED_2D, base_lr=0.01,
+        patch_size=(side, side), seed=1337, labeled_num=7, num_tries=tries, consis_weight=50.0,
+        val_interval=val_interval, log_interval=1, precision="float32",
+        experiments_dir=EXPERIMENTS, model_kwargs=model_kwargs)
+
+
+def phase_training_unet(torch, wa, slices, volumes) -> dict:
+    """17: Trainer.fit of U-Net-ICL at full width, its batches made on a
+    Prefetcher thread; no window attention on this path."""
+    import gc
+
+    from icl_tpu_torch.data.pipeline import Prefetcher
+    from icl_tpu_torch.scripts.time_fit import timed
+    from icl_tpu_torch.train.steps import METRIC_KEYS
+    from icl_tpu_torch.train.trainer import Trainer, acdc_evaluator
+
+    cfg = unet_config(TRAIN_STEPS, TRAIN_STEPS, "float32")
+    torch.manual_seed(0)  # dropout and drop-path masks
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    validate = acdc_evaluator(volumes, CLASSES_2D, cfg.patch_size, trainer.device)
+    waits, val_s = [], []  # the time each `next` blocks the step's thread; the validation's
+
+    def evaluate(model):
+        t0 = time.perf_counter()
+        agg = validate(model)  # ends with the label maps on the host
+        val_s.append(time.perf_counter() - t0)
+        return agg
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Prefetcher(acdc_batches(slices, cfg), pin_memory=trainer.device.type == "cuda") as batches:
+        wa.reset_launch_counts()
+        result = trainer.fit(timed(batches, waits), evaluate=evaluate)
+        torch.cuda.synchronize()
+        path = {"fwd": dict(wa.window_attention.launches_by_mode),
+                "bwd": dict(wa.window_attention_bwd.launches_by_mode)}
+    peak = torch.cuda.max_memory_allocated()
+    log = result["log"]
+    if len(log) != TRAIN_STEPS or not result["vals"]:
+        fail(f"expected {TRAIN_STEPS} logged U-Net steps and a validation, got {result}")
+    bad = [(r["iteration"], k) for r in log for k in METRIC_KEYS if not math.isfinite(r[k])]
+    if bad:
+        fail(f"non-finite U-Net loss terms {bad}")
+    s_per_step = (log[-1]["seconds"] - log[0]["seconds"]) / (len(log) - 1)
+    print(f"[unet] U-Net-ICL, {n_params} params, built and initialised in {build_s:.2f} s; "
+          f"{IMG_UNET}^2, batch {BATCH_2D} ({LABELED_2D} labeled), f32, TF32 off: {s_per_step:.4f} "
+          f"s/step after the warm-up step (step times {[round(r['seconds'], 4) for r in log]} s "
+          f"from the start); the step's thread waited {[round(w, 4) for w in waits]} s for its "
+          f"batches (Prefetcher); peak memory {peak / 2**30:.2f} GiB; window-attention launches "
+          f"{path}", flush=True)
+    for r in log:
+        print(f"[unet] step {r['iteration']} lr {r['lr']:.6f} "
+              + " ".join(f"{k} {r[k]:.6f}" for k in METRIC_KEYS), flush=True)
+    val = result["vals"][-1]
+    print(f"[unet] validation at step {val['iteration']} on {len(volumes)} volumes of "
+          f"{VOL_DEPTH_2D} {SLICE_SIZE_2D}^2 slices in {val_s[0]:.4f} s: mean dice "
+          f"{val['mean_dice']!r} hd95 {val['mean_hd95']!r}; best checkpoint {result['best_path']}",
+          flush=True)
+    if any(n for counts in path.values() for n in counts.values()):
+        fail(f"the U-Net path launched window attention: {path}")
+    if result["best_path"] is None:
+        fail(f"U-Net validation dice {val['mean_dice']}: no best checkpoint was saved")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"s_per_step": s_per_step, "waits_s": waits, "val_s": val_s[0], "build_s": build_s,
+            "n_params": n_params, "peak_bytes": peak, "path_launches": path,
+            "val_dice": val["mean_dice"], "best_path": result["best_path"]}
+
+
+def step_agreement(torch, tag: str, what: str, before: dict, runs: dict) -> None:
+    """runs: {"test", "reference"} and, for f32 steps, "control" -> (loss
+    terms, parameters after) of one step each from the parameters
+    `before`; the control is the test's step on the batch scaled by
+    1 + 1e-7. Loss terms within STEP_LOSS_RTOL; each parameter's new value
+    within STEP_UPDATE_RTOL of its largest update plus two ulps of its
+    largest weight, or, where the control moves it further, within twice
+    the control's distance: in f32 the gradients of the layers that feed a
+    train-mode BatchNorm (the convs, and `mlp2` through the SeparableConv)
+    cancel, so a change of the input at the f32 rounding level can move
+    them past the fixed allowance (tests/test_torch_train_unet2d.py)."""
+    test, ref, ctl = runs["test"], runs["reference"], runs.get("control")
+    loss_err = {k: abs(test[0][k] - ref[0][k]) / max(abs(ref[0][k]), 1e-12) for k in ref[0]}
+    errs, ctl_errs = {}, {}
+    for n, w in before.items():
+        allow = (STEP_UPDATE_RTOL * float((ref[1][n] - w).abs().max())
+                 + 2 * torch.finfo(w.dtype).eps * float(w.abs().max()))
+        err = float((test[1][n] - ref[1][n]).abs().max())
+        ctl_err = float((ctl[1][n] - test[1][n]).abs().max()) if ctl else 0.0
+        errs[n] = (ratio(err, allow), ratio(err, max(allow, 2 * ctl_err)))
+        ctl_errs[n] = ratio(ctl_err, allow)
+    top = dict(sorted(errs.items(), key=lambda kv: -kv[1][1])[:5])
+    beyond = sorted(n for n, (fixed, _) in errs.items() if fixed > 1.0)
+    print(f"{tag} {what}: loss terms {test[0]} vs {ref[0]}; relative errors {loss_err} (tolerance "
+          f"{STEP_LOSS_RTOL}); of {len(errs)} parameters {len(beyond)} beyond the fixed allowance "
+          f"{beyond}; the largest errors as fractions of (the fixed allowance, the rule's) {top}",
+          flush=True)
+    if ctl:
+        top_ctl = dict(sorted(ctl_errs.items(), key=lambda kv: -kv[1])[:5])
+        print(f"{tag} the control's largest moves as fractions of the fixed allowance {top_ctl}",
+              flush=True)
+    if any(e > STEP_LOSS_RTOL for e in loss_err.values()) or any(e > 1.0 for _, e in errs.values()):
+        fail(f"{tag} {what}: the steps disagree")
+
+
+def ratio(err: float, allow: float) -> float:
+    """err / allow, with 0 / 0 = 0 (a parameter at zero that no step moved)."""
+    return err / allow if allow > 0 else (0.0 if err == 0 else math.inf)
+
+
+def unet_step(torch, model, batch, side: int, device, input_scale: float = 1.0):
+    """(loss terms, parameters after) of one ICL step of `model` (f32 or
+    f64) at patch `side` on `batch`, with a fresh optimizer. The
+    parameters are the model's own tensors: clone them before the model
+    moves on."""
+    from icl_tpu_torch.train.optim import PolySGD
+    from icl_tpu_torch.train.steps import make_icl_step
+
+    dtype = next(model.parameters()).dtype
+    model.zero_grad(set_to_none=True)
+    opt = PolySGD(model.parameters(), 0.01, 30000)
+    step = make_icl_step(model, opt, CLASSES_2D, LABELED_2D, (side, side), 50.0)
+    on_device = {"image": torch.as_tensor(batch["image"]).to(device, dtype) * input_scale,
+                 "label": torch.as_tensor(batch["label"]).to(device).long()}
+    metrics = {k: float(v) for k, v in step(on_device).items()}
+    return metrics, {n: p.detach() for n, p in model.named_parameters()}
+
+
+def phase_unet_device_vs_cpu(torch, slices) -> None:
+    """18: one U-Net-ICL step at 64^2 on the card against the CPU."""
+    from icl_tpu_torch.models.registry import net_factory
+
+    cfg = unet_config(1, 0, "cpu", side=IMG_UNET_CPU)
+    batch = next(acdc_batches(slices, cfg))
+
+    starts = []
+
+    def run(device, scale=1.0):
+        model = net_factory("icl_unet", 1, CLASSES_2D, device=device, patch_size=IMG_UNET_CPU,
+                            zero_stochastic=True, generator=torch.Generator().manual_seed(cfg.seed))
+        starts.append({n: p.detach().cpu().clone() for n, p in model.named_parameters()})
+        metrics, after = unet_step(torch, model, batch, IMG_UNET_CPU, device, scale)
+        return metrics, {n: t.cpu().clone() for n, t in after.items()}
+
+    t0 = time.perf_counter()
+    runs = {"test": run(DEVICE), "reference": run("cpu"), "control": run(DEVICE, 1.0 + 1e-7)}
+    if not all(torch.equal(s[n], starts[0][n]) for s in starts for n in starts[0]):
+        fail("[unet-cpu] the steps did not start from the same weights")
+    step_agreement(torch, "[unet-cpu]", f"one {IMG_UNET_CPU}^2 f32 step, card vs CPU "
+                   f"({time.perf_counter() - t0:.1f} s for the three)", starts[0], runs)
+
+
+def phase_unet_fused_pair(torch, slices) -> None:
+    """19: one full-width U-Net-ICL step with the fused sspa pair against the
+    two-call step, on the card, in f64 (the two differ by how their GEMMs
+    are batched, which in f32 moves the layers that feed a BatchNorm past
+    any fixed allowance; in f64 the steps must agree), from one model whose
+    weights and BatchNorm stats are reset between the steps."""
+    import gc
+
+    from icl_tpu_torch.models.registry import net_factory
+
+    batch = next(acdc_batches(slices, unet_config(1, 0, "fused")))
+    model = net_factory("icl_unet", 1, CLASSES_2D, device=DEVICE, patch_size=IMG_UNET,
+                        zero_stochastic=True, generator=torch.Generator().manual_seed(0)).double()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(fuse: bool):
+        model.load_state_dict(start)
+        model.fuse_sspa_pair = fuse
+        return unet_step(torch, model, batch, IMG_UNET, DEVICE)
+
+    t0 = time.perf_counter()
+    metrics, after = run(False)
+    reference = (metrics, {n: t.clone() for n, t in after.items()})
+    runs = {"test": run(True), "reference": reference}
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    before = {n: start[n] for n in reference[1]}
+    step_agreement(torch, "[unet-fused]", f"one {IMG_UNET}^2 f64 step, fused sspa pair vs two calls "
+                   f"({step_s:.1f} s for the two; peak memory "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", before, runs)
+    del model, start, runs, reference, after, before
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_to_eval_unet(torch, volumes, training: dict) -> None:
+    """20: the stripped best checkpoint through the 2D eval CLI's loader."""
+    from icl_tpu_torch.eval.infer2d import evaluate_acdc_volumes, make_slice_predictor
+    from icl_tpu_torch.scripts.test_2D_ACDC import load_eval_model
+
+    patch = (IMG_UNET, IMG_UNET)
+    model = load_eval_model("icl_unet", training["best_path"], CLASSES_2D, DEVICE, patch)
+    agg = evaluate_acdc_volumes(make_slice_predictor(model, patch, DEVICE), volumes, CLASSES_2D)
+    print(f"[eval-unet] stripped best checkpoint, loaded strictly into {type(model).__name__}: mean "
+          f"dice {agg['mean_dice']!r}, the trainer's validation {training['val_dice']!r}", flush=True)
+    if agg["mean_dice"] != training["val_dice"]:
+        fail("the U-Net eval path does not reproduce the trainer's validation dice")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -948,6 +1186,13 @@ def main() -> int:
     phase_step_parity_2d(torch, wa, slices)
     phase_train_to_eval_2d(torch, volumes, training_2d)
 
+    # 17 - 20. this slice: U-Net-ICL training on the same data, its step on
+    # the card against the CPU, the fused sspa pair, train -> eval
+    training_unet = phase_training_unet(torch, wa, slices, volumes)
+    phase_unet_device_vs_cpu(torch, slices)
+    phase_unet_fused_pair(torch, slices)
+    phase_train_to_eval_unet(torch, volumes, training_unet)
+
     # The kernels line, one entry per kernel and mode. Times are sums over
     # the shapes of a unit of work, each f32 launch time times its launches
     # there: for no-mask and mask one Swin-UNet-ICL training step at 384^2
@@ -991,7 +1236,8 @@ def main() -> int:
                                                 ("bwd", "window_attention_bwd", bwd_rows, bwd_rows_2d)):
         for mode in ("none", "region", "mask"):
             by_path = {"training_3d": training["path_launches"][direction][mode],
-                       "training_2d": training_2d["path_launches"][direction][mode]}
+                       "training_2d": training_2d["path_launches"][direction][mode],
+                       "training_unet_2d": training_unet["path_launches"][direction][mode]}
             if direction == "fwd":
                 by_path["inference_3d"] = launches.get(mode, 0)
             errs = [r["max_abs_err"] for r in rows_3d + rows_2d if r["mode"] == mode

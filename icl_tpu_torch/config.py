@@ -41,6 +41,9 @@ class ExperimentConfig:
     # 'float32' (TF32 off, parity) or 'bfloat16' (forward under autocast)
     precision: str = "float32"
     remat: bool = False  # recompute blocks in the backward
+    # the ICL models' two labeled-mode sspa calls as one batched call
+    # (per-branch BatchNorm stats and labeled-only query means kept)
+    fuse_icl_pair: bool = False
     feature_size: int = 48
     experiments_dir: str = "../experiments"
     # extra net_factory kwargs (the Swin CLIs' --cfg: {"swin_cfg": SwinConfig})

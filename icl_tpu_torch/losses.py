@@ -69,11 +69,16 @@ def softmax_mse_loss(input_logits: Sequence[torch.Tensor],
     return loss / len(input_logits)
 
 
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """`t` in f32, or as it is if it is f64."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def resize_maps(feat_map: torch.Tensor, spatial: Sequence[int]) -> torch.Tensor:
     """Linear upsampling of class maps [B, C, *s] to `spatial` with
-    half-pixel centres (F.interpolate, align_corners=False), in f32."""
+    half-pixel centres (F.interpolate, align_corners=False), in f32 or f64."""
     mode = {1: "linear", 2: "bilinear", 3: "trilinear"}[len(spatial)]
-    return F.interpolate(feat_map.float(), size=tuple(spatial), mode=mode, align_corners=False)
+    return F.interpolate(at_least_f32(feat_map), size=tuple(spatial), mode=mode, align_corners=False)
 
 
 def aux_loss(feat_maps: Sequence[torch.Tensor], labels: torch.Tensor, num_classes: int,

@@ -1,6 +1,7 @@
 """Inherent Consistent Learning heads (SSPA / USCL) in PyTorch,
 channel-first (counterpart of `icl_tpu/models/icl.py`): 3D as SwinUNETR-ICL
-uses them, and the tokenized 2D variant of Swin-UNet-ICL.
+uses them, 2D as the U-Net-ICL uses them, and the tokenized 2D variant of
+Swin-UNet-ICL.
 
 Module names follow the reference key layout (`guide_Q` in SwinUNETR-ICL,
 `guided_Q` in Swin-UNet-ICL, `proj_layers.{i}`, `norm_layers.{i}`,
@@ -124,6 +125,14 @@ class InherentConsistent(nn.Module):
     `guided_Q[i]`, taken from the labeled pass. Returns (feat_maps,
     updated_Qs): class maps [B, cls, *spatial_i] and batch-mean queries
     [1, cls, C_i].
+
+    `pair_split` (labeled mode only): `feats` are the two labeled-mode
+    calls' inputs concatenated along the batch, the first `pair_split`
+    samples from the labeled branch (`sspa_paired`). Every op up to the
+    attention map is per sample; the BatchNorm-bearing SeparableConv runs
+    once per branch (each its own batch stats, running stats updated
+    labeled first, as the two calls do), and updated_Qs average the
+    labeled samples only (icl.py:244-252).
     """
 
     def __init__(self, in_chans: Sequence[int], num_classes: int, num_heads: Sequence[int],
@@ -169,9 +178,11 @@ class InherentConsistent(nn.Module):
         nn.init.zeros_(getattr(self, self.query_name))
 
     def forward(self, feats, guided_Q: Optional[Sequence[torch.Tensor]] = None,
-                modal: str = "labeled"):
+                modal: str = "labeled", pair_split: Optional[int] = None):
         if modal not in ("labeled", "unlabeled"):
             raise ValueError(f"modal {modal!r}: want 'labeled' or 'unlabeled'")
+        if pair_split is not None and modal != "labeled":
+            raise ValueError("pair_split is for the labeled mode only")
         BS = feats[0].shape[0]
         ncls = self.num_classes
         next_Q = getattr(self, self.query_name).expand(BS, ncls, self.in_chans[0])
@@ -188,9 +199,27 @@ class InherentConsistent(nn.Module):
             # [B, cls, H, N] -> [B*cls, H, *spatial]
             bs, _, nheads, _ = attn.shape
             spatial = (self.input_resolution[i],) * self.spatial_dims
-            attn = self.attn_convs0[i](attn.reshape(bs * ncls, nheads, *spatial))
+            attn = attn.reshape(bs * ncls, nheads, *spatial)
+            conv0 = self.attn_convs0[i]
+            if pair_split is None:
+                attn = conv0(attn)
+            else:  # rows are sample-major: the labeled branch's come first
+                s = pair_split * ncls
+                attn = torch.cat([conv0(attn[:s]), conv0(attn[s:])])
             feat_maps.append(self.attn_convs1[i](attn).reshape(bs, ncls, *spatial))
             qc = self.query_convs[i]
             next_Q = F.linear(updated_Q, qc.weight[..., 0], qc.bias)
-            updated_Qs.append(updated_Q.mean(0, keepdim=True))
+            updated_Qs.append(updated_Q[:pair_split].mean(0, keepdim=True))
         return feat_maps, updated_Qs
+
+
+def sspa_paired(sspa: InherentConsistent, feats_lab, feats_unlab):
+    """The two labeled-mode `sspa` calls of an ICL model (on the labeled
+    and on the unlabeled taps, through the same weights) as one batched
+    call, so the class decoders' weights are read once (icl.py:271-284).
+    Returns (feat_maps_lab, feat_maps_consis, updated_Qs_lab), the tensors
+    the two calls give (the second call's queries are discarded)."""
+    b_lab = feats_lab[0].shape[0]
+    feats = [torch.cat([a, b]) for a, b in zip(feats_lab, feats_unlab)]
+    fm_pair, updated_Qs_lab = sspa(feats, modal="labeled", pair_split=b_lab)
+    return [fm[:b_lab] for fm in fm_pair], [fm[b_lab:] for fm in fm_pair], updated_Qs_lab

@@ -61,6 +61,35 @@ def batch_norm(num_features: int, spatial_dims: int) -> nn.Module:
     return cls(num_features, eps=EPS, momentum=0.1)
 
 
+def upsample_align_corners(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Bilinear (2D) or trilinear (3D) upsampling by `factor` on the
+    align_corners=True grid of a channel-first x, the upsampling of the
+    reference's 2D decoders (`upsample_align_corners`, layers.py:169-182,
+    which computes it as one small matmul per axis)."""
+    mode = {4: "bilinear", 5: "trilinear"}[x.ndim]
+    return F.interpolate(x, scale_factor=factor, mode=mode, align_corners=True)
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout (flax `nn.Dropout`, as the U-Net's ConvBlock
+    uses it): in training, keep each element with probability 1 - p and
+    scale it by 1 / (1 - p); the identity in eval or at p 0. The keep mask
+    comes from `generator` (on the tensor's device) or else torch's
+    default RNG."""
+
+    def __init__(self, p: float, generator: torch.Generator | None = None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.p == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
+
+
 class DropPath(nn.Module):
     """Stochastic depth (`DropPath`, layers.py:129-147): in training, keep
     each sample's whole branch with probability 1 - rate and scale it by
@@ -83,11 +112,12 @@ class DropPath(nn.Module):
 
 def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """The reference init, drawn from `generator`: trunc_normal(0.02) Swin
-    linears and relative-position bias tables, unit LayerNorms,
-    torch-default convs. A submodule with its own `init_weights_` (an ICL
-    head) is skipped here and initialised by that method afterwards, in
-    module order. Buffers that a module makes from its geometry are remade
-    by its `reset_buffers_` (`build_model` builds on the meta device)."""
+    linears and relative-position bias tables, unit LayerNorms and
+    BatchNorms with fresh running stats, torch-default convs. A submodule
+    with its own `init_weights_` (an ICL head) is skipped here and
+    initialised by that method afterwards, in module order. Buffers that
+    a module makes from its geometry are remade by its `reset_buffers_`
+    (`build_model` builds on the meta device)."""
     heads = [m for m in model.modules() if m is not model and hasattr(m, "init_weights_")]
     in_heads = {id(sub) for head in heads for sub in head.modules()}
     for m in model.modules():
@@ -98,9 +128,11 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
                                   generator=generator)
         elif isinstance(m, nn.Linear):
             swin_linear_init_(m, generator)
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d, nn.BatchNorm3d)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
+            if isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
+                m.reset_running_stats()
         elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
             torch_default_init_(m, generator)
         if hasattr(m, "reset_buffers_"):

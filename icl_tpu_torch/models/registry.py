@@ -6,13 +6,14 @@ import torch
 
 from icl_tpu_torch.device import resolve_device
 
-PORTED = ("swinunetr", "swinunetr_icl", "swinunet", "icl_swinunet")
+PORTED = ("swinunetr", "swinunetr_icl", "swinunet", "icl_swinunet", "unet", "icl_unet")
 
 
 def net_factory(net_type: str, in_chns: int, class_num: int, *, device=None,
                 generator: torch.Generator | None = None, feature_size: int = 48,
                 patch_size: int | None = None, remat: bool = False, img_size: int = 224,
-                window_size: int = 7, swin_cfg=None, inference: bool = False):
+                window_size: int = 7, swin_cfg=None, inference: bool = False,
+                fuse_sspa_pair: bool = False, zero_stochastic: bool = False):
     """String -> initialised model on `device` (the CUDA card by default),
     in torch's default train mode, with weights drawn from `generator`
     (default: seed 0). The same seed gives the same backbone weights with
@@ -28,14 +29,30 @@ def net_factory(net_type: str, in_chns: int, class_num: int, *, device=None,
     `img_size`, or `patch_size` when `img_size` keeps its default 224 (the
     trainers pass the patch, registry.py:85-91); a full `swin_cfg`
     (`SwinConfig`, e.g. from a `--cfg` yaml) wins over both and over
-    `window_size`."""
+    `window_size`.
+
+    2D U-Net: `icl_unet` builds `UNetICL` (patch side `patch_size`,
+    default 256; `fuse_sspa_pair` and `zero_stochastic` as that class
+    takes them); `unet` and `icl_unet` with `inference=True` the `UNet`,
+    which its best checkpoint loads into."""
     if net_type not in PORTED:
         raise KeyError(f"net_type {net_type!r} is not ported yet; ported: {list(PORTED)}")
+    if (fuse_sspa_pair or zero_stochastic) and net_type != "icl_unet":
+        raise ValueError("fuse_sspa_pair and zero_stochastic are ported for icl_unet only")
     from icl_tpu_torch.models.layers import build_model
 
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     device = resolve_device(device)
+    if net_type in ("unet", "icl_unet"):
+        from icl_tpu_torch.models.unet2d import UNet
+        from icl_tpu_torch.models.unet2d_icl import UNetICL
+
+        if net_type == "icl_unet" and not inference:
+            return build_model(UNetICL, in_chns, class_num, patch_size=patch_size or 256,
+                               fuse_sspa_pair=fuse_sspa_pair, zero_stochastic=zero_stochastic,
+                               device=device, generator=generator)
+        return build_model(UNet, in_chns, class_num, device=device, generator=generator)
     if net_type in ("swinunet", "icl_swinunet"):
         from icl_tpu_torch.models.swin2d import SwinUnetWrapper
         from icl_tpu_torch.models.swin2d_icl import SwinUNetICL

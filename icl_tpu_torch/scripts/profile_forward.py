@@ -21,7 +21,9 @@ from icl_tpu_torch.eval.infer3d import make_patch_predictor
 from icl_tpu_torch.models.registry import net_factory
 
 # kernel-name substrings -> group, first match wins. cuDNN names its
-# convolutions' implicit GEMMs fprop/dgrad/wgrad; cuBLAS's kernels say gemm.
+# convolutions' implicit GEMMs fprop/dgrad/wgrad, its FFT convolutions'
+# transforms fft2d and their complex GEMMs cf32, its BatchNorms bn_fw and
+# bn_bw; cuBLAS's kernels say gemm.
 GROUPS = (
     ("window_attention_bwd", "window attention backward (this port's kernel)"),
     ("dbias_reduce", "window attention backward (this port's kernel)"),
@@ -30,11 +32,15 @@ GROUPS = (
     ("fprop", "convolution"),
     ("dgrad", "convolution"),
     ("wgrad", "convolution"),
+    ("fft", "convolution"),
+    ("cf32", "convolution"),
+    ("bn_fw", "reductions (norms, softmax, argmax)"),
+    ("bn_bw", "reductions (norms, softmax, argmax)"),
     ("gemm", "matmul (linears)"),
     ("gemv", "matmul (linears)"),
     ("xmma", "convolution"),
     ("multi_tensor", "optimizer (SGD)"),
-    ("upsample", "linear resize (loss maps)"),
+    ("upsample", "linear resize (decoder upsample, loss maps)"),
     ("nchwtonhwc", "copies and layout"),
     ("nhwctonchw", "copies and layout"),
     ("reduce", "reductions (norms, softmax, argmax)"),

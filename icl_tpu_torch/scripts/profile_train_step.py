@@ -5,12 +5,14 @@
 
 Builds the trainer of one training CLI with seeded weights and seeded
 synthetic data: `swinunetr_icl`, the BraTS CLI's (SwinUNETR-ICL fs48, 96^3
-patches, batch 4 of which 2 labeled, recompute on, 128^3 cases), or
+patches, batch 4 of which 2 labeled, recompute on, 128^3 cases),
 `icl_swinunet`, the ACDC Swin CLI's at 384^2 with window 12 (Swin-UNet-ICL
 embed 96, batch 16 of which 8 labeled, consistency weight 50, 256^2
-slices). Runs two warm-up steps, three timed steps without the profiler
-and then one profiled step, each on a batch made before its clock
-starts, and prints the timed steps' seconds, the device time by kernel
+slices), or `icl_unet`, the ACDC U-Net CLI's defaults (U-Net-ICL at 256^2,
+the same batch, weight and slices). Times building the model, runs two
+warm-up steps, three timed steps without the profiler and then one
+profiled step, each on a batch made before its clock starts, and prints
+the build's and the timed steps' seconds, the device time by kernel
 group, the top kernels, the profiled step's wall time, the card's idle
 share over it and the peak memory, then one JSON line with the same
 numbers. Needs a CUDA device. Run as a file, it imports `icl_tpu_torch`
@@ -40,39 +42,59 @@ def brats_setup(precision: str):
                            labeled_num=2, consis_weight=10.0, precision=precision,
                            remat=True, feature_size=48)
     cases = synthetic_brats_cases(4, 128, seed=0)
-    batches = brats_train_batches(cases, 2, len(cases), cfg.batch_size, cfg.labeled_bs,
-                                  cfg.patch_size, seed=cfg.seed)
-    return cfg, batches, "SwinUNETR-ICL fs48, 96^3, batch 4 (2 labeled), recompute on"
+
+    def make_batches():
+        return brats_train_batches(cases, 2, len(cases), cfg.batch_size, cfg.labeled_bs,
+                                   cfg.patch_size, seed=cfg.seed)
+
+    return cfg, make_batches, "SwinUNETR-ICL fs48, 96^3, batch 4 (2 labeled), recompute on"
 
 
-def acdc_setup(precision: str):
+def acdc_setup(precision: str, model: str):
     from icl_tpu_torch.data.pipeline import acdc_train_batches
     from icl_tpu_torch.data.synth import synthetic_acdc
     from icl_tpu_torch.models.swin2d import SwinConfig
 
-    cfg = ExperimentConfig(root_path="in-memory", exp="profile", model="icl_swinunet",
-                           num_classes=4, max_iterations=3, batch_size=16, labeled_bs=8,
-                           patch_size=(384, 384), labeled_num=7, consis_weight=50.0,
-                           precision=precision,
-                           model_kwargs={"swin_cfg": SwinConfig(img_size=384, window_size=12)})
+    if model == "icl_swinunet":
+        side, kwargs = 384, {"swin_cfg": SwinConfig(img_size=384, window_size=12)}
+        what = "Swin-UNet-ICL embed 96, 384^2, window 12, batch 16 (8 labeled)"
+    else:
+        side, kwargs, what = 256, {}, "U-Net-ICL, 256^2, batch 16 (8 labeled)"
+    cfg = ExperimentConfig(root_path="in-memory", exp="profile", model=model, num_classes=4,
+                           max_iterations=3, batch_size=16, labeled_bs=8, patch_size=(side, side),
+                           labeled_num=7, consis_weight=50.0, precision=precision,
+                           model_kwargs=kwargs)
     slices, _ = synthetic_acdc(32, 0, 256, 1, 4, seed=0)
-    batches = acdc_train_batches(slices, 16, cfg.batch_size, cfg.labeled_bs, cfg.patch_size,
-                                 seed=cfg.seed)
-    return cfg, batches, "Swin-UNet-ICL embed 96, 384^2, window 12, batch 16 (8 labeled)"
+
+    def make_batches():
+        return acdc_train_batches(slices, 16, cfg.batch_size, cfg.labeled_bs, cfg.patch_size,
+                                  seed=cfg.seed)
+
+    return cfg, make_batches, what
+
+
+def setup(model: str, precision: str):
+    """(cfg, make_batches, description) of the training CLI of `model`;
+    make_batches() starts the seeded batch stream anew."""
+    return brats_setup(precision) if model == "swinunetr_icl" else acdc_setup(precision, model)
 
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--model", default="swinunetr_icl", choices=["swinunetr_icl", "icl_swinunet"])
+    p.add_argument("--model", default="swinunetr_icl",
+                   choices=["swinunetr_icl", "icl_swinunet", "icl_unet"])
     p.add_argument("--precision", default="float32", choices=["float32", "bfloat16"])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    setup = brats_setup if args.model == "swinunetr_icl" else acdc_setup
-    cfg, batches, what = setup(args.precision)
+    cfg, make_batches, what = setup(args.model, args.precision)
+    batches = make_batches()
+    t0 = time.perf_counter()
     trainer = Trainer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     for _ in range(2):  # the first step makes the momentum buffers and cuDNN plans
         trainer.step_fn(trainer.to_device(next(batches)))
     step_s = []
@@ -99,6 +121,8 @@ def main(argv=None):
     busy_ms, by_group, by_name, n_kernels = device_time_by_group(prof)
 
     print(f"card: {card}")
+    print(f"model built and initialised in {build_s:.2f} s, "
+          f"{sum(p.numel() for p in trainer.model.parameters())} parameters")
     print(f"training step without the profiler: {step_s} s, mean {sum(step_s) / len(step_s):.4f} s")
     print(f"training step {what}, {args.precision}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share "
@@ -110,7 +134,7 @@ def main(argv=None):
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {ms:10.3f} ms  x{n:<4d} {name[:110]}")
     print(json.dumps({"card": card, "model": args.model, "precision": args.precision,
-                      "step_s": step_s, "wall_ms": wall_ms,
+                      "build_s": build_s, "step_s": step_s, "wall_ms": wall_ms,
                       "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
                       "peak_bytes": peak, "by_group_ms": by_group}))
 

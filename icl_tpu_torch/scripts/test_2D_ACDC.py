@@ -3,17 +3,18 @@ per-class and mean Dice / HD95 of the best checkpoint over the val_test
 volumes, through the 2D slice predictor.
 
     python -m icl_tpu_torch.scripts.test_2D_ACDC --root_path ../ACDC \\
-        --exp ACDC/ICL --labeled_num 7 --cfg my_window12.yaml --patch_size 384 384
+        --exp ACDC/ICL --labeled_num 7
+    python -m icl_tpu_torch.scripts.test_2D_ACDC --root_path ../ACDC --exp ACDC/SwinICL \\
+        --labeled_num 7 --model icl_swinunet --cfg my_window12.yaml --patch_size 384 384
 
 The checkpoint is a torch state_dict in the reference key layout (default
 `<snapshot>/model/model_best.pth`, as the trainer saves it: ICL heads
-stripped), loaded strictly into the model's inference graph
-(`SwinUnetWrapper` for `icl_swinunet`). `--cfg` gives the Swin geometry
-the model was trained with, as the training CLI takes it; the JAX
-script has no such flag and builds the default geometry. `--model` and
-`--patch_size` default to `icl_swinunet` and 224 224, the port's only 2D
-model so far (the JAX script's defaults are `icl_unet` and 256 256). Runs
-on the CUDA card; `--device cpu` runs on the CPU.
+stripped), loaded strictly into the model's inference graph (`UNet` for
+`icl_unet`, the default, at 256 256; `SwinUnetWrapper` for
+`icl_swinunet`). `--cfg` gives the Swin geometry an `icl_swinunet` was
+trained with, as the training CLI takes it; the JAX script has no such
+flag and builds the default geometry. Runs on the CUDA card; `--device
+cpu` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from icl_tpu_torch.eval.infer2d import make_slice_predictor
 from icl_tpu_torch.metrics import calculate_metric_percase
 from icl_tpu_torch.models.registry import net_factory
 from icl_tpu_torch.models.swin_config import swin_cli_kwargs
+from icl_tpu_torch.train.trainer import ACDC_CLASS_NAMES
 from icl_tpu_torch.utils.convert import load_state_dict_file
 
 
@@ -36,9 +38,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--root_path", type=str, default="../ACDC")
     p.add_argument("--exp", type=str, default="ACDC/Inherent_Consistent_Learning")
-    p.add_argument("--model", type=str, default="icl_swinunet")
+    p.add_argument("--model", type=str, default="icl_unet")
     p.add_argument("--num_classes", type=int, default=4)
-    p.add_argument("--patch_size", type=int, nargs=2, default=[224, 224])
+    p.add_argument("--patch_size", type=int, nargs=2, default=[256, 256])
     p.add_argument("--labeled_num", type=int, default=7)
     p.add_argument("--num_tries", type=str, default="1")
     p.add_argument("--checkpoint", type=str, default=None)
@@ -83,7 +85,7 @@ def main(argv=None):
             per_class[cls - 1].append(calculate_metric_percase(pred == cls, item["label"] == cls))
         print(f"{item['case']}: done")
 
-    names = ["RV", "Myo", "LV"] if args.num_classes == 4 else [
+    names = ACDC_CLASS_NAMES if args.num_classes == 4 else [
         str(i) for i in range(1, args.num_classes)]
     total = np.zeros(2)
     for ci, name in enumerate(names):

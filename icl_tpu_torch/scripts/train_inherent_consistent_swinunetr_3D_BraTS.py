@@ -7,7 +7,8 @@ recompute on, validation by the BraTS sliding window every
     python -m icl_tpu_torch.scripts.train_inherent_consistent_swinunetr_3D_BraTS \\
         --root_path ../data/BraTS2019 --exp BraTS2019/ICL --max_iterations 30000
 
-Runs on the CUDA card; `--device cpu` runs on the CPU. `--precision
+The batches are made on a thread of their own (`Prefetcher`). Runs on the
+CUDA card; `--device cpu` runs on the CPU. `--precision
 float32` runs f32 with TF32 off; `bfloat16` (the default) runs the
 forward under autocast. The JAX CLI's `--scan_steps`, `--dispatch_depth`,
 multi-process and SSL-pretrained flags are not ported and are refused.
@@ -18,6 +19,7 @@ import argparse
 
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.brats import BraTS2019Dataset, brats_train_batches
+from icl_tpu_torch.data.pipeline import Prefetcher
 from icl_tpu_torch.train.trainer import Trainer, brats_evaluator
 
 
@@ -61,7 +63,8 @@ def main(argv=None):
                                   seed=cfg.seed)
     evaluate = brats_evaluator(BraTS2019Dataset(cfg.root_path, "val_test"), cfg.num_classes,
                                cfg.patch_size, trainer.device)
-    result = trainer.fit(batches, evaluate=evaluate, class_names=["WT"])
+    with Prefetcher(batches, pin_memory=trainer.device.type == "cuda") as prefetched:
+        result = trainer.fit(prefetched, evaluate=evaluate, class_names=["WT"])
     print("Training Finished!")
     return result
 

@@ -28,8 +28,9 @@ def make_icl_step(model: torch.nn.Module, optimizer: PolySGD, num_classes: int, 
     backward and one optimizer update. `batch` holds "image" [B, 1,
     *patch] f32 and "label" [B, *patch] integers on the model's device,
     the first `labeled_bs` samples labeled. With precision "bfloat16" the
-    forward runs under autocast; the losses take f32 maps. Metrics are
-    detached 0-d tensors (reading them syncs the device)."""
+    forward runs under autocast; the losses take f32 maps (f64 ones stay
+    f64). Metrics are detached 0-d tensors (reading them syncs the
+    device)."""
     patch = tuple(patch_size)
     if precision not in ("float32", "bfloat16"):
         raise ValueError(f"precision {precision!r}: want float32 or bfloat16")
@@ -44,7 +45,8 @@ def make_icl_step(model: torch.nn.Module, optimizer: PolySGD, num_classes: int, 
         with cast:
             outs = model(x_lab, x_unlab)
         out_lab, out_unlab, fm_lab, fm_unlab, fm_consis = (
-            o.float() if torch.is_tensor(o) else [m.float() for m in o] for o in outs)
+            losses.at_least_f32(o) if torch.is_tensor(o) else [losses.at_least_f32(m) for m in o]
+            for o in outs)
         loss_ce = losses.cross_entropy_loss(out_lab, y_lab)
         loss_dice = losses.multiclass_dice_loss(out_lab, y_lab, num_classes, softmax=True)
         loss_aux = losses.aux_loss(fm_lab, y_lab, num_classes, patch)

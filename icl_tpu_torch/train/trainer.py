@@ -1,11 +1,12 @@
 """Trainer: the ICL semi-supervised train loop (counterpart of
-`icl_tpu/train/trainer.py:45-524`, cut to what the SwinUNETR-ICL and
-Swin-UNet-ICL CLIs use): steps, metric logging every `log_interval` steps, validation every
-`val_interval` steps, and the best checkpoint (ICL heads stripped) in the
-reference snapshot layout:
+`icl_tpu/train/trainer.py:45-524`, cut to what the SwinUNETR-ICL,
+Swin-UNet-ICL and U-Net-ICL CLIs use): steps, metric logging every
+`log_interval` steps, validation every `val_interval` steps, and the best
+checkpoint (ICL heads stripped) in the reference snapshot layout:
 
     {experiments_dir}/{exp}_{labeled_num}_labeled/{model}_exp_{num_tries}/
         log.txt
+        log/scalars.jsonl   (and TensorBoard events where tensorboardX imports)
         model/model_best.pth
 """
 from __future__ import annotations
@@ -21,9 +22,10 @@ from icl_tpu_torch.models.registry import net_factory
 from icl_tpu_torch.train.optim import PolySGD
 from icl_tpu_torch.train.steps import make_icl_step
 from icl_tpu_torch.utils.checkpoint import save_best_model
-from icl_tpu_torch.utils.logging_utils import setup_logging
+from icl_tpu_torch.utils.logging_utils import ScalarWriter, setup_logging
 
-ICL_MODELS = ("swinunetr_icl", "icl_swinunet")
+ICL_MODELS = ("swinunetr_icl", "icl_swinunet", "icl_unet")
+ACDC_CLASS_NAMES = ["RV", "Myo", "LV"]  # classes 1..3 (icl_tpu/train/trainer.py:29)
 
 
 class Trainer:
@@ -43,11 +45,14 @@ class Trainer:
             torch.backends.cudnn.allow_tf32 = False
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
-        # ICL models take the training patch (icl_tpu/train/trainer.py:58-61)
+        # ICL models take the training patch (icl_tpu/train/trainer.py:58-63)
+        model_kwargs = dict(cfg.model_kwargs)
+        if cfg.fuse_icl_pair:
+            model_kwargs["fuse_sspa_pair"] = True
         self.model = net_factory(cfg.model, cfg.in_chns, cfg.num_classes, device=self.device,
                                  generator=generator, feature_size=cfg.feature_size,
                                  patch_size=int(cfg.patch_size[0]), remat=cfg.remat,
-                                 **cfg.model_kwargs)
+                                 **model_kwargs)
         self.optimizer = PolySGD(self.model.parameters(), cfg.base_lr, cfg.max_iterations,
                                  cfg.momentum, cfg.weight_decay, cfg.poly_power)
         self.step_fn = make_icl_step(self.model, self.optimizer, cfg.num_classes, cfg.labeled_bs,
@@ -56,8 +61,12 @@ class Trainer:
         self.iteration = 0
 
     def to_device(self, batch: dict) -> dict:
-        return {"image": torch.as_tensor(batch["image"], dtype=torch.float32).to(self.device),
-                "label": torch.as_tensor(batch["label"]).to(self.device, torch.long)}
+        """The batch's image (f32) and labels (long) on the device: numpy
+        arrays or CPU tensors, copied asynchronously where pinned (a
+        `Prefetcher` with `pin_memory`), or tensors already there."""
+        return {"image": torch.as_tensor(batch["image"], dtype=torch.float32)
+                .to(self.device, non_blocking=True),
+                "label": torch.as_tensor(batch["label"]).to(self.device, non_blocking=True).long()}
 
     def fit(self, train_batches: Iterable[dict],
             evaluate: Optional[Callable[[torch.nn.Module], dict]] = None,
@@ -65,14 +74,28 @@ class Trainer:
         """Run up to cfg.max_iterations steps. `evaluate(model)` runs every
         cfg.val_interval steps, with the model in eval mode, and returns
         the aggregate of `metrics.aggregate_case_metrics`; a new best
-        mean dice saves the best checkpoint. Returns {"log": one dict per
-        logged step (iteration, seconds since the start, lr, metrics),
-        "vals": one dict per validation, "best_mean_dice", "best_path"}."""
+        mean dice saves the best checkpoint. Each logged step writes the
+        scalars `Info/lr` and `Loss/<metric>`, each validation
+        `metric_all/{mean,std}_{dice,hd95}` and
+        `metric_class_<name>/mean_{dice,hd95}` (`ScalarWriter` under
+        `<snapshot>/log`). Returns {"log": one dict per logged step
+        (iteration, seconds since the start, lr, metrics), "vals": one dict
+        per validation, "best_mean_dice", "best_path"}."""
         cfg = self.cfg
         snapshot = cfg.snapshot_path
         logger = setup_logging(snapshot)
+        writer = ScalarWriter(f"{snapshot}/log")
+        try:
+            return self._fit(train_batches, evaluate, class_names, logger, writer)
+        finally:
+            writer.close()
+
+    def _fit(self, train_batches, evaluate, class_names, logger, writer) -> dict:
+        cfg = self.cfg
+        snapshot = cfg.snapshot_path
         if class_names is None:
-            class_names = [str(i) for i in range(1, cfg.num_classes)]
+            class_names = (ACDC_CLASS_NAMES if cfg.num_classes == 4
+                           else [str(i) for i in range(1, cfg.num_classes)])
         log, vals = [], []
         best, best_path = 0.0, None
         batch_iter = iter(train_batches)
@@ -88,8 +111,12 @@ class Trainer:
             it = self.iteration
             if it % cfg.log_interval == 0:
                 host = {k: float(v) for k, v in metrics.items()}  # syncs the card
-                log.append({"iteration": it, "seconds": time.perf_counter() - t_start,
-                            "lr": self.optimizer.schedule(it - 1), **host})
+                lr = self.optimizer.schedule(it - 1)
+                log.append({"iteration": it, "seconds": time.perf_counter() - t_start, "lr": lr,
+                            **host})
+                writer.add_scalar("Info/lr", lr, it)
+                for k, v in host.items():
+                    writer.add_scalar(f"Loss/{k}", v, it)
                 logger.info("iteration %d : " + ", ".join(f"{k}: {v:f}" for k, v in host.items()), it)
             if evaluate is not None and cfg.val_interval and it % cfg.val_interval == 0:
                 self.model.eval()
@@ -97,7 +124,11 @@ class Trainer:
                 self.model.train()
                 vals.append({"iteration": it, "mean_dice": agg["mean_dice"],
                              "mean_hd95": agg["mean_hd95"]})
+                for k in ("mean_dice", "mean_hd95", "std_dice", "std_hd95"):
+                    writer.add_scalar(f"metric_all/{k}", agg[k], it)
                 for name, (dice, hd95) in zip(class_names, agg["class_mean"]):
+                    writer.add_scalar(f"metric_class_{name}/mean_dice", dice, it)
+                    writer.add_scalar(f"metric_class_{name}/mean_hd95", hd95, it)
                     logger.info("iteration %d : class %s : dice %f  hd95 %f", it, name, dice, hd95)
                 logger.info("iteration %d : mean_dice : %f  mean_hd95 : %f",
                             it, agg["mean_dice"], agg["mean_hd95"])

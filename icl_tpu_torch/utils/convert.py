@@ -1,13 +1,14 @@
-"""Carry SwinUNETR, SwinUNETR-ICL, Swin-UNet 2D and Swin-UNet-ICL weights
-from the JAX package's parameter tree to the port's state_dict (the
-reference key layout).
+"""Carry SwinUNETR, SwinUNETR-ICL, Swin-UNet 2D, Swin-UNet-ICL, U-Net 2D
+and U-Net-ICL 2D weights from the JAX package's parameter tree to the
+port's state_dict (the reference key layout).
 
 Input: the JAX params (and, for the ICL heads, batch_stats) as nested
 dicts of numpy arrays; SwinUNETR in the stacked `nn.scan` layout.
 Output: a state_dict of CPU tensors that the port's `load_state_dict(...,
 strict=True)` takes. A copy of `export_swinunetr`,
 `swinunetr_conv_key_table`, `swinunet2d_full_key_table`,
-`export_swinunet2d`, `icl_head_key_table` and `export_icl_heads` of
+`export_swinunet2d`, `unet2d_key_table`, `export_icl_unet2d`,
+`icl_head_key_table` and `export_icl_heads` of
 `icl_tpu/utils/torch_import.py`, with the layout transforms they need:
 
     Conv:   flax (*k, I, O) -> torch (O, I, *k)
@@ -295,6 +296,56 @@ def icl_swinunet2d_state_dict_from_jax(params: dict, batch_stats: dict, img_size
     for name in ("sspa", "uscl"):
         out.update(icl_head_state_dict_from_jax(params[name], batch_stats[name], f"{name}.",
                                                 tokenized=True, query_name="guided_Q"))
+    return out
+
+
+def _convblock_entries(torch_prefix: str, flax_path: tuple):
+    """ConvBlock: torch Sequential indices 0 conv, 1 BN, 4 conv, 5 BN."""
+    out = []
+    for t_idx, name in ((0, "conv1"), (4, "conv2")):
+        out.append((f"{torch_prefix}.conv_conv.{t_idx}.weight",
+                    flax_path + (name, "Conv_0", "kernel"), f2t_conv))
+        out.append((f"{torch_prefix}.conv_conv.{t_idx}.bias", flax_path + (name, "Conv_0", "bias"),
+                    None))
+    for t_idx, name in ((1, "bn1"), (5, "bn2")):
+        base, f = f"{torch_prefix}.conv_conv.{t_idx}", flax_path + (name, "BatchNorm_0")
+        out.append((f"{base}.weight", f + ("scale",), None))
+        out.append((f"{base}.bias", f + ("bias",), None))
+        out.append((f"{base}.running_mean", (BATCH_STATS,) + f + ("mean",), None))
+        out.append((f"{base}.running_var", (BATCH_STATS,) + f + ("var",), None))
+    return out
+
+
+def unet2d_key_table():
+    """torch key -> (flax path, transform) for the reference 2D U-Net:
+    encoder ConvBlocks, decoder UpBlocks (conv1x1 + ConvBlock; the
+    upsample has no parameters) and the output conv."""
+    table = _convblock_entries("encoder.in_conv", ("encoder", "in_conv"))
+    for i in range(1, 5):
+        table += _convblock_entries(f"encoder.down{i}.maxpool_conv.1", ("encoder", f"down{i}"))
+    for i in range(1, 5):
+        base, f = f"decoder.up{i}", ("decoder", f"up{i}")
+        table.append((f"{base}.conv1x1.weight", f + ("conv1x1", "Conv_0", "kernel"), f2t_conv))
+        table.append((f"{base}.conv1x1.bias", f + ("conv1x1", "Conv_0", "bias"), None))
+        table += _convblock_entries(f"{base}.conv", f + ("conv",))
+    table.append(("decoder.out_conv.weight", ("decoder", "out_conv", "Conv_0", "kernel"), f2t_conv))
+    table.append(("decoder.out_conv.bias", ("decoder", "out_conv", "Conv_0", "bias"), None))
+    return table
+
+
+def unet2d_state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
+    """JAX UNet (or UNetICL backbone) params and batch_stats -> the port's
+    `UNet` state_dict."""
+    return _state_dict_from_table(unet2d_key_table(), params, batch_stats)
+
+
+def icl_unet2d_state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
+    """JAX UNetICL params (backbone under "encoder" and "decoder", heads
+    under "sspa" and "uscl") and batch_stats -> the port's full state_dict."""
+    out = unet2d_state_dict_from_jax(params, batch_stats)
+    for name in ("sspa", "uscl"):
+        out.update(icl_head_state_dict_from_jax(params[name], batch_stats[name], f"{name}.",
+                                                query_name="guided_Q"))
     return out
 
 

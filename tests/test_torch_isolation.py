@@ -37,6 +37,12 @@ outs = model2d(torch.randn(2, 1, 64, 64), torch.randn(2, 1, 64, 64))
 assert len(outs) == 5 and outs[0].shape == (2, 4, 64, 64)
 labels = make_slice_predictor(model2d.eval(), (64, 64), "cpu")(np.zeros((3, 40, 40), np.float32))
 assert labels.shape == (3, 40, 40)
+from icl_tpu_torch.scripts import train_inherent_consistent_unet_2D
+unet = net_factory("icl_unet", 1, 4, device="cpu", patch_size=64, fuse_sspa_pair=True)
+outs = unet(torch.randn(2, 1, 64, 64), torch.randn(2, 1, 64, 64))
+assert len(outs) == 5 and outs[0].shape == (2, 4, 64, 64) and outs[4][2].shape == (2, 4, 32, 32)
+args = train_inherent_consistent_unet_2D.parse_args(["--fuse_icl_pair"])
+assert args.model == "icl_unet" and args.fuse_icl_pair
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "icl_tpu"))
 print("LEAKED", bad)

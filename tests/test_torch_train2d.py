@@ -216,5 +216,5 @@ def test_cli_trains_on_cpu_and_eval_cli_reproduces_val_dice(tmp_path, monkeypatc
     assert result["best_mean_dice"] > 0 and result["best_path"] is not None
     snapshot = tmp_path / "experiments" / "ACDC" / "SwinICL_3_labeled" / "icl_swinunet_exp_t"
     assert (snapshot / "log.txt").exists() and (snapshot / "model" / "model_best.pth").exists()
-    total = test_2D_ACDC.main(common)
+    total = test_2D_ACDC.main(common + ["--model", "icl_swinunet"])
     assert total[0] == result["vals"][-1]["mean_dice"]
