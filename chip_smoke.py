@@ -89,6 +89,34 @@ Phases, each fatal on failure:
  20. U-Net train -> eval: the stripped best checkpoint loads strictly into
      UNet through the 2D eval CLI's loader and gives the trainer's
      validation dice;
+ 21. U-Net-ICL 3D training on BraTS, the main path of this slice, at the
+     JAX 3D U-Net CLI's defaults: filters (16, 32, 64, 128, 256), ICL heads
+     on (256, 128, 64) channels, heads (16, 8, 4), resolutions (6, 12, 24)
+     (`mlp2` 13824^2 at the finest), 96^3, batch 4 (2 labeled), 2 classes,
+     consistency weight 10, f32 with TF32 off, through Trainer.fit for 3
+     steps on phase 9's 128^3 cases made on a `Prefetcher` thread, with a
+     validation at step 3 on the held-out case; s/step after the warm-up
+     step, the step thread's wait for each batch, the validation time, the
+     time to build the model, its parameters, peak memory, every loss
+     term, the window-attention launches (asserted: none); then one step
+     under bfloat16 autocast;
+ 22. one U-Net-ICL 3D step at 32^3 on the card against the same step on
+     the CPU (same weights and batch, dropout and drop path off), beside a
+     control step, the rule of 18;
+ 23. two steps of the supervised U-Net 3D on the BraTS cases through
+     Trainer.fit (no window attention, asserted);
+ 24. U-Net 3D train -> eval: the stripped best checkpoint of 21 loads
+     strictly into UNet3D through test_3D_BraTS's loader (`--model
+     unet_3D_icl`) and gives the trainer's validation dice;
+ 25. AMOS22 through the JAX AMOS CLI's own defaults (`main` of the port's
+     CLI): a seeded synthetic NIfTI tree (4 training cases and 1
+     validation case of (96, 96, 72) voxels at spacing (2, 2, 3)),
+     U-Net-ICL 3D, 16 classes, bf16 autocast, recompute on, 3 steps and a
+     validation by `evaluate_amos_cases`; s/step, peak memory, every loss
+     term, the validation time, the window-attention launches (none);
+ 26. the supervised AMOS CLI for 2 steps (loss 0.5 (CE + Dice));
+ 27. AMOS train -> eval: test_3D_AMOS on the stripped best checkpoint of
+     25 gives the trainer's validation dice;
 then a `kernels` JSON line, the card line, and the result line. Exits
 non-zero without a result when CUDA is absent.
 """
@@ -210,8 +238,21 @@ PER_STEP_2D = {m: 2 * n for m, n in PER_FORWARD_2D.items()}  # two passes, no re
 # of which 8 labeled, 4 classes) on phase 14's slices and volumes; its step
 # on the card against the CPU at 64^2.
 IMG_UNET, IMG_UNET_CPU = 256, 64
+# This slice: the 3D U-Net family at the JAX 3D U-Net CLIs' defaults:
+# U-Net-ICL 3D, filters (16, 32, 64, 128, 256), ICL heads on (256, 128, 64)
+# channels, heads (16, 8, 4), resolutions (6, 12, 24) (`mlp2` 13824^2 at the
+# finest), 96^3, batch 4 of which 2 labeled, consistency weight 10: on
+# BraTS (phase 9's 128^3 cases, 2 classes, f32) and on AMOS22 (a seeded
+# NIfTI tree, 16 classes, pse weight 0.1, base LR 0.02, bf16 autocast,
+# recompute on); its step on the card against the CPU at 32^3. The AMOS
+# tree holds 4 training cases (the supervised CLI's batch of 4 needs 4
+# labeled ones) and 1 validation case, (96, 96, 72) voxels at spacing
+# (2, 2, 3), about 127 x 127 x 107 at the protocol's spacing.
+UNET3D_CPU = 32
+AMOS_CASES, AMOS_SHAPE, AMOS_SPACING = 5, (96, 96, 72), (2.0, 2.0, 3.0)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXPERIMENTS = os.path.join(ROOT, "build", "chip_smoke", "experiments")
+AMOS_ROOT = os.path.join(ROOT, "build", "chip_smoke", "amos")  # ../experiments is EXPERIMENTS
 
 
 def fail(msg: str) -> None:
@@ -965,9 +1006,10 @@ def ratio(err: float, allow: float) -> float:
     return err / allow if allow > 0 else (0.0 if err == 0 else math.inf)
 
 
-def unet_step(torch, model, batch, side: int, device, input_scale: float = 1.0):
+def unet_step(torch, model, batch, patch, device, input_scale: float = 1.0,
+              classes: int = CLASSES_2D, labeled: int = LABELED_2D, consis: float = 50.0):
     """(loss terms, parameters after) of one ICL step of `model` (f32 or
-    f64) at patch `side` on `batch`, with a fresh optimizer. The
+    f64) at patch `patch` on `batch`, with a fresh optimizer. The
     parameters are the model's own tensors: clone them before the model
     moves on."""
     from icl_tpu_torch.train.optim import PolySGD
@@ -976,7 +1018,7 @@ def unet_step(torch, model, batch, side: int, device, input_scale: float = 1.0):
     dtype = next(model.parameters()).dtype
     model.zero_grad(set_to_none=True)
     opt = PolySGD(model.parameters(), 0.01, 30000)
-    step = make_icl_step(model, opt, CLASSES_2D, LABELED_2D, (side, side), 50.0)
+    step = make_icl_step(model, opt, classes, labeled, tuple(patch), consis)
     on_device = {"image": torch.as_tensor(batch["image"]).to(device, dtype) * input_scale,
                  "label": torch.as_tensor(batch["label"]).to(device).long()}
     metrics = {k: float(v) for k, v in step(on_device).items()}
@@ -996,7 +1038,7 @@ def phase_unet_device_vs_cpu(torch, slices) -> None:
         model = net_factory("icl_unet", 1, CLASSES_2D, device=device, patch_size=IMG_UNET_CPU,
                             zero_stochastic=True, generator=torch.Generator().manual_seed(cfg.seed))
         starts.append({n: p.detach().cpu().clone() for n, p in model.named_parameters()})
-        metrics, after = unet_step(torch, model, batch, IMG_UNET_CPU, device, scale)
+        metrics, after = unet_step(torch, model, batch, (IMG_UNET_CPU,) * 2, device, scale)
         return metrics, {n: t.cpu().clone() for n, t in after.items()}
 
     t0 = time.perf_counter()
@@ -1026,7 +1068,7 @@ def phase_unet_fused_pair(torch, slices) -> None:
     def run(fuse: bool):
         model.load_state_dict(start)
         model.fuse_sspa_pair = fuse
-        return unet_step(torch, model, batch, IMG_UNET, DEVICE)
+        return unet_step(torch, model, batch, (IMG_UNET,) * 2, DEVICE)
 
     t0 = time.perf_counter()
     metrics, after = run(False)
@@ -1055,6 +1097,263 @@ def phase_train_to_eval_unet(torch, volumes, training: dict) -> None:
           f"dice {agg['mean_dice']!r}, the trainer's validation {training['val_dice']!r}", flush=True)
     if agg["mean_dice"] != training["val_dice"]:
         fail("the U-Net eval path does not reproduce the trainer's validation dice")
+    del model
+    torch.cuda.empty_cache()
+
+
+def unet3d_config(model: str, precision: str, max_iterations: int, val_interval: int, tries: str):
+    from icl_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig(
+        root_path="in-memory", exp="BraTS_chip_smoke/UNet3D", model=model, num_classes=2,
+        max_iterations=max_iterations, batch_size=TRAIN_BATCH, labeled_bs=LABELED_BS,
+        base_lr=0.01, patch_size=(PATCH,) * 3, seed=1337, labeled_num=2, num_tries=tries,
+        consis_weight=10.0, val_interval=val_interval, log_interval=1, precision=precision,
+        experiments_dir=EXPERIMENTS)
+
+
+def launches_now(wa) -> dict:
+    return {"fwd": dict(wa.window_attention.launches_by_mode),
+            "bwd": dict(wa.window_attention_bwd.launches_by_mode)}
+
+
+def no_attention(tag: str, path: dict) -> None:
+    if any(n for counts in path.values() for n in counts.values()):
+        fail(f"{tag} the 3D U-Net path launched window attention: {path}")
+
+
+def print_log(tag: str, log: list, keys) -> None:
+    bad = [(r["iteration"], k) for r in log for k in keys if not math.isfinite(r[k])]
+    if bad:
+        fail(f"{tag} non-finite loss terms {bad}")
+    for r in log:
+        print(f"{tag} step {r['iteration']} lr {r['lr']:.6f} "
+              + " ".join(f"{k} {r[k]:.6f}" for k in keys), flush=True)
+
+
+def phase_training_unet3d(torch, wa, cases, held_out) -> dict:
+    """21: Trainer.fit of U-Net-ICL 3D on BraTS at full width, its batches
+    made on a Prefetcher thread, then one bf16 step; no window attention."""
+    import gc
+
+    from icl_tpu_torch.data.brats import brats_train_batches
+    from icl_tpu_torch.data.pipeline import Prefetcher
+    from icl_tpu_torch.scripts.time_fit import timed
+    from icl_tpu_torch.train.steps import METRIC_KEYS
+    from icl_tpu_torch.train.trainer import Trainer, brats_evaluator
+
+    cfg = unet3d_config("unet_3D_icl", "float32", TRAIN_STEPS, TRAIN_STEPS, "float32")
+    torch.manual_seed(0)  # dropout and drop-path masks
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    validate = brats_evaluator(held_out, 2, cfg.patch_size, trainer.device)
+    waits = []
+
+    def batches():
+        return brats_train_batches(cases, 2, len(cases), TRAIN_BATCH, LABELED_BS, cfg.patch_size,
+                                   seed=cfg.seed)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Prefetcher(batches(), pin_memory=trainer.device.type == "cuda") as prefetched:
+        wa.reset_launch_counts()
+        result = trainer.fit(timed(prefetched, waits), evaluate=validate, class_names=["WT"])
+        torch.cuda.synchronize()
+        path = launches_now(wa)
+    peak = torch.cuda.max_memory_allocated()
+    log = result["log"]
+    if len(log) != TRAIN_STEPS or not result["vals"]:
+        fail(f"expected {TRAIN_STEPS} logged U-Net-ICL 3D steps and a validation, got {result}")
+    s_per_step = (log[-1]["seconds"] - log[0]["seconds"]) / (len(log) - 1)
+    print(f"[unet3d] U-Net-ICL 3D, {n_params} params, built and initialised in {build_s:.2f} s; "
+          f"BraTS {PATCH}^3, batch {TRAIN_BATCH} ({LABELED_BS} labeled), 2 classes, f32, TF32 off: "
+          f"{s_per_step:.4f} s/step after the warm-up step (step times "
+          f"{[round(r['seconds'], 4) for r in log]} s from the start); the step's thread waited "
+          f"{[round(w, 4) for w in waits]} s for its batches (Prefetcher); peak memory "
+          f"{peak / 2**30:.2f} GiB; window-attention launches {path}", flush=True)
+    print_log("[unet3d]", log, METRIC_KEYS)
+    val = result["vals"][-1]
+    print(f"[unet3d] validation at step {val['iteration']} on one held-out {CASE_SIZE}^3 case in "
+          f"{val['seconds']:.4f} s: mean dice {val['mean_dice']!r} hd95 {val['mean_hd95']!r}; best "
+          f"checkpoint {result['best_path']}", flush=True)
+    no_attention("[unet3d]", path)
+    if result["best_path"] is None:
+        fail(f"U-Net-ICL 3D validation dice {val['mean_dice']}: no best checkpoint was saved")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(unet3d_config("unet_3D_icl", "bfloat16", 1, 0, "bfloat16"), device=DEVICE)
+    log16 = trainer.fit(batches())["log"]
+    print("[unet3d] one bfloat16 autocast step: "
+          + " ".join(f"{k} {log16[0][k]:.6f}" for k in METRIC_KEYS), flush=True)
+    if not all(math.isfinite(log16[0][k]) for k in METRIC_KEYS):
+        fail("non-finite U-Net-ICL 3D loss under bfloat16")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"s_per_step": s_per_step, "waits_s": waits, "val_s": val["seconds"],
+            "build_s": build_s, "n_params": n_params, "peak_bytes": peak, "path_launches": path,
+            "val_dice": val["mean_dice"], "best_path": result["best_path"]}
+
+
+def phase_unet3d_device_vs_cpu(torch, cases) -> None:
+    """22: one U-Net-ICL 3D step at 32^3 on the card against the CPU."""
+    from icl_tpu_torch.data.brats import brats_train_batches
+    from icl_tpu_torch.models.registry import net_factory
+
+    patch = (UNET3D_CPU,) * 3
+    batch = next(brats_train_batches(cases, 2, len(cases), TRAIN_BATCH, LABELED_BS, patch, seed=1337))
+    starts = []
+
+    def run(device, scale=1.0):
+        model = net_factory("unet_3D_icl", 1, 2, device=device, patch_size=UNET3D_CPU,
+                            zero_stochastic=True, generator=torch.Generator().manual_seed(1337))
+        starts.append({n: p.detach().cpu().clone() for n, p in model.named_parameters()})
+        metrics, after = unet_step(torch, model, batch, patch, device, scale, classes=2,
+                                   labeled=LABELED_BS, consis=10.0)
+        return metrics, {n: t.cpu().clone() for n, t in after.items()}
+
+    t0 = time.perf_counter()
+    runs = {"test": run(DEVICE), "reference": run("cpu"), "control": run(DEVICE, 1.0 + 1e-7)}
+    if not all(torch.equal(s[n], starts[0][n]) for s in starts for n in starts[0]):
+        fail("[unet3d-cpu] the steps did not start from the same weights")
+    step_agreement(torch, "[unet3d-cpu]", f"one {UNET3D_CPU}^3 f32 step, card vs CPU "
+                   f"({time.perf_counter() - t0:.1f} s for the three)", starts[0], runs)
+
+
+def phase_supervised_unet3d(torch, wa, cases) -> dict:
+    """23: two steps of the supervised U-Net 3D on BraTS through fit."""
+    import gc
+
+    from icl_tpu_torch.data.brats import brats_supervised_batches
+    from icl_tpu_torch.data.pipeline import Prefetcher
+    from icl_tpu_torch.train.steps import SUPERVISED_METRIC_KEYS
+    from icl_tpu_torch.train.trainer import Trainer
+
+    cfg = unet3d_config("unet_3D", "float32", 2, 0, "supervised")
+    torch.manual_seed(0)
+    trainer = Trainer(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Prefetcher(brats_supervised_batches(cases, TRAIN_BATCH, cfg.patch_size, seed=cfg.seed),
+                    pin_memory=trainer.device.type == "cuda") as batches:
+        wa.reset_launch_counts()
+        log = trainer.fit(batches)["log"]
+        torch.cuda.synchronize()
+        path = launches_now(wa)
+    print(f"[unet3d-sup] supervised U-Net 3D, BraTS {PATCH}^3, batch {TRAIN_BATCH}, f32: step times "
+          f"{[round(r['seconds'], 4) for r in log]} s from the start; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; window-attention launches {path}",
+          flush=True)
+    if len(log) != 2:
+        fail(f"expected 2 logged supervised steps, got {log}")
+    print_log("[unet3d-sup]", log, SUPERVISED_METRIC_KEYS)
+    no_attention("[unet3d-sup]", path)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"path_launches": path, "log": log}
+
+
+def amos_cli(torch, wa, module: str, argv: list, keys) -> dict:
+    """One AMOS training CLI's `main(argv)` from AMOS_ROOT, with the
+    window-attention counts and the peak memory of the run."""
+    import gc
+    import importlib
+
+    cli = importlib.import_module(f"icl_tpu_torch.scripts.{module}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wa.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = cli.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    path = launches_now(wa)
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log = result["log"]
+    tag = f"[{module}]"
+    steps = len(log)
+    s_per_step = (log[-1]["seconds"] - log[0]["seconds"]) / (steps - 1)
+    print(f"{tag} {steps} steps: {s_per_step:.4f} s/step after the warm-up step (step times "
+          f"{[round(r['seconds'], 4) for r in log]} s from the start, the first waiting for the "
+          f"cases' preprocessing); whole run {run_s:.2f} s; peak memory {peak / 2**30:.2f} GiB; "
+          f"window-attention launches {path}", flush=True)
+    print_log(tag, log, keys)
+    for val in result["vals"]:
+        print(f"{tag} validation at step {val['iteration']} in {val['seconds']:.4f} s: mean dice "
+              f"{val['mean_dice']!r} hd95 {val['mean_hd95']!r}; best checkpoint "
+              f"{result['best_path']}", flush=True)
+    no_attention(tag, path)
+    return {"s_per_step": s_per_step, "peak_bytes": peak, "path_launches": path,
+            "vals": result["vals"], "best_path": result["best_path"], "log": log}
+
+
+def phase_amos(torch, wa) -> tuple[dict, dict]:
+    """25 - 27: the AMOS ICL CLI for 3 steps and a validation, the
+    supervised CLI for 2 steps, then test_3D_AMOS on the stripped best
+    checkpoint, all on a seeded synthetic NIfTI tree."""
+    from icl_tpu_torch.data.synth import make_synthetic_amos
+    from icl_tpu_torch.scripts import test_3D_AMOS
+    from icl_tpu_torch.train.steps import METRIC_KEYS, SUPERVISED_METRIC_KEYS
+
+    shutil.rmtree(AMOS_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    jpath = make_synthetic_amos(AMOS_ROOT, AMOS_CASES, AMOS_SHAPE, AMOS_SPACING, seed=0)
+    print(f"[amos] synthetic tree of {AMOS_CASES} cases {AMOS_SHAPE} at spacing {AMOS_SPACING} "
+          f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+    common = ["--root_path", AMOS_ROOT, "--split_path", jpath, "--val_num", "1"]
+    cwd = os.getcwd()
+    os.chdir(AMOS_ROOT)  # the CLIs' snapshots land in ../experiments
+    try:
+        torch.manual_seed(0)
+        icl = amos_cli(torch, wa, "train_inherent_consistent_unet_3D_AMOS22",
+                       common + ["--exp", "AMOS_chip_smoke/ICL", "--labeled_num", "2",
+                                 "--total_num", str(AMOS_CASES - 1), "--max_iterations",
+                                 str(TRAIN_STEPS), "--val_interval", str(TRAIN_STEPS),
+                                 "--num_tries", "bfloat16"], METRIC_KEYS)
+        if len(icl["log"]) != TRAIN_STEPS or not icl["vals"] or icl["best_path"] is None:
+            fail(f"[amos] expected {TRAIN_STEPS} steps, a validation and a best checkpoint")
+        sup = amos_cli(torch, wa, "train_fully_supervised_unet_3D_AMOS22",
+                       common + ["--exp", "AMOS_chip_smoke/Fully_Supervised", "--labeled_num",
+                                 str(AMOS_CASES - 1), "--max_iterations", "2", "--val_interval",
+                                 "0", "--num_tries", "float32"], SUPERVISED_METRIC_KEYS)
+        if len(sup["log"]) != 2:
+            fail(f"[amos] expected 2 supervised steps, got {sup['log']}")
+        total = test_3D_AMOS.main(common[:4] + ["--exp", "AMOS_chip_smoke/ICL", "--labeled_num",
+                                                "2", "--num_tries", "bfloat16", "--val_num", "0"])
+    finally:
+        os.chdir(cwd)
+    val_dice = icl["vals"][-1]["mean_dice"]
+    print(f"[eval-amos] test_3D_AMOS on the stripped best checkpoint, loaded strictly into UNet3D: "
+          f"mean dice {float(total[0])!r}, the trainer's validation {val_dice!r}", flush=True)
+    if total[0] != val_dice:
+        fail("the AMOS eval CLI does not reproduce the trainer's validation dice")
+    return icl, sup
+
+
+def phase_train_to_eval_unet3d(torch, held_out, training: dict) -> None:
+    """24: the BraTS stripped best checkpoint through test_3D_BraTS's loader
+    with --model unet_3D_icl."""
+    from icl_tpu_torch.eval.infer3d import evaluate_brats_cases, make_patch_predictor
+    from icl_tpu_torch.metrics import aggregate_case_metrics
+    from icl_tpu_torch.scripts.test_3D_BraTS import load_eval_model
+
+    model = load_eval_model("unet_3D_icl", training["best_path"], 2, DEVICE)
+    metric_cal = evaluate_brats_cases(make_patch_predictor(model), held_out, 2, (PATCH,) * 3, STRIDE,
+                                      STRIDE, sw_batch=SW_BATCH, device=DEVICE)
+    agg = aggregate_case_metrics(metric_cal)
+    print(f"[eval-unet3d] stripped best checkpoint, loaded strictly into {type(model).__name__}: "
+          f"mean dice {agg['mean_dice']!r}, the trainer's validation {training['val_dice']!r}",
+          flush=True)
+    if agg["mean_dice"] != training["val_dice"]:
+        fail("the 3D U-Net eval path does not reproduce the trainer's validation dice")
     del model
     torch.cuda.empty_cache()
 
@@ -1193,6 +1492,15 @@ def main() -> int:
     phase_unet_fused_pair(torch, slices)
     phase_train_to_eval_unet(torch, volumes, training_unet)
 
+    # 21 - 27. this slice: U-Net-ICL 3D on BraTS, its step on the card
+    # against the CPU, the supervised U-Net 3D, train -> eval; the AMOS
+    # CLIs and train -> eval
+    training_unet3d = phase_training_unet3d(torch, wa, cases, held_out)
+    phase_unet3d_device_vs_cpu(torch, cases)
+    supervised_unet3d = phase_supervised_unet3d(torch, wa, cases)
+    phase_train_to_eval_unet3d(torch, held_out, training_unet3d)
+    amos_icl, amos_sup = phase_amos(torch, wa)
+
     # The kernels line, one entry per kernel and mode. Times are sums over
     # the shapes of a unit of work, each f32 launch time times its launches
     # there: for no-mask and mask one Swin-UNet-ICL training step at 384^2
@@ -1200,7 +1508,8 @@ def main() -> int:
     # one SwinUNETR inference forward (forward, phase 4) or training step
     # (backward, phase 8); `paths` holds the other units. `launches`: the
     # training run of the same path (3 steps and a validation, phases 14 or
-    # 9), the other paths' runs beside it in `launches_by_path`.
+    # 9), the other paths' runs beside it in `launches_by_path` (the U-Net
+    # paths of phases 17, 21, 23, 25 and 26 launch none).
     def totals(rows, weights):
         by_stage = {r["stage"]: r for r in rows}
         tot = {key: sum(by_stage[st][key] * n for st, n in weights.items())
@@ -1237,7 +1546,13 @@ def main() -> int:
         for mode in ("none", "region", "mask"):
             by_path = {"training_3d": training["path_launches"][direction][mode],
                        "training_2d": training_2d["path_launches"][direction][mode],
-                       "training_unet_2d": training_unet["path_launches"][direction][mode]}
+                       "training_unet_2d": training_unet["path_launches"][direction][mode],
+                       "training_unet_3d_brats": training_unet3d["path_launches"][direction][mode],
+                       "training_unet_3d_brats_supervised":
+                           supervised_unet3d["path_launches"][direction][mode],
+                       "training_unet_3d_amos": amos_icl["path_launches"][direction][mode],
+                       "training_unet_3d_amos_supervised":
+                           amos_sup["path_launches"][direction][mode]}
             if direction == "fwd":
                 by_path["inference_3d"] = launches.get(mode, 0)
             errs = [r["max_abs_err"] for r in rows_3d + rows_2d if r["mode"] == mode

@@ -27,6 +27,7 @@ class ExperimentConfig:
     # Loss weights
     consis_weight: float = 50.0
     pse_weight: float = 1.0
+    seg_weight: float = 1.0  # the supervised step's; the AMOS supervised CLI uses 0.5
 
     # Optimizer (constant across the reference)
     momentum: float = 0.9
@@ -40,7 +41,7 @@ class ExperimentConfig:
 
     # 'float32' (TF32 off, parity) or 'bfloat16' (forward under autocast)
     precision: str = "float32"
-    remat: bool = False  # recompute blocks in the backward
+    remat: bool = False  # recompute the backbone's blocks in the backward
     # the ICL models' two labeled-mode sspa calls as one batched call
     # (per-branch BatchNorm stats and labeled-only query means kept)
     fuse_icl_pair: bool = False

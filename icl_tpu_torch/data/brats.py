@@ -13,20 +13,25 @@ channel-first.
 from __future__ import annotations
 
 import os
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
 from icl_tpu_torch.data.manifests import resolve_manifest
 from icl_tpu_torch.data.sampler import two_stream_batches
 
+
 class BraTS2019Dataset:
-    def __init__(self, base_dir: str, split: str = "val_test"):
+    """The cases of one split list; `num` keeps its first `num` cases."""
+
+    def __init__(self, base_dir: str, split: str = "val_test", num: Optional[int] = None):
         self.base_dir = base_dir
         list_file = {"train": "train.txt", "test": "val.txt",
                      "val_test": "val_test.txt"}.get(split, f"{split}.txt")
         with open(resolve_manifest(base_dir, list_file, "BraTS2019")) as f:
             self.image_list = [ln.strip().split(",")[0] for ln in f if ln.strip()]
+        if num is not None:
+            self.image_list = self.image_list[:num]
 
     def __len__(self) -> int:
         return len(self.image_list)
@@ -80,11 +85,35 @@ def brats_train_batches(dataset, labeled_count: int, total_count: int, batch_siz
     aug_rng = np.random.default_rng(seed + 1)
     for idxs in two_stream_batches(list(range(labeled_count)), list(range(labeled_count, total_count)),
                                    batch_size, batch_size - labeled_bs, seed=seed):
-        imgs, labs = [], []
-        for i in idxs:
-            item = dataset[i]
-            img, lab = random_rot_flip_3d(item["image"], item["label"], aug_rng)
-            img, lab = random_crop_3d(img, lab, patch_size, aug_rng)
-            imgs.append(img.astype(np.float32)[None])
-            labs.append(lab.astype(np.uint8))
-        yield {"image": np.stack(imgs), "label": np.stack(labs)}
+        yield _augmented_batch(dataset, idxs, patch_size, aug_rng)
+
+
+def brats_supervised_batches(dataset, batch_size: int, patch_size: Sequence[int] = (96, 96, 96),
+                             seed: int = 1337) -> Iterator[dict]:
+    """Endless labeled batches as `brats_train_batches` makes them, over
+    one fresh permutation of the whole dataset per epoch (from `seed`;
+    the remainder dropped), augmented from `seed + 1`. Raises if the
+    dataset holds fewer cases than one batch (the JAX package's loop then
+    spins without yielding)."""
+    n = len(dataset)
+    if n < batch_size:
+        raise ValueError(f"{n} cases cannot fill a batch of {batch_size}")
+    rng = np.random.default_rng(seed)
+    aug_rng = np.random.default_rng(seed + 1)
+    while True:
+        perm = rng.permutation(n)
+        for start in range(0, n - batch_size + 1, batch_size):
+            yield _augmented_batch(dataset, [int(i) for i in perm[start:start + batch_size]],
+                                   patch_size, aug_rng)
+
+
+def _augmented_batch(dataset, idxs, patch_size, aug_rng: np.random.Generator) -> dict:
+    """RandomRotFlip then RandomCrop of each case, channel-first."""
+    imgs, labs = [], []
+    for i in idxs:
+        item = dataset[i]
+        img, lab = random_rot_flip_3d(item["image"], item["label"], aug_rng)
+        img, lab = random_crop_3d(img, lab, patch_size, aug_rng)
+        imgs.append(img.astype(np.float32)[None])
+        labs.append(lab.astype(np.uint8))
+    return {"image": np.stack(imgs), "label": np.stack(labs)}

@@ -1,9 +1,16 @@
-"""Seeded synthetic BraTS cases and ACDC slices and volumes in memory (the
-arrays of `icl_tpu/data/synth.py`'s `make_synthetic_brats` and
-`make_synthetic_acdc`, drawn in the same order, without the h5 files)."""
+"""Seeded synthetic data: BraTS cases and ACDC slices and volumes in memory
+(the arrays of `icl_tpu/data/synth.py`'s `make_synthetic_brats` and
+`make_synthetic_acdc`, drawn in the same order, without the h5 files), and
+an AMOS22 Decathlon tree of NIfTI files (`make_synthetic_amos`, the same
+files as the JAX package's)."""
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
+
+from icl_tpu_torch.data.nifti import save_nifti
 
 
 def synthetic_brats_cases(num_cases: int, size: int, seed: int = 0) -> list[dict]:
@@ -55,3 +62,39 @@ def synthetic_acdc(num_slices: int, num_volumes: int, slice_size: int, vol_depth
         volumes.append({"image": np.stack([p[0] for p in pairs]),
                         "label": np.stack([p[1] for p in pairs]), "case": f"synthvol{i:03d}"})
     return slices, volumes
+
+
+def make_synthetic_amos(root: str, num_cases: int = 4, shape=(96, 96, 72), spacing=(2.0, 2.0, 3.0),
+                        num_classes: int = 16, seed: int = 0) -> str:
+    """A Decathlon-style AMOS22 tree under `root`: imagesTr/ and labelsTr/
+    `.nii.gz` volumes of `shape` at `spacing` (CT-like noise N(60, 50^2)
+    with up to five spherical organs of +120, labelled 1..5) and
+    `dataset_semi_ct.json` listing all cases but the last for training
+    and the last for validation. At the protocol's (1.5, 1.5, 2.0) spacing
+    the default volumes resample to about 127 x 127 x 107 voxels, large
+    enough for 96^3 crops. Returns the JSON's path."""
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, "imagesTr")
+    lab_dir = os.path.join(root, "labelsTr")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(lab_dir, exist_ok=True)
+    affine = np.diag([spacing[0], spacing[1], spacing[2], 1.0])
+    zz, yy, xx = np.mgrid[:shape[0], :shape[1], :shape[2]]
+    training = []
+    for i in range(num_cases):
+        img = rng.normal(60.0, 50.0, size=shape).astype(np.float32)
+        lab = np.zeros(shape, np.uint8)
+        for organ in range(1, min(num_classes, 6)):
+            cz, cy, cx = rng.integers(12, np.asarray(shape) - 12)
+            r = int(rng.integers(4, 10))
+            mask = (zz - cz) ** 2 + (yy - cy) ** 2 + (xx - cx) ** 2 < r**2
+            lab[mask] = organ
+            img[mask] += 120.0
+        name = f"amos_{i:04d}.nii.gz"
+        save_nifti(os.path.join(img_dir, name), img, affine)
+        save_nifti(os.path.join(lab_dir, name), lab, affine)
+        training.append({"image": f"imagesTr/{name}", "label": f"labelsTr/{name}"})
+    jpath = os.path.join(root, "dataset_semi_ct.json")
+    with open(jpath, "w") as f:
+        json.dump({"training": training[:-1], "validation": training[-1:]}, f)
+    return jpath

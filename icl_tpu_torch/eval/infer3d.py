@@ -1,11 +1,12 @@
 """3D sliding-window inference with overlap stitching (counterpart of
-`icl_tpu/eval/infer3d.py`, BraTS protocol).
+`icl_tpu/eval/infer3d.py`, BraTS and AMOS protocols).
 
 Reference protocol (val_3D.py:15-82): pad the volume to at least the
-patch, lay out start positions xs = min(stride*i, dim - patch), softmax
-each patch, mean-stitch through score and count maps, argmax, unpad.
-The volume is uploaded once; patches are cut, forwarded sw_batch at a
-time, and stitched on the device; only the label map comes back.
+patch, lay out start positions xs = min(stride*i, dim - patch), score
+each patch (softmax for BraTS, raw logits for AMOS), mean-stitch through
+score and count maps, argmax, unpad. The volume is uploaded once; patches
+are cut, forwarded sw_batch at a time, and stitched on the device; only
+the label map comes back.
 """
 from __future__ import annotations
 
@@ -24,15 +25,24 @@ def _grid_starts(dim: int, patch: int, stride: int) -> list[int]:
     return [min(stride * i, dim - patch) for i in range(n)]
 
 
-def make_patch_predictor(model: torch.nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
-    """fn(patches [n, in_chns, *patch]) -> softmax probabilities
-    [n, classes, *patch] in f32, computed without autograd."""
+def make_patch_predictor(model: torch.nn.Module, apply_softmax: bool = True,
+                         dtype: torch.dtype | None = None) -> Callable[[torch.Tensor], torch.Tensor]:
+    """fn(patches [n, in_chns, *patch]) -> per-patch scores [n, classes,
+    *patch] in f32, computed without autograd: softmax probabilities (the
+    BraTS protocol) or, with `apply_softmax=False`, the raw logits (the
+    AMOS protocol). `dtype` rounds the input to that type and back to f32
+    and nothing else: the JAX package casts the input alone, and its f32
+    conv kernels promote the rounded input back to f32 (infer3d.py:29-51),
+    so the network runs in f32 either way."""
 
     @torch.inference_mode()
-    def _probs(x: torch.Tensor) -> torch.Tensor:
-        return torch.softmax(model(x).float(), dim=1)
+    def _scores(x: torch.Tensor) -> torch.Tensor:
+        if dtype is not None:
+            x = x.to(dtype).float()
+        logits = model(x).float()
+        return torch.softmax(logits, dim=1) if apply_softmax else logits
 
-    return _probs
+    return _scores
 
 
 def sliding_window_predict(
@@ -73,6 +83,17 @@ def sliding_window_predict(
         label_map = label_map[pads[0][0]:pads[0][0] + w, pads[1][0]:pads[1][0] + h,
                               pads[2][0]:pads[2][0] + d]
     return label_map
+
+
+def evaluate_amos_cases(scores_fn, dataset, num_classes: int = 16, roi=(96, 96, 96),
+                        sw_batch: int = 4, device=None):
+    """test_all_case_amos protocol (val_3D.py:120-138): the sliding window
+    of MONAI's sliding_window_inference at overlap 0.25 (stride int(0.75 *
+    roi), 72 at 96^3) over logits, argmax, per organ (dice, hd95); returns
+    metric_cal[organ][case]."""
+    stride = int(roi[0] * 0.75)
+    return evaluate_brats_cases(scores_fn, dataset, num_classes, roi, stride, stride, sw_batch,
+                                device)
 
 
 def evaluate_brats_cases(

@@ -8,6 +8,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 EPS = 1e-5
 
@@ -70,6 +71,14 @@ def upsample_align_corners(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     return F.interpolate(x, scale_factor=factor, mode=mode, align_corners=True)
 
 
+def call_remat(remat: bool, fn, *args):
+    """fn(*args), recomputed in the backward when `remat` is set and
+    autograd records (non-reentrant checkpoint)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 class Dropout(nn.Module):
     """Element-wise dropout (flax `nn.Dropout`, as the U-Net's ConvBlock
     uses it): in training, keep each element with probability 1 - p and
@@ -114,8 +123,9 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """The reference init, drawn from `generator`: trunc_normal(0.02) Swin
     linears and relative-position bias tables, unit LayerNorms and
     BatchNorms with fresh running stats, torch-default convs. A submodule
-    with its own `init_weights_` (an ICL head) is skipped here and
-    initialised by that method afterwards, in module order. Buffers that
+    with its own `init_weights_` (an ICL head, the 3D U-Net's kaiming
+    convs) is skipped here and initialised by that method afterwards, in
+    module order. Buffers that
     a module makes from its geometry are remade by its `reset_buffers_`
     (`build_model` builds on the meta device)."""
     heads = [m for m in model.modules() if m is not model and hasattr(m, "init_weights_")]

@@ -6,7 +6,8 @@ import torch
 
 from icl_tpu_torch.device import resolve_device
 
-PORTED = ("swinunetr", "swinunetr_icl", "swinunet", "icl_swinunet", "unet", "icl_unet")
+PORTED = ("swinunetr", "swinunetr_icl", "swinunet", "icl_swinunet", "unet", "icl_unet", "unet_3D",
+          "unet_3D_icl")
 
 
 def net_factory(net_type: str, in_chns: int, class_num: int, *, device=None,
@@ -34,11 +35,19 @@ def net_factory(net_type: str, in_chns: int, class_num: int, *, device=None,
     2D U-Net: `icl_unet` builds `UNetICL` (patch side `patch_size`,
     default 256; `fuse_sspa_pair` and `zero_stochastic` as that class
     takes them); `unet` and `icl_unet` with `inference=True` the `UNet`,
+    which its best checkpoint loads into.
+
+    3D U-Net: `unet_3D_icl` builds `UNet3DICL` (patch side `patch_size`,
+    default 96; `fuse_sspa_pair`, `zero_stochastic` and `remat` as that
+    class takes them); `unet_3D` and `unet_3D_icl` with `inference=True`
+    the `UNet3D` (with `remat`, and dropout off under `zero_stochastic`),
     which its best checkpoint loads into."""
     if net_type not in PORTED:
         raise KeyError(f"net_type {net_type!r} is not ported yet; ported: {list(PORTED)}")
-    if (fuse_sspa_pair or zero_stochastic) and net_type != "icl_unet":
-        raise ValueError("fuse_sspa_pair and zero_stochastic are ported for icl_unet only")
+    if fuse_sspa_pair and net_type not in ("icl_unet", "unet_3D_icl"):
+        raise ValueError("fuse_sspa_pair is ported for icl_unet and unet_3D_icl only")
+    if zero_stochastic and net_type not in ("icl_unet", "unet_3D", "unet_3D_icl"):
+        raise ValueError("zero_stochastic is ported for icl_unet, unet_3D and unet_3D_icl only")
     from icl_tpu_torch.models.layers import build_model
 
     if generator is None:
@@ -53,6 +62,17 @@ def net_factory(net_type: str, in_chns: int, class_num: int, *, device=None,
                                fuse_sspa_pair=fuse_sspa_pair, zero_stochastic=zero_stochastic,
                                device=device, generator=generator)
         return build_model(UNet, in_chns, class_num, device=device, generator=generator)
+    if net_type in ("unet_3D", "unet_3D_icl"):
+        from icl_tpu_torch.models.unet3d import UNet3D
+        from icl_tpu_torch.models.unet3d_icl import UNet3DICL
+
+        if net_type == "unet_3D_icl" and not inference:
+            return build_model(UNet3DICL, in_chns, class_num, patch_size=patch_size or 96,
+                               fuse_sspa_pair=fuse_sspa_pair, zero_stochastic=zero_stochastic,
+                               remat=remat, device=device, generator=generator)
+        return build_model(UNet3D, in_chns, class_num, remat=remat,
+                           dropout=0.0 if zero_stochastic else 0.3, device=device,
+                           generator=generator)
     if net_type in ("swinunet", "icl_swinunet"):
         from icl_tpu_torch.models.swin2d import SwinUnetWrapper
         from icl_tpu_torch.models.swin2d_icl import SwinUNetICL

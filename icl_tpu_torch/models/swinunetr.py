@@ -25,9 +25,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from icl_tpu_torch.models.layers import gelu_exact, instance_norm, layer_norm, layer_norm_no_affine
+from icl_tpu_torch.models.layers import (call_remat, gelu_exact, instance_norm, layer_norm,
+                                         layer_norm_no_affine)
 from icl_tpu_torch.ops.window_attention import window_attention
 
 
@@ -196,14 +196,6 @@ class PatchMerging3D(nn.Module):
         parts = [s(0, 0, 0), s(1, 0, 0), s(0, 1, 0), s(0, 0, 1),
                  s(1, 0, 1), s(0, 1, 0), s(0, 0, 1), s(1, 1, 1)]
         return self.reduction(self.norm(torch.cat(parts, dim=-1)))
-
-
-def call_remat(remat: bool, fn, *args):
-    """fn(*args), recomputed in the backward when `remat` is set and
-    autograd records (non-reentrant checkpoint)."""
-    if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
 
 
 class BasicLayer(nn.Module):

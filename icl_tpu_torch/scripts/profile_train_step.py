@@ -1,15 +1,21 @@
 """Where the time of one ICL training step goes on the card.
 
     python -m icl_tpu_torch.scripts.profile_train_step [--model swinunetr_icl]
-        [--precision float32]
+        [--precision float32] [--dataset brats]
 
 Builds the trainer of one training CLI with seeded weights and seeded
 synthetic data: `swinunetr_icl`, the BraTS CLI's (SwinUNETR-ICL fs48, 96^3
 patches, batch 4 of which 2 labeled, recompute on, 128^3 cases),
 `icl_swinunet`, the ACDC Swin CLI's at 384^2 with window 12 (Swin-UNet-ICL
 embed 96, batch 16 of which 8 labeled, consistency weight 50, 256^2
-slices), or `icl_unet`, the ACDC U-Net CLI's defaults (U-Net-ICL at 256^2,
-the same batch, weight and slices). Times building the model, runs two
+slices), `icl_unet`, the ACDC U-Net CLI's defaults (U-Net-ICL at 256^2,
+the same batch, weight and slices), or `unet_3D_icl`, the 3D U-Net CLI's
+defaults: with `--dataset brats` the BraTS CLI's (U-Net-ICL 3D at 96^3,
+batch 4 of which 2 labeled, 2 classes, consistency weight 10, on the 128^3
+cases), with `--dataset amos` the AMOS CLI's (16 classes, base LR 0.02,
+pse weight 0.1, recompute on, bf16 unless `--precision` says otherwise,
+on the same cases with their tumour labelled as one of 15 organs). Times
+building the model, runs two
 warm-up steps, three timed steps without the profiler and then one
 profiled step, each on a batch made before its clock starts, and prints
 the build's and the timed steps' seconds, the device time by kernel
@@ -26,6 +32,7 @@ import json
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from icl_tpu_torch.config import ExperimentConfig
@@ -33,21 +40,32 @@ from icl_tpu_torch.scripts.profile_forward import device_time_by_group
 from icl_tpu_torch.train.trainer import Trainer
 
 
-def brats_setup(precision: str):
+def brats_setup(precision: str, model: str = "swinunetr_icl", dataset: str = "brats"):
     from icl_tpu_torch.data.brats import brats_train_batches
     from icl_tpu_torch.data.synth import synthetic_brats_cases
 
-    cfg = ExperimentConfig(root_path="in-memory", exp="profile", model="swinunetr_icl",
-                           max_iterations=3, batch_size=4, labeled_bs=2, patch_size=(96, 96, 96),
-                           labeled_num=2, consis_weight=10.0, precision=precision,
-                           remat=True, feature_size=48)
+    common = dict(root_path="in-memory", exp="profile", model=model, max_iterations=3, batch_size=4,
+                  labeled_bs=2, patch_size=(96, 96, 96), labeled_num=2, consis_weight=10.0)
     cases = synthetic_brats_cases(4, 128, seed=0)
+    if model == "swinunetr_icl":
+        cfg = ExperimentConfig(**common, precision=precision, remat=True, feature_size=48)
+        what = "SwinUNETR-ICL fs48, 96^3, batch 4 (2 labeled), recompute on"
+    elif dataset == "brats":
+        cfg = ExperimentConfig(**common, precision=precision)
+        what = "U-Net-ICL 3D, 96^3, batch 4 (2 labeled), 2 classes (the BraTS CLI's)"
+    else:
+        cfg = ExperimentConfig(**common, num_classes=16, base_lr=0.02, pse_weight=0.1,
+                               precision=precision, remat=True)
+        what = ("U-Net-ICL 3D, 96^3, batch 4 (2 labeled), 16 classes, recompute on "
+                "(the AMOS CLI's)")
+        organs = np.random.default_rng(1).integers(1, 16, len(cases))
+        cases = [{**c, "label": c["label"] * np.uint8(o)} for c, o in zip(cases, organs)]
 
     def make_batches():
         return brats_train_batches(cases, 2, len(cases), cfg.batch_size, cfg.labeled_bs,
                                    cfg.patch_size, seed=cfg.seed)
 
-    return cfg, make_batches, "SwinUNETR-ICL fs48, 96^3, batch 4 (2 labeled), recompute on"
+    return cfg, make_batches, what
 
 
 def acdc_setup(precision: str, model: str):
@@ -73,23 +91,31 @@ def acdc_setup(precision: str, model: str):
     return cfg, make_batches, what
 
 
-def setup(model: str, precision: str):
-    """(cfg, make_batches, description) of the training CLI of `model`;
-    make_batches() starts the seeded batch stream anew."""
-    return brats_setup(precision) if model == "swinunetr_icl" else acdc_setup(precision, model)
+def setup(model: str, precision: str, dataset: str = "brats"):
+    """(cfg, make_batches, description) of the training CLI of `model` (on
+    `dataset` for unet_3D_icl); make_batches() starts the seeded batch
+    stream anew."""
+    if model in ("swinunetr_icl", "unet_3D_icl"):
+        return brats_setup(precision, model, dataset)
+    return acdc_setup(precision, model)
 
 
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="swinunetr_icl",
-                   choices=["swinunetr_icl", "icl_swinunet", "icl_unet"])
-    p.add_argument("--precision", default="float32", choices=["float32", "bfloat16"])
+                   choices=["swinunetr_icl", "icl_swinunet", "icl_unet", "unet_3D_icl"])
+    p.add_argument("--precision", default=None, choices=["float32", "bfloat16"],
+                   help="default: the CLI's (bfloat16 for --dataset amos, else float32)")
+    p.add_argument("--dataset", default="brats", choices=["brats", "amos"],
+                   help="unet_3D_icl only: the BraTS or the AMOS CLI's configuration")
     args = p.parse_args(argv)
+    if args.precision is None:
+        args.precision = "bfloat16" if args.model == "unet_3D_icl" and args.dataset == "amos" else "float32"
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    cfg, make_batches, what = setup(args.model, args.precision)
+    cfg, make_batches, what = setup(args.model, args.precision, args.dataset)
     batches = make_batches()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device="cuda")
@@ -133,7 +159,8 @@ def main(argv=None):
     print("top kernels:")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {ms:10.3f} ms  x{n:<4d} {name[:110]}")
-    print(json.dumps({"card": card, "model": args.model, "precision": args.precision,
+    print(json.dumps({"card": card, "model": args.model, "dataset": args.dataset,
+                      "precision": args.precision,
                       "build_s": build_s, "step_s": step_s, "wall_ms": wall_ms,
                       "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
                       "peak_bytes": peak, "by_group_ms": by_group}))

@@ -3,10 +3,13 @@ sliding-window (96^3, stride 64) whole-tumour Dice/HD95 over val_test.
 
     python -m icl_tpu_torch.scripts.test_3D_BraTS --root_path ... --exp ...
 
-The checkpoint is a torch state_dict in the reference key layout (default
-`<snapshot>/model/model_best.pth`, as the trainer saves it: ICL heads
-stripped); the JAX package's msgpack checkpoints need flax and are not
-read here.
+`--model` is the trained model: `swinunetr_icl` (the default) or
+`swinunetr` run a SwinUNETR of `--feature_size`, `unet_3D_icl` or
+`unet_3D` a UNet3D. The checkpoint is a torch state_dict in the reference
+key layout (default `<snapshot>/model/model_best.pth`, as the trainer
+saves it: ICL heads stripped); the JAX package's msgpack checkpoints need
+flax and are not read here. Runs on the CUDA card; `--device cpu` runs on
+the CPU.
 """
 from __future__ import annotations
 
@@ -43,8 +46,8 @@ def parse_args(argv=None):
 
 def load_eval_model(model: str, checkpoint: str, num_classes: int, device,
                     feature_size: int = 48):
-    """The inference graph of `model`, in eval mode, with the (stripped)
-    checkpoint loaded strictly."""
+    """The inference graph of `model` (`feature_size` is the SwinUNETR's),
+    in eval mode, with the (stripped) checkpoint loaded strictly."""
     net = net_factory(model, in_chns=1, class_num=num_classes, device=device,
                       feature_size=feature_size, inference=True)
     net.load_state_dict(load_state_dict_file(checkpoint), strict=True)

@@ -24,6 +24,7 @@ import argparse
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.acdc import ACDCDataset, patients_to_slices
 from icl_tpu_torch.data.pipeline import Prefetcher, acdc_train_batches
+from icl_tpu_torch.scripts.unported import MULTI_PROCESS, parse_args_refusing
 from icl_tpu_torch.train.trainer import Trainer, acdc_evaluator
 
 
@@ -46,25 +47,11 @@ def parse_args(argv=None):
     p.add_argument("--precision", type=str, default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--fuse_icl_pair", action="store_true")
     p.add_argument("--device", type=str, default="cuda")
-    # the JAX CLI's flags that the port does not have: taken only to refuse them
-    p.add_argument("--input_mode", type=str, default="host", choices=["host", "device_bank"])
-    p.add_argument("--state_dtype", type=str, default="float32", choices=["float32", "bfloat16"])
-    p.add_argument("--checkpoint_interval", type=int, default=0)
-    p.add_argument("--scan_steps", type=int, default=1)
-    p.add_argument("--dispatch_depth", type=int, default=1)
-    p.add_argument("--dist_coordinator", type=str, default=None)
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
-    args = p.parse_args(argv)
-    refused = [f"--{k}" for k, default in (("input_mode", "host"), ("state_dtype", "float32"),
-                                           ("checkpoint_interval", 0), ("scan_steps", 1),
-                                           ("dispatch_depth", 1), ("dist_coordinator", None),
-                                           ("num_processes", None), ("process_id", None))
-               if getattr(args, k) != default]
-    if refused:
-        p.error(f"not ported: {' '.join(refused)} (the port runs one process, one step per "
-                f"dispatch, host batches, an f32 train state and the best checkpoint only)")
-    return args
+    return parse_args_refusing(
+        p, argv, ("input_mode", "state_dtype", "checkpoint_interval", "scan_steps",
+                  "dispatch_depth") + MULTI_PROCESS,
+        "the port runs one process, one step per dispatch, host batches, an f32 train state "
+        "and the best checkpoint only")
 
 
 def main(argv=None):

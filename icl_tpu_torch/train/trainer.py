@@ -1,6 +1,7 @@
-"""Trainer: the ICL semi-supervised train loop (counterpart of
-`icl_tpu/train/trainer.py:45-524`, cut to what the SwinUNETR-ICL,
-Swin-UNet-ICL and U-Net-ICL CLIs use): steps, metric logging every
+"""Trainer: the train loop (counterpart of `icl_tpu/train/trainer.py:45-524`,
+cut to what the port's training CLIs use): the ICL semi-supervised step
+for the ICL models, the supervised step for the plain 3D U-Net; metric
+logging every
 `log_interval` steps, validation every `val_interval` steps, and the best
 checkpoint (ICL heads stripped) in the reference snapshot layout:
 
@@ -20,24 +21,28 @@ from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.device import resolve_device
 from icl_tpu_torch.models.registry import net_factory
 from icl_tpu_torch.train.optim import PolySGD
-from icl_tpu_torch.train.steps import make_icl_step
+from icl_tpu_torch.train.steps import make_icl_step, make_supervised_step
 from icl_tpu_torch.utils.checkpoint import save_best_model
 from icl_tpu_torch.utils.logging_utils import ScalarWriter, setup_logging
 
-ICL_MODELS = ("swinunetr_icl", "icl_swinunet", "icl_unet")
+ICL_MODELS = ("swinunetr_icl", "icl_swinunet", "icl_unet", "unet_3D_icl")
+SUPERVISED_MODELS = ("unet_3D",)
 ACDC_CLASS_NAMES = ["RV", "Myo", "LV"]  # classes 1..3 (icl_tpu/train/trainer.py:29)
 
 
 class Trainer:
     """Model, optimizer and step of one experiment, on `device` (the CUDA
-    card unless the caller passes "cpu"). Weights come from `generator`
-    (default: a CPU generator seeded with cfg.seed). With precision
-    "float32" on the card, TF32 is switched off for matmuls and cuDNN."""
+    card unless the caller passes "cpu"): the ICL step for an ICL model,
+    the supervised step (seg_weight * (CE + Dice)) for the others. Weights
+    come from `generator` (default: a CPU generator seeded with cfg.seed).
+    With precision "float32" on the card, TF32 is switched off for matmuls
+    and cuDNN."""
 
     def __init__(self, cfg: ExperimentConfig, device=None,
                  generator: Optional[torch.Generator] = None):
-        if cfg.model not in ICL_MODELS:
-            raise KeyError(f"model {cfg.model!r}: the port trains {list(ICL_MODELS)} only")
+        if cfg.model not in ICL_MODELS + SUPERVISED_MODELS:
+            raise KeyError(f"model {cfg.model!r}: the port trains "
+                           f"{list(ICL_MODELS + SUPERVISED_MODELS)} only")
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.precision == "float32" and self.device.type == "cuda":
@@ -55,9 +60,13 @@ class Trainer:
                                  **model_kwargs)
         self.optimizer = PolySGD(self.model.parameters(), cfg.base_lr, cfg.max_iterations,
                                  cfg.momentum, cfg.weight_decay, cfg.poly_power)
-        self.step_fn = make_icl_step(self.model, self.optimizer, cfg.num_classes, cfg.labeled_bs,
-                                     cfg.patch_size, cfg.consis_weight, cfg.pse_weight,
-                                     cfg.precision)
+        if cfg.model in ICL_MODELS:
+            self.step_fn = make_icl_step(self.model, self.optimizer, cfg.num_classes,
+                                         cfg.labeled_bs, cfg.patch_size, cfg.consis_weight,
+                                         cfg.pse_weight, cfg.precision)
+        else:
+            self.step_fn = make_supervised_step(self.model, self.optimizer, cfg.num_classes,
+                                                cfg.seg_weight, cfg.precision)
         self.iteration = 0
 
     def to_device(self, batch: dict) -> dict:
@@ -80,7 +89,8 @@ class Trainer:
         `metric_class_<name>/mean_{dice,hd95}` (`ScalarWriter` under
         `<snapshot>/log`). Returns {"log": one dict per logged step
         (iteration, seconds since the start, lr, metrics), "vals": one dict
-        per validation, "best_mean_dice", "best_path"}."""
+        per validation (iteration, mean_dice, mean_hd95, its seconds),
+        "best_mean_dice", "best_path"}."""
         cfg = self.cfg
         snapshot = cfg.snapshot_path
         logger = setup_logging(snapshot)
@@ -120,18 +130,20 @@ class Trainer:
                 logger.info("iteration %d : " + ", ".join(f"{k}: {v:f}" for k, v in host.items()), it)
             if evaluate is not None and cfg.val_interval and it % cfg.val_interval == 0:
                 self.model.eval()
+                t_val = time.perf_counter()
                 agg = evaluate(self.model)
+                val_s = time.perf_counter() - t_val
                 self.model.train()
                 vals.append({"iteration": it, "mean_dice": agg["mean_dice"],
-                             "mean_hd95": agg["mean_hd95"]})
+                             "mean_hd95": agg["mean_hd95"], "seconds": val_s})
                 for k in ("mean_dice", "mean_hd95", "std_dice", "std_hd95"):
                     writer.add_scalar(f"metric_all/{k}", agg[k], it)
                 for name, (dice, hd95) in zip(class_names, agg["class_mean"]):
                     writer.add_scalar(f"metric_class_{name}/mean_dice", dice, it)
                     writer.add_scalar(f"metric_class_{name}/mean_hd95", hd95, it)
                     logger.info("iteration %d : class %s : dice %f  hd95 %f", it, name, dice, hd95)
-                logger.info("iteration %d : mean_dice : %f  mean_hd95 : %f",
-                            it, agg["mean_dice"], agg["mean_hd95"])
+                logger.info("iteration %d : mean_dice : %f  mean_hd95 : %f  (%.2f s)",
+                            it, agg["mean_dice"], agg["mean_hd95"], val_s)
                 if agg["mean_dice"] > best:
                     best = agg["mean_dice"]
                     best_path = save_best_model(snapshot, self.model)
@@ -152,6 +164,21 @@ def brats_evaluator(dataset, num_classes: int, patch_size, device) -> Callable[[
         metric_cal = evaluate_brats_cases(make_patch_predictor(model), dataset, num_classes,
                                           tuple(patch_size), 64, 64, sw_batch=4, device=device)
         return aggregate_case_metrics(metric_cal)
+
+    return evaluate
+
+
+def amos_evaluator(dataset, num_classes: int, patch_size, device) -> Callable[[torch.nn.Module], dict]:
+    """evaluate(model) for `fit`: the AMOS protocol (`evaluate_amos_cases`:
+    stride 0.75 of the patch, sw_batch 4, input rounded to bf16, logits
+    stitched) over `dataset`, aggregated per organ."""
+    from icl_tpu_torch.eval.infer3d import evaluate_amos_cases, make_patch_predictor
+    from icl_tpu_torch.metrics import aggregate_case_metrics
+
+    def evaluate(model: torch.nn.Module) -> dict:
+        scores = make_patch_predictor(model, apply_softmax=False, dtype=torch.bfloat16)
+        return aggregate_case_metrics(evaluate_amos_cases(scores, dataset, num_classes,
+                                                          tuple(patch_size), device=device))
 
     return evaluate
 

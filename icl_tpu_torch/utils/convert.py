@@ -1,6 +1,6 @@
-"""Carry SwinUNETR, SwinUNETR-ICL, Swin-UNet 2D, Swin-UNet-ICL, U-Net 2D
-and U-Net-ICL 2D weights from the JAX package's parameter tree to the
-port's state_dict (the reference key layout).
+"""Carry SwinUNETR, SwinUNETR-ICL, Swin-UNet 2D, Swin-UNet-ICL, U-Net 2D,
+U-Net-ICL 2D, U-Net 3D and U-Net-ICL 3D weights from the JAX package's
+parameter tree to the port's state_dict (the reference key layout).
 
 Input: the JAX params (and, for the ICL heads, batch_stats) as nested
 dicts of numpy arrays; SwinUNETR in the stacked `nn.scan` layout.
@@ -8,7 +8,8 @@ Output: a state_dict of CPU tensors that the port's `load_state_dict(...,
 strict=True)` takes. A copy of `export_swinunetr`,
 `swinunetr_conv_key_table`, `swinunet2d_full_key_table`,
 `export_swinunet2d`, `unet2d_key_table`, `export_icl_unet2d`,
-`icl_head_key_table` and `export_icl_heads` of
+`unet3d_key_table`, `export_icl_unet3d`, `icl_head_key_table` and
+`export_icl_heads` of
 `icl_tpu/utils/torch_import.py`, with the layout transforms they need:
 
     Conv:   flax (*k, I, O) -> torch (O, I, *k)
@@ -343,6 +344,39 @@ def icl_unet2d_state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str,
     """JAX UNetICL params (backbone under "encoder" and "decoder", heads
     under "sspa" and "uscl") and batch_stats -> the port's full state_dict."""
     out = unet2d_state_dict_from_jax(params, batch_stats)
+    for name in ("sspa", "uscl"):
+        out.update(icl_head_state_dict_from_jax(params[name], batch_stats[name], f"{name}.",
+                                                query_name="guided_Q"))
+    return out
+
+
+def unet3d_key_table():
+    """torch key -> (flax path, transform) for the reference 3D U-Net:
+    each UnetConv3's two convs (`conv{1,2}.0`; its InstanceNorms have no
+    parameters), the up stages' blocks and the output conv."""
+    table = []
+    blocks = [(name, (name,)) for name in ("conv1", "conv2", "conv3", "conv4", "center")]
+    blocks += [(f"up_concat{i}.conv", (f"up_concat{i}", "conv")) for i in (4, 3, 2, 1)]
+    for t, f in blocks:
+        for conv in ("conv1", "conv2"):
+            table.append((f"{t}.{conv}.0.weight", f + (conv, "kernel"), f2t_conv))
+            table.append((f"{t}.{conv}.0.bias", f + (conv, "bias"), None))
+    table.append(("final.weight", ("final", "kernel"), f2t_conv))
+    table.append(("final.bias", ("final", "bias"), None))
+    return table
+
+
+def unet3d_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX UNet3D params (or UNet3DICL's "backbone" subtree) -> the port's
+    `UNet3D` state_dict."""
+    return _state_dict_from_table(unet3d_key_table(), params, {})
+
+
+def icl_unet3d_state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
+    """JAX UNet3DICL params (backbone under "backbone", heads under "sspa"
+    and "uscl") and batch_stats -> the port's full state_dict, the
+    backbone's keys at its root."""
+    out = unet3d_state_dict_from_jax(params["backbone"])
     for name in ("sspa", "uscl"):
         out.update(icl_head_state_dict_from_jax(params[name], batch_stats[name], f"{name}.",
                                                 query_name="guided_Q"))

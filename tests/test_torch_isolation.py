@@ -43,6 +43,19 @@ outs = unet(torch.randn(2, 1, 64, 64), torch.randn(2, 1, 64, 64))
 assert len(outs) == 5 and outs[0].shape == (2, 4, 64, 64) and outs[4][2].shape == (2, 4, 32, 32)
 args = train_inherent_consistent_unet_2D.parse_args(["--fuse_icl_pair"])
 assert args.model == "icl_unet" and args.fuse_icl_pair
+unet3d = net_factory("unet_3D_icl", 1, 2, device="cpu", patch_size=32, remat=True)
+outs = unet3d(torch.randn(2, 1, 32, 32, 32), torch.randn(2, 1, 32, 32, 32))
+assert len(outs) == 5 and outs[0].shape == (2, 2, 32, 32, 32) and outs[4][2].shape == (2, 2, 8, 8, 8)
+from icl_tpu_torch.scripts import (test_3D_AMOS, test_3D_BraTS, train_fully_supervised_unet_3D_AMOS22,
+                                   train_fully_supervised_unet_3D_BraTS,
+                                   train_inherent_consistent_unet_3D_AMOS22,
+                                   train_inherent_consistent_unet_3D_BraTS)
+assert train_inherent_consistent_unet_3D_BraTS.parse_args([]).model == "unet_3D_icl"
+assert train_fully_supervised_unet_3D_BraTS.parse_args([]).model == "unet_3D"
+assert train_inherent_consistent_unet_3D_AMOS22.parse_args([]).num_classes == 16
+assert train_fully_supervised_unet_3D_AMOS22.parse_args([]).model == "unet_3D"
+assert test_3D_AMOS.parse_args([]).model == "unet_3D_icl"
+assert test_3D_BraTS.parse_args(["--model", "unet_3D_icl"]).model == "unet_3D_icl"
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "icl_tpu"))
 print("LEAKED", bad)

@@ -83,7 +83,7 @@ def bn_batch_sizes(model: torch.nn.Module) -> dict:
     model's next forwards."""
     sizes = {}
     for name, m in model.named_modules():
-        if isinstance(m, torch.nn.BatchNorm2d):
+        if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d)):
             sizes[name] = []
             m.register_forward_pre_hook(
                 lambda mod, inp, lst=sizes[name]: lst.append(inp[0].numel() // inp[0].shape[1]))
