@@ -117,8 +117,39 @@ Phases, each fatal on failure:
  26. the supervised AMOS CLI for 2 steps (loss 0.5 (CE + Dice));
  27. AMOS train -> eval: test_3D_AMOS on the stripped best checkpoint of
      25 gives the trainer's validation dice;
-then a `kernels` JSON line, the card line, and the result line. Exits
-non-zero without a result when CUDA is absent.
+ 28. both kernels at the shapes of the fully supervised Swin paths,
+     against their plain versions and bitwise repeatable, timed beside
+     the bound, the plain version and SDPA: Swin-UNet at 224^2 / window
+     7, batch 16, f32, stages 1-4 (N = 49; with the shift mask and
+     without); SwinUNETR at batch 4 in bf16, stages 1-4 (stage 1
+     [1372, 3, 343, 16]; with region ids and without);
+ 29. the supervised 2D U-Net CLI's `main` at its defaults (256^2, batch
+     16, f32) on phase 14's slices and volumes in memory, 3 steps and a
+     validation, no window attention (asserted); `test_2D_ACDC.main
+     --model unet` on its best checkpoint gives the validation dice;
+ 30. the supervised Swin-UNet CLI's `main` at its defaults (224^2,
+     window 7, batch 16, f32) from a synthetic ImageNet-layout Swin-T
+     checkpoint (a seeded model's encoder, a head, one key of the wrong
+     shape, which is dropped with its decoder mirror), 3 steps and a
+     validation, the launches per step asserted (8 no-mask + 6 mask,
+     forward and backward; per validation chunk 8 + 6 forward); one step
+     through the kernels against the plain attention by the rule of 15;
+     `test_2D_ACDC.main --model swinunet` gives the validation dice;
+ 31. the supervised SwinUNETR CLI's `main` at its defaults (fs48, 96^3,
+     batch 4, bf16, recompute on) from a synthetic SSL SwinViT checkpoint
+     in the reference layout (every encoder parameter loaded), 3 steps
+     and a validation on phase 9's cases, the launches per step asserted
+     (forward 10 no-mask + 6 region with the recompute, backward 5 + 3);
+     `test_3D_BraTS.main --model swinunetr` gives the validation dice;
+ 32. resume on U-Net-ICL 2D at full width: 4 steps against 2, a save, a
+     fresh Trainer's `restore_state` (equal to the saved state bit for
+     bit: parameters, buffers, momentum, count, iteration, RNG states)
+     and 2 more on the same batches, by the rule of 18 beside a control
+     of 4 steps on the batches scaled by 1 + 1e-7; the seconds of the
+     rolling save, the restore and the final save;
+every `fit` ends with its full train state, which each phase deletes
+after its run; then a `kernels` JSON line, the card line, and the result
+line. Exits non-zero without a result when CUDA is absent.
 """
 from __future__ import annotations
 
@@ -140,6 +171,7 @@ PROBS_ATOL = 1e-4  # end-to-end probabilities, f32 with TF32 off
 # on the tensor cores (H100 SXM, 495 TFLOP/s dense) over the three MMAs of a
 # 3xTF32 product, above the 67 TFLOP/s of f32 outside the tensor cores.
 F32_ACCURATE_FLOPS = 495e12 / 3
+BF16_FLOPS = 989e12  # bf16 on the tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12
 # Backward kernel against the plain backward, each grad's max error over
 # its reference's largest magnitude. f32: sums of 343 terms in another
@@ -250,9 +282,33 @@ IMG_UNET, IMG_UNET_CPU = 256, 64
 # (2, 2, 3), about 127 x 127 x 107 at the protocol's spacing.
 UNET3D_CPU = 32
 AMOS_CASES, AMOS_SHAPE, AMOS_SPACING = 5, (96, 96, 72), (2.0, 2.0, 3.0)
+# This slice: the fully supervised baselines at the JAX supervised CLIs'
+# defaults, each through its CLI's `main` on in-memory data (the card's
+# machine has no h5py): the 2D U-Net (256^2, batch 16, f32), Swin-UNet
+# (embed 96, 224^2, window 7, batch 16, f32: one backbone pass at batch 16,
+# N = 49) and SwinUNETR (fs48, 96^3, batch 4, bf16 autocast, recompute on:
+# one pass at batch 4, so stage 1 runs [1372, 3, 343, 16]); then a resume of
+# the flagship U-Net-ICL 2D at full width.
+IMG_SWIN_SUP, WINDOW_SWIN_SUP, BATCH_SWIN_SUP = 224, 7, 16
+# The attention calls of one Swin-UNet pass at 224^2 / window 7: per shape
+# the grid side, the window, the heads and the launches of each mode.
+# Stages 1-3 shift in their odd block, in the encoder and in the decoder
+# stage of the same size; stage 4 (7^2 tokens) is one unshifted window.
+STAGES_SWIN_SUP = [
+    ("w7_stage1", 56, 7, 3, {"none": 2, "mask": 2}),
+    ("w7_stage2", 28, 7, 6, {"none": 2, "mask": 2}),
+    ("w7_stage3", 14, 7, 12, {"none": 2, "mask": 2}),
+    ("w7_stage4", 7, 7, 24, {"none": 2}),
+]
+PER_FORWARD_SWIN_SUP = {m: sum(st[4].get(m, 0) for st in STAGES_SWIN_SUP) for m in ("none", "mask")}
+# the SwinUNETR supervised step: one pass at batch 4 and its recompute
+SUP_3D_FWD_PER_STEP = {m: 2 * sum(PER_FORWARD[m].values()) for m in ("none", "region")}
+SUP_3D_BWD_PER_STEP = {m: sum(PER_FORWARD[m].values()) for m in ("none", "region")}
+RESUME_STEPS = 4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXPERIMENTS = os.path.join(ROOT, "build", "chip_smoke", "experiments")
 AMOS_ROOT = os.path.join(ROOT, "build", "chip_smoke", "amos")  # ../experiments is EXPERIMENTS
+SUP_ROOT = os.path.join(ROOT, "build", "chip_smoke", "acdc")  # ../experiments is EXPERIMENTS
 
 
 def fail(msg: str) -> None:
@@ -299,16 +355,18 @@ def stage_inputs(torch, stage, dtype, gen):
     return q, k, v, bias, None if ids is None else torch.from_numpy(ids).to(DEVICE)
 
 
-def bound(B, H, N, D, mask_floats=0, backward=False):
-    """(ms at the f32-accurate rate, ms at the memory rate). Forward: two N x N x D
+def bound(B, H, N, D, mask_floats=0, backward=False, elem_bytes=4, flops_rate=F32_ACCURATE_FLOPS):
+    """(ms at the type's rate, ms at the memory rate). Forward: two N x N x D
     products per (window, head); q, k, v read and out written once, bias
     read once. Backward: five products; q, k, v, dO read and dq, dk, dv
     written once, bias read and dbias written once. The region ids [nW, N]
-    or the dense mask [nW, N, N] (`mask_floats` values) read once."""
+    or the dense mask [nW, N, N] (`mask_floats` values) read once. q, k, v
+    and their grads take `elem_bytes` each (2 in bf16), the rest 4; the
+    products run at `flops_rate` (BF16_FLOPS in bf16)."""
     products, tensors, bias_arrays = (5, 7, 2) if backward else (2, 4, 1)
     flops = 2 * products * B * H * N * N * D
-    nbytes = (tensors * B * H * N * D + bias_arrays * H * N * N + mask_floats) * 4
-    return flops / F32_ACCURATE_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    nbytes = tensors * B * H * N * D * elem_bytes + (bias_arrays * H * N * N + mask_floats) * 4
+    return flops / flops_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def ptxas_usage(log: str, kernel: str) -> dict:
@@ -341,14 +399,14 @@ def rel_err(got, want) -> float:
 
 def sdpa_backward_ms(torch, F, q, k, v, bias, mask, g, scale) -> float:
     """The backward of F.scaled_dot_product_attention with attn_mask =
-    bias (+ the dense mask [nW, N, N]) for q, k, v and the bias, timed on
-    a retained graph."""
+    bias (+ the dense mask [nW, N, N]), in q's dtype, for q, k, v and the
+    bias, timed on a retained graph."""
     B, H, N, D = q.shape
     nW = mask.shape[0] if mask is not None else B
     shape = (B // nW, nW, H, N, D) if mask is not None else (B, H, N, D)
     qs, ks, vs = (t.detach().view(shape).requires_grad_(True) for t in (q, k, v))
-    mask_leaf = bias.detach().clone().requires_grad_(True)
-    attn = mask_leaf if mask is None else mask_leaf[None] + mask[:, None]
+    mask_leaf = bias.detach().to(q.dtype).clone().requires_grad_(True)
+    attn = mask_leaf if mask is None else mask_leaf[None] + mask[:, None].to(q.dtype)
     out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn, scale=scale)
     gout = g.view(shape)
     return cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs, mask_leaf), gout, retain_graph=True))
@@ -504,6 +562,7 @@ def phase_training(torch, wa, cases, held_out) -> dict:
     wa.reset_launch_counts()
     result = trainer.fit(batches, evaluate=evaluate, class_names=["WT"])
     torch.cuda.synchronize()
+    drop_states(result)
     path = {"fwd": dict(wa.window_attention.launches_by_mode),
             "bwd": dict(wa.window_attention_bwd.launches_by_mode)}
     peak = torch.cuda.max_memory_allocated()
@@ -541,8 +600,10 @@ def phase_training(torch, wa, cases, held_out) -> dict:
 
     cfg16 = train_config("bfloat16", 1, 0, "bfloat16")
     trainer = Trainer(cfg16, device=DEVICE)
-    log16 = trainer.fit(brats_train_batches(cases, 2, len(cases), TRAIN_BATCH, LABELED_BS,
-                                            cfg16.patch_size, seed=cfg16.seed))["log"]
+    result16 = trainer.fit(brats_train_batches(cases, 2, len(cases), TRAIN_BATCH, LABELED_BS,
+                                               cfg16.patch_size, seed=cfg16.seed))
+    drop_states(result16)
+    log16 = result16["log"]
     print("[train] one bfloat16 autocast step: "
           + " ".join(f"{k} {log16[0][k]:.6f}" for k in METRIC_KEYS), flush=True)
     if not all(math.isfinite(log16[0][k]) for k in METRIC_KEYS):
@@ -651,15 +712,15 @@ def phase_train_to_eval(torch, held_out, training: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def inputs_2d(torch, stage, dtype, gen, kind):
+def inputs_2d(torch, stage, dtype, gen, kind, batch=LABELED_2D):
     """q, k, v, bias and the mask of one Swin-UNet 2D attention shape at
-    batch LABELED_2D: `kind` None (no mask), "shift" (the shifted block's
-    mask) or "random" (a dense mask N(0, 3^2): the kernels take any)."""
+    `batch`: `kind` None (no mask), "shift" (the shifted block's mask) or
+    "random" (a dense mask N(0, 3^2): the kernels take any)."""
     from icl_tpu_torch.models.swin2d import shifted_window_mask
 
     _, side, ws, heads, _ = stage
     nW, N = (side // ws) ** 2, ws * ws
-    q, k, v = (torch.randn(LABELED_2D * nW, heads, N, HEAD_DIM_2D, device=DEVICE, generator=gen)
+    q, k, v = (torch.randn(batch * nW, heads, N, HEAD_DIM_2D, device=DEVICE, generator=gen)
                .to(dtype) for _ in range(3))
     bias = torch.randn(heads, N, N, device=DEVICE, generator=gen)
     mask = None
@@ -670,88 +731,96 @@ def inputs_2d(torch, stage, dtype, gen, kind):
     return q, k, v, bias, mask
 
 
+def check_2d(torch, F, wa, stage, mode, kind, dtype, gen, batch=LABELED_2D, timed=None,
+             tag="2d") -> tuple[dict, dict]:
+    """The forward and backward kernels at one 2D shape against their plain
+    versions, bitwise-repeatable; timed (f32 with the shift mask or none,
+    unless `timed` says) beside the bound, the plain version and SDPA."""
+    scale = HEAD_DIM_2D ** -0.5
+    q, k, v, bias, mask = inputs_2d(torch, stage, dtype, gen, kind, batch)
+    B, H, N, D = q.shape
+    nW = mask.shape[0] if mask is not None else B
+    if timed is None:
+        timed = dtype == torch.float32 and kind != "random"
+    got = wa.window_attention(q, k, v, bias, mask=mask, scale=scale)
+    again = wa.window_attention(q, k, v, bias, mask=mask, scale=scale)
+    torch.cuda.synchronize()
+    want = wa.window_attention_plain(q, k, v, bias, mask=mask, scale=scale)
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        ok = float(err.max()) <= F32_ATOL
+    else:
+        ok = bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+    row = {"stage": stage[0], "mode": mode, "mask": kind, "dtype": str(dtype).split(".")[-1],
+           "shape": list(q.shape), "nW": nW if mask is not None else None,
+           "max_abs_err": float(err.max()), "bitwise_repeat": torch.equal(got, again)}
+    if not ok or not row["bitwise_repeat"] or not torch.isfinite(got).all():
+        fail(f"2D kernel disagrees with plain or is not repeatable: {row}")
+    if timed:
+        shape = (B // nW, nW, H, N, D) if mask is not None else (B, H, N, D)
+        qs, ks, vs = (t.view(shape) for t in (q, k, v))
+        attn = bias if mask is None else bias[None] + mask[:, None]
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn, scale=scale)
+        row.update(
+            ms=cuda_ms(lambda: wa.window_attention(q, k, v, bias, mask=mask, scale=scale)),
+            plain_ms=cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, mask=mask,
+                                                               scale=scale)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=attn, scale=scale)),
+            library_max_abs_err=float((lib_out.reshape(q.shape) - want).abs().max()),
+            before_ms=FWD2D_BEFORE_MS.get((stage[0], mode)),
+            **bound_fields(*bound(B, H, N, D, mask.numel() if mask is not None else 0)),
+        )
+        del lib_out, attn
+    print(f"[kernel{tag}] {json.dumps(row)}", flush=True)
+    del again
+    g = torch.randn(q.shape, device=DEVICE, generator=gen).to(dtype)
+    got = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
+    again = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
+    torch.cuda.synchronize()
+    want = wa.window_attention_plain_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
+    names = ("dq", "dk", "dv", "dbias")
+    errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+    tols = {n: BWD_F32_RTOL if dtype == torch.float32 or n == "dbias" else BWD_BF16_RTOL
+            for n in names}
+    brow = {k: row[k] for k in ("stage", "mode", "mask", "dtype", "shape", "nW")}
+    brow.update(rel_err=errs, tolerance=tols,
+                max_abs_err=max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip(got, want)),
+                bitwise_repeat=all(torch.equal(a, b) for a, b in zip(got, again)))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    if not finite or not brow["bitwise_repeat"] or any(errs[n] > tols[n] for n in names):
+        fail(f"2D backward kernel disagrees with plain or is not repeatable: {brow}")
+    if timed:
+        brow.update(
+            ms=cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale,
+                                                       mask=mask)),
+            plain_ms=cuda_ms(lambda: wa.window_attention_plain_bwd(
+                q, k, v, bias, None, g, scale=scale, mask=mask), reps=3),
+            library_ms=sdpa_backward_ms(torch, F, q, k, v, bias, mask, g, scale),
+            before_ms=BWD2D_BEFORE_MS.get((stage[0], mode)),
+            **bound_fields(*bound(B, H, N, D, mask.numel() if mask is not None else 0,
+                                  backward=True)),
+        )
+    print(f"[bwd{tag}] {json.dumps(brow)}", flush=True)
+    del q, k, v, bias, mask, g, got, again, want
+    torch.cuda.empty_cache()
+    return row, brow
+
+
 def phase_kernels_2d(torch, F, wa) -> tuple[list[dict], list[dict]]:
     """12 + 13: the forward and backward kernels at the 2D shapes (384^2,
     the reference's 224^2 stage 1 and a 2 x 2 window) against their plain
     versions; f32 times with the shift mask."""
     gen = torch.Generator(device=DEVICE).manual_seed(2)
-    scale = HEAD_DIM_2D ** -0.5
     fwd_rows, bwd_rows = [], []
     for stage in STAGES_2D + [REF_STAGE_2D, TINY_STAGE_2D]:
         for mode in stage[4]:
             for kind in ((None,) if mode == "none" else ("shift", "random")):
                 for dtype in (torch.float32, torch.bfloat16):
-                    q, k, v, bias, mask = inputs_2d(torch, stage, dtype, gen, kind)
-                    B, H, N, D = q.shape
-                    nW = mask.shape[0] if mask is not None else B
-                    timed = dtype == torch.float32 and kind != "random"
-                    got = wa.window_attention(q, k, v, bias, mask=mask, scale=scale)
-                    again = wa.window_attention(q, k, v, bias, mask=mask, scale=scale)
-                    torch.cuda.synchronize()
-                    want = wa.window_attention_plain(q, k, v, bias, mask=mask, scale=scale)
-                    err = (got.float() - want.float()).abs()
-                    if dtype == torch.float32:
-                        ok = float(err.max()) <= F32_ATOL
-                    else:
-                        ok = bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
-                    row = {"stage": stage[0], "mode": mode, "mask": kind,
-                           "dtype": str(dtype).split(".")[-1], "shape": list(q.shape),
-                           "nW": nW if mask is not None else None, "max_abs_err": float(err.max()),
-                           "bitwise_repeat": torch.equal(got, again)}
-                    if not ok or not row["bitwise_repeat"] or not torch.isfinite(got).all():
-                        fail(f"2D kernel disagrees with plain or is not repeatable: {row}")
-                    if timed:
-                        shape = (B // nW, nW, H, N, D) if mask is not None else (B, H, N, D)
-                        qs, ks, vs = (t.view(shape) for t in (q, k, v))
-                        attn = bias if mask is None else bias[None] + mask[:, None]
-                        lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn, scale=scale)
-                        row.update(
-                            ms=cuda_ms(lambda: wa.window_attention(q, k, v, bias, mask=mask, scale=scale)),
-                            plain_ms=cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, mask=mask,
-                                                                               scale=scale)),
-                            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                                qs, ks, vs, attn_mask=attn, scale=scale)),
-                            library_max_abs_err=float((lib_out.reshape(q.shape) - want).abs().max()),
-                            before_ms=FWD2D_BEFORE_MS.get((stage[0], mode)),
-                            **bound_fields(*bound(B, H, N, D, mask.numel() if mask is not None else 0)),
-                        )
-                        del lib_out, attn
+                    row, brow = check_2d(torch, F, wa, stage, mode, kind, dtype, gen)
                     fwd_rows.append(row)
-                    print(f"[kernel2d] {json.dumps(row)}", flush=True)
-                    del again
-                    g = torch.randn(q.shape, device=DEVICE, generator=gen).to(dtype)
-                    got = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
-                    again = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
-                    torch.cuda.synchronize()
-                    want = wa.window_attention_plain_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
-                    names = ("dq", "dk", "dv", "dbias")
-                    errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
-                    tols = {n: BWD_F32_RTOL if dtype == torch.float32 or n == "dbias" else BWD_BF16_RTOL
-                            for n in names}
-                    brow = {k: row[k] for k in ("stage", "mode", "mask", "dtype", "shape", "nW")}
-                    brow.update(rel_err=errs, tolerance=tols,
-                                max_abs_err=max(float((a.float() - b.float()).abs().max())
-                                                for a, b in zip(got, want)),
-                                bitwise_repeat=all(torch.equal(a, b) for a, b in zip(got, again)))
-                    finite = all(bool(torch.isfinite(a).all()) for a in got)
-                    if not finite or not brow["bitwise_repeat"] or any(errs[n] > tols[n] for n in names):
-                        fail(f"2D backward kernel disagrees with plain or is not repeatable: {brow}")
-                    if timed:
-                        brow.update(
-                            ms=cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale,
-                                                                       mask=mask)),
-                            plain_ms=cuda_ms(lambda: wa.window_attention_plain_bwd(
-                                q, k, v, bias, None, g, scale=scale, mask=mask), reps=3),
-                            library_ms=sdpa_backward_ms(torch, F, q, k, v, bias, mask, g, scale),
-                            before_ms=BWD2D_BEFORE_MS.get((stage[0], mode)),
-                            **bound_fields(*bound(B, H, N, D, mask.numel() if mask is not None else 0,
-                                                  backward=True)),
-                        )
                     bwd_rows.append(brow)
-                    print(f"[bwd2d] {json.dumps(brow)}", flush=True)
-                    del g, got, again, want
-                del q, k, v, bias, mask
-                torch.cuda.empty_cache()
     return fwd_rows, bwd_rows
 
 
@@ -810,6 +879,7 @@ def phase_training_2d(torch, wa, slices, volumes) -> dict:
     wa.reset_launch_counts()
     result = trainer.fit(acdc_batches(slices, cfg), evaluate=evaluate)
     torch.cuda.synchronize()
+    drop_states(result)
     path = {"fwd": dict(wa.window_attention.launches_by_mode),
             "bwd": dict(wa.window_attention_bwd.launches_by_mode)}
     peak = torch.cuda.max_memory_allocated()
@@ -930,6 +1000,7 @@ def phase_training_unet(torch, wa, slices, volumes) -> dict:
         wa.reset_launch_counts()
         result = trainer.fit(timed(batches, waits), evaluate=evaluate)
         torch.cuda.synchronize()
+        drop_states(result)
         path = {"fwd": dict(wa.window_attention.launches_by_mode),
                 "bwd": dict(wa.window_attention_bwd.launches_by_mode)}
     peak = torch.cuda.max_memory_allocated()
@@ -1162,6 +1233,7 @@ def phase_training_unet3d(torch, wa, cases, held_out) -> dict:
         wa.reset_launch_counts()
         result = trainer.fit(timed(prefetched, waits), evaluate=validate, class_names=["WT"])
         torch.cuda.synchronize()
+        drop_states(result)
         path = launches_now(wa)
     peak = torch.cuda.max_memory_allocated()
     log = result["log"]
@@ -1187,7 +1259,9 @@ def phase_training_unet3d(torch, wa, cases, held_out) -> dict:
     torch.cuda.empty_cache()
 
     trainer = Trainer(unet3d_config("unet_3D_icl", "bfloat16", 1, 0, "bfloat16"), device=DEVICE)
-    log16 = trainer.fit(batches())["log"]
+    result16 = trainer.fit(batches())
+    drop_states(result16)
+    log16 = result16["log"]
     print("[unet3d] one bfloat16 autocast step: "
           + " ".join(f"{k} {log16[0][k]:.6f}" for k in METRIC_KEYS), flush=True)
     if not all(math.isfinite(log16[0][k]) for k in METRIC_KEYS):
@@ -1242,8 +1316,10 @@ def phase_supervised_unet3d(torch, wa, cases) -> dict:
     with Prefetcher(brats_supervised_batches(cases, TRAIN_BATCH, cfg.patch_size, seed=cfg.seed),
                     pin_memory=trainer.device.type == "cuda") as batches:
         wa.reset_launch_counts()
-        log = trainer.fit(batches)["log"]
+        result = trainer.fit(batches)
         torch.cuda.synchronize()
+        drop_states(result)
+        log = result["log"]
         path = launches_now(wa)
     print(f"[unet3d-sup] supervised U-Net 3D, BraTS {PATCH}^3, batch {TRAIN_BATCH}, f32: step times "
           f"{[round(r['seconds'], 4) for r in log]} s from the start; peak memory "
@@ -1273,6 +1349,7 @@ def amos_cli(torch, wa, module: str, argv: list, keys) -> dict:
     result = cli.main(argv)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    drop_states(result)
     path = launches_now(wa)
     peak = torch.cuda.max_memory_allocated()
     gc.collect()
@@ -1356,6 +1433,469 @@ def phase_train_to_eval_unet3d(torch, held_out, training: dict) -> None:
         fail("the 3D U-Net eval path does not reproduce the trainer's validation dice")
     del model
     torch.cuda.empty_cache()
+
+
+def drop_states(result: dict) -> None:
+    """Delete the train states a `fit` wrote (several GB each for the ICL
+    models); the best checkpoints stay for the train -> eval phases."""
+    for save in result.get("saves", []):
+        if os.path.exists(save["path"]):
+            os.remove(save["path"])
+
+
+def phase_kernels_supervised(torch, F, wa) -> dict:
+    """28: the kernels at the supervised paths' shapes, against their
+    plain versions and timed beside the bound, the plain version and SDPA:
+    Swin-UNet at 224^2 / window 7, batch 16, f32 (stages 1-4, forward and
+    backward, with the shift mask and without); SwinUNETR at batch 4 in
+    bf16 (stages 1-4, forward and backward, with region ids and without;
+    the bound at the bf16 rate and 2-byte q, k, v)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(28)
+    rows = {"fwd2d": [], "bwd2d": [], "fwd3d": [], "bwd3d": []}
+    for stage in STAGES_SWIN_SUP:
+        for mode in stage[4]:
+            row, brow = check_2d(torch, F, wa, stage, mode, None if mode == "none" else "shift",
+                                 torch.float32, gen, batch=BATCH_SWIN_SUP, tag="-sup2d")
+            rows["fwd2d"].append(row)
+            rows["bwd2d"].append(brow)
+    scale = HEAD_DIM ** -0.5
+    for stage in STAGES:
+        name = stage[0]
+        for mode in ("none", "region"):
+            if name not in PER_FORWARD[mode]:
+                continue
+            q, k, v, bias, ids = stage_inputs(torch, (name, TRAIN_BATCH) + stage[2:],
+                                              torch.bfloat16, gen)
+            ids = ids if mode == "region" else None
+            B, H, N, D = q.shape
+            nW = ids.shape[0] if ids is not None else B
+            got = wa.window_attention(q, k, v, bias, ids, scale=scale)
+            again = wa.window_attention(q, k, v, bias, ids, scale=scale)
+            want = wa.window_attention_plain(q, k, v, bias, ids, scale=scale)
+            err = (got.float() - want.float()).abs()
+            row = {"stage": name, "mode": mode, "dtype": "bfloat16", "shape": list(q.shape),
+                   "nW": ids.shape[0] if ids is not None else None, "max_abs_err": float(err.max()),
+                   "bitwise_repeat": torch.equal(got, again)}
+            if (not bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+                    or not row["bitwise_repeat"] or not torch.isfinite(got).all()):
+                fail(f"bf16 kernel disagrees with plain or is not repeatable: {row}")
+            dense = wa.mask_from_region_ids(ids) if ids is not None else None
+            if ids is None:
+                attn, qs, ks, vs = bias.to(q.dtype), q, k, v
+            else:
+                attn = (bias[None] + dense[:, None]).to(q.dtype)
+                qs, ks, vs = (t.view(B // nW, nW, H, N, D) for t in (q, k, v))
+            bf16_bound = dict(elem_bytes=2, flops_rate=BF16_FLOPS)
+            mask_floats = ids.numel() if ids is not None else 0
+            row.update(
+                ms=cuda_ms(lambda: wa.window_attention(q, k, v, bias, ids, scale=scale)),
+                plain_ms=cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, ids, scale=scale)),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=attn, scale=scale)),
+                **bound_fields(*bound(B, H, N, D, mask_floats, **bf16_bound)))
+            print(f"[kernel-sup3d] {json.dumps(row)}", flush=True)
+            rows["fwd3d"].append(row)
+            del attn, qs, ks, vs
+            g = torch.randn(q.shape, device=DEVICE, generator=gen).to(q.dtype)
+            got = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale)
+            again = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale)
+            want = wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale)
+            names = ("dq", "dk", "dv", "dbias")
+            errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+            tols = {n: BWD_F32_RTOL if n == "dbias" else BWD_BF16_RTOL for n in names}
+            brow = {k: row[k] for k in ("stage", "mode", "dtype", "shape", "nW")}
+            brow.update(rel_err=errs, tolerance=tols,
+                        max_abs_err=max(float((a.float() - b.float()).abs().max())
+                                        for a, b in zip(got, want)),
+                        bitwise_repeat=all(torch.equal(a, b) for a, b in zip(got, again)))
+            if (not all(bool(torch.isfinite(a).all()) for a in got) or not brow["bitwise_repeat"]
+                    or any(errs[n] > tols[n] for n in names)):
+                fail(f"bf16 backward kernel disagrees with plain or is not repeatable: {brow}")
+            brow.update(
+                ms=cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale)),
+                plain_ms=cuda_ms(lambda: wa.window_attention_plain_bwd(
+                    q, k, v, bias, ids, g, scale=scale), reps=3),
+                library_ms=sdpa_backward_ms(torch, F, q, k, v, bias, dense, g, scale),
+                **bound_fields(*bound(B, H, N, D, mask_floats, backward=True, **bf16_bound)))
+            print(f"[bwd-sup3d] {json.dumps(brow)}", flush=True)
+            rows["bwd3d"].append(brow)
+            del q, k, v, bias, g, got, again, want, dense
+            torch.cuda.empty_cache()
+    return rows
+
+
+class InMemoryDataset:
+    """The dataset classes' interface (`cls(root, split, num=...)`) over
+    in-memory items: the card's machine has no h5py to read the h5 trees.
+    "train" gives the training items (the first `num`), any other split
+    the held-out ones."""
+
+    def __init__(self, train: list, held_out: list):
+        self.train, self.held_out = train, held_out
+
+    def __call__(self, base_dir, split="train", num=None, **_):
+        return (self.train[:num] if num is not None else self.train) if split == "train" \
+            else self.held_out
+
+
+def run_cli(torch, wa, cli, argv: list, dataset_attr: str, data: InMemoryDataset,
+            tag: str, keys, steps: int, per_step=None) -> dict:
+    """`cli.main(argv)` from SUP_ROOT (its snapshot lands in EXPERIMENTS)
+    with the CLI's dataset class over in-memory data; s/step, peak memory,
+    every loss term, the validation, the best checkpoint; the
+    window-attention launches of the steps (snapshotted before the
+    validation through the CLI's evaluator) and of the whole run; the
+    train states deleted after."""
+    import gc
+
+    per_steps = {}
+    evaluator_name = "brats_evaluator" if hasattr(cli, "brats_evaluator") else "acdc_evaluator"
+    real_evaluator = getattr(cli, evaluator_name)
+
+    def evaluator(*a, **k):
+        validate = real_evaluator(*a, **k)
+
+        def evaluate(model):
+            per_steps.setdefault("at_validation", launches_now(wa))
+            return validate(model)
+
+        return evaluate
+
+    saved = {dataset_attr: getattr(cli, dataset_attr), evaluator_name: real_evaluator}
+    setattr(cli, dataset_attr, data)
+    setattr(cli, evaluator_name, evaluator)
+    os.makedirs(SUP_ROOT, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(SUP_ROOT)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wa.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        for attr, value in saved.items():
+            setattr(cli, attr, value)
+    path = launches_now(wa)
+    peak = torch.cuda.max_memory_allocated()
+    drop_states(result)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log = result["log"]
+    if len(log) != steps or not result["vals"] or result["best_path"] is None:
+        fail(f"{tag} expected {steps} steps, a validation and a best checkpoint, got {result}")
+    s_per_step = (log[-1]["seconds"] - log[0]["seconds"]) / (len(log) - 1)
+    at_val = per_steps["at_validation"]
+    print(f"{tag} {steps} steps: {s_per_step:.4f} s/step after the warm-up step (step times "
+          f"{[round(r['seconds'], 4) for r in log]} s from the start); whole run {run_s:.2f} s; "
+          f"peak memory {peak / 2**30:.2f} GiB; window-attention launches over the steps {at_val}, "
+          f"whole run {path}; final state save {result['saves'][-1]['bytes'] / 1e9:.2f} GB in "
+          f"{result['saves'][-1]['seconds']:.2f} s", flush=True)
+    print_log(tag, log, keys)
+    val = result["vals"][-1]
+    print(f"{tag} validation at step {val['iteration']} in {val['seconds']:.4f} s: mean dice "
+          f"{val['mean_dice']!r} hd95 {val['mean_hd95']!r}; best checkpoint {result['best_path']}",
+          flush=True)
+    if per_step is not None:
+        for kind in ("fwd", "bwd"):
+            want = {m: steps * per_step[kind].get(m, 0) for m in ("none", "region", "mask")}
+            if at_val[kind] != want:
+                fail(f"{tag} {kind} launches over {steps} steps: {at_val[kind]}, expected {want}")
+    return {"s_per_step": s_per_step, "peak_bytes": peak, "path_launches": at_val,
+            "run_launches": path, "val_dice": val["mean_dice"], "val_s": val["seconds"],
+            "best_path": result["best_path"], "log": log}
+
+
+def phase_supervised_unet_2d(torch, wa, slices, volumes) -> dict:
+    """29: the supervised U-Net 2D CLI at its defaults (256^2, batch 16,
+    f32) for 3 steps and a validation, then test_2D_ACDC --model unet on its
+    best checkpoint; no window attention."""
+    from icl_tpu_torch.scripts import test_2D_ACDC
+    from icl_tpu_torch.scripts import train_fully_supervised_unet_2D_ACDC as cli
+    from icl_tpu_torch.train.steps import SUPERVISED_METRIC_KEYS
+
+    data = InMemoryDataset(slices, volumes)
+    common = ["--root_path", "in-memory-ACDC", "--exp", "ACDC_chip_smoke/Fully_Supervised",
+              "--num_tries", "unet"]
+    torch.manual_seed(0)
+    run = run_cli(torch, wa, cli, common + ["--max_iterations", str(TRAIN_STEPS), "--val_interval",
+                                            str(TRAIN_STEPS)], "ACDCDataset", data, "[sup-unet]",
+                  SUPERVISED_METRIC_KEYS, TRAIN_STEPS)
+    no_attention("[sup-unet]", run["run_launches"])
+    eval_dice = eval_cli(test_2D_ACDC, common + ["--model", "unet"], "ACDCDataset", data)
+    print(f"[eval-sup-unet] test_2D_ACDC --model unet on the best checkpoint: mean dice "
+          f"{eval_dice!r}, the trainer's validation {run['val_dice']!r}", flush=True)
+    if eval_dice != run["val_dice"]:
+        fail("test_2D_ACDC does not reproduce the supervised U-Net's validation dice")
+    return run
+
+
+def eval_cli(module, argv: list, dataset_attr: str, data: InMemoryDataset) -> float:
+    """`module.main(argv)` (an eval CLI) from SUP_ROOT over in-memory data:
+    its mean dice."""
+    saved = getattr(module, dataset_attr)
+    setattr(module, dataset_attr, data)
+    cwd = os.getcwd()
+    os.chdir(SUP_ROOT)
+    try:
+        return float(module.main(argv)[0])
+    finally:
+        os.chdir(cwd)
+        setattr(module, dataset_attr, saved)
+
+
+def phase_supervised_swinunet_2d(torch, wa, slices, volumes) -> dict:
+    """30: the supervised Swin-UNet CLI at its defaults (224^2, window 7,
+    batch 16, f32) from a synthetic ImageNet-layout Swin-T checkpoint (a
+    seeded model's encoder, a classification head and one key of the wrong
+    shape, which must be dropped) for 3 steps and a validation, with the
+    launches per step asserted; one step through the kernels against the
+    plain attention by phase 15's rule; test_2D_ACDC --model swinunet on the
+    best checkpoint."""
+    from icl_tpu_torch.config import ExperimentConfig
+    from icl_tpu_torch.models.registry import net_factory
+    from icl_tpu_torch.models.swin2d import WindowAttention
+    from icl_tpu_torch.scripts import test_2D_ACDC
+    from icl_tpu_torch.scripts import train_fully_supervised_swinunet_2D_ACDC as cli
+    from icl_tpu_torch.train.steps import SUPERVISED_METRIC_KEYS
+
+    donor = net_factory("swinunet", 1, CLASSES_2D, device="cpu",
+                        generator=torch.Generator().manual_seed(30))
+    encoder = {k[len("swin_unet."):]: v for k, v in donor.state_dict().items()
+               if k.startswith(("swin_unet.layers.", "swin_unet.patch_embed.", "swin_unet.norm."))}
+    wrong = "layers.2.blocks.0.attn.qkv.weight"
+    ckpt = {**encoder, "head.weight": torch.ones(1000, 768), "head.bias": torch.zeros(1000),
+            wrong: torch.zeros(5, 7)}
+    os.makedirs(SUP_ROOT, exist_ok=True)
+    ckpt_path = os.path.join(SUP_ROOT, "swin_tiny_synthetic.pth")
+    torch.save({"model": ckpt}, ckpt_path)
+    del donor
+    loads = []
+    real_load = cli.load_pretrained_swinunet
+
+    def load(model, path):
+        loads.append(real_load(model, path))
+        return loads[-1]
+
+    cli.load_pretrained_swinunet = load
+    data = InMemoryDataset(slices, volumes)
+    common = ["--root_path", "in-memory-ACDC", "--exp", "ACDC_chip_smoke/Fully_Supervised",
+              "--num_tries", "swinunet"]
+    per_step = {kind: dict(PER_FORWARD_SWIN_SUP) for kind in ("fwd", "bwd")}
+    try:
+        torch.manual_seed(0)  # drop-path masks
+        run = run_cli(torch, wa, cli, common + ["--max_iterations", str(TRAIN_STEPS),
+                                                "--val_interval", str(TRAIN_STEPS),
+                                                "--pretrained_ckpt", ckpt_path],
+                      "ACDCDataset", data, "[sup-swinunet]", SUPERVISED_METRIC_KEYS, TRAIN_STEPS,
+                      per_step)
+    finally:
+        cli.load_pretrained_swinunet = real_load
+    kept, dropped = loads[0]
+    reasons = dict(dropped)
+    shape_drops = sorted(k for k, r in dropped if r.startswith("shape"))
+    print(f"[sup-swinunet] --pretrained_ckpt: {len(kept)} keys loaded, {len(dropped)} dropped, "
+          f"for their shape {shape_drops}; the head {[k for k in reasons if k.startswith('head.')]}",
+          flush=True)
+    if shape_drops != [f"swin_unet.{wrong}", f"swin_unet.layers_up.1.blocks.0.attn.qkv.weight"] \
+            or "head.weight" not in reasons or not any(k.startswith("swin_unet.layers_up.") for k in kept):
+        fail("[sup-swinunet] the pretrained load did not keep and drop the expected keys")
+    chunks = sum(math.ceil(v["image"].shape[0] / 32) for v in volumes)
+    val_fwd = {m: run["run_launches"]["fwd"][m] - run["path_launches"]["fwd"][m]
+               for m in ("none", "mask")}
+    if val_fwd != {m: chunks * n for m, n in PER_FORWARD_SWIN_SUP.items()}:
+        fail(f"[sup-swinunet] validation launches {val_fwd} over {chunks} chunks, expected "
+             f"{PER_FORWARD_SWIN_SUP} per chunk")
+    cfg = ExperimentConfig(root_path="in-memory", exp="ACDC_chip_smoke/SwinSup", model="swinunet",
+                           num_classes=CLASSES_2D, max_iterations=1, batch_size=BATCH_SWIN_SUP,
+                           base_lr=0.01, patch_size=(IMG_SWIN_SUP,) * 2, seed=1337,
+                           val_interval=0, precision="float32", experiments_dir=EXPERIMENTS)
+    from icl_tpu_torch.data.pipeline import supervised_batches
+
+    batch = next(supervised_batches(slices, BATCH_SWIN_SUP, cfg.patch_size, seed=cfg.seed))
+    blocks = [f"layers.{i}.blocks.{b}" for i in (0, 3) for b in (0, 1)] + ["layers_up.3.blocks.1"]
+    watched = [f"swin_unet.{blk}.attn.{t}" for blk in blocks
+               for t in ("relative_position_bias_table", "qkv.weight", "qkv.bias")]
+    per = sum(PER_FORWARD_SWIN_SUP.values())
+    step_parity(torch, wa, cfg, batch, watched, WindowAttention, (per, per), "[step-sup2d]")
+    eval_dice = eval_cli(test_2D_ACDC, common + ["--model", "swinunet", "--patch_size",
+                                                 str(IMG_SWIN_SUP), str(IMG_SWIN_SUP)],
+                         "ACDCDataset", data)
+    print(f"[eval-sup-swinunet] test_2D_ACDC --model swinunet on the best checkpoint: mean dice "
+          f"{eval_dice!r}, the trainer's validation {run['val_dice']!r}", flush=True)
+    if eval_dice != run["val_dice"]:
+        fail("test_2D_ACDC does not reproduce the supervised Swin-UNet's validation dice")
+    return run
+
+
+def phase_supervised_swinunetr_3d(torch, wa, cases, held_out) -> dict:
+    """31: the supervised SwinUNETR CLI at its defaults (fs48, 96^3, batch
+    4, bf16, recompute on) from a synthetic SSL SwinViT checkpoint in the
+    reference layout (`module.swin_vit.`, `mlp.linear1/linear2`) for 3 steps
+    and a validation, with the launches per step asserted; test_3D_BraTS
+    --model swinunetr on the best checkpoint."""
+    from icl_tpu_torch.models.registry import net_factory
+    from icl_tpu_torch.scripts import test_3D_BraTS
+    from icl_tpu_torch.scripts import train_fully_supervised_swinunetr_3D_BraTS as cli
+    from icl_tpu_torch.train.steps import SUPERVISED_METRIC_KEYS
+
+    donor = net_factory("swinunetr", 1, 2, device="cpu", feature_size=FEATURE_SIZE,
+                        generator=torch.Generator().manual_seed(31))
+    ssl = {f"module.swin_vit.{k[len('swinViT.'):]}": v for k, v in donor.state_dict().items()
+           if k.startswith("swinViT.")}
+    os.makedirs(SUP_ROOT, exist_ok=True)
+    ckpt_path = os.path.join(SUP_ROOT, "model_swinvit_synthetic.pt")
+    torch.save({"state_dict": ssl, "epoch": 0}, ckpt_path)
+    n_params = sum(1 for k, _ in donor.named_parameters() if k.startswith("swinViT."))
+    del donor
+    loads = []
+    real_load = cli.load_pretrained_swinvit
+
+    def load(model, path):
+        loads.append(real_load(model, path))
+        return loads[-1]
+
+    cli.load_pretrained_swinvit = load
+    data = InMemoryDataset(cases, held_out)
+    common = ["--root_path", "in-memory-BraTS", "--exp", "BraTS_chip_smoke/Fully_Supervised",
+              "--num_tries", "swinunetr", "--labeled_num", str(len(cases))]
+    per_step = {"fwd": SUP_3D_FWD_PER_STEP, "bwd": SUP_3D_BWD_PER_STEP}
+    try:
+        torch.manual_seed(0)  # drop-path masks
+        run = run_cli(torch, wa, cli, common + ["--max_iterations", str(TRAIN_STEPS),
+                                                "--val_interval", str(TRAIN_STEPS),
+                                                "--ssl_ckpt", ckpt_path],
+                      "BraTS2019Dataset", data, "[sup-swinunetr]", SUPERVISED_METRIC_KEYS,
+                      TRAIN_STEPS, per_step)
+    finally:
+        cli.load_pretrained_swinvit = real_load
+    kept, dropped = loads[0]
+    print(f"[sup-swinunetr] --ssl_ckpt: {len(kept)} keys loaded (the encoder has {n_params} "
+          f"parameters), {len(dropped)} dropped ({sorted(set(r for _, r in dropped))})", flush=True)
+    if len(kept) != n_params:
+        fail("[sup-swinunetr] the SSL load did not fill every encoder parameter")
+    eval_dice = eval_cli(test_3D_BraTS, common + ["--model", "swinunetr"], "BraTS2019Dataset", data)
+    print(f"[eval-sup-swinunetr] test_3D_BraTS --model swinunetr on the best checkpoint: mean dice "
+          f"{eval_dice!r}, the trainer's validation {run['val_dice']!r}", flush=True)
+    if eval_dice != run["val_dice"]:
+        fail("test_3D_BraTS does not reproduce the supervised SwinUNETR's validation dice")
+    return run
+
+
+def phase_resume(torch, slices) -> dict:
+    """32: resume on the flagship U-Net-ICL 2D at full width. Run A takes 4
+    steps; run B takes 2 with checkpoint_interval 2 (the rolling save, then
+    the final one), and a fresh Trainer restores `state_last` (every
+    parameter, buffer, momentum, the count, the iteration and the RNG
+    states equal to run B's bit for bit) and takes A's batches 3-4; a
+    control takes A's 4 steps on the batches scaled by 1 + 1e-7. After
+    step 4, B against A by the rule of phase 18 from the initial weights;
+    whether they came out bitwise is printed, beside a repeat of run A
+    (which shows what the card's own reductions move). The train states
+    are deleted after."""
+    import gc
+
+    from icl_tpu_torch.train.steps import METRIC_KEYS
+    from icl_tpu_torch.train.trainer import Trainer
+    from icl_tpu_torch.utils.checkpoint import host_copy
+
+    def config(tries, interval=0):
+        cfg = unet_config(RESUME_STEPS, 0, tries)
+        cfg.checkpoint_interval = interval
+        return cfg
+
+    def flat(state):
+        out = {f"model/{k}": v for k, v in state["model"].items()}
+        out.update({f"momentum/{i}": s["momentum_buffer"]
+                    for i, s in state["optimizer"]["state"].items()})
+        out.update({f"rng/{k}": v for k, v in state["rng"].items() if k != "modules"})
+        out.update({f"rng/modules/{k}": v for k, v in state["rng"]["modules"].items()})
+        return out
+
+    def params_on_host(trainer):
+        return {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+
+    def run(tries, batches, interval=0):
+        """A fresh Trainer from the seed through `fit`: (trainer, result)."""
+        torch.manual_seed(0)  # dropout and drop-path masks
+        trainer = Trainer(config(tries, interval), device=DEVICE)
+        return trainer, trainer.fit(batches)
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    batches = [b for _, b in zip(range(RESUME_STEPS), acdc_batches(slices, config("batches")))]
+    torch.manual_seed(0)  # dropout and drop-path masks
+    a = Trainer(config("resumeA"), device=DEVICE)
+    initial = params_on_host(a)
+    result_a = a.fit(batches)
+    run_a = ({k: result_a["log"][-1][k] for k in METRIC_KEYS}, params_on_host(a))
+    state_a = flat(host_copy(a.train_state()))
+    drop_states(result_a)
+    del a
+    release()
+
+    first, result_first = run("resumeB", batches[:2], interval=2)
+    rolling, last = result_first["saves"]
+    torch.manual_seed(1)  # the restore must bring back the generators' states
+    b = Trainer(config("resumeB", 2), device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b.restore_state()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    saved, restored = flat(first.train_state()), flat(b.train_state())
+    differ = sorted(k for k in saved if k not in restored or saved[k].dtype != restored[k].dtype
+                    or not torch.equal(saved[k].to(restored[k].device), restored[k]))
+    scalars = {k: (first.train_state()[k], b.train_state()[k]) for k in ("count", "iteration")}
+    del first, saved, restored
+    release()
+    nbytes = last["bytes"]
+    print(f"[resume] U-Net-ICL 2D {IMG_UNET}^2, state {nbytes / 1e9:.3f} GB: rolling save "
+          f"{rolling['seconds']:.2f} s ({rolling['bytes'] / 1e9 / rolling['seconds']:.2f} GB/s), "
+          f"final save {last['seconds']:.2f} s ({nbytes / 1e9 / last['seconds']:.2f} GB/s), "
+          f"restore_state {restore_s:.2f} s ({nbytes / 1e9 / restore_s:.2f} GB/s); restored tensors "
+          f"that differ from the saved ones: {differ or 'none'}; (count, iteration) saved vs "
+          f"restored {scalars}", flush=True)
+    if differ or any(x != y for x, y in scalars.values()) or scalars["iteration"][1] != 2:
+        fail("[resume] the restored state is not the saved one bit for bit")
+    result_b = b.fit(batches[2:])
+    if [r["iteration"] for r in result_b["log"]] != [3, 4]:
+        fail(f"[resume] the resumed run logged {[r['iteration'] for r in result_b['log']]}")
+    run_b = ({k: result_b["log"][-1][k] for k in METRIC_KEYS}, params_on_host(b))
+    state_b = flat(host_copy(b.train_state()))
+    del b
+    release()
+
+    again, result_again = run("resumeRepeat", batches)
+    state_again = flat(host_copy(again.train_state()))
+    del again
+    release()
+    scaled = [{"image": (bt["image"] * (1.0 + 1e-7)).astype(bt["image"].dtype), "label": bt["label"]}
+              for bt in batches]
+    c, result_c = run("resumeControl", scaled)
+    run_c = ({k: result_c["log"][-1][k] for k in METRIC_KEYS}, params_on_host(c))
+    del c
+    release()
+    for result in (result_first, result_b, result_again, result_c):
+        drop_states(result)
+
+    def differ_from_a(state):
+        n = sum(not torch.equal(state_a[k], state[k]) for k in state_a)
+        return "bitwise equal" if not n else f"{n} of {len(state_a)} tensors differ"
+
+    print(f"[resume] after step {RESUME_STEPS}, A (4 steps) vs B (2 + restore + 2): "
+          f"{differ_from_a(state_b)}; A vs a repeat of A from the same seed: "
+          f"{differ_from_a(state_again)}", flush=True)
+    differ_ab = [k for k in state_a if not torch.equal(state_a[k], state_b[k])]
+    step_agreement(torch, "[resume]", f"{RESUME_STEPS} f32 steps, B (2 + restore + 2) vs A",
+                   initial, {"test": run_b, "reference": run_a, "control": run_c})
+    return {"bytes": nbytes, "rolling_s": rolling["seconds"], "final_s": last["seconds"],
+            "restore_s": restore_s, "bitwise": not differ_ab}
 
 
 def main() -> int:
@@ -1501,6 +2041,16 @@ def main() -> int:
     phase_train_to_eval_unet3d(torch, held_out, training_unet3d)
     amos_icl, amos_sup = phase_amos(torch, wa)
 
+    # 28 - 32. this slice: the kernels at the supervised paths' shapes, the
+    # three supervised CLIs with train -> eval, and the resume
+    sup_rows = phase_kernels_supervised(torch, F, wa)
+    sup_unet = phase_supervised_unet_2d(torch, wa, slices, volumes)
+    sup_swinunet = phase_supervised_swinunet_2d(torch, wa, slices, volumes)
+    sup_swinunetr = phase_supervised_swinunetr_3d(torch, wa, cases, held_out)
+    resume = phase_resume(torch, slices)
+    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
+    print(f"[summary] resume: {json.dumps(resume)}", flush=True)
+
     # The kernels line, one entry per kernel and mode. Times are sums over
     # the shapes of a unit of work, each f32 launch time times its launches
     # there: for no-mask and mask one Swin-UNet-ICL training step at 384^2
@@ -1531,12 +2081,30 @@ def main() -> int:
     }
     ref_224 = {m: {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")}
                for m in PER_FORWARD_2D for r in timed(fwd_rows_2d, m) if r["stage"] == REF_STAGE_2D[0]}
+    sup_2d = {m: {st[0]: st[4][m] for st in STAGES_SWIN_SUP if m in st[4]} for m in PER_FORWARD_SWIN_SUP}
+    sup_3d_fwd = {m: {st: 2 * n for st, n in PER_FORWARD[m].items()} for m in ("none", "region")}
     paths = {
         "fwd": {"none": {"swinunetr_inference_forward": totals(timed(per_shape, "none"), PER_FORWARD["none"]),
-                         "swinunet2d_224_w7_stage1_launch": ref_224["none"]},
-                "mask": {"swinunet2d_224_w7_stage1_launch": ref_224["mask"]}},
+                         "swinunet2d_224_w7_stage1_launch": ref_224["none"],
+                         "swinunet2d_supervised_step": totals(
+                             [r for r in sup_rows["fwd2d"] if r["mode"] == "none"], sup_2d["none"]),
+                         "swinunetr_supervised_step_bf16": totals(
+                             [r for r in sup_rows["fwd3d"] if r["mode"] == "none"], sup_3d_fwd["none"])},
+                "mask": {"swinunet2d_224_w7_stage1_launch": ref_224["mask"],
+                         "swinunet2d_supervised_step": totals(
+                             [r for r in sup_rows["fwd2d"] if r["mode"] == "mask"], sup_2d["mask"])},
+                "region": {"swinunetr_supervised_step_bf16": totals(
+                    [r for r in sup_rows["fwd3d"] if r["mode"] == "region"], sup_3d_fwd["region"])}},
         "bwd": {"none": {"swinunetr_training_step": totals(timed(bwd_rows, "none"),
-                                                           BWD_PER_STEP_BY_STAGE["none"])}},
+                                                           BWD_PER_STEP_BY_STAGE["none"]),
+                         "swinunet2d_supervised_step": totals(
+                             [r for r in sup_rows["bwd2d"] if r["mode"] == "none"], sup_2d["none"]),
+                         "swinunetr_supervised_step_bf16": totals(
+                             [r for r in sup_rows["bwd3d"] if r["mode"] == "none"], PER_FORWARD["none"])},
+                "mask": {"swinunet2d_supervised_step": totals(
+                    [r for r in sup_rows["bwd2d"] if r["mode"] == "mask"], sup_2d["mask"])},
+                "region": {"swinunetr_supervised_step_bf16": totals(
+                    [r for r in sup_rows["bwd3d"] if r["mode"] == "region"], PER_FORWARD["region"])}},
     }
     per = {"region": {"fwd": "SwinUNETR inference forward", "bwd": "SwinUNETR-ICL training step"},
            "none": "Swin-UNet-ICL training step", "mask": "Swin-UNet-ICL training step"}
@@ -1552,7 +2120,12 @@ def main() -> int:
                            supervised_unet3d["path_launches"][direction][mode],
                        "training_unet_3d_amos": amos_icl["path_launches"][direction][mode],
                        "training_unet_3d_amos_supervised":
-                           amos_sup["path_launches"][direction][mode]}
+                           amos_sup["path_launches"][direction][mode],
+                       "training_unet_2d_supervised": sup_unet["path_launches"][direction][mode],
+                       "training_swinunet_2d_supervised":
+                           sup_swinunet["path_launches"][direction][mode],
+                       "training_swinunetr_3d_supervised":
+                           sup_swinunetr["path_launches"][direction][mode]}
             if direction == "fwd":
                 by_path["inference_3d"] = launches.get(mode, 0)
             errs = [r["max_abs_err"] for r in rows_3d + rows_2d if r["mode"] == mode

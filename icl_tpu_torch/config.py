@@ -38,6 +38,11 @@ class ExperimentConfig:
     # `log_interval` steps (each log reads the metrics back from the card)
     val_interval: int = 200
     log_interval: int = 1
+    # the full train state every `checkpoint_interval` steps (0: never),
+    # the newest `keep_checkpoints` step files kept (0: all); `fit` always
+    # ends with `state_last.pt`
+    checkpoint_interval: int = 0
+    keep_checkpoints: int = 3
 
     # 'float32' (TF32 off, parity) or 'bfloat16' (forward under autocast)
     precision: str = "float32"

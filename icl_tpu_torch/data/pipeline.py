@@ -1,5 +1,6 @@
-"""ACDC training batches (counterpart of `acdc_train_batches`,
-`icl_tpu/data/pipeline.py:22-53`), channel-first, and the `Prefetcher`
+"""ACDC training batches (counterpart of `acdc_train_batches` and
+`supervised_batches`, `icl_tpu/data/pipeline.py:22-53, 90-116`),
+channel-first, and the `Prefetcher`
 that makes every training CLI's batches on a thread of their own
 (`icl_tpu/data/pipeline.py:117-148`)."""
 from __future__ import annotations
@@ -29,6 +30,28 @@ def acdc_train_batches(dataset, labeled_count: int, batch_size: int, labeled_bs:
         pairs = [transform(dataset[i]["image"], dataset[i]["label"], aug_rng) for i in idxs]
         yield {"image": np.stack([img for img, _ in pairs])[:, None],
                "label": np.stack([lab for _, lab in pairs])}
+
+
+def supervised_batches(dataset, batch_size: int, patch_size, seed: int = 1337) -> Iterator[dict]:
+    """Endless labeled-only batches of augmented slices (the fully
+    supervised path): one fresh permutation of the whole dataset per epoch
+    from `seed` (the remainder dropped), augmented from `seed + 1`; "image"
+    [B, 1, H, W] f32 and "label" [B, H, W] uint8. Raises ValueError if the
+    dataset holds fewer slices than one batch (the JAX package's loop then
+    spins without yielding)."""
+    n = len(dataset)
+    if n < batch_size:
+        raise ValueError(f"{n} slices cannot fill a batch of {batch_size}")
+    transform = RandomGenerator(patch_size)
+    rng = np.random.default_rng(seed)
+    aug_rng = np.random.default_rng(seed + 1)
+    while True:
+        perm = rng.permutation(n)
+        for start in range(0, n - batch_size + 1, batch_size):
+            pairs = [transform(dataset[int(i)]["image"], dataset[int(i)]["label"], aug_rng)
+                     for i in perm[start:start + batch_size]]
+            yield {"image": np.stack([img for img, _ in pairs])[:, None],
+                   "label": np.stack([lab for _, lab in pairs])}
 
 
 class Prefetcher:

@@ -44,6 +44,33 @@ def make_slice_predictor(model: torch.nn.Module, patch_size, device=None,
     return predict
 
 
+def generate_pseudo_labels(predict: Callable[[np.ndarray], np.ndarray], dataset,
+                           root_path: str) -> int:
+    """Per-slice pseudo-label files for a self-training round (counterpart
+    of `generate_pseudo_labels`, icl_tpu/eval/infer2d.py:59-81; the
+    reference's val_2D.py:89-109): `{root}/slices_iter1/{case}_slice_{d}.h5`
+    (d from 1) holding the volume's original slice as "image" and
+    `predict`'s label as "label", gzip-compressed. Returns the number of
+    slices written."""
+    import os
+
+    import h5py  # only the writer needs it
+
+    out_dir = os.path.join(root_path, "slices_iter1")
+    os.makedirs(out_dir, exist_ok=True)
+    count = 0
+    for i in range(len(dataset)):
+        item = dataset[i]
+        image = item["image"]
+        prediction = predict(image)
+        for d in range(image.shape[0]):
+            with h5py.File(os.path.join(out_dir, f"{item['case']}_slice_{d + 1}.h5"), "w") as f:
+                f.create_dataset("image", data=image[d], compression="gzip")
+                f.create_dataset("label", data=prediction[d], compression="gzip")
+            count += 1
+    return count
+
+
 def evaluate_acdc_volumes(predict: Callable[[np.ndarray], np.ndarray], dataset,
                           num_classes: int) -> dict:
     """The validation protocol over a volume dataset (items with "image"

@@ -85,6 +85,54 @@ def sliding_window_predict(
     return label_map
 
 
+def make_fused_sliding_window(model: torch.nn.Module, num_classes: int,
+                              patch_size: Sequence[int] = (96, 96, 96), sw_batch: int = 4,
+                              apply_softmax: bool = True, dtype: torch.dtype | None = None,
+                              device=None) -> Callable[..., np.ndarray]:
+    """predict(image [W, H, D], stride_xy=64, stride_z=64) -> label map, as
+    `sliding_window_predict` with `make_patch_predictor(model,
+    apply_softmax, dtype)` computes it (softmax stitched for BraTS, logits
+    for AMOS), with the patches gathered by one index per chunk and
+    stitched by `index_add_` into flat score and count volumes
+    (counterpart of `make_fused_sliding_window`, icl_tpu/eval/infer3d.py:114;
+    its mesh option is not ported). On the CPU the stitch adds in the same
+    order as `sliding_window_predict`, so the label maps are equal; on the
+    card `index_add_` may add overlapping patches in another order."""
+    scores_fn = make_patch_predictor(model, apply_softmax, dtype)
+    device = resolve_device(device)
+    pw, ph, pd = patch_size
+
+    @torch.inference_mode()
+    def predict(image: np.ndarray, stride_xy: int = 64, stride_z: int = 64) -> np.ndarray:
+        w, h, d = image.shape
+        wp, hp, dp = max(pw - w, 0), max(ph - h, 0), max(pd - d, 0)
+        pads = ((wp // 2, wp - wp // 2), (hp // 2, hp - hp // 2), (dp // 2, dp - dp // 2))
+        padded = np.pad(image, pads, mode="constant") if (wp or hp or dp) else image
+        ww, hh, dd = padded.shape
+        volume = torch.from_numpy(np.ascontiguousarray(padded, dtype=np.float32)).to(device).view(-1)
+        starts = torch.tensor([(xs, ys, zs) for xs in _grid_starts(ww, pw, stride_xy)
+                               for ys in _grid_starts(hh, ph, stride_xy)
+                               for zs in _grid_starts(dd, pd, stride_z)], device=device)
+        ox, oy, oz = (torch.arange(n, device=device) for n in (pw, ph, pd))
+        local = (ox[:, None, None] * hh + oy[None, :, None]) * dd + oz[None, None, :]
+        flat = (starts[:, 0] * hh + starts[:, 1]) * dd + starts[:, 2]
+        index = flat[:, None, None, None] + local  # [patches, pw, ph, pd] into the flat volume
+        score = torch.zeros((num_classes, volume.numel()), dtype=torch.float32, device=device)
+        cnt = torch.zeros(volume.numel(), dtype=torch.float32, device=device)
+        for c0 in range(0, index.shape[0], sw_batch):
+            idx = index[c0:c0 + sw_batch]
+            scores = scores_fn(volume[idx][:, None])  # [n, classes, pw, ph, pd]
+            score.index_add_(1, idx.reshape(-1), scores.transpose(0, 1).reshape(num_classes, -1))
+            cnt.index_add_(0, idx.reshape(-1), torch.ones(idx.numel(), device=device))
+        label_map = torch.argmax(score / cnt, dim=0).to(torch.uint8).view(ww, hh, dd).cpu().numpy()
+        if wp or hp or dp:
+            label_map = label_map[pads[0][0]:pads[0][0] + w, pads[1][0]:pads[1][0] + h,
+                                  pads[2][0]:pads[2][0] + d]
+        return label_map
+
+    return predict
+
+
 def evaluate_amos_cases(scores_fn, dataset, num_classes: int = 16, roi=(96, 96, 96),
                         sw_batch: int = 4, device=None):
     """test_all_case_amos protocol (val_3D.py:120-138): the sliding window

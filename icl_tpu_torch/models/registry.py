@@ -7,7 +7,7 @@ import torch
 from icl_tpu_torch.device import resolve_device
 
 PORTED = ("swinunetr", "swinunetr_icl", "swinunet", "icl_swinunet", "unet", "icl_unet", "unet_3D",
-          "unet_3D_icl")
+          "unet_3D_icl", "unet_cct", "unet_urpc", "unet_ds")
 
 
 def net_factory(net_type: str, in_chns: int, class_num: int, *, device=None,
@@ -31,6 +31,9 @@ def net_factory(net_type: str, in_chns: int, class_num: int, *, device=None,
     trainers pass the patch, registry.py:85-91); a full `swin_cfg`
     (`SwinConfig`, e.g. from a `--cfg` yaml) wins over both and over
     `window_size`.
+
+    2D U-Net variants: `unet_cct`, `unet_urpc` and `unet_ds` build
+    `UNetCCT`, `UNetURPC` and `UNetDS` (`models/unet2d_variants.py`).
 
     2D U-Net: `icl_unet` builds `UNetICL` (patch side `patch_size`,
     default 256; `fuse_sspa_pair` and `zero_stochastic` as that class
@@ -62,6 +65,12 @@ def net_factory(net_type: str, in_chns: int, class_num: int, *, device=None,
                                fuse_sspa_pair=fuse_sspa_pair, zero_stochastic=zero_stochastic,
                                device=device, generator=generator)
         return build_model(UNet, in_chns, class_num, device=device, generator=generator)
+    if net_type in ("unet_cct", "unet_urpc", "unet_ds"):
+        from icl_tpu_torch.models import unet2d_variants
+
+        cls = {"unet_cct": unet2d_variants.UNetCCT, "unet_urpc": unet2d_variants.UNetURPC,
+               "unet_ds": unet2d_variants.UNetDS}[net_type]
+        return build_model(cls, in_chns, class_num, device=device, generator=generator)
     if net_type in ("unet_3D", "unet_3D_icl"):
         from icl_tpu_torch.models.unet3d import UNet3D
         from icl_tpu_torch.models.unet3d_icl import UNet3DICL

@@ -41,8 +41,19 @@ def swin_cli_kwargs(args) -> dict:
     """The `--cfg` flag of the Swin CLIs: the yaml -> model kwargs
     {"swin_cfg": SwinConfig}, with IMG_SIZE following --patch_size (the
     reference builds the net with the CLI's image size). No flag, no
-    kwargs. The yaml's MODEL.PRETRAIN_CKPT is not read: the port has no
-    pretrained load (`--pretrained_ckpt` is refused)."""
+    kwargs. Where `--pretrained_ckpt` is not given, the yaml's
+    MODEL.PRETRAIN_CKPT takes its place if that file exists (the
+    reference's `model.load_from(config)`, as the JAX CLIs do)."""
     if not getattr(args, "cfg", None):
         return {}
-    return {"swin_cfg": get_swin_config(args.cfg, img_size=args.patch_size[0])}
+    import os
+
+    import yaml
+
+    kwargs = {"swin_cfg": get_swin_config(args.cfg, img_size=args.patch_size[0])}
+    if not getattr(args, "pretrained_ckpt", None):
+        with open(args.cfg) as f:
+            ckpt = ((yaml.safe_load(f) or {}).get("MODEL") or {}).get("PRETRAIN_CKPT")
+        if ckpt and os.path.exists(ckpt):
+            args.pretrained_ckpt = ckpt
+    return kwargs

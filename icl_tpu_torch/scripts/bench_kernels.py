@@ -3,7 +3,9 @@ shape of the port's paths: `chip_smoke.py`'s kernel phases 3 + 4 (the
 forward at the SwinUNETR inference shapes, N = 343 and 216, head dim 16),
 7 + 8 (the backward at the SwinUNETR-ICL training shapes) and 12 + 13
 (both at Swin-UNet 2D's 384^2, the 224^2 / window-7 stage 1 and a 2 x 2
-window, head dim 32), each case checked against the plain version,
+window, head dim 32) and 28 (both at the supervised Swin paths' shapes:
+224^2 / window 7 at batch 16 in f32, SwinUNETR at batch 4 in bf16), each
+case checked against the plain version,
 bitwise repeatable and timed, and nothing else of the smoke test.
 
     python icl_tpu_torch/scripts/bench_kernels.py [--device-time]
@@ -54,6 +56,7 @@ def main(argv=None) -> int:
     smoke.phase_kernel_3d(torch, F, wa)
     smoke.phase_backward_kernel(torch, F, wa)
     smoke.phase_kernels_2d(torch, F, wa)
+    smoke.phase_kernels_supervised(torch, F, wa)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60)
     print(card.stdout.strip() or "nvidia-smi: no output")

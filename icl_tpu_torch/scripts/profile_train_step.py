@@ -1,4 +1,4 @@
-"""Where the time of one ICL training step goes on the card.
+"""Where the time of one training step goes on the card.
 
     python -m icl_tpu_torch.scripts.profile_train_step [--model swinunetr_icl]
         [--precision float32] [--dataset brats]
@@ -14,7 +14,11 @@ defaults: with `--dataset brats` the BraTS CLI's (U-Net-ICL 3D at 96^3,
 batch 4 of which 2 labeled, 2 classes, consistency weight 10, on the 128^3
 cases), with `--dataset amos` the AMOS CLI's (16 classes, base LR 0.02,
 pse weight 0.1, recompute on, bf16 unless `--precision` says otherwise,
-on the same cases with their tumour labelled as one of 15 organs). Times
+on the same cases with their tumour labelled as one of 15 organs); or a
+fully supervised CLI's defaults: `unet` (256^2, batch 16) or `swinunet`
+(224^2, window 7, batch 16) on the same slices, `swinunetr` (fs48, 96^3,
+batch 4, recompute on, bf16 unless `--precision` says otherwise) on the
+BraTS cases. Times
 building the model, runs two
 warm-up steps, three timed steps without the profiler and then one
 profiled step, each on a batch made before its clock starts, and prints
@@ -68,6 +72,36 @@ def brats_setup(precision: str, model: str = "swinunetr_icl", dataset: str = "br
     return cfg, make_batches, what
 
 
+def supervised_setup(precision: str, model: str):
+    from icl_tpu_torch.data.brats import brats_supervised_batches
+    from icl_tpu_torch.data.pipeline import supervised_batches
+    from icl_tpu_torch.data.synth import synthetic_acdc, synthetic_brats_cases
+
+    if model == "swinunetr":
+        cfg = ExperimentConfig(root_path="in-memory", exp="profile", model=model, max_iterations=3,
+                               batch_size=4, patch_size=(96, 96, 96), labeled_num=4,
+                               precision=precision, remat=True, feature_size=48)
+        cases = synthetic_brats_cases(4, 128, seed=0)
+        what = "supervised SwinUNETR fs48, 96^3, batch 4, recompute on"
+
+        def make_batches():
+            return brats_supervised_batches(cases, cfg.batch_size, cfg.patch_size, seed=cfg.seed)
+
+        return cfg, make_batches, what
+    side = 224 if model == "swinunet" else 256
+    cfg = ExperimentConfig(root_path="in-memory", exp="profile", model=model, num_classes=4,
+                           max_iterations=3, batch_size=16, patch_size=(side, side),
+                           labeled_num=7, precision=precision)
+    slices, _ = synthetic_acdc(32, 0, 256, 1, 4, seed=0)
+    what = ("supervised Swin-UNet embed 96, 224^2, window 7, batch 16" if model == "swinunet"
+            else "supervised U-Net, 256^2, batch 16")
+
+    def make_batches():
+        return supervised_batches(slices, cfg.batch_size, cfg.patch_size, seed=cfg.seed)
+
+    return cfg, make_batches, what
+
+
 def acdc_setup(precision: str, model: str):
     from icl_tpu_torch.data.pipeline import acdc_train_batches
     from icl_tpu_torch.data.synth import synthetic_acdc
@@ -97,20 +131,25 @@ def setup(model: str, precision: str, dataset: str = "brats"):
     stream anew."""
     if model in ("swinunetr_icl", "unet_3D_icl"):
         return brats_setup(precision, model, dataset)
+    if model in ("unet", "swinunet", "swinunetr"):
+        return supervised_setup(precision, model)
     return acdc_setup(precision, model)
 
 
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="swinunetr_icl",
-                   choices=["swinunetr_icl", "icl_swinunet", "icl_unet", "unet_3D_icl"])
+                   choices=["swinunetr_icl", "icl_swinunet", "icl_unet", "unet_3D_icl", "unet",
+                            "swinunet", "swinunetr"])
     p.add_argument("--precision", default=None, choices=["float32", "bfloat16"],
-                   help="default: the CLI's (bfloat16 for --dataset amos, else float32)")
+                   help="default: the CLI's (bfloat16 for swinunetr and --dataset amos, "
+                        "else float32)")
     p.add_argument("--dataset", default="brats", choices=["brats", "amos"],
                    help="unet_3D_icl only: the BraTS or the AMOS CLI's configuration")
     args = p.parse_args(argv)
     if args.precision is None:
-        args.precision = "bfloat16" if args.model == "unet_3D_icl" and args.dataset == "amos" else "float32"
+        amos = args.model == "unet_3D_icl" and args.dataset == "amos"
+        args.precision = "bfloat16" if amos or args.model == "swinunetr" else "float32"
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

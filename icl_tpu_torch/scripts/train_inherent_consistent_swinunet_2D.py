@@ -10,12 +10,14 @@ labeled, consistency weight 50, validation by the 2D slice predictor every
 The batches are made on a thread of their own (`Prefetcher`). `--cfg`
 takes a Swin yaml (the schema of
 `configs/swin_tiny_patch4_window7_224_lite.yaml`); its image size follows
-`--patch_size`. Runs on the CUDA card; `--device cpu` runs on the CPU.
-`--precision float32` (the default) runs f32 with TF32 off; `bfloat16`
-runs the forward under autocast. `--deterministic` is taken and has no
-effect. The JAX CLI's `--scan_steps` and `--dispatch_depth` other than 1,
-its multi-process flags and `--pretrained_ckpt` are not ported and are
-refused.
+`--patch_size`. `--pretrained_ckpt` (or the yaml's MODEL.PRETRAIN_CKPT)
+loads an ImageNet Swin-T checkpoint into the encoder and, mirrored, the
+decoder (`utils/pretrained.py`). Runs on the CUDA card; `--device cpu`
+runs on the CPU. `--precision float32` (the default) runs f32 with TF32
+off; `bfloat16` runs the forward under autocast. `--deterministic` is
+taken and has no effect. The JAX CLI's `--scan_steps` and
+`--dispatch_depth` other than 1 and its multi-process flags are not
+ported and are refused.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from icl_tpu_torch.data.pipeline import Prefetcher, acdc_train_batches
 from icl_tpu_torch.models.swin_config import swin_cli_kwargs
 from icl_tpu_torch.scripts.unported import MULTI_PROCESS, parse_args_refusing
 from icl_tpu_torch.train.trainer import Trainer, acdc_evaluator
+from icl_tpu_torch.utils.pretrained import load_pretrained_swinunet
 
 
 def parse_args(argv=None):
@@ -47,10 +50,10 @@ def parse_args(argv=None):
     p.add_argument("--val_interval", type=int, default=200)
     p.add_argument("--precision", type=str, default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--cfg", type=str, default=None)
+    p.add_argument("--pretrained_ckpt", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda")
-    return parse_args_refusing(
-        p, argv, ("pretrained_ckpt", "scan_steps", "dispatch_depth") + MULTI_PROCESS,
-        "the port runs one process, one step per dispatch, from random weights")
+    return parse_args_refusing(p, argv, ("scan_steps", "dispatch_depth") + MULTI_PROCESS,
+                               "the port runs one process, one step per dispatch")
 
 
 def main(argv=None):
@@ -65,6 +68,8 @@ def main(argv=None):
         precision=args.precision, model_kwargs=swin_cli_kwargs(args),
     )
     trainer = Trainer(cfg, device=args.device)
+    if args.pretrained_ckpt:
+        load_pretrained_swinunet(trainer.model, args.pretrained_ckpt)
     batches = acdc_train_batches(ACDCDataset(cfg.root_path, "train"),
                                  patients_to_slices(cfg.root_path, cfg.labeled_num), cfg.batch_size,
                                  cfg.labeled_bs, cfg.patch_size, seed=cfg.seed)

@@ -10,8 +10,11 @@ recompute on, validation by the BraTS sliding window every
 The batches are made on a thread of their own (`Prefetcher`). Runs on the
 CUDA card; `--device cpu` runs on the CPU. `--precision
 float32` runs f32 with TF32 off; `bfloat16` (the default) runs the
-forward under autocast. The JAX CLI's `--scan_steps`, `--dispatch_depth`,
-multi-process and SSL-pretrained flags are not ported and are refused.
+forward under autocast. `--use_ssl_pretrained 1` loads the
+self-supervised SwinViT checkpoint `--ssl_ckpt` into the encoder
+(`utils/pretrained.py`); a missing file is an error. The JAX CLI's
+`--scan_steps`, `--dispatch_depth` and multi-process flags are not ported:
+the parser knows none of them.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.brats import BraTS2019Dataset, brats_train_batches
 from icl_tpu_torch.data.pipeline import Prefetcher
 from icl_tpu_torch.train.trainer import Trainer, brats_evaluator
+from icl_tpu_torch.utils.pretrained import load_pretrained_swinvit
 
 
 def parse_args(argv=None):
@@ -41,6 +45,8 @@ def parse_args(argv=None):
     p.add_argument("--labeled_bs", type=int, default=2)
     p.add_argument("--val_interval", type=int, default=200)
     p.add_argument("--precision", type=str, default="bfloat16", choices=["float32", "bfloat16"])
+    p.add_argument("--use_ssl_pretrained", type=int, default=0)
+    p.add_argument("--ssl_ckpt", type=str, default="../pretrained_models/model_swinvit.pt")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -58,6 +64,8 @@ def main(argv=None):
         feature_size=args.feature_size,
     )
     trainer = Trainer(cfg, device=args.device)
+    if args.use_ssl_pretrained:
+        load_pretrained_swinvit(trainer.model, args.ssl_ckpt)
     batches = brats_train_batches(BraTS2019Dataset(cfg.root_path, "train"), cfg.labeled_num,
                                   args.total_num, cfg.batch_size, cfg.labeled_bs, cfg.patch_size,
                                   seed=cfg.seed)

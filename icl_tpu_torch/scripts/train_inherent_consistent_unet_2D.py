@@ -11,9 +11,12 @@ The batches are made on a thread of their own (`Prefetcher`). Runs on the
 CUDA card; `--device cpu` runs on the CPU. `--precision float32` (the
 default) runs f32 with TF32 off; `bfloat16` runs the forward under
 autocast. `--fuse_icl_pair` runs the two labeled-mode `sspa` calls as one.
-`--deterministic` is taken and has no effect. The JAX CLI's
-`--input_mode device_bank`, `--state_dtype bfloat16`, a
-`--checkpoint_interval` other than 0, `--scan_steps` and
+`--checkpoint_interval N` writes the full train state every N steps
+(`model/state_step_*.pt`, the newest 3 kept, `state_last.pt` the newest);
+every run ends with `state_last.pt`. A run resumes through
+`Trainer.restore_state`, as in the JAX package, whose CLI has no resume
+flag either. `--deterministic` is taken and has no effect. The JAX CLI's
+`--input_mode device_bank`, `--state_dtype bfloat16`, `--scan_steps` and
 `--dispatch_depth` other than 1 and its multi-process flags are not
 ported and are refused.
 """
@@ -46,12 +49,11 @@ def parse_args(argv=None):
     p.add_argument("--val_interval", type=int, default=200)
     p.add_argument("--precision", type=str, default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--fuse_icl_pair", action="store_true")
+    p.add_argument("--checkpoint_interval", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda")
     return parse_args_refusing(
-        p, argv, ("input_mode", "state_dtype", "checkpoint_interval", "scan_steps",
-                  "dispatch_depth") + MULTI_PROCESS,
-        "the port runs one process, one step per dispatch, host batches, an f32 train state "
-        "and the best checkpoint only")
+        p, argv, ("input_mode", "state_dtype", "scan_steps", "dispatch_depth") + MULTI_PROCESS,
+        "the port runs one process, one step per dispatch, host batches and an f32 train state")
 
 
 def main(argv=None):
@@ -64,6 +66,7 @@ def main(argv=None):
         labeled_num=args.labeled_num, num_tries=args.num_tries,
         labeled_bs=args.labeled_bs, val_interval=args.val_interval,
         precision=args.precision, fuse_icl_pair=args.fuse_icl_pair,
+        checkpoint_interval=args.checkpoint_interval,
     )
     trainer = Trainer(cfg, device=args.device)
     train_ds = ACDCDataset(cfg.root_path, "train")

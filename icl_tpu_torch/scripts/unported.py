@@ -11,13 +11,11 @@ from typing import Sequence
 UNPORTED_FLAGS = {
     "input_mode": (str, "host"),
     "state_dtype": (str, "float32"),
-    "checkpoint_interval": (int, 0),
     "scan_steps": (int, 1),
     "dispatch_depth": (int, 1),
     "dist_coordinator": (str, None),
     "num_processes": (int, None),
     "process_id": (int, None),
-    "pretrained_ckpt": (str, None),
 }
 MULTI_PROCESS = ("dist_coordinator", "num_processes", "process_id")
 

@@ -1,14 +1,19 @@
 """Trainer: the train loop (counterpart of `icl_tpu/train/trainer.py:45-524`,
 cut to what the port's training CLIs use): the ICL semi-supervised step
-for the ICL models, the supervised step for the plain 3D U-Net; metric
-logging every
-`log_interval` steps, validation every `val_interval` steps, and the best
-checkpoint (ICL heads stripped) in the reference snapshot layout:
+for the ICL models, the supervised step for the plain U-Nets, Swin-UNet
+and SwinUNETR; metric logging every `log_interval` steps, validation
+every `val_interval` steps, the best checkpoint (ICL heads stripped), the
+full train state every `checkpoint_interval` steps and at the end of
+`fit`, in the reference snapshot layout:
 
     {experiments_dir}/{exp}_{labeled_num}_labeled/{model}_exp_{num_tries}/
         log.txt
         log/scalars.jsonl   (and TensorBoard events where tensorboardX imports)
         model/model_best.pth
+        model/state_step_{step:08d}.pt, model/state_last.pt
+
+`restore_state` resumes from such a file: `fit` then continues from its
+iteration.
 """
 from __future__ import annotations
 
@@ -22,11 +27,11 @@ from icl_tpu_torch.device import resolve_device
 from icl_tpu_torch.models.registry import net_factory
 from icl_tpu_torch.train.optim import PolySGD
 from icl_tpu_torch.train.steps import make_icl_step, make_supervised_step
-from icl_tpu_torch.utils.checkpoint import save_best_model
+from icl_tpu_torch.utils import checkpoint as ckpt
 from icl_tpu_torch.utils.logging_utils import ScalarWriter, setup_logging
 
 ICL_MODELS = ("swinunetr_icl", "icl_swinunet", "icl_unet", "unet_3D_icl")
-SUPERVISED_MODELS = ("unet_3D",)
+SUPERVISED_MODELS = ("unet", "swinunet", "swinunetr", "unet_3D")
 ACDC_CLASS_NAMES = ["RV", "Myo", "LV"]  # classes 1..3 (icl_tpu/train/trainer.py:29)
 
 
@@ -36,7 +41,9 @@ class Trainer:
     the supervised step (seg_weight * (CE + Dice)) for the others. Weights
     come from `generator` (default: a CPU generator seeded with cfg.seed).
     With precision "float32" on the card, TF32 is switched off for matmuls
-    and cuDNN."""
+    and cuDNN. `cfg.remat` recomputes the blocks of the 3D backbones
+    (SwinUNETR's Swin blocks, the 3D U-Net's conv blocks) in the
+    backward."""
 
     def __init__(self, cfg: ExperimentConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -69,6 +76,76 @@ class Trainer:
                                                 cfg.seg_weight, cfg.precision)
         self.iteration = 0
 
+    def _generators(self) -> dict:
+        """The model's own generators (a dropout's or drop path's), by the
+        name of the first module that holds each."""
+        out, seen = {}, set()
+        for name, m in self.model.named_modules():
+            g = getattr(m, "generator", None)
+            if isinstance(g, torch.Generator) and id(g) not in seen:
+                seen.add(id(g))
+                out[name] = g
+        return out
+
+    def train_state(self) -> dict:
+        """What a resume needs, as references to the live tensors: the
+        model's state_dict (with its buffers: BatchNorm running stats and
+        `num_batches_tracked`), the SGD state_dict (momentum buffers), the
+        update count, the iteration, and the states of torch's CPU
+        generator, of the card's default generator when the model is on
+        the card, and of the model's own generators."""
+        rng = {"cpu": torch.get_rng_state(),
+               "modules": {n: g.get_state() for n, g in self._generators().items()}}
+        if self.device.type == "cuda":
+            rng["cuda"] = torch.cuda.get_rng_state(self.device)
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.optimizer.state_dict(),
+                "count": self.optimizer.count, "iteration": self.iteration, "rng": rng}
+
+    def load_train_state(self, state: dict) -> None:
+        """Put `state` (`train_state`'s layout, tensors on any device) in
+        place: model strictly, optimizer, count, iteration, generators."""
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.optimizer.load_state_dict(state["optimizer"])
+        self.optimizer.count = int(state["count"])
+        self.iteration = int(state["iteration"])
+        rng = state["rng"]
+        torch.set_rng_state(rng["cpu"].cpu())
+        if "cuda" in rng:
+            if self.device.type != "cuda":
+                raise ValueError("the state holds the card's generator; restore it on the card")
+            torch.cuda.set_rng_state(rng["cuda"].cpu(), self.device)
+        generators = self._generators()
+        if set(generators) != set(rng["modules"]):
+            raise ValueError(f"the state's module generators {sorted(rng['modules'])} are not "
+                             f"the model's {sorted(generators)}")
+        for name, g in generators.items():
+            g.set_state(rng["modules"][name].cpu())
+
+    def restore_state(self, name: str = "last") -> int:
+        """Resume from `<snapshot>/model/state_{name}.pt` (counterpart of
+        `restore_state`, icl_tpu/train/trainer.py:198-218), mapped to the
+        trainer's device; `fit` then continues from its iteration, which
+        is returned."""
+        self.load_train_state(ckpt.load_train_state(self.cfg.snapshot_path, name, self.device))
+        return self.iteration
+
+    def _save_state(self, logger, saves: list, step: Optional[int] = None) -> None:
+        """The rolling step file (`step` given) or `state_last`, timed."""
+        snapshot = self.cfg.snapshot_path
+        state = self.train_state()
+        nbytes = ckpt.state_bytes(state)
+        t0 = time.perf_counter()
+        if step is None:
+            path = ckpt.save_train_state(snapshot, state, "last")
+        else:
+            path = ckpt.save_train_state_rolling(snapshot, state, step, self.cfg.keep_checkpoints)
+        seconds = time.perf_counter() - t0
+        saves.append({"iteration": self.iteration, "path": path, "bytes": nbytes,
+                      "seconds": seconds})
+        logger.info("%s full-state save at iter %d: %.2f GB in %.2f s (%.2f GB/s) -> %s",
+                    "final" if step is None else "periodic", self.iteration, nbytes / 1e9,
+                    seconds, nbytes / 1e9 / max(seconds, 1e-9), path)
+
     def to_device(self, batch: dict) -> dict:
         """The batch's image (f32) and labels (long) on the device: numpy
         arrays or CPU tensors, copied asynchronously where pinned (a
@@ -87,10 +164,15 @@ class Trainer:
         scalars `Info/lr` and `Loss/<metric>`, each validation
         `metric_all/{mean,std}_{dice,hd95}` and
         `metric_class_<name>/mean_{dice,hd95}` (`ScalarWriter` under
-        `<snapshot>/log`). Returns {"log": one dict per logged step
+        `<snapshot>/log`). After that step's validation, every
+        cfg.checkpoint_interval steps write the rolling train state; the
+        run ends with `state_last.pt`, as the JAX `fit` does. It starts
+        from `self.iteration` (0, or where `restore_state` left it) and
+        the best dice from 0. Returns {"log": one dict per logged step
         (iteration, seconds since the start, lr, metrics), "vals": one dict
         per validation (iteration, mean_dice, mean_hd95, its seconds),
-        "best_mean_dice", "best_path"}."""
+        "best_mean_dice", "best_path", "saves": one dict per train-state
+        save (iteration, path, bytes, seconds)}."""
         cfg = self.cfg
         snapshot = cfg.snapshot_path
         logger = setup_logging(snapshot)
@@ -106,9 +188,11 @@ class Trainer:
         if class_names is None:
             class_names = (ACDC_CLASS_NAMES if cfg.num_classes == 4
                            else [str(i) for i in range(1, cfg.num_classes)])
-        log, vals = [], []
+        log, vals, saves = [], [], []
         best, best_path = 0.0, None
         batch_iter = iter(train_batches)
+        if self.iteration:
+            logger.info("resuming from iteration %d", self.iteration)
         self.model.train()
         t_start = time.perf_counter()
         while self.iteration < cfg.max_iterations:
@@ -146,12 +230,16 @@ class Trainer:
                             it, agg["mean_dice"], agg["mean_hd95"], val_s)
                 if agg["mean_dice"] > best:
                     best = agg["mean_dice"]
-                    best_path = save_best_model(snapshot, self.model)
+                    best_path = ckpt.save_best_model(snapshot, self.model)
                     logger.info("saving best model at iter %d -> %s", it, best_path)
+            if cfg.checkpoint_interval and it % cfg.checkpoint_interval == 0:
+                self._save_state(logger, saves, step=it)
         elapsed = time.perf_counter() - t_start
         logger.info("Training finished: %d iters in %.1fs (%.2f it/s)",
                     self.iteration, elapsed, self.iteration / max(elapsed, 1e-9))
-        return {"log": log, "vals": vals, "best_mean_dice": best, "best_path": best_path}
+        self._save_state(logger, saves)
+        return {"log": log, "vals": vals, "best_mean_dice": best, "best_path": best_path,
+                "saves": saves}
 
 
 def brats_evaluator(dataset, num_classes: int, patch_size, device) -> Callable[[torch.nn.Module], dict]:

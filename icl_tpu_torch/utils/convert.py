@@ -340,6 +340,38 @@ def unet2d_state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str, tor
     return _state_dict_from_table(unet2d_key_table(), params, batch_stats)
 
 
+def _renamed_decoder(table, name: str):
+    """The "decoder" entries of a U-Net key table under another module
+    name, in torch and in flax."""
+    out = []
+    for t_key, f_path, tf in table:
+        if t_key.startswith("decoder."):
+            i = 1 if f_path[0] == BATCH_STATS else 0
+            out.append((name + t_key[len("decoder"):], f_path[:i] + (name,) + f_path[i + 1:], tf))
+    return out
+
+
+def unet_cct_state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
+    """JAX UNetCCT params and batch_stats (`encoder`, `main_decoder`,
+    `aux_decoder1..3`) -> the port's `UNetCCT` state_dict."""
+    base = unet2d_key_table()
+    table = [e for e in base if e[0].startswith("encoder.")]
+    for name in ("main_decoder", "aux_decoder1", "aux_decoder2", "aux_decoder3"):
+        table += _renamed_decoder(base, name)
+    return _state_dict_from_table(table, params, batch_stats)
+
+
+def unet_ds_state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
+    """JAX UNetDS or UNetURPC params and batch_stats (the U-Net's, plus the
+    decoder's heads `out_conv_dp1..3`) -> the port's state_dict of either."""
+    table = unet2d_key_table()
+    for i in (1, 2, 3):
+        f = ("decoder", f"out_conv_dp{i}", "Conv_0")
+        table += [(f"decoder.out_conv_dp{i}.weight", f + ("kernel",), f2t_conv),
+                  (f"decoder.out_conv_dp{i}.bias", f + ("bias",), None)]
+    return _state_dict_from_table(table, params, batch_stats)
+
+
 def icl_unet2d_state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
     """JAX UNetICL params (backbone under "encoder" and "decoder", heads
     under "sspa" and "uscl") and batch_stats -> the port's full state_dict."""
@@ -385,8 +417,10 @@ def icl_unet3d_state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str,
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     """A torch state_dict file in the reference layout (`module.` prefixes
-    and a `state_dict` wrapper are taken off)."""
+    and a `state_dict` or `model` wrapper are taken off: the SSL SwinViT
+    and the ImageNet Swin files have one each)."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(obj, dict) and "state_dict" in obj:
-        obj = obj["state_dict"]
+    for wrapper in ("state_dict", "model"):
+        if isinstance(obj, dict) and isinstance(obj.get(wrapper), dict):
+            obj = obj[wrapper]
     return {(k[len("module."):] if k.startswith("module.") else k): v for k, v in obj.items()}

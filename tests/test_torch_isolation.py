@@ -56,6 +56,15 @@ assert train_inherent_consistent_unet_3D_AMOS22.parse_args([]).num_classes == 16
 assert train_fully_supervised_unet_3D_AMOS22.parse_args([]).model == "unet_3D"
 assert test_3D_AMOS.parse_args([]).model == "unet_3D_icl"
 assert test_3D_BraTS.parse_args(["--model", "unet_3D_icl"]).model == "unet_3D_icl"
+from icl_tpu_torch.scripts import (train_fully_supervised_swinunet_2D_ACDC,
+                                   train_fully_supervised_swinunetr_3D_BraTS,
+                                   train_fully_supervised_unet_2D_ACDC)
+from icl_tpu_torch.utils import pretrained
+assert train_fully_supervised_unet_2D_ACDC.parse_args([]).model == "unet"
+assert train_fully_supervised_swinunet_2D_ACDC.parse_args([]).patch_size == [224, 224]
+assert train_fully_supervised_swinunetr_3D_BraTS.parse_args([]).use_ssl_pretrained == 1
+assert pretrained.ssl_swinvit_fixup({"module.swin_vit.layers1.0.blocks.0.mlp.fc1.weight": 0}) == {
+    "layers1.0.blocks.0.mlp.linear1.weight": 0}
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "icl_tpu"))
 print("LEAKED", bad)

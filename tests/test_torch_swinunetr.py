@@ -150,7 +150,7 @@ def test_registry_builds_swinunetr_for_both_keys_and_names_ported_keys():
                                   jax_swin.relative_position_index_3d((7, 7, 7)))
     assert all(torch.isfinite(p).all() for p in a.parameters())
     with pytest.raises(KeyError, match="swinunetr_icl"):
-        net_factory("unet_cct", 1, 2, device="cpu")  # a JAX registry key not ported yet
+        net_factory("vnet", 1, 2, device="cpu")  # a key neither package registers
 
 
 def test_training_step_after_an_inference_mode_forward():

@@ -187,9 +187,13 @@ def test_config_checks_labeled_bs():
 def test_cli_refuses_unported_flags_and_needs_cuda(monkeypatch):
     from icl_tpu_torch.scripts import train_inherent_consistent_swinunetr_3D_BraTS as cli
 
-    for flag in ("--scan_steps", "--dispatch_depth", "--num_processes", "--ssl_ckpt"):
+    for flag in ("--scan_steps", "--dispatch_depth", "--num_processes"):
         with pytest.raises(SystemExit):
             cli.parse_args([flag, "1"])
+    args = cli.parse_args([])
+    assert (args.use_ssl_pretrained, args.ssl_ckpt) == (0, "../pretrained_models/model_swinvit.pt")
+    args = cli.parse_args(["--use_ssl_pretrained", "1", "--ssl_ckpt", "ssl.pt"])
+    assert (args.use_ssl_pretrained, args.ssl_ckpt) == (1, "ssl.pt")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--root_path", "unused"])

@@ -153,11 +153,13 @@ def test_cli_refuses_unported_flags_and_needs_cuda(monkeypatch):
     from icl_tpu_torch.scripts import train_inherent_consistent_unet_2D as cli
 
     for flags in (["--input_mode", "device_bank"], ["--state_dtype", "bfloat16"],
-                  ["--checkpoint_interval", "100"], ["--scan_steps", "8"], ["--dispatch_depth", "2"],
+                  ["--scan_steps", "8"], ["--dispatch_depth", "2"],
                   ["--dist_coordinator", "host0:1234"], ["--num_processes", "2"],
                   ["--process_id", "0"]):
         with pytest.raises(SystemExit):
             cli.parse_args(flags)
+    assert cli.parse_args([]).checkpoint_interval == 0
+    assert cli.parse_args(["--checkpoint_interval", "100"]).checkpoint_interval == 100
     args = cli.parse_args(["--fuse_icl_pair", "--input_mode", "host", "--scan_steps", "1"])
     assert args.fuse_icl_pair and args.model == "icl_unet" and args.patch_size == [256, 256]
     assert (args.batch_size, args.labeled_bs, args.base_lr, args.device) == (16, 8, 0.01, "cuda")
