@@ -147,6 +147,27 @@ Phases, each fatal on failure:
      and 2 more on the same batches, by the rule of 18 beside a control
      of 4 steps on the batches scaled by 1 + 1e-7; the seconds of the
      rolling save, the restore and the final save;
+ 33. FixMatch-CTA through its CLI's `main` at the JAX CLI's defaults (the
+     U-Net, 256^2, batch 16 of which 8 labeled, 4 classes, threshold 0.95,
+     unsupervised weight 1, f32 with TF32 off) on phase 14's slices in
+     memory, the first 16 labeled: 4 steps with --checkpoint_interval 2
+     --cta_rate_lag 1, then 2 steps with --cta_rate_lag 0 under an --exp
+     of their own; s/step after the warm-up step, peak memory, every loss
+     term, the mask ratio and probe proximity per step, the rate bins that
+     moved (asserted: some), the window-attention launches (asserted:
+     none); the host seconds of one cta_batches batch made alone (the CLI
+     makes its batches inline), and of the step alone;
+ 34. one FixMatch-CTA step at 64^2 on the card against the same step on
+     the CPU (same weights and batch, dropout off, the threshold in a gap
+     of the confidences near their median, so that the mask is neither
+     empty nor full and the same on all, asserted): in f64 by the rule
+     of 18 beside a control step; in f32 against the CPU's f64 step,
+     with the CPU's own f32 step as the witness of f32 rounding; the fused
+     probe proximity against a separate probe forward on the card;
+ 35. resume: a fresh CTATrainer restores 33's rate-lag-1 save at step 4
+     (state_last, bit for bit; cta_state.json, the rates equal), then the
+     CLI's --resume takes steps 5 and 6, saves step_00000006 and ends
+     with state_last;
 every `fit` ends with its full train state, which each phase deletes
 after its run; then a `kernels` JSON line, the card line, and the result
 line. Exits non-zero without a result when CUDA is absent.
@@ -305,6 +326,22 @@ PER_FORWARD_SWIN_SUP = {m: sum(st[4].get(m, 0) for st in STAGES_SWIN_SUP) for m 
 SUP_3D_FWD_PER_STEP = {m: 2 * sum(PER_FORWARD[m].values()) for m in ("none", "region")}
 SUP_3D_BWD_PER_STEP = {m: sum(PER_FORWARD[m].values()) for m in ("none", "region")}
 RESUME_STEPS = 4
+# This slice: FixMatch-CTA at the JAX CLI's defaults (the U-Net, 256^2, batch
+# 16 of which 8 labeled, 4 classes, threshold 0.95, unsupervised weight 1)
+# on phase 14's slices; its step at 64^2 on the card against the CPU; the
+# resume of its rate-lag-1 run.
+CTA_EXP, CTA_EXP_LAG0 = "ACDC_chip_smoke/FixMatch_CTA", "ACDC_chip_smoke/FixMatch_CTA_lag0"
+CTA_STEPS, CTA_HOST_BATCHES, CTA_TIMED_STEPS = 4, 5, 3
+# the fused probe against a separate forward of the same weights: one f32
+# forward in another call
+CTA_PROXIMITY_ATOL = 1e-5
+# The f32 FixMatch step against the f64 one: the CPU's own f32 step, the
+# witness, puts decoder.up1.conv.conv_conv.4.weight at 1.8x the fixed
+# allowance (f32 cancellation in the grads of the convs that feed a
+# train-mode BatchNorm), where the card's f32 step stays within it on an
+# H100; a tensor may part from the f64 step by the fixed allowance or by
+# this many times the witness's distance, whichever is larger.
+STEP_WITNESS_FACTOR = 2.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXPERIMENTS = os.path.join(ROOT, "build", "chip_smoke", "experiments")
 AMOS_ROOT = os.path.join(ROOT, "build", "chip_smoke", "amos")  # ../experiments is EXPERIMENTS
@@ -1038,26 +1075,34 @@ def phase_training_unet(torch, wa, slices, volumes) -> dict:
 
 
 def step_agreement(torch, tag: str, what: str, before: dict, runs: dict) -> None:
-    """runs: {"test", "reference"} and, for f32 steps, "control" -> (loss
-    terms, parameters after) of one step each from the parameters
-    `before`; the control is the test's step on the batch scaled by
-    1 + 1e-7. Loss terms within STEP_LOSS_RTOL; each parameter's new value
-    within STEP_UPDATE_RTOL of its largest update plus two ulps of its
-    largest weight, or, where the control moves it further, within twice
-    the control's distance: in f32 the gradients of the layers that feed a
-    train-mode BatchNorm (the convs, and `mlp2` through the SeparableConv)
-    cancel, so a change of the input at the f32 rounding level can move
-    them past the fixed allowance (tests/test_torch_train_unet2d.py)."""
-    test, ref, ctl = runs["test"], runs["reference"], runs.get("control")
+    """runs: {"test", "reference"} and optionally "control" and "witness"
+    -> (loss terms, parameters after) of one step each from the parameters
+    `before` (in the test's dtype); the control is the test's step on the
+    batch scaled by 1 + 1e-7, the witness the test's step on the
+    reference's device in the test's dtype. Loss terms within
+    STEP_LOSS_RTOL; each parameter's new value within STEP_UPDATE_RTOL of
+    its largest update plus two ulps of its largest weight, or, where the
+    control moves it further, within twice the control's distance, or,
+    where the witness lies further from the reference, within
+    STEP_WITNESS_FACTOR times the witness's distance: in f32 the gradients
+    of the layers that feed a train-mode BatchNorm (the convs, and `mlp2`
+    through the SeparableConv) cancel, so a change of the input at the f32
+    rounding level, or f32 rounding alone, can move them past the fixed
+    allowance (tests/test_torch_train_unet2d.py)."""
+    test, ref = runs["test"], runs["reference"]
+    ctl, wit = runs.get("control"), runs.get("witness")
     loss_err = {k: abs(test[0][k] - ref[0][k]) / max(abs(ref[0][k]), 1e-12) for k in ref[0]}
-    errs, ctl_errs = {}, {}
+    errs, ctl_errs, wit_errs = {}, {}, {}
     for n, w in before.items():
         allow = (STEP_UPDATE_RTOL * float((ref[1][n] - w).abs().max())
                  + 2 * torch.finfo(w.dtype).eps * float(w.abs().max()))
         err = float((test[1][n] - ref[1][n]).abs().max())
         ctl_err = float((ctl[1][n] - test[1][n]).abs().max()) if ctl else 0.0
-        errs[n] = (ratio(err, allow), ratio(err, max(allow, 2 * ctl_err)))
+        wit_err = float((wit[1][n] - ref[1][n]).abs().max()) if wit else 0.0
+        errs[n] = (ratio(err, allow),
+                   ratio(err, max(allow, 2 * ctl_err, STEP_WITNESS_FACTOR * wit_err)))
         ctl_errs[n] = ratio(ctl_err, allow)
+        wit_errs[n] = ratio(wit_err, allow)
     top = dict(sorted(errs.items(), key=lambda kv: -kv[1][1])[:5])
     beyond = sorted(n for n, (fixed, _) in errs.items() if fixed > 1.0)
     print(f"{tag} {what}: loss terms {test[0]} vs {ref[0]}; relative errors {loss_err} (tolerance "
@@ -1068,7 +1113,13 @@ def step_agreement(torch, tag: str, what: str, before: dict, runs: dict) -> None
         top_ctl = dict(sorted(ctl_errs.items(), key=lambda kv: -kv[1])[:5])
         print(f"{tag} the control's largest moves as fractions of the fixed allowance {top_ctl}",
               flush=True)
-    if any(e > STEP_LOSS_RTOL for e in loss_err.values()) or any(e > 1.0 for _, e in errs.values()):
+    if wit:
+        top_wit = dict(sorted(wit_errs.items(), key=lambda kv: -kv[1])[:5])
+        print(f"{tag} the witness's largest errors as fractions of the fixed allowance {top_wit}; "
+              f"the test's errors on those tensors {({n: errs[n][0] for n in top_wit})}",
+              flush=True)
+    if (any(e > STEP_LOSS_RTOL for e in loss_err.values())
+            or any(e > 1.0 for _, e in errs.values())):
         fail(f"{tag} {what}: the steps disagree")
 
 
@@ -1785,6 +1836,16 @@ def phase_supervised_swinunetr_3d(torch, wa, cases, held_out) -> dict:
     return run
 
 
+def flat(state: dict) -> dict:
+    """A train state (`Trainer.train_state`) as {name: tensor}."""
+    out = {f"model/{k}": v for k, v in state["model"].items()}
+    out.update({f"momentum/{i}": s["momentum_buffer"]
+                for i, s in state["optimizer"]["state"].items()})
+    out.update({f"rng/{k}": v for k, v in state["rng"].items() if k != "modules"})
+    out.update({f"rng/modules/{k}": v for k, v in state["rng"]["modules"].items()})
+    return out
+
+
 def phase_resume(torch, slices) -> dict:
     """32: resume on the flagship U-Net-ICL 2D at full width. Run A takes 4
     steps; run B takes 2 with checkpoint_interval 2 (the rolling save, then
@@ -1806,14 +1867,6 @@ def phase_resume(torch, slices) -> dict:
         cfg = unet_config(RESUME_STEPS, 0, tries)
         cfg.checkpoint_interval = interval
         return cfg
-
-    def flat(state):
-        out = {f"model/{k}": v for k, v in state["model"].items()}
-        out.update({f"momentum/{i}": s["momentum_buffer"]
-                    for i, s in state["optimizer"]["state"].items()})
-        out.update({f"rng/{k}": v for k, v in state["rng"].items() if k != "modules"})
-        out.update({f"rng/modules/{k}": v for k, v in state["rng"]["modules"].items()})
-        return out
 
     def params_on_host(trainer):
         return {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
@@ -1898,7 +1951,281 @@ def phase_resume(torch, slices) -> dict:
             "restore_s": restore_s, "bitwise": not differ_ab}
 
 
+def cta_snapshot(exp: str) -> str:
+    """The FixMatch-CTA CLI's snapshot for `--exp exp` from SUP_ROOT (its
+    default --labeled_num 7 and --num_tries 1)."""
+    return os.path.join(EXPERIMENTS, f"{exp}_7_labeled", "unet_exp_1")
+
+
+def cta_cli(torch, wa, argv: list, data: InMemoryDataset, tag: str) -> dict:
+    """The FixMatch-CTA CLI's `main(argv)` from SUP_ROOT at its defaults
+    (256^2, batch 16 of which 8 labeled, the U-Net, f32) over in-memory
+    slices, the first LABELED_SLICES_2D labeled: s/step after the warm-up
+    step, peak memory, every loss term, the mask ratio and proximity per
+    step, the window-attention launches of the run (asserted: none)."""
+    import gc
+
+    from icl_tpu_torch.scripts import train_fixmatch_cta_2D as cli
+    from icl_tpu_torch.train.steps import FIXMATCH_METRIC_KEYS
+
+    saved = {"ACDCDataset": cli.ACDCDataset, "patients_to_slices": cli.patients_to_slices}
+    cli.ACDCDataset = data
+    cli.patients_to_slices = lambda root, num: LABELED_SLICES_2D
+    os.makedirs(SUP_ROOT, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(SUP_ROOT)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wa.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = cli.main(argv + ["--root_path", "in-memory-ACDC"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        for attr, value in saved.items():
+            setattr(cli, attr, value)
+    path = launches_now(wa)
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log = result["log"]
+    # from the start of step 2 to the end of the last step, whose metrics
+    # the loop reads after it (the others' are read one step late)
+    s_per_step = (log[-1]["seconds"] - log[1]["started"]) / (len(log) - 1)
+    print(f"{tag} {len(log)} steps: {s_per_step:.4f} s/step after the warm-up step (steps started "
+          f"at {[round(r['started'], 4) for r in log]} s from the start, their metrics read at "
+          f"{[round(r['seconds'], 4) for r in log]} s); whole run {run_s:.2f} s; peak memory "
+          f"{peak / 2**30:.2f} GiB; window-attention launches {path}", flush=True)
+    print_log(tag, log, FIXMATCH_METRIC_KEYS)
+    no_attention(tag, path)
+    return {"s_per_step": s_per_step, "peak_bytes": peak, "path_launches": path, "log": log,
+            "saves": result["saves"], "run_s": run_s}
+
+
+def moved_bins(path: str) -> tuple[int, int]:
+    """(rate bins off 1.0, all bins) of a cta_state.json."""
+    with open(path) as f:
+        rates = json.load(f)["rates"]
+    values = [v for bins in rates.values() for r in bins for v in r]
+    return sum(v != 1.0 for v in values), len(values)
+
+
+def phase_fixmatch_cta(torch, wa, slices, volumes) -> dict:
+    """33: the FixMatch-CTA CLI at the JAX CLI's defaults on phase 14's
+    slices: 4 steps with --checkpoint_interval 2 --cta_rate_lag 1, then 2
+    with --cta_rate_lag 0; the host seconds of one cta_batches batch made
+    alone, and of the step alone on a batch made before; the rate bins
+    that moved (asserted: some)."""
+    import gc
+
+    from icl_tpu_torch.config import ExperimentConfig
+    from icl_tpu_torch.data.ctaugment import CTAugment
+    from icl_tpu_torch.data.pipeline import cta_batches
+    from icl_tpu_torch.train.cta import CTATrainer
+
+    data = InMemoryDataset(slices, volumes)
+    for exp in (CTA_EXP, CTA_EXP_LAG0):
+        shutil.rmtree(os.path.dirname(cta_snapshot(exp)), ignore_errors=True)
+    torch.manual_seed(0)
+    lag1 = cta_cli(torch, wa, ["--exp", CTA_EXP, "--max_iterations", str(CTA_STEPS),
+                               "--checkpoint_interval", "2", "--cta_rate_lag", "1"], data, "[cta]")
+    lag0 = cta_cli(torch, wa, ["--exp", CTA_EXP_LAG0, "--max_iterations", "2",
+                               "--checkpoint_interval", "2", "--cta_rate_lag", "0"], data, "[cta-lag0]")
+    if [r["iteration"] for r in lag1["log"]] != list(range(1, CTA_STEPS + 1)) \
+            or [r["iteration"] for r in lag0["log"]] != [1, 2]:
+        fail("[cta] the runs did not log their steps")
+    moved = {lag: moved_bins(os.path.join(cta_snapshot(exp), "model", "cta_state.json"))
+             for lag, exp in (("lag1", CTA_EXP), ("lag0", CTA_EXP_LAG0))}
+    print(f"[cta] rate bins moved off 1.0 (of all bins): {moved}", flush=True)
+    if not all(n for n, _ in moved.values()):
+        fail("[cta] no rate bin moved")
+
+    batches = cta_batches(slices, LABELED_SLICES_2D, BATCH_2D, LABELED_2D, (IMG_UNET, IMG_UNET),
+                          CTAugment(seed=1337), seed=1337)
+    batch_s = []
+    for _ in range(CTA_HOST_BATCHES):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        batch_s.append(time.perf_counter() - t0)
+    cfg = ExperimentConfig(root_path="in-memory-ACDC", exp=CTA_EXP, model="unet",
+                           num_classes=CLASSES_2D, batch_size=BATCH_2D, labeled_bs=LABELED_2D,
+                           patch_size=(IMG_UNET, IMG_UNET), experiments_dir=EXPERIMENTS)
+    trainer = CTATrainer(cfg, device=DEVICE)
+    on_device = trainer.to_device(batch)
+    step_s = []
+    for _ in range(CTA_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step_fn(on_device)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    print(f"[cta] one cta_batches batch ({BATCH_2D} slices and a probe at {IMG_UNET}^2) made alone "
+          f"on the host: {[round(t, 4) for t in batch_s]} s, median "
+          f"{sorted(batch_s)[len(batch_s) // 2]:.4f}; the step alone on a batch made before: "
+          f"{[round(t, 4) for t in step_s]} s (the first warms up)", flush=True)
+    del trainer, on_device
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"lag1": lag1, "lag0": lag0, "moved": moved, "batch_s": batch_s, "step_s": step_s,
+            "path_launches": {k: {m: lag1["path_launches"][k].get(m, 0)
+                                  + lag0["path_launches"][k].get(m, 0)
+                                  for m in ("none", "region", "mask")} for k in ("fwd", "bwd")}}
+
+
+def fixmatch_step(torch, model, batch, device, conf: float, input_scale: float = 1.0):
+    """(metrics, parameters after, the separate probe's proximity) of one
+    FixMatch-CTA step with the fused probe of `model` (f32 or f64) on
+    `batch`, with a fresh optimizer."""
+    from icl_tpu_torch.train.optim import PolySGD
+    from icl_tpu_torch.train.steps import make_fixmatch_cta_step, probe_proximity
+
+    model.zero_grad(set_to_none=True)
+    opt = PolySGD(model.parameters(), 0.01, 30000)
+    step = make_fixmatch_cta_step(model, opt, CLASSES_2D, LABELED_2D, conf, 1.0)
+    dtype = next(model.parameters()).dtype
+    on_device = {k: torch.as_tensor(batch[k]).to(device, dtype) * input_scale
+                 for k in ("image_weak", "image_strong", "probe_image")}
+    on_device.update({k: torch.as_tensor(batch[k]).to(device).long()
+                      for k in ("label_aug", "probe_label")})
+    metrics = {k: float(v) for k, v in step(on_device).items()}
+    separate = float(probe_proximity(model, on_device["probe_image"], on_device["probe_label"]))
+    return metrics, {n: p.detach() for n, p in model.named_parameters()}, separate
+
+
+def phase_fixmatch_device_vs_cpu(torch, slices) -> None:
+    """34: one FixMatch-CTA step at 64^2 on the card against the CPU (same
+    weights and batch, dropout off) over the loss terms and every
+    parameter: in f64 beside a control step by the rule of 18; in f32
+    against the CPU's f64 step, with the CPU's f32 step as the witness of
+    f32 rounding (STEP_WITNESS_FACTOR). The same mask on every step, at a
+    threshold clear of every confidence; the fused proximity against a
+    separate probe forward on the card."""
+    from icl_tpu_torch.data.ctaugment import CTAugment
+    from icl_tpu_torch.data.pipeline import cta_batches
+    from icl_tpu_torch.models.layers import Dropout
+    from icl_tpu_torch.models.registry import net_factory
+
+    side = IMG_UNET_CPU
+    batch = next(cta_batches(slices, LABELED_SLICES_2D, BATCH_2D, LABELED_2D, (side, side),
+                             CTAugment(seed=1337), seed=1337))
+
+    def build(device, dtype):
+        model = net_factory("unet", 1, CLASSES_2D, device=device,
+                            generator=torch.Generator().manual_seed(1337)).to(dtype)
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        return model
+
+    # the threshold: the middle of the widest gap between the confidences of
+    # the first weak pass (f64, on the CPU) from their 30th to their 70th
+    # percentile, so that about half the pixels are kept and none lies
+    # within rounding of it on either device (one pixel across it moves the
+    # unsupervised gradient more than any rounding does)
+    with torch.no_grad():
+        logits = build("cpu", torch.float64)(torch.as_tensor(batch["image_weak"]).double())
+    confs = torch.softmax(logits[LABELED_2D:], 1).amax(1).flatten().sort().values
+    lo, hi = int(0.3 * len(confs)), int(0.7 * len(confs))
+    gaps = confs[lo + 1:hi] - confs[lo:hi - 1]
+    widest = int(gaps.argmax())
+    conf = float((confs[lo + widest] + confs[lo + widest + 1]) / 2)
+    pixels = (BATCH_2D - LABELED_2D) * side * side
+    f32, f64 = torch.float32, torch.float64
+    starts, runs, separate = {}, {}, {}
+    t0 = time.perf_counter()
+    for name, device, dtype, scale in (("f64 test", DEVICE, f64, 1.0), ("f64 reference", "cpu", f64, 1.0),
+                                       ("f64 control", DEVICE, f64, 1.0 + 1e-7),
+                                       ("f32 test", DEVICE, f32, 1.0), ("f32 witness", "cpu", f32, 1.0)):
+        model = build(device, dtype)
+        starts[name] = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        metrics, after, separate[name] = fixmatch_step(torch, model, batch, device, conf, scale)
+        runs[name] = (metrics, {n: t.cpu().clone() for n, t in after.items()})
+    first = starts["f64 test"]
+    if not all(torch.equal(s[n].double(), first[n]) for s in starts.values() for n in first):
+        fail("[cta-cpu] the steps did not start from the same weights")
+    masks = {k: r[0]["mask_ratio"] for k, r in runs.items()}
+    fused = {k: runs[k][0]["probe_proximity"] for k in ("f64 test", "f32 test")}
+    print(f"[cta-cpu] threshold {conf:.7f}, {float(gaps[widest]) / 2:.2e} from the nearest "
+          f"confidence: mask ratios {masks} of {pixels} pixels; fused probe proximity on the card "
+          f"{fused}, a separate probe forward {({k: separate[k] for k in fused})} (tolerance "
+          f"{CTA_PROXIMITY_ATOL}); the five steps in {time.perf_counter() - t0:.1f} s", flush=True)
+    if not 0.0 < masks["f64 test"] < 1.0 or len(set(masks.values())) != 1:
+        fail("[cta-cpu] the mask is empty or full, or the steps' masks part")
+    if any(abs(fused[k] - separate[k]) > CTA_PROXIMITY_ATOL for k in fused):
+        fail("[cta-cpu] the fused probe disagrees with a separate probe forward")
+    step_agreement(torch, "[cta-cpu]", f"one {side}^2 f64 FixMatch-CTA step, card vs CPU",
+                   first, {"test": runs["f64 test"], "reference": runs["f64 reference"],
+                           "control": runs["f64 control"]})
+    step_agreement(torch, "[cta-cpu]", f"one {side}^2 f32 FixMatch-CTA step on the card vs the "
+                   f"CPU's f64 step (witness: the CPU's f32 step)", starts["f32 test"],
+                   {"test": runs["f32 test"], "reference": runs["f64 reference"],
+                    "witness": runs["f32 witness"]})
+
+
+def phase_fixmatch_resume(torch, wa, slices, volumes, cta: dict) -> dict:
+    """35: a fresh CTATrainer restores phase 33's rate-lag-1 save at step
+    CTA_STEPS (state_last and cta_state.json): the restored state equals
+    the saved one bit for bit, the rates the saved JSON; then the CLI's
+    --resume takes 2 more steps (iterations 5, 6, the rolling save
+    step_00000006, then state_last)."""
+    import gc
+
+    import numpy as np
+
+    from icl_tpu_torch.config import ExperimentConfig
+    from icl_tpu_torch.data.ctaugment import CTAugment
+    from icl_tpu_torch.train.cta import CTATrainer
+    from icl_tpu_torch.utils import checkpoint as ckpt
+    from icl_tpu_torch.utils.checkpoint import host_copy
+
+    snapshot = cta_snapshot(CTA_EXP)
+    cfg = ExperimentConfig(root_path="in-memory-ACDC", exp=CTA_EXP, model="unet",
+                           num_classes=CLASSES_2D, max_iterations=CTA_STEPS + 2,
+                           batch_size=BATCH_2D, labeled_bs=LABELED_2D,
+                           patch_size=(IMG_UNET, IMG_UNET), labeled_num=7, num_tries="1",
+                           checkpoint_interval=2, experiments_dir=EXPERIMENTS)
+    if cfg.snapshot_path != snapshot:
+        fail(f"[cta-resume] snapshot {cfg.snapshot_path} is not the CLI's {snapshot}")
+    trainer = CTATrainer(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    iteration = trainer.restore_state()
+    restore_s = time.perf_counter() - t0
+    saved = flat(ckpt.load_train_state(snapshot, "last", "cpu"))
+    restored = flat(host_copy(trainer.train_state()))
+    differ = sorted(k for k in saved if k not in restored or saved[k].dtype != restored[k].dtype
+                    or not torch.equal(saved[k], restored[k]))
+    learner = CTAugment(seed=0)
+    CTATrainer.restore_cta(snapshot, learner)
+    with open(os.path.join(snapshot, "model", "cta_state.json")) as f:
+        want = json.load(f)["rates"]
+    rate_diff = [k for k, bins in want.items()
+                 if not all(np.array_equal(np.asarray(r, np.float32), got)
+                            for r, got in zip(bins, learner.rates[k]))]
+    print(f"[cta-resume] restore_state at iteration {iteration} in {restore_s:.3f} s: restored "
+          f"tensors that differ from the saved ones: {differ or 'none'} (of {len(saved)}); ops whose "
+          f"restored rates differ from cta_state.json: {rate_diff or 'none'}", flush=True)
+    if iteration != CTA_STEPS or differ or rate_diff or len(restored) != len(saved):
+        fail("[cta-resume] the restored state or rates are not the saved ones")
+    del trainer
+    gc.collect()
+    run = cta_cli(torch, wa, ["--exp", CTA_EXP, "--max_iterations", str(CTA_STEPS + 2),
+                              "--checkpoint_interval", "2", "--cta_rate_lag", "1", "--resume"],
+                  InMemoryDataset(slices, volumes), "[cta-resume]")
+    its = [r["iteration"] for r in run["log"]]
+    names = [os.path.basename(s["path"]) for s in run["saves"]]
+    print(f"[cta-resume] the resumed run logged iterations {its} and saved {names}", flush=True)
+    if its != [CTA_STEPS + 1, CTA_STEPS + 2] \
+            or names != [f"state_step_{CTA_STEPS + 2:08d}.pt", "state_last.pt"]:
+        fail("[cta-resume] the resumed run did not continue from its step")
+    for result in (cta["lag1"], cta["lag0"], run):
+        drop_states(result)
+    return {"restore_s": restore_s, "iterations": its, "saves": names}
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2048,8 +2375,18 @@ def main() -> int:
     sup_swinunet = phase_supervised_swinunet_2d(torch, wa, slices, volumes)
     sup_swinunetr = phase_supervised_swinunetr_3d(torch, wa, cases, held_out)
     resume = phase_resume(torch, slices)
-    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
     print(f"[summary] resume: {json.dumps(resume)}", flush=True)
+
+    # 33 - 35. this slice: FixMatch-CTA through its CLI at the JAX defaults,
+    # its step on the card against the CPU, the resume of its saved run
+    t0 = time.perf_counter()
+    cta = phase_fixmatch_cta(torch, wa, slices, volumes)
+    phase_fixmatch_device_vs_cpu(torch, slices)
+    cta_resume = phase_fixmatch_resume(torch, wa, slices, volumes, cta)
+    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
+    print(f"[summary] FixMatch-CTA phases 33-35 in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps({'s_per_step': {k: cta[k]['s_per_step'] for k in ('lag1', 'lag0')}, 'peak_gib': cta['lag1']['peak_bytes'] / 2**30, 'batch_s': cta['batch_s'], 'step_s': cta['step_s'], 'moved': cta['moved'], 'resume': cta_resume})}",
+          flush=True)
 
     # The kernels line, one entry per kernel and mode. Times are sums over
     # the shapes of a unit of work, each f32 launch time times its launches
@@ -2059,7 +2396,7 @@ def main() -> int:
     # (backward, phase 8); `paths` holds the other units. `launches`: the
     # training run of the same path (3 steps and a validation, phases 14 or
     # 9), the other paths' runs beside it in `launches_by_path` (the U-Net
-    # paths of phases 17, 21, 23, 25 and 26 launch none).
+    # paths of phases 17, 21, 23, 25, 26, 29 and 33 launch none).
     def totals(rows, weights):
         by_stage = {r["stage"]: r for r in rows}
         tot = {key: sum(by_stage[st][key] * n for st, n in weights.items())
@@ -2125,7 +2462,8 @@ def main() -> int:
                        "training_swinunet_2d_supervised":
                            sup_swinunet["path_launches"][direction][mode],
                        "training_swinunetr_3d_supervised":
-                           sup_swinunetr["path_launches"][direction][mode]}
+                           sup_swinunetr["path_launches"][direction][mode],
+                       "training_fixmatch_cta_2d": cta["path_launches"][direction][mode]}
             if direction == "fwd":
                 by_path["inference_3d"] = launches.get(mode, 0)
             errs = [r["max_abs_err"] for r in rows_3d + rows_2d if r["mode"] == mode
@@ -2142,6 +2480,8 @@ def main() -> int:
                 "per": per[mode][direction] if mode == "region" else per[mode],
                 "paths": paths[direction].get(mode, {}),
             })
+    print(f"[summary] chip_smoke.py: every phase passed in {time.perf_counter() - t_script:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,6 @@
-"""ACDC training batches (counterpart of `acdc_train_batches` and
-`supervised_batches`, `icl_tpu/data/pipeline.py:22-53, 90-116`),
-channel-first, and the `Prefetcher`
+"""ACDC training batches (counterpart of `acdc_train_batches`,
+`supervised_batches` and `cta_batches`, `icl_tpu/data/pipeline.py:22-53,
+90-116, 172-231`), channel-first, and the `Prefetcher`
 that makes every training CLI's batches on a thread of their own
 (`icl_tpu/data/pipeline.py:117-148`)."""
 from __future__ import annotations
@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from icl_tpu_torch.data.sampler import two_stream_batches
-from icl_tpu_torch.data.transforms import RandomGenerator
+from icl_tpu_torch.data.ctaugment import cta_apply
+from icl_tpu_torch.data.transforms import CTATransform, RandomGenerator, zoom_to
 
 
 def acdc_train_batches(dataset, labeled_count: int, batch_size: int, labeled_bs: int, patch_size,
@@ -52,6 +53,43 @@ def supervised_batches(dataset, batch_size: int, patch_size, seed: int = 1337) -
                      for i in perm[start:start + batch_size]]
             yield {"image": np.stack([img for img, _ in pairs])[:, None],
                    "label": np.stack([lab for _, lab in pairs])}
+
+
+def cta_batches(dataset, labeled_count: int, batch_size: int, labeled_bs: int, patch_size, cta,
+                seed: int = 1337) -> Iterator[dict]:
+    """Endless FixMatch batches with CTAugment policies drawn from the live
+    learner `cta` when each batch is made (so a rate update reaches the
+    next batch drawn): per batch one weak and one strong policy for all its
+    samples, then one probe, a labeled slice through a probe policy.
+    "image_weak", "image_strong" [B, 1, H, W] f32, "label_aug" [B, H, W]
+    int32, "probe_image" [1, 1, H, W] f32, "probe_label" [1, H, W] int32,
+    and "probe_policy" (host only). Samples, policies and probes are the
+    JAX package's for one seed: the two-stream sampler from `seed`, the
+    probe slice from `seed + 2`; `cutout`'s centres come from a generator
+    of their own, seeded `seed + 3` (the JAX op's are unseeded). Made on
+    the caller's thread: a prefetch thread would change which rates each
+    draw sees."""
+    labeled_idxs = list(range(labeled_count))
+    transform = CTATransform(patch_size, cta)
+    probe_rng = np.random.default_rng(seed + 2)
+    cutout_rng = np.random.default_rng(seed + 3)
+    patch = tuple(patch_size)
+    for idxs in two_stream_batches(labeled_idxs, list(range(labeled_count, len(dataset))),
+                                   batch_size, batch_size - labeled_bs, seed=seed):
+        ops_weak = cta.policy(probe=False, weak=True)
+        ops_strong = cta.policy(probe=False, weak=False)
+        samples = [transform(item["image"], item["label"], ops_weak, ops_strong, cutout_rng)
+                   for item in (dataset[i] for i in idxs)]
+        probe_policy = cta.policy(probe=True, weak=False)
+        item = dataset[int(probe_rng.choice(labeled_idxs))]
+        p_img = cta_apply(zoom_to(item["image"].astype(np.float32), patch), probe_policy)
+        p_lab = cta_apply(zoom_to(item["label"].astype(np.float32) / 255.0, patch), probe_policy)
+        yield {"image_weak": np.stack([s["image_weak"] for s in samples]).astype(np.float32),
+               "image_strong": np.stack([s["image_strong"] for s in samples]).astype(np.float32),
+               "label_aug": np.stack([s["label_aug"] for s in samples]).astype(np.int32),
+               "probe_image": p_img.astype(np.float32)[None, None],
+               "probe_label": np.round(255 * p_lab).astype(np.int32)[None],
+               "probe_policy": probe_policy}
 
 
 class Prefetcher:

@@ -30,6 +30,17 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     return F.cross_entropy(logits, labels.long())
 
 
+def one_hot(labels: torch.Tensor, num_classes: int, dtype: torch.dtype) -> torch.Tensor:
+    """[B, *spatial] integers -> [B, C, *spatial] 0/1 in `dtype`; a label
+    outside [0, C) gives an all-zero row, as `jax.nn.one_hot` does. Only
+    the FixMatch-CTA path meets such labels (its rescaled label maps can
+    overshoot past the last class): the Dice of `make_fixmatch_cta_step`
+    and `probe_proximity` in `train/steps.py` rely on the zero rows; on
+    every other path the labels lie in [0, C)."""
+    classes = torch.arange(num_classes, device=labels.device).view(1, -1, *[1] * (labels.ndim - 1))
+    return (labels.long().unsqueeze(1) == classes).to(dtype)
+
+
 def multiclass_dice_loss(inputs: torch.Tensor, labels: torch.Tensor, num_classes: int,
                          weight: Sequence[float] | None = None,
                          softmax: bool = False) -> torch.Tensor:
@@ -37,7 +48,7 @@ def multiclass_dice_loss(inputs: torch.Tensor, labels: torch.Tensor, num_classes
     sums, averaged over all classes, optional per-class weights."""
     if softmax:
         inputs = torch.softmax(inputs, dim=1)
-    tgt = F.one_hot(labels.long(), num_classes).movedim(-1, 1).to(inputs.dtype)
+    tgt = one_hot(labels, num_classes, inputs.dtype)
     intersect = _sum_but_channel(inputs * tgt)
     z = _sum_but_channel(inputs * inputs)
     y = _sum_but_channel(tgt * tgt)

@@ -18,7 +18,9 @@ on the same cases with their tumour labelled as one of 15 organs); or a
 fully supervised CLI's defaults: `unet` (256^2, batch 16) or `swinunet`
 (224^2, window 7, batch 16) on the same slices, `swinunetr` (fs48, 96^3,
 batch 4, recompute on, bf16 unless `--precision` says otherwise) on the
-BraTS cases. Times
+BraTS cases; or `fixmatch_cta`, the FixMatch-CTA CLI's defaults (the U-Net
+at 256^2, batch 16 of which 8 labeled, threshold 0.95, the probe fused,
+f32) on `cta_batches` of the same slices. Times
 building the model, runs two
 warm-up steps, three timed steps without the profiler and then one
 profiled step, each on a batch made before its clock starts, and prints
@@ -41,6 +43,7 @@ import torch
 
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.scripts.profile_forward import device_time_by_group
+from icl_tpu_torch.train.cta import CTATrainer
 from icl_tpu_torch.train.trainer import Trainer
 
 
@@ -125,6 +128,23 @@ def acdc_setup(precision: str, model: str):
     return cfg, make_batches, what
 
 
+def cta_setup():
+    from icl_tpu_torch.data.ctaugment import CTAugment
+    from icl_tpu_torch.data.pipeline import cta_batches
+    from icl_tpu_torch.data.synth import synthetic_acdc
+
+    cfg = ExperimentConfig(root_path="in-memory", exp="profile", model="unet", num_classes=4,
+                           max_iterations=3, batch_size=16, labeled_bs=8, patch_size=(256, 256),
+                           labeled_num=7)
+    slices, _ = synthetic_acdc(32, 0, 256, 1, 4, seed=0)
+
+    def make_batches():
+        return cta_batches(slices, 16, cfg.batch_size, cfg.labeled_bs, cfg.patch_size,
+                           CTAugment(seed=cfg.seed), seed=cfg.seed)
+
+    return cfg, make_batches, "FixMatch-CTA U-Net, 256^2, batch 16 (8 labeled), the probe fused"
+
+
 def setup(model: str, precision: str, dataset: str = "brats"):
     """(cfg, make_batches, description) of the training CLI of `model` (on
     `dataset` for unet_3D_icl); make_batches() starts the seeded batch
@@ -133,6 +153,8 @@ def setup(model: str, precision: str, dataset: str = "brats"):
         return brats_setup(precision, model, dataset)
     if model in ("unet", "swinunet", "swinunetr"):
         return supervised_setup(precision, model)
+    if model == "fixmatch_cta":
+        return cta_setup()
     return acdc_setup(precision, model)
 
 
@@ -140,7 +162,7 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="swinunetr_icl",
                    choices=["swinunetr_icl", "icl_swinunet", "icl_unet", "unet_3D_icl", "unet",
-                            "swinunet", "swinunetr"])
+                            "swinunet", "swinunetr", "fixmatch_cta"])
     p.add_argument("--precision", default=None, choices=["float32", "bfloat16"],
                    help="default: the CLI's (bfloat16 for swinunetr and --dataset amos, "
                         "else float32)")
@@ -150,6 +172,8 @@ def main(argv=None):
     if args.precision is None:
         amos = args.model == "unet_3D_icl" and args.dataset == "amos"
         args.precision = "bfloat16" if amos or args.model == "swinunetr" else "float32"
+    if args.model == "fixmatch_cta" and args.precision != "float32":
+        raise SystemExit("the FixMatch-CTA step runs in float32 only, as its CLI")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -157,7 +181,7 @@ def main(argv=None):
     cfg, make_batches, what = setup(args.model, args.precision, args.dataset)
     batches = make_batches()
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, device="cuda")
+    trainer = (CTATrainer if args.model == "fixmatch_cta" else Trainer)(cfg, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     for _ in range(2):  # the first step makes the momentum buffers and cuDNN plans

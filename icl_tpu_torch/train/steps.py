@@ -1,6 +1,7 @@
 """The train steps (counterpart of `icl_tpu/train/steps.py`): the supervised
 step, seg_weight * (CE + Dice) on a labeled batch (`make_supervised_step`,
-:24-70), and the ICL semi-supervised step (`make_icl_step`, :73-141):
+:24-70), the FixMatch step of the CTAugment path (`make_fixmatch_cta_step`,
+:144-242), and the ICL semi-supervised step (`make_icl_step`, :73-141):
 
     loss = (CE + Dice)             on the labeled main output
          + AuxLoss(fm_lab, gt)     ICL labeled maps against the labels
@@ -14,6 +15,7 @@ import contextlib
 from typing import Callable, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from icl_tpu_torch import losses
 from icl_tpu_torch.train.optim import PolySGD
@@ -21,6 +23,8 @@ from icl_tpu_torch.train.optim import PolySGD
 METRIC_KEYS = ("loss", "loss_seg", "loss_ce", "loss_dice", "loss_aux", "loss_pse",
                "loss_aux_consis")
 SUPERVISED_METRIC_KEYS = ("loss", "loss_ce", "loss_dice")
+FIXMATCH_METRIC_KEYS = ("loss", "loss_ce", "loss_dice", "loss_unsup", "mask_ratio",
+                        "probe_proximity")
 
 
 def _check_precision(precision: str) -> None:
@@ -57,6 +61,73 @@ def make_supervised_step(model: torch.nn.Module, optimizer: PolySGD, num_classes
         loss.backward()
         optimizer.step()
         return {k: v.detach() for k, v in zip(SUPERVISED_METRIC_KEYS, (loss, loss_ce, loss_dice))}
+
+    return step
+
+
+def probe_proximity(model: torch.nn.Module, image: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """The CTAugment probe's score, 1 - 0.5 * mean over pixels of the class
+    SUM of |softmax(logits) - one_hot(label)| (the FixMatch weight, in
+    [0, 1] whatever the number of classes): one forward in eval mode
+    (running stats, no dropout) without gradients, the model left in
+    train mode; a 0-d tensor. A label outside [0, classes) has an all-zero
+    one-hot row, as in the JAX package: the probe's label map goes through
+    the probe policy's intensity ops too (`cta_batches`), which can move
+    it there."""
+    model.eval()
+    try:
+        with torch.no_grad():
+            probs = torch.softmax(model(image), dim=1)
+    finally:
+        model.train()
+    onehot = losses.one_hot(label, probs.shape[1], probs.dtype)
+    return 1.0 - 0.5 * (probs - onehot).abs().sum(1).mean()
+
+
+def make_fixmatch_cta_step(model: torch.nn.Module, optimizer: PolySGD, num_classes: int,
+                           labeled_bs: int, conf_thresh: float = 0.95,
+                           unsup_weight: float = 1.0) -> Callable[[dict], dict]:
+    """step(batch) -> metrics, FixMatch on CTAugment pairs: the weak
+    forward of the whole batch (train mode, the first BatchNorm update),
+    CE + Dice on its first `labeled_bs` samples; pseudo-labels, the argmax
+    of the detached weak softmax of the other samples, kept where its
+    maximum is >= conf_thresh; the strong forward of those samples (the
+    second BatchNorm update, on the first's stats) and its per-pixel CE
+    against the pseudo-labels, summed over the kept pixels and divided by
+    max(their count, 1); loss = CE + Dice + unsup_weight * that; backward
+    and one optimizer update; then the probe's proximity
+    (`probe_proximity`) on the updated weights, in the same call. `batch`
+    holds "image_weak", "image_strong" [B, 1, H, W], "label_aug" [B, H, W]
+    integers, "probe_image" [1, 1, H, W] and "probe_label" [1, H, W]. A
+    label outside [0, num_classes) (a LANCZOS or BICUBIC rescale of the
+    label map can overshoot to one) is left out of the CE and has no class
+    in the Dice target (`losses.one_hot`); the JAX step's CE turns NaN on
+    it. Metrics `FIXMATCH_METRIC_KEYS`, detached 0-d tensors."""
+
+    def step(batch: dict) -> dict:
+        xw, xs, y = batch["image_weak"], batch["image_strong"], batch["label_aug"]
+        optimizer.zero_grad()
+        logits_w = model(xw)
+        y_lab = y[:labeled_bs].long()
+        ignore = (y_lab < 0) | (y_lab >= num_classes)
+        loss_ce = F.cross_entropy(logits_w[:labeled_bs], y_lab.masked_fill(ignore, -100),
+                                  ignore_index=-100)
+        loss_dice = losses.multiclass_dice_loss(logits_w[:labeled_bs], y[:labeled_bs],
+                                                num_classes, softmax=True)
+        probs_u = torch.softmax(logits_w[labeled_bs:].detach(), dim=1)
+        pseudo = probs_u.argmax(dim=1)
+        mask = (probs_u.amax(dim=1) >= conf_thresh).to(logits_w.dtype)
+        logits_s = model(xs[labeled_bs:])
+        ce_pix = F.cross_entropy(logits_s, pseudo, reduction="none")
+        loss_unsup = (ce_pix * mask).sum() / mask.sum().clamp_min(1.0)
+        loss = loss_ce + loss_dice + unsup_weight * loss_unsup
+        loss.backward()
+        optimizer.step()
+        metrics = {"loss": loss, "loss_ce": loss_ce, "loss_dice": loss_dice,
+                   "loss_unsup": loss_unsup, "mask_ratio": mask.mean(),
+                   "probe_proximity": probe_proximity(model, batch["probe_image"],
+                                                      batch["probe_label"])}
+        return {k: v.detach() for k, v in metrics.items()}
 
     return step
 

@@ -43,6 +43,7 @@ from icl_tpu_torch.models.registry import net_factory
 from icl_tpu_torch.train.steps import METRIC_KEYS, SUPERVISED_METRIC_KEYS
 from test_torch_icl import cl2cf
 from test_torch_unet3d import jax_variables
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 SHAPE, ROI, NCLS = (40, 40, 30), (32, 32, 32), 16
 

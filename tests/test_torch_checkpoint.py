@@ -26,6 +26,7 @@ from icl_tpu_torch.data.synth import synthetic_acdc
 from icl_tpu_torch.models.layers import Dropout
 from icl_tpu_torch.train.trainer import Trainer
 from icl_tpu_torch.utils import checkpoint as ckpt
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 NCLS = 4
 

@@ -35,6 +35,7 @@ from icl_tpu_torch.models.icl import InherentConsistent
 from icl_tpu_torch.models.registry import net_factory
 from icl_tpu_torch.models.swinunetr_icl import SwinUNETRICL, strip_icl_heads
 from icl_tpu_torch.utils.convert import icl_head_state_dict_from_jax, swinunetr_icl_state_dict_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 FS, PATCH, NCLS, LABELED_BS = 12, 32, 2, 2
 ATOL = RTOL = 1e-4

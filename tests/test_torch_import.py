@@ -11,6 +11,7 @@ import jax.numpy as jnp
 from flax import linen as nn
 
 from icl_tpu.utils import torch_import as ti
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 
 def test_conv_transform_matches_torch():

@@ -19,6 +19,7 @@ from icl_tpu.metrics import calculate_metric_percase as jax_metric
 from icl_tpu_torch.eval import infer3d
 from icl_tpu_torch.metrics import calculate_metric_percase
 from test_torch_swinunetr import PATCH, jax_swinunetr_params, port_model
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 PATCH3 = (PATCH,) * 3
 STRIDE = 16

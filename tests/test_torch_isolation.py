@@ -1,7 +1,9 @@
 """icl_tpu_torch (and chip_smoke.py, which drives it on the card, and the
 card's kernel tests) stands alone: it imports neither JAX nor the icl_tpu
-package, and its entry points refuse to fall back to the CPU."""
+package, nor PIL (the card's machine has none: CTAugment's ops are numpy),
+and its entry points refuse to fall back to the CPU."""
 import ast
+import os
 import pathlib
 import re
 import subprocess
@@ -65,20 +67,30 @@ assert train_fully_supervised_swinunet_2D_ACDC.parse_args([]).patch_size == [224
 assert train_fully_supervised_swinunetr_3D_BraTS.parse_args([]).use_ssl_pretrained == 1
 assert pretrained.ssl_swinvit_fixup({"module.swin_vit.layers1.0.blocks.0.mlp.fc1.weight": 0}) == {
     "layers1.0.blocks.0.mlp.linear1.weight": 0}
+from icl_tpu_torch.scripts import train_fixmatch_cta_2D
+from icl_tpu_torch.data.ctaugment import CTAugment, cta_apply
+img = np.linspace(0, 1, 24 * 20, dtype=np.float32).reshape(24, 20)
+out = cta_apply(img, [("rescale", [0.9, 0.1]), ("cutout", [0.5])], np.random.default_rng(0))
+assert out.shape == img.shape and out.dtype == np.float32
+assert len(CTAugment(seed=0).policy(probe=False, weak=True)) == 2
+assert train_fixmatch_cta_2D.parse_args([]).conf_thresh == 0.95
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "icl_tpu"))
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "icl_tpu", "PIL"))
 print("LEAKED", bad)
 """
 
 
 def test_port_imports_no_jax_and_no_icl_tpu():
+    # one OpenMP thread: the child builds small models while other test
+    # workers share the CPU (tests/_torch_threads.py)
     proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, capture_output=True,
-                          text=True, timeout=240)
+                          text=True, timeout=240, env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr
     assert "LEAKED []" in proc.stdout, proc.stdout
 
 
-_IMPORT_LINE = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|flax|optax|icl_tpu)(?![\w])", re.M)
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "icl_tpu", "PIL")
+_IMPORT_LINE = re.compile(r"^\s*(?:from|import)\s+(?:" + "|".join(_FORBIDDEN) + r")(?![\w])", re.M)
 
 
 def _imported_modules(path: pathlib.Path):
@@ -94,8 +106,7 @@ def _imported_modules(path: pathlib.Path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_has_no_jax_or_icl_tpu_import(path):
     for name in _imported_modules(path):
-        root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "flax", "optax", "icl_tpu"), f"{path}: imports {name}"
+        assert name.split(".")[0] not in _FORBIDDEN, f"{path}: imports {name}"
     # also imports inside strings handed to exec or a subprocess
     leak = _IMPORT_LINE.search(path.read_text())
     assert leak is None, f"{path}: {leak.group(0).strip()}"
@@ -107,7 +118,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     from icl_tpu_torch.device import resolve_device
     from icl_tpu_torch.eval.infer3d import sliding_window_predict
     from icl_tpu_torch.models.registry import net_factory
-    from icl_tpu_torch.scripts import test_3D_BraTS
+    from icl_tpu_torch.scripts import test_3D_BraTS, train_fixmatch_cta_2D
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -116,4 +127,6 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
         sliding_window_predict(lambda x: x, np.zeros((8, 8, 8), np.float32), 2, (8, 8, 8))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         test_3D_BraTS.main(["--checkpoint", "unused.pth"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_fixmatch_cta_2D.main(["--root_path", "unused"])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from icl_tpu import losses as jl
 
 from icl_tpu_torch import losses as pl
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 NCLS = 3
 SPATIAL = (8, 6, 4)

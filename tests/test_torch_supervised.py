@@ -54,6 +54,7 @@ from test_torch_train_unet2d import _exact_align_corners_matrix
 from test_torch_train_unet3d import _assert_step, _f64, _jax_step
 from test_torch_unet2d import assert_running_stats, bn_batch_sizes
 from test_torch_unet3d import no_stochastic_jax  # noqa: F401  (a fixture)
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 NCLS, BATCH, UNET_SIDE, SWIN_SIDE, SWIN_WINDOW, SWIN_EMBED, FS = 4, 4, 64, 64, 4, 12, 12
 SWINUNETR_PATCH = 32

@@ -19,6 +19,7 @@ from icl_tpu.data.synth import make_synthetic_acdc, make_synthetic_brats
 from icl_tpu_torch.models import swin2d
 from icl_tpu_torch.models.registry import net_factory
 from icl_tpu_torch.train.steps import SUPERVISED_METRIC_KEYS
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 
 def _acdc(tmp_path, monkeypatch):

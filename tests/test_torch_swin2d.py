@@ -39,6 +39,7 @@ from icl_tpu_torch.models.swinunetr_icl import strip_icl_heads
 from icl_tpu_torch.ops import window_attention as wa
 from icl_tpu_torch.utils.convert import icl_swinunet2d_state_dict_from_jax, swinunet2d_state_dict_from_jax
 from test_torch_icl import cl2cf, draw_tree, expected_running_var, no_drop_path, no_port_drop_path  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 IMG, WINDOW, EMBED, NCLS, LABELED_BS = 96, 12, 12, 4, 2
 ATOL = RTOL = 1e-4

@@ -25,6 +25,7 @@ from icl_tpu.utils.torch_import import export_swinunetr
 from icl_tpu_torch.models import swinunetr as port_swin
 from icl_tpu_torch.models.registry import net_factory
 from icl_tpu_torch.utils.convert import swinunetr_state_dict_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 FS = 12
 PATCH = 32

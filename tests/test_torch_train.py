@@ -38,6 +38,7 @@ from icl_tpu_torch.utils.convert import swinunetr_icl_state_dict_from_jax
 from test_torch_icl import (  # noqa: F401  (no_drop_path is a fixture)
     LABELED_BS, NCLS, PATCH, batch, expected_running_var, jax_icl_variables, no_drop_path,
     port_icl_model)
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 BASE_LR, MAX_IT, CONSIS = 0.01, 10, 10.0
 

@@ -44,6 +44,7 @@ from test_torch_icl import expected_running_var, no_drop_path  # noqa: F401  (a 
 from test_torch_swin2d import (  # noqa: F401  (pallas_interpret is a fixture)
     IMG, LABELED_BS, NCLS, WINDOW, images, jax_variables, pallas_interpret, port_model)
 from test_torch_train import _assert_close_to_scale, _capture_grads
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 BASE_LR, MAX_IT, CONSIS = 0.01, 10, 50.0
 

@@ -43,6 +43,7 @@ from icl_tpu_torch.utils.convert import icl_unet2d_state_dict_from_jax
 from test_torch_train import _assert_close_to_scale, _capture_grads
 from test_torch_unet2d import (LABELED_BS, NCLS, PATCH, assert_running_stats, bn_batch_sizes,
                                images, jax_variables)
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 BASE_LR, MAX_IT, CONSIS = 0.01, 10, 50.0
 

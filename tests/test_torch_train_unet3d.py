@@ -52,6 +52,7 @@ from test_torch_train import _assert_close_to_scale, _capture_grads
 from test_torch_unet2d import assert_running_stats, bn_batch_sizes
 from test_torch_unet3d import (LABELED_BS, NCLS, PATCH, images, jax_variables,  # noqa: F401
                                no_stochastic_jax)
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 BASE_LR, MAX_IT, CONSIS, SEG_WEIGHT = 0.01, 10, 10.0, 0.5
 STEP_PATCH = 16

@@ -45,6 +45,7 @@ from icl_tpu_torch.models.swinunetr_icl import strip_icl_heads
 from icl_tpu_torch.models.unet2d import UNet
 from icl_tpu_torch.utils.convert import icl_unet2d_state_dict_from_jax, unet2d_state_dict_from_jax
 from test_torch_icl import cl2cf, draw_tree, expected_running_var
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 PATCH, NCLS, LABELED_BS = 64, 4, 2
 ATOL = RTOL = 1e-4

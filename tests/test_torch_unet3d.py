@@ -45,6 +45,7 @@ from icl_tpu_torch.models.unet3d_icl import UNet3DICL
 from icl_tpu_torch.utils.convert import icl_unet3d_state_dict_from_jax, unet3d_state_dict_from_jax
 from test_torch_icl import cl2cf, draw_tree
 from test_torch_unet2d import assert_running_stats, bn_batch_sizes
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 PATCH, NCLS, LABELED_BS = 32, 2, 2
 ATOL = RTOL = 1e-4

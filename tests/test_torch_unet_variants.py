@@ -37,6 +37,7 @@ from icl_tpu_torch.utils.convert import unet_cct_state_dict_from_jax, unet_ds_st
 from test_torch_icl import cl2cf, draw_tree
 from test_torch_unet2d import assert_running_stats, bn_batch_sizes
 from test_torch_unet3d import no_stochastic_jax  # noqa: F401  (a fixture)
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 NCLS, SIDE, BATCH = 4, 64, 2
 ATOL = RTOL = 1e-4

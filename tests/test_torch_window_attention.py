@@ -20,6 +20,7 @@ from icl_tpu.ops.pallas.window_attention import window_attention_fused, window_a
 
 from icl_tpu_torch.models.swinunetr import window_region_ids_3d
 from icl_tpu_torch.ops import window_attention as wa
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 D, H = 16, 3
 # N -> (padded dims, window, shift) of a shifted stage with N tokens per window

@@ -26,6 +26,7 @@ from icl_tpu.models.swin2d import shifted_window_mask
 from icl_tpu.ops.pallas.window_attention import window_attention_fused, window_attention_reference
 
 from icl_tpu_torch.ops import window_attention as wa
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 H = 3
 # N -> (grid side, window, shift) of a shifted Swin-UNet 2D block

@@ -28,6 +28,7 @@ import torch
 from icl_tpu_torch.models.swin2d import shifted_window_mask
 from icl_tpu_torch.models.swinunetr import window_region_ids_3d
 from icl_tpu_torch.ops import window_attention as wa
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 F32_ATOL = 1e-5
 BWD_F32_RTOL = 1e-5
