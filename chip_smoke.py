@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
   1. the card: name and power limit (nvidia-smi), torch's device name;
   2. the builds of the window-attention CUDA kernels (forward and
-     backward) from ops/csrc, one nvcc each, started together; each
+     backward) and of the SR kernel from ops/csrc, one nvcc each, started
+     together; each
      kernel instance's registers and spills from the ptxas log, and each
      kernel's warps, shared memory and resident CTAs per SM at the paths'
      window sizes, as the kernel reports them, and their refusal of a
@@ -144,9 +145,9 @@ Phases, each fatal on failure:
  32. resume on U-Net-ICL 2D at full width: 4 steps against 2, a save, a
      fresh Trainer's `restore_state` (equal to the saved state bit for
      bit: parameters, buffers, momentum, count, iteration, RNG states)
-     and 2 more on the same batches, by the rule of 18 beside a control
-     of 4 steps on the batches scaled by 1 + 1e-7; the seconds of the
-     rolling save, the restore and the final save;
+     and 2 more on the same batches, under cuDNN's deterministic
+     algorithms: bit for bit, as a repeat of the 4 steps is; the seconds
+     of the rolling save, the restore and the final save;
  33. FixMatch-CTA through its CLI's `main` at the JAX CLI's defaults (the
      U-Net, 256^2, batch 16 of which 8 labeled, 4 classes, threshold 0.95,
      unsupervised weight 1, f32 with TF32 off) on phase 14's slices in
@@ -168,9 +169,45 @@ Phases, each fatal on failure:
      (state_last, bit for bit; cta_state.json, the rates equal), then the
      CLI's --resume takes steps 5 and 6, saves step_00000006 and ends
      with state_last;
+ 36. the bf16 stochastic-rounding SGD kernel (built in phase 2 beside the
+     window-attention kernels) against its plain version, bit for bit,
+     and bitwise across two runs, at the flagship's largest leaf (`mlp2`,
+     16384^2), a small leaf, a ragged length and an unaligned address;
+     over the flagship's 300 leaves (1.15 B parameters): its time per call
+     and on the device alone beside the 3.4 ms bound, the plain version,
+     torch.optim.SGD(fused=True) on the same bf16 tensors and the f32
+     PolySGD step on an f32 state; then the card's kernel tests, both files
+     in one pytest without tests/conftest.py;
+ 37. the flagship's fast configuration through its CLI's `main` (bf16
+     autocast, a bf16 train state, the fused sspa pair, the device bank,
+     groups of 4 graph replays, 2 in flight) on phase 14's slices in
+     memory: 8 steps, a validation at 8, a checkpoint every 4; peak
+     memory, the state's bytes, every loss term, the SR launches (asserted:
+     300 for the eager first step and 300 recorded by the capture, which
+     every one of the 7 replays runs), no window attention (asserted);
+ 38. graph replay against eager steps from one state (cuDNN's deterministic
+     algorithms): the flagship's fast configuration and the supervised
+     Swin-UNet (224^2, window 7, batch 16, f32; the launches of the graph's
+     first step asserted: 8 no-mask + 6 mask, forward and backward, for the
+     eager step and again for the capture), 4 replays against 4 eager
+     steps bit for bit (parameters, buffers, momentum, metrics), an eager
+     repeat beside them; s/step eager and replayed for both and for the
+     AMOS bf16 ICL step; whether the backward of F.interpolate's bilinear
+     upsample repeats bitwise on the card (the port's linear resizes are
+     matmuls for that reason);
+ 39. under cuDNN's deterministic algorithms, `fit` of the supervised
+     Swin-UNet in groups of 2 at dispatch_depth 2 against 1 (parameters bit
+     for bit, log.txt's loss lines equal), and the bf16 train state resumed
+     from a step-4 save, 4 + 4 steps against 8 bit for bit, on the
+     supervised Swin-UNet and on the flagship's fast configuration;
+ 40. the device augment (`augment_batch`) on the card against the CPU for
+     every angle in [-20, 20), every rot90/flip branch and the identity, at
+     256^2 and zoomed to 224^2: 0 differing pixels; one flagship batch's
+     time;
 every `fit` ends with its full train state, which each phase deletes
-after its run; then a `kernels` JSON line, the card line, and the result
-line. Exits non-zero without a result when CUDA is absent.
+after its run; then a `kernels` JSON line (the six window-attention
+entries and `sgd_bf16`), the card line, and the result line. Exits
+non-zero without a result when CUDA is absent.
 """
 from __future__ import annotations
 
@@ -1590,7 +1627,7 @@ class InMemoryDataset:
 
 
 def run_cli(torch, wa, cli, argv: list, dataset_attr: str, data: InMemoryDataset,
-            tag: str, keys, steps: int, per_step=None) -> dict:
+            tag: str, keys, steps: int, per_step=None, need_best: bool = True) -> dict:
     """`cli.main(argv)` from SUP_ROOT (its snapshot lands in EXPERIMENTS)
     with the CLI's dataset class over in-memory data; s/step, peak memory,
     every loss term, the validation, the best checkpoint; the
@@ -1636,7 +1673,8 @@ def run_cli(torch, wa, cli, argv: list, dataset_attr: str, data: InMemoryDataset
     gc.collect()
     torch.cuda.empty_cache()
     log = result["log"]
-    if len(log) != steps or not result["vals"] or result["best_path"] is None:
+    if len(log) != steps or not result["vals"] or (need_best and result["best_path"] is None) \
+            or not 0.0 <= result["vals"][-1]["mean_dice"] <= 1.0:
         fail(f"{tag} expected {steps} steps, a validation and a best checkpoint, got {result}")
     s_per_step = (log[-1]["seconds"] - log[0]["seconds"]) / (len(log) - 1)
     at_val = per_steps["at_validation"]
@@ -1657,7 +1695,8 @@ def run_cli(torch, wa, cli, argv: list, dataset_attr: str, data: InMemoryDataset
                 fail(f"{tag} {kind} launches over {steps} steps: {at_val[kind]}, expected {want}")
     return {"s_per_step": s_per_step, "peak_bytes": peak, "path_launches": at_val,
             "run_launches": path, "val_dice": val["mean_dice"], "val_s": val["seconds"],
-            "best_path": result["best_path"], "log": log}
+            "best_path": result["best_path"], "log": log,
+            "saves": [{k: v[k] for k in ("iteration", "bytes", "seconds")} for v in result["saves"]]}
 
 
 def phase_supervised_unet_2d(torch, wa, slices, volumes) -> dict:
@@ -1851,15 +1890,13 @@ def phase_resume(torch, slices) -> dict:
     steps; run B takes 2 with checkpoint_interval 2 (the rolling save, then
     the final one), and a fresh Trainer restores `state_last` (every
     parameter, buffer, momentum, the count, the iteration and the RNG
-    states equal to run B's bit for bit) and takes A's batches 3-4; a
-    control takes A's 4 steps on the batches scaled by 1 + 1e-7. After
-    step 4, B against A by the rule of phase 18 from the initial weights;
-    whether they came out bitwise is printed, beside a repeat of run A
-    (which shows what the card's own reductions move). The train states
-    are deleted after."""
+    states equal to run B's bit for bit) and takes A's batches 3-4. The
+    caller runs the phase under cuDNN's deterministic algorithms: after
+    step 4, B must equal A bit for bit, as must a repeat of run A (no
+    kernel of the 2D step adds with atomics since the linear resizes became
+    matmuls). The train states are deleted after."""
     import gc
 
-    from icl_tpu_torch.train.steps import METRIC_KEYS
     from icl_tpu_torch.train.trainer import Trainer
     from icl_tpu_torch.utils.checkpoint import host_copy
 
@@ -1884,9 +1921,7 @@ def phase_resume(torch, slices) -> dict:
     batches = [b for _, b in zip(range(RESUME_STEPS), acdc_batches(slices, config("batches")))]
     torch.manual_seed(0)  # dropout and drop-path masks
     a = Trainer(config("resumeA"), device=DEVICE)
-    initial = params_on_host(a)
     result_a = a.fit(batches)
-    run_a = ({k: result_a["log"][-1][k] for k in METRIC_KEYS}, params_on_host(a))
     state_a = flat(host_copy(a.train_state()))
     drop_states(result_a)
     del a
@@ -1919,7 +1954,6 @@ def phase_resume(torch, slices) -> dict:
     result_b = b.fit(batches[2:])
     if [r["iteration"] for r in result_b["log"]] != [3, 4]:
         fail(f"[resume] the resumed run logged {[r['iteration'] for r in result_b['log']]}")
-    run_b = ({k: result_b["log"][-1][k] for k in METRIC_KEYS}, params_on_host(b))
     state_b = flat(host_copy(b.train_state()))
     del b
     release()
@@ -1928,13 +1962,7 @@ def phase_resume(torch, slices) -> dict:
     state_again = flat(host_copy(again.train_state()))
     del again
     release()
-    scaled = [{"image": (bt["image"] * (1.0 + 1e-7)).astype(bt["image"].dtype), "label": bt["label"]}
-              for bt in batches]
-    c, result_c = run("resumeControl", scaled)
-    run_c = ({k: result_c["log"][-1][k] for k in METRIC_KEYS}, params_on_host(c))
-    del c
-    release()
-    for result in (result_first, result_b, result_again, result_c):
+    for result in (result_first, result_b, result_again):
         drop_states(result)
 
     def differ_from_a(state):
@@ -1945,8 +1973,9 @@ def phase_resume(torch, slices) -> dict:
           f"{differ_from_a(state_b)}; A vs a repeat of A from the same seed: "
           f"{differ_from_a(state_again)}", flush=True)
     differ_ab = [k for k in state_a if not torch.equal(state_a[k], state_b[k])]
-    step_agreement(torch, "[resume]", f"{RESUME_STEPS} f32 steps, B (2 + restore + 2) vs A",
-                   initial, {"test": run_b, "reference": run_a, "control": run_c})
+    if differ_ab or differ_from_a(state_again) != "bitwise equal":
+        fail("[resume] B and a repeat of A must equal A bit for bit under cuDNN's deterministic "
+             "algorithms")
     return {"bytes": nbytes, "rolling_s": rolling["seconds"], "final_s": last["seconds"],
             "restore_s": restore_s, "bitwise": not differ_ab}
 
@@ -2224,6 +2253,532 @@ def phase_fixmatch_resume(torch, wa, slices, volumes, cta: dict) -> dict:
     return {"restore_s": restore_s, "iterations": its, "saves": names}
 
 
+# This slice: the flagship's fast configuration, the JAX CLI's
+# `--fuse_icl_pair --precision bfloat16 --state_dtype bfloat16 --input_mode
+# device_bank --scan_steps 4 --dispatch_depth 2` (bench.py's
+# icl_unet_acdc_fast): U-Net-ICL 2D at 256^2, batch 16 of which 8 labeled,
+# on phase 14's slices held on the card; its SGD update the stochastic-
+# rounding kernel, one launch per parameter leaf.
+FAST_ARGV = ["--fuse_icl_pair", "--precision", "bfloat16", "--state_dtype", "bfloat16",
+             "--input_mode", "device_bank", "--scan_steps", "4", "--dispatch_depth", "2"]
+FAST_STEPS, FAST_CHECKPOINT = 8, 4
+GRAPH_STEPS = 4
+# the SR kernel's shapes: the flagship's largest leaf (`mlp2`, 16384^2), a
+# small leaf, a ragged length, and the ragged length at an address that is
+# not 16-byte aligned (the kernel's scalar path)
+SGD_SHAPES = {"mlp2_16384x16384": (268_435_456, 0), "small_4096": (4096, 0),
+              "ragged_1000003": (1_000_003, 0), "ragged_unaligned": (1_000_003, 1)}
+SGD_REPLACES = "icl_tpu/train/optim.py:_sgd_bf16_state (XLA)"
+# The window-attention launches of one supervised Swin-UNet step (224^2,
+# window 7, batch 16): 8 no-mask + 6 mask, forward and backward.
+SWIN_SUP_PER_STEP = {"none": 8, "mask": 6}
+
+
+def run_card_tests() -> dict:
+    """The card's kernel tests (JAX-free, without tests/conftest.py), both
+    files in one pytest: {file: passed}; fatal on any failure or skip."""
+    files = ["tests/test_torch_window_attention_card.py", "tests/test_torch_sgd_bf16_card.py"]
+    proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
+                           "-q", "-rs", "-m", "cuda", *files], cwd=ROOT, capture_output=True,
+                          text=True, timeout=900)
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else proc.stderr[-2000:]
+    print(f"[card-tests] {' '.join(files)}: {tail}", flush=True)
+    if proc.returncode != 0 or "skipped" in tail or "passed" not in tail:
+        print(proc.stdout[-6000:], proc.stderr[-3000:], flush=True)
+        fail("[card-tests] the card's kernel tests did not all pass")
+    return {"summary": tail}
+
+
+def fast_config(tries: str, max_iterations: int, **kw):
+    """The flagship's fast configuration as an ExperimentConfig (the CLI's
+    FAST_ARGV), with a checkpoint every FAST_CHECKPOINT steps."""
+    cfg = unet_config(max_iterations, 0, tries)
+    cfg.precision, cfg.state_dtype, cfg.fuse_icl_pair = "bfloat16", "bfloat16", True
+    cfg.device_augment, cfg.scan_steps, cfg.dispatch_depth = True, 4, 2
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def fast_batches(torch, slices, cfg, n: int) -> list:
+    """The first n bank batches of the flagship CLI's device_bank branch
+    (the bank of `slices` on the card, the two-stream indices, the draws)."""
+    from icl_tpu_torch.data.device_bank import bank_batches, build_acdc_bank, two_stream_index_batches
+
+    image_bank, label_bank = build_acdc_bank(slices, int(cfg.patch_size[0]), DEVICE)
+    indices = two_stream_index_batches(LABELED_SLICES_2D, len(slices), cfg.batch_size,
+                                       cfg.labeled_bs, seed=cfg.seed)
+    stream = bank_batches(image_bank, label_bank, indices, seed=cfg.seed)
+    return [next(stream) for _ in range(n)]
+
+
+def phase_sgd_kernel(torch, sg) -> dict:
+    """36: the SR kernel against its plain version, bit for bit, and bitwise
+    across two runs, at SGD_SHAPES; then over the flagship's 300 leaves
+    (1.15 B parameters): the kernel per call (host-issued) and on the device
+    alone (queued behind a GPU sleep), beside the bound, the plain version,
+    torch.optim.SGD(fused=True) on the same bf16 tensors (round-to-nearest
+    stores: the nearest PyTorch call, not the same function) and the f32
+    PolySGD step on an f32 state of the same shapes."""
+    import gc
+
+    from icl_tpu_torch.models.registry import net_factory
+    from icl_tpu_torch.train.optim import PolySGD
+
+    gen = torch.Generator(device=DEVICE).manual_seed(36)
+    lr = torch.tensor(0.01, device=DEVICE)
+    count = torch.tensor(7, dtype=torch.int64, device=DEVICE)
+
+    def draw(n, off=0, scale=1.0):
+        return (torch.randn(n + off, generator=gen, device=DEVICE) * scale).to(torch.bfloat16)[off:]
+
+    shapes = {}
+    for name, (n, off) in SGD_SHAPES.items():
+        p, g, buf = draw(n, off, 0.05), draw(n, off, 0.01), draw(n, off, 0.01)
+        runs = []
+        for update in (sg.sgd_bf16_update, sg.sgd_bf16_update, sg.sgd_bf16_plain):
+            pc, bc = p.clone(), buf.clone()
+            update(pc, g, bc, lr, count, 0.9, 1e-4, 0, 3)
+            runs.append((pc, bc))
+        torch.cuda.synchronize()
+        differ = {w: [int((runs[i][j] != runs[2][j]).sum()) for j in (0, 1)]
+                  for i, w in ((0, "kernel vs plain"), (1, "repeat vs plain"))}
+        repeat = all(torch.equal(runs[0][j], runs[1][j]) for j in (0, 1))
+        moved = int((runs[0][0] != p).sum())
+        shapes[name] = {"n": n, "aligned": off == 0, "differ_p_buf": differ, "repeat_bitwise": repeat,
+                        "p_elements_moved": moved}
+        print(f"[sgd] {name}: {json.dumps(shapes[name])}", flush=True)
+        if not repeat or any(x for v in differ.values() for x in v) or moved == 0:
+            fail(f"[sgd] {name}: the kernel is not its plain version bit for bit")
+        del p, g, buf, runs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    leaves = [p.shape for p in net_factory("icl_unet", 1, CLASSES_2D, device="meta",
+                                           patch_size=IMG_UNET, fuse_sspa_pair=True).parameters()]
+    n_params = sum(math.prod(s) for s in leaves)
+    ps = [draw(math.prod(s), 0, 0.05).view(s) for s in leaves]
+    gs = [draw(math.prod(s), 0, 0.01).view(s) for s in leaves]
+    bufs = [draw(math.prod(s), 0, 0.01).view(s) for s in leaves]
+
+    def kernel_step():
+        for i, (p, g, b) in enumerate(zip(ps, gs, bufs)):
+            sg.sgd_bf16_update(p, g, b, lr, count, 0.9, 1e-4, 0, i)
+
+    def plain_step():
+        for i, (p, g, b) in enumerate(zip(ps, gs, bufs)):
+            sg.sgd_bf16_plain(p, g, b, lr, count, 0.9, 1e-4, 0, i)
+
+    global QUEUE_BEHIND_SLEEP
+    ms = cuda_ms(kernel_step, reps=10)
+    QUEUE_BEHIND_SLEEP = True
+    try:
+        device_ms = cuda_ms(kernel_step, reps=3)
+    finally:
+        QUEUE_BEHIND_SLEEP = False
+    largest = max(range(len(ps)), key=lambda i: ps[i].numel())
+    largest_ms = cuda_ms(lambda: sg.sgd_bf16_update(ps[largest], gs[largest], bufs[largest], lr,
+                                                    count, 0.9, 1e-4, 0, largest), reps=10)
+    plain_ms = cuda_ms(plain_step, reps=1, warmup=0)
+    params = [torch.nn.Parameter(p) for p in ps]
+    for p, g in zip(params, gs):
+        p.grad = g
+    fused = torch.optim.SGD(params, lr=0.01, momentum=0.9, weight_decay=1e-4, fused=True)
+    library_ms = cuda_ms(fused.step, reps=10)
+    del fused, params, ps, gs, bufs
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = [torch.nn.Parameter(torch.randn(s, generator=gen, device=DEVICE) * 0.05) for s in leaves]
+    for p in f32:
+        p.grad = torch.randn(p.shape, generator=gen, device=DEVICE) * 0.01
+    opt32 = PolySGD(f32, 0.01, 30000)
+    f32_ms = cuda_ms(opt32.step, reps=3)
+    del opt32, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    byte_ms = 10 * n_params / HBM_BYTES_PER_S * 1e3
+    row = {"leaves": len(leaves), "parameters": n_params, "ms": ms, "device_ms": device_ms,
+           "largest_leaf_ms": largest_ms, "largest_leaf_bound_ms": 10 * 268_435_456 / HBM_BYTES_PER_S * 1e3,
+           "plain_ms": plain_ms, "library_ms": library_ms, "f32_polysgd_ms": f32_ms,
+           **bound_fields(0.0, byte_ms), "max_abs_err": 0.0, "shapes": shapes,
+           "seconds": time.perf_counter() - t0}
+    print(f"[sgd] the flagship's {len(leaves)} leaves ({n_params} parameters, 10 bytes each): "
+          f"{json.dumps({k: v for k, v in row.items() if k != 'shapes'})}", flush=True)
+    return row
+
+
+def phase_fast_cli(torch, wa, sg, slices, volumes) -> dict:
+    """37: the fast configuration through the flagship CLI's `main` (the
+    slices and volumes in memory, the first LABELED_SLICES_2D labeled):
+    FAST_STEPS steps, a validation at the last (its dice in [0, 1]; after
+    8 steps from random weights it may be 0, and then no best checkpoint is
+    written), a checkpoint every FAST_CHECKPOINT; the window-attention launches (asserted: none) and
+    the SR launches: the first step runs eagerly and the capture records
+    the step once, so the wrapper counts 2 x 300 launches over the run and
+    every replayed step runs the 300 the capture recorded (asserted)."""
+    from icl_tpu_torch.scripts import train_inherent_consistent_unet_2D as cli
+    from icl_tpu_torch.train.steps import METRIC_KEYS
+
+    trainers = []
+
+    class Spy(cli.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            trainers.append(self)
+
+    saved = {"patients_to_slices": cli.patients_to_slices, "Trainer": cli.Trainer}
+    cli.patients_to_slices = lambda root, num: LABELED_SLICES_2D
+    cli.Trainer = Spy
+    sg.reset_launch_counts()
+    torch.manual_seed(0)
+    try:
+        run = run_cli(torch, wa, cli, ["--root_path", "in-memory-ACDC", "--exp", "ACDC_chip_smoke/Fast",
+                                       "--num_tries", "fast", "--max_iterations", str(FAST_STEPS),
+                                       "--val_interval", str(FAST_STEPS), "--checkpoint_interval",
+                                       str(FAST_CHECKPOINT)] + FAST_ARGV,
+                      "ACDCDataset", InMemoryDataset(slices, volumes), "[fast]", METRIC_KEYS, FAST_STEPS,
+                      need_best=False)
+    finally:
+        for attr, value in saved.items():
+            setattr(cli, attr, value)
+    trainer = trainers[-1]
+    leaves = len(trainer.optimizer.params)
+    launches = sg.sgd_bf16_update.launches
+    saves = [(s["iteration"], s["bytes"]) for s in run["saves"]]
+    print(f"[fast] SR launches over the run {launches} (the eager first step and the capture, "
+          f"{leaves} leaves each); recorded in the graph, run by each of its {trainer.replays} "
+          f"replays: {trainer.graph_launches}; state saves (iteration, bytes) {saves}", flush=True)
+    no_attention("[fast]", run["run_launches"])
+    if launches != 2 * leaves or trainer.graph_launches["sgd_bf16"] != leaves \
+            or trainer.replays != FAST_STEPS - 1 or any(trainer.graph_launches[k]
+                                                        for k in ("window_attention",
+                                                                  "window_attention_bwd")):
+        fail("[fast] the SR launches are not one per leaf per step")
+    return {**run, "leaves": leaves, "launches": launches, "per_replay": trainer.graph_launches,
+            "replays": trainer.replays, "state_bytes": saves[-1][1]}
+
+
+def graph_vs_eager(torch, wa, tag: str, trainer, batches: list, deterministic: bool) -> dict:
+    """From one state S0 (host copy) of `trainer` (cfg.scan_steps > 1):
+    A, GRAPH_STEPS eager steps; a repeat of A; the graph's first step (eager
+    on a side stream, then the capture) from S0; then B, GRAPH_STEPS
+    replays from S0. The flat states after A, its repeat and B, every step's
+    metrics, and s/step eager against replayed (4 more of each from where B
+    ended, in turns); the window-attention launches of the graph's first
+    step (its eager run and the capture). `deterministic` runs with cuDNN's
+    deterministic algorithms."""
+    from icl_tpu_torch.utils.checkpoint import host_copy
+
+    dev = [trainer.to_device(b) for b in batches]
+    s0 = host_copy(trainer.train_state())
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        def params():
+            return {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+
+        def steps(step):
+            """Every step's metrics and the parameters after the first."""
+            trainer.load_train_state(s0)
+            vecs, after_first = [], None
+            for i, x in enumerate(dev):
+                vecs.append(step(x))
+                if i == 0:
+                    after_first = params()
+            torch.cuda.synchronize()
+            return flat(host_copy(trainer.train_state())), torch.stack(vecs).cpu(), after_first
+
+        a, a_metrics, a1 = steps(trainer._stacked_step)
+        again, again_metrics, again1 = steps(trainer._stacked_step)
+        trainer.load_train_state(s0)
+        wa.reset_launch_counts()
+        trainer.graph_step(dev[0])
+        first_step = launches_now(wa)
+        b, b_metrics, b1 = steps(trainer.graph_step)
+
+        def run(step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for x in dev:
+                step(x)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / len(dev)
+
+        times = {"eager": [], "replayed": []}
+        for kind in ("eager", "replayed", "replayed", "eager"):
+            times[kind].append(run(trainer._stacked_step if kind == "eager" else trainer.graph_step))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    differ = lambda x: sorted(k for k in a if not torch.equal(a[k], x[k]))
+    out = {"s0": {n: s0["model"][n].cpu() for n, _ in trainer.model.named_parameters()},
+           "first": {"a": a1, "b": b1, "again": again1}, "differ_b": differ(b), "differ_again": differ(again),
+           "metrics_equal": torch.equal(a_metrics, b_metrics),
+           "again_metrics_equal": torch.equal(a_metrics, again_metrics), "times": times,
+           "graph_launches": dict(trainer.graph_launches), "first_step": first_step}
+    print(f"{tag} {GRAPH_STEPS} replayed steps vs {GRAPH_STEPS} eager from one state (cuDNN "
+          f"deterministic {deterministic}): {len(out['differ_b'])} of {len(a)} tensors differ, "
+          f"metrics equal {out['metrics_equal']}; an eager repeat: {len(out['differ_again'])} "
+          f"differ, metrics equal {out['again_metrics_equal']}; s/step eager {times['eager']} "
+          f"replayed {times['replayed']}; launches recorded in the graph {out['graph_launches']}",
+          flush=True)
+    return out
+
+
+def upsample_backward_repeats(torch) -> bool:
+    """Whether the backward of the U-Net decoder's align-corners bilinear
+    upsample (F.interpolate, here at its largest shape: [16, 16, 128,
+    128] to 256^2) is bitwise equal across two runs on the card (its CUDA
+    kernel adds with atomics)."""
+    import torch.nn.functional as F
+
+    x = torch.randn(16, 16, 128, 128, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(1),
+                    requires_grad=True)
+    g = torch.randn(16, 16, 256, 256, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(2))
+    grads = []
+    for _ in range(2):
+        x.grad = None
+        F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True).backward(g)
+        grads.append(x.grad.clone())
+    return torch.equal(*grads)
+
+
+def phase_graph_vs_eager(torch, wa, slices) -> dict:
+    """38: graph replay against eager steps. The flagship's fast
+    configuration and the supervised Swin-UNet (224^2, window 7, batch 16,
+    f32: both window-attention kernels in the graph, their launches per
+    replayed step asserted: 8 no-mask + 6 mask, forward and backward), each
+    by `graph_vs_eager` under cuDNN's deterministic algorithms: a replayed
+    step must equal the eager one bit for bit wherever an eager repeat is
+    bitwise; where the card's own repeat is not, the first replayed step is
+    held against the first eager step by the rule of phase 18 with the
+    eager repeat as control and witness (the rule "phase 18, control and
+    witness = an eager repeat": after one step the card's differences are
+    f32 rounding, which the bf16 state's rounding may move by one ulp;
+    after four they compound). Then s/step eager against
+    replayed for both and for the AMOS bf16 ICL step (U-Net-ICL 3D, 16
+    classes, recompute on)."""
+    import gc
+
+    from icl_tpu_torch.scripts.profile_train_step import setup
+    from icl_tpu_torch.train.trainer import Trainer
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {"upsample_backward_bitwise": upsample_backward_repeats(torch)}
+    print(f"[graph] the U-Net decoder's upsample backward twice on the card: bitwise "
+          f"{out['upsample_backward_bitwise']}", flush=True)
+    cfg = fast_config("graph", 100)
+    torch.manual_seed(0)
+    trainer = Trainer(cfg, device=DEVICE)
+    fast = graph_vs_eager(torch, wa, "[graph-fast]", trainer, fast_batches(torch, slices, cfg, GRAPH_STEPS),
+                          deterministic=True)
+    if fast["graph_launches"]["sgd_bf16"] != len(trainer.optimizer.params):
+        fail("[graph-fast] the graph does not hold one SR launch per leaf")
+    if fast["differ_b"] or not fast["metrics_equal"]:
+        if not fast["differ_again"]:
+            fail("[graph-fast] the replayed steps differ from the eager ones, which repeat bitwise")
+        first = fast["first"]
+        step_agreement(torch, "[graph-fast]", "the first replayed step vs the first eager step (rule: "
+                       "phase 18, control and witness = an eager repeat)", fast["s0"],
+                       {"test": ({}, first["b"]), "reference": ({}, first["a"]),
+                        "control": ({}, first["again"]), "witness": ({}, first["again"])})
+    out["fast"] = {k: fast[k] for k in ("differ_b", "differ_again", "metrics_equal", "times",
+                                        "graph_launches")}
+    del trainer, fast
+    release()
+
+    cfg, make_batches, _ = setup("swinunet", "float32")
+    cfg.scan_steps = GRAPH_STEPS
+    torch.manual_seed(0)
+    trainer = Trainer(cfg, device=DEVICE)
+    stream = make_batches()
+    swin = graph_vs_eager(torch, wa, "[graph-swin]", trainer, [next(stream) for _ in range(GRAPH_STEPS)],
+                          deterministic=True)
+    per_step = sum(SWIN_SUP_PER_STEP.values())
+    if swin["graph_launches"]["window_attention"] != per_step \
+            or swin["graph_launches"]["window_attention_bwd"] != per_step:
+        fail(f"[graph-swin] the graph holds {swin['graph_launches']}, want {per_step} + {per_step}")
+    if swin["differ_b"] or not swin["metrics_equal"]:
+        fail(f"[graph-swin] the replayed steps differ from the eager ones: {swin['differ_b'][:8]}")
+    out["swin"] = {k: swin[k] for k in ("differ_b", "differ_again", "metrics_equal", "times",
+                                        "graph_launches")}
+    out["swin_first_step"] = swin["first_step"]
+    want = {m: 2 * SWIN_SUP_PER_STEP.get(m, 0) for m in ("none", "region", "mask")}
+    if swin["first_step"]["fwd"] != want or swin["first_step"]["bwd"] != want:
+        fail(f"[graph-swin] the eager first step and the capture launched {swin['first_step']}, "
+             f"want {want} each way")
+    del trainer, swin
+    release()
+
+    cfg, make_batches, _ = setup("unet_3D_icl", "bfloat16", "amos")
+    cfg.scan_steps = GRAPH_STEPS
+    torch.manual_seed(0)
+    trainer = Trainer(cfg, device=DEVICE)
+    stream = make_batches()
+    amos = graph_vs_eager(torch, wa, "[graph-amos]", trainer, [next(stream) for _ in range(3)],
+                          deterministic=False)
+    out["amos"] = {k: amos[k] for k in ("differ_b", "differ_again", "metrics_equal", "times")}
+    del trainer, amos
+    release()
+    return out
+
+
+def log_lines(snapshot: str) -> list:
+    """log.txt's per-step loss lines, without their time stamps."""
+    with open(os.path.join(snapshot, "log.txt")) as f:
+        return [line.split("]", 1)[-1] for line in f if "iteration" in line and "loss" in line]
+
+
+def phase_dispatch_and_resume(torch, slices) -> dict:
+    """39: under cuDNN's deterministic algorithms, (a) `fit` of the
+    supervised Swin-UNet (224^2, window 7, batch 16, f32) with scan_steps 2
+    at dispatch_depth 2 against depth 1: the parameters bit for bit and
+    log.txt's loss lines equal; (b) the bf16 train state resumed, 4 + 4
+    steps against 8 (scan_steps 4: the 8-step run replays steps 5-8, the
+    resumed one runs step 5 eagerly): on the supervised Swin-UNet bit for
+    bit; on the flagship's fast configuration bit for bit where an
+    8-step repeat is, else by the rule of phase 38."""
+    import gc
+
+    from icl_tpu_torch.scripts.profile_train_step import setup
+    from icl_tpu_torch.train.trainer import Trainer
+    from icl_tpu_torch.utils import checkpoint as ckpt
+    from icl_tpu_torch.utils.checkpoint import host_copy
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def swin_cfg(tries, **kw):
+        cfg, make_batches, _ = setup("swinunet", "float32")
+        cfg.experiments_dir, cfg.exp, cfg.num_tries = EXPERIMENTS, "ACDC_chip_smoke/Dispatch", tries
+        cfg.max_iterations, cfg.val_interval = 8, 0
+        for k, v in kw.items():
+            setattr(cfg, k, v)
+        return cfg, make_batches
+
+    def fit(cfg, batches, restore=None):
+        """A fresh Trainer from seed 0 through `fit` (after `restore_state`
+        from another snapshot's step file, when given): (flat state, result,
+        the parameters before the fit)."""
+        torch.manual_seed(0)
+        trainer = Trainer(cfg, device=DEVICE)
+        if restore is not None:
+            trainer.load_train_state(ckpt.load_train_state(*restore, device=DEVICE))
+        start = {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+        result = trainer.fit(batches)
+        state = flat(host_copy(trainer.train_state()))
+        del trainer
+        release()
+        return state, result, start
+
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for depth in (1, 2):
+            cfg, make_batches = swin_cfg(f"depth{depth}", scan_steps=2, dispatch_depth=depth)
+            stream = make_batches()
+            state, result, _ = fit(cfg, [next(stream) for _ in range(8)])
+            drop_states(result)
+            runs[depth] = (state, log_lines(cfg.snapshot_path))
+        differ = sorted(k for k in runs[1][0] if not torch.equal(runs[1][0][k], runs[2][0][k]))
+        print(f"[dispatch] Swin-UNet, 8 steps in groups of 2, depth 2 vs 1: {len(differ)} of "
+              f"{len(runs[1][0])} tensors differ; log lines {len(runs[1][1])} and {len(runs[2][1])}, "
+              f"equal {runs[1][1] == runs[2][1]}", flush=True)
+        if differ or runs[1][1] != runs[2][1] or len(runs[1][1]) != 8:
+            fail("[dispatch] dispatch_depth 2 moved the parameters or the logs")
+        out["depth"] = {"differ": differ, "log_lines": len(runs[1][1])}
+
+        for tag, kind in (("[resume-swin]", "swin"), ("[resume-fast]", "fast")):
+            if kind == "swin":
+                cfg_a, make_batches = swin_cfg("resumeA", state_dtype="bfloat16", scan_steps=4,
+                                               checkpoint_interval=4)
+                stream = make_batches()
+                batches = [next(stream) for _ in range(8)]
+                cfg_b, _ = swin_cfg("resumeB", state_dtype="bfloat16", scan_steps=4,
+                                    checkpoint_interval=4)
+                cfg_r, _ = swin_cfg("resumeR", state_dtype="bfloat16", scan_steps=4)
+            else:
+                cfg_a = fast_config("resumeA", 8, checkpoint_interval=4)
+                batches = fast_batches(torch, slices, cfg_a, 8)
+                cfg_b = fast_config("resumeB", 8, checkpoint_interval=4)
+                cfg_r = fast_config("resumeR", 8)
+            a, result_a, initial = fit(cfg_a, batches)
+            # B: a fresh trainer restores A's step-4 file and takes batches 5-8
+            step4 = [s for s in result_a["saves"] if s["iteration"] == 4]
+            b, result_b, _ = fit(cfg_b, batches[4:], restore=(cfg_a.snapshot_path, "step_00000004"))
+            if not step4 or [r["iteration"] for r in result_b["log"]] != [5, 6, 7, 8]:
+                fail(f"{tag} the resumed run did not take steps 5-8")
+            differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
+            print(f"{tag} bf16 state {step4[0]['bytes'] / 1e9:.3f} GB at step 4; 4 + restore + 4 vs 8: "
+                  f"{len(differ)} of {len(a)} tensors differ {differ[:4]}", flush=True)
+            out[kind] = {"differ": len(differ), "tensors": len(a), "state_bytes": step4[0]["bytes"]}
+            drop_states(result_a)
+            drop_states(result_b)
+            if not differ:
+                continue
+            if kind == "swin":
+                fail(f"{tag} the resumed bf16 run is not the uninterrupted one bit for bit")
+            r, result_r, _ = fit(cfg_r, batches)
+            drop_states(result_r)
+            differ_r = sorted(k for k in a if not torch.equal(a[k], r[k]))
+            print(f"{tag} a repeat of the 8 steps: {len(differ_r)} tensors differ", flush=True)
+            if not differ_r:
+                fail(f"{tag} the resumed run differs where a repeat of the run does not")
+            trained = lambda st: ({}, {n: st[f"model/{n}"] for n in initial})
+            step_agreement(torch, tag, "4 + restore + 4 vs 8 bf16 steps (rule: phase 18, "
+                           "control and witness = a repeat of the 8 steps)", initial,
+                           {"test": trained(b), "reference": trained(a), "control": trained(r),
+                            "witness": trained(r)})
+            out[kind]["differ_repeat"] = len(differ_r)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def phase_device_augment(torch, slices) -> dict:
+    """40: `augment_batch` on the card against the same call on the CPU,
+    for the same bank and draws: every angle in [-20, 20), every rot90/flip
+    branch and the identity, at the patch (256^2) and zoomed to 224^2; 0
+    differing pixels in images and labels. Then the time of one flagship
+    batch (16 slices) on the card."""
+    import numpy as np
+
+    from icl_tpu_torch.data.device_augment import NONE, ROT_FLIP, ROTATE, augment_batch
+    from icl_tpu_torch.data.device_bank import build_acdc_bank
+
+    angles = list(range(-20, 20))
+    flips = [(k, axis) for k in range(4) for axis in (0, 1)]
+    n = len(angles) + len(flips) + 1
+    params = {"branch": np.array([ROTATE] * len(angles) + [ROT_FLIP] * len(flips) + [NONE]),
+              "k": np.array([0] * len(angles) + [k for k, _ in flips] + [0]),
+              "axis": np.array([0] * len(angles) + [a for _, a in flips] + [0]),
+              "angle": np.array(angles + [0] * len(flips) + [0])}
+    idx = np.arange(n) % len(slices)
+    out = {}
+    for device in ("cpu", DEVICE):
+        image_bank, label_bank = build_acdc_bank(slices, IMG_UNET, device)
+        ix = torch.as_tensor(idx, device=device)
+        prm = {k: torch.as_tensor(v, dtype=torch.int64, device=device) for k, v in params.items()}
+        for size in (IMG_UNET, 224):
+            img, lab = augment_batch(image_bank[ix], label_bank[ix], prm, size)
+            out[(device, size)] = (img.cpu(), lab.cpu())
+    differ = {size: (int((out[("cpu", size)][0] != out[(DEVICE, size)][0]).sum()),
+                     int((out[("cpu", size)][1] != out[(DEVICE, size)][1]).sum())) for size in (IMG_UNET, 224)}
+    image_bank, label_bank = build_acdc_bank(slices, IMG_UNET, DEVICE)
+    ix = torch.arange(BATCH_2D, device=DEVICE)
+    prm = {k: torch.as_tensor(v[:BATCH_2D], dtype=torch.int64, device=DEVICE) for k, v in params.items()}
+    ms = cuda_ms(lambda: augment_batch(image_bank[ix], label_bank[ix], prm, IMG_UNET), reps=20)
+    print(f"[augment] {n} samples ({len(angles)} angles, {len(flips)} rot90/flip, identity), card vs "
+          f"CPU differing (image, label) pixels by output size {differ}; one batch of {BATCH_2D} at "
+          f"{IMG_UNET}^2 on the card: {ms:.4f} ms", flush=True)
+    if any(a or b for a, b in differ.values()):
+        fail("[augment] the card's device augment differs from the CPU's")
+    return {"differ": differ, "batch_ms": ms}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -2238,6 +2793,7 @@ def main() -> int:
     from icl_tpu_torch.eval.infer3d import _grid_starts, make_patch_predictor, sliding_window_predict
     from icl_tpu_torch.models.registry import net_factory
     from icl_tpu_torch.models.swinunetr import WindowAttention3D
+    from icl_tpu_torch.ops import sgd_bf16 as sg
     from icl_tpu_torch.ops import window_attention as wa
     from icl_tpu_torch.ops.build import build_library
 
@@ -2254,16 +2810,18 @@ def main() -> int:
 
     # 2. the builds, one nvcc per source, started together
     t0 = time.perf_counter()
-    sources = ("window_attention", "window_attention_bwd")
+    sources = ("window_attention", "window_attention_bwd", "sgd_bf16")
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(build_library, sources))
     build_s = time.perf_counter() - t0
-    for source, (lib_path, log) in zip(sources, builds):
+    for source, (lib_path, log) in zip(sources, builds[:2]):
         usage = ptxas_usage(log, f"{source}_kernel") if log else "already built"
         spills = sorted(n for n, (_, spill) in usage.items() if spill) if log else "not read"
         print(f"[build] {lib_path}: registers and spill stores (bytes) per instance {json.dumps(usage)}; "
               f"instances that spill: {spills or 'none'}", flush=True)
-    print(f"[build] both libraries in {build_s:.2f} s", flush=True)
+    sgd_log = [line.strip() for line in builds[2][1].splitlines() if "Used" in line or "spill" in line]
+    print(f"[build] {builds[2][0]}: {sgd_log or 'already built'}", flush=True)
+    print(f"[build] the three libraries in {build_s:.2f} s", flush=True)
     for what, query, too_large in (("window_attention", wa._fwd_geometry, 1000),
                                    ("window_attention_bwd", wa._bwd_geometry, 450)):
         geometry = {f"N{n} D{d}": dict(zip(("warps", "smem_bytes", "ctas_per_sm"),
@@ -2374,7 +2932,11 @@ def main() -> int:
     sup_unet = phase_supervised_unet_2d(torch, wa, slices, volumes)
     sup_swinunet = phase_supervised_swinunet_2d(torch, wa, slices, volumes)
     sup_swinunetr = phase_supervised_swinunetr_3d(torch, wa, cases, held_out)
-    resume = phase_resume(torch, slices)
+    torch.backends.cudnn.deterministic = True
+    try:
+        resume = phase_resume(torch, slices)
+    finally:
+        torch.backends.cudnn.deterministic = False
     print(f"[summary] resume: {json.dumps(resume)}", flush=True)
 
     # 33 - 35. this slice: FixMatch-CTA through its CLI at the JAX defaults,
@@ -2386,6 +2948,21 @@ def main() -> int:
     shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
     print(f"[summary] FixMatch-CTA phases 33-35 in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps({'s_per_step': {k: cta[k]['s_per_step'] for k in ('lag1', 'lag0')}, 'peak_gib': cta['lag1']['peak_bytes'] / 2**30, 'batch_s': cta['batch_s'], 'step_s': cta['step_s'], 'moved': cta['moved'], 'resume': cta_resume})}",
+          flush=True)
+
+    # 36 - 40. this slice: the flagship's fast configuration: the SR kernel
+    # and the card's kernel tests, the fast CLI, graph replay against eager,
+    # the dispatch window and the bf16 resume, the device augment
+    t0 = time.perf_counter()
+    sgd_row = phase_sgd_kernel(torch, sg)
+    card_tests = run_card_tests()
+    fast = phase_fast_cli(torch, wa, sg, slices, volumes)
+    graph = phase_graph_vs_eager(torch, wa, slices)
+    dispatch = phase_dispatch_and_resume(torch, slices)
+    augment = phase_device_augment(torch, slices)
+    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
+    print(f"[summary] fast configuration phases 36-40 in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps({'card_tests': card_tests, 'fast_peak_gib': fast['peak_bytes'] / 2**30, 'fast_state_bytes': fast['state_bytes'], 'graph': {k: graph[k] for k in ('fast', 'swin', 'amos')}, 'upsample_backward_bitwise': graph['upsample_backward_bitwise'], 'dispatch': dispatch, 'augment': augment})}",
           flush=True)
 
     # The kernels line, one entry per kernel and mode. Times are sums over
@@ -2463,7 +3040,10 @@ def main() -> int:
                            sup_swinunet["path_launches"][direction][mode],
                        "training_swinunetr_3d_supervised":
                            sup_swinunetr["path_launches"][direction][mode],
-                       "training_fixmatch_cta_2d": cta["path_launches"][direction][mode]}
+                       "training_fixmatch_cta_2d": cta["path_launches"][direction][mode],
+                       "training_fast_unet_2d": fast["run_launches"][direction][mode],
+                       "graph_swinunet_2d_supervised_first_step":
+                           graph["swin_first_step"][direction][mode]}
             if direction == "fwd":
                 by_path["inference_3d"] = launches.get(mode, 0)
             errs = [r["max_abs_err"] for r in rows_3d + rows_2d if r["mode"] == mode
@@ -2480,6 +3060,18 @@ def main() -> int:
                 "per": per[mode][direction] if mode == "region" else per[mode],
                 "paths": paths[direction].get(mode, {}),
             })
+    kernels.append({
+        "name": "sgd_bf16", "route": "cuda", "source": "icl_tpu_torch/ops/csrc/sgd_bf16.cu",
+        "replaces": SGD_REPLACES, "launches": fast["launches"],
+        "launches_per_replayed_step": fast["per_replay"]["sgd_bf16"], "replays": fast["replays"],
+        "max_abs_err": sgd_row["max_abs_err"], "ms": sgd_row["ms"], "device_ms": sgd_row["device_ms"],
+        "plain_ms": sgd_row["plain_ms"], "bound_ms": sgd_row["bound_ms"],
+        "bound_by": sgd_row["bound_by"], "library_ms": sgd_row["library_ms"],
+        "f32_polysgd_ms": sgd_row["f32_polysgd_ms"], "largest_leaf_ms": sgd_row["largest_leaf_ms"],
+        "largest_leaf_bound_ms": sgd_row["largest_leaf_bound_ms"],
+        "per": f"the flagship's SGD update, {sgd_row['leaves']} leaves, {sgd_row['parameters']} "
+               "parameters; library_ms is torch.optim.SGD(fused=True) on the same bf16 tensors "
+               "(round-to-nearest stores)"})
     print(f"[summary] chip_smoke.py: every phase passed in {time.perf_counter() - t_script:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -50,6 +50,21 @@ class ExperimentConfig:
     # the ICL models' two labeled-mode sspa calls as one batched call
     # (per-branch BatchNorm stats and labeled-only query means kept)
     fuse_icl_pair: bool = False
+    # train-state storage: 'float32', or 'bfloat16' (bf16 parameters and
+    # momentum, the update in f32, stochastically rounded stores:
+    # `train/optim.py`)
+    state_dtype: str = "float32"
+    # `scan_steps` steps per group, each group never crossing a validation,
+    # checkpoint or end boundary; on the card a group is that many replays
+    # of one captured CUDA graph of the step (1: eager steps). Up to
+    # `dispatch_depth` groups stay in flight before the host waits for the
+    # oldest; a group's metrics are read only when it leaves that window
+    scan_steps: int = 1
+    dispatch_depth: int = 1
+    # the 2D augmentations (rot90/flip, +-20 degree rotate, order-0 zoom) on
+    # the device inside the step, on raw slices or a device-resident bank
+    # (`data/device_augment.py`, `data/device_bank.py`)
+    device_augment: bool = False
     feature_size: int = 48
     experiments_dir: str = "../experiments"
     # extra net_factory kwargs (the Swin CLIs' --cfg: {"swin_cfg": SwinConfig})
@@ -64,6 +79,12 @@ class ExperimentConfig:
                 f"shrinking --batch_size requires shrinking --labeled_bs with it")
         if self.precision not in ("float32", "bfloat16"):
             raise ValueError(f"precision {self.precision!r}: want float32 or bfloat16")
+        if self.scan_steps < 1 or self.dispatch_depth < 1:
+            raise ValueError(
+                f"scan_steps ({self.scan_steps}) and dispatch_depth ({self.dispatch_depth}) "
+                f"must be >= 1")
+        if self.state_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"state_dtype: {self.state_dtype!r}")
 
     @property
     def snapshot_path(self) -> str:

@@ -1,8 +1,9 @@
 """ACDC training batches (counterpart of `acdc_train_batches`,
-`supervised_batches` and `cta_batches`, `icl_tpu/data/pipeline.py:22-53,
-90-116, 172-231`), channel-first, and the `Prefetcher`
-that makes every training CLI's batches on a thread of their own
-(`icl_tpu/data/pipeline.py:117-148`)."""
+`acdc_raw_batches`, `supervised_batches` and `cta_batches`,
+`icl_tpu/data/pipeline.py:22-116, 172-231`), channel-first, the
+`Prefetcher` that makes every training CLI's batches on a thread of their
+own (`icl_tpu/data/pipeline.py:117-148`), and `device_stream`, which also
+copies them to the card there (:151-169)."""
 from __future__ import annotations
 
 import queue
@@ -12,8 +13,9 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from icl_tpu_torch.data.sampler import two_stream_batches
 from icl_tpu_torch.data.ctaugment import cta_apply
+from icl_tpu_torch.data.device_augment import draw_augment_params
+from icl_tpu_torch.data.sampler import two_stream_batches
 from icl_tpu_torch.data.transforms import CTATransform, RandomGenerator, zoom_to
 
 
@@ -31,6 +33,23 @@ def acdc_train_batches(dataset, labeled_count: int, batch_size: int, labeled_bs:
         pairs = [transform(dataset[i]["image"], dataset[i]["label"], aug_rng) for i in idxs]
         yield {"image": np.stack([img for img, _ in pairs])[:, None],
                "label": np.stack([lab for _, lab in pairs])}
+
+
+def acdc_raw_batches(dataset, labeled_count: int, batch_size: int, labeled_bs: int,
+                     canon_size: int, seed: int = 1337) -> Iterator[dict]:
+    """The device-augment input mode's batches: [labeled..., unlabeled...]
+    slices, not augmented, order-0 resized on the host to one canonical
+    square size: "image" [B, S, S] f32, "label" [B, S, S] uint8, and
+    "augment", the step's draws (`draw_augment_params` from a generator
+    seeded `seed + 1`)."""
+    aug_rng = np.random.default_rng(seed + 1)
+    canon = (canon_size, canon_size)
+    for idxs in two_stream_batches(list(range(labeled_count)), list(range(labeled_count, len(dataset))),
+                                   batch_size, batch_size - labeled_bs, seed=seed):
+        items = [dataset[i] for i in idxs]
+        yield {"image": np.stack([zoom_to(it["image"].astype(np.float32), canon) for it in items]),
+               "label": np.stack([zoom_to(it["label"].astype(np.uint8), canon) for it in items]),
+               "augment": draw_augment_params(aug_rng, len(idxs))}
 
 
 def supervised_batches(dataset, batch_size: int, patch_size, seed: int = 1337) -> Iterator[dict]:
@@ -152,3 +171,74 @@ class Prefetcher:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def _tree_map(fn, obj):
+    if isinstance(obj, dict):
+        return {k: _tree_map(fn, v) for k, v in obj.items()}
+    return fn(obj)
+
+
+class _DeviceStream:
+    """The batches of a `Prefetcher` whose thread copied them to the card
+    on its own stream; each `next` makes the caller's current stream wait
+    for that copy's event, and hands the tensors to that stream."""
+
+    def __init__(self, prefetcher: Prefetcher, device: torch.device):
+        self._prefetcher, self._device = prefetcher, device
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        batch, event = next(self._prefetcher)
+        stream = torch.cuda.current_stream(self._device)
+        stream.wait_event(event)
+
+        def hand_over(t):
+            if torch.is_tensor(t) and t.is_cuda:
+                t.record_stream(stream)
+            return t
+
+        return _tree_map(hand_over, batch)
+
+    def close(self) -> None:
+        self._prefetcher.close()
+
+    def __enter__(self) -> "_DeviceStream":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def device_stream(batches: Iterator[dict], device, prefetch: int = 2):
+    """The batches of `batches` made on a `Prefetcher` thread, which also
+    copies their arrays to `device`: on a CUDA device from pinned memory,
+    on a side stream of the thread's own, with an event that the
+    consumer's stream waits on before it uses them (so that the copy
+    overlaps the step before). Integer arrays become int64 tensors, the
+    rest f32 (the step's dtypes); torch tensors already on the device
+    pass through. On the CPU the thread makes the tensors. `close()` (or
+    leaving a `with` block) stops the thread."""
+    device = torch.device(device)
+
+    def tensor(v):
+        if torch.is_tensor(v) and v.device == device:
+            return v
+        t = torch.as_tensor(v)
+        return t.long() if not t.is_floating_point() else t.float()
+
+    if device.type != "cuda":
+        return Prefetcher((_tree_map(tensor, b) for b in batches), buffer_size=prefetch)
+    side = torch.cuda.Stream(device)
+
+    def put(b):
+        with torch.cuda.stream(side):
+            out = _tree_map(lambda v: v if torch.is_tensor(v) and v.device == device
+                            else tensor(v).pin_memory().to(device, non_blocking=True), b)
+            event = torch.cuda.Event()
+            event.record(side)
+        return out, event
+
+    return _DeviceStream(Prefetcher((put(b) for b in batches), buffer_size=prefetch), device)

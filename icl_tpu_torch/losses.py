@@ -18,6 +18,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from icl_tpu_torch.models.layers import resize_linear
+
 SMOOTH = 1e-5
 
 
@@ -26,8 +28,10 @@ def _sum_but_channel(x: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross entropy (torch CrossEntropyLoss())."""
-    return F.cross_entropy(logits, labels.long())
+    """Mean softmax cross entropy (torch CrossEntropyLoss()), the mean taken
+    over the per-pixel terms: the card's mean-reducing kernel
+    (nll_loss2d) adds with atomics, in another order each run."""
+    return F.cross_entropy(logits, labels.long(), reduction="none").mean()
 
 
 def one_hot(labels: torch.Tensor, num_classes: int, dtype: torch.dtype) -> torch.Tensor:
@@ -87,9 +91,10 @@ def at_least_f32(t: torch.Tensor) -> torch.Tensor:
 
 def resize_maps(feat_map: torch.Tensor, spatial: Sequence[int]) -> torch.Tensor:
     """Linear upsampling of class maps [B, C, *s] to `spatial` with
-    half-pixel centres (F.interpolate, align_corners=False), in f32 or f64."""
-    mode = {1: "linear", 2: "bilinear", 3: "trilinear"}[len(spatial)]
-    return F.interpolate(at_least_f32(feat_map), size=tuple(spatial), mode=mode, align_corners=False)
+    half-pixel centres (F.interpolate's align_corners=False grid), in f32 or
+    f64, as one matmul per axis (`layers.resize_linear`: a deterministic
+    backward)."""
+    return resize_linear(at_least_f32(feat_map), tuple(spatial), align_corners=False)
 
 
 def aux_loss(feat_maps: Sequence[torch.Tensor], labels: torch.Tensor, num_classes: int,

@@ -3,8 +3,10 @@ of `models/unet3d.py` and `models/swin2d.py`), with torch's default
 initialisation drawn from an explicit generator."""
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -62,13 +64,50 @@ def batch_norm(num_features: int, spatial_dims: int) -> nn.Module:
     return cls(num_features, eps=EPS, momentum=0.1)
 
 
+@functools.lru_cache(maxsize=64)
+def _linear_matrix(n_in: int, n_out: int, align_corners: bool, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """[n_out, n_in] weights of linear interpolation along one axis, on the
+    align_corners=True grid or with half-pixel centres (F.interpolate's
+    source index, clamped at 0), made once per geometry: at a model's first
+    step, before any CUDA graph capture, which cannot copy from the host."""
+    out = np.arange(n_out, dtype=np.float64)
+    if align_corners:
+        src = out * ((n_in - 1) / (n_out - 1)) if n_out > 1 else np.zeros(n_out)
+    else:
+        src = np.maximum((out + 0.5) * (n_in / n_out) - 0.5, 0.0)
+    i0 = np.minimum(np.floor(src).astype(np.int64), n_in - 1)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    w = src - i0
+    m = np.zeros((n_out, n_in))
+    np.add.at(m, (np.arange(n_out), i0), 1.0 - w)
+    np.add.at(m, (np.arange(n_out), i1), w)
+    with torch.inference_mode(False):
+        return torch.from_numpy(m).to(device=device, dtype=dtype)
+
+
+def resize_linear(x: torch.Tensor, size, align_corners: bool) -> torch.Tensor:
+    """Linear resizing of the last len(size) axes of x to `size`, one
+    matmul per axis in f32 (f64 for f64), autocast off, the result in x's
+    dtype: the values of F.interpolate's (bi/tri)linear modes up to f32
+    rounding. As matmuls the backward is deterministic; F.interpolate's
+    backward on the card adds with atomics, in another order each run."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    with torch.autocast(x.device.type, enabled=False):
+        y = x.to(ct)
+        for k, n_out in enumerate(size):
+            dim = x.ndim - len(size) + k
+            m = _linear_matrix(y.shape[dim], int(n_out), align_corners, ct, x.device)
+            y = torch.movedim(torch.matmul(m, torch.movedim(y, dim, -2)), -2, dim)
+    return y.to(x.dtype)
+
+
 def upsample_align_corners(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Bilinear (2D) or trilinear (3D) upsampling by `factor` on the
     align_corners=True grid of a channel-first x, the upsampling of the
     reference's 2D decoders (`upsample_align_corners`, layers.py:169-182,
-    which computes it as one small matmul per axis)."""
-    mode = {4: "bilinear", 5: "trilinear"}[x.ndim]
-    return F.interpolate(x, scale_factor=factor, mode=mode, align_corners=True)
+    which computes it as one small matmul per axis, as this does)."""
+    return resize_linear(x, [n * factor for n in x.shape[2:]], align_corners=True)
 
 
 def call_remat(remat: bool, fn, *args):

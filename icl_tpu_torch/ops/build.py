@@ -96,6 +96,21 @@ def load_window_attention_bwd() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def load_sgd_bf16() -> ctypes.CDLL:
+    """The bf16 stochastic-rounding SGD library, built on first use, with
+    its C signature declared."""
+    path, _ = build_library("sgd_bf16")
+    lib = ctypes.CDLL(str(path))
+    fn = lib.icl_sgd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    _declare_error_string(lib)
+    return lib
+
+
 def _declare_geometry(fn) -> None:
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
     fn.restype = ctypes.c_int

@@ -28,6 +28,7 @@ GROUPS = (
     ("window_attention_bwd", "window attention backward (this port's kernel)"),
     ("dbias_reduce", "window attention backward (this port's kernel)"),
     ("window_attention", "window attention (this port's kernel)"),
+    ("sgd_bf16", "optimizer (SGD, this port's bf16 kernel)"),
     ("conv", "convolution"),
     ("fprop", "convolution"),
     ("dgrad", "convolution"),

@@ -20,14 +20,25 @@ fully supervised CLI's defaults: `unet` (256^2, batch 16) or `swinunet`
 batch 4, recompute on, bf16 unless `--precision` says otherwise) on the
 BraTS cases; or `fixmatch_cta`, the FixMatch-CTA CLI's defaults (the U-Net
 at 256^2, batch 16 of which 8 labeled, threshold 0.95, the probe fused,
-f32) on `cta_batches` of the same slices. Times
-building the model, runs two
+f32) on `cta_batches` of the same slices. `--state_dtype bfloat16`
+stores the train state in bf16; `--input_mode device_bank` (the ACDC 2D
+models) holds the slices on the card and gathers and augments each batch
+inside the step; `--scan_steps K` > 1 also times the step as a replay of
+its captured CUDA graph (`Trainer.graph_step`); `--dispatch_depth` is
+taken for the trainer's config. Times building the model, runs two
 warm-up steps, three timed steps without the profiler and then one
-profiled step, each on a batch made before its clock starts, and prints
-the build's and the timed steps' seconds, the device time by kernel
-group, the top kernels, the profiled step's wall time, the card's idle
-share over it and the peak memory, then one JSON line with the same
-numbers. Needs a CUDA device. Run as a file, it imports `icl_tpu_torch`
+profiled step, each on a batch made before its clock starts (with
+`--scan_steps` > 1: the graph's first step, three timed replays and one
+profiled replay as well), and prints the build's and the timed steps'
+seconds, the device time by kernel group, the top kernels, the launches,
+the profiled step's wall time, the card's idle share over it and the peak
+memory, then one JSON line with the same numbers. The fast configuration
+of the flagship:
+
+    python -m icl_tpu_torch.scripts.profile_train_step --model icl_unet --precision bfloat16 \
+        --state_dtype bfloat16 --input_mode device_bank --scan_steps 4 --fuse_icl_pair
+
+Needs a CUDA device. Run as a file, it imports `icl_tpu_torch`
 from PYTHONPATH, so that another checkout's step can be timed by the same
 code.
 """
@@ -158,6 +169,70 @@ def setup(model: str, precision: str, dataset: str = "brats"):
     return acdc_setup(precision, model)
 
 
+def bank_setup(cfg, model: str):
+    """Bank batches of the setup's slices for the device_bank input mode
+    (the ACDC 2D models): the slices on the card, indices and draws per
+    step."""
+    from icl_tpu_torch.data.device_bank import (bank_batches, build_acdc_bank,
+                                                supervised_index_batches, two_stream_index_batches)
+    from icl_tpu_torch.data.synth import synthetic_acdc
+
+    slices, _ = synthetic_acdc(32, 0, 256, 1, 4, seed=0)
+    image_bank, label_bank = build_acdc_bank(slices, int(cfg.patch_size[0]), "cuda")
+
+    def make_batches():
+        indices = (two_stream_index_batches(16, len(slices), cfg.batch_size, cfg.labeled_bs,
+                                            seed=cfg.seed) if model.startswith("icl")
+                   else supervised_index_batches(len(slices), cfg.batch_size, seed=cfg.seed))
+        return bank_batches(image_bank, label_bank, indices, seed=cfg.seed)
+
+    return make_batches
+
+
+def profiled(step, batch) -> dict:
+    """One step under torch.profiler: wall ms, device busy ms, idle share,
+    kernels by group and name, launches, peak memory, loss."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, by_group, by_name, n_kernels = device_time_by_group(prof)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "kernels": n_kernels, "by_group_ms": by_group, "by_name": by_name,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "loss": float(metrics[0])}
+
+
+def timed(step, batches, n: int = 3) -> list:
+    """Seconds of n steps without the profiler, each on a batch made
+    before its clock starts."""
+    out = []
+    for _ in range(n):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def report(kind: str, what: str, precision: str, step_s: list, prof: dict) -> None:
+    print(f"{kind} step without the profiler: {step_s} s, mean {sum(step_s) / len(step_s):.4f} s")
+    print(f"{kind} step {what}, {precision}: wall {prof['wall_ms']:.3f} ms, device busy "
+          f"{prof['busy_ms']:.3f} ms, idle share {prof['idle_share']:.3f}, {prof['kernels']} kernels, "
+          f"peak memory {prof['peak_bytes'] / 2**30:.3f} GiB, loss {prof['loss']:.6f}")
+    for g, ms in sorted(prof["by_group_ms"].items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:10.3f} ms  {ms / max(prof['busy_ms'], 1e-9):6.1%}  {g}")
+    print("top kernels:")
+    for name, (ms, n) in sorted(prof["by_name"].items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {ms:10.3f} ms  x{n:<4d} {name[:110]}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="swinunetr_icl",
@@ -168,65 +243,69 @@ def main(argv=None):
                         "else float32)")
     p.add_argument("--dataset", default="brats", choices=["brats", "amos"],
                    help="unet_3D_icl only: the BraTS or the AMOS CLI's configuration")
+    p.add_argument("--state_dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--input_mode", default="host", choices=["host", "device_bank"])
+    p.add_argument("--scan_steps", type=int, default=1)
+    p.add_argument("--dispatch_depth", type=int, default=1)
+    p.add_argument("--fuse_icl_pair", action="store_true")
     args = p.parse_args(argv)
     if args.precision is None:
         amos = args.model == "unet_3D_icl" and args.dataset == "amos"
         args.precision = "bfloat16" if amos or args.model == "swinunetr" else "float32"
-    if args.model == "fixmatch_cta" and args.precision != "float32":
-        raise SystemExit("the FixMatch-CTA step runs in float32 only, as its CLI")
+    if args.model == "fixmatch_cta" and (args.precision != "float32" or args.scan_steps > 1
+                                         or args.state_dtype != "float32"):
+        raise SystemExit("the FixMatch-CTA step runs eagerly in float32 only, as its CLI")
+    if args.input_mode == "device_bank" and args.model not in ("icl_unet", "unet"):
+        raise SystemExit("--input_mode device_bank: the ACDC U-Nets (icl_unet, unet) only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     cfg, make_batches, what = setup(args.model, args.precision, args.dataset)
+    cfg.state_dtype, cfg.fuse_icl_pair = args.state_dtype, args.fuse_icl_pair
+    cfg.scan_steps, cfg.dispatch_depth = args.scan_steps, args.dispatch_depth
+    if args.input_mode == "device_bank":
+        cfg.device_augment = True
+        make_batches = bank_setup(cfg, args.model)
+    what += (f", state {args.state_dtype}, input {args.input_mode}"
+             + (", fused sspa pair" if args.fuse_icl_pair else ""))
     batches = make_batches()
     t0 = time.perf_counter()
     trainer = (CTATrainer if args.model == "fixmatch_cta" else Trainer)(cfg, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    for _ in range(2):  # the first step makes the momentum buffers and cuDNN plans
-        trainer.step_fn(trainer.to_device(next(batches)))
-    step_s = []
-    for _ in range(3):
-        batch = trainer.to_device(next(batches))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.step_fn(batch)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    batch = trainer.to_device(next(batches))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        metrics = trainer.step_fn(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated()
-    loss = float(metrics["loss"])
-    busy_ms, by_group, by_name, n_kernels = device_time_by_group(prof)
-
+    device_batches = (trainer.to_device(b) for b in batches)
+    for _ in range(2):  # the first step makes the zero gradients and cuDNN plans
+        trainer._stacked_step(next(device_batches))
+    eager_s = timed(trainer._stacked_step, device_batches)
+    eager = profiled(trainer._stacked_step, next(device_batches))
     print(f"card: {card}")
     print(f"model built and initialised in {build_s:.2f} s, "
           f"{sum(p.numel() for p in trainer.model.parameters())} parameters")
-    print(f"training step without the profiler: {step_s} s, mean {sum(step_s) / len(step_s):.4f} s")
-    print(f"training step {what}, {args.precision}: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.3f}, {n_kernels} kernels, peak memory "
-          f"{peak / 2**30:.3f} GiB, loss {loss:.6f}")
-    for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"  {ms:10.3f} ms  {ms / busy_ms:6.1%}  {g}")
-    print("top kernels:")
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"  {ms:10.3f} ms  x{n:<4d} {name[:110]}")
-    print(json.dumps({"card": card, "model": args.model, "dataset": args.dataset,
-                      "precision": args.precision,
-                      "build_s": build_s, "step_s": step_s, "wall_ms": wall_ms,
-                      "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-                      "peak_bytes": peak, "by_group_ms": by_group}))
+    report("eager", what, args.precision, eager_s, eager)
+    result = {"card": card, "model": args.model, "dataset": args.dataset,
+              "precision": args.precision, "state_dtype": args.state_dtype,
+              "input_mode": args.input_mode, "fuse_icl_pair": args.fuse_icl_pair,
+              "build_s": build_s, "step_s": eager_s,
+              **{k: v for k, v in eager.items() if k != "by_name"}}
+    if args.scan_steps > 1:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        trainer.graph_step(next(device_batches))  # the eager step on a side stream, the capture
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        pool = torch.cuda.memory_allocated() - before
+        replay_s = timed(trainer.graph_step, device_batches)
+        replay = profiled(trainer.graph_step, next(device_batches))
+        print(f"graph: first step and capture {capture_s:.3f} s; memory held after it "
+              f"{pool / 2**30:.3f} GiB more than before; launches recorded per replay "
+              f"{trainer.graph_launches}")
+        report("replayed", what, args.precision, replay_s, replay)
+        result["graph"] = {"capture_s": capture_s, "pool_bytes": pool, "step_s": replay_s,
+                           "launches_per_replay": trainer.graph_launches,
+                           **{k: v for k, v in replay.items() if k != "by_name"}}
+    print(json.dumps(result))
 
 
 if __name__ == "__main__":

@@ -17,8 +17,9 @@ loads an ImageNet Swin-T checkpoint into the encoder and, mirrored, the
 decoder (`utils/pretrained.py`). Runs on the CUDA card; `--device cpu`
 runs on the CPU. `--precision float32` (the default) runs f32 with TF32
 off; `bfloat16` runs the forward under autocast. Every run ends with the
-full train state in `model/state_last.pt`. The JAX CLI's `--scan_steps`
-and `--dispatch_depth` other than 1 are not ported and are refused.
+full train state in `model/state_last.pt`. `--scan_steps K` runs the steps
+in groups of K, on the card as replays of one captured CUDA graph of the
+step; `--dispatch_depth D` keeps up to D groups in flight (`Trainer`).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.acdc import ACDCDataset, patients_to_slices
 from icl_tpu_torch.data.pipeline import Prefetcher, supervised_batches
 from icl_tpu_torch.models.swin_config import swin_cli_kwargs
-from icl_tpu_torch.scripts.unported import parse_args_refusing
+from icl_tpu_torch.scripts.unported import add_dispatch_flags
 from icl_tpu_torch.train.trainer import Trainer, acdc_evaluator
 from icl_tpu_torch.utils.pretrained import load_pretrained_swinunet
 
@@ -51,13 +52,14 @@ def parse_args(argv=None):
     p.add_argument("--pretrained_ckpt", type=str, default=None)
     p.add_argument("--cfg", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda")
-    return parse_args_refusing(p, argv, ("scan_steps", "dispatch_depth"),
-                               "the port runs one step per dispatch")
+    add_dispatch_flags(p)
+    return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
     cfg = ExperimentConfig(
+        scan_steps=args.scan_steps, dispatch_depth=args.dispatch_depth,
         root_path=args.root_path, exp=args.exp, model=args.model,
         num_classes=args.num_classes, max_iterations=args.max_iterations,
         batch_size=args.batch_size, base_lr=args.base_lr,

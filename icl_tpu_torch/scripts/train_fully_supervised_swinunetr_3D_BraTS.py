@@ -12,12 +12,13 @@ checkpoint.
 `--use_ssl_pretrained 1` (the default) loads the self-supervised SwinViT
 checkpoint `--ssl_ckpt` into the encoder (`utils/pretrained.py`); a
 missing file is an error, as in the JAX CLI; `--use_ssl_pretrained 0`
-starts from random weights. The batches are made on a thread of their
-own (`Prefetcher`). Runs on the CUDA card; `--device cpu` runs on the
-CPU. `--precision bfloat16` (the default) runs the forward under
-autocast; `float32` runs f32 with TF32 off. Every run ends with the full
-train state in `model/state_last.pt`. The JAX CLI's `--scan_steps` and
-`--dispatch_depth` other than 1 are not ported and are refused.
+starts from random weights. The batches are made on a thread of their own
+(`Prefetcher`). Runs on the CUDA card; `--device cpu` runs on the CPU.
+`--precision bfloat16` (the default) runs the forward under autocast;
+`float32` runs f32 with TF32 off. Every run ends with the full train state
+in `model/state_last.pt`. `--scan_steps K` runs the steps in groups of K,
+on the card as replays of one captured CUDA graph of the step;
+`--dispatch_depth D` keeps up to D groups in flight (`Trainer`).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import argparse
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.brats import BraTS2019Dataset, brats_supervised_batches
 from icl_tpu_torch.data.pipeline import Prefetcher
-from icl_tpu_torch.scripts.unported import parse_args_refusing
+from icl_tpu_torch.scripts.unported import add_dispatch_flags
 from icl_tpu_torch.train.trainer import Trainer, brats_evaluator
 from icl_tpu_torch.utils.pretrained import load_pretrained_swinvit
 
@@ -50,13 +51,14 @@ def parse_args(argv=None):
     p.add_argument("--precision", type=str, default="bfloat16", choices=["float32", "bfloat16"])
     p.add_argument("--ssl_ckpt", type=str, default="../pretrained_models/model_swinvit.pt")
     p.add_argument("--device", type=str, default="cuda")
-    return parse_args_refusing(p, argv, ("scan_steps", "dispatch_depth"),
-                               "the port runs one step per dispatch")
+    add_dispatch_flags(p)
+    return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
     cfg = ExperimentConfig(
+        scan_steps=args.scan_steps, dispatch_depth=args.dispatch_depth,
         root_path=args.root_path, exp=args.exp, model=args.model,
         num_classes=args.num_classes, max_iterations=args.max_iterations,
         batch_size=args.batch_size, base_lr=args.base_lr,

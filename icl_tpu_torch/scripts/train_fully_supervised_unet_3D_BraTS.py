@@ -10,9 +10,10 @@ Dice, validation by the BraTS sliding window (stride 64) every
 The batches are made on a thread of their own (`Prefetcher`). Runs on the
 CUDA card; `--device cpu` runs on the CPU. `--precision float32` (the
 default) runs f32 with TF32 off; `bfloat16` runs the forward under
-autocast. `--deterministic` is taken and has no effect. The JAX CLI's
-`--scan_steps` and `--dispatch_depth` other than 1 are not ported and are
-refused.
+autocast. `--deterministic` is taken and has no effect. `--scan_steps K`
+runs the steps in groups of K, on the card as replays of one captured CUDA
+graph of the step; `--dispatch_depth D` keeps up to D groups in flight
+(`Trainer`).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import argparse
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.brats import BraTS2019Dataset, brats_supervised_batches
 from icl_tpu_torch.data.pipeline import Prefetcher
-from icl_tpu_torch.scripts.unported import parse_args_refusing
+from icl_tpu_torch.scripts.unported import add_dispatch_flags
 from icl_tpu_torch.train.trainer import Trainer, brats_evaluator
 
 
@@ -42,13 +43,14 @@ def parse_args(argv=None):
     p.add_argument("--val_interval", type=int, default=200)
     p.add_argument("--precision", type=str, default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--device", type=str, default="cuda")
-    return parse_args_refusing(p, argv, ("scan_steps", "dispatch_depth"),
-                               "the port runs one step per dispatch")
+    add_dispatch_flags(p)
+    return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
     cfg = ExperimentConfig(
+        scan_steps=args.scan_steps, dispatch_depth=args.dispatch_depth,
         root_path=args.root_path, exp=args.exp, model=args.model,
         num_classes=args.num_classes, max_iterations=args.max_iterations,
         batch_size=args.batch_size, base_lr=args.base_lr,

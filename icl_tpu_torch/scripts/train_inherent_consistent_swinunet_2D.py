@@ -27,7 +27,7 @@ from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.acdc import ACDCDataset, patients_to_slices
 from icl_tpu_torch.data.pipeline import Prefetcher, acdc_train_batches
 from icl_tpu_torch.models.swin_config import swin_cli_kwargs
-from icl_tpu_torch.scripts.unported import MULTI_PROCESS, parse_args_refusing
+from icl_tpu_torch.scripts.unported import MULTI_PROCESS, add_dispatch_flags, parse_args_refusing
 from icl_tpu_torch.train.trainer import Trainer, acdc_evaluator
 from icl_tpu_torch.utils.pretrained import load_pretrained_swinunet
 
@@ -52,13 +52,14 @@ def parse_args(argv=None):
     p.add_argument("--cfg", type=str, default=None)
     p.add_argument("--pretrained_ckpt", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda")
-    return parse_args_refusing(p, argv, ("scan_steps", "dispatch_depth") + MULTI_PROCESS,
-                               "the port runs one process, one step per dispatch")
+    add_dispatch_flags(p)
+    return parse_args_refusing(p, argv, MULTI_PROCESS, "the port runs one process")
 
 
 def main(argv=None):
     args = parse_args(argv)
     cfg = ExperimentConfig(
+        scan_steps=args.scan_steps, dispatch_depth=args.dispatch_depth,
         root_path=args.root_path, exp=args.exp, model=args.model,
         num_classes=args.num_classes, max_iterations=args.max_iterations,
         batch_size=args.batch_size, base_lr=args.base_lr,

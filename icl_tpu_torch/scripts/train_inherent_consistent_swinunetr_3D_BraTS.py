@@ -8,13 +8,14 @@ recompute on, validation by the BraTS sliding window every
         --root_path ../data/BraTS2019 --exp BraTS2019/ICL --max_iterations 30000
 
 The batches are made on a thread of their own (`Prefetcher`). Runs on the
-CUDA card; `--device cpu` runs on the CPU. `--precision
-float32` runs f32 with TF32 off; `bfloat16` (the default) runs the
-forward under autocast. `--use_ssl_pretrained 1` loads the
-self-supervised SwinViT checkpoint `--ssl_ckpt` into the encoder
-(`utils/pretrained.py`); a missing file is an error. The JAX CLI's
-`--scan_steps`, `--dispatch_depth` and multi-process flags are not ported:
-the parser knows none of them.
+CUDA card; `--device cpu` runs on the CPU. `--precision float32` runs f32
+with TF32 off; `bfloat16` (the default) runs the forward under autocast.
+`--use_ssl_pretrained 1` loads the self-supervised SwinViT checkpoint
+`--ssl_ckpt` into the encoder (`utils/pretrained.py`); a missing file is
+an error. `--scan_steps K` runs the steps in groups of K, on the card as
+replays of one captured CUDA graph of the step; `--dispatch_depth D` keeps
+up to D groups in flight (`Trainer`). The JAX CLI's multi-process flags
+are not ported and are refused.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import argparse
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.brats import BraTS2019Dataset, brats_train_batches
 from icl_tpu_torch.data.pipeline import Prefetcher
+from icl_tpu_torch.scripts.unported import MULTI_PROCESS, add_dispatch_flags, parse_args_refusing
 from icl_tpu_torch.train.trainer import Trainer, brats_evaluator
 from icl_tpu_torch.utils.pretrained import load_pretrained_swinvit
 
@@ -48,12 +50,14 @@ def parse_args(argv=None):
     p.add_argument("--use_ssl_pretrained", type=int, default=0)
     p.add_argument("--ssl_ckpt", type=str, default="../pretrained_models/model_swinvit.pt")
     p.add_argument("--device", type=str, default="cuda")
-    return p.parse_args(argv)
+    add_dispatch_flags(p)
+    return parse_args_refusing(p, argv, MULTI_PROCESS, "the port runs one process")
 
 
 def main(argv=None):
     args = parse_args(argv)
     cfg = ExperimentConfig(
+        scan_steps=args.scan_steps, dispatch_depth=args.dispatch_depth,
         root_path=args.root_path, exp=args.exp, model=args.model,
         num_classes=args.num_classes, max_iterations=args.max_iterations,
         batch_size=args.batch_size, base_lr=args.base_lr,

@@ -15,10 +15,22 @@ autocast. `--fuse_icl_pair` runs the two labeled-mode `sspa` calls as one.
 (`model/state_step_*.pt`, the newest 3 kept, `state_last.pt` the newest);
 every run ends with `state_last.pt`. A run resumes through
 `Trainer.restore_state`, as in the JAX package, whose CLI has no resume
-flag either. `--deterministic` is taken and has no effect. The JAX CLI's
-`--input_mode device_bank`, `--state_dtype bfloat16`, `--scan_steps` and
-`--dispatch_depth` other than 1 and its multi-process flags are not
-ported and are refused.
+flag either. `--deterministic` is taken and has no effect.
+
+The JAX CLI's fast configuration (`bench.py`'s `icl_unet_acdc_fast`):
+
+    python -m icl_tpu_torch.scripts.train_inherent_consistent_unet_2D --fuse_icl_pair \\
+        --precision bfloat16 --state_dtype bfloat16 --input_mode device_bank \\
+        --scan_steps 4 --dispatch_depth 2
+
+`--state_dtype bfloat16` stores the parameters and momentum in bf16 and
+updates them with the fused stochastic-rounding kernel; `--input_mode
+device_bank` holds the training slices on the card, resized once to the
+patch, and gathers and augments each batch there, inside the step (the
+host sends indices and augment draws); `--scan_steps K` runs the steps in
+groups of K, on the card as replays of one captured CUDA graph of the
+step; `--dispatch_depth D` keeps up to D groups in flight. The JAX CLI's
+multi-process flags are not ported and are refused.
 """
 from __future__ import annotations
 
@@ -26,8 +38,9 @@ import argparse
 
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.acdc import ACDCDataset, patients_to_slices
+from icl_tpu_torch.data.device_bank import bank_batches, build_acdc_bank, two_stream_index_batches
 from icl_tpu_torch.data.pipeline import Prefetcher, acdc_train_batches
-from icl_tpu_torch.scripts.unported import MULTI_PROCESS, parse_args_refusing
+from icl_tpu_torch.scripts.unported import MULTI_PROCESS, add_dispatch_flags, parse_args_refusing
 from icl_tpu_torch.train.trainer import Trainer, acdc_evaluator
 
 
@@ -47,13 +60,14 @@ def parse_args(argv=None):
     p.add_argument("--num_tries", type=str, default="1")
     p.add_argument("--labeled_bs", type=int, default=8)
     p.add_argument("--val_interval", type=int, default=200)
+    p.add_argument("--input_mode", type=str, default="host", choices=["host", "device_bank"])
     p.add_argument("--precision", type=str, default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--state_dtype", type=str, default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--fuse_icl_pair", action="store_true")
+    add_dispatch_flags(p)
     p.add_argument("--checkpoint_interval", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda")
-    return parse_args_refusing(
-        p, argv, ("input_mode", "state_dtype", "scan_steps", "dispatch_depth") + MULTI_PROCESS,
-        "the port runs one process, one step per dispatch, host batches and an f32 train state")
+    return parse_args_refusing(p, argv, MULTI_PROCESS, "the port runs one process")
 
 
 def main(argv=None):
@@ -65,19 +79,28 @@ def main(argv=None):
         patch_size=tuple(args.patch_size), seed=args.seed,
         labeled_num=args.labeled_num, num_tries=args.num_tries,
         labeled_bs=args.labeled_bs, val_interval=args.val_interval,
-        precision=args.precision, fuse_icl_pair=args.fuse_icl_pair,
-        checkpoint_interval=args.checkpoint_interval,
+        precision=args.precision, state_dtype=args.state_dtype,
+        fuse_icl_pair=args.fuse_icl_pair, checkpoint_interval=args.checkpoint_interval,
+        scan_steps=args.scan_steps, dispatch_depth=args.dispatch_depth,
+        device_augment=args.input_mode == "device_bank",
     )
     trainer = Trainer(cfg, device=args.device)
     train_ds = ACDCDataset(cfg.root_path, "train")
     labeled_slice = patients_to_slices(cfg.root_path, cfg.labeled_num)
     print(f"Total slices: {len(train_ds)}, labeled slices: {labeled_slice}")
-    batches = acdc_train_batches(train_ds, labeled_slice, cfg.batch_size, cfg.labeled_bs,
-                                 cfg.patch_size, seed=cfg.seed)
     evaluate = acdc_evaluator(ACDCDataset(cfg.root_path, "val_test"), cfg.num_classes,
                               cfg.patch_size, trainer.device)
-    with Prefetcher(batches, pin_memory=trainer.device.type == "cuda") as prefetched:
-        result = trainer.fit(prefetched, evaluate=evaluate)
+    if args.input_mode == "device_bank":
+        image_bank, label_bank = build_acdc_bank(train_ds, int(cfg.patch_size[0]), trainer.device)
+        indices = two_stream_index_batches(labeled_slice, len(train_ds), cfg.batch_size,
+                                           cfg.labeled_bs, seed=cfg.seed)
+        batches = bank_batches(image_bank, label_bank, indices, seed=cfg.seed)
+        result = trainer.fit(batches, evaluate=evaluate)
+    else:
+        batches = acdc_train_batches(train_ds, labeled_slice, cfg.batch_size, cfg.labeled_bs,
+                                     cfg.patch_size, seed=cfg.seed)
+        with Prefetcher(batches, pin_memory=trainer.device.type == "cuda") as prefetched:
+            result = trainer.fit(prefetched, evaluate=evaluate)
     print("Training Finished!")
     return result
 

@@ -13,8 +13,10 @@ The batches are made on a thread of their own (`Prefetcher`). Runs on the
 CUDA card; `--device cpu` runs on the CPU. `--precision bfloat16` (the
 default) runs the forward under autocast; `float32` runs f32 with TF32
 off. `--remat 0` turns the recompute off. `--deterministic` is taken and
-has no effect. The JAX CLI's `--scan_steps` and `--dispatch_depth` other
-than 1 and its multi-process flags are not ported and are refused.
+has no effect. `--scan_steps K` runs the steps in groups of K, on the card
+as replays of one captured CUDA graph of the step; `--dispatch_depth D`
+keeps up to D groups in flight (`Trainer`). The JAX CLI's multi-process
+flags are not ported and are refused.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.amos import (AMOS_CLASS_NAMES, AMOSDataset, amos_train_batches,
                                      load_decathlon_datalist)
 from icl_tpu_torch.data.pipeline import Prefetcher
-from icl_tpu_torch.scripts.unported import MULTI_PROCESS, parse_args_refusing
+from icl_tpu_torch.scripts.unported import MULTI_PROCESS, add_dispatch_flags, parse_args_refusing
 from icl_tpu_torch.train.trainer import Trainer, amos_evaluator
 
 
@@ -50,13 +52,14 @@ def parse_args(argv=None):
     p.add_argument("--remat", type=int, default=1)
     p.add_argument("--val_interval", type=int, default=1200)
     p.add_argument("--device", type=str, default="cuda")
-    return parse_args_refusing(p, argv, ("scan_steps", "dispatch_depth") + MULTI_PROCESS,
-                               "the port runs one process, one step per dispatch")
+    add_dispatch_flags(p)
+    return parse_args_refusing(p, argv, MULTI_PROCESS, "the port runs one process")
 
 
 def main(argv=None):
     args = parse_args(argv)
     cfg = ExperimentConfig(
+        scan_steps=args.scan_steps, dispatch_depth=args.dispatch_depth,
         root_path=args.root_path, exp=args.exp, model=args.model,
         num_classes=args.num_classes, max_iterations=args.max_iterations,
         batch_size=args.batch_size, base_lr=args.base_lr,

@@ -1,7 +1,9 @@
-"""The JAX training CLIs' flags that the port does not have. A port CLI
-takes those of its JAX counterpart only to refuse any value but the
-default, so that a JAX command line fails loudly instead of running
-something else."""
+"""Flags that the port's training CLIs share with their JAX counterparts:
+`add_dispatch_flags` adds the JAX CLIs' `--scan_steps` and
+`--dispatch_depth` (`Trainer`'s step groups and dispatch window), and
+`parse_args_refusing` takes the flags the port does not have only to
+refuse any value but the default, so that a JAX command line fails loudly
+instead of running something else."""
 from __future__ import annotations
 
 import argparse
@@ -9,15 +11,19 @@ from typing import Sequence
 
 # flag -> (type, the JAX CLI's default)
 UNPORTED_FLAGS = {
-    "input_mode": (str, "host"),
-    "state_dtype": (str, "float32"),
-    "scan_steps": (int, 1),
-    "dispatch_depth": (int, 1),
     "dist_coordinator": (str, None),
     "num_processes": (int, None),
     "process_id": (int, None),
 }
 MULTI_PROCESS = ("dist_coordinator", "num_processes", "process_id")
+
+
+def add_dispatch_flags(p: argparse.ArgumentParser) -> None:
+    """`--scan_steps` (steps per group; on the card, replays of the step's
+    captured CUDA graph) and `--dispatch_depth` (groups in flight before
+    the host waits for the oldest), the JAX CLIs' names and defaults."""
+    p.add_argument("--scan_steps", type=int, default=1)
+    p.add_argument("--dispatch_depth", type=int, default=1)
 
 
 def parse_args_refusing(p: argparse.ArgumentParser, argv, names: Sequence[str],

@@ -52,6 +52,12 @@ class CTATrainer(Trainer):
                 "and the Swin-UNet is not taken on this path")
         if len(cfg.patch_size) != 2:
             raise ValueError(f"the CTA path is 2D (ACDC); patch {tuple(cfg.patch_size)}")
+        fast = {k: getattr(cfg, k) for k in ("state_dtype", "device_augment", "scan_steps",
+                                              "dispatch_depth")}
+        if fast != {"state_dtype": "float32", "device_augment": False, "scan_steps": 1,
+                    "dispatch_depth": 1}:
+            raise ValueError(f"{fast}: the FixMatch-CTA path (its JAX CLI too) has none of the "
+                             "flagship's fast options")
         super().__init__(cfg, device=device)
         self.step_fn = make_fixmatch_cta_step(self.model, self.optimizer, cfg.num_classes,
                                               cfg.labeled_bs, conf_thresh, unsup_weight)

@@ -33,10 +33,36 @@ def _check_precision(precision: str) -> None:
 
 
 def _forward_context(precision: str, device: torch.device):
-    """autocast to bf16 for "bfloat16", nothing for "float32"."""
+    """autocast to bf16 for "bfloat16", nothing for "float32". Inside a
+    CUDA graph capture autocast's cache of cast weights is off: a cached
+    cast would be made once, in the graph's memory, and its pointer kept by
+    replays of another capture; the values are the same either way."""
     if precision == "bfloat16":
-        return torch.autocast(device.type, dtype=torch.bfloat16)
+        capturing = device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+        return torch.autocast(device.type, dtype=torch.bfloat16, cache_enabled=not capturing)
     return contextlib.nullcontext()
+
+
+def forward(model: torch.nn.Module, precision: str, *args):
+    """model(*args) at `precision`. With bf16 parameters (the bf16 train
+    state) and precision "float32", the forward runs in f32 on upcast
+    copies (`torch.func.functional_call`), as flax promotes bf16 weights to
+    the f32 input's type; the bf16 leaves still receive bf16 gradients. With
+    "bfloat16" the bf16 weights go into autocast as they are, and only the
+    normalisation layers' affine parameters (BatchNorm, InstanceNorm) are
+    upcast, since their kernels take a bf16 input only with f32 parameters
+    beside the f32 running stats."""
+    first = next(model.parameters(), None)
+    with _forward_context(precision, args[0].device):
+        if first is None or first.dtype != torch.bfloat16:
+            return model(*args)
+        if precision == "float32":
+            upcast = {n: p.float() for n, p in model.named_parameters()}
+        else:
+            upcast = {f"{mn}.{pn}": p.float() for mn, m in model.named_modules()
+                      if isinstance(m, torch.nn.modules.batchnorm._NormBase)
+                      for pn, p in m.named_parameters(recurse=False)}
+        return torch.func.functional_call(model, upcast, args)
 
 
 def make_supervised_step(model: torch.nn.Module, optimizer: PolySGD, num_classes: int,
@@ -52,9 +78,7 @@ def make_supervised_step(model: torch.nn.Module, optimizer: PolySGD, num_classes
     def step(batch: dict) -> dict:
         x, y = batch["image"], batch["label"]
         optimizer.zero_grad()
-        with _forward_context(precision, x.device):
-            logits = model(x)
-        logits = losses.at_least_f32(logits)
+        logits = losses.at_least_f32(forward(model, precision, x))
         loss_ce = losses.cross_entropy_loss(logits, y)
         loss_dice = losses.multiclass_dice_loss(logits, y, num_classes, softmax=True)
         loss = seg_weight * (loss_ce + loss_dice)
@@ -150,8 +174,7 @@ def make_icl_step(model: torch.nn.Module, optimizer: PolySGD, num_classes: int, 
         x_lab, x_unlab = x[:labeled_bs], x[labeled_bs:]
         y_lab = y[:labeled_bs]
         optimizer.zero_grad()
-        with _forward_context(precision, x.device):
-            outs = model(x_lab, x_unlab)
+        outs = forward(model, precision, x_lab, x_unlab)
         out_lab, out_unlab, fm_lab, fm_unlab, fm_consis = (
             losses.at_least_f32(o) if torch.is_tensor(o) else [losses.at_least_f32(m) for m in o]
             for o in outs)

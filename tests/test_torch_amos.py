@@ -209,13 +209,15 @@ def test_cli_refuses_unported_flags_and_needs_cuda(kind, monkeypatch):
     from icl_tpu_torch.scripts import test_3D_AMOS
 
     cli = importlib.import_module(f"icl_tpu_torch.scripts.{CLIS[kind][0]}")
-    refused = [["--scan_steps", "8"], ["--dispatch_depth", "2"], ["--state_dtype", "bfloat16"]]
+    refused = [["--state_dtype", "bfloat16"]]
     if kind == "icl":
         refused += [["--dist_coordinator", "host0:1234"], ["--num_processes", "2"],
                     ["--process_id", "0"]]
     for flags in refused:
         with pytest.raises(SystemExit):
             cli.parse_args(flags)
+    args = cli.parse_args(["--scan_steps", "8", "--dispatch_depth", "2"])
+    assert (args.scan_steps, args.dispatch_depth) == (8, 2)
     args = cli.parse_args(["--dispatch_depth", "1"])
     assert (args.model, args.num_classes, args.patch_size, args.batch_size, args.base_lr,
             args.val_interval, args.device) == (CLIS[kind][1], 16, [96, 96, 96], 4, 0.02, 1200, "cuda")

@@ -51,9 +51,9 @@ def test_clis_refuse_unported_flags_and_need_cuda(monkeypatch):
             model, patch, batch, precision)
         assert (args.base_lr, args.max_iterations, args.val_interval, args.device) == (
             0.01, 30000, 200, "cuda")
-        for flags in (["--scan_steps", "2"], ["--dispatch_depth", "4"]):
-            with pytest.raises(SystemExit):
-                cli.parse_args(flags)
+        assert (args.scan_steps, args.dispatch_depth) == (1, 1)
+        args = cli.parse_args(["--scan_steps", "2", "--dispatch_depth", "4"])
+        assert (args.scan_steps, args.dispatch_depth) == (2, 4)
     assert swinunetr.parse_args([]).use_ssl_pretrained == 1
     assert swinunetr.parse_args([]).ssl_ckpt == "../pretrained_models/model_swinvit.pt"
     assert (swinunetr.parse_args([]).feature_size, swinunetr.parse_args([]).labeled_num) == (48, 25)

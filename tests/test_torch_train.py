@@ -188,9 +188,13 @@ def test_config_checks_labeled_bs():
 def test_cli_refuses_unported_flags_and_needs_cuda(monkeypatch):
     from icl_tpu_torch.scripts import train_inherent_consistent_swinunetr_3D_BraTS as cli
 
-    for flag in ("--scan_steps", "--dispatch_depth", "--num_processes"):
+    for flags in (["--num_processes", "2"], ["--process_id", "0"],
+                  ["--dist_coordinator", "host0:1234"]):
         with pytest.raises(SystemExit):
-            cli.parse_args([flag, "1"])
+            cli.parse_args(flags)
+    args = cli.parse_args(["--scan_steps", "1", "--dispatch_depth", "1"])
+    assert (args.scan_steps, args.dispatch_depth) == (1, 1)
+    assert (cli.parse_args(["--scan_steps", "4"]).scan_steps, cli.parse_args([]).dispatch_depth) == (4, 1)
     args = cli.parse_args([])
     assert (args.use_ssl_pretrained, args.ssl_ckpt) == (0, "../pretrained_models/model_swinvit.pt")
     args = cli.parse_args(["--use_ssl_pretrained", "1", "--ssl_ckpt", "ssl.pt"])

@@ -179,11 +179,12 @@ def test_cli_refuses_unported_flags_and_needs_cuda(monkeypatch):
     from icl_tpu_torch.scripts import test_2D_ACDC
     from icl_tpu_torch.scripts import train_inherent_consistent_swinunet_2D as cli
 
-    for flags in (["--scan_steps", "2"], ["--dispatch_depth", "4"], ["--num_processes", "2"],
-                  ["--process_id", "0"]):
+    for flags in (["--num_processes", "2"], ["--process_id", "0"]):
         with pytest.raises(SystemExit):
             cli.parse_args(flags)
     assert cli.parse_args(["--scan_steps", "1"]).scan_steps == 1
+    args = cli.parse_args(["--scan_steps", "2", "--dispatch_depth", "4"])
+    assert (args.scan_steps, args.dispatch_depth) == (2, 4)
     assert cli.parse_args(["--pretrained_ckpt", "swin.pth"]).pretrained_ckpt == "swin.pth"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -153,12 +153,17 @@ def test_cli_refuses_unported_flags_and_needs_cuda(monkeypatch):
     from icl_tpu_torch.scripts import test_2D_ACDC
     from icl_tpu_torch.scripts import train_inherent_consistent_unet_2D as cli
 
-    for flags in (["--input_mode", "device_bank"], ["--state_dtype", "bfloat16"],
-                  ["--scan_steps", "8"], ["--dispatch_depth", "2"],
-                  ["--dist_coordinator", "host0:1234"], ["--num_processes", "2"],
-                  ["--process_id", "0"]):
+    for flags in (["--dist_coordinator", "host0:1234"], ["--num_processes", "2"],
+                  ["--process_id", "0"], ["--input_mode", "hbm"], ["--state_dtype", "float16"]):
         with pytest.raises(SystemExit):
             cli.parse_args(flags)
+    args = cli.parse_args([])
+    assert (args.input_mode, args.state_dtype, args.scan_steps, args.dispatch_depth) == (
+        "host", "float32", 1, 1)
+    args = cli.parse_args(["--input_mode", "device_bank", "--state_dtype", "bfloat16",
+                           "--scan_steps", "8", "--dispatch_depth", "2"])
+    assert (args.input_mode, args.state_dtype, args.scan_steps, args.dispatch_depth) == (
+        "device_bank", "bfloat16", 8, 2)
     assert cli.parse_args([]).checkpoint_interval == 0
     assert cli.parse_args(["--checkpoint_interval", "100"]).checkpoint_interval == 100
     args = cli.parse_args(["--fuse_icl_pair", "--input_mode", "host", "--scan_steps", "1"])

@@ -203,13 +203,15 @@ def test_cli_refuses_unported_flags_and_needs_cuda(kind, monkeypatch):
     import importlib
 
     cli = importlib.import_module(f"icl_tpu_torch.scripts.{CLIS[kind][0]}")
-    refused = [["--scan_steps", "8"], ["--dispatch_depth", "2"]]
+    refused = []
     if kind == "icl":
         refused += [["--dist_coordinator", "host0:1234"], ["--num_processes", "2"],
                     ["--process_id", "0"]]
     for flags in refused + [["--state_dtype", "bfloat16"]]:
         with pytest.raises(SystemExit):
             cli.parse_args(flags)
+    args = cli.parse_args(["--scan_steps", "8", "--dispatch_depth", "2"])
+    assert (args.scan_steps, args.dispatch_depth) == (8, 2)
     args = cli.parse_args(["--scan_steps", "1"])
     assert (args.model, args.patch_size, args.batch_size, args.base_lr, args.device) == (
         CLIS[kind][1], [96, 96, 96], 4, 0.01, "cuda")
