@@ -176,8 +176,9 @@ Phases, each fatal on failure:
      over the flagship's 300 leaves (1.15 B parameters): its time per call
      and on the device alone beside the 3.4 ms bound, the plain version,
      torch.optim.SGD(fused=True) on the same bf16 tensors and the f32
-     PolySGD step on an f32 state; then the card's kernel tests, both files
-     in one pytest without tests/conftest.py;
+     PolySGD step on an f32 state; its largest leaf alone beside its
+     bound, plain version and fused SGD; then the card's kernel tests,
+     both files in one pytest without tests/conftest.py;
  37. the flagship's fast configuration through its CLI's `main` (bf16
      autocast, a bf16 train state, the fused sspa pair, the device bank,
      groups of 4 graph replays, 2 in flight) on phase 14's slices in
@@ -186,15 +187,17 @@ Phases, each fatal on failure:
      300 for the eager first step and 300 recorded by the capture, which
      every one of the 7 replays runs), no window attention (asserted);
  38. graph replay against eager steps from one state (cuDNN's deterministic
-     algorithms): the flagship's fast configuration and the supervised
+     algorithms): the flagship's fast configuration, the supervised
      Swin-UNet (224^2, window 7, batch 16, f32; the launches of the graph's
      first step asserted: 8 no-mask + 6 mask, forward and backward, for the
      eager step and again for the capture), 4 replays against 4 eager
      steps bit for bit (parameters, buffers, momentum, metrics), an eager
-     repeat beside them; s/step eager and replayed for both and for the
-     AMOS bf16 ICL step; whether the backward of F.interpolate's bilinear
-     upsample repeats bitwise on the card (the port's linear resizes are
-     matmuls for that reason);
+     repeat beside them; the AMOS bf16 ICL step (U-Net-ICL 3D, 16 classes,
+     recompute on) the same way, its eager repeat bitwise (asserted), its
+     replay against eager printed (they differ; not required); s/step eager
+     and replayed for the three; whether the backward of F.interpolate's
+     bilinear upsample repeats bitwise on the card (the port's linear
+     resizes are matmuls for that reason);
  39. under cuDNN's deterministic algorithms, `fit` of the supervised
      Swin-UNet in groups of 2 at dispatch_depth 2 against 1 (parameters bit
      for bit, log.txt's loss lines equal), and the bf16 train state resumed
@@ -204,10 +207,37 @@ Phases, each fatal on failure:
      every angle in [-20, 20), every rot90/flip branch and the identity, at
      256^2 and zoomed to 224^2: 0 differing pixels; one flagship batch's
      time;
+ 41. the 3D repeats: the 3D U-Net's upsample (matmuls) against
+     F.interpolate's trilinear mode in f32; one AMOS bf16 ICL step and one
+     BraTS f32 U-Net-ICL 3D step, each twice from one state under cuDNN's
+     deterministic algorithms: 0 tensors differ (asserted); the ops that
+     torch.use_deterministic_algorithms names on the BraTS step;
+ 42. the flagship as 2 ranks on the one card (gloo; each rank a process of
+     this script, `--dp-worker`): its CLI's `main` at its defaults (256^2,
+     batch 16 of which 8 labeled, f32, dropout on) through
+     --dist_coordinator on phase 14's data, 3 steps and a validation: the
+     ranks' final states bitwise equal, only rank 0 wrote, test_2D_ACDC on
+     its best checkpoint gives the validation dice; each step's compute and
+     all-reduce seconds and the peak memory per rank; then `Trainer` at
+     full width with zero_stochastic, 3 f32 steps over 2 ranks against 1
+     process on the same global batches by phase 18's rule over every
+     parameter, buffer and momentum, cuDNN deterministic (control: the
+     images times 1 + 1e-7; witness: per tensor the farthest of four
+     one-process runs of the same steps in other f32 arithmetic: the
+     images times 1 - 1e-7, reversed rows, the data-parallel BatchNorm
+     formula, both), the first step's loss terms within 1e-5, and 2 steps with a bf16
+     state: the replicas bitwise equal (f32 and bf16), the SR kernel's
+     launches counted per rank;
+ 43. NCCL at world size 1 on the card: all_reduce_sum forward and backward,
+     reduce_gradients, all_gather_case_metrics, each equal to its input;
+     phase 5's sliding window through make_fused_sliding_window(group=...)
+     over 2 gloo ranks on the card: the label map equals the one-process
+     map but at near-ties within 1e-6 (counted), the window-attention
+     launches per rank counted (asserted: 8 forwards' worth in all);
 every `fit` ends with its full train state, which each phase deletes
 after its run; then a `kernels` JSON line (the six window-attention
 entries and `sgd_bf16`), the card line, and the result line. Exits
-non-zero without a result when CUDA is absent.
+non-zero without a result when CUDA is absent, in a worker too.
 """
 from __future__ import annotations
 
@@ -2319,7 +2349,8 @@ def phase_sgd_kernel(torch, sg) -> dict:
     alone (queued behind a GPU sleep), beside the bound, the plain version,
     torch.optim.SGD(fused=True) on the same bf16 tensors (round-to-nearest
     stores: the nearest PyTorch call, not the same function) and the f32
-    PolySGD step on an f32 state of the same shapes."""
+    PolySGD step on an f32 state of the same shapes; the largest leaf alone
+    (`mlp2`, 16384^2) beside its bound, plain version and fused SGD."""
     import gc
 
     from icl_tpu_torch.models.registry import net_factory
@@ -2380,12 +2411,16 @@ def phase_sgd_kernel(torch, sg) -> dict:
     largest_ms = cuda_ms(lambda: sg.sgd_bf16_update(ps[largest], gs[largest], bufs[largest], lr,
                                                     count, 0.9, 1e-4, 0, largest), reps=10)
     plain_ms = cuda_ms(plain_step, reps=1, warmup=0)
+    largest_plain_ms = cuda_ms(lambda: sg.sgd_bf16_plain(ps[largest], gs[largest], bufs[largest], lr,
+                                                         count, 0.9, 1e-4, 0, largest), reps=1, warmup=0)
     params = [torch.nn.Parameter(p) for p in ps]
     for p, g in zip(params, gs):
         p.grad = g
     fused = torch.optim.SGD(params, lr=0.01, momentum=0.9, weight_decay=1e-4, fused=True)
     library_ms = cuda_ms(fused.step, reps=10)
-    del fused, params, ps, gs, bufs
+    fused_leaf = torch.optim.SGD([params[largest]], lr=0.01, momentum=0.9, weight_decay=1e-4, fused=True)
+    largest_library_ms = cuda_ms(fused_leaf.step, reps=10)
+    del fused, fused_leaf, params, ps, gs, bufs
     gc.collect()
     torch.cuda.empty_cache()
     f32 = [torch.nn.Parameter(torch.randn(s, generator=gen, device=DEVICE) * 0.05) for s in leaves]
@@ -2399,6 +2434,7 @@ def phase_sgd_kernel(torch, sg) -> dict:
     byte_ms = 10 * n_params / HBM_BYTES_PER_S * 1e3
     row = {"leaves": len(leaves), "parameters": n_params, "ms": ms, "device_ms": device_ms,
            "largest_leaf_ms": largest_ms, "largest_leaf_bound_ms": 10 * 268_435_456 / HBM_BYTES_PER_S * 1e3,
+           "largest_leaf_plain_ms": largest_plain_ms, "largest_leaf_library_ms": largest_library_ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "f32_polysgd_ms": f32_ms,
            **bound_fields(0.0, byte_ms), "max_abs_err": 0.0, "shapes": shapes,
            "seconds": time.perf_counter() - t0}
@@ -2545,17 +2581,19 @@ def phase_graph_vs_eager(torch, wa, slices) -> dict:
     """38: graph replay against eager steps. The flagship's fast
     configuration and the supervised Swin-UNet (224^2, window 7, batch 16,
     f32: both window-attention kernels in the graph, their launches per
-    replayed step asserted: 8 no-mask + 6 mask, forward and backward), each
-    by `graph_vs_eager` under cuDNN's deterministic algorithms: a replayed
+    replayed step asserted: 8 no-mask + 6 mask, forward and backward) and
+    the AMOS bf16 ICL step (U-Net-ICL 3D, 16 classes, recompute on; its
+    eager repeat must be bitwise; its replays differ from its eager steps,
+    which is printed, not required: ROADMAP queue 3), each by
+    `graph_vs_eager` under cuDNN's deterministic algorithms: a replayed
     step must equal the eager one bit for bit wherever an eager repeat is
     bitwise; where the card's own repeat is not, the first replayed step is
     held against the first eager step by the rule of phase 18 with the
     eager repeat as control and witness (the rule "phase 18, control and
     witness = an eager repeat": after one step the card's differences are
     f32 rounding, which the bf16 state's rounding may move by one ulp;
-    after four they compound). Then s/step eager against
-    replayed for both and for the AMOS bf16 ICL step (U-Net-ICL 3D, 16
-    classes, recompute on)."""
+    after four they compound). s/step eager against replayed for the
+    three."""
     import gc
 
     from icl_tpu_torch.scripts.profile_train_step import setup
@@ -2617,8 +2655,22 @@ def phase_graph_vs_eager(torch, wa, slices) -> dict:
     trainer = Trainer(cfg, device=DEVICE)
     stream = make_batches()
     amos = graph_vs_eager(torch, wa, "[graph-amos]", trainer, [next(stream) for _ in range(3)],
-                          deterministic=False)
-    out["amos"] = {k: amos[k] for k in ("differ_b", "differ_again", "metrics_equal", "times")}
+                          deterministic=True)
+    if amos["differ_again"] or not amos["again_metrics_equal"]:
+        fail(f"[graph-amos] an eager repeat differs: {amos['differ_again'][:8]}")
+    first = amos["first"]
+    amos["first_differ"] = sorted(k for k in first["a"] if not torch.equal(first["a"][k], first["b"][k]))
+    # each differing parameter's largest difference over its largest eager update
+    amos["first_rel"] = {k: ratio(float((first["b"][k] - first["a"][k]).abs().max()),
+                                  float((first["a"][k] - amos["s0"][k]).abs().max()))
+                         for k in amos["first_differ"]}
+    print(f"[graph-amos] the first replayed step against the first eager step: "
+          f"{len(amos['first_differ'])} of {len(first['a'])} parameters differ, each by at most "
+          f"{max(amos['first_rel'].values(), default=0.0):.3e} of its largest update "
+          f"{dict(sorted(amos['first_rel'].items(), key=lambda kv: -kv[1])[:5])} (not required: "
+          f"ROADMAP queue 3)", flush=True)
+    out["amos"] = {k: amos[k] for k in ("differ_b", "differ_again", "metrics_equal", "times",
+                                        "first_differ", "first_rel")}
     del trainer, amos
     release()
     return out
@@ -2777,6 +2829,640 @@ def phase_device_augment(torch, slices) -> dict:
     if any(a or b for a, b in differ.values()):
         fail("[augment] the card's device augment differs from the CPU's")
     return {"differ": differ, "batch_ms": ms}
+
+
+def eager_repeat(torch, trainer, batch) -> tuple:
+    """One eager step of `trainer` from its state S0 (host copy), then the
+    same step again from S0: (names of the tensors of the flat train state
+    that differ, plus "metrics" if the metrics do, the count of tensors,
+    the first step's metrics, S0 and the device batch)."""
+    from icl_tpu_torch.utils.checkpoint import host_copy
+
+    dev = trainer.to_device(batch)
+    s0 = host_copy(trainer.train_state())
+    runs = []
+    for _ in range(2):
+        trainer.load_train_state(s0)
+        vec = trainer._stacked_step(dev)
+        torch.cuda.synchronize()
+        runs.append((flat(host_copy(trainer.train_state())), vec.cpu()))
+    (a, ma), (b, mb) = runs
+    differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
+    if not torch.equal(ma, mb):
+        differ.append("metrics")
+    return differ, len(a), dict(zip(trainer.metric_keys, ma.tolist())), s0, dev
+
+
+def phase_3d_repeats(torch) -> dict:
+    """41: the 3D steps repeat bit for bit on the card. The 3D U-Net's
+    upsample (`resize_linear`, one matmul per axis) against F.interpolate's
+    trilinear mode in f32 at the largest decoder shape of a 96^3 pass
+    ([2, 32, 48^3] to 96^3); then one AMOS bf16 ICL step (U-Net-ICL 3D, 16
+    classes, recompute on, dropout on) and one BraTS f32 U-Net-ICL 3D step,
+    each run twice from one state under cuDNN's deterministic algorithms: 0
+    tensors of the train state may differ. The BraTS step once more under
+    torch.use_deterministic_algorithms(True, warn_only=True): the ops it
+    names (they lack a deterministic CUDA kernel; the repeat, not the
+    warning, is the judge)."""
+    import gc
+    import warnings
+
+    import torch.nn.functional as F
+
+    from icl_tpu_torch.models.layers import resize_linear
+    from icl_tpu_torch.scripts.profile_train_step import setup
+    from icl_tpu_torch.train.trainer import Trainer
+
+    x = torch.randn(2, 32, 48, 48, 48, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(41))
+    err = float((resize_linear(x, [96] * 3, align_corners=False)
+                 - F.interpolate(x, scale_factor=2, mode="trilinear", align_corners=False)).abs().max())
+    print(f"[repeat3d] the 3D upsample, matmuls vs F.interpolate trilinear, f32 [2, 32, 48^3] -> "
+          f"96^3: max abs diff {err:.3e} (tolerance {F32_ATOL})", flush=True)
+    if err > F32_ATOL:
+        fail("the 3D upsample disagrees with F.interpolate")
+    out = {"upsample_max_abs_diff": err}
+    del x
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tag, precision, dataset in (("amos_bf16", "bfloat16", "amos"), ("brats_f32", "float32", "brats")):
+            cfg, make_batches, what = setup("unet_3D_icl", precision, dataset)
+            torch.manual_seed(0)  # dropout and drop-path masks
+            trainer = Trainer(cfg, device=DEVICE)
+            differ, n, metrics, s0, dev = eager_repeat(torch, trainer, next(make_batches()))
+            named = []
+            if tag == "brats_f32":
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.use_deterministic_algorithms(True, warn_only=True)
+                    try:
+                        trainer.load_train_state(s0)
+                        trainer._stacked_step(dev)
+                        torch.cuda.synchronize()
+                    finally:
+                        torch.use_deterministic_algorithms(False)
+                named = sorted({str(w.message).split(" does not have")[0] for w in caught
+                                if "deterministic" in str(w.message)})
+            print(f"[repeat3d] {what}, {precision}: one step twice from one state (cuDNN "
+                  f"deterministic): {len(differ)} of {n} tensors differ {differ[:8]}; loss "
+                  f"{metrics['loss']:.6f}; ops named by use_deterministic_algorithms: {named}",
+                  flush=True)
+            if differ:
+                fail(f"[repeat3d] the {tag} step does not repeat bit for bit")
+            out[tag] = {"differ": len(differ), "tensors": n, "named_ops": named}
+            del trainer, s0, dev
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+# Phases 42-43: data parallelism, 2 ranks on the one card (gloo: NCCL takes
+# one rank per card), each rank a process of this script (`--dp-worker`).
+DP_ROOT = os.path.join(ROOT, "build", "chip_smoke", "dp")
+DP_STEPS, DP_BF16_STEPS = 3, 2
+DP_CLI_ARGV = ["--root_path", "in-memory-ACDC", "--exp", "ACDC_chip_smoke/DP", "--num_tries", "cli",
+               "--device", DEVICE]
+DP_METRIC_RTOL = 1e-5  # the first step's loss terms, 2 ranks vs 1: f32 sums in another order
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def start_ranks(kind: str, world: int) -> dict:
+    """Start `python3 chip_smoke.py --dp-worker kind rank world port out`
+    for each rank, together, each logging to DP_ROOT/{kind}_rank{r}.log."""
+    os.makedirs(DP_ROOT, exist_ok=True)
+    port = free_port()
+    run = {"kind": kind, "procs": [],
+           "outs": [os.path.join(DP_ROOT, f"{kind}_rank{r}.json") for r in range(world)],
+           "logs": [os.path.join(DP_ROOT, f"{kind}_rank{r}.log") for r in range(world)]}
+    for r in range(world):
+        with open(run["logs"][r], "w") as log:
+            run["procs"].append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-worker", kind, str(r), str(world),
+                 str(port), run["outs"][r]], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT))
+    return run
+
+
+def finish_ranks(run: dict, timeout: float) -> list:
+    """Wait for the ranks of `start_ranks`; each rank's JSON result, the
+    lines of its log that start with "[" printed after it. A rank that
+    exits non-zero or outlives `timeout` fails the phase, every rank killed
+    first."""
+    procs = run["procs"]
+    deadline = time.monotonic() + timeout
+    try:
+        codes = [p.wait(timeout=max(deadline - time.monotonic(), 1.0)) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, path in enumerate(run["logs"]):
+        with open(path) as f:
+            lines = f.read().splitlines()
+        keep = [line for line in lines if line.startswith("[")]
+        if codes is None or codes[r] != 0:
+            keep = lines[-40:]
+        for line in keep:
+            print(f"  rank {r}: {line}", flush=True)
+    if codes is None or any(codes):
+        fail(f"[dp] the {run['kind']} ranks exited {codes} (None: killed at the {timeout} s limit)")
+    results = []
+    for o in run["outs"]:
+        with open(o) as f:
+            results.append(json.load(f))
+    return results
+
+
+def spawn_ranks(kind: str, world: int, timeout: float) -> list:
+    """`start_ranks` then `finish_ranks`."""
+    return finish_ranks(start_ranks(kind, world), timeout)
+
+
+def instrument_all_reduce(torch, dist) -> dict:
+    """Time every torch.distributed.all_reduce of this process (the port's
+    collectives call it through the module): seconds from a synchronised
+    card to a synchronised card, calls, bytes."""
+    totals = {"seconds": 0.0, "calls": 0, "bytes": 0}
+    inner = dist.all_reduce
+
+    def all_reduce(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work = inner(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        totals["seconds"] += time.perf_counter() - t0
+        totals["calls"] += 1
+        totals["bytes"] += tensor.numel() * tensor.element_size()
+        return work
+
+    dist.all_reduce = all_reduce
+    return totals
+
+
+def timed_steps(torch, step_fn, totals: dict, steps: list):
+    """step_fn, each call timed from a synchronised card to a synchronised
+    card, with the all-reduce seconds spent in it (`instrument_all_reduce`)."""
+
+    def step(batch):
+        torch.cuda.synchronize()
+        t0, ar0 = time.perf_counter(), totals["seconds"]
+        out = step_fn(batch)
+        torch.cuda.synchronize()
+        seconds, ar = time.perf_counter() - t0, totals["seconds"] - ar0
+        steps.append({"seconds": seconds, "all_reduce_s": ar, "compute_s": seconds - ar})
+        return out
+
+    return step
+
+
+def state_digest(torch, trainer) -> str:
+    """sha256 over the names and the sha256 digests of the bytes of every
+    tensor of the model's state_dict and of every momentum buffer, in order
+    (the tensors hashed on 4 threads: hashlib releases the GIL)."""
+    import hashlib
+
+    tensors = list(trainer.model.state_dict().items())
+    tensors += [(f"momentum/{i}", b) for i, b in enumerate(trainer.optimizer.momentum_buffers)]
+
+    def digest(t) -> bytes:
+        return hashlib.sha256(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy()).digest()
+
+    with ThreadPoolExecutor(4) as pool:
+        digests = list(pool.map(digest, [t for _, t in tensors]))
+    h = hashlib.sha256()
+    for (name, _), d in zip(tensors, digests):
+        h.update(name.encode())
+        h.update(d)
+    return h.hexdigest()
+
+
+def float_state(trainer) -> dict:
+    """{name: tensor} of the parameters, the floating-point buffers and the
+    momentum buffers (live tensors)."""
+    out = {f"param/{n}": p.detach() for n, p in trainer.model.named_parameters()}
+    out.update({f"buffer/{n}": b for n, b in trainer.model.named_buffers() if b.is_floating_point()})
+    out.update({f"momentum/{i}": b for i, b in enumerate(trainer.optimizer.momentum_buffers)})
+    return out
+
+
+def dp_cli_worker(torch, rank: int, world: int, port: int) -> dict:
+    """Rank `rank` of the flagship CLI's `main` at its defaults (256^2, batch
+    16 of which 8 labeled, f32, dropout on) over phase 14's slices and
+    volumes in memory, 3 steps and a validation, through
+    --dist_coordinator; rank 0 from SUP_ROOT (its snapshot in EXPERIMENTS),
+    the others from a directory of their own, which must stay empty. Its
+    steps timed, compute and all-reduce apart; peak memory; the digest of
+    its final state; its window-attention launches."""
+    import torch.distributed as dist
+
+    from icl_tpu_torch.data.synth import synthetic_acdc
+    from icl_tpu_torch.ops import window_attention as wa
+    from icl_tpu_torch.scripts import train_inherent_consistent_unet_2D as cli
+    from icl_tpu_torch.train.trainer import Trainer
+
+    slices, volumes = synthetic_acdc(SLICES_2D, VOLUMES_2D, SLICE_SIZE_2D, VOL_DEPTH_2D, CLASSES_2D, seed=0)
+    cli.ACDCDataset = InMemoryDataset(slices, volumes)
+    cli.patients_to_slices = lambda root, num: LABELED_SLICES_2D
+    totals = instrument_all_reduce(torch, dist)
+    trainers, steps = [], []
+    fit = Trainer.fit
+
+    def fit_timed(self, *args, **kwargs):
+        trainers.append(self)
+        self.step_fn = timed_steps(torch, self.step_fn, totals, steps)
+        return fit(self, *args, **kwargs)
+
+    Trainer.fit = fit_timed
+    cwd = SUP_ROOT if rank == 0 else os.path.join(DP_ROOT, f"rank{rank}", "cwd")
+    os.makedirs(cwd, exist_ok=True)
+    os.chdir(cwd)
+    wa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    result = cli.main(DP_CLI_ARGV + ["--max_iterations", str(DP_STEPS), "--val_interval", str(DP_STEPS),
+                                     "--num_processes", str(world), "--process_id", str(rank),
+                                     "--dist_coordinator", f"127.0.0.1:{port}"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"steps": steps, "log": result["log"], "vals": result["vals"],
+           "best_path": result["best_path"], "peak_bytes": peak, "all_reduce": dict(totals),
+           "digest": state_digest(torch, trainers[0]), "attention": launches_now(wa),
+           "saves": [s["path"] for s in result["saves"]]}
+    drop_states(result)
+    print(f"[dp-cli] rank {rank}: steps {steps}; peak memory {peak / 2**30:.2f} GiB; all-reduce "
+          f"{totals}", flush=True)
+    return out
+
+
+def one_process_runs(torch, cfg, batches: list, variants: list):
+    """For each of `variants` (keyword dicts), (loss terms of every step by
+    "key@step", the float state after, on the host) of one-process steps
+    over `batches` from one Trainer's initial state: the images times
+    `scale`; with `reverse`, each branch's rows in reverse order; with
+    `global_batch_norm`, every train-mode BatchNorm through the
+    data-parallel formula (`_GlobalBatchNorm._global_forward`) over the one
+    process's rows: each the same steps in exact arithmetic, other ones in
+    f32. A generator: one state on the host at a time."""
+    import copy
+    import gc
+
+    import numpy as np
+
+    from icl_tpu_torch.models import layers
+    from icl_tpu_torch.train.trainer import Trainer
+    from icl_tpu_torch.utils.checkpoint import host_copy
+
+    trainer = Trainer(cfg, device=DEVICE)
+    s0 = copy.deepcopy(trainer.train_state())  # on the card: each run starts with a device copy
+    norms = [m for m in trainer.model.modules() if isinstance(m, layers._GlobalBatchNorm)]
+    for kw in variants:
+        trainer.load_train_state(s0)
+        for m in norms:
+            if kw.get("global_batch_norm"):
+                m.forward = (lambda bn: lambda x: bn._global_forward(x) if bn.training
+                             else type(bn).forward(bn, x))(m)
+            else:
+                m.__dict__.pop("forward", None)
+        rows = np.arange(cfg.batch_size)
+        if kw.get("reverse"):
+            rows = np.concatenate([rows[:cfg.labeled_bs][::-1], rows[cfg.labeled_bs:][::-1]])
+        metrics = {}
+        for i, b in enumerate(batches):
+            vec = trainer.train_step(trainer.to_device(
+                {"image": b["image"][rows] * np.float32(kw.get("scale", 1.0)), "label": b["label"][rows]}))
+            metrics.update({f"{k}@{i + 1}": v for k, v in zip(trainer.metric_keys, vec.tolist())})
+        yield metrics, host_copy(float_state(trainer))
+    del trainer, s0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dp_numbers_worker(torch, rank: int, world: int, port: int) -> dict:
+    """Rank `rank` of the flagship's `Trainer` at full width with
+    zero_stochastic, f32, joined through `initialize_from_args`: DP_STEPS
+    steps on its rows of phase 17's global batches, then a bf16-state
+    Trainer for DP_BF16_STEPS steps; each run's digest, steps timed; cuDNN's
+    deterministic algorithms throughout. Rank 0 then leaves the group and
+    holds its f32 state against a one-process Trainer on the global batches
+    (`step_agreement` over the parameters, floating-point buffers and
+    momentum), with a control run on the images times 1 + 1e-7, and as the
+    witness, per tensor, the farthest from the reference of four one-process
+    runs that compute the same steps in exact arithmetic and other ones in
+    f32 (the images times 1 - 1e-7; each branch's rows reversed; the
+    data-parallel BatchNorm formula; both): the 2 ranks differ from 1
+    process by f32 arithmetic of these kinds (the BatchNorm formula, the
+    order of the sums over the batch), and the gradients of the ICL heads'
+    `mlp2`, behind BatchNorms of near-constant attention maps at random
+    weights, move by tens of fixed allowances under any of them after 3
+    steps."""
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+
+    from icl_tpu_torch.data.synth import synthetic_acdc
+    from icl_tpu_torch.ops import sgd_bf16 as sg
+    from icl_tpu_torch.parallel.collectives import barrier
+    from icl_tpu_torch.parallel.multihost import host_slice, initialize_from_args
+    from icl_tpu_torch.train.trainer import Trainer
+    from icl_tpu_torch.utils.checkpoint import host_copy
+
+    initialize_from_args(f"127.0.0.1:{port}", world, rank, device=DEVICE, rows=(BATCH_2D, LABELED_2D))
+    torch.backends.cudnn.deterministic = True
+    totals = instrument_all_reduce(torch, dist)
+    slices, _ = synthetic_acdc(SLICES_2D, VOLUMES_2D, SLICE_SIZE_2D, VOL_DEPTH_2D, CLASSES_2D, seed=0)
+    cfg = unet_config(30000, 0, "dp", zero_stochastic=True)
+    batches = [b for _, b in zip(range(DP_STEPS), acdc_batches(slices, cfg))]
+    out = {}
+    for kind, run_cfg, n in (("f32", cfg, DP_STEPS),
+                             ("bf16", dataclasses.replace(cfg, state_dtype="bfloat16"), DP_BF16_STEPS)):
+        trainer = Trainer(run_cfg, device=DEVICE)
+        if kind == "f32" and rank == 0:
+            before = host_copy(float_state(trainer))
+        steps = []
+        trainer.step_fn = timed_steps(torch, trainer.step_fn, totals, steps)
+        sg.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = {}
+        for i, b in enumerate(batches[:n]):
+            vec = trainer.train_step(trainer.to_device(host_slice(b, cfg.labeled_bs, rank, world)))
+            metrics.update({f"{k}@{i + 1}": v for k, v in zip(trainer.metric_keys, vec.tolist())})
+        out[kind] = {"steps": steps, "metrics": metrics, "digest": state_digest(torch, trainer),
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "sgd_bf16_launches": sg.sgd_bf16_update.launches}
+        print(f"[dp-numbers] rank {rank} {kind}: steps {steps}; peak memory "
+              f"{out[kind]['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        if kind == "f32" and rank == 0:
+            test = (metrics, host_copy(float_state(trainer)))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["all_reduce"] = dict(totals)
+    barrier()
+    dist.destroy_process_group()
+    if rank == 0:  # the one-process runs, alone on the card
+        runs = {"test": test}
+        variants = [{}, dict(scale=1.0 + 1e-7), dict(scale=1.0 - 1e-7), dict(reverse=True),
+                    dict(global_batch_norm=True), dict(reverse=True, global_batch_norm=True)]
+        for i, run in enumerate(one_process_runs(torch, cfg, batches, variants)):
+            if i < 2:
+                runs[("reference", "control")[i]] = run
+            elif "witness" not in runs:
+                runs["witness"] = run
+            else:  # the witness keeps, per tensor, the farthest run from the reference
+                ref, far = runs["reference"][1], runs["witness"][1]
+                for k in ref:
+                    if (run[1][k] - ref[k]).abs().max() > (far[k] - ref[k]).abs().max():
+                        far[k] = run[1][k]
+            del run
+            gc.collect()
+        first = {k: abs(v - runs["reference"][0][k]) / max(abs(runs["reference"][0][k]), 1e-12)
+                 for k, v in test[0].items() if k.endswith("@1")}
+        out["first_step_rel_err"] = max(first.values())
+        print(f"[dp-numbers] the first step's loss terms, 2 ranks vs 1: largest relative error "
+              f"{out['first_step_rel_err']:.3e} (tolerance {DP_METRIC_RTOL})", flush=True)
+        if out["first_step_rel_err"] > DP_METRIC_RTOL:
+            fail("[dp-numbers] the first step's loss terms disagree")
+        step_agreement(torch, "[dp-numbers]", f"{DP_STEPS} f32 steps, 2 ranks vs 1 process (rule: "
+                       "phase 18 over parameters, buffers and momentum; control = the one-process "
+                       "run on the images times 1 + 1e-7, witness = per tensor the farthest of "
+                       "the one-process runs on the images times 1 - 1e-7, on reversed rows, with "
+                       "the data-parallel BatchNorm formula, with both)", before, runs)
+    return out
+
+
+def dp_window_worker(torch, rank: int, world: int, port: int) -> dict:
+    """Rank `rank` of phase 5's sliding window (SwinUNETR fs48, seeded
+    weights, the seeded 160x160x128 volume) through
+    make_fused_sliding_window(group=...) over a gloo group; its label map
+    (DP_ROOT/window_rank{r}.npy), seconds and window-attention launches."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from icl_tpu_torch.eval.infer3d import make_fused_sliding_window
+    from icl_tpu_torch.models.registry import net_factory
+    from icl_tpu_torch.ops import window_attention as wa
+    from icl_tpu_torch.parallel.multihost import initialize_from_args
+
+    initialize_from_args(f"127.0.0.1:{port}", world, rank, device=DEVICE)
+    model = net_factory("swinunetr_icl", 1, 2, device=DEVICE, feature_size=FEATURE_SIZE,
+                        generator=torch.Generator().manual_seed(0), inference=True).eval()
+    volume = np.random.default_rng(0).standard_normal(VOLUME).astype(np.float32)
+    predict = make_fused_sliding_window(model, 2, (PATCH,) * 3, SW_BATCH, device=DEVICE,
+                                        group=dist.group.WORLD)
+    predict(volume, STRIDE, STRIDE)  # warm-up
+    wa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = predict(volume, STRIDE, STRIDE)
+    seconds = time.perf_counter() - t0
+    launches = dict(wa.window_attention.launches_by_mode)
+    np.save(os.path.join(DP_ROOT, f"window_rank{rank}.npy"), labels)
+    print(f"[dp-window] rank {rank}: {seconds:.3f} s/volume, launches {launches}", flush=True)
+    return {"seconds": seconds, "launches": launches}
+
+
+def dp_nccl1_worker(torch, rank: int, world: int, port: int) -> dict:
+    """NCCL at world size 1 on the card: all_reduce_sum forward and backward,
+    reduce_gradients (f32 and bf16 gradients, one bucket and one alone),
+    all_gather_case_metrics and the barrier over the group, each result
+    equal to its input."""
+    import torch.distributed as dist
+
+    from icl_tpu_torch.parallel import collectives
+    from icl_tpu_torch.parallel.multihost import all_gather_case_metrics
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    group = dist.group.WORLD
+    gen = torch.Generator(DEVICE).manual_seed(43)
+    x = torch.randn(4096, device=DEVICE, generator=gen, requires_grad=True)
+    g = torch.randn(4096, device=DEVICE, generator=gen)
+    y = collectives.all_reduce_sum(x, group)
+    y.backward(g)
+    params = [torch.nn.Parameter(torch.randn(shape, device=DEVICE, generator=gen).to(dtype))
+              for shape, dtype in (((7,), torch.float32), ((5, 3), torch.bfloat16),
+                                   ((collectives.BUCKET_ELEMS + 3,), torch.float32))]
+    for p in params:
+        p.grad = torch.randn(p.shape, device=DEVICE, generator=gen).to(p.dtype)
+    grads = [p.grad.clone() for p in params]
+    collectives.reduce_gradients(params, group)
+    local = [[(0.5, 1.0), (0.25, 2.0)], [(0.75, 3.0), (1.0, 4.0)]]
+    gathered = all_gather_case_metrics(local, group)
+    collectives.barrier(group)
+    out = {"backend": dist.get_backend(group), "forward": torch.equal(y.detach(), x.detach()),
+           "backward": torch.equal(x.grad, g),
+           "reduce_gradients": all(torch.equal(p.grad, gr) for p, gr in zip(params, grads)),
+           "case_metrics": gathered == local}
+    dist.destroy_process_group()
+    print(f"[dp-nccl1] {out}", flush=True)
+    return out
+
+
+DP_WORKERS = {"cli": dp_cli_worker, "numbers": dp_numbers_worker, "window": dp_window_worker,
+              "nccl1": dp_nccl1_worker}
+
+
+def dp_worker(argv: list) -> int:
+    """`--dp-worker kind rank world port out`: one rank of a phase-42/43
+    run, its result as JSON in `out`."""
+    kind, rank, world, port, out = argv
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = DP_WORKERS[kind](torch, int(rank), int(world), int(port))
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def phase_data_parallel(torch, slices, volumes) -> dict:
+    """42: the flagship, 2 ranks on the one card. The CLI (`dp_cli_worker`):
+    the ranks' final states bitwise equal (dropout on: both update from the
+    same reduced gradients), only rank 0 wrote (the other rank's directory
+    empty), test_2D_ACDC on its best checkpoint gives its validation dice,
+    no window attention; the step's time split into compute and all-reduce
+    and the peak memory per rank. The numbers (`dp_numbers_worker`): 2
+    ranks against 1 process by phase 18's rule, the f32 and bf16 replicas
+    bitwise equal, the SR kernel's launches in the bf16 steps."""
+    from icl_tpu_torch.scripts import test_2D_ACDC
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("cli", 2, 600)
+    cli_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    if r0["digest"] != r1["digest"]:
+        fail("[dp-cli] the two ranks' final states differ")
+    other = os.path.join(DP_ROOT, "rank1")
+    written = [os.path.join(d, f) for d, _, files in os.walk(other) for f in files]
+    if written or os.path.exists(os.path.join(other, "experiments")):
+        fail(f"[dp-cli] rank 1 wrote {written[:5]}")
+    if len(r0["vals"]) != 1 or r1["vals"] or r0["best_path"] is None or r1["best_path"] is not None:
+        fail(f"[dp-cli] rank 0 must validate and save once, rank 1 never: {r0['vals']}, {r1['vals']}")
+    if [row["loss"] for row in r0["log"]] != [row["loss"] for row in r1["log"]]:
+        fail("[dp-cli] the ranks logged different losses")
+    if any(n for r in ranks for counts in r["attention"].values() for n in counts.values()):
+        fail(f"[dp-cli] the U-Net path launched window attention: {[r['attention'] for r in ranks]}")
+    eval_dice = eval_cli(test_2D_ACDC, DP_CLI_ARGV, "ACDCDataset", InMemoryDataset(slices, volumes))
+    val_dice = r0["vals"][0]["mean_dice"]
+    print(f"[dp-cli] the flagship CLI as 2 ranks on the card (gloo), {DP_STEPS} steps and a "
+          f"validation in {cli_s:.1f} s: final states bitwise equal (sha256 {r0['digest'][:16]}); "
+          f"only rank 0 wrote; per step (after the first) compute / all-reduce s "
+          f"{[[(round(s['compute_s'], 4), round(s['all_reduce_s'], 4)) for s in r['steps'][1:]] for r in ranks]}; "
+          f"all-reduce per rank {[r['all_reduce'] for r in ranks]}; peak memory per rank "
+          f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB; test_2D_ACDC on the best "
+          f"checkpoint: mean dice {eval_dice!r}, the validation {val_dice!r}", flush=True)
+    if eval_dice != val_dice:
+        fail("[dp-cli] test_2D_ACDC does not reproduce the 2-rank run's validation dice")
+    shutil.rmtree(DP_ROOT, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    n0, n1 = spawn_ranks("numbers", 2, 900)
+    for kind in ("f32", "bf16"):
+        if n0[kind]["digest"] != n1[kind]["digest"]:
+            fail(f"[dp-numbers] the {kind} replicas differ")
+    launches = [n[k]["sgd_bf16_launches"] for n in (n0, n1) for k in ("f32", "bf16")]
+    print(f"[dp-numbers] 2 ranks vs 1 process in {time.perf_counter() - t0:.1f} s: f32 and bf16 "
+          f"replicas bitwise equal; SR kernel launches per rank (f32, bf16 runs) {launches}; "
+          f"per step compute / all-reduce s "
+          f"{[[(round(s['compute_s'], 4), round(s['all_reduce_s'], 4)) for s in n[k]['steps']] for n in (n0, n1) for k in ('f32', 'bf16')]}; "
+          f"peak memory per rank {[round(n['f32']['peak_bytes'] / 2**30, 2) for n in (n0, n1)]} GiB",
+          flush=True)
+    if launches[0] or launches[2] or launches[1] != launches[3] or not launches[1]:
+        fail(f"[dp-numbers] the SR kernel's launches per rank {launches}")
+    shutil.rmtree(DP_ROOT, ignore_errors=True)
+    return {"cli": {"steps": [r["steps"] for r in ranks], "all_reduce": [r["all_reduce"] for r in ranks],
+                    "peak_bytes": [r["peak_bytes"] for r in ranks], "val_dice": val_dice,
+                    "seconds": cli_s},
+            "numbers": {"steps": {k: [n[k]["steps"] for n in (n0, n1)] for k in ("f32", "bf16")},
+                        "first_step_rel_err": n0["first_step_rel_err"],
+                        "peak_bytes": [n["f32"]["peak_bytes"] for n in (n0, n1)]},
+            "sgd_bf16_launches": launches[1] + launches[3]}
+
+
+def stitched_margin(torch, model, volume) -> "np.ndarray":
+    """|p1 - p0| of the one-process mean-stitched softmax of phase 5's
+    sliding window (2 classes), [W, H, D] on the host."""
+    from icl_tpu_torch.eval.infer3d import _grid_starts, make_patch_predictor
+
+    probs_fn = make_patch_predictor(model)
+    score = torch.zeros((2,) + VOLUME, device=DEVICE)
+    cnt = torch.zeros(VOLUME, device=DEVICE)
+    vol = torch.from_numpy(volume).to(DEVICE)
+    starts = [(x, y, z) for x in _grid_starts(VOLUME[0], PATCH, STRIDE)
+              for y in _grid_starts(VOLUME[1], PATCH, STRIDE) for z in _grid_starts(VOLUME[2], PATCH, STRIDE)]
+    for x, y, z in starts:
+        p = probs_fn(vol[x:x + PATCH, y:y + PATCH, z:z + PATCH][None, None])[0]
+        score[:, x:x + PATCH, y:y + PATCH, z:z + PATCH] += p
+        cnt[x:x + PATCH, y:y + PATCH, z:z + PATCH] += 1
+    mean = score / cnt
+    return (mean[1] - mean[0]).abs().cpu().numpy()
+
+
+def phase_collectives_and_window(torch) -> dict:
+    """43: NCCL at world size 1 on the card (`dp_nccl1_worker`); phase 5's
+    sliding window through make_fused_sliding_window(group=...) over 2 gloo
+    ranks on the card, whose label map must equal the one-process map but
+    at voxels whose top-two scores tie within 1e-6 (counted), and whose
+    window-attention launches are counted per rank."""
+    import numpy as np
+
+    from icl_tpu_torch.eval.infer3d import _grid_starts, make_fused_sliding_window
+    from icl_tpu_torch.models.registry import net_factory
+
+    nccl_run = start_ranks("nccl1", 1)  # beside the window's ranks
+    ranks = spawn_ranks("window", 2, 300)
+    (nccl,) = finish_ranks(nccl_run, 300)
+    if nccl["backend"] != "nccl" or not all(nccl[k] for k in ("forward", "backward", "reduce_gradients",
+                                                                "case_metrics")):
+        fail(f"[dp-nccl1] a collective at world size 1 changed its input: {nccl}")
+    maps = [np.load(os.path.join(DP_ROOT, f"window_rank{r}.npy")) for r in range(2)]
+    model = net_factory("swinunetr_icl", 1, 2, device=DEVICE, feature_size=FEATURE_SIZE,
+                        generator=torch.Generator().manual_seed(0), inference=True).eval()
+    volume = np.random.default_rng(0).standard_normal(VOLUME).astype(np.float32)
+    want = make_fused_sliding_window(model, 2, (PATCH,) * 3, SW_BATCH, device=DEVICE)(volume, STRIDE, STRIDE)
+    if not np.array_equal(maps[0], maps[1]):
+        fail("[dp-window] the two ranks' label maps differ")
+    differ = maps[0] != want
+    ties = 0
+    if differ.any():
+        margin = stitched_margin(torch, model, volume)
+        ties = int((differ & (margin <= 1e-6)).sum())
+        if ties != int(differ.sum()):
+            fail(f"[dp-window] {int(differ.sum())} voxels differ from the one-process map, "
+                 f"{ties} of them near-ties")
+    launches = {m: sum(r["launches"][m] for r in ranks) for m in ("none", "region", "mask")}
+    per_forward = {m: sum(PER_FORWARD[m].values()) for m in ("none", "region")}
+    n_chunks = math.ceil(math.prod(len(_grid_starts(d, PATCH, STRIDE)) for d in VOLUME) / SW_BATCH)
+    print(f"[dp-window] phase 5's sliding window over 2 gloo ranks on the card: label maps equal "
+          f"on both ranks; {int(differ.sum())} voxels differ from the one-process map ({ties} "
+          f"near-ties within 1e-6); s/volume per rank {[round(r['seconds'], 3) for r in ranks]}; "
+          f"window-attention launches per rank {[r['launches'] for r in ranks]} ({n_chunks} "
+          f"forwards in all, {per_forward} per forward)", flush=True)
+    for m in ("none", "region"):
+        if launches[m] != n_chunks * per_forward[m]:
+            fail(f"[dp-window] {m} launches {launches[m]}, want {n_chunks * per_forward[m]}")
+    del model
+    torch.cuda.empty_cache()
+    shutil.rmtree(DP_ROOT, ignore_errors=True)
+    return {"nccl1": nccl, "launches": launches, "launches_per_rank": [r["launches"] for r in ranks],
+            "differ": int(differ.sum()), "ties": ties, "seconds": [r["seconds"] for r in ranks]}
 
 
 def main() -> int:
@@ -2965,6 +3651,17 @@ def main() -> int:
           f"{json.dumps({'card_tests': card_tests, 'fast_peak_gib': fast['peak_bytes'] / 2**30, 'fast_state_bytes': fast['state_bytes'], 'graph': {k: graph[k] for k in ('fast', 'swin', 'amos')}, 'upsample_backward_bitwise': graph['upsample_backward_bitwise'], 'dispatch': dispatch, 'augment': augment})}",
           flush=True)
 
+    # 41 - 43. this slice: the 3D steps repeat bit for bit; the flagship as
+    # 2 ranks on the card (its CLI, and 2 ranks against 1 process); NCCL at
+    # world size 1 and the sliding window over 2 ranks
+    t0 = time.perf_counter()
+    repeats = phase_3d_repeats(torch)
+    dp = phase_data_parallel(torch, slices, volumes)
+    dp_window = phase_collectives_and_window(torch)
+    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
+    print(f"[summary] data-parallel phases 41-43 in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps({'repeats': repeats, 'dp': dp, 'window': dp_window})}", flush=True)
+
     # The kernels line, one entry per kernel and mode. Times are sums over
     # the shapes of a unit of work, each f32 launch time times its launches
     # there: for no-mask and mask one Swin-UNet-ICL training step at 384^2
@@ -3046,6 +3743,7 @@ def main() -> int:
                            graph["swin_first_step"][direction][mode]}
             if direction == "fwd":
                 by_path["inference_3d"] = launches.get(mode, 0)
+                by_path["inference_3d_two_ranks"] = dp_window["launches"][mode]
             errs = [r["max_abs_err"] for r in rows_3d + rows_2d if r["mode"] == mode
                     and (direction == "bwd" or r["dtype"] == "float32")]
             kernels.append({
@@ -3063,12 +3761,16 @@ def main() -> int:
     kernels.append({
         "name": "sgd_bf16", "route": "cuda", "source": "icl_tpu_torch/ops/csrc/sgd_bf16.cu",
         "replaces": SGD_REPLACES, "launches": fast["launches"],
+        "launches_by_path": {"training_fast_unet_2d": fast["launches"],
+                             "training_unet_2d_bf16_two_ranks": dp["sgd_bf16_launches"]},
         "launches_per_replayed_step": fast["per_replay"]["sgd_bf16"], "replays": fast["replays"],
         "max_abs_err": sgd_row["max_abs_err"], "ms": sgd_row["ms"], "device_ms": sgd_row["device_ms"],
         "plain_ms": sgd_row["plain_ms"], "bound_ms": sgd_row["bound_ms"],
         "bound_by": sgd_row["bound_by"], "library_ms": sgd_row["library_ms"],
         "f32_polysgd_ms": sgd_row["f32_polysgd_ms"], "largest_leaf_ms": sgd_row["largest_leaf_ms"],
         "largest_leaf_bound_ms": sgd_row["largest_leaf_bound_ms"],
+        "largest_leaf_plain_ms": sgd_row["largest_leaf_plain_ms"],
+        "largest_leaf_library_ms": sgd_row["largest_leaf_library_ms"],
         "per": f"the flagship's SGD update, {sgd_row['leaves']} leaves, {sgd_row['parameters']} "
                "parameters; library_ms is torch.optim.SGD(fused=True) on the same bf16 tensors "
                "(round-to-nearest stores)"})
@@ -3082,4 +3784,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_worker(sys.argv[2:]) if sys.argv[1:2] == ["--dp-worker"] else main())

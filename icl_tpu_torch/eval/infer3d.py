@@ -15,6 +15,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from icl_tpu_torch.device import resolve_device
 from icl_tpu_torch.metrics import calculate_metric_percase
@@ -88,16 +89,24 @@ def sliding_window_predict(
 def make_fused_sliding_window(model: torch.nn.Module, num_classes: int,
                               patch_size: Sequence[int] = (96, 96, 96), sw_batch: int = 4,
                               apply_softmax: bool = True, dtype: torch.dtype | None = None,
-                              device=None) -> Callable[..., np.ndarray]:
+                              device=None, group=None) -> Callable[..., np.ndarray]:
     """predict(image [W, H, D], stride_xy=64, stride_z=64) -> label map, as
     `sliding_window_predict` with `make_patch_predictor(model,
     apply_softmax, dtype)` computes it (softmax stitched for BraTS, logits
     for AMOS), with the patches gathered by one index per chunk and
     stitched by `index_add_` into flat score and count volumes
-    (counterpart of `make_fused_sliding_window`, icl_tpu/eval/infer3d.py:114;
-    its mesh option is not ported). On the CPU the stitch adds in the same
-    order as `sliding_window_predict`, so the label maps are equal; on the
-    card `index_add_` may add overlapping patches in another order."""
+    (counterpart of `make_fused_sliding_window`, icl_tpu/eval/infer3d.py:114).
+    On the CPU the stitch adds in the same order as `sliding_window_predict`,
+    so the label maps are equal; on the card `index_add_` may add
+    overlapping patches in another order.
+
+    With `group` (a process group of W ranks, each calling `predict` on the
+    same volume; its mesh option, :114-143, :236-280) the chunk list,
+    padded to a multiple of W, is split into W contiguous blocks: each rank
+    forwards and stitches its own block, the score and count volumes are
+    summed over the group (one all-reduce each), and every rank takes the
+    argmax. The map equals the one-process map up to the order of the sums
+    at overlapping voxels (a near-tie may flip)."""
     scores_fn = make_patch_predictor(model, apply_softmax, dtype)
     device = resolve_device(device)
     pw, ph, pd = patch_size
@@ -119,11 +128,19 @@ def make_fused_sliding_window(model: torch.nn.Module, num_classes: int,
         index = flat[:, None, None, None] + local  # [patches, pw, ph, pd] into the flat volume
         score = torch.zeros((num_classes, volume.numel()), dtype=torch.float32, device=device)
         cnt = torch.zeros(volume.numel(), dtype=torch.float32, device=device)
-        for c0 in range(0, index.shape[0], sw_batch):
+        chunks = range(0, index.shape[0], sw_batch)
+        if group is not None:  # this rank's block of the chunks (the last ones may be padding)
+            w, r = dist.get_world_size(group), dist.get_rank(group)
+            per = math.ceil(len(chunks) / w)
+            chunks = chunks[r * per:(r + 1) * per]
+        for c0 in chunks:
             idx = index[c0:c0 + sw_batch]
             scores = scores_fn(volume[idx][:, None])  # [n, classes, pw, ph, pd]
             score.index_add_(1, idx.reshape(-1), scores.transpose(0, 1).reshape(num_classes, -1))
             cnt.index_add_(0, idx.reshape(-1), torch.ones(idx.numel(), device=device))
+        if group is not None:
+            dist.all_reduce(score, group=group)
+            dist.all_reduce(cnt, group=group)
         label_map = torch.argmax(score / cnt, dim=0).to(torch.uint8).view(ww, hh, dd).cpu().numpy()
         if wp or hp or dp:
             label_map = label_map[pads[0][0]:pads[0][0] + w, pads[1][0]:pads[1][0] + h,

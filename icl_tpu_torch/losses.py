@@ -7,6 +7,9 @@ integers. Kept semantics of the reference:
     `softmax_dice_loss` the linear one;
   - per-class dice sums are global over batch and space, and class means
     include the background class;
+  - under data parallelism the sums and means run over the rows of every
+    rank (`parallel.collectives`), so each rank computes the loss of the
+    global batch, as the JAX package's step does;
   - smooth = 1e-5 on numerator and denominator;
   - the consistency target (`softmax_mse_loss`) and the pseudo-label
     prediction (`pseudo_soft_loss`) are detached.
@@ -19,19 +22,20 @@ import torch
 import torch.nn.functional as F
 
 from icl_tpu_torch.models.layers import resize_linear
+from icl_tpu_torch.parallel.collectives import global_mean, global_sum
 
 SMOOTH = 1e-5
 
 
 def _sum_but_channel(x: torch.Tensor) -> torch.Tensor:
-    return x.sum(dim=(0,) + tuple(range(2, x.ndim)))
+    return global_sum(x, (0,) + tuple(range(2, x.ndim)))
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross entropy (torch CrossEntropyLoss()), the mean taken
     over the per-pixel terms: the card's mean-reducing kernel
     (nll_loss2d) adds with atomics, in another order each run."""
-    return F.cross_entropy(logits, labels.long(), reduction="none").mean()
+    return global_mean(F.cross_entropy(logits, labels.long(), reduction="none"))
 
 
 def one_hot(labels: torch.Tensor, num_classes: int, dtype: torch.dtype) -> torch.Tensor:
@@ -80,7 +84,7 @@ def softmax_mse_loss(input_logits: Sequence[torch.Tensor],
     loss = 0.0
     for inp, tgt in zip(input_logits, target_logits):
         tgt_sm = torch.softmax(tgt.detach(), dim=1)
-        loss = loss + ((torch.softmax(inp, dim=1) - tgt_sm) ** 2).mean()
+        loss = loss + global_mean((torch.softmax(inp, dim=1) - tgt_sm) ** 2)
     return loss / len(input_logits)
 
 

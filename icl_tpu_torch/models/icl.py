@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from icl_tpu_torch.models.layers import DropPath, batch_norm, gelu_exact, layer_norm, torch_default_init_
+from icl_tpu_torch.parallel.collectives import global_mean
 
 
 class MLP(nn.Module):
@@ -124,7 +125,8 @@ class InherentConsistent(nn.Module):
     the next scale; in 'unlabeled' mode each scale's query is
     `guided_Q[i]`, taken from the labeled pass. Returns (feat_maps,
     updated_Qs): class maps [B, cls, *spatial_i] and batch-mean queries
-    [1, cls, C_i].
+    [1, cls, C_i], the mean over the global batch under data parallelism
+    (`parallel.collectives.global_mean`), as in the JAX package.
 
     `pair_split` (labeled mode only): `feats` are the two labeled-mode
     calls' inputs concatenated along the batch, the first `pair_split`
@@ -209,7 +211,7 @@ class InherentConsistent(nn.Module):
             feat_maps.append(self.attn_convs1[i](attn).reshape(bs, ncls, *spatial))
             qc = self.query_convs[i]
             next_Q = F.linear(updated_Q, qc.weight[..., 0], qc.bias)
-            updated_Qs.append(updated_Q[:pair_split].mean(0, keepdim=True))
+            updated_Qs.append(global_mean(updated_Q[:pair_split], 0, keepdim=True))
         return feat_maps, updated_Qs
 
 

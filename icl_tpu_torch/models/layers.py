@@ -12,6 +12,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from icl_tpu_torch.parallel.collectives import all_reduce_sum, world_size
+from icl_tpu_torch.parallel.mesh import data_group
+
 EPS = 1e-5
 
 
@@ -56,11 +59,58 @@ def swin_linear_init_(module: nn.Linear, generator: torch.Generator) -> None:
         nn.init.zeros_(module.bias)
 
 
+class _GlobalBatchNorm:
+    """A BatchNorm whose training-mode statistics are those of the global
+    batch when a data-parallel group of more than one process is active
+    (`parallel.mesh.data_group`), as the JAX package's BatchNorm takes them
+    over the batch axis that XLA shards; else torch's own BatchNorm, as it
+    is. The global statistics: two-pass f32 sums (f64 for f64) over every
+    rank's rows through the differentiable all-reduce, the global count n,
+    the biased variance in the normalisation, the unbiased one (n / (n - 1))
+    in running_var, as torch's SyncBatchNorm; the output in the input's
+    dtype. Same parameters, buffers and state-dict keys as torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or data_group() is None:
+            return super().forward(x)
+        return self._global_forward(x)
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_input_dim(x)
+        dims = (0,) + tuple(range(2, x.ndim))
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        xf = x if x.dtype == torch.float64 else x.float()
+        n = x.numel() // x.shape[1] * world_size()
+        mean = all_reduce_sum(xf.sum(dims)) / n
+        xc = xf - mean.view(shape)
+        var = all_reduce_sum((xc * xc).sum(dims)) / n
+        y = xc * torch.rsqrt(var + self.eps).view(shape)
+        if self.affine:
+            y = y * self.weight.to(y.dtype).view(shape) + self.bias.to(y.dtype).view(shape)
+        if self.track_running_stats:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+                unbiased = var * (n / (n - 1))
+                self.running_var.mul_(1.0 - m).add_(unbiased.to(self.running_var.dtype), alpha=m)
+        return y.to(x.dtype)
+
+
+class BatchNorm2d(_GlobalBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_GlobalBatchNorm, nn.BatchNorm3d):
+    pass
+
+
 def batch_norm(num_features: int, spatial_dims: int) -> nn.Module:
     """BatchNorm with torch's defaults, eps 1e-5 and momentum 0.1
-    (`BatchNorm`, layers.py:110-118). Its running_var takes the unbiased
+    (`BatchNorm`, layers.py:110-118), over the global batch under data
+    parallelism (`_GlobalBatchNorm`). Its running_var takes the unbiased
     batch variance; the JAX package's takes the biased one."""
-    cls = {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}[spatial_dims]
+    cls = {2: BatchNorm2d, 3: BatchNorm3d}[spatial_dims]
     return cls(num_features, eps=EPS, momentum=0.1)
 
 

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from icl_tpu_torch.models.layers import Dropout, call_remat, instance_norm
+from icl_tpu_torch.models.layers import Dropout, call_remat, instance_norm, resize_linear
 
 DEFAULT_FILTERS_3D = (16, 32, 64, 128, 256)
 
@@ -69,14 +69,16 @@ class ConvBlock3D(nn.Module):
 
 class UpBlock3D(nn.Module):
     """UnetUp3_CT: trilinear 2x upsample (half-pixel grid), concat [skip,
-    up], ConvBlock3D (unet3d.py:61-74)."""
+    up], ConvBlock3D (unet3d.py:61-74). The upsample is `resize_linear`,
+    one matmul per axis, whose backward repeats bit for bit on the card;
+    F.interpolate's trilinear backward adds with atomics there."""
 
     def __init__(self, cin: int, features: int):
         super().__init__()
         self.conv = ConvBlock3D(cin, features)
 
     def forward(self, x_skip, x_deep):
-        up = F.interpolate(x_deep, scale_factor=2, mode="trilinear", align_corners=False)
+        up = resize_linear(x_deep, [2 * n for n in x_deep.shape[2:]], align_corners=False)
         return self.conv(torch.cat([x_skip, up], dim=1))
 
 

@@ -29,7 +29,7 @@ from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.acdc import ACDCDataset, patients_to_slices
 from icl_tpu_torch.data.pipeline import Prefetcher, supervised_batches
 from icl_tpu_torch.models.swin_config import swin_cli_kwargs
-from icl_tpu_torch.scripts.unported import add_dispatch_flags
+from icl_tpu_torch.scripts.flags import add_dispatch_flags
 from icl_tpu_torch.train.trainer import Trainer, acdc_evaluator
 from icl_tpu_torch.utils.pretrained import load_pretrained_swinunet
 

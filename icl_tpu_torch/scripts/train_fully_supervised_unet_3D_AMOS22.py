@@ -22,7 +22,7 @@ from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.amos import (AMOS_CLASS_NAMES, AMOSDataset, amos_supervised_batches,
                                      load_decathlon_datalist)
 from icl_tpu_torch.data.pipeline import Prefetcher
-from icl_tpu_torch.scripts.unported import add_dispatch_flags
+from icl_tpu_torch.scripts.flags import add_dispatch_flags
 from icl_tpu_torch.train.trainer import Trainer, amos_evaluator
 
 

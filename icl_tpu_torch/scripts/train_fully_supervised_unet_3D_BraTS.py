@@ -22,7 +22,7 @@ import argparse
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.brats import BraTS2019Dataset, brats_supervised_batches
 from icl_tpu_torch.data.pipeline import Prefetcher
-from icl_tpu_torch.scripts.unported import add_dispatch_flags
+from icl_tpu_torch.scripts.flags import add_dispatch_flags
 from icl_tpu_torch.train.trainer import Trainer, brats_evaluator
 
 

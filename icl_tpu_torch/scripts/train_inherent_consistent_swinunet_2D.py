@@ -15,9 +15,10 @@ loads an ImageNet Swin-T checkpoint into the encoder and, mirrored, the
 decoder (`utils/pretrained.py`). Runs on the CUDA card; `--device cpu`
 runs on the CPU. `--precision float32` (the default) runs f32 with TF32
 off; `bfloat16` runs the forward under autocast. `--deterministic` is
-taken and has no effect. The JAX CLI's `--scan_steps` and
-`--dispatch_depth` other than 1 and its multi-process flags are not
-ported and are refused.
+taken and has no effect. `--scan_steps` and `--dispatch_depth` as
+`Trainer` takes them; `--dist_coordinator`, `--num_processes` and
+`--process_id` run it data-parallel, one command per rank (as
+`train_inherent_consistent_unet_2D` shows).
 """
 from __future__ import annotations
 
@@ -25,9 +26,10 @@ import argparse
 
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.acdc import ACDCDataset, patients_to_slices
-from icl_tpu_torch.data.pipeline import Prefetcher, acdc_train_batches
+from icl_tpu_torch.data.pipeline import acdc_train_batches
 from icl_tpu_torch.models.swin_config import swin_cli_kwargs
-from icl_tpu_torch.scripts.unported import MULTI_PROCESS, add_dispatch_flags, parse_args_refusing
+from icl_tpu_torch.parallel.multihost import initialize_from_args, launch_batches
+from icl_tpu_torch.scripts.flags import add_dispatch_flags, add_multi_process_flags
 from icl_tpu_torch.train.trainer import Trainer, acdc_evaluator
 from icl_tpu_torch.utils.pretrained import load_pretrained_swinunet
 
@@ -53,11 +55,14 @@ def parse_args(argv=None):
     p.add_argument("--pretrained_ckpt", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda")
     add_dispatch_flags(p)
-    return parse_args_refusing(p, argv, MULTI_PROCESS, "the port runs one process")
+    add_multi_process_flags(p)
+    return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    rank, _ = initialize_from_args(args.dist_coordinator, args.num_processes, args.process_id,
+                                   device=args.device, rows=(args.batch_size, args.labeled_bs))
     cfg = ExperimentConfig(
         scan_steps=args.scan_steps, dispatch_depth=args.dispatch_depth,
         root_path=args.root_path, exp=args.exp, model=args.model,
@@ -76,9 +81,11 @@ def main(argv=None):
                                  cfg.labeled_bs, cfg.patch_size, seed=cfg.seed)
     evaluate = acdc_evaluator(ACDCDataset(cfg.root_path, "val_test"), cfg.num_classes,
                               cfg.patch_size, trainer.device)
-    with Prefetcher(batches, pin_memory=trainer.device.type == "cuda") as prefetched:
+    with launch_batches(batches, cfg.labeled_bs,
+                        pin_memory=trainer.device.type == "cuda") as prefetched:
         result = trainer.fit(prefetched, evaluate=evaluate)
-    print("Training Finished!")
+    if rank == 0:
+        print("Training Finished!")
     return result
 
 

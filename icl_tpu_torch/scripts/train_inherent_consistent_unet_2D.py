@@ -29,8 +29,18 @@ device_bank` holds the training slices on the card, resized once to the
 patch, and gathers and augments each batch there, inside the step (the
 host sends indices and augment draws); `--scan_steps K` runs the steps in
 groups of K, on the card as replays of one captured CUDA graph of the
-step; `--dispatch_depth D` keeps up to D groups in flight. The JAX CLI's
-multi-process flags are not ported and are refused.
+step; `--dispatch_depth D` keeps up to D groups in flight.
+
+Data parallelism over W processes, one command per rank with its own
+`--process_id` (rank 0 listens at the coordinator's port):
+
+    python -m icl_tpu_torch.scripts.train_inherent_consistent_unet_2D ... \\
+        --dist_coordinator host0:1234 --num_processes 2 --process_id 0
+
+Each rank makes the same seeded global batches and keeps its share of each
+branch; the step is that of the global batch (`Trainer`). NCCL when every
+rank has a card of its own, gloo when ranks share one; only rank 0 prints,
+logs, validates and saves. `--input_mode device_bank` is refused there.
 """
 from __future__ import annotations
 
@@ -39,8 +49,9 @@ import argparse
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.acdc import ACDCDataset, patients_to_slices
 from icl_tpu_torch.data.device_bank import bank_batches, build_acdc_bank, two_stream_index_batches
-from icl_tpu_torch.data.pipeline import Prefetcher, acdc_train_batches
-from icl_tpu_torch.scripts.unported import MULTI_PROCESS, add_dispatch_flags, parse_args_refusing
+from icl_tpu_torch.data.pipeline import acdc_train_batches
+from icl_tpu_torch.parallel.multihost import initialize_from_args, launch_batches
+from icl_tpu_torch.scripts.flags import add_dispatch_flags, add_multi_process_flags
 from icl_tpu_torch.train.trainer import Trainer, acdc_evaluator
 
 
@@ -67,11 +78,14 @@ def parse_args(argv=None):
     add_dispatch_flags(p)
     p.add_argument("--checkpoint_interval", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda")
-    return parse_args_refusing(p, argv, MULTI_PROCESS, "the port runs one process")
+    add_multi_process_flags(p)
+    return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    rank, _ = initialize_from_args(args.dist_coordinator, args.num_processes, args.process_id,
+                                   device=args.device, rows=(args.batch_size, args.labeled_bs))
     cfg = ExperimentConfig(
         root_path=args.root_path, exp=args.exp, model=args.model,
         num_classes=args.num_classes, max_iterations=args.max_iterations,
@@ -87,7 +101,8 @@ def main(argv=None):
     trainer = Trainer(cfg, device=args.device)
     train_ds = ACDCDataset(cfg.root_path, "train")
     labeled_slice = patients_to_slices(cfg.root_path, cfg.labeled_num)
-    print(f"Total slices: {len(train_ds)}, labeled slices: {labeled_slice}")
+    if rank == 0:
+        print(f"Total slices: {len(train_ds)}, labeled slices: {labeled_slice}")
     evaluate = acdc_evaluator(ACDCDataset(cfg.root_path, "val_test"), cfg.num_classes,
                               cfg.patch_size, trainer.device)
     if args.input_mode == "device_bank":
@@ -99,9 +114,11 @@ def main(argv=None):
     else:
         batches = acdc_train_batches(train_ds, labeled_slice, cfg.batch_size, cfg.labeled_bs,
                                      cfg.patch_size, seed=cfg.seed)
-        with Prefetcher(batches, pin_memory=trainer.device.type == "cuda") as prefetched:
+        with launch_batches(batches, cfg.labeled_bs,
+                            pin_memory=trainer.device.type == "cuda") as prefetched:
             result = trainer.fit(prefetched, evaluate=evaluate)
-    print("Training Finished!")
+    if rank == 0:
+        print("Training Finished!")
     return result
 
 

@@ -15,8 +15,9 @@ default) runs the forward under autocast; `float32` runs f32 with TF32
 off. `--remat 0` turns the recompute off. `--deterministic` is taken and
 has no effect. `--scan_steps K` runs the steps in groups of K, on the card
 as replays of one captured CUDA graph of the step; `--dispatch_depth D`
-keeps up to D groups in flight (`Trainer`). The JAX CLI's multi-process
-flags are not ported and are refused.
+keeps up to D groups in flight (`Trainer`). `--dist_coordinator`, `--num_processes` and `--process_id` run it
+data-parallel, one command per rank (as
+`train_inherent_consistent_unet_2D` shows).
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ import argparse
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.amos import (AMOS_CLASS_NAMES, AMOSDataset, amos_train_batches,
                                      load_decathlon_datalist)
-from icl_tpu_torch.data.pipeline import Prefetcher
-from icl_tpu_torch.scripts.unported import MULTI_PROCESS, add_dispatch_flags, parse_args_refusing
+from icl_tpu_torch.parallel.multihost import initialize_from_args, launch_batches
+from icl_tpu_torch.scripts.flags import add_dispatch_flags, add_multi_process_flags
 from icl_tpu_torch.train.trainer import Trainer, amos_evaluator
 
 
@@ -53,11 +54,14 @@ def parse_args(argv=None):
     p.add_argument("--val_interval", type=int, default=1200)
     p.add_argument("--device", type=str, default="cuda")
     add_dispatch_flags(p)
-    return parse_args_refusing(p, argv, MULTI_PROCESS, "the port runs one process")
+    add_multi_process_flags(p)
+    return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    rank, _ = initialize_from_args(args.dist_coordinator, args.num_processes, args.process_id,
+                                   device=args.device, rows=(args.batch_size, args.labeled_bs))
     cfg = ExperimentConfig(
         scan_steps=args.scan_steps, dispatch_depth=args.dispatch_depth,
         root_path=args.root_path, exp=args.exp, model=args.model,
@@ -75,9 +79,11 @@ def main(argv=None):
     batches = amos_train_batches(train_ds, cfg.labeled_num, args.total_num, cfg.batch_size,
                                  cfg.labeled_bs, cfg.patch_size, seed=cfg.seed)
     evaluate = amos_evaluator(val_ds, cfg.num_classes, cfg.patch_size, trainer.device)
-    with Prefetcher(batches, pin_memory=trainer.device.type == "cuda") as prefetched:
+    with launch_batches(batches, cfg.labeled_bs,
+                        pin_memory=trainer.device.type == "cuda") as prefetched:
         result = trainer.fit(prefetched, evaluate=evaluate, class_names=AMOS_CLASS_NAMES)
-    print("Training Finished!")
+    if rank == 0:
+        print("Training Finished!")
     return result
 
 

@@ -13,8 +13,9 @@ default) runs f32 with TF32 off; `bfloat16` runs the forward under
 autocast. `--deterministic` is taken and has no effect. `--scan_steps K`
 runs the steps in groups of K, on the card as replays of one captured CUDA
 graph of the step; `--dispatch_depth D` keeps up to D groups in flight
-(`Trainer`). The JAX CLI's multi-process flags are not ported and are
-refused.
+(`Trainer`). `--dist_coordinator`, `--num_processes` and `--process_id` run it
+data-parallel, one command per rank (as
+`train_inherent_consistent_unet_2D` shows).
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ import argparse
 
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.brats import BraTS2019Dataset, brats_train_batches
-from icl_tpu_torch.data.pipeline import Prefetcher
-from icl_tpu_torch.scripts.unported import MULTI_PROCESS, add_dispatch_flags, parse_args_refusing
+from icl_tpu_torch.parallel.multihost import initialize_from_args, launch_batches
+from icl_tpu_torch.scripts.flags import add_dispatch_flags, add_multi_process_flags
 from icl_tpu_torch.train.trainer import Trainer, brats_evaluator
 
 
@@ -47,11 +48,14 @@ def parse_args(argv=None):
     p.add_argument("--precision", type=str, default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--device", type=str, default="cuda")
     add_dispatch_flags(p)
-    return parse_args_refusing(p, argv, MULTI_PROCESS, "the port runs one process")
+    add_multi_process_flags(p)
+    return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    rank, _ = initialize_from_args(args.dist_coordinator, args.num_processes, args.process_id,
+                                   device=args.device, rows=(args.batch_size, args.labeled_bs))
     cfg = ExperimentConfig(
         scan_steps=args.scan_steps, dispatch_depth=args.dispatch_depth,
         root_path=args.root_path, exp=args.exp, model=args.model,
@@ -68,9 +72,11 @@ def main(argv=None):
                                   seed=cfg.seed)
     evaluate = brats_evaluator(BraTS2019Dataset(cfg.root_path, "val_test"), cfg.num_classes,
                                cfg.patch_size, trainer.device)
-    with Prefetcher(batches, pin_memory=trainer.device.type == "cuda") as prefetched:
+    with launch_batches(batches, cfg.labeled_bs,
+                        pin_memory=trainer.device.type == "cuda") as prefetched:
         result = trainer.fit(prefetched, evaluate=evaluate, class_names=["WT"])
-    print("Training Finished!")
+    if rank == 0:
+        print("Training Finished!")
     return result
 
 

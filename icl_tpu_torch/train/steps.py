@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from icl_tpu_torch import losses
+from icl_tpu_torch.parallel.collectives import reduce_gradients
 from icl_tpu_torch.train.optim import PolySGD
 
 METRIC_KEYS = ("loss", "loss_seg", "loss_ce", "loss_dice", "loss_aux", "loss_pse",
@@ -165,7 +166,12 @@ def make_icl_step(model: torch.nn.Module, optimizer: PolySGD, num_classes: int, 
     the first `labeled_bs` samples labeled. With precision "bfloat16" the
     forward runs under autocast; the losses take f32 maps (f64 ones stay
     f64). Metrics are detached 0-d tensors (reading them syncs the
-    device)."""
+    device). Under data parallelism (`parallel.mesh.data_group`) `batch` is
+    this rank's rows (`parallel.multihost.host_rows`: its share of each
+    branch, `labeled_bs` the labeled share), the losses and metrics are
+    those of the global batch, and the gradients are reduced over the
+    ranks before the update (`parallel.collectives`), so every rank makes
+    the same update."""
     patch = tuple(patch_size)
     _check_precision(precision)
 
@@ -186,6 +192,7 @@ def make_icl_step(model: torch.nn.Module, optimizer: PolySGD, num_classes: int, 
         loss_seg = loss_ce + loss_dice
         loss = loss_seg + loss_aux + pse_weight * loss_pse + consis_weight * loss_consis
         loss.backward()
+        reduce_gradients(optimizer.params)
         optimizer.step()
         values = (loss, loss_seg, loss_ce, loss_dice, loss_aux, loss_pse, consis_weight * loss_consis)
         return {k: v.detach() for k, v in zip(METRIC_KEYS, values)}

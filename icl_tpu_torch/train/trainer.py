@@ -24,10 +24,21 @@ boundary, on the card replays of one captured CUDA graph of the whole step
 139-163, 326-375`), and up to `cfg.dispatch_depth` groups in flight, their
 metrics copied to pinned host memory and read only when the group leaves
 that window (:289-400).
+
+Under data parallelism (a group of more than one process, made by
+`parallel.multihost.initialize_from_args`) each process holds a replica and
+steps on its rows of the global batch; the step reduces over the group, so
+the replicas stay equal. As in the JAX trainer (:236-245, :405-420) only
+rank 0 logs, writes scalars, validates and saves; the others wait for it in
+a barrier after each validation and each save. Step groups run one step at
+a time there (no CUDA graph: the collectives run on the host's schedule).
+Dropout and drop-path masks come from torch's default generators seeded per
+(seed, rank).
 """
 from __future__ import annotations
 
 import collections
+import logging
 import time
 from typing import Callable, Iterable, Optional
 
@@ -36,12 +47,14 @@ import torch
 
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.device_augment import AUGMENT_KEYS, augment_batch
-from icl_tpu_torch.device import resolve_device
 from icl_tpu_torch.models.registry import net_factory
+from icl_tpu_torch.parallel.collectives import barrier
+from icl_tpu_torch.parallel.mesh import create_mesh
+from icl_tpu_torch.parallel.multihost import host_rows
 from icl_tpu_torch.train.optim import PolySGD
 from icl_tpu_torch.train.steps import forward, make_icl_step, make_supervised_step
 from icl_tpu_torch.utils import checkpoint as ckpt
-from icl_tpu_torch.utils.logging_utils import ScalarWriter, setup_logging
+from icl_tpu_torch.utils.logging_utils import NullWriter, ScalarWriter, setup_logging
 
 ICL_MODELS = ("swinunetr_icl", "icl_swinunet", "icl_unet", "unet_3D_icl")
 SUPERVISED_MODELS = ("unet", "swinunet", "swinunetr", "unet_3D")
@@ -61,6 +74,12 @@ class _Promoted(torch.nn.Module):
 
     def forward(self, *args):
         return forward(self.model, "float32", *args)
+
+
+def rank_seed(*key: int) -> int:
+    """A seed for torch's generators from a key such as (seed, rank) or
+    (seed, rank, iteration) (numpy's SeedSequence)."""
+    return int(np.random.SeedSequence(list(key)).generate_state(1)[0])
 
 
 def launch_counts() -> dict:
@@ -87,7 +106,11 @@ class Trainer:
     JAX package keeps `batch_stats` f32) and updated by the fused
     stochastic-rounding kernel; the forward follows `steps.forward`. With
     `cfg.device_augment` the step takes raw slices or a bank with indices,
-    and the augment draws (`to_device`)."""
+    and the augment draws (`to_device`). Under data parallelism
+    (`parallel.mesh.create_mesh`: more than one process) `device` "cuda"
+    means this rank's card, the model must be an ICL model, the step takes
+    this rank's rows (`parallel.multihost.host_rows`), and the device
+    augment is refused (the bank lives on one card)."""
 
     def __init__(self, cfg: ExperimentConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -95,7 +118,19 @@ class Trainer:
             raise KeyError(f"model {cfg.model!r}: the port trains "
                            f"{list(ICL_MODELS + SUPERVISED_MODELS)} only")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = create_mesh(device=device)
+        self.device = self.mesh.device
+        labeled_bs = cfg.labeled_bs
+        if self.mesh.size > 1:
+            if cfg.model not in ICL_MODELS:
+                raise ValueError(f"model {cfg.model!r}: multi-process training is ported for the "
+                                 f"ICL models {list(ICL_MODELS)} only")
+            if cfg.device_augment:
+                raise ValueError("device_augment (--input_mode device_bank) holds the bank on one "
+                                 "card; use --input_mode host for multi-process runs")
+            host_rows(cfg.batch_size, cfg.labeled_bs, self.mesh.rank, self.mesh.size)
+            labeled_bs = cfg.labeled_bs // self.mesh.size
+            torch.manual_seed(rank_seed(cfg.seed, self.mesh.rank))
         if cfg.precision == "float32" and self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -124,7 +159,7 @@ class Trainer:
                                  state_dtype=cfg.state_dtype)
         if cfg.model in ICL_MODELS:
             self.step_fn = make_icl_step(self.model, self.optimizer, cfg.num_classes,
-                                         cfg.labeled_bs, cfg.patch_size, cfg.consis_weight,
+                                         labeled_bs, cfg.patch_size, cfg.consis_weight,
                                          cfg.pse_weight, cfg.precision)
         else:
             self.step_fn = make_supervised_step(self.model, self.optimizer, cfg.num_classes,
@@ -137,6 +172,12 @@ class Trainer:
         # kernel launches recorded in the captured step, replayed with it
         self.graph_launches: dict = {}
         self.replays = 0
+
+    @property
+    def scan_steps(self) -> int:
+        """cfg.scan_steps, or 1 under data parallelism (the JAX trainer's
+        fallback, icl_tpu/train/trainer.py:282-287)."""
+        return 1 if self.mesh.size > 1 else self.cfg.scan_steps
 
     def _augmenting(self, inner: Callable[[dict], dict]) -> Callable[[dict], dict]:
         """The device-augment step (icl_tpu/train/trainer.py:92-117): from
@@ -189,7 +230,10 @@ class Trainer:
         """Put `state` (`train_state`'s layout, tensors on any device) in
         place: model strictly, optimizer, count, iteration, generators. The
         tensors are copied into the live ones, so a captured CUDA graph of
-        the step stays valid. A state of another `state_dtype` raises."""
+        the step stays valid. A state of another `state_dtype` raises. Under
+        data parallelism the state holds rank 0's generators; every rank
+        then seeds torch's generators from (seed, rank, iteration)
+        instead."""
         saved = state.get("state_dtype", "float32")
         if saved != self.cfg.state_dtype:
             raise ValueError(f"the train state's state_dtype is {saved!r}, the trainer's "
@@ -210,6 +254,8 @@ class Trainer:
                              f"the model's {sorted(generators)}")
         for name, g in generators.items():
             g.set_state(rng["modules"][name].cpu())
+        if self.mesh.size > 1:  # rank 0's generators were saved: each rank draws its own again
+            torch.manual_seed(rank_seed(self.cfg.seed, self.mesh.rank, self.iteration))
 
     def restore_state(self, name: str = "last") -> int:
         """Resume from `<snapshot>/model/state_{name}.pt` (counterpart of
@@ -220,7 +266,11 @@ class Trainer:
         return self.iteration
 
     def _save_state(self, logger, saves: list, step: Optional[int] = None) -> None:
-        """The rolling step file (`step` given) or `state_last`, timed."""
+        """The rolling step file (`step` given) or `state_last`, timed; by
+        rank 0 alone, the others waiting for it."""
+        if self.mesh.rank:
+            barrier()
+            return
         snapshot = self.cfg.snapshot_path
         state = self.train_state()
         nbytes = ckpt.state_bytes(state)
@@ -235,6 +285,7 @@ class Trainer:
         logger.info("%s full-state save at iter %d: %.2f GB in %.2f s (%.2f GB/s) -> %s",
                     "final" if step is None else "periodic", self.iteration, nbytes / 1e9,
                     seconds, nbytes / 1e9 / max(seconds, 1e-9), path)
+        barrier()
 
     def to_device(self, batch: dict) -> dict:
         """The batch on the device: numpy arrays or CPU tensors copied
@@ -270,7 +321,7 @@ class Trainer:
         counted; its metrics as one vector (`metric_keys`), on the device.
         With cfg.scan_steps > 1 on the card the step is a replay of the
         captured CUDA graph (`graph_step`); else it runs eagerly."""
-        if self.cfg.scan_steps > 1 and self.device.type == "cuda":
+        if self.scan_steps > 1 and self.device.type == "cuda":
             vec = self.graph_step(batch)
         else:
             vec = self._stacked_step(batch)
@@ -379,8 +430,13 @@ class Trainer:
         dict per train-state save (iteration, path, bytes, seconds)}."""
         cfg = self.cfg
         snapshot = cfg.snapshot_path
-        logger = setup_logging(snapshot)
-        writer = ScalarWriter(f"{snapshot}/log")
+        if self.mesh.rank == 0:
+            logger = setup_logging(snapshot)
+            writer = ScalarWriter(f"{snapshot}/log")
+        else:
+            logger = logging.getLogger(f"icl_tpu_torch.rank{self.mesh.rank}")
+            logger.propagate = False
+            writer = NullWriter()
         try:
             return self._fit(train_batches, evaluate, class_names, logger, writer)
         finally:
@@ -391,7 +447,7 @@ class Trainer:
         validation, a checkpoint or the end (icl_tpu/train/trainer.py:
         326-338)."""
         cfg, it = self.cfg, self.iteration
-        k = min(cfg.max_iterations - it, cfg.scan_steps)
+        k = min(cfg.max_iterations - it, self.scan_steps)
         if cfg.val_interval:
             k = min(k, cfg.val_interval - it % cfg.val_interval)
         if cfg.checkpoint_interval:
@@ -428,6 +484,9 @@ class Trainer:
         batch_iter = iter(train_batches)
         if self.iteration:
             logger.info("resuming from iteration %d", self.iteration)
+        if cfg.scan_steps > 1 and self.mesh.size > 1:
+            logger.info("scan_steps>1 unsupported under multi-process; falling back to per-step "
+                        "dispatch")
         self.model.train()
         pending: collections.deque = collections.deque()  # groups in flight, not yet logged
         t_start = time.perf_counter()
@@ -475,26 +534,29 @@ class Trainer:
             it = self.iteration
             if evaluate is not None and cfg.val_interval and it % cfg.val_interval == 0:
                 drain()
-                self.model.eval()
-                t_val = time.perf_counter()
-                agg = evaluate(_Promoted(self.model) if cfg.state_dtype == "bfloat16"
-                               else self.model)
-                val_s = time.perf_counter() - t_val
-                self.model.train()
-                vals.append({"iteration": it, "mean_dice": agg["mean_dice"],
-                             "mean_hd95": agg["mean_hd95"], "seconds": val_s})
-                for k in ("mean_dice", "mean_hd95", "std_dice", "std_hd95"):
-                    writer.add_scalar(f"metric_all/{k}", agg[k], it)
-                for name, (dice, hd95) in zip(class_names, agg["class_mean"]):
-                    writer.add_scalar(f"metric_class_{name}/mean_dice", dice, it)
-                    writer.add_scalar(f"metric_class_{name}/mean_hd95", hd95, it)
-                    logger.info("iteration %d : class %s : dice %f  hd95 %f", it, name, dice, hd95)
-                logger.info("iteration %d : mean_dice : %f  mean_hd95 : %f  (%.2f s)",
-                            it, agg["mean_dice"], agg["mean_hd95"], val_s)
-                if agg["mean_dice"] > best:
-                    best = agg["mean_dice"]
-                    best_path = ckpt.save_best_model(snapshot, self.model)
-                    logger.info("saving best model at iter %d -> %s", it, best_path)
+                if self.mesh.rank == 0:
+                    self.model.eval()
+                    t_val = time.perf_counter()
+                    agg = evaluate(_Promoted(self.model) if cfg.state_dtype == "bfloat16"
+                                   else self.model)
+                    val_s = time.perf_counter() - t_val
+                    self.model.train()
+                    vals.append({"iteration": it, "mean_dice": agg["mean_dice"],
+                                 "mean_hd95": agg["mean_hd95"], "seconds": val_s})
+                    for k in ("mean_dice", "mean_hd95", "std_dice", "std_hd95"):
+                        writer.add_scalar(f"metric_all/{k}", agg[k], it)
+                    for name, (dice, hd95) in zip(class_names, agg["class_mean"]):
+                        writer.add_scalar(f"metric_class_{name}/mean_dice", dice, it)
+                        writer.add_scalar(f"metric_class_{name}/mean_hd95", hd95, it)
+                        logger.info("iteration %d : class %s : dice %f  hd95 %f", it, name, dice,
+                                    hd95)
+                    logger.info("iteration %d : mean_dice : %f  mean_hd95 : %f  (%.2f s)",
+                                it, agg["mean_dice"], agg["mean_hd95"], val_s)
+                    if agg["mean_dice"] > best:
+                        best = agg["mean_dice"]
+                        best_path = ckpt.save_best_model(snapshot, self.model)
+                        logger.info("saving best model at iter %d -> %s", it, best_path)
+                barrier()  # the other ranks wait for rank 0's validation
             if cfg.checkpoint_interval and it % cfg.checkpoint_interval == 0:
                 drain()
                 self._save_state(logger, saves, step=it)

@@ -54,3 +54,14 @@ class ScalarWriter:
         if self._tb is not None:
             self._tb.close()
         self._jsonl.close()
+
+
+class NullWriter:
+    """A `ScalarWriter` that writes nothing: the writer of every rank but 0
+    under data parallelism."""
+
+    def add_scalar(self, tag: str, value, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

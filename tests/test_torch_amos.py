@@ -43,6 +43,7 @@ from icl_tpu_torch.models.registry import net_factory
 from icl_tpu_torch.train.steps import METRIC_KEYS, SUPERVISED_METRIC_KEYS
 from test_torch_icl import cl2cf
 from test_torch_unet3d import jax_variables
+from _torch_dp import assert_takes_multi_process_flags
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 SHAPE, ROI, NCLS = (40, 40, 30), (32, 32, 32), 16
@@ -209,11 +210,7 @@ def test_cli_refuses_unported_flags_and_needs_cuda(kind, monkeypatch):
     from icl_tpu_torch.scripts import test_3D_AMOS
 
     cli = importlib.import_module(f"icl_tpu_torch.scripts.{CLIS[kind][0]}")
-    refused = [["--state_dtype", "bfloat16"]]
-    if kind == "icl":
-        refused += [["--dist_coordinator", "host0:1234"], ["--num_processes", "2"],
-                    ["--process_id", "0"]]
-    for flags in refused:
+    for flags in (["--state_dtype", "bfloat16"],):
         with pytest.raises(SystemExit):
             cli.parse_args(flags)
     args = cli.parse_args(["--scan_steps", "8", "--dispatch_depth", "2"])
@@ -230,6 +227,11 @@ def test_cli_refuses_unported_flags_and_needs_cuda(kind, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--root_path", "unused", "--split_path", "unused.json"])
+    if kind == "icl":
+        assert_takes_multi_process_flags(cli, ["--root_path", "unused", "--split_path", "unused.json"])
+    else:
+        with pytest.raises(SystemExit):
+            cli.parse_args(["--num_processes", "2"])
 
 
 @pytest.mark.parametrize("kind", sorted(CLIS))

@@ -38,6 +38,7 @@ from icl_tpu_torch.utils.convert import swinunetr_icl_state_dict_from_jax
 from test_torch_icl import (  # noqa: F401  (no_drop_path is a fixture)
     LABELED_BS, NCLS, PATCH, batch, expected_running_var, jax_icl_variables, no_drop_path,
     port_icl_model)
+from _torch_dp import assert_takes_multi_process_flags
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 BASE_LR, MAX_IT, CONSIS = 0.01, 10, 10.0
@@ -188,10 +189,6 @@ def test_config_checks_labeled_bs():
 def test_cli_refuses_unported_flags_and_needs_cuda(monkeypatch):
     from icl_tpu_torch.scripts import train_inherent_consistent_swinunetr_3D_BraTS as cli
 
-    for flags in (["--num_processes", "2"], ["--process_id", "0"],
-                  ["--dist_coordinator", "host0:1234"]):
-        with pytest.raises(SystemExit):
-            cli.parse_args(flags)
     args = cli.parse_args(["--scan_steps", "1", "--dispatch_depth", "1"])
     assert (args.scan_steps, args.dispatch_depth) == (1, 1)
     assert (cli.parse_args(["--scan_steps", "4"]).scan_steps, cli.parse_args([]).dispatch_depth) == (4, 1)
@@ -202,6 +199,7 @@ def test_cli_refuses_unported_flags_and_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--root_path", "unused"])
+    assert_takes_multi_process_flags(cli)
 
 
 def test_cli_trains_on_cpu_and_eval_cli_reproduces_val_dice(tmp_path, monkeypatch):

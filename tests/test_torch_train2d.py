@@ -44,6 +44,7 @@ from test_torch_icl import expected_running_var, no_drop_path  # noqa: F401  (a 
 from test_torch_swin2d import (  # noqa: F401  (pallas_interpret is a fixture)
     IMG, LABELED_BS, NCLS, WINDOW, images, jax_variables, pallas_interpret, port_model)
 from test_torch_train import _assert_close_to_scale, _capture_grads
+from _torch_dp import assert_takes_multi_process_flags
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 BASE_LR, MAX_IT, CONSIS = 0.01, 10, 50.0
@@ -179,9 +180,6 @@ def test_cli_refuses_unported_flags_and_needs_cuda(monkeypatch):
     from icl_tpu_torch.scripts import test_2D_ACDC
     from icl_tpu_torch.scripts import train_inherent_consistent_swinunet_2D as cli
 
-    for flags in (["--num_processes", "2"], ["--process_id", "0"]):
-        with pytest.raises(SystemExit):
-            cli.parse_args(flags)
     assert cli.parse_args(["--scan_steps", "1"]).scan_steps == 1
     args = cli.parse_args(["--scan_steps", "2", "--dispatch_depth", "4"])
     assert (args.scan_steps, args.dispatch_depth) == (2, 4)
@@ -191,6 +189,7 @@ def test_cli_refuses_unported_flags_and_needs_cuda(monkeypatch):
         cli.main(["--root_path", "unused"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         test_2D_ACDC.main(["--checkpoint", "unused.pth"])
+    assert_takes_multi_process_flags(cli)
 
 
 def test_cli_trains_on_cpu_and_eval_cli_reproduces_val_dice(tmp_path, monkeypatch):

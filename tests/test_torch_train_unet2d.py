@@ -43,6 +43,7 @@ from icl_tpu_torch.utils.convert import icl_unet2d_state_dict_from_jax
 from test_torch_train import _assert_close_to_scale, _capture_grads
 from test_torch_unet2d import (LABELED_BS, NCLS, PATCH, assert_running_stats, bn_batch_sizes,
                                images, jax_variables)
+from _torch_dp import assert_takes_multi_process_flags
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 BASE_LR, MAX_IT, CONSIS = 0.01, 10, 50.0
@@ -153,8 +154,7 @@ def test_cli_refuses_unported_flags_and_needs_cuda(monkeypatch):
     from icl_tpu_torch.scripts import test_2D_ACDC
     from icl_tpu_torch.scripts import train_inherent_consistent_unet_2D as cli
 
-    for flags in (["--dist_coordinator", "host0:1234"], ["--num_processes", "2"],
-                  ["--process_id", "0"], ["--input_mode", "hbm"], ["--state_dtype", "float16"]):
+    for flags in (["--input_mode", "hbm"], ["--state_dtype", "float16"]):
         with pytest.raises(SystemExit):
             cli.parse_args(flags)
     args = cli.parse_args([])
@@ -174,6 +174,7 @@ def test_cli_refuses_unported_flags_and_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--root_path", "unused"])
+    assert_takes_multi_process_flags(cli)
 
 
 def test_cli_trains_on_cpu_writes_scalars_and_eval_cli_reproduces_val_dice(tmp_path, monkeypatch):

@@ -52,6 +52,7 @@ from test_torch_train import _assert_close_to_scale, _capture_grads
 from test_torch_unet2d import assert_running_stats, bn_batch_sizes
 from test_torch_unet3d import (LABELED_BS, NCLS, PATCH, images, jax_variables,  # noqa: F401
                                no_stochastic_jax)
+from _torch_dp import assert_takes_multi_process_flags
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 BASE_LR, MAX_IT, CONSIS, SEG_WEIGHT = 0.01, 10, 10.0, 0.5
@@ -203,11 +204,7 @@ def test_cli_refuses_unported_flags_and_needs_cuda(kind, monkeypatch):
     import importlib
 
     cli = importlib.import_module(f"icl_tpu_torch.scripts.{CLIS[kind][0]}")
-    refused = []
-    if kind == "icl":
-        refused += [["--dist_coordinator", "host0:1234"], ["--num_processes", "2"],
-                    ["--process_id", "0"]]
-    for flags in refused + [["--state_dtype", "bfloat16"]]:
+    for flags in (["--state_dtype", "bfloat16"],):
         with pytest.raises(SystemExit):
             cli.parse_args(flags)
     args = cli.parse_args(["--scan_steps", "8", "--dispatch_depth", "2"])
@@ -218,6 +215,11 @@ def test_cli_refuses_unported_flags_and_needs_cuda(kind, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--root_path", "unused"])
+    if kind == "icl":
+        assert_takes_multi_process_flags(cli)
+    else:
+        with pytest.raises(SystemExit):
+            cli.parse_args(["--num_processes", "2"])
 
 
 @pytest.mark.parametrize("kind", sorted(CLIS))
