@@ -193,8 +193,8 @@ Phases, each fatal on failure:
      eager step and again for the capture), 4 replays against 4 eager
      steps bit for bit (parameters, buffers, momentum, metrics), an eager
      repeat beside them; the AMOS bf16 ICL step (U-Net-ICL 3D, 16 classes,
-     recompute on) the same way, its eager repeat bitwise (asserted), its
-     replay against eager printed (they differ; not required); s/step eager
+     recompute on) the same way, its eager repeat and its replays bitwise
+     (asserted; autocast's weight cache off in every step); s/step eager
      and replayed for the three; whether the backward of F.interpolate's
      bilinear upsample repeats bitwise on the card (the port's linear
      resizes are matmuls for that reason);
@@ -234,6 +234,30 @@ Phases, each fatal on failure:
      over 2 gloo ranks on the card: the label map equals the one-process
      map but at near-ties within 1e-6 (counted), the window-attention
      launches per rank counted (asserted: 8 forwards' worth in all);
+ 44. gradient accumulation (k = 2) on the flagship at full width (U-Net-ICL
+     2D, 256^2, batch 16 of which 8 labeled, f32, zero_stochastic, cuDNN
+     deterministic): 4 micro-steps on one repeated batch against 2 k = 1
+     updates, the first of them counted for FLOPs (parameters and momentum
+     bit for bit, nothing moved inside a window); 4 replays of the two
+     captured graphs (accumulate; accumulate and update) against 4 eager
+     micro-steps from one state (every tensor and the metrics bit for
+     bit); s/step of k = 2 and k = 1, eager and replayed, in turns; `fit`
+     for 4 steps in a group of 4 replays with a validation: its loss lines,
+     its logged LRs (each its update's), its FLOP lines, its peak memory;
+ 45. FixMatch-CTA with the Swin-UNet through its CLI's `main` (`--model
+     swinunet --patch_size 224 224`: embed 96, window 7, batch 16 of which
+     8 labeled, f32) for 3 steps, the window-attention launches asserted
+     (per step 42 forward, the weak, strong and probe passes' 8 no-mask + 6
+     mask each, and 28 backward), a validation of its final weights; one
+     step through the kernels against the plain attention by the rule of
+     15; one f32 step on the card (embed 48) against the CPU's f64 step,
+     the CPU's f32 step the witness (the rule of 34); one step traced with
+     `utils.profiling.trace`, whose Chrome trace must name the forward and
+     backward kernels at their launch counts: the device's ms and the
+     kernels' ms per call; the step's analytic FLOPs and time;
+ 46. the analytic FLOP lines of every `Trainer.fit` of the run: GFLOP per
+     step (its first step counted, `utils/flops.py`) and end-to-end TFLOP/s,
+     both lines in each run's log.txt (asserted);
 every `fit` ends with its full train state, which each phase deletes
 after its run; then a `kernels` JSON line (the six window-attention
 entries and `sgd_bf16`), the card line, and the result line. Exits
@@ -2010,18 +2034,19 @@ def phase_resume(torch, slices) -> dict:
             "restore_s": restore_s, "bitwise": not differ_ab}
 
 
-def cta_snapshot(exp: str) -> str:
+def cta_snapshot(exp: str, model: str = "unet") -> str:
     """The FixMatch-CTA CLI's snapshot for `--exp exp` from SUP_ROOT (its
     default --labeled_num 7 and --num_tries 1)."""
-    return os.path.join(EXPERIMENTS, f"{exp}_7_labeled", "unet_exp_1")
+    return os.path.join(EXPERIMENTS, f"{exp}_7_labeled", f"{model}_exp_1")
 
 
-def cta_cli(torch, wa, argv: list, data: InMemoryDataset, tag: str) -> dict:
-    """The FixMatch-CTA CLI's `main(argv)` from SUP_ROOT at its defaults
-    (256^2, batch 16 of which 8 labeled, the U-Net, f32) over in-memory
+def cta_cli(torch, wa, argv: list, data: InMemoryDataset, tag: str, launches=None) -> dict:
+    """The FixMatch-CTA CLI's `main(argv)` from SUP_ROOT (at its defaults:
+    256^2, batch 16 of which 8 labeled, the U-Net, f32) over in-memory
     slices, the first LABELED_SLICES_2D labeled: s/step after the warm-up
     step, peak memory, every loss term, the mask ratio and proximity per
-    step, the window-attention launches of the run (asserted: none)."""
+    step, the window-attention launches of the run (asserted: `launches`,
+    {"fwd": {mode: n}, "bwd": ...}, or none)."""
     import gc
 
     from icl_tpu_torch.scripts import train_fixmatch_cta_2D as cli
@@ -2058,7 +2083,10 @@ def cta_cli(torch, wa, argv: list, data: InMemoryDataset, tag: str) -> dict:
           f"{[round(r['seconds'], 4) for r in log]} s); whole run {run_s:.2f} s; peak memory "
           f"{peak / 2**30:.2f} GiB; window-attention launches {path}", flush=True)
     print_log(tag, log, FIXMATCH_METRIC_KEYS)
-    no_attention(tag, path)
+    if launches is None:
+        no_attention(tag, path)
+    elif {k: {m: path[k].get(m, 0) for m in ("none", "region", "mask")} for k in path} != launches:
+        fail(f"{tag} the run launched {path}, expected {launches}")
     return {"s_per_step": s_per_step, "peak_bytes": peak, "path_launches": path, "log": log,
             "saves": result["saves"], "run_s": run_s}
 
@@ -2583,8 +2611,8 @@ def phase_graph_vs_eager(torch, wa, slices) -> dict:
     f32: both window-attention kernels in the graph, their launches per
     replayed step asserted: 8 no-mask + 6 mask, forward and backward) and
     the AMOS bf16 ICL step (U-Net-ICL 3D, 16 classes, recompute on; its
-    eager repeat must be bitwise; its replays differ from its eager steps,
-    which is printed, not required: ROADMAP queue 3), each by
+    eager repeat and its replays must be bitwise: autocast's weight cache
+    is off in eager steps too, `steps._forward_context`), each by
     `graph_vs_eager` under cuDNN's deterministic algorithms: a replayed
     step must equal the eager one bit for bit wherever an eager repeat is
     bitwise; where the card's own repeat is not, the first replayed step is
@@ -2658,6 +2686,9 @@ def phase_graph_vs_eager(torch, wa, slices) -> dict:
                           deterministic=True)
     if amos["differ_again"] or not amos["again_metrics_equal"]:
         fail(f"[graph-amos] an eager repeat differs: {amos['differ_again'][:8]}")
+    if amos["differ_b"] or not amos["metrics_equal"]:
+        fail(f"[graph-amos] the replayed steps differ from the eager ones, which repeat bitwise: "
+             f"{amos['differ_b'][:8]}")
     first = amos["first"]
     amos["first_differ"] = sorted(k for k in first["a"] if not torch.equal(first["a"][k], first["b"][k]))
     # each differing parameter's largest difference over its largest eager update
@@ -2667,8 +2698,7 @@ def phase_graph_vs_eager(torch, wa, slices) -> dict:
     print(f"[graph-amos] the first replayed step against the first eager step: "
           f"{len(amos['first_differ'])} of {len(first['a'])} parameters differ, each by at most "
           f"{max(amos['first_rel'].values(), default=0.0):.3e} of its largest update "
-          f"{dict(sorted(amos['first_rel'].items(), key=lambda kv: -kv[1])[:5])} (not required: "
-          f"ROADMAP queue 3)", flush=True)
+          f"{dict(sorted(amos['first_rel'].items(), key=lambda kv: -kv[1])[:5])}", flush=True)
     out["amos"] = {k: amos[k] for k in ("differ_b", "differ_again", "metrics_equal", "times",
                                         "first_differ", "first_rel")}
     del trainer, amos
@@ -3465,6 +3495,454 @@ def phase_collectives_and_window(torch) -> dict:
             "differ": int(differ.sum()), "ties": ties, "seconds": [r["seconds"] for r in ranks]}
 
 
+# Phases 44-46: gradient accumulation on the flagship (U-Net-ICL 2D at 256^2,
+# batch 16 of which 8 labeled, f32: the JAX trainer's `grad_accum`, wrapped
+# in optax.MultiSteps there); FixMatch-CTA with the Swin-UNet through its CLI
+# (the JAX CLI's `--model swinunet --patch_size 224 224`: embed 96, window 7,
+# batch 16 of which 8 labeled, f32); the analytic FLOP lines of every
+# `Trainer.fit` of the run.
+ACCUM_K = 2
+CTA_SWIN_EXP, CTA_SWIN_STEPS = "ACDC_chip_smoke/FixMatch_CTA_Swin", 3
+CTA_SWIN_CPU_EMBED = 48  # the card-vs-CPU step at head dim 16, within the CPU's time
+# the window-attention launches of one FixMatch-CTA Swin-UNet step: the weak
+# forward (batch 16), the strong one (batch 8) and the probe's (batch 1), the
+# first two also backward
+CTA_SWIN_PER_STEP = {"fwd": {m: 3 * n for m, n in SWIN_SUP_PER_STEP.items()},
+                     "bwd": {m: 2 * n for m, n in SWIN_SUP_PER_STEP.items()}}
+FIT_RUNS: list = []  # one record per Trainer.fit of the run (`record_fits`)
+
+
+def record_fits() -> None:
+    """Wrap `Trainer.fit` so that every run of it records its model,
+    precision, analytic FLOPs per step, iterations and seconds, and whether
+    its log.txt holds the JAX trainer's two FLOP lines."""
+    from icl_tpu_torch.train.trainer import Trainer
+
+    real = Trainer.fit
+
+    def fit(self, *args, **kwargs):
+        result = real(self, *args, **kwargs)
+        with open(os.path.join(self.cfg.snapshot_path, "log.txt")) as f:
+            text = f.read()
+        FIT_RUNS.append({"model": self.cfg.model, "exp": self.cfg.exp, "precision": self.cfg.precision,
+                         "state_dtype": self.cfg.state_dtype, "grad_accum": self.cfg.grad_accum,
+                         "scan_steps": self.cfg.scan_steps, "step_flops": result["step_flops"],
+                         "iterations": self.iteration, "seconds": result["seconds"],
+                         "log_lines": ("analytic step cost:" in text,
+                                       "end-to-end analytic" in text)})
+        return result
+
+    Trainer.fit = fit
+
+
+def device_state(torch, trainer) -> dict:
+    """A copy on the card of everything of `trainer` that a step changes
+    (`train_state` with its tensors cloned)."""
+    def clone(x):
+        if torch.is_tensor(x):
+            return x.detach().clone()
+        if isinstance(x, dict):
+            return {k: clone(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(clone(v) for v in x)
+        return x
+
+    return clone(trainer.train_state())
+
+
+def drop_graphs(trainer) -> None:
+    """Forget `trainer`'s captured graphs, their static inputs and memory
+    pool, so that its next `graph_step` of each kind captures anew."""
+    trainer._graphs, trainer._graph_inputs, trainer._graph_pool = {}, None, None
+
+
+def step_tensors(trainer) -> dict:
+    """The live tensors a step changes: parameters, buffers, momentum and
+    accumulators."""
+    out = {f"param/{n}": p.detach() for n, p in trainer.model.named_parameters()}
+    out.update({f"buffer/{n}": b for n, b in trainer.model.named_buffers()})
+    out.update({f"momentum/{i}": b for i, b in enumerate(trainer.optimizer.momentum_buffers)})
+    out.update({f"accumulator/{i}": b for i, b in enumerate(trainer.optimizer.accumulators)})
+    return out
+
+
+def phase_grad_accum(torch, wa, slices, volumes) -> dict:
+    """44: gradient accumulation (k = ACCUM_K) on the flagship at full
+    width, `zero_stochastic` and cuDNN's deterministic algorithms for the
+    bitwise checks: 2k micro-steps on one repeated batch against 2 k = 1
+    updates, the first of them counted for FLOPs (parameters and momentum
+    bit for bit; the parameters untouched inside a window); 4 replays of
+    the two captured graphs (accumulate, accumulate and update) against 4
+    eager micro-steps from one state on 4 batches (every tensor a step
+    changes and the metrics bit for bit); then, with cuDNN's deterministic
+    algorithms off as users run, s/step of k = 2 and k = 1 (a k = 1 trainer
+    built anew, both captured anew), eager and replayed, in turns; then
+    `fit` of the k = 2 trainer for 4 steps in
+    a group of 4 replays with a validation at 4: its loss lines, its
+    logged LRs (each that of its update), its FLOP lines and peak
+    memory."""
+    import dataclasses
+    import gc
+    import itertools
+
+    from icl_tpu_torch.train.trainer import Trainer, acdc_evaluator
+
+    t_phase = time.perf_counter()
+    base = unet_config(100, 0, "accum", zero_stochastic=True)
+    cfg_k = dataclasses.replace(base, grad_accum=ACCUM_K, scan_steps=GRAPH_STEPS)
+    cfg_1 = dataclasses.replace(base, num_tries="accum1", scan_steps=GRAPH_STEPS)
+    t0 = time.perf_counter()
+    acc, ref = Trainer(cfg_k, device=DEVICE), Trainer(cfg_1, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batches = [acc.to_device(b) for b in itertools.islice(acdc_batches(slices, cfg_k), GRAPH_STEPS)]
+    pa, pr = step_tensors(acc), step_tensors(ref)
+    params = [k for k in pr if k.startswith("param/")]
+    moms = [k for k in pr if k.startswith("momentum/")]
+
+    def same(keys, a=pa, b=pr) -> list:
+        return [k for k in keys if not torch.equal(a[k], b[k])]
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        if same(params):
+            fail("[accum] the two trainers did not start from the same weights")
+        frozen, differ = [], []
+        for update in range(2):
+            for _ in range(ACCUM_K - 1):
+                acc._stacked_step(batches[0])
+                frozen.append(len(same(params)))  # ref has not taken this update yet
+            acc._stacked_step(batches[0])
+            if update == 0:
+                ref.count_step_flops(batches[0])  # the counted step
+            else:
+                ref._stacked_step(batches[0])
+            differ.append((len(same(params)), len(same(moms))))
+        torch.cuda.synchronize()
+        print(f"[accum] flagship U-Net-ICL 2D at full width, f32, k = {ACCUM_K}: {2 * ACCUM_K} "
+              f"micro-steps on one batch against 2 k = 1 updates (the first counted for FLOPs, "
+              f"{ref.step_flops / 1e9:.1f} GFLOP): (parameters, momentum buffers) that differ after "
+              f"each update {differ} of ({len(params)}, {len(moms)}); parameters moved inside a "
+              f"window {frozen}; built both in {build_s:.2f} s", flush=True)
+        if any(frozen) or any(n for pair in differ for n in pair):
+            fail("[accum] the accumulated updates are not the k = 1 updates, or a window moved")
+
+        del ref, pr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        s0 = device_state(torch, acc)
+        for b in batches[:ACCUM_K]:  # the captures, one graph a kind
+            acc.graph_step(b)
+        acc.load_train_state(s0)
+        eager = [acc._stacked_step(b) for b in batches]
+        a = {k: t.clone() for k, t in step_tensors(acc).items()}
+        acc.load_train_state(s0)
+        replays = acc.replays
+        replayed = [acc.graph_step(b) for b in batches]
+        torch.cuda.synchronize()
+        b_state = step_tensors(acc)
+        replay_differ = sorted(k for k in a if not torch.equal(a[k], b_state[k]))
+        metrics_equal = torch.equal(torch.stack(eager), torch.stack(replayed))
+        print(f"[accum] {GRAPH_STEPS} replays of the two captured graphs against {GRAPH_STEPS} eager "
+              f"micro-steps from one state on {GRAPH_STEPS} batches (cuDNN deterministic): "
+              f"{len(replay_differ)} of {len(a)} tensors differ {replay_differ[:8]}, metrics equal "
+              f"{metrics_equal}; replays counted {acc.replays - replays}; launches recorded in the "
+              f"update graph {acc.graph_launches}", flush=True)
+        if replay_differ or not metrics_equal or acc.replays - replays != GRAPH_STEPS:
+            fail("[accum] the replayed micro-steps differ from the eager ones")
+        del a, b_state, eager, replayed, s0
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # s/step as users run it (cuDNN's own algorithm choice): both trainers
+    # captured anew, then k = 2 and k = 1, eager and replayed, in turns
+    drop_graphs(acc)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = Trainer(cfg_1, device=DEVICE)
+    times = {"k1_eager": [], "k2_eager": [], "k1_replayed": [], "k2_replayed": []}
+    for trainer in (acc, ref):
+        for b in batches[:ACCUM_K]:
+            trainer.graph_step(b)
+
+    def run(trainer, step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            step(b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / len(batches)
+
+    for kind in ("eager", "replayed", "replayed", "eager"):
+        for name, trainer in (("k2", acc), ("k1", ref)):
+            step = trainer._stacked_step if kind == "eager" else trainer.graph_step
+            times[f"{name}_{kind}"].append(run(trainer, step))
+    print(f"[accum] s/step with cuDNN's algorithms free, {len(batches)} steps a turn: "
+          f"{json.dumps(times)}", flush=True)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if acc.optimizer.micro:
+        fail("[accum] the timed runs left a window open")
+    acc.optimizer.count = 0  # the fit starts a run (update 0, iteration 0) from these weights
+    acc.cfg = dataclasses.replace(cfg_k, max_iterations=GRAPH_STEPS, val_interval=GRAPH_STEPS,
+                                  num_tries="accum_fit")
+    torch.cuda.reset_peak_memory_stats()
+    wa.reset_launch_counts()
+    validate = acdc_evaluator(volumes, CLASSES_2D, cfg_k.patch_size, acc.device)
+    result = acc.fit(iter(batches), evaluate=validate)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    path = launches_now(wa)
+    drop_states(result)
+    log = result["log"]
+    print_log("[accum-fit]", log, acc.metric_keys)
+    lrs = [r["lr"] for r in log]
+    want_lrs = [acc.optimizer.schedule((r["iteration"] - 1) // ACCUM_K) for r in log]
+    s_per_step = log[-1]["seconds"] / len(log)  # one group: its steps are logged together
+    with open(os.path.join(acc.cfg.snapshot_path, "log.txt")) as f:
+        flop_lines = [ln.split(" - ")[-1] for ln in f.read().splitlines()
+                      if "analytic step cost" in ln or "end-to-end analytic" in ln]
+    print(f"[accum-fit] fit, k = {ACCUM_K}, {len(log)} steps in a group of {GRAPH_STEPS} replays and "
+          f"a validation: {s_per_step:.4f} s/step (the group's replays and their logging); "
+          f"validation mean dice {result['vals'][-1]['mean_dice'] if result['vals'] else None!r}; "
+          f"logged LRs {lrs} (each its update's: {want_lrs}); updates {acc.optimizer.count}; peak "
+          f"memory {peak / 2**30:.2f} GiB; window-attention launches {path}; log.txt: {flop_lines}",
+          flush=True)
+    if len(log) != GRAPH_STEPS or not result["vals"] or lrs != want_lrs or len(flop_lines) != 2 \
+            or acc.optimizer.count != GRAPH_STEPS // ACCUM_K:
+        fail("[accum-fit] the accumulating fit did not log its steps, LRs, validation and FLOP lines")
+    no_attention("[accum-fit]", path)
+    out = {"times": times, "peak_bytes": peak, "fit_s_per_step": s_per_step, "build_s": build_s,
+           "step_flops": acc.step_flops, "path_launches": path,
+           "seconds": time.perf_counter() - t_phase}
+    del acc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def clear_threshold(torch, confs) -> tuple[float, float]:
+    """The middle of the widest gap between sorted confidences from their
+    30th to their 70th percentile, and half that gap."""
+    confs = confs.flatten().sort().values
+    lo, hi = int(0.3 * len(confs)), int(0.7 * len(confs))
+    gaps = confs[lo + 1:hi] - confs[lo:hi - 1]
+    widest = int(gaps.argmax())
+    return float((confs[lo + widest] + confs[lo + widest + 1]) / 2), float(gaps[widest]) / 2
+
+
+def kernel_events(path: str) -> list:
+    """The card's kernel events of a Chrome trace (name, grid, microseconds)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], str(e.get("args", {}).get("grid")), float(e.get("dur", 0.0))) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
+def phase_fixmatch_cta_swin(torch, wa, slices, volumes) -> dict:
+    """45: FixMatch-CTA with the Swin-UNet through its CLI's `main` (the JAX
+    CLI's `--model swinunet --patch_size 224 224`: embed 96, window 7,
+    batch 16 of which 8 labeled, f32) for CTA_SWIN_STEPS steps, the
+    window-attention launches of the run asserted (per step: the weak,
+    strong and probe forwards, 8 no-mask + 6 mask each, the first two
+    backward), then a validation of its final weights on the volumes; one
+    step through the kernels against the same step with the plain
+    attention, beside a control, by phase 15's rule; one f32 step on the
+    card against the CPU's f64 step (embed 48, head dim 16), the CPU's f32
+    step the witness, phase 34's rule; one step traced (`utils.profiling.
+    trace`): the kernels it names, the device's ms, the window-attention
+    launches' ms per call; the step's analytic FLOPs."""
+    import gc
+
+    from icl_tpu_torch.data.ctaugment import CTAugment
+    from icl_tpu_torch.data.pipeline import cta_batches
+    from icl_tpu_torch.models.layers import DropPath
+    from icl_tpu_torch.models.registry import net_factory
+    from icl_tpu_torch.models.swin2d import SwinConfig, WindowAttention
+    from icl_tpu_torch.train.optim import PolySGD
+    from icl_tpu_torch.train.steps import make_fixmatch_cta_step
+    from icl_tpu_torch.train.trainer import acdc_evaluator
+    from icl_tpu_torch.utils import checkpoint as ckpt
+    from icl_tpu_torch.utils import flops
+    from icl_tpu_torch.utils.profiling import trace
+
+    t_phase = time.perf_counter()
+    side = IMG_SWIN_SUP
+    data = InMemoryDataset(slices, volumes)
+    snapshot = cta_snapshot(CTA_SWIN_EXP, "swinunet")
+    shutil.rmtree(os.path.dirname(snapshot), ignore_errors=True)
+    want = {k: {m: CTA_SWIN_STEPS * v.get(m, 0) for m in ("none", "region", "mask")}
+            for k, v in CTA_SWIN_PER_STEP.items()}
+    torch.manual_seed(0)  # drop-path masks
+    run = cta_cli(torch, wa, ["--model", "swinunet", "--patch_size", str(side), str(side), "--exp",
+                              CTA_SWIN_EXP, "--max_iterations", str(CTA_SWIN_STEPS)], data,
+                  "[cta-swin]", launches=want)
+    model = net_factory("swinunet", 1, CLASSES_2D, device=DEVICE, patch_size=side)
+    model.load_state_dict(ckpt.load_train_state(snapshot, "last", DEVICE)["model"], strict=True)
+    drop_states(run)
+    wa.reset_launch_counts()
+    t0 = time.perf_counter()
+    agg = acdc_evaluator(volumes, CLASSES_2D, (side, side), DEVICE)(model.eval())
+    val_s = time.perf_counter() - t0
+    val_launches = launches_now(wa)
+    chunks = sum(math.ceil(v["image"].shape[0] / 32) for v in volumes)
+    print(f"[cta-swin] a validation of the final weights on {len(volumes)} volumes in {val_s:.3f} s: "
+          f"mean dice {agg['mean_dice']!r} hd95 {agg['mean_hd95']!r}; launches {val_launches} "
+          f"({chunks} chunks)", flush=True)
+    if not math.isfinite(agg["mean_dice"]) or val_launches["fwd"] != {
+            "none": chunks * SWIN_SUP_PER_STEP["none"], "region": 0, "mask": chunks * SWIN_SUP_PER_STEP["mask"]}:
+        fail("[cta-swin] the validation's dice or launches are wrong")
+    del model
+    gc.collect()
+
+    batch = next(cta_batches(slices, LABELED_SLICES_2D, BATCH_2D, LABELED_2D, (side, side),
+                             CTAugment(seed=1337), seed=1337))
+
+    def build(device, dtype, plain=False, embed=96):
+        model = net_factory("swinunet", 1, CLASSES_2D, device=device, generator=torch.Generator().manual_seed(45),
+                            swin_cfg=SwinConfig(img_size=side, window_size=WINDOW_SWIN_SUP, embed_dim=embed))
+        for m in model.modules():
+            if isinstance(m, DropPath):
+                m.rate = 0.0
+            if plain and isinstance(m, WindowAttention):
+                m.attention = wa.window_attention_plain
+        return model.to(dtype)
+
+    def threshold(model) -> tuple[float, float]:
+        with torch.no_grad():
+            logits = model(torch.as_tensor(batch["image_weak"]).to(next(model.parameters())))
+        return clear_threshold(torch, torch.softmax(logits[LABELED_2D:].double(), 1).amax(1))
+
+    # the kernels against the plain attention, f32 on the card
+    conf, margin = threshold(build(DEVICE, torch.float32, plain=True))
+    starts, runs = {}, {}
+    for name, plain, scale in (("test", False, 1.0), ("reference", True, 1.0), ("control", False, 1.0 + 1e-7)):
+        model = build(DEVICE, torch.float32, plain)
+        starts[name] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        wa.reset_launch_counts()
+        metrics, after, _ = fixmatch_step(torch, model, batch, DEVICE, conf, scale)
+        runs[name] = (metrics, {n: t.clone() for n, t in after.items()}, launches_now(wa))
+        del model
+    launched = {k: r[2] for k, r in runs.items()}
+    print(f"[cta-swin-step] threshold {conf:.7f} ({margin:.2e} from the nearest confidence); mask "
+          f"ratios {({k: r[0]['mask_ratio'] for k, r in runs.items()})}; launches {launched}", flush=True)
+    # the step's launches and those of `fixmatch_step`'s separate probe forward
+    with_probe = {"fwd": {m: n + SWIN_SUP_PER_STEP[m] for m, n in CTA_SWIN_PER_STEP["fwd"].items()},
+                  "bwd": CTA_SWIN_PER_STEP["bwd"]}
+    if launched["reference"]["fwd"] != {"none": 0, "region": 0, "mask": 0} \
+            or {k: {m: v.get(m, 0) for m in SWIN_SUP_PER_STEP} for k, v in launched["test"].items()} \
+            != with_probe:
+        fail(f"[cta-swin-step] launches {launched}, expected {with_probe} with the kernels")
+    step_agreement(torch, "[cta-swin-step]", f"one {side}^2 f32 FixMatch-CTA Swin-UNet step, kernels vs "
+                   "plain attention", starts["test"], {k: runs[k][:2] for k in runs})
+    del runs, starts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the card's f32 step against the CPU's f64 step, the CPU's f32 step the witness
+    cpu_model = build("cpu", torch.float64, embed=CTA_SWIN_CPU_EMBED)
+    conf, margin = threshold(cpu_model)
+    del cpu_model
+    starts, runs = {}, {}
+    t0 = time.perf_counter()
+    for name, device, dtype in (("test", DEVICE, torch.float32), ("reference", "cpu", torch.float64),
+                                ("witness", "cpu", torch.float32)):
+        model = build(device, dtype, embed=CTA_SWIN_CPU_EMBED)
+        starts[name] = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        metrics, after, _ = fixmatch_step(torch, model, batch, device, conf)
+        runs[name] = (metrics, {n: t.cpu().clone() for n, t in after.items()})
+        del model
+    pixels = (BATCH_2D - LABELED_2D) * side * side
+    kept = {k: round(r[0]["mask_ratio"] * pixels) for k, r in runs.items()}  # the ratio's f32 rounding aside
+    print(f"[cta-swin-cpu] embed {CTA_SWIN_CPU_EMBED} at {side}^2, threshold {conf:.7f} ({margin:.2e} "
+          f"from the nearest confidence): pixels kept {kept} of {pixels}; the three steps in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if len(set(kept.values())) != 1:
+        fail("[cta-swin-cpu] the steps' masks part")
+    step_agreement(torch, "[cta-swin-cpu]", f"one {side}^2 f32 FixMatch-CTA Swin-UNet step on the card vs "
+                   "the CPU's f64 step (witness: the CPU's f32 step)", starts["test"],
+                   {"test": runs["test"], "reference": runs["reference"], "witness": runs["witness"]})
+    del runs, starts
+    gc.collect()
+
+    # one step at the CLI's width traced, one counted for FLOPs, three timed
+    model = build(DEVICE, torch.float32)
+    opt = PolySGD(model.parameters(), 0.01, 30000)
+    step = make_fixmatch_cta_step(model, opt, CLASSES_2D, LABELED_2D, 0.95, 1.0)
+    on_device = {k: torch.as_tensor(batch[k]).to(DEVICE, torch.float32)
+                 for k in ("image_weak", "image_strong", "probe_image")}
+    on_device.update({k: torch.as_tensor(batch[k]).to(DEVICE).long() for k in ("label_aug", "probe_label")})
+    step(on_device)  # warm-up: plans, allocator
+    torch.cuda.synchronize()
+    logdir = os.path.join(ROOT, "build", "chip_smoke", "trace")
+    with trace(logdir) as prof:
+        step(on_device)
+        torch.cuda.synchronize()
+    events = kernel_events(prof.trace_path)
+    attn, by_grid = {}, {}
+    for name, grid, dur in events:
+        for kernel in ("window_attention_bwd_kernel", "window_attention_kernel", "dbias_reduce_kernel"):
+            if kernel in name:
+                attn.setdefault(kernel, []).append(dur / 1e3)
+                by_grid.setdefault(f"{kernel} grid {grid}", []).append(dur / 1e3)
+                break
+    device_ms = sum(d for _, _, d in events) / 1e3
+    with flops.counting() as count:
+        step(on_device)
+    torch.cuda.synchronize()
+    step_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(on_device)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    summary = {k: {"launches": len(v), "ms": sum(v), "ms_per_call": sum(v) / len(v)} for k, v in attn.items()}
+    per_grid = {k: {"launches": len(v), "ms_per_call": sum(v) / len(v)} for k, v in sorted(by_grid.items())}
+    print(f"[cta-swin-trace] {prof.trace_path}: {len(events)} kernels, {device_ms:.3f} ms of device "
+          f"time in the step; the window-attention kernels it names {json.dumps(summary)}; the step's "
+          f"analytic FLOPs {count.total / 1e9:.1f} GFLOP ({count.kernel_flops / 1e9:.1f} of them the "
+          f"attention kernels'); the step alone {[round(t, 4) for t in step_s]} s; the kernels by "
+          f"grid (CTA groups, heads) {json.dumps(per_grid)}", flush=True)
+    fwd_calls = sum(CTA_SWIN_PER_STEP["fwd"].values())
+    bwd_calls = sum(CTA_SWIN_PER_STEP["bwd"].values())
+    if len(attn.get("window_attention_kernel", [])) != fwd_calls \
+            or len(attn.get("window_attention_bwd_kernel", [])) != bwd_calls:
+        fail(f"[cta-swin-trace] the trace names {summary}, expected {fwd_calls} forward and "
+             f"{bwd_calls} backward window-attention kernels")
+    del model, opt, step, on_device
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cli": {k: run[k] for k in ("s_per_step", "peak_bytes", "path_launches", "run_s")},
+            "val_s": val_s, "val_dice": agg["mean_dice"], "val_launches": val_launches,
+            "device_ms": device_ms, "kernels": summary, "by_grid": per_grid, "step_s": step_s,
+            "step_flops": count.total,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def phase_flop_lines(torch) -> dict:
+    """46: the analytic FLOP lines of every `Trainer.fit` of the run: each
+    run's GFLOP/step (its first step counted) and end-to-end TFLOP/s
+    (validations and saves included), and both lines in its log.txt
+    (asserted)."""
+    rows = []
+    for r in FIT_RUNS:
+        rate = r["step_flops"] * r["iterations"] / r["seconds"] / 1e12 if r["step_flops"] else None
+        rows.append({**r, "gflop_per_step": r["step_flops"] and r["step_flops"] / 1e9, "tflops": rate})
+        print(f"[flops] {r['model']} ({r['exp']}, {r['precision']}, state {r['state_dtype']}, "
+              f"grad_accum {r['grad_accum']}, scan_steps {r['scan_steps']}): "
+              f"{(r['step_flops'] or 0) / 1e9:.1f} GFLOP/step, {r['iterations']} iterations in "
+              f"{r['seconds']:.2f} s, end-to-end {rate if rate is None else round(rate, 3)} TFLOP/s; "
+              f"log.txt lines {r['log_lines']}", flush=True)
+    missing = [r["exp"] for r in rows if not r["step_flops"] or r["log_lines"] != (True, True)]
+    if not rows or missing:
+        fail(f"[flops] fits without their FLOP count or lines: {missing}")
+    return {"runs": rows}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -3485,6 +3963,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    record_fits()
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3662,6 +4141,17 @@ def main() -> int:
     print(f"[summary] data-parallel phases 41-43 in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps({'repeats': repeats, 'dp': dp, 'window': dp_window})}", flush=True)
 
+    # 44 - 46. this slice: gradient accumulation on the flagship; FixMatch-CTA
+    # with the Swin-UNet through its CLI; the FLOP lines of every fit
+    t0 = time.perf_counter()
+    accum = phase_grad_accum(torch, wa, slices, volumes)
+    cta_swin = phase_fixmatch_cta_swin(torch, wa, slices, volumes)
+    flop_lines = phase_flop_lines(torch)
+    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
+    print(f"[summary] phases 44-46 in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps({'accum': accum, 'cta_swin': cta_swin, 'flops': flop_lines}, default=str)}",
+          flush=True)
+
     # The kernels line, one entry per kernel and mode. Times are sums over
     # the shapes of a unit of work, each f32 launch time times its launches
     # there: for no-mask and mask one Swin-UNet-ICL training step at 384^2
@@ -3739,6 +4229,10 @@ def main() -> int:
                            sup_swinunetr["path_launches"][direction][mode],
                        "training_fixmatch_cta_2d": cta["path_launches"][direction][mode],
                        "training_fast_unet_2d": fast["run_launches"][direction][mode],
+                       "training_unet_2d_grad_accum": accum["path_launches"][direction][mode],
+                       "training_fixmatch_cta_swinunet_2d": cta_swin["cli"]["path_launches"][direction][mode],
+                       "validation_fixmatch_cta_swinunet_2d":
+                           cta_swin["val_launches"][direction].get(mode, 0),
                        "graph_swinunet_2d_supervised_first_step":
                            graph["swin_first_step"][direction][mode]}
             if direction == "fwd":

@@ -1,9 +1,22 @@
 """The `ExperimentConfig` fields the eval and training CLIs read
-(counterpart of `icl_tpu/config.py:20-158`)."""
+(counterpart of `icl_tpu/config.py:14-173`), and the two ACDC presets.
+
+Left out: `compile_cache_dir` (an XLA compile cache; the port compiles its
+kernels with `ops/build.py`, into `build/`), `mesh_data` and `mesh_model`
+(the mesh shape: tensor parallelism is not ported; data parallelism takes
+its group from `parallel.multihost`), and `deterministic` (the port's
+CLIs never read it)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
+
+
+# the JAX ExperimentConfig's defaults where the port's, which default to the
+# SwinUNETR BraTS CLI, differ
+ACDC_ICL_DEFAULTS = dict(root_path="../ACDC", exp="ACDC/Inherent_Consistent_Learning",
+                         model="icl_unet", num_classes=4, batch_size=16, patch_size=(256, 256),
+                         labeled_num=7)
 
 
 @dataclasses.dataclass
@@ -61,6 +74,14 @@ class ExperimentConfig:
     # oldest; a group's metrics are read only when it leaves that window
     scan_steps: int = 1
     dispatch_depth: int = 1
+    # gradient accumulation (optax.MultiSteps' contract, `train/optim.py`):
+    # each update applies the mean gradient of `grad_accum` micro-steps, and
+    # the poly LR counts updates; 1 = off
+    grad_accum: int = 1
+    # count the step's matmul and convolution FLOPs once, at its first eager
+    # run (`utils/flops.py`), and log GFLOP/step and the run's end-to-end
+    # analytic TFLOP/s
+    log_flops: bool = True
     # the 2D augmentations (rot90/flip, +-20 degree rotate, order-0 zoom) on
     # the device inside the step, on raw slices or a device-resident bank
     # (`data/device_augment.py`, `data/device_bank.py`)
@@ -79,12 +100,16 @@ class ExperimentConfig:
                 f"shrinking --batch_size requires shrinking --labeled_bs with it")
         if self.precision not in ("float32", "bfloat16"):
             raise ValueError(f"precision {self.precision!r}: want float32 or bfloat16")
-        if self.scan_steps < 1 or self.dispatch_depth < 1:
+        if self.scan_steps < 1 or self.grad_accum < 1 or self.dispatch_depth < 1:
             raise ValueError(
-                f"scan_steps ({self.scan_steps}) and dispatch_depth ({self.dispatch_depth}) "
-                f"must be >= 1")
+                f"scan_steps ({self.scan_steps}), grad_accum ({self.grad_accum}) and "
+                f"dispatch_depth ({self.dispatch_depth}) must be >= 1")
         if self.state_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"state_dtype: {self.state_dtype!r}")
+        if self.state_dtype == "bfloat16" and self.grad_accum > 1:
+            # the JAX package's rule: optax.MultiSteps would accumulate in the
+            # bf16 parameter dtype
+            raise ValueError("state_dtype='bfloat16' requires grad_accum=1")
 
     @property
     def snapshot_path(self) -> str:
@@ -92,3 +117,19 @@ class ExperimentConfig:
         {model}_exp_{num_tries}."""
         return (f"{self.experiments_dir}/{self.exp}_{self.labeled_num}_labeled/"
                 f"{self.model}_exp_{self.num_tries}")
+
+    def replace(self, **kw) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def acdc_icl_config(**overrides) -> ExperimentConfig:
+    """The flagship's config: U-Net-ICL on ACDC at the JAX CLI's defaults
+    (`icl_tpu/config.py:164`), with `overrides`."""
+    return ExperimentConfig(**{**ACDC_ICL_DEFAULTS, **overrides})
+
+
+def acdc_supervised_config(**overrides) -> ExperimentConfig:
+    """The fully supervised U-Net on ACDC (`icl_tpu/config.py:168`): no
+    consistency or pseudo-label weight, with `overrides`."""
+    return acdc_icl_config(exp="ACDC/Fully_Supervised", model="unet", labeled_num=7,
+                           consis_weight=0.0, pse_weight=0.0).replace(**overrides)

@@ -64,6 +64,29 @@ def random_crop_3d(image, label, output_size, rng: np.random.Generator):
     return image[sl], label[sl]
 
 
+def center_crop_3d(image, label, output_size):
+    """CenterCrop with the padding rule above: the crop's start in each
+    axis is round((size - output) / 2)."""
+    image, label = _pad_to_fit(image, label, output_size)
+    starts = [int(round((image.shape[i] - output_size[i]) / 2.0)) for i in range(3)]
+    sl = tuple(slice(s, s + o) for s, o in zip(starts, output_size))
+    return image[sl], label[sl]
+
+
+def random_noise_3d(image, rng: np.random.Generator, mu: float = 0.0, sigma: float = 0.1):
+    """RandomNoise: image + clip(sigma * N(0, 1), -2 sigma, 2 sigma) + mu,
+    the normals drawn from `rng` (no CLI uses it)."""
+    noise = np.clip(sigma * rng.standard_normal(image.shape), -2 * sigma, 2 * sigma)
+    return image + noise + mu
+
+
+def create_onehot_label(label: np.ndarray, num_classes: int) -> np.ndarray:
+    """CreateOnehotLabel, channel-first as the reference's: [C, *label.shape]
+    f32 (no CLI uses it; the JAX package's is channel-last)."""
+    label = np.asarray(label)
+    return np.stack([(label == c).astype(np.float32) for c in range(num_classes)])
+
+
 def random_rot_flip_3d(image, label, rng: np.random.Generator):
     """rot90 by k in {0..3} over the leading two axes, then a flip along
     axis 0 or 1."""

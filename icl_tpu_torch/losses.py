@@ -13,9 +13,13 @@ integers. Kept semantics of the reference:
   - smooth = 1e-5 on numerator and denominator;
   - the consistency target (`softmax_mse_loss`) and the pseudo-label
     prediction (`pseudo_soft_loss`) are detached.
+
+The reference's other losses, which no step calls, follow at the end
+(dice with either denominator, entropies, focal, EAM, KD and KL losses).
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -125,3 +129,118 @@ def pseudo_soft_loss(feat_maps: Sequence[torch.Tensor], predicts: torch.Tensor,
     for fm in feat_maps:
         loss = loss + softmax_dice_loss(resize_maps(fm, spatial), de_predicts)
     return loss / len(feat_maps)
+
+
+# ---- the reference's other losses (`icl_tpu/losses.py:37, 49, 168-260`),
+# which no training step calls; channel-first, computed in f32 or f64 ----
+
+def _log_entropy_terms(p: torch.Tensor) -> torch.Tensor:
+    p = at_least_f32(p)
+    return -(p * torch.log(p + 1e-6)).sum(1)
+
+
+def dice_loss_squared(score: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Soft dice over global sums, squared-sum denominator (`dice_loss`)."""
+    score = at_least_f32(score)
+    target = target.to(score.dtype)
+    intersect = (score * target).sum()
+    return 1.0 - (2.0 * intersect + SMOOTH) / ((score * score).sum() + (target * target).sum()
+                                                + SMOOTH)
+
+
+def dice_loss_linear(score: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Soft dice over global sums, linear-sum denominator (`dice_loss1`)."""
+    score = at_least_f32(score)
+    target = target.to(score.dtype)
+    intersect = (score * target).sum()
+    return 1.0 - (2.0 * intersect + SMOOTH) / (score.sum() + target.sum() + SMOOTH)
+
+
+def entropy_loss(p: torch.Tensor, num_classes: int = 2) -> torch.Tensor:
+    """Mean over pixels of the class entropy of probabilities [B, C, ...],
+    normalised by log(num_classes)."""
+    return (_log_entropy_terms(p) / math.log(float(num_classes))).mean()
+
+
+def entropy_minimization(p: torch.Tensor) -> torch.Tensor:
+    """Mean over pixels of the unnormalised class entropy."""
+    return _log_entropy_terms(p).mean()
+
+
+def entropy_loss_map(p: torch.Tensor) -> torch.Tensor:
+    """The per-pixel unnormalised class entropy [B, 1, ...]."""
+    return _log_entropy_terms(p).unsqueeze(1)
+
+
+def symmetric_mse_loss(input1: Sequence[torch.Tensor], input2: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-scale MSE of input2 against the detached FIRST scale of input1
+    (the reference indexes input1[0] in every iteration), summed, / 3."""
+    ref = at_least_f32(input1[0]).detach()
+    loss = 0.0
+    for x2 in input2:
+        loss = loss + ((ref - at_least_f32(x2)) ** 2).mean()
+    return loss / 3.0
+
+
+def cos_sim_loss(input1: Sequence[torch.Tensor], input2: Sequence[torch.Tensor]) -> torch.Tensor:
+    """len(input1) * (1 - cosine(input1[0], input2[0])) / 3 (the reference
+    compares the first scales once per scale)."""
+    a = at_least_f32(input1[0]).reshape(-1)
+    b = at_least_f32(input2[0]).reshape(-1)
+    cos = torch.dot(a, b) / (torch.linalg.norm(a) * torch.linalg.norm(b) + 1e-12)
+    return len(input1) * (1.0 - cos) / 3.0
+
+
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
+               alpha: Sequence[float] | torch.Tensor | None = None) -> torch.Tensor:
+    """FocalLoss, mean reduction: -(1 - pt)^gamma * alpha[label] * log pt,
+    pt detached in the factor."""
+    logp = torch.log_softmax(at_least_f32(logits), dim=1)
+    logpt = logp.gather(1, labels.long().unsqueeze(1)).squeeze(1)
+    pt = torch.exp(logpt.detach())
+    if alpha is not None:
+        logpt = logpt * torch.as_tensor(alpha, dtype=logpt.dtype, device=logpt.device)[labels.long()]
+    return (-((1.0 - pt) ** gamma) * logpt).mean()
+
+
+def eam_loss(feat_maps: Sequence[torch.Tensor], labels: torch.Tensor,
+             spatial: Sequence[int] = (224, 224)) -> torch.Tensor:
+    """EAMLoss: the CE of each class map upsampled to `spatial`, summed, / 3."""
+    loss = 0.0
+    for fm in feat_maps:
+        loss = loss + cross_entropy_loss(resize_maps(fm, spatial), labels)
+    return loss / 3.0
+
+
+def kd_loss(guidance_1: Sequence[torch.Tensor], guidance_2: Sequence[torch.Tensor],
+            temperature: float = 2.0) -> torch.Tensor:
+    """KD_Loss: per scale, the symmetric KL between the temperature-softened
+    distributions of the LAST class query [B, cls, C] -> [B, C] (the
+    reference's loop keeps only the last class), mean over scales."""
+    loss = 0.0
+    for g1, g2 in zip(guidance_1, guidance_2):
+        j = g1.shape[1] - 1
+        p1 = torch.softmax(at_least_f32(g1[:, j, :]) / temperature, dim=1)
+        p2 = torch.softmax(at_least_f32(g2[:, j, :]) / temperature, dim=1)
+        loss = loss + ((p1 * torch.log(p1 / p2)).sum() + (p2 * torch.log(p2 / p1)).sum()) / 2.0
+    return loss / float(len(guidance_1))
+
+
+def compute_kl_loss(p: Sequence[torch.Tensor], q: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The mean over scales of the symmetric KL of class softmaxes, each
+    direction's terms averaged over every element."""
+    loss = 0.0
+    for pn, qn in zip(p, q):
+        lp, lq = torch.log_softmax(at_least_f32(pn), 1), torch.log_softmax(at_least_f32(qn), 1)
+        p_loss = (lq.exp() * (lq - lp)).mean()
+        q_loss = (lp.exp() * (lp - lq)).mean()
+        loss = loss + (p_loss + q_loss) / 2.0
+    return loss / len(q)
+
+
+def softmax_kl_loss(input_logits: torch.Tensor, target_logits: torch.Tensor) -> torch.Tensor:
+    """KL(softmax(target) || softmax(input)) averaged over every element
+    (F.kl_div(log_softmax(input), softmax(target), reduction="mean"))."""
+    input_logp = torch.log_softmax(at_least_f32(input_logits), dim=1)
+    target_sm = torch.softmax(at_least_f32(target_logits), dim=1)
+    return (target_sm * (torch.log(target_sm.clamp_min(1e-38)) - input_logp)).mean()

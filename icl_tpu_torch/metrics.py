@@ -4,6 +4,10 @@ host):
 
     pred and gt both empty      -> (dice 1, hd95 0)
     exactly one of them empty   -> (dice 0, hd95 373.128664)
+
+and the reference's other metrics, which no evaluation calls
+(`icl_tpu/metrics.py:81-136`): pixel accuracy, mean IoU, the binary
+Jaccard index and `evaluate_seg`.
 """
 from __future__ import annotations
 
@@ -82,3 +86,45 @@ def aggregate_case_metrics(metric_cal: list[list[tuple[float, float]]]) -> dict:
         "class_mean": class_mean,
         "class_std": class_std,
     }
+
+
+def pixel_accuracy(pred: np.ndarray, gt: np.ndarray) -> float:
+    """The share of labeled (gt >= 0) pixels predicted right."""
+    pred, gt = np.asarray(pred), np.asarray(gt)
+    labeled = gt >= 0
+    return np.count_nonzero((pred == gt) & labeled) / max(1, np.count_nonzero(labeled))
+
+
+def mean_iou(pred: np.ndarray, gt: np.ndarray, num_classes: int) -> float:
+    """The mean IoU over the classes present in gt or pred (0 when none is)."""
+    pred, gt = np.asarray(pred), np.asarray(gt)
+    ious = []
+    for c in range(num_classes):
+        p, g = pred == c, gt == c
+        union = np.count_nonzero(p | g)
+        if union:
+            ious.append(np.count_nonzero(p & g) / union)
+    return float(np.mean(ious)) if ious else 0.0
+
+
+def jaccard_binary(pred: np.ndarray, gt: np.ndarray) -> float:
+    """|A n B| / |A u B| (medpy.metric.binary.jc); 0 when both are empty."""
+    pred = np.asarray(pred).astype(bool)
+    gt = np.asarray(gt).astype(bool)
+    union = np.count_nonzero(pred | gt)
+    return np.count_nonzero(pred & gt) / union if union else 0.0
+
+
+def evaluate_seg(pred: np.ndarray, gt: np.ndarray) -> tuple[float, float, float]:
+    """(MAE, Dice, IoU) of soft binary maps thresholded at 0.5, the
+    reference's `evaluate_seg` with its quirk: a true-positive count of 0
+    is taken as 1, so an all-negative prediction of a positive gt still
+    scores a nonzero Dice and IoU."""
+    pred_b = (np.asarray(pred, np.float64) >= 0.5).astype(np.float64)
+    gt_b = (np.asarray(gt, np.float64) >= 0.5).astype(np.float64)
+    mae = float(np.abs(pred_b - gt_b).mean())
+    tp = float((pred_b * gt_b).sum()) or 1.0
+    fp = float((pred_b * (1.0 - gt_b)).sum())
+    fn = float(((1.0 - pred_b) * gt_b).sum())
+    recall, precision = tp / (tp + fn), tp / (tp + fp)
+    return mae, 2.0 * precision * recall / (precision + recall), tp / (tp + fp + fn)

@@ -162,7 +162,17 @@ def upsample_align_corners(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
 
 def call_remat(remat: bool, fn, *args):
     """fn(*args), recomputed in the backward when `remat` is set and
-    autograd records (non-reentrant checkpoint)."""
+    autograd records (non-reentrant checkpoint). Under a CUDA graph capture
+    the recompute runs inside the captured backward and is recorded with
+    it, so a replay recomputes as the eager step does, given that: `fn`
+    draws no random numbers (the 3D U-Net's dropouts sit between its
+    recomputed blocks, so no saved RNG state is replayed); `fn` reads no
+    host value; and the
+    recompute's autocast casts its weights again, as the first forward did,
+    with autocast's weight cache off in eager steps too
+    (`train/steps.py:_forward_context`), where a cached cast would make
+    eager and replayed steps sum a shared weight's gradients in another
+    precision."""
     if remat and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)

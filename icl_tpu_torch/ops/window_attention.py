@@ -20,6 +20,9 @@ on CPU tensors they run `window_attention_plain` and
 `window_attention_plain_bwd`. Each kernel chooses its CTA's warps and
 shared memory and reports them with its resident CTAs per SM
 (`_fwd_geometry`, `_bwd_geometry`); `_window_groups` sizes both grids.
+Each launch adds its FLOPs to any count in progress (`utils.flops`):
+4*B*H*N^2*D forward, 10*B*H*N^2*D backward, what the plain versions'
+matmuls count on the CPU.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ import ctypes
 import functools
 
 import torch
+
+from icl_tpu_torch.utils.flops import add_kernel_flops
 
 HEAD_DIMS = (16, 32)  # the kernels' compiled head dims (SwinUNETR fs48, Swin-UNet 2D embed 96)
 _MAX_SMEM_BYTES = 232_448  # per CTA on Hopper
@@ -259,6 +264,7 @@ def window_attention_fwd(q, k, v, bias, region_ids=None, mask=None, *, scale: fl
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, lib, "window_attention")
+    add_kernel_flops(4.0 * B * H * N * N * D)
     window_attention.launches += 1
     window_attention.launches_by_mode[mode] += 1
     return out
@@ -289,6 +295,7 @@ def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, lib, "window_attention_bwd")
+    add_kernel_flops(10.0 * B * H * N * N * D)
     window_attention_bwd.launches += 1
     window_attention_bwd.launches_by_mode[mode] += 1
     return dq, dk, dv, dbias

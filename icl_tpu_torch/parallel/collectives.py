@@ -99,17 +99,23 @@ def reduce_gradients(params: Iterable[torch.nn.Parameter],
                      group: Optional[dist.ProcessGroup] = None) -> None:
     """Replace each parameter's gradient by the mean of the ranks' gradients
     (their sum / W: the gradient of the global loss, see the module's
-    docstring), in flat buckets of up to BUCKET_ELEMS elements summed in f32
-    (f64 for f64), one all-reduce each. Parameters without a gradient are
+    docstring), by `reduce_mean_`. Parameters without a gradient are
     skipped (every rank has the same ones). With one process, nothing."""
+    reduce_mean_([p.grad for p in params if p.grad is not None], group)
+
+
+@torch.no_grad()
+def reduce_mean_(tensors: list, group: Optional[dist.ProcessGroup] = None) -> None:
+    """Replace each tensor by the mean over the ranks of its copies, in
+    place, in flat buckets of up to BUCKET_ELEMS elements summed in f32
+    (f64 for f64), one all-reduce each. With one process, nothing."""
     group = _group(group)
     if group is None:
         return
     w = dist.get_world_size(group)
-    grads = [p.grad for p in params if p.grad is not None]
     buckets: list[list[torch.Tensor]] = []
     size = 0
-    for g in grads:
+    for g in tensors:
         if not buckets or size + g.numel() > BUCKET_ELEMS \
                 or _reduction_dtype(g.dtype) != _reduction_dtype(buckets[-1][0].dtype):
             buckets.append([])

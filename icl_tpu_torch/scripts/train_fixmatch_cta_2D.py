@@ -18,7 +18,9 @@ restores `state_last.pt` if there is one and the persisted rates, and
 trains on from the restored step up to `--max_iterations`; the batch
 stream starts again from `--seed`, as in the JAX CLI. `--cta_rate_lag 1`
 (the default) applies each step's rate update after the next step is
-queued; 0 applies it at once. `--model` is `unet`, the only model taken.
+queued; 0 applies it at once. `--model` is `unet` or `swinunet` (the
+Swin-UNet, embed 96, window 7; the JAX CLI's command line is `--model
+swinunet --patch_size 224 224`, where the image side follows the patch).
 """
 from __future__ import annotations
 

@@ -7,11 +7,14 @@ proximity (rate = decay * rate + (1 - decay) * proximity at the drawn
 bin). The probe forward runs in the step's call, on the updated weights
 (`make_fixmatch_cta_step`).
 
-The path trains the plain U-Net (`unet`), the JAX CLI's model; every
-other model is refused before anything is built. The JAX step also takes
-the Swin-UNet (`swinunet`, whose empty BatchNorm collection it passes
-through) and fails at its first call on the models whose forward returns
-a tuple (the ICL models, `unet_cct`, `unet_urpc`, `unet_ds`). The JAX
+The path trains the plain U-Net (`unet`), the JAX CLI's default, and the
+Swin-UNet (`swinunet`, the JAX CLI's `--model swinunet`, at 224^2 with
+window 7: its window attention runs the CUDA kernels, forward and
+backward, at two batch sizes, the weak forward of the whole batch and the
+strong forward of its unlabeled part). Every other model is refused
+before anything is built: the JAX step fails at its first call on the
+models whose forward returns a tuple (the ICL models, `unet_cct`,
+`unet_urpc`, `unet_ds`). The JAX
 `fit` counts its steps from 0 on every call, so a resumed run trains
 `max_iterations` more steps and names its rolling saves from the first
 interval again, and it ends with no train state saved; here `fit`
@@ -33,31 +36,30 @@ from icl_tpu_torch.train.trainer import Trainer
 from icl_tpu_torch.utils.logging_utils import setup_logging
 
 
-CTA_MODELS = ("unet",)
+CTA_MODELS = ("unet", "swinunet")
 
 
 class CTATrainer(Trainer):
-    """The U-Net, `PolySGD` and the fused-probe FixMatch step on
-    `device` (the CUDA card unless the caller passes "cpu"), f32 with TF32
-    off on the card; the train state, `restore_state` and the rolling
-    saves are `Trainer`'s."""
+    """The U-Net or the Swin-UNet, `PolySGD` and the fused-probe FixMatch
+    step on `device` (the CUDA card unless the caller passes "cpu"), f32
+    with TF32 off on the card; the train state, `restore_state` and the
+    rolling saves are `Trainer`'s."""
 
     def __init__(self, cfg: ExperimentConfig, conf_thresh: float = 0.95,
                  unsup_weight: float = 1.0, device=None):
         if cfg.model not in CTA_MODELS:
             raise ValueError(
-                f"model {cfg.model!r}: the FixMatch-CTA path trains {list(CTA_MODELS)}, the JAX "
-                "CLI's model, whose forward returns one logits tensor; the ICL models and the "
-                "U-Net variants return tuples (the JAX step fails on them at its first call), "
-                "and the Swin-UNet is not taken on this path")
+                f"model {cfg.model!r}: the FixMatch-CTA path trains {list(CTA_MODELS)}, whose "
+                "forward returns one logits tensor; the ICL models and the U-Net variants return "
+                "tuples (the JAX step fails on them at its first call)")
         if len(cfg.patch_size) != 2:
             raise ValueError(f"the CTA path is 2D (ACDC); patch {tuple(cfg.patch_size)}")
         fast = {k: getattr(cfg, k) for k in ("state_dtype", "device_augment", "scan_steps",
-                                              "dispatch_depth")}
+                                              "dispatch_depth", "grad_accum")}
         if fast != {"state_dtype": "float32", "device_augment": False, "scan_steps": 1,
-                    "dispatch_depth": 1}:
+                    "dispatch_depth": 1, "grad_accum": 1}:
             raise ValueError(f"{fast}: the FixMatch-CTA path (its JAX CLI too) has none of the "
-                             "flagship's fast options")
+                             "flagship's fast options and no gradient accumulation")
         super().__init__(cfg, device=device)
         self.step_fn = make_fixmatch_cta_step(self.model, self.optimizer, cfg.num_classes,
                                               cfg.labeled_bs, conf_thresh, unsup_weight)

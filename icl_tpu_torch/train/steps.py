@@ -18,7 +18,6 @@ import torch
 import torch.nn.functional as F
 
 from icl_tpu_torch import losses
-from icl_tpu_torch.parallel.collectives import reduce_gradients
 from icl_tpu_torch.train.optim import PolySGD
 
 METRIC_KEYS = ("loss", "loss_seg", "loss_ce", "loss_dice", "loss_aux", "loss_pse",
@@ -34,13 +33,18 @@ def _check_precision(precision: str) -> None:
 
 
 def _forward_context(precision: str, device: torch.device):
-    """autocast to bf16 for "bfloat16", nothing for "float32". Inside a
-    CUDA graph capture autocast's cache of cast weights is off: a cached
-    cast would be made once, in the graph's memory, and its pointer kept by
-    replays of another capture; the values are the same either way."""
+    """autocast to bf16 for "bfloat16", nothing for "float32". autocast's
+    cache of cast weights is off, in eager steps and under a CUDA graph
+    capture alike. With the cache a weight that the step uses twice (the
+    backbone's, by the labeled and the unlabeled pass) is cast once, and
+    the two uses' bf16 gradients are summed in bf16 before the cast's
+    backward takes them to f32; without it each use has its own cast and
+    the sum is in f32, as in the JAX package, whose modules cast their f32
+    parameters at each call. A capture cannot keep the cache (a cached cast
+    would be made once, in the graph's memory), so with the cache on in
+    eager steps a replay would sum otherwise than the eager step did."""
     if precision == "bfloat16":
-        capturing = device.type == "cuda" and torch.cuda.is_current_stream_capturing()
-        return torch.autocast(device.type, dtype=torch.bfloat16, cache_enabled=not capturing)
+        return torch.autocast(device.type, dtype=torch.bfloat16, cache_enabled=False)
     return contextlib.nullcontext()
 
 
@@ -169,9 +173,8 @@ def make_icl_step(model: torch.nn.Module, optimizer: PolySGD, num_classes: int, 
     device). Under data parallelism (`parallel.mesh.data_group`) `batch` is
     this rank's rows (`parallel.multihost.host_rows`: its share of each
     branch, `labeled_bs` the labeled share), the losses and metrics are
-    those of the global batch, and the gradients are reduced over the
-    ranks before the update (`parallel.collectives`), so every rank makes
-    the same update."""
+    those of the global batch, and `PolySGD.step` reduces the gradients
+    over the ranks at the update, so every rank makes the same update."""
     patch = tuple(patch_size)
     _check_precision(precision)
 
@@ -192,7 +195,6 @@ def make_icl_step(model: torch.nn.Module, optimizer: PolySGD, num_classes: int, 
         loss_seg = loss_ce + loss_dice
         loss = loss_seg + loss_aux + pse_weight * loss_pse + consis_weight * loss_consis
         loss.backward()
-        reduce_gradients(optimizer.params)
         optimizer.step()
         values = (loss, loss_seg, loss_ce, loss_dice, loss_aux, loss_pse, consis_weight * loss_consis)
         return {k: v.detach() for k, v in zip(METRIC_KEYS, values)}

@@ -27,13 +27,20 @@ that window (:289-400).
 
 Under data parallelism (a group of more than one process, made by
 `parallel.multihost.initialize_from_args`) each process holds a replica and
-steps on its rows of the global batch; the step reduces over the group, so
-the replicas stay equal. As in the JAX trainer (:236-245, :405-420) only
+steps on its rows of the global batch; the optimizer reduces the update's
+gradient over the group (`PolySGD.step`), so the replicas stay equal. As in the JAX trainer (:236-245, :405-420) only
 rank 0 logs, writes scalars, validates and saves; the others wait for it in
 a barrier after each validation and each save. Step groups run one step at
 a time there (no CUDA graph: the collectives run on the host's schedule).
 Dropout and drop-path masks come from torch's default generators seeded per
 (seed, rank).
+
+`cfg.grad_accum` > 1 is the JAX trainer's optax.MultiSteps (:76-79): each
+update applies the mean gradient of that many micro-steps (`PolySGD`), the
+train state carries the accumulator and the micro-step index, and a group
+of replays alternates the two captured graphs of a window. With
+`cfg.log_flops` the first eager step is counted (`utils/flops.py`) and
+`fit` logs the JAX trainer's two FLOP lines (:377-381, :476-483).
 """
 from __future__ import annotations
 
@@ -156,7 +163,7 @@ class Trainer:
                 p.data = p.data.to(torch.bfloat16)
         self.optimizer = PolySGD(self.model.parameters(), cfg.base_lr, cfg.max_iterations,
                                  cfg.momentum, cfg.weight_decay, cfg.poly_power,
-                                 state_dtype=cfg.state_dtype)
+                                 state_dtype=cfg.state_dtype, grad_accum=cfg.grad_accum)
         if cfg.model in ICL_MODELS:
             self.step_fn = make_icl_step(self.model, self.optimizer, cfg.num_classes,
                                          labeled_bs, cfg.patch_size, cfg.consis_weight,
@@ -168,10 +175,22 @@ class Trainer:
             self.step_fn = self._augmenting(self.step_fn)
         self.iteration = 0
         self.metric_keys: tuple = ()
-        self._graph: Optional[dict] = None
-        # kernel launches recorded in the captured step, replayed with it
-        self.graph_launches: dict = {}
+        # the captured steps by kind ("update"; with grad_accum > 1 also
+        # "accumulate"), their static inputs and their memory pool
+        self._graphs: dict = {}
+        self._graph_inputs: Optional[dict] = None
+        self._graph_pool = None
         self.replays = 0
+        # the analytic FLOPs of one step, counted at the first eager step
+        # when cfg.log_flops is set (`utils.flops`)
+        self.step_flops: Optional[float] = None
+
+    @property
+    def graph_launches(self) -> dict:
+        """The kernel launches recorded in the captured update step, which
+        each of its replays runs ({} before the capture)."""
+        graph = self._graphs.get("update")
+        return dict(graph["launches"]) if graph else {}
 
     @property
     def scan_steps(self) -> int:
@@ -320,27 +339,49 @@ class Trainer:
         """One training step on a batch of `to_device` and the iteration
         counted; its metrics as one vector (`metric_keys`), on the device.
         With cfg.scan_steps > 1 on the card the step is a replay of the
-        captured CUDA graph (`graph_step`); else it runs eagerly."""
+        captured CUDA graph (`graph_step`); else it runs eagerly. With
+        cfg.log_flops the first eager step is counted (`count_step_flops`)."""
         if self.scan_steps > 1 and self.device.type == "cuda":
             vec = self.graph_step(batch)
+        elif self.cfg.log_flops and self.step_flops is None:
+            vec = self.count_step_flops(batch)
         else:
             vec = self._stacked_step(batch)
         self.iteration += 1
         return vec
 
+    def count_step_flops(self, batch: dict) -> torch.Tensor:
+        """`_stacked_step(batch)` with its matmul and convolution FLOPs
+        counted (`utils.flops.counting`: the kernels' by formula) into
+        `step_flops`, summed over the ranks under data parallelism. The
+        count runs the same kernels as any step."""
+        from icl_tpu_torch.parallel.collectives import all_reduce_sum, group_device
+        from icl_tpu_torch.utils.flops import counting
+
+        with counting() as count:
+            vec = self._stacked_step(batch)
+        where = group_device(self.mesh.group) if self.mesh.group is not None else "cpu"
+        total = torch.tensor(count.total, dtype=torch.float64, device=where)
+        self.step_flops = float(all_reduce_sum(total))
+        return vec
+
     def graph_step(self, batch: dict) -> torch.Tensor:
-        """The step as a replay of one captured CUDA graph: the batch is
-        copied into the graph's static inputs (the banks must be the
-        captured ones), the LR and update count written into their device
-        tensors, the graph replayed. The first call runs the step eagerly
-        on a side stream (a real step, which also makes cuBLAS's and
-        cuDNN's plans and the model's cached buffers) and then captures it;
-        the iteration is not counted here."""
-        if self._graph is None:
-            return self._capture(batch)
-        graph = self._graph
+        """The step as a replay of a captured CUDA graph: the batch is
+        copied into the graphs' static inputs (the banks must be the
+        captured ones), the optimizer's device inputs written, the graph
+        replayed. With cfg.grad_accum > 1 a window has two kinds of step,
+        one that only accumulates and the one that also updates; one graph
+        of each is captured, in one memory pool, and the host's micro-step
+        index (`PolySGD.updates_now`) picks the graph. The first call of
+        each kind runs the step eagerly on a side stream (a real step, which
+        also makes cuBLAS's and cuDNN's plans and the model's cached
+        buffers) and then captures it; the iteration is not counted here."""
+        kind = "update" if self.optimizer.updates_now else "accumulate"
+        graph = self._graphs.get(kind)
+        if graph is None:
+            return self._capture(batch, kind)
         for key, src in batch.items():
-            dst = graph["inputs"][key]
+            dst = self._graph_inputs[key]
             if key in BANK_KEYS:
                 if src is not dst:
                     raise ValueError(f"a replayed step takes the captured {key}; got another tensor")
@@ -351,31 +392,45 @@ class Trainer:
                 dst.copy_(src, non_blocking=True)
         self.optimizer.write_inputs()
         graph["graph"].replay()
-        self.optimizer.count += 1
+        self.optimizer.advance()
         self.replays += 1
         return graph["metrics"].clone()
 
-    def _capture(self, batch: dict) -> torch.Tensor:
-        """The first graph step: the eager step on a side stream, then the
-        capture. What would make a replay differ from the eager step, and
-        what is done about it:
+    def _capture(self, batch: dict, kind: str) -> torch.Tensor:
+        """The first graph step of `kind`: the eager step on a side stream
+        (counted by `count_step_flops` when cfg.log_flops asks and nothing
+        is counted yet), then the capture. What would make a replay differ
+        from the eager step, and what is done about it:
           * dropout and drop path draw from the card's default generator,
             which a capture registers itself; a module's own CUDA generator
             is registered here (`register_generator_state`), or every replay
             would repeat one mask;
-          * autocast's cache of cast weights is off inside the capture
-            (`steps._forward_context`);
-          * the LR and the update count are device tensors written before
-            each replay (`PolySGD.write_inputs`); the step reads no host
-            value (no `.item()`, no data-dependent shape);
+          * autocast's cache of cast weights is off, in the eager step too
+            (`steps._forward_context`): with it, a weight used twice has
+            one cast whose bf16 gradients are summed in bf16, without it
+            two casts summed in f32, and a capture cannot keep the cache;
+          * the LR, the update count and the micro-step's divisor are
+            device tensors written before each replay
+            (`PolySGD.write_inputs`); the step reads no host value (no
+            `.item()`, no data-dependent shape), and which graph runs is the
+            host's micro-step index;
           * the gradients are set to None before the capture, so the
             backward makes them in the graph's memory and each replay
             rewrites them in place; a parameter that gets none takes the
             zero gradient `PolySGD` made at the eager step;
+          * the two kinds of step share the static inputs and the memory
+            pool; what one replay leaves in the pool the other never reads
+            (the parameters, momentum, accumulators and running stats live
+            outside it, and each replay's metrics are copied out at once);
+          * the recompute of a checkpointed block (`layers.call_remat`)
+            runs in the backward inside the capture and is recorded with
+            it; it draws no random numbers (the 3D U-Net's dropouts sit
+            between the recomputed blocks) and casts its weights again, as
+            the eager recompute does with the cache off;
           * the window-attention and SGD kernels launch on the current
             stream, so the capture records them; their wrappers count the
             launches they record once, at the capture: `graph_launches` holds
-            those counts, the launches of every replayed step;
+            those of the update step, the launches of every replayed update;
           * cuDNN's algorithms are those the eager step chose
             (`cudnn.benchmark` stays off, and the plans are cached by
             shape);
@@ -385,24 +440,32 @@ class Trainer:
         main = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(main)
+        before = (self.optimizer.count, self.optimizer.micro)
         with torch.cuda.stream(side):
-            vec = self._stacked_step(batch)
+            if self.cfg.log_flops and self.step_flops is None:
+                vec = self.count_step_flops(batch)
+            else:
+                vec = self._stacked_step(batch)
         main.wait_stream(side)
         vec.record_stream(main)
-        inputs = {k: t if k in BANK_KEYS else t.clone() for k, t in batch.items()}
+        after = (self.optimizer.count, self.optimizer.micro)
+        if self._graph_inputs is None:
+            self._graph_inputs = {k: t if k in BANK_KEYS else t.clone() for k, t in batch.items()}
+            self._graph_pool = torch.cuda.graph_pool_handle()
         self.optimizer.zero_grad()
-        count = self.optimizer.count
+        # the capture records the branch of the step it replaces
+        self.optimizer.count, self.optimizer.micro = before
         graph = torch.cuda.CUDAGraph()
         for g in self._generators().values():
             if g.device.type == "cuda":
                 graph.register_generator_state(g)
-        before = launch_counts()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            metrics = self._stacked_step(inputs)
-        after = launch_counts()
-        self.optimizer.count = count
-        self.graph_launches = {k: after[k] - before[k] for k in after}
-        self._graph = {"graph": graph, "inputs": inputs, "metrics": metrics}
+        counts = launch_counts()
+        with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
+            metrics = self._stacked_step(self._graph_inputs)
+        self.optimizer.count, self.optimizer.micro = after
+        launched = launch_counts()
+        self._graphs[kind] = {"graph": graph, "metrics": metrics,
+                              "launches": {k: launched[k] - counts[k] for k in launched}}
         return vec
 
     def fit(self, train_batches: Iterable[dict],
@@ -427,7 +490,15 @@ class Trainer:
         logged step (iteration, seconds since the start when it was logged,
         lr, metrics), "vals": one dict per validation (iteration, mean_dice,
         mean_hd95, its seconds), "best_mean_dice", "best_path", "saves": one
-        dict per train-state save (iteration, path, bytes, seconds)}."""
+        dict per train-state save (iteration, path, bytes, seconds),
+        "step_flops": the analytic FLOPs of one step (cfg.log_flops; None
+        when not counted), "seconds": the run's wall time}. With
+        cfg.log_flops, log.txt gets the JAX trainer's two lines: the step's
+        analytic GFLOP after the first group, and the run's end-to-end
+        analytic TFLOP/s in the finished line. The logged LR of a step is
+        that of the update it belongs to (with cfg.grad_accum > 1, one
+        update per window); the JAX trainer logs lr(iteration - 1)
+        whatever cfg.grad_accum."""
         cfg = self.cfg
         snapshot = cfg.snapshot_path
         if self.mesh.rank == 0:
@@ -502,7 +573,7 @@ class Trainer:
                 if it % cfg.log_interval:
                     continue
                 host = dict(zip(self.metric_keys, values))
-                lr = self.optimizer.schedule(it - 1)
+                lr = group["lrs"][r]
                 log.append({"iteration": it, "seconds": time.perf_counter() - t_start, "lr": lr,
                             **host})
                 writer.add_scalar("Info/lr", lr, it)
@@ -515,6 +586,7 @@ class Trainer:
                 flush(pending.popleft())
 
         running = True
+        flops_logged = False
         while running and self.iteration < cfg.max_iterations:
             group = []
             for _ in range(self._group_size()):
@@ -526,7 +598,15 @@ class Trainer:
             if not group:
                 break
             base = self.iteration
-            pending.append(self._to_host(base, [self.train_step(batch) for batch in group]))
+            vecs, lrs = [], []
+            for batch in group:
+                lrs.append(self.optimizer.schedule(self.optimizer.count))  # its update's LR
+                vecs.append(self.train_step(batch))
+            pending.append({**self._to_host(base, vecs), "lrs": lrs})
+            if self.step_flops is not None and not flops_logged:
+                flops_logged = True
+                logger.info("analytic step cost: %.1f GFLOP (2MNK matmul + conv count of the first "
+                            "step, incl. remat recompute)", self.step_flops / 1e9)
             # at most dispatch_depth groups in flight while the host makes the next one; at
             # depth 1 each group is waited for and logged as soon as it is dispatched
             while len(pending) >= cfg.dispatch_depth:
@@ -564,11 +644,19 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - t_start
-        logger.info("Training finished: %d iters in %.1fs (%.2f it/s)",
-                    self.iteration, elapsed, self.iteration / max(elapsed, 1e-9))
+        if cfg.log_flops and self.step_flops:
+            # end to end: validations, saves and logging included
+            logger.info("Training finished: %d iters in %.1fs (%.2f it/s, end-to-end analytic %.2f "
+                        "TFLOP/s at %.1f GFLOP/step)", self.iteration, elapsed,
+                        self.iteration / max(elapsed, 1e-9),
+                        self.step_flops * self.iteration / max(elapsed, 1e-9) / 1e12,
+                        self.step_flops / 1e9)
+        else:
+            logger.info("Training finished: %d iters in %.1fs (%.2f it/s)",
+                        self.iteration, elapsed, self.iteration / max(elapsed, 1e-9))
         self._save_state(logger, saves)
         return {"log": log, "vals": vals, "best_mean_dice": best, "best_path": best_path,
-                "saves": saves}
+                "saves": saves, "step_flops": self.step_flops, "seconds": elapsed}
 
 
 def brats_evaluator(dataset, num_classes: int, patch_size, device) -> Callable[[torch.nn.Module], dict]:

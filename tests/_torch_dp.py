@@ -164,7 +164,33 @@ def task_multihost(job: dict, rank: int, world: int) -> dict:
     return out
 
 
-TASKS = {"steps": task_steps, "reductions": task_reductions, "multihost": task_multihost}
+def task_accum(job: dict, rank: int, world: int) -> dict:
+    """`job["steps"]` micro-steps of the ICL step with gradient accumulation
+    (`job["grad_accum"]`, f64, zero_stochastic) on this rank's rows of each
+    global batch: the parameters, momentum and accumulators after each
+    step."""
+    from icl_tpu_torch.models.registry import net_factory
+    from icl_tpu_torch.train.optim import PolySGD
+    from icl_tpu_torch.train.steps import make_icl_step
+
+    model = net_factory("icl_unet", 1, job["classes"], device="cpu", patch_size=job["patch"],
+                        zero_stochastic=True)
+    model.load_state_dict(job["old"], strict=True)
+    model = model.double().train()
+    opt = PolySGD(model.parameters(), job["lr"], job["max_it"], grad_accum=job["grad_accum"])
+    step = make_icl_step(model, opt, job["classes"], job["labeled_bs"] // world,
+                         (job["patch"],) * 2, job["consis"])
+    states = []
+    for batch in job["batches"]:
+        step(_rows(batch, job["labeled_bs"], rank, world))
+        states.append({"params": {n: p.detach().clone() for n, p in model.named_parameters()},
+                       "momentum": [b.clone() for b in opt.momentum_buffers],
+                       "accumulators": [a.clone() for a in opt.accumulators]})
+    return {"states": states, "count": opt.count, "micro": opt.micro}
+
+
+TASKS = {"steps": task_steps, "reductions": task_reductions, "multihost": task_multihost,
+         "accum": task_accum}
 
 
 def main() -> None:

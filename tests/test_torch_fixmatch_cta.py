@@ -1,9 +1,12 @@
 """icl_tpu_torch's FixMatch-CTA path against the JAX package's:
 `CTATransform` and `WeakStrongAugment`; `cta_batches` (policies, probes
 and arrays); `CTATrainer.fit` for 3 steps in each `rate_lag` (the learned
-rates), and its fused probe against a separate probe forward; the models
-it refuses (every one but the U-Net, among them those whose forward
-returns a tuple, on which the JAX step fails); a resume beside the JAX one
+rates), and its fused probe against a separate probe forward; the
+Swin-UNet's step against the JAX step (embed 12, 64^2, window 4, f32;
+metrics 1e-4 relative, gradients and updates within 1e-3 of their largest
+magnitude plus 1e-6); the models it refuses (every one but the U-Net and
+the Swin-UNet, among them those whose forward returns a tuple, on which
+the JAX step fails); a resume beside the JAX one
 (its step count and its save names); and the CLI on the CPU, its final
 save, its resume, and its need of a card otherwise. The step itself is
 held against the JAX step in `test_torch_fixmatch_cta_step.py`.
@@ -50,7 +53,7 @@ from icl_tpu_torch.train.cta import CTATrainer
 from icl_tpu_torch.train.steps import FIXMATCH_METRIC_KEYS
 from icl_tpu_torch.utils.convert import unet2d_state_dict_from_jax
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
-from test_torch_icl import draw_tree
+from test_torch_icl import draw_tree, no_drop_path  # noqa: F401  (a fixture)
 
 NCLS, BATCH, LABELED_BS, STEP_SIDE, FIT_SIDE = 4, 4, 2, 32, 16
 BASE_LR, MAX_IT, SEED = 0.01, 10, 11
@@ -227,11 +230,62 @@ def test_fit_learns_the_jax_rates(jax_trainer, no_native, monkeypatch, tmp_path,
     assert abs(float(fused) - trainer.probe_proximity(probe["probe_image"], probe["probe_label"])) < 1e-5
 
 
-@pytest.mark.parametrize("model", ["swinunet", "icl_unet", "unet_cct", "unet_ds", "icl_swinunet"])
+@pytest.mark.parametrize("model", ["icl_unet", "unet_cct", "unet_urpc", "unet_ds", "icl_swinunet",
+                                   "unet_3D_icl"])
 def test_trainer_refuses_every_model_but_the_unet(tmp_path, model):
-    """Refused before anything is built, with the reason."""
-    with pytest.raises(ValueError, match="trains \\['unet'\\].*one logits tensor"):
+    """Every model but the U-Net and the Swin-UNet (the two whose forward
+    returns one logits tensor) is refused before anything is built, with
+    the reason."""
+    with pytest.raises(ValueError, match="trains \\['unet', 'swinunet'\\].*one logits tensor"):
         CTATrainer(_cfg(tmp_path, model=model), device="cpu")
+
+
+def test_swin_unet_step_matches_jax(tmp_path, no_drop_path):
+    """CTATrainer's FixMatch step on the Swin-UNet (embed 12, 64^2, window
+    4, f32, drop path off on both sides) against the JAX step with the
+    fused probe: metrics, every gradient and update, as
+    `test_torch_fixmatch_cta_step.py` holds the U-Net's (the JAX CLI's
+    `--model swinunet`); the window attention of the weak forward runs at
+    batch 4 and that of the strong forward at batch 2."""
+    from icl_tpu.models import swin2d as jax_swin2d
+    from test_torch_fixmatch_cta_step import _assert_step, _jax_step, _port_batch, _step_batch
+    from test_torch_icl import no_port_drop_path
+    from icl_tpu_torch.models import swin2d
+    from icl_tpu_torch.ops import window_attention as wa
+    from icl_tpu_torch.utils import convert
+
+    side, window, embed = 64, 4, 12
+    model_j = jax_net_factory("swinunet", 1, NCLS, swin_cfg=jax_swin2d.SwinConfig(
+        img_size=side, window_size=window, embed_dim=embed))
+    shapes = jax.eval_shape(lambda: model_j.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        jnp.zeros((BATCH, side, side, 1)), train=True))
+    params = draw_tree(shapes["params"], 50)
+    arrays = _step_batch(51, side)
+    conf = 0.3
+    grads, new_state, met_j = _jax_step(model_j, params, {}, arrays, conf, jnp.float32)
+
+    def sd(tree):
+        return convert.swinunet2d_state_dict_from_jax(tree["swin_unet"], side, window,
+                                                      torch_prefix="swin_unet.")
+
+    cfg = _cfg(tmp_path, model="swinunet", patch_size=(side, side), model_kwargs={
+        "swin_cfg": swin2d.SwinConfig(img_size=side, window_size=window, embed_dim=embed)})
+    trainer = CTATrainer(cfg, conf_thresh=conf, device="cpu")
+    old = sd(params)
+    trainer.model.load_state_dict(old, strict=True)
+    no_port_drop_path(trainer.model)
+    batches = []
+    real = wa.window_attention_fwd
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(wa, "window_attention_fwd", lambda q, *a, **k: batches.append(q.shape[0]) or real(q, *a, **k))
+        met_p = trainer.step_fn(_port_batch(arrays, torch.float32))
+    _assert_step(trainer.model, old, sd(grads), sd(new_state.params), met_p, met_j)
+    per_forward = len(batches) // 3  # the weak, the strong and the probe's forwards
+    windows = (side // 4 // window) ** 2
+    assert batches[:per_forward][0] == BATCH * windows
+    assert batches[per_forward:2 * per_forward][0] == (BATCH - LABELED_BS) * windows
+    assert batches[2 * per_forward] == windows
 
 
 def test_models_with_one_logits_tensor_only():
