@@ -100,7 +100,7 @@ Phases, each fatal on failure:
      step, the step thread's wait for each batch, the validation time, the
      time to build the model, its parameters, peak memory, every loss
      term, the window-attention launches (asserted: none); then one step
-     under bfloat16 autocast;
+     under bfloat16 autocast (`Trainer.train_step`);
  22. one U-Net-ICL 3D step at 32^3 on the card against the same step on
      the CPU (same weights and batch, dropout and drop path off), beside a
      control step, the rule of 18;
@@ -146,8 +146,9 @@ Phases, each fatal on failure:
      fresh Trainer's `restore_state` (equal to the saved state bit for
      bit: parameters, buffers, momentum, count, iteration, RNG states)
      and 2 more on the same batches, under cuDNN's deterministic
-     algorithms: bit for bit, as a repeat of the 4 steps is; the seconds
-     of the rolling save, the restore and the final save;
+     algorithms: bit for bit (a repeat of the 4 steps runs only to say
+     which is at fault where they differ); the seconds of the rolling save,
+     the restore and the final save;
  33. FixMatch-CTA through its CLI's `main` at the JAX CLI's defaults (the
      U-Net, 256^2, batch 16 of which 8 labeled, 4 classes, threshold 0.95,
      unsupervised weight 1, f32 with TF32 off) on phase 14's slices in
@@ -177,8 +178,8 @@ Phases, each fatal on failure:
      and on the device alone beside the 3.4 ms bound, the plain version,
      torch.optim.SGD(fused=True) on the same bf16 tensors and the f32
      PolySGD step on an f32 state; its largest leaf alone beside its
-     bound, plain version and fused SGD; then the card's kernel tests,
-     both files in one pytest without tests/conftest.py;
+     bound, plain version and fused SGD; the card's kernel tests, both
+     files in one pytest without tests/conftest.py, run beside phase 39;
  37. the flagship's fast configuration through its CLI's `main` (bf16
      autocast, a bf16 train state, the fused sspa pair, the device bank,
      groups of 4 graph replays, 2 in flight) on phase 14's slices in
@@ -208,18 +209,19 @@ Phases, each fatal on failure:
      256^2 and zoomed to 224^2: 0 differing pixels; one flagship batch's
      time;
  41. the 3D repeats: the 3D U-Net's upsample (matmuls) against
-     F.interpolate's trilinear mode in f32; one AMOS bf16 ICL step and one
-     BraTS f32 U-Net-ICL 3D step, each twice from one state under cuDNN's
-     deterministic algorithms: 0 tensors differ (asserted); the ops that
-     torch.use_deterministic_algorithms names on the BraTS step;
+     F.interpolate's trilinear mode in f32; one BraTS f32 U-Net-ICL 3D
+     step twice from one state under cuDNN's deterministic algorithms: 0
+     tensors differ (asserted; the AMOS bf16 ICL step's eager repeat is
+     phase 38's); the ops that torch.use_deterministic_algorithms names on
+     the BraTS step;
  42. the flagship as 2 ranks on the one card (gloo; each rank a process of
      this script, `--dp-worker`): its CLI's `main` at its defaults (256^2,
      batch 16 of which 8 labeled, f32, dropout on) through
-     --dist_coordinator on phase 14's data, 3 steps and a validation: the
+     --dist_coordinator on phase 14's data, 2 steps and a validation: the
      ranks' final states bitwise equal, only rank 0 wrote, test_2D_ACDC on
      its best checkpoint gives the validation dice; each step's compute and
      all-reduce seconds and the peak memory per rank; then `Trainer` at
-     full width with zero_stochastic, 3 f32 steps over 2 ranks against 1
+     full width with zero_stochastic, 2 f32 steps over 2 ranks against 1
      process on the same global batches by phase 18's rule over every
      parameter, buffer and momentum, cuDNN deterministic (control: the
      images times 1 + 1e-7; witness: per tensor the farthest of four
@@ -258,6 +260,47 @@ Phases, each fatal on failure:
  46. the analytic FLOP lines of every `Trainer.fit` of the run: GFLOP per
      step (its first step counted, `utils/flops.py`) and end-to-end TFLOP/s,
      both lines in each run's log.txt (asserted);
+ 47. tensor parallelism (`parallel/mesh.py`, `parallel/tensor.py`), every
+     rank a process of this script on the one card over gloo: the rule
+     table at M = 2 for the flagship at 256^2 and SwinUNETR-ICL fs48, every
+     sharded leaf's whole and local shape, the layers left replicated (3
+     heads), each rank's parameter bytes;
+ 48. the flagship (U-Net-ICL 2D, 256^2, batch 16 of which 8 labeled, f32,
+     zero_stochastic, cuDNN deterministic) over tp=2, run by phase 42's
+     two ranks after their data-parallel steps: the same 2 steps twice from
+     one state (bitwise equal: the eager repeat), the replicated leaves
+     bitwise equal across the ranks, s/step, collective calls and bytes a
+     step and peak memory per rank; then against phase 42's one-process
+     runs by phase 18's rule over every gathered parameter, buffer and
+     momentum (the same control and witness), the first step's loss terms
+     within 1e-5;
+ 49. SwinUNETR-ICL fs48 at 96^3 over tp=2 (phase 9's configuration; batch
+     2 if two ranks' peaks of phase 9 would not fit the card): both kernels
+     at the local shapes (stage 1's 3 heads whole, stages 2-4 on 3, 6 and
+     12 heads) against their plain versions, f32 and bf16, bitwise
+     repeatable; the launches of one step by their heads, reckoned from
+     the heads; one step against one process by phase 18's rule (the
+     control the tp=2 step on the images times 1 + 1e-7, the witness the
+     one-process step with the row-parallel sums split in two, tp=2's f32
+     order); 2 `Trainer` steps, their launches asserted as phase 9's,
+     s/step, peak memory, collectives; a validation on the held-out case on
+     both ranks and the best model saved, gathered;
+ 50. train -> eval: the tp=2 run's stripped best checkpoint (gathered,
+     the one-process layout) loads strictly into the one-process model,
+     whose eval gives the tp=2 validation dice within 1e-4; the flagship
+     over dp2 x tp2 (4 ranks) at 256^2 when four tp=2 peaks fit the card,
+     else 128^2 (said): 2 steps, the replicated leaves bitwise equal on the
+     four ranks and each shard on both data ranks, the first step's loss
+     terms against one process within 1e-5, s/step, collectives, peak
+     memory per rank;
+ 51. the bf16 state over tp=2: the SR kernel on each rank's shard of the
+     flagship's `mlp2` fc1 (rows), fc2 (columns), its bias and an `fc_kv`
+     weight (two pieces of heads) equals the slice of its whole-leaf update
+     bit for bit; a 2-step bf16-state `fit` at 128^2, its SR launches per
+     rank asserted (one per contiguous run of every shard);
+ 52. save and restore at 128^2: a one-process save restored at tp=2 and a
+     tp=2 save (the one-process layout) restored at tp=1, each bit for bit
+     the saved state;
 every `fit` ends with its full train state, which each phase deletes
 after its run; then a `kernels` JSON line (the six window-attention
 entries and `sgd_bf16`), the card line, and the result line. Exits
@@ -439,8 +482,15 @@ AMOS_ROOT = os.path.join(ROOT, "build", "chip_smoke", "amos")  # ../experiments 
 SUP_ROOT = os.path.join(ROOT, "build", "chip_smoke", "acdc")  # ../experiments is EXPERIMENTS
 
 
+STARTED: list = []  # the worker processes this process started (`start_ranks`)
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
+    for p in STARTED:  # no worker outlives a failure
+        if p.poll() is None:
+            p.kill()
+            p.wait()
     sys.exit(1)
 
 
@@ -728,10 +778,9 @@ def phase_training(torch, wa, cases, held_out) -> dict:
 
     cfg16 = train_config("bfloat16", 1, 0, "bfloat16")
     trainer = Trainer(cfg16, device=DEVICE)
-    result16 = trainer.fit(brats_train_batches(cases, 2, len(cases), TRAIN_BATCH, LABELED_BS,
-                                               cfg16.patch_size, seed=cfg16.seed))
-    drop_states(result16)
-    log16 = result16["log"]
+    batch16 = next(brats_train_batches(cases, 2, len(cases), TRAIN_BATCH, LABELED_BS,
+                                       cfg16.patch_size, seed=cfg16.seed))
+    log16 = [dict(zip(METRIC_KEYS, trainer.train_step(trainer.to_device(batch16)).tolist()))]
     print("[train] one bfloat16 autocast step: "
           + " ".join(f"{k} {log16[0][k]:.6f}" for k in METRIC_KEYS), flush=True)
     if not all(math.isfinite(log16[0][k]) for k in METRIC_KEYS):
@@ -1185,11 +1234,13 @@ def step_agreement(torch, tag: str, what: str, before: dict, runs: dict) -> None
     loss_err = {k: abs(test[0][k] - ref[0][k]) / max(abs(ref[0][k]), 1e-12) for k in ref[0]}
     errs, ctl_errs, wit_errs = {}, {}, {}
     for n, w in before.items():
-        allow = (STEP_UPDATE_RTOL * float((ref[1][n] - w).abs().max())
+        r = ref[1][n]  # every tensor of the runs where the reference's lies, one at a time
+        w, t = w.to(r.device), test[1][n].to(r.device)
+        allow = (STEP_UPDATE_RTOL * float((r - w).abs().max())
                  + 2 * torch.finfo(w.dtype).eps * float(w.abs().max()))
-        err = float((test[1][n] - ref[1][n]).abs().max())
-        ctl_err = float((ctl[1][n] - test[1][n]).abs().max()) if ctl else 0.0
-        wit_err = float((wit[1][n] - ref[1][n]).abs().max()) if wit else 0.0
+        err = float((t - r).abs().max())
+        ctl_err = float((ctl[1][n].to(r.device) - t).abs().max()) if ctl else 0.0
+        wit_err = float((wit[1][n].to(r.device) - r).abs().max()) if wit else 0.0
         errs[n] = (ratio(err, allow),
                    ratio(err, max(allow, 2 * ctl_err, STEP_WITNESS_FACTOR * wit_err)))
         ctl_errs[n] = ratio(ctl_err, allow)
@@ -1401,9 +1452,7 @@ def phase_training_unet3d(torch, wa, cases, held_out) -> dict:
     torch.cuda.empty_cache()
 
     trainer = Trainer(unet3d_config("unet_3D_icl", "bfloat16", 1, 0, "bfloat16"), device=DEVICE)
-    result16 = trainer.fit(batches())
-    drop_states(result16)
-    log16 = result16["log"]
+    log16 = [dict(zip(METRIC_KEYS, trainer.train_step(trainer.to_device(next(batches()))).tolist()))]
     print("[unet3d] one bfloat16 autocast step: "
           + " ".join(f"{k} {log16[0][k]:.6f}" for k in METRIC_KEYS), flush=True)
     if not all(math.isfinite(log16[0][k]) for k in METRIC_KEYS):
@@ -1946,13 +1995,13 @@ def phase_resume(torch, slices) -> dict:
     parameter, buffer, momentum, the count, the iteration and the RNG
     states equal to run B's bit for bit) and takes A's batches 3-4. The
     caller runs the phase under cuDNN's deterministic algorithms: after
-    step 4, B must equal A bit for bit, as must a repeat of run A (no
-    kernel of the 2D step adds with atomics since the linear resizes became
-    matmuls). The train states are deleted after."""
+    step 4, B must equal A bit for bit (no kernel of the 2D step adds with
+    atomics since the linear resizes became matmuls; where B differs, a
+    repeat of run A says whether the step or the resume is at fault, and
+    the phase fails either way). The train states are deleted after."""
     import gc
 
     from icl_tpu_torch.train.trainer import Trainer
-    from icl_tpu_torch.utils.checkpoint import host_copy
 
     def config(tries, interval=0):
         cfg = unet_config(RESUME_STEPS, 0, tries)
@@ -1976,7 +2025,7 @@ def phase_resume(torch, slices) -> dict:
     torch.manual_seed(0)  # dropout and drop-path masks
     a = Trainer(config("resumeA"), device=DEVICE)
     result_a = a.fit(batches)
-    state_a = flat(host_copy(a.train_state()))
+    state_a = {k: v.clone() for k, v in flat(a.train_state()).items()}  # on the card
     drop_states(result_a)
     del a
     release()
@@ -2008,28 +2057,26 @@ def phase_resume(torch, slices) -> dict:
     result_b = b.fit(batches[2:])
     if [r["iteration"] for r in result_b["log"]] != [3, 4]:
         fail(f"[resume] the resumed run logged {[r['iteration'] for r in result_b['log']]}")
-    state_b = flat(host_copy(b.train_state()))
-    del b
-    release()
-
-    again, result_again = run("resumeRepeat", batches)
-    state_again = flat(host_copy(again.train_state()))
-    del again
-    release()
-    for result in (result_first, result_b, result_again):
-        drop_states(result)
+    state_b = flat(b.train_state())
 
     def differ_from_a(state):
-        n = sum(not torch.equal(state_a[k], state[k]) for k in state_a)
+        n = sum(not torch.equal(state_a[k], state[k].to(state_a[k].device)) for k in state_a)
         return "bitwise equal" if not n else f"{n} of {len(state_a)} tensors differ"
 
+    differ_ab = [k for k in state_a if not torch.equal(state_a[k], state_b[k].to(state_a[k].device))]
+    del b, state_b
+    release()
+    for result in (result_first, result_b):
+        drop_states(result)
     print(f"[resume] after step {RESUME_STEPS}, A (4 steps) vs B (2 + restore + 2): "
-          f"{differ_from_a(state_b)}; A vs a repeat of A from the same seed: "
-          f"{differ_from_a(state_again)}", flush=True)
-    differ_ab = [k for k in state_a if not torch.equal(state_a[k], state_b[k])]
-    if differ_ab or differ_from_a(state_again) != "bitwise equal":
-        fail("[resume] B and a repeat of A must equal A bit for bit under cuDNN's deterministic "
-             "algorithms")
+          f"{'bitwise equal' if not differ_ab else f'{len(differ_ab)} of {len(state_a)} tensors differ'}",
+          flush=True)
+    if differ_ab:  # a repeat of A tells a fault of the resume from one of the step
+        again, result_again = run("resumeRepeat", batches)
+        print(f"[resume] A vs a repeat of A from the same seed: {differ_from_a(flat(again.train_state()))}",
+              flush=True)
+        drop_states(result_again)
+        fail("[resume] B must equal A bit for bit under cuDNN's deterministic algorithms")
     return {"bytes": nbytes, "rolling_s": rolling["seconds"], "final_s": last["seconds"],
             "restore_s": restore_s, "bitwise": not differ_ab}
 
@@ -2332,17 +2379,30 @@ SGD_REPLACES = "icl_tpu/train/optim.py:_sgd_bf16_state (XLA)"
 SWIN_SUP_PER_STEP = {"none": 8, "mask": 6}
 
 
-def run_card_tests() -> dict:
+CARD_TEST_FILES = ["tests/test_torch_window_attention_card.py", "tests/test_torch_sgd_bf16_card.py"]
+
+
+def start_card_tests() -> subprocess.Popen:
     """The card's kernel tests (JAX-free, without tests/conftest.py), both
-    files in one pytest: {file: passed}; fatal on any failure or skip."""
-    files = ["tests/test_torch_window_attention_card.py", "tests/test_torch_sgd_bf16_card.py"]
-    proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
-                           "-q", "-rs", "-m", "cuda", *files], cwd=ROOT, capture_output=True,
-                          text=True, timeout=900)
-    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else proc.stderr[-2000:]
-    print(f"[card-tests] {' '.join(files)}: {tail}", flush=True)
+    files in one pytest, started beside the phases that time nothing
+    (`run_card_tests` reads them)."""
+    proc = subprocess.Popen([sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
+                             "-q", "-rs", "-m", "cuda", *CARD_TEST_FILES], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    STARTED.append(proc)
+    return proc
+
+
+def run_card_tests(proc: subprocess.Popen) -> dict:
+    """The card tests' summary: fatal on any failure or skip."""
+    try:
+        out, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        fail("[card-tests] the card's kernel tests outlived 900 s")
+    tail = out.strip().splitlines()[-1] if out.strip() else err[-2000:]
+    print(f"[card-tests] {' '.join(CARD_TEST_FILES)}: {tail}", flush=True)
     if proc.returncode != 0 or "skipped" in tail or "passed" not in tail:
-        print(proc.stdout[-6000:], proc.stderr[-3000:], flush=True)
+        print(out[-6000:], err[-3000:], flush=True)
         fail("[card-tests] the card's kernel tests did not all pass")
     return {"summary": tail}
 
@@ -2523,7 +2583,7 @@ def phase_fast_cli(torch, wa, sg, slices, volumes) -> dict:
 
 
 def graph_vs_eager(torch, wa, tag: str, trainer, batches: list, deterministic: bool) -> dict:
-    """From one state S0 (host copy) of `trainer` (cfg.scan_steps > 1):
+    """From one state S0 (a copy on the card) of `trainer` (cfg.scan_steps > 1):
     A, GRAPH_STEPS eager steps; a repeat of A; the graph's first step (eager
     on a side stream, then the capture) from S0; then B, GRAPH_STEPS
     replays from S0. The flat states after A, its repeat and B, every step's
@@ -2531,14 +2591,14 @@ def graph_vs_eager(torch, wa, tag: str, trainer, batches: list, deterministic: b
     ended, in turns); the window-attention launches of the graph's first
     step (its eager run and the capture). `deterministic` runs with cuDNN's
     deterministic algorithms."""
-    from icl_tpu_torch.utils.checkpoint import host_copy
+    import copy
 
     dev = [trainer.to_device(b) for b in batches]
-    s0 = host_copy(trainer.train_state())
+    s0 = copy.deepcopy(trainer.train_state())  # every copy on the card: a copy to the host costs seconds
     torch.backends.cudnn.deterministic = deterministic
     try:
         def params():
-            return {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+            return {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
 
         def steps(step):
             """Every step's metrics and the parameters after the first."""
@@ -2549,7 +2609,8 @@ def graph_vs_eager(torch, wa, tag: str, trainer, batches: list, deterministic: b
                 if i == 0:
                     after_first = params()
             torch.cuda.synchronize()
-            return flat(host_copy(trainer.train_state())), torch.stack(vecs).cpu(), after_first
+            return ({k: v.clone() for k, v in flat(trainer.train_state()).items()},
+                    torch.stack(vecs).cpu(), after_first)
 
         a, a_metrics, a1 = steps(trainer._stacked_step)
         again, again_metrics, again1 = steps(trainer._stacked_step)
@@ -2573,7 +2634,7 @@ def graph_vs_eager(torch, wa, tag: str, trainer, batches: list, deterministic: b
     finally:
         torch.backends.cudnn.deterministic = False
     differ = lambda x: sorted(k for k in a if not torch.equal(a[k], x[k]))
-    out = {"s0": {n: s0["model"][n].cpu() for n, _ in trainer.model.named_parameters()},
+    out = {"s0": {n: s0["model"][n] for n, _ in trainer.model.named_parameters()},
            "first": {"a": a1, "b": b1, "again": again1}, "differ_b": differ(b), "differ_again": differ(again),
            "metrics_equal": torch.equal(a_metrics, b_metrics),
            "again_metrics_equal": torch.equal(a_metrics, again_metrics), "times": times,
@@ -2726,7 +2787,6 @@ def phase_dispatch_and_resume(torch, slices) -> dict:
     from icl_tpu_torch.scripts.profile_train_step import setup
     from icl_tpu_torch.train.trainer import Trainer
     from icl_tpu_torch.utils import checkpoint as ckpt
-    from icl_tpu_torch.utils.checkpoint import host_copy
 
     def release():
         gc.collect()
@@ -2750,7 +2810,7 @@ def phase_dispatch_and_resume(torch, slices) -> dict:
             trainer.load_train_state(ckpt.load_train_state(*restore, device=DEVICE))
         start = {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
         result = trainer.fit(batches)
-        state = flat(host_copy(trainer.train_state()))
+        state = {k: v.clone() for k, v in flat(trainer.train_state()).items()}  # on the card
         del trainer
         release()
         return state, result, start
@@ -2862,20 +2922,20 @@ def phase_device_augment(torch, slices) -> dict:
 
 
 def eager_repeat(torch, trainer, batch) -> tuple:
-    """One eager step of `trainer` from its state S0 (host copy), then the
-    same step again from S0: (names of the tensors of the flat train state
-    that differ, plus "metrics" if the metrics do, the count of tensors,
-    the first step's metrics, S0 and the device batch)."""
-    from icl_tpu_torch.utils.checkpoint import host_copy
+    """One eager step of `trainer` from its state S0 (a copy on the card),
+    then the same step again from S0: (names of the tensors of the flat
+    train state that differ, plus "metrics" if the metrics do, the count of
+    tensors, the first step's metrics, S0 and the device batch)."""
+    import copy
 
     dev = trainer.to_device(batch)
-    s0 = host_copy(trainer.train_state())
+    s0 = copy.deepcopy(trainer.train_state())
     runs = []
     for _ in range(2):
         trainer.load_train_state(s0)
         vec = trainer._stacked_step(dev)
         torch.cuda.synchronize()
-        runs.append((flat(host_copy(trainer.train_state())), vec.cpu()))
+        runs.append(({k: v.clone() for k, v in flat(trainer.train_state()).items()}, vec.cpu()))
     (a, ma), (b, mb) = runs
     differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
     if not torch.equal(ma, mb):
@@ -2887,10 +2947,10 @@ def phase_3d_repeats(torch) -> dict:
     """41: the 3D steps repeat bit for bit on the card. The 3D U-Net's
     upsample (`resize_linear`, one matmul per axis) against F.interpolate's
     trilinear mode in f32 at the largest decoder shape of a 96^3 pass
-    ([2, 32, 48^3] to 96^3); then one AMOS bf16 ICL step (U-Net-ICL 3D, 16
-    classes, recompute on, dropout on) and one BraTS f32 U-Net-ICL 3D step,
-    each run twice from one state under cuDNN's deterministic algorithms: 0
-    tensors of the train state may differ. The BraTS step once more under
+    ([2, 32, 48^3] to 96^3); then one BraTS f32 U-Net-ICL 3D step, run twice
+    from one state under cuDNN's deterministic algorithms: 0 tensors of the
+    train state may differ (the AMOS bf16 ICL step's eager repeat is phase
+    38's, under the same algorithms). The BraTS step once more under
     torch.use_deterministic_algorithms(True, warn_only=True): the ops it
     names (they lack a deterministic CUDA kernel; the repeat, not the
     warning, is the judge)."""
@@ -2914,7 +2974,7 @@ def phase_3d_repeats(torch) -> dict:
     del x
     torch.backends.cudnn.deterministic = True
     try:
-        for tag, precision, dataset in (("amos_bf16", "bfloat16", "amos"), ("brats_f32", "float32", "brats")):
+        for tag, precision, dataset in (("brats_f32", "float32", "brats"),):
             cfg, make_batches, what = setup("unet_3D_icl", precision, dataset)
             torch.manual_seed(0)  # dropout and drop-path masks
             trainer = Trainer(cfg, device=DEVICE)
@@ -2950,7 +3010,7 @@ def phase_3d_repeats(torch) -> dict:
 # Phases 42-43: data parallelism, 2 ranks on the one card (gloo: NCCL takes
 # one rank per card), each rank a process of this script (`--dp-worker`).
 DP_ROOT = os.path.join(ROOT, "build", "chip_smoke", "dp")
-DP_STEPS, DP_BF16_STEPS = 3, 2
+DP_STEPS, DP_BF16_STEPS = 2, 2
 DP_CLI_ARGV = ["--root_path", "in-memory-ACDC", "--exp", "ACDC_chip_smoke/DP", "--num_tries", "cli",
                "--device", DEVICE]
 DP_METRIC_RTOL = 1e-5  # the first step's loss terms, 2 ranks vs 1: f32 sums in another order
@@ -2979,6 +3039,7 @@ def start_ranks(kind: str, world: int) -> dict:
             run["procs"].append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--dp-worker", kind, str(r), str(world),
                  str(port), run["outs"][r]], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT))
+    STARTED.extend(run["procs"])
     return run
 
 
@@ -3090,7 +3151,7 @@ def float_state(trainer) -> dict:
 def dp_cli_worker(torch, rank: int, world: int, port: int) -> dict:
     """Rank `rank` of the flagship CLI's `main` at its defaults (256^2, batch
     16 of which 8 labeled, f32, dropout on) over phase 14's slices and
-    volumes in memory, 3 steps and a validation, through
+    volumes in memory, DP_STEPS steps and a validation, through
     --dist_coordinator; rank 0 from SUP_ROOT (its snapshot in EXPERIMENTS),
     the others from a directory of their own, which must stay empty. Its
     steps timed, compute and all-reduce apart; peak memory; the digest of
@@ -3143,7 +3204,8 @@ def one_process_runs(torch, cfg, batches: list, variants: list):
     `global_batch_norm`, every train-mode BatchNorm through the
     data-parallel formula (`_GlobalBatchNorm._global_forward`) over the one
     process's rows: each the same steps in exact arithmetic, other ones in
-    f32. A generator: one state on the host at a time."""
+    f32. A generator of states on the card, each a copy of its own (a
+    flagship state is 9.2 GB: the caller keeps three or four)."""
     import copy
     import gc
 
@@ -3151,7 +3213,6 @@ def one_process_runs(torch, cfg, batches: list, variants: list):
 
     from icl_tpu_torch.models import layers
     from icl_tpu_torch.train.trainer import Trainer
-    from icl_tpu_torch.utils.checkpoint import host_copy
 
     trainer = Trainer(cfg, device=DEVICE)
     s0 = copy.deepcopy(trainer.train_state())  # on the card: each run starts with a device copy
@@ -3172,7 +3233,7 @@ def one_process_runs(torch, cfg, batches: list, variants: list):
             vec = trainer.train_step(trainer.to_device(
                 {"image": b["image"][rows] * np.float32(kw.get("scale", 1.0)), "label": b["label"][rows]}))
             metrics.update({f"{k}@{i + 1}": v for k, v in zip(trainer.metric_keys, vec.tolist())})
-        yield metrics, host_copy(float_state(trainer))
+        yield metrics, {k: v.clone() for k, v in float_state(trainer).items()}
     del trainer, s0
     gc.collect()
     torch.cuda.empty_cache()
@@ -3183,8 +3244,10 @@ def dp_numbers_worker(torch, rank: int, world: int, port: int) -> dict:
     zero_stochastic, f32, joined through `initialize_from_args`: DP_STEPS
     steps on its rows of phase 17's global batches, then a bf16-state
     Trainer for DP_BF16_STEPS steps; each run's digest, steps timed; cuDNN's
-    deterministic algorithms throughout. Rank 0 then leaves the group and
-    holds its f32 state against a one-process Trainer on the global batches
+    deterministic algorithms throughout; then the same steps over tp=2 on
+    the global batches (`tp_flagship_steps`). Rank 0 then leaves the group
+    and holds its f32 state, and the tp=2 state, against a one-process
+    Trainer on the global batches
     (`step_agreement` over the parameters, floating-point buffers and
     momentum), with a control run on the images times 1 + 1e-7, and as the
     witness, per tensor, the farthest from the reference of four one-process
@@ -3204,6 +3267,7 @@ def dp_numbers_worker(torch, rank: int, world: int, port: int) -> dict:
     from icl_tpu_torch.data.synth import synthetic_acdc
     from icl_tpu_torch.ops import sgd_bf16 as sg
     from icl_tpu_torch.parallel.collectives import barrier
+    from icl_tpu_torch.parallel.mesh import world_group
     from icl_tpu_torch.parallel.multihost import host_slice, initialize_from_args
     from icl_tpu_torch.train.trainer import Trainer
     from icl_tpu_torch.utils.checkpoint import host_copy
@@ -3239,7 +3303,8 @@ def dp_numbers_worker(torch, rank: int, world: int, port: int) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     out["all_reduce"] = dict(totals)
-    barrier()
+    out["tp"], tp_test = tp_flagship_steps(torch, rank, world, totals, slices, cfg, batches)
+    barrier(world_group())
     dist.destroy_process_group()
     if rank == 0:  # the one-process runs, alone on the card
         runs = {"test": test}
@@ -3269,6 +3334,19 @@ def dp_numbers_worker(torch, rank: int, world: int, port: int) -> dict:
                        "run on the images times 1 + 1e-7, witness = per tensor the farthest of "
                        "the one-process runs on the images times 1 - 1e-7, on reversed rows, with "
                        "the data-parallel BatchNorm formula, with both)", before, runs)
+        # 48: the tp=2 steps against the same one-process runs
+        first = {k: abs(v - runs["reference"][0][k]) / max(abs(runs["reference"][0][k]), 1e-12)
+                 for k, v in tp_test[0].items() if k.endswith("@1")}
+        out["tp"]["first_step_rel_err"] = max(first.values())
+        out["tp"]["one_process_first"] = {k[:-2]: v for k, v in runs["reference"][0].items()
+                                          if k.endswith("@1")}
+        print(f"[tp-flagship] the first step's loss terms, tp=2 vs 1 process: largest relative error "
+              f"{out['tp']['first_step_rel_err']:.3e} (tolerance {DP_METRIC_RTOL})", flush=True)
+        if out["tp"]["first_step_rel_err"] > DP_METRIC_RTOL:
+            fail("[tp-flagship] the first step's loss terms disagree")
+        step_agreement(torch, "[tp-flagship]", f"{DP_STEPS} f32 steps at full width, tp=2 vs 1 "
+                       "process, gathered (the rule, control and witness of [dp-numbers])", before,
+                       dict(runs, test=tp_test))
     return out
 
 
@@ -3341,7 +3419,7 @@ def dp_nccl1_worker(torch, rank: int, world: int, port: int) -> dict:
 
 
 DP_WORKERS = {"cli": dp_cli_worker, "numbers": dp_numbers_worker, "window": dp_window_worker,
-              "nccl1": dp_nccl1_worker}
+              "nccl1": dp_nccl1_worker}  # and the tensor-parallel workers, below
 
 
 def dp_worker(argv: list) -> int:
@@ -3423,7 +3501,7 @@ def phase_data_parallel(torch, slices, volumes) -> dict:
             "numbers": {"steps": {k: [n[k]["steps"] for n in (n0, n1)] for k in ("f32", "bf16")},
                         "first_step_rel_err": n0["first_step_rel_err"],
                         "peak_bytes": [n["f32"]["peak_bytes"] for n in (n0, n1)]},
-            "sgd_bf16_launches": launches[1] + launches[3]}
+            "sgd_bf16_launches": launches[1] + launches[3], "tp": [n0["tp"], n1["tp"]]}
 
 
 def stitched_margin(torch, model, volume) -> "np.ndarray":
@@ -3943,8 +4021,749 @@ def phase_flop_lines(torch) -> dict:
     return {"runs": rows}
 
 
-def main() -> int:
+# Phases 47-52: tensor parallelism over a model axis (`parallel/mesh.py`,
+# `parallel/tensor.py`): the flagship U-Net-ICL 2D at the JAX CLI's defaults
+# and SwinUNETR-ICL fs48 at 96^3 (phase 9's configuration) over tp=2, the
+# flagship over dp2 x tp2; every rank a `--dp-worker` process of this script
+# on the one card, joined by gloo (NCCL takes one rank per card).
+TP_ROOT = os.path.join(ROOT, "build", "chip_smoke_tp")  # outlives phase 43's clean-up
+TP_SWIN_STEPS, TP_DP_STEPS, TP_SMALL_SIDE = 2, 2, 128
+# the tp=2 validation against one process and the two ranks' against each
+# other: f32 sums in another order, and the sliding window's stitch adds
+# overlapping patches with atomics on the card (a near-tie may flip a voxel)
+TP_DICE_ATOL = 1e-4
+
+
+def tp_job() -> dict:
+    with open(os.path.join(TP_ROOT, "job.json")) as f:
+        return json.load(f)
+
+
+def local_heads_of(heads: int, model: int = 2) -> int:
+    """The heads a rank launches with: its share, or all of them where the
+    count does not divide (the layer stays replicated)."""
+    return heads // model if heads % model == 0 else heads
+
+
+def train_state_digest(torch, state: dict) -> str:
+    """sha256 over a train state's (`Trainer.train_state` layout) model
+    tensors and momentum buffers, names and bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    items = list(state["model"].items())
+    items += [(f"momentum/{i}", s["momentum_buffer"]) for i, s in state["optimizer"]["state"].items()]
+    for name, t in items:
+        h.update(name.encode())
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def gathered_state(trainer) -> dict:
+    """The trainer's state in the one-process layout (every rank of the
+    model group calls)."""
+    from icl_tpu_torch.utils.checkpoint import gather_train_state
+
+    return gather_train_state(trainer.train_state(), trainer.model, trainer.optimizer)
+
+
+def gathered_float_state(trainer) -> dict:
+    """`float_state` in the one-process layout, on the host (every rank of
+    the model group calls)."""
+    from icl_tpu_torch.utils.checkpoint import host_copy
+
+    state = gathered_state(trainer)
+    model = state["model"]
+    out = {f"param/{n}": model[n] for n, _ in trainer.model.named_parameters()}
+    out.update({f"buffer/{n}": model[n] for n, b in trainer.model.named_buffers()
+                if b.is_floating_point() and n in model})
+    out.update({f"momentum/{i}": s["momentum_buffer"] for i, s in state["optimizer"]["state"].items()})
+    return host_copy(out)
+
+
+def replicated_digest(torch, trainer) -> str:
+    """sha256 of this rank's replicated leaves: the state_dict entries and
+    momentum buffers of the parameters that no rule splits."""
+    from icl_tpu_torch.parallel.tensor import param_splits
+
+    splits = param_splits(trainer.model)
+    names = [n for n, _ in trainer.model.named_parameters()]
+    state = {"model": {k: v for k, v in trainer.model.state_dict().items() if k not in splits},
+             "optimizer": {"state": {i: {"momentum_buffer": b}
+                                     for i, b in enumerate(trainer.optimizer.momentum_buffers)
+                                     if names[i] not in splits}}}
+    return train_state_digest(torch, state)
+
+
+def restore_local(trainer, state: dict) -> None:
+    """Put back a deep copy of this rank's own `train_state()`."""
+    trainer.model.load_state_dict(state["model"], strict=True)
+    trainer.optimizer.load_state_dict(state["optimizer"])
+    trainer.optimizer.count = state["count"]
+    trainer.iteration = state["iteration"]
+
+
+def per_step_collectives(totals: dict, before: dict, steps: int) -> dict:
+    return {"calls": (totals["calls"] - before["calls"]) / steps,
+            "bytes": (totals["bytes"] - before["bytes"]) / steps,
+            "seconds": (totals["seconds"] - before["seconds"]) / steps}
+
+
+def tp_flagship_steps(torch, rank: int, world: int, totals: dict, slices, cfg, batches) -> tuple:
+    """48, 51, 52 on rank `rank` of `dp_numbers_worker`'s group, after its
+    data-parallel runs: the flagship over tp=2 (1 x 2), `Trainer` at full
+    width on `cfg` (phase 42's: 256^2, batch 16 of which 8 labeled, f32,
+    zero_stochastic, cuDNN deterministic) for its steps on `batches`, twice
+    from one state (the eager repeat), timed with the collectives of each
+    step, the digests of its replicated leaves and of its shards; at
+    TP_SMALL_SIDE a bf16-state `fit` of 2 steps with its SR launches, the
+    restore of the one-process save that the main process wrote, gathered,
+    and a save after one more step. Returns (the numbers, the gathered
+    float state after the steps on rank 0, else None): phase 42's
+    one-process runs hold it by phase 18's rule."""
+    import copy
+    import dataclasses
+    import gc
+
+    from icl_tpu_torch.ops import sgd_bf16 as sg, window_attention as wa
+    from icl_tpu_torch.parallel.mesh import create_mesh
+    from icl_tpu_torch.train.optim import shard_runs
+    from icl_tpu_torch.train.trainer import Trainer
+    from icl_tpu_torch.utils import checkpoint as ckpt
+
+    job = tp_job()
+    mesh = create_mesh(data=1, model=world, device=DEVICE)
+    tp_cfg = dataclasses.replace(cfg, num_tries="tp", log_flops=False)
+    t0 = time.perf_counter()
+    trainer = Trainer(tp_cfg, device=DEVICE, mesh=mesh)
+    build_s = time.perf_counter() - t0
+    local_params = sum(p.numel() * p.element_size() for p in trainer.model.parameters())
+    start = copy.deepcopy(trainer.train_state())
+    step_fn = trainer.step_fn
+    out = {"build_s": build_s, "param_bytes": local_params, "runs": []}
+    wa.reset_launch_counts()
+    for _ in range(2):
+        restore_local(trainer, start)
+        steps = []
+        trainer.step_fn = timed_steps(torch, step_fn, totals, steps)
+        mark = dict(totals)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = {}
+        for i, b in enumerate(batches):
+            vec = trainer.train_step(trainer.to_device(b))
+            metrics.update({f"{k}@{i + 1}": v for k, v in zip(trainer.metric_keys, vec.tolist())})
+        torch.cuda.synchronize()
+        out["runs"].append({"steps": steps, "metrics": metrics, "digest": state_digest(torch, trainer),
+                            "replicated": replicated_digest(torch, trainer),
+                            "peak_bytes": torch.cuda.max_memory_allocated(),
+                            "collectives": per_step_collectives(totals, mark, len(batches))})
+    out["attention"] = launches_now(wa)
+    test = (out["runs"][0]["metrics"], gathered_float_state(trainer))
+    if rank:
+        test = None
+    print(f"[tp-flagship] rank {rank}: built and sharded in {build_s:.1f} s, {local_params / 1e9:.3f} "
+          f"GB of parameters; runs {[{k: r[k] for k in ('steps', 'peak_bytes', 'collectives')} for r in out['runs']]}",
+          flush=True)
+    trainer.step_fn = step_fn
+    del trainer, start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # at TP_SMALL_SIDE: the bf16 state, a 2-step fit, the SR kernel launched on
+    # every run of every shard (phase 51 holds the full-width leaves); then the
+    # one-process save restored at tp=2, and a tp=2 save
+    small = unet_config(30000, 0, "tp_small", side=TP_SMALL_SIDE, zero_stochastic=True)
+    sb = [b for _, b in zip(range(2), acdc_batches(slices, small))]
+    cfg16 = dataclasses.replace(small, state_dtype="bfloat16", max_iterations=2, num_tries="tp_bf16",
+                                log_flops=False)
+    trainer = Trainer(cfg16, device=DEVICE, mesh=mesh)
+    runs_per_update = sum(len(shard_runs(sh, (p,))) for p, sh in zip(trainer.optimizer.params,
+                                                                  trainer.optimizer.shards))
+    sg.reset_launch_counts()
+    result = trainer.fit(iter(sb))
+    drop_states(result)
+    out["bf16"] = {"launches": sg.sgd_bf16_update.launches, "expected": 2 * runs_per_update,
+                   "losses": [row["loss"] for row in result["log"]],
+                   "leaves": len(trainer.optimizer.params)}
+    print(f"[tp-flagship] rank {rank}: bf16-state fit {out['bf16']}", flush=True)
+    del trainer, result
+    trainer = Trainer(small, device=DEVICE, mesh=mesh)
+    trainer.load_train_state(ckpt.load_train_state(job["one_process_dir"], "one", DEVICE))
+    out["restored_digest"] = train_state_digest(torch, gathered_state(trainer))
+    trainer.train_step(trainer.to_device(sb[1]))
+    state = gathered_state(trainer)
+    if rank == 0:
+        ckpt.save_train_state(job["tp_dir"], state, "tp")
+    out["saved_digest"] = train_state_digest(torch, state)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, test
+
+
+def split_row_sums(torch, model) -> None:
+    """Make a one-process model compute in tp=2's f32 order where tp=2 sums:
+    each layer that tp=2 splits by its input (`proj`, `fc2`, `linear2`,
+    `conv2`) adds the products of the two halves of its input, as the two
+    ranks' partial sums add."""
+    import torch.nn.functional as F
+
+    from icl_tpu_torch.parallel.mesh import tp_plan
+
+    plan, _ = tp_plan(model, 2)
+    modules = dict(model.named_modules())
+    for key, (dim, _) in plan.items():
+        if dim != 1:
+            continue
+        m = modules[key.rsplit(".", 1)[0]]
+        h = m.weight.shape[1] // 2
+        if isinstance(m, torch.nn.Linear):
+            def forward(x, m=m, h=h):
+                y = F.linear(x[..., :h], m.weight[:, :h]) + F.linear(x[..., h:], m.weight[:, h:])
+                return y if m.bias is None else y + m.bias
+        else:
+            def forward(x, m=m, h=h):
+                kw = dict(stride=m.stride, padding=m.padding, dilation=m.dilation, groups=m.groups)
+                y = (F.conv3d(x[:, :h], m.weight[:, :h], None, **kw)
+                     + F.conv3d(x[:, h:], m.weight[:, h:], None, **kw))
+                return y if m.bias is None else y + m.bias.view(1, -1, 1, 1, 1)
+        m.forward = forward
+
+
+def tp_swin_worker(torch, rank: int, world: int, port: int) -> dict:
+    """Rank `rank` of SwinUNETR-ICL fs48 at 96^3 over tp=2 (phase 9's
+    configuration at the job's batch; f32, TF32 off, recompute on): the
+    heads each window-attention launch ran with; one step through
+    `make_icl_step` (drop path off) and its control on the images times
+    1 + 1e-7, gathered, on the trainer's model (drop path off throughout);
+    then `Trainer` for TP_SWIN_STEPS steps from the same weights, timed,
+    its launches and collectives; a validation on the held-out case on both
+    ranks and the best model saved (gathered, written by rank 0). Then rank
+    0 holds the step against the one-process step by phase 18's rule, the
+    witness the one-process step in tp=2's f32 order (`split_row_sums`)."""
+    import collections
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+
+    from icl_tpu_torch.data.brats import brats_train_batches
+    from icl_tpu_torch.data.synth import synthetic_brats_cases
+    from icl_tpu_torch.models import layers
+    from icl_tpu_torch.models.registry import net_factory
+    from icl_tpu_torch.ops import window_attention as wa
+    from icl_tpu_torch.parallel.collectives import barrier, group_device
+    from icl_tpu_torch.parallel.mesh import create_mesh, world_group
+    from icl_tpu_torch.parallel.multihost import initialize_from_args
+    from icl_tpu_torch.parallel.tensor import gather_tensors, param_splits
+    from icl_tpu_torch.train.trainer import Trainer, brats_evaluator
+    from icl_tpu_torch.utils import checkpoint as ckpt
+    from icl_tpu_torch.utils.checkpoint import host_copy
+
+    job = tp_job()
+    batch_size = job["swin_batch"]
+    initialize_from_args(f"127.0.0.1:{port}", world, rank, device=DEVICE)
+    mesh = create_mesh(data=1, model=world, device=DEVICE)
+    totals = instrument_all_reduce(torch, dist)
+    heads = {"fwd": collections.Counter(), "bwd": collections.Counter()}
+    fwd, bwd = wa.window_attention_fwd, wa.window_attention_bwd
+
+    def fwd_heads(q, *args, **kwargs):
+        heads["fwd"][q.shape[1]] += 1
+        return fwd(q, *args, **kwargs)
+
+    def bwd_heads(q, *args, **kwargs):
+        heads["bwd"][q.shape[1]] += 1
+        return bwd(q, *args, **kwargs)
+
+    wa.window_attention_fwd, wa.window_attention_bwd = fwd_heads, bwd_heads
+    cases = synthetic_brats_cases(4, CASE_SIZE, seed=0)
+    held_out = synthetic_brats_cases(1, CASE_SIZE, seed=1)
+    cfg = train_config("float32", TP_SWIN_STEPS, TP_SWIN_STEPS, "tp")
+    cfg = dataclasses.replace(cfg, batch_size=batch_size, labeled_bs=batch_size // 2, log_flops=False)
+    batches = brats_train_batches(cases, 2, len(cases), cfg.batch_size, cfg.labeled_bs,
+                                  cfg.patch_size, seed=cfg.seed)
+    batch = next(batches)
+
+    def no_drop_path(model):
+        for m in model.modules():
+            if isinstance(m, layers.DropPath):
+                m.rate = 0.0
+        return model
+
+    def step(model, scale=1.0):
+        return unet_step(torch, model, batch, cfg.patch_size, DEVICE, scale, classes=2,
+                         labeled=cfg.labeled_bs, consis=cfg.consis_weight)
+
+    where = group_device(mesh.model_group)
+    # the trainer's own model for the compared step too (drop path off in both)
+    trainer = Trainer(cfg, device=DEVICE, mesh=mesh)
+    model = no_drop_path(trainer.model)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    splits = param_splits(model)
+    before = host_copy(gather_tensors({n: p.detach() for n, p in model.named_parameters()}, splits,
+                                      mesh, where))
+    wa.reset_launch_counts()
+    heads["fwd"].clear()
+    heads["bwd"].clear()
+    metrics, after = step(model)
+    step_heads = {k: dict(v) for k, v in heads.items()}
+    test = (metrics, host_copy(gather_tensors(after, splits, mesh, where)))
+    model.load_state_dict(start)
+    metrics, after = step(model, 1.0 + 1e-7)
+    control = (metrics, host_copy(gather_tensors(after, splits, mesh, where)))
+    model.load_state_dict(start)
+    model.zero_grad(set_to_none=True)
+    del model, start, after
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps = []
+    trainer.step_fn = timed_steps(torch, trainer.step_fn, totals, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wa.reset_launch_counts()
+    heads["fwd"].clear()
+    heads["bwd"].clear()
+    mark = dict(totals)
+    for _ in range(TP_SWIN_STEPS):
+        trainer.train_step(trainer.to_device(next(batches)))
+    torch.cuda.synchronize()
+    per_steps = {"fwd": dict(wa.window_attention.launches_by_mode),
+                 "bwd": dict(wa.window_attention_bwd.launches_by_mode),
+                 "heads": {k: dict(v) for k, v in heads.items()},
+                 "collectives": per_step_collectives(totals, mark, TP_SWIN_STEPS)}
+    peak = torch.cuda.max_memory_allocated()
+    trainer.model.eval()
+    wa.reset_launch_counts()
+    t0 = time.perf_counter()
+    agg = brats_evaluator(held_out, 2, cfg.patch_size, trainer.device)(trainer.model)
+    val_s = time.perf_counter() - t0
+    val_launches = launches_now(wa)
+    best_path = ckpt.save_best_model(cfg.snapshot_path, trainer.model)
+    out = {"step_heads": step_heads, "per_steps": per_steps, "val_launches": val_launches,
+           "peak_bytes": peak, "steps": steps, "mean_dice": agg["mean_dice"], "val_s": val_s,
+           "best_path": best_path, "batch": batch_size}
+    print(f"[tp-swin] rank {rank}: steps {steps}; peak memory {peak / 2**30:.2f} GiB; collectives "
+          f"per step {per_steps['collectives']}; launches by heads of one step {step_heads}; "
+          f"validation {agg['mean_dice']!r} in {val_s:.2f} s", flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    barrier(world_group())
+    dist.destroy_process_group()
+    if rank == 0:
+        wa.window_attention_fwd, wa.window_attention_bwd = fwd, bwd
+        model = no_drop_path(net_factory("swinunetr_icl", 1, 2, device=DEVICE,
+                                         feature_size=FEATURE_SIZE, patch_size=PATCH, remat=True,
+                                         generator=torch.Generator().manual_seed(cfg.seed)))
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        metrics, after = step(model)
+        reference = (metrics, host_copy(after))
+        model.load_state_dict(start)
+        split_row_sums(torch, model)
+        metrics, after = step(model)
+        runs = {"test": test, "reference": reference, "control": control,
+                "witness": (metrics, host_copy(after))}
+        step_agreement(torch, "[tp-swin]", f"one SwinUNETR-ICL fs{FEATURE_SIZE} step at {PATCH}^3, "
+                       f"batch {batch_size}, tp=2 vs 1 process (rule: phase 18 over the parameters, "
+                       "gathered; control = the tp=2 step on the images times 1 + 1e-7; witness = the "
+                       "one-process step with tp=2's row-parallel sums split in two)", before, runs)
+    return out
+
+
+def tp_dp_worker(torch, rank: int, world: int, port: int) -> dict:
+    """Rank `rank` of the flagship over dp2 x tp2 (4 ranks) at the job's side
+    (256^2 when four ranks' peaks fit the card, else 128^2), batch 16 of
+    which 8 labeled, f32, zero_stochastic: TP_DP_STEPS steps on its data
+    rank's rows, timed with their collectives; the digests of its replicated
+    leaves and of its model group's gathered state; the first step's loss
+    terms."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from icl_tpu_torch.data.synth import synthetic_acdc
+    from icl_tpu_torch.parallel.collectives import barrier
+    from icl_tpu_torch.parallel.mesh import create_mesh, world_group
+    from icl_tpu_torch.parallel.multihost import host_slice, initialize_from_args
+    from icl_tpu_torch.train.trainer import Trainer
+
+    side = tp_job()["dp_side"]
+    initialize_from_args(f"127.0.0.1:{port}", world, rank, device=DEVICE)
+    mesh = create_mesh(data=world // 2, model=2, device=DEVICE)
+    torch.backends.cudnn.deterministic = True
+    totals = instrument_all_reduce(torch, dist)
+    slices, _ = synthetic_acdc(SLICES_2D, VOLUMES_2D, SLICE_SIZE_2D, VOL_DEPTH_2D, CLASSES_2D, seed=0)
+    cfg = dataclasses.replace(unet_config(30000, 0, "tp_dp", side=side, zero_stochastic=True),
+                              log_flops=False)
+    batches = [b for _, b in zip(range(TP_DP_STEPS), acdc_batches(slices, cfg))]
+    trainer = Trainer(cfg, device=DEVICE, mesh=mesh)
+    steps = []
+    trainer.step_fn = timed_steps(torch, trainer.step_fn, totals, steps)
+    mark = dict(totals)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = {}
+    for i, b in enumerate(batches):
+        vec = trainer.train_step(trainer.to_device(host_slice(b, cfg.labeled_bs, mesh.rank, mesh.size)))
+        metrics.update({f"{k}@{i + 1}": v for k, v in zip(trainer.metric_keys, vec.tolist())})
+    torch.cuda.synchronize()
+    out = {"mesh": [mesh.rank, mesh.size, mesh.model_rank, mesh.model_size], "side": side,
+           "steps": steps, "metrics": metrics, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "collectives": per_step_collectives(totals, mark, TP_DP_STEPS),
+           "replicated": replicated_digest(torch, trainer), "digest": state_digest(torch, trainer)}
+    print(f"[tp-dp] rank {rank} (data {mesh.rank}, model {mesh.model_rank}) at {side}^2: steps {steps}; "
+          f"peak memory {out['peak_bytes'] / 2**30:.2f} GiB; collectives per step {out['collectives']}",
+          flush=True)
+    barrier(world_group())
+    dist.destroy_process_group()
+    return out
+
+
+def phase_tp_rule_table(torch) -> dict:
+    """47: the rule table at full width, M = 2, on models built on the meta
+    device: every sharded leaf's whole and local shape, the layers left
+    replicated, and each rank's parameter bytes (f32)."""
+    from icl_tpu_torch.models.swinunetr_icl import SwinUNETRICL
+    from icl_tpu_torch.models.unet2d_icl import UNetICL
+    from icl_tpu_torch.parallel.mesh import tp_plan
+
+    out = {}
+    for name, make in (("icl_unet_256", lambda: UNetICL(1, CLASSES_2D, patch_size=IMG_UNET)),
+                       ("swinunetr_icl_fs48", lambda: SwinUNETRICL(1, 2, img_size=PATCH,
+                                                                   feature_size=FEATURE_SIZE))):
+        with torch.device("meta"):
+            model = make()
+        plan, replicated = tp_plan(model, 2)
+        leaves = {}
+        rank_bytes = 0
+        whole_bytes = 0
+        for key, p in model.named_parameters():
+            shape = list(p.shape)
+            whole_bytes += p.numel() * 4
+            if key in plan:
+                local = list(shape)
+                local[plan[key][0]] //= 2
+                leaves[key] = [shape, local]
+                rank_bytes += math.prod(local) * 4
+            else:
+                rank_bytes += p.numel() * 4
+        out[name] = {"sharded": len(leaves), "rank_bytes": rank_bytes, "whole_bytes": whole_bytes,
+                     "replicated_layers": replicated}
+        print(f"[tp-rules] {name} at M = 2: {len(leaves)} sharded leaves [whole, local] "
+              f"{json.dumps(leaves)}; layers left replicated {replicated}; parameter bytes per rank "
+              f"{rank_bytes} of {whole_bytes} (f32)", flush=True)
+        if not leaves:
+            fail(f"[tp-rules] {name}: nothing sharded")
+    return out
+
+
+def phase_tp_local_kernels(torch, wa) -> list:
+    """49 (kernels): the forward and backward kernels at the local shapes of
+    the SwinUNETR-ICL fs48 training step over tp=2 (each stage's heads over
+    2, stage 1's 3 whole), f32 and bf16, against their plain versions and
+    bitwise repeatable."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    rows = []
+    scale = HEAD_DIM ** -0.5
+    for stage in STAGES:
+        name, _, padded, ws, shift, heads = stage
+        local = (name, LABELED_BS, padded, ws, shift, local_heads_of(heads))
+        for mode in ("none", "region"):
+            if name not in PER_FORWARD[mode]:
+                continue
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, bias, ids = stage_inputs(torch, local, dtype, gen)
+                ids = ids if mode == "region" else None
+                g = torch.randn(q.shape, device=DEVICE, generator=gen).to(dtype)
+                out, again = (wa.window_attention(q, k, v, bias, ids, scale=scale) for _ in range(2))
+                grads, grads2 = (wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale)
+                                 for _ in range(2))
+                torch.cuda.synchronize()
+                want = wa.window_attention_plain(q, k, v, bias, ids, scale=scale)
+                want_grads = wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale)
+                err = (out.float() - want.float()).abs()
+                if dtype == torch.float32:
+                    fwd_ok = float(err.max()) <= F32_ATOL
+                else:
+                    fwd_ok = bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+                names = ("dq", "dk", "dv", "dbias")
+                errs = {n: rel_err(a, b) for n, a, b in zip(names, grads, want_grads)}
+                tols = {n: BWD_F32_RTOL if dtype == torch.float32 or n == "dbias" else BWD_BF16_RTOL
+                        for n in names}
+                row = {"stage": name, "mode": mode, "dtype": str(dtype).split(".")[-1],
+                       "shape": list(q.shape), "fwd_max_abs_err": float(err.max()),
+                       "bwd_rel_err": errs, "bitwise_repeat": torch.equal(out, again)
+                       and all(torch.equal(a, b) for a, b in zip(grads, grads2))}
+                rows.append(row)
+                if not fwd_ok or any(errs[n] > tols[n] for n in names) or not row["bitwise_repeat"]:
+                    fail(f"[tp-kernels] a kernel disagrees at a local shape: {row}")
+    print(f"[tp-kernels] forward and backward kernels at the tp=2 local shapes, against plain, "
+          f"bitwise repeatable: {json.dumps(rows)}", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_tp_sgd_shards(torch, sg) -> dict:
+    """51 (kernel): the SR kernel on each rank's shard of the flagship's
+    largest leaves (`mlp2` fc1 rows, fc2 columns, its bias) and of an
+    `fc_kv` weight (two pieces of heads) equals the matching slice of the
+    kernel's whole-leaf update, bit for bit."""
+    from icl_tpu_torch.parallel.tensor import Split
+    from icl_tpu_torch.train.optim import shard_runs
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    lr = torch.tensor(0.01, device=DEVICE)
+    count = torch.tensor(7, dtype=torch.int64, device=DEVICE)
+    cases = {"mlp2.fc1.weight": ((16384, 16384), 0, 1), "mlp2.fc2.weight": ((16384, 16384), 1, 1),
+             "mlp2.fc1.bias": ((16384,), 0, 1), "attn.fc_kv.weight": ((256, 128), 0, 2)}
+    out = {}
+    launches = sg.sgd_bf16_update.launches
+    for name, (shape, dim, pieces) in cases.items():
+        p, g, buf = (torch.randn(shape, device=DEVICE, generator=gen).bfloat16() for _ in range(3))
+        whole = tuple(t.clone() for t in (p, g, buf))
+        sg.sgd_bf16_update(*whole, lr, count, 0.9, 1e-4, 11, 5)
+        equal = []
+        for r in range(2):
+            split = Split(dim, shape[dim], pieces, r, 2)
+            shard = tuple(split.take(t) for t in (p, g, buf))
+            for run, offset, cols, stride in shard_runs(split, shard):
+                sg.sgd_bf16_update(*run, lr, count, 0.9, 1e-4, 11, 5, offset, cols, stride)
+            equal.append(torch.equal(shard[0].view(torch.int16), split.take(whole[0]).view(torch.int16))
+                         and torch.equal(shard[2].view(torch.int16),
+                                         split.take(whole[2]).view(torch.int16)))
+        out[name] = equal
+        del p, g, buf, whole
+    sg.sgd_bf16_update.launches = launches  # checks, not the path
+    torch.cuda.empty_cache()
+    print(f"[tp-sgd] the SR kernel on each rank's shard against the slice of its whole-leaf update, "
+          f"bit for bit (ranks 0, 1): {out}", flush=True)
+    if not all(all(v) for v in out.values()):
+        fail("[tp-sgd] a shard's update differs from the slice of the whole leaf's")
+    return out
+
+
+def tp_prepare(torch, swin_peak) -> dict:
+    """Before phase 42, whose ranks run phase 48: the one-process save at
+    TP_SMALL_SIDE that the tp=2 ranks restore (52), its digest and first
+    step's loss terms, and the job file of the tensor-parallel workers
+    (SwinUNETR-ICL's batch: 2 where two of phase 9's peaks would not fit
+    the card)."""
+    import gc
+
+    from icl_tpu_torch.data.synth import synthetic_acdc
+    from icl_tpu_torch.train.trainer import Trainer
+    from icl_tpu_torch.utils import checkpoint as ckpt
+
+    shutil.rmtree(TP_ROOT, ignore_errors=True)
+    os.makedirs(TP_ROOT, exist_ok=True)
+    slices, _ = synthetic_acdc(SLICES_2D, VOLUMES_2D, SLICE_SIZE_2D, VOL_DEPTH_2D, CLASSES_2D, seed=0)
+    small = unet_config(30000, 0, "tp_small", side=TP_SMALL_SIDE, zero_stochastic=True)
+    sb = [b for _, b in zip(range(2), acdc_batches(slices, small))]
+    one = Trainer(small, device=DEVICE)
+    vec = one.train_step(one.to_device(sb[0]))
+    job = {"one_process_dir": os.path.join(TP_ROOT, "one"), "tp_dir": os.path.join(TP_ROOT, "tp"),
+           "swin_batch": TRAIN_BATCH, "dp_side": IMG_UNET}
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    if swin_peak and 2 * swin_peak > 0.9 * card_bytes:
+        job["swin_batch"] = 2
+    ckpt.save_train_state(job["one_process_dir"], one.train_state(), "one")
+    prep = {"job": job, "small_first": dict(zip(one.metric_keys, vec.tolist())),
+            "one_digest": train_state_digest(torch, one.train_state()), "card_bytes": card_bytes}
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(os.path.join(TP_ROOT, "job.json"), "w") as f:
+        json.dump(job, f)
+    return prep
+
+
+def phase_tensor_parallel(torch, wa, sg, held_out, prep: dict, flagship: list) -> dict:
+    """47-52: tensor parallelism on the card (see the module docstring);
+    `flagship` holds the two ranks' tp=2 numbers from phase 42's worker."""
+    import gc
+
+    from icl_tpu_torch.train.trainer import Trainer
+    from icl_tpu_torch.utils import checkpoint as ckpt
+
+    t_all = time.perf_counter()
+    # the SwinUNETR-ICL ranks start now; while they start and build, this
+    # process checks the rule table, the flagship's numbers, the restores,
+    # the SR shards and the kernels at the local shapes (no timing here)
+    swin_run = start_ranks("tp-swin", 2)
+    rules = phase_tp_rule_table(torch)
+    job, card_bytes, one_digest = prep["job"], prep["card_bytes"], prep["one_digest"]
+    small = unet_config(30000, 0, "tp_small", side=TP_SMALL_SIDE, zero_stochastic=True)
+    tp_dir = job["tp_dir"]
+    f0, f1 = flagship
+    for r in (f0, f1):
+        if r["runs"][0]["digest"] != r["runs"][1]["digest"] or r["runs"][0]["metrics"] != r["runs"][1]["metrics"]:
+            fail("[tp-flagship] the eager repeat of the tp=2 steps differs")
+        if any(n for counts in r["attention"].values() for n in counts.values()):
+            fail(f"[tp-flagship] the U-Net path launched window attention: {r['attention']}")
+        if r["bf16"]["launches"] != r["bf16"]["expected"] or not all(math.isfinite(x) for x in r["bf16"]["losses"]):
+            fail(f"[tp-flagship] the bf16-state fit: {r['bf16']}")
+    if f0["runs"][0]["replicated"] != f1["runs"][0]["replicated"]:
+        fail("[tp-flagship] the two ranks' replicated leaves differ")
+    if f0["runs"][0]["metrics"] != f1["runs"][0]["metrics"]:
+        fail("[tp-flagship] the two ranks logged different losses")
+    if f0["restored_digest"] != one_digest or f1["restored_digest"] != one_digest:
+        fail("[tp-restore] the one-process save restored at tp=2 is not the saved state bit for bit")
+    back = Trainer(small, device=DEVICE)
+    back.load_train_state(ckpt.load_train_state(tp_dir, "tp", DEVICE))
+    back_digest = train_state_digest(torch, back.train_state())
+    del back
+    gc.collect()
+    torch.cuda.empty_cache()
+    if back_digest != f0["saved_digest"]:
+        fail("[tp-restore] the tp=2 save restored at tp=1 is not the saved state bit for bit")
+    peaks = [r["runs"][0]["peak_bytes"] for r in (f0, f1)]
+    steps = [[round(s["seconds"], 4) for s in r["runs"][0]["steps"]] for r in (f0, f1)]
+    print(f"[tp-flagship] U-Net-ICL 2D at {IMG_UNET}^2 over tp=2 on the card (gloo), {DP_STEPS} f32 "
+          f"steps twice, bitwise equal; replicated leaves bitwise equal across the ranks; s/step per "
+          f"rank {steps} (s/step after the first, rank 0: "
+          f"{sum(steps[0][1:]) / (DP_STEPS - 1):.4f}); collectives per step and rank "
+          f"{[r['runs'][0]['collectives'] for r in (f0, f1)]}; peak memory per rank "
+          f"{[round(p / 2**30, 2) for p in peaks]} GiB; parameter bytes per rank "
+          f"{[r['param_bytes'] for r in (f0, f1)]}; build and shard {[round(r['build_s'], 1) for r in (f0, f1)]} s; "
+          f"bf16-state fit SR launches per rank {[r['bf16']['launches'] for r in (f0, f1)]} "
+          f"({f0['bf16']['leaves']} leaves); restores bit for bit both ways at {TP_SMALL_SIDE}^2",
+          flush=True)
+    sgd = phase_tp_sgd_shards(torch, sg)
+
+    # 49: SwinUNETR-ICL fs48 over tp=2
+    kernels = phase_tp_local_kernels(torch, wa)
+    s0, s1 = finish_ranks(swin_run, 1200)
+    swin_s = time.perf_counter() - t_all
+    per_stage = {"fwd": {}, "bwd": {}}
+    for st in STAGES:
+        n = sum(PER_FORWARD[m].get(st[0], 0) for m in ("none", "region"))
+        h = local_heads_of(st[5])
+        per_stage["bwd"][h] = per_stage["bwd"].get(h, 0) + 2 * n
+        per_stage["fwd"][h] = per_stage["fwd"].get(h, 0) + 4 * n
+    for r in (s0, s1):
+        got = {k: {int(h): n for h, n in v.items()} for k, v in r["step_heads"].items()}
+        if got != per_stage:
+            fail(f"[tp-swin] launches by heads of one step {got}, reckoned {per_stage}")
+        want = {"fwd": FWD_PER_STEP, "bwd": BWD_PER_STEP}
+        for kind in ("fwd", "bwd"):
+            if r["per_steps"][kind] != {**{m: TP_SWIN_STEPS * n for m, n in want[kind].items()}, "mask": 0}:
+                fail(f"[tp-swin] {kind} launches over {TP_SWIN_STEPS} steps {r['per_steps'][kind]}")
+        if not any(r["val_launches"]["fwd"].values()) or any(r["val_launches"]["bwd"].values()):
+            fail(f"[tp-swin] the validation's launches {r['val_launches']}")
+    if not os.path.exists(s0["best_path"]):
+        fail("[tp-swin] no best model was saved")
+    # index_add_ stitches the patches with atomics on the card: the two ranks'
+    # maps may part at near-ties
+    if abs(s0["mean_dice"] - s1["mean_dice"]) > TP_DICE_ATOL:
+        fail(f"[tp-swin] the ranks' validations differ: {s0['mean_dice']!r}, {s1['mean_dice']!r}")
+    s_per_step = [sum(st["seconds"] for st in r["steps"][1:]) / (TP_SWIN_STEPS - 1) for r in (s0, s1)]
+    print(f"[tp-swin] SwinUNETR-ICL fs{FEATURE_SIZE} at {PATCH}^3, batch {s0['batch']}, over tp=2: "
+          f"{[round(x, 4) for x in s_per_step]} s/step after the first, peak memory per rank "
+          f"{[round(r['peak_bytes'] / 2**30, 2) for r in (s0, s1)]} GiB, collectives per step "
+          f"{[r['per_steps']['collectives'] for r in (s0, s1)]}, launches per rank over "
+          f"{TP_SWIN_STEPS} steps {s0['per_steps']['fwd']} forward, {s0['per_steps']['bwd']} "
+          f"backward, by heads per step {s0['step_heads']} (reckoned {per_stage}); the validation "
+          f"on both ranks in {[round(r['val_s'], 2) for r in (s0, s1)]} s, launching "
+          f"{[r['val_launches']['fwd'] for r in (s0, s1)]} forward; {swin_s:.1f} s", flush=True)
+    # 50: the flagship over dp2 x tp2, 256^2 when four ranks' peaks fit the
+    # card; its ranks start before the one-process eval of the tp=2 run
+    side = IMG_UNET if 4 * max(peaks) <= 0.9 * card_bytes else TP_SMALL_SIDE
+    job["dp_side"] = side
+    with open(os.path.join(TP_ROOT, "job.json"), "w") as f:
+        json.dump(job, f)
+    t0 = time.perf_counter()
+    dp_run = start_ranks("tp-dp", 4)
+    # 50 (eval): the stripped best checkpoint, one process, against the tp=2 validation
+    from icl_tpu_torch.eval.infer3d import evaluate_brats_cases, make_patch_predictor
+    from icl_tpu_torch.metrics import aggregate_case_metrics
+    from icl_tpu_torch.scripts.test_3D_BraTS import load_eval_model
+
+    model = load_eval_model("swinunetr_icl", s0["best_path"], 2, DEVICE, FEATURE_SIZE)
+    agg = aggregate_case_metrics(evaluate_brats_cases(
+        make_patch_predictor(model), held_out, 2, (PATCH,) * 3, STRIDE, STRIDE, sw_batch=SW_BATCH,
+        device=DEVICE))
+    val_dice = s0["mean_dice"]
+    print(f"[tp-eval] the tp=2 run's stripped best checkpoint, loaded strictly into "
+          f"{type(model).__name__} in one process: mean dice {agg['mean_dice']!r}, the tp=2 "
+          f"validation {val_dice!r} (tolerance {TP_DICE_ATOL})", flush=True)
+    if abs(agg["mean_dice"] - val_dice) > TP_DICE_ATOL:
+        fail("[tp-eval] the one-process eval does not give the tp=2 validation dice")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dps = finish_ranks(dp_run, 900)
+    dp_s = time.perf_counter() - t0
+    if [r["mesh"] for r in dps] != [[0, 2, 0, 2], [0, 2, 1, 2], [1, 2, 0, 2], [1, 2, 1, 2]]:
+        fail(f"[tp-dp] the mesh {[r['mesh'] for r in dps]}")
+    # the replicated leaves equal on all four ranks, each shard on both data ranks
+    if len({r["replicated"] for r in dps}) != 1 or any(
+            dps[m]["digest"] != dps[2 + m]["digest"] for m in (0, 1)):
+        fail("[tp-dp] the replicas differ across the ranks")
+    first_ref = f0["one_process_first"] if side == IMG_UNET else prep["small_first"]
+    first = {k: abs(dps[0]["metrics"][f"{k}@1"] - v) / max(abs(v), 1e-12) for k, v in first_ref.items()}
+    print(f"[tp-dp] U-Net-ICL 2D over dp2 x tp2 (4 ranks on the card, gloo) at {side}^2 (four tp=2 "
+          f"peaks of {max(peaks) / 2**30:.2f} GiB against the card's {card_bytes / 2**30:.1f} GiB): "
+          f"replicas bitwise equal; the first step's loss terms against one process, largest relative "
+          f"error {max(first.values()):.3e} (tolerance {DP_METRIC_RTOL}); s/step per rank "
+          f"{[[round(s['seconds'], 4) for s in r['steps']] for r in dps]}; collectives per step "
+          f"{[r['collectives'] for r in dps]}; peak memory per rank "
+          f"{[round(r['peak_bytes'] / 2**30, 2) for r in dps]} GiB; {dp_s:.1f} s", flush=True)
+    if max(first.values()) > DP_METRIC_RTOL:
+        fail("[tp-dp] the first step's loss terms disagree with one process")
+    shutil.rmtree(TP_ROOT, ignore_errors=True)
+    print(f"[summary] tensor-parallel phases 47-52 in {time.perf_counter() - t_all:.1f} s", flush=True)
+    return {"rules": rules, "flagship": {"steps": steps, "peaks": peaks,
+                                         "collectives": [r["runs"][0]["collectives"] for r in (f0, f1)],
+                                         "param_bytes": [r["param_bytes"] for r in (f0, f1)],
+                                         "first_step_rel_err": f0["first_step_rel_err"],
+                                         "sgd_bf16_launches": [r["bf16"]["launches"] for r in (f0, f1)]},
+            "swin": {"s_per_step": s_per_step, "peaks": [r["peak_bytes"] for r in (s0, s1)],
+                     "collectives": [r["per_steps"]["collectives"] for r in (s0, s1)],
+                     "launches": [{k: r["per_steps"][k] for k in ("fwd", "bwd")} for r in (s0, s1)],
+                     "val_launches": [r["val_launches"] for r in (s0, s1)], "val_dice": val_dice,
+                     "eval_dice": agg["mean_dice"], "batch": s0["batch"]},
+            "dp": {"side": side, "steps": [r["steps"] for r in dps],
+                   "peaks": [r["peak_bytes"] for r in dps],
+                   "collectives": [r["collectives"] for r in dps]},
+            "kernels": kernels, "sgd": sgd}
+
+
+DP_WORKERS.update({"tp-swin": tp_swin_worker, "tp-dp": tp_dp_worker})
+
+
+def main(argv: list) -> int:
+    """Every phase. `--from 41` runs phases 1-2, 41-43 and 47-52 only (the
+    multi-process ones, phase 42's ranks running phase 48), and prints no
+    result: a partial run, to iterate on them."""
+    start = int(argv[argv.index("--from") + 1]) if "--from" in argv else 1
+    if start not in (1, 41):
+        print("chip_smoke: --from takes 41", file=sys.stderr)
+        return 2
     t_script = time.perf_counter()
+    marks = [t_script]
+
+    def stamp(phases: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] phases {phases}: {now - marks[-1]:.1f} s", flush=True)
+        marks.append(now)
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return run
+
+    for name, fn in list(globals().items()):  # each phase's seconds
+        if name.startswith(("phase_", "tp_prepare", "run_card_tests")) and callable(fn):
+            globals()[name] = timed(name, fn)
+
     import torch
 
     if not torch.cuda.is_available():
@@ -4003,154 +4822,192 @@ def main() -> int:
     wa.window_attention_bwd(*z[:3], torch.zeros(1, 8, 8, device=DEVICE), None, z[3], scale=1.0)
     torch.cuda.synchronize()
 
-    # 3 + 4. the forward kernel against its plain version, and times
-    per_shape = phase_kernel_3d(torch, F, wa)
+    if start <= 40:
+        # 3 + 4. the forward kernel against its plain version, and times
+        per_shape = phase_kernel_3d(torch, F, wa)
 
-    # 5. the main path
-    model = net_factory("swinunetr_icl", 1, 2, device=DEVICE, feature_size=FEATURE_SIZE,
-                        generator=torch.Generator().manual_seed(0), inference=True).eval()
-    probs_fn = make_patch_predictor(model)
-    volume = np.random.default_rng(0).standard_normal(VOLUME).astype(np.float32)
-    args = (probs_fn, volume, 2, (PATCH,) * 3, STRIDE, STRIDE, SW_BATCH)
-    sliding_window_predict(*args, device=DEVICE)  # warm-up: cuDNN plans, allocator
-    wa.reset_launch_counts()
-    t0 = time.perf_counter()
-    labels = sliding_window_predict(*args, device=DEVICE)
-    torch.cuda.synchronize()
-    volume_s = time.perf_counter() - t0
-    launches = dict(wa.window_attention.launches_by_mode)
-    total = wa.window_attention.launches
-    print(f"[path] sliding window {VOLUME}, fs{FEATURE_SIZE}, {PATCH}^3 patches, stride {STRIDE}, "
-          f"sw_batch {SW_BATCH}: {volume_s:.3f} s/volume; "
-          f"launches {total} {launches}; labels {np.bincount(labels.ravel(), minlength=2).tolist()}",
-          flush=True)
-    if labels.shape != volume.shape or labels.max() > 1:
-        fail(f"label map {labels.shape} max {labels.max()}")
-    n_forwards = math.ceil(math.prod(len(_grid_starts(d, PATCH, STRIDE)) for d in VOLUME) / SW_BATCH)
-    expected = {mode: n_forwards * sum(PER_FORWARD[mode].values()) for mode in ("none", "region")}
-    expected["mask"] = 0
-    if total != sum(expected.values()) or launches != expected:
-        fail(f"expected {sum(expected.values())} launches {expected}, got {total} {launches}")
+        stamp("1-4")
+        # 5. the main path
+        model = net_factory("swinunetr_icl", 1, 2, device=DEVICE, feature_size=FEATURE_SIZE,
+                            generator=torch.Generator().manual_seed(0), inference=True).eval()
+        probs_fn = make_patch_predictor(model)
+        volume = np.random.default_rng(0).standard_normal(VOLUME).astype(np.float32)
+        args = (probs_fn, volume, 2, (PATCH,) * 3, STRIDE, STRIDE, SW_BATCH)
+        sliding_window_predict(*args, device=DEVICE)  # warm-up: cuDNN plans, allocator
+        wa.reset_launch_counts()
+        t0 = time.perf_counter()
+        labels = sliding_window_predict(*args, device=DEVICE)
+        torch.cuda.synchronize()
+        volume_s = time.perf_counter() - t0
+        launches = dict(wa.window_attention.launches_by_mode)
+        total = wa.window_attention.launches
+        print(f"[path] sliding window {VOLUME}, fs{FEATURE_SIZE}, {PATCH}^3 patches, stride {STRIDE}, "
+              f"sw_batch {SW_BATCH}: {volume_s:.3f} s/volume; "
+              f"launches {total} {launches}; labels {np.bincount(labels.ravel(), minlength=2).tolist()}",
+              flush=True)
+        if labels.shape != volume.shape or labels.max() > 1:
+            fail(f"label map {labels.shape} max {labels.max()}")
+        n_forwards = math.ceil(math.prod(len(_grid_starts(d, PATCH, STRIDE)) for d in VOLUME) / SW_BATCH)
+        expected = {mode: n_forwards * sum(PER_FORWARD[mode].values()) for mode in ("none", "region")}
+        expected["mask"] = 0
+        if total != sum(expected.values()) or launches != expected:
+            fail(f"expected {sum(expected.values())} launches {expected}, got {total} {launches}")
 
-    # 6. one sw_batch forward against the plain attention, same weights
-    x = torch.from_numpy(volume[:PATCH, :PATCH, :PATCH]).to(DEVICE)
-    x = torch.stack([x, x.flip(0), x.flip(1), x.flip(2)])[:, None]
-    probs = probs_fn(x)
-    attns = [m for m in model.modules() if isinstance(m, WindowAttention3D)]
-    for m in attns:
-        m.attention = wa.window_attention_plain
-    probs_plain = probs_fn(x)
-    for m in attns:
-        m.attention = wa.window_attention
-    probs_err = float((probs - probs_plain).abs().max())
-    print(f"[path] one sw_batch forward, kernel vs plain attention: probs max abs err {probs_err:.3e} "
-          f"(tolerance {PROBS_ATOL})", flush=True)
-    if not torch.isfinite(probs).all() or probs_err > PROBS_ATOL:
-        fail("forward through the kernel disagrees with the plain attention")
+        # 6. one sw_batch forward against the plain attention, same weights
+        x = torch.from_numpy(volume[:PATCH, :PATCH, :PATCH]).to(DEVICE)
+        x = torch.stack([x, x.flip(0), x.flip(1), x.flip(2)])[:, None]
+        probs = probs_fn(x)
+        attns = [m for m in model.modules() if isinstance(m, WindowAttention3D)]
+        for m in attns:
+            m.attention = wa.window_attention_plain
+        probs_plain = probs_fn(x)
+        for m in attns:
+            m.attention = wa.window_attention
+        probs_err = float((probs - probs_plain).abs().max())
+        print(f"[path] one sw_batch forward, kernel vs plain attention: probs max abs err {probs_err:.3e} "
+              f"(tolerance {PROBS_ATOL})", flush=True)
+        if not torch.isfinite(probs).all() or probs_err > PROBS_ATOL:
+            fail("forward through the kernel disagrees with the plain attention")
 
-    del model, probs_fn, probs, probs_plain, x
-    torch.cuda.empty_cache()
+        del model, probs_fn, probs, probs_plain, x
+        torch.cuda.empty_cache()
 
-    # 7 + 8. the backward kernel
-    bwd_rows = phase_backward_kernel(torch, F, wa)
+        stamp("5-6")
+        # 7 + 8. the backward kernel
+        bwd_rows = phase_backward_kernel(torch, F, wa)
 
-    # 9 - 11. the training path, the step against plain attention, train -> eval
-    from icl_tpu_torch.data.synth import synthetic_brats_cases
+        stamp("7-8")
+        # 9 - 11. the training path, the step against plain attention, train -> eval
+        from icl_tpu_torch.data.synth import synthetic_brats_cases
 
-    shutil.rmtree(EXPERIMENTS, ignore_errors=True)
-    cases = synthetic_brats_cases(4, CASE_SIZE, seed=0)
-    held_out = synthetic_brats_cases(1, CASE_SIZE, seed=1)
-    training = phase_training(torch, wa, cases, held_out)
-    phase_step_parity(torch, wa, cases)
-    phase_train_to_eval(torch, held_out, training)
+        shutil.rmtree(EXPERIMENTS, ignore_errors=True)
+        cases = synthetic_brats_cases(4, CASE_SIZE, seed=0)
+        held_out = synthetic_brats_cases(1, CASE_SIZE, seed=1)
+        training = phase_training(torch, wa, cases, held_out)
+        phase_step_parity(torch, wa, cases)
+        phase_train_to_eval(torch, held_out, training)
 
-    # 12 - 16. this slice: the 2D kernels, the Swin-UNet-ICL training path,
-    # its step against plain attention, train -> eval
-    from icl_tpu_torch.data.synth import synthetic_acdc
+        stamp("9-11")
+        # 12 - 16. this slice: the 2D kernels, the Swin-UNet-ICL training path,
+        # its step against plain attention, train -> eval
+        from icl_tpu_torch.data.synth import synthetic_acdc
 
-    fwd_rows_2d, bwd_rows_2d = phase_kernels_2d(torch, F, wa)
-    slices, volumes = synthetic_acdc(SLICES_2D, VOLUMES_2D, SLICE_SIZE_2D, VOL_DEPTH_2D, CLASSES_2D,
-                                     seed=0)
-    training_2d = phase_training_2d(torch, wa, slices, volumes)
-    phase_step_parity_2d(torch, wa, slices)
-    phase_train_to_eval_2d(torch, volumes, training_2d)
+        fwd_rows_2d, bwd_rows_2d = phase_kernels_2d(torch, F, wa)
+        slices, volumes = synthetic_acdc(SLICES_2D, VOLUMES_2D, SLICE_SIZE_2D, VOL_DEPTH_2D, CLASSES_2D,
+                                         seed=0)
+        training_2d = phase_training_2d(torch, wa, slices, volumes)
+        phase_step_parity_2d(torch, wa, slices)
+        phase_train_to_eval_2d(torch, volumes, training_2d)
 
-    # 17 - 20. this slice: U-Net-ICL training on the same data, its step on
-    # the card against the CPU, the fused sspa pair, train -> eval
-    training_unet = phase_training_unet(torch, wa, slices, volumes)
-    phase_unet_device_vs_cpu(torch, slices)
-    phase_unet_fused_pair(torch, slices)
-    phase_train_to_eval_unet(torch, volumes, training_unet)
+        stamp("12-16")
+        # 17 - 20. this slice: U-Net-ICL training on the same data, its step on
+        # the card against the CPU, the fused sspa pair, train -> eval
+        training_unet = phase_training_unet(torch, wa, slices, volumes)
+        phase_unet_device_vs_cpu(torch, slices)
+        phase_unet_fused_pair(torch, slices)
+        phase_train_to_eval_unet(torch, volumes, training_unet)
 
-    # 21 - 27. this slice: U-Net-ICL 3D on BraTS, its step on the card
-    # against the CPU, the supervised U-Net 3D, train -> eval; the AMOS
-    # CLIs and train -> eval
-    training_unet3d = phase_training_unet3d(torch, wa, cases, held_out)
-    phase_unet3d_device_vs_cpu(torch, cases)
-    supervised_unet3d = phase_supervised_unet3d(torch, wa, cases)
-    phase_train_to_eval_unet3d(torch, held_out, training_unet3d)
-    amos_icl, amos_sup = phase_amos(torch, wa)
+        stamp("17-20")
+        # 21 - 27. this slice: U-Net-ICL 3D on BraTS, its step on the card
+        # against the CPU, the supervised U-Net 3D, train -> eval; the AMOS
+        # CLIs and train -> eval
+        training_unet3d = phase_training_unet3d(torch, wa, cases, held_out)
+        phase_unet3d_device_vs_cpu(torch, cases)
+        supervised_unet3d = phase_supervised_unet3d(torch, wa, cases)
+        phase_train_to_eval_unet3d(torch, held_out, training_unet3d)
+        amos_icl, amos_sup = phase_amos(torch, wa)
 
-    # 28 - 32. this slice: the kernels at the supervised paths' shapes, the
-    # three supervised CLIs with train -> eval, and the resume
-    sup_rows = phase_kernels_supervised(torch, F, wa)
-    sup_unet = phase_supervised_unet_2d(torch, wa, slices, volumes)
-    sup_swinunet = phase_supervised_swinunet_2d(torch, wa, slices, volumes)
-    sup_swinunetr = phase_supervised_swinunetr_3d(torch, wa, cases, held_out)
-    torch.backends.cudnn.deterministic = True
-    try:
-        resume = phase_resume(torch, slices)
-    finally:
-        torch.backends.cudnn.deterministic = False
-    print(f"[summary] resume: {json.dumps(resume)}", flush=True)
+        stamp("21-27")
+        # 28 - 32. this slice: the kernels at the supervised paths' shapes, the
+        # three supervised CLIs with train -> eval, and the resume
+        sup_rows = phase_kernels_supervised(torch, F, wa)
+        sup_unet = phase_supervised_unet_2d(torch, wa, slices, volumes)
+        sup_swinunet = phase_supervised_swinunet_2d(torch, wa, slices, volumes)
+        sup_swinunetr = phase_supervised_swinunetr_3d(torch, wa, cases, held_out)
+        torch.backends.cudnn.deterministic = True
+        try:
+            resume = phase_resume(torch, slices)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        print(f"[summary] resume: {json.dumps(resume)}", flush=True)
 
-    # 33 - 35. this slice: FixMatch-CTA through its CLI at the JAX defaults,
-    # its step on the card against the CPU, the resume of its saved run
-    t0 = time.perf_counter()
-    cta = phase_fixmatch_cta(torch, wa, slices, volumes)
-    phase_fixmatch_device_vs_cpu(torch, slices)
-    cta_resume = phase_fixmatch_resume(torch, wa, slices, volumes, cta)
-    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
-    print(f"[summary] FixMatch-CTA phases 33-35 in {time.perf_counter() - t0:.1f} s: "
-          f"{json.dumps({'s_per_step': {k: cta[k]['s_per_step'] for k in ('lag1', 'lag0')}, 'peak_gib': cta['lag1']['peak_bytes'] / 2**30, 'batch_s': cta['batch_s'], 'step_s': cta['step_s'], 'moved': cta['moved'], 'resume': cta_resume})}",
-          flush=True)
+        stamp("28-32")
+        # 33 - 35. this slice: FixMatch-CTA through its CLI at the JAX defaults,
+        # its step on the card against the CPU, the resume of its saved run
+        t0 = time.perf_counter()
+        cta = phase_fixmatch_cta(torch, wa, slices, volumes)
+        phase_fixmatch_device_vs_cpu(torch, slices)
+        cta_resume = phase_fixmatch_resume(torch, wa, slices, volumes, cta)
+        shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
+        print(f"[summary] FixMatch-CTA phases 33-35 in {time.perf_counter() - t0:.1f} s: "
+              f"{json.dumps({'s_per_step': {k: cta[k]['s_per_step'] for k in ('lag1', 'lag0')}, 'peak_gib': cta['lag1']['peak_bytes'] / 2**30, 'batch_s': cta['batch_s'], 'step_s': cta['step_s'], 'moved': cta['moved'], 'resume': cta_resume})}",
+              flush=True)
 
-    # 36 - 40. this slice: the flagship's fast configuration: the SR kernel
-    # and the card's kernel tests, the fast CLI, graph replay against eager,
-    # the dispatch window and the bf16 resume, the device augment
-    t0 = time.perf_counter()
-    sgd_row = phase_sgd_kernel(torch, sg)
-    card_tests = run_card_tests()
-    fast = phase_fast_cli(torch, wa, sg, slices, volumes)
-    graph = phase_graph_vs_eager(torch, wa, slices)
-    dispatch = phase_dispatch_and_resume(torch, slices)
-    augment = phase_device_augment(torch, slices)
-    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
-    print(f"[summary] fast configuration phases 36-40 in {time.perf_counter() - t0:.1f} s: "
-          f"{json.dumps({'card_tests': card_tests, 'fast_peak_gib': fast['peak_bytes'] / 2**30, 'fast_state_bytes': fast['state_bytes'], 'graph': {k: graph[k] for k in ('fast', 'swin', 'amos')}, 'upsample_backward_bitwise': graph['upsample_backward_bitwise'], 'dispatch': dispatch, 'augment': augment})}",
-          flush=True)
+        stamp("33-35")
+        # 36 - 40. this slice: the flagship's fast configuration: the SR kernel
+        # and the card's kernel tests, the fast CLI, graph replay against eager,
+        # the dispatch window and the bf16 resume, the device augment
+        t0 = time.perf_counter()
+        sgd_row = phase_sgd_kernel(torch, sg)
+
+        fast = phase_fast_cli(torch, wa, sg, slices, volumes)
+        graph = phase_graph_vs_eager(torch, wa, slices)
+        card_run = start_card_tests()  # beside 39, which times nothing on the card
+        dispatch = phase_dispatch_and_resume(torch, slices)
+        card_tests = run_card_tests(card_run)
+        augment = phase_device_augment(torch, slices)
+        shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
+        print(f"[summary] fast configuration phases 36-40 in {time.perf_counter() - t0:.1f} s: "
+              f"{json.dumps({'card_tests': card_tests, 'fast_peak_gib': fast['peak_bytes'] / 2**30, 'fast_state_bytes': fast['state_bytes'], 'graph': {k: graph[k] for k in ('fast', 'swin', 'amos')}, 'upsample_backward_bitwise': graph['upsample_backward_bitwise'], 'dispatch': dispatch, 'augment': augment})}",
+              flush=True)
+
+        stamp("36-40")
+    else:  # --from 41: phases 41 on need the data of phases 9 and 12
+        from icl_tpu_torch.data.synth import synthetic_acdc, synthetic_brats_cases
+
+        slices, volumes = synthetic_acdc(SLICES_2D, VOLUMES_2D, SLICE_SIZE_2D, VOL_DEPTH_2D,
+                                         CLASSES_2D, seed=0)
+        held_out = synthetic_brats_cases(1, CASE_SIZE, seed=1)
+        training = {"peak_bytes": None}
 
     # 41 - 43. this slice: the 3D steps repeat bit for bit; the flagship as
     # 2 ranks on the card (its CLI, and 2 ranks against 1 process); NCCL at
     # world size 1 and the sliding window over 2 ranks
     t0 = time.perf_counter()
     repeats = phase_3d_repeats(torch)
+    prep = tp_prepare(torch, training["peak_bytes"])
     dp = phase_data_parallel(torch, slices, volumes)
     dp_window = phase_collectives_and_window(torch)
     shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
     print(f"[summary] data-parallel phases 41-43 in {time.perf_counter() - t0:.1f} s: "
           f"{json.dumps({'repeats': repeats, 'dp': dp, 'window': dp_window})}", flush=True)
 
-    # 44 - 46. this slice: gradient accumulation on the flagship; FixMatch-CTA
-    # with the Swin-UNet through its CLI; the FLOP lines of every fit
-    t0 = time.perf_counter()
-    accum = phase_grad_accum(torch, wa, slices, volumes)
-    cta_swin = phase_fixmatch_cta_swin(torch, wa, slices, volumes)
-    flop_lines = phase_flop_lines(torch)
-    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
-    print(f"[summary] phases 44-46 in {time.perf_counter() - t0:.1f} s: "
-          f"{json.dumps({'accum': accum, 'cta_swin': cta_swin, 'flops': flop_lines}, default=str)}",
-          flush=True)
+    stamp("41-43")
+    if start == 1:
+        # 44 - 46. this slice: gradient accumulation on the flagship; FixMatch-CTA
+        # with the Swin-UNet through its CLI; the FLOP lines of every fit
+        t0 = time.perf_counter()
+        accum = phase_grad_accum(torch, wa, slices, volumes)
+        cta_swin = phase_fixmatch_cta_swin(torch, wa, slices, volumes)
+        flop_lines = phase_flop_lines(torch)
+        shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
+        print(f"[summary] phases 44-46 in {time.perf_counter() - t0:.1f} s: "
+              f"{json.dumps({'accum': accum, 'cta_swin': cta_swin, 'flops': flop_lines}, default=str)}",
+              flush=True)
+
+    stamp("44-46")
+    # 47 - 52. this slice: tensor parallelism over a model axis: the rule
+    # table, the flagship over tp=2 (against one process, replicas, the eager
+    # repeat, the bf16 state, save and restore both ways), SwinUNETR-ICL fs48
+    # over tp=2 (the kernels at the local shapes and their launches by heads,
+    # its step against one process, train -> eval), the flagship over dp2 x tp2
+    tp = phase_tensor_parallel(torch, wa, sg, held_out, prep, dp["tp"])
+    stamp("47-52")
+    if start > 1:
+        print(f"[summary] a partial run from phase {start} passed in "
+              f"{time.perf_counter() - t_script:.1f} s; the result lines belong to the whole run",
+              flush=True)
+        return 0
 
     # The kernels line, one entry per kernel and mode. Times are sums over
     # the shapes of a unit of work, each f32 launch time times its launches
@@ -4238,6 +5095,10 @@ def main() -> int:
             if direction == "fwd":
                 by_path["inference_3d"] = launches.get(mode, 0)
                 by_path["inference_3d_two_ranks"] = dp_window["launches"][mode]
+            for r, counts in enumerate(tp["swin"]["launches"]):
+                by_path[f"training_swinunetr_3d_tp2_rank{r}"] = counts[direction][mode]
+            for r, counts in enumerate(tp["swin"]["val_launches"]):
+                by_path[f"validation_swinunetr_3d_tp2_rank{r}"] = counts[direction].get(mode, 0)
             errs = [r["max_abs_err"] for r in rows_3d + rows_2d if r["mode"] == mode
                     and (direction == "bwd" or r["dtype"] == "float32")]
             kernels.append({
@@ -4256,7 +5117,9 @@ def main() -> int:
         "name": "sgd_bf16", "route": "cuda", "source": "icl_tpu_torch/ops/csrc/sgd_bf16.cu",
         "replaces": SGD_REPLACES, "launches": fast["launches"],
         "launches_by_path": {"training_fast_unet_2d": fast["launches"],
-                             "training_unet_2d_bf16_two_ranks": dp["sgd_bf16_launches"]},
+                             "training_unet_2d_bf16_two_ranks": dp["sgd_bf16_launches"],
+                             **{f"training_unet_2d_bf16_tp2_rank{r}": n
+                                for r, n in enumerate(tp["flagship"]["sgd_bf16_launches"])}},
         "launches_per_replayed_step": fast["per_replay"]["sgd_bf16"], "replays": fast["replays"],
         "max_abs_err": sgd_row["max_abs_err"], "ms": sgd_row["ms"], "device_ms": sgd_row["device_ms"],
         "plain_ms": sgd_row["plain_ms"], "bound_ms": sgd_row["bound_ms"],
@@ -4278,4 +5141,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(dp_worker(sys.argv[2:]) if sys.argv[1:2] == ["--dp-worker"] else main())
+    sys.exit(dp_worker(sys.argv[2:]) if sys.argv[1:2] == ["--dp-worker"] else main(sys.argv[1:]))

@@ -3,9 +3,9 @@
 
 Left out: `compile_cache_dir` (an XLA compile cache; the port compiles its
 kernels with `ops/build.py`, into `build/`), `mesh_data` and `mesh_model`
-(the mesh shape: tensor parallelism is not ported; data parallelism takes
-its group from `parallel.multihost`), and `deterministic` (the port's
-CLIs never read it)."""
+(the mesh shape: no JAX CLI sets a model axis; the port's `Trainer` takes
+a mesh, `parallel.mesh.create_mesh(data, model)`, as the JAX one does),
+and `deterministic` (the port's CLIs never read it)."""
 from __future__ import annotations
 
 import dataclasses

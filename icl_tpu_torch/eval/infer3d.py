@@ -106,7 +106,10 @@ def make_fused_sliding_window(model: torch.nn.Module, num_classes: int,
     forwards and stitches its own block, the score and count volumes are
     summed over the group (one all-reduce each), and every rank takes the
     argmax. The map equals the one-process map up to the order of the sums
-    at overlapping voxels (a near-tie may flip)."""
+    at overlapping voxels (a near-tie may flip). Under tensor parallelism
+    `group` is the data group (`Mesh.group`) and `model` the sharded
+    model: the ranks of a model group take the same block, and the model
+    runs its collectives over their group inside each forward."""
     scores_fn = make_patch_predictor(model, apply_softmax, dtype)
     device = resolve_device(device)
     pw, ph, pd = patch_size

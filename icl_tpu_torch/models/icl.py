@@ -29,6 +29,7 @@ from torch import nn
 
 from icl_tpu_torch.models.layers import DropPath, batch_norm, gelu_exact, layer_norm, torch_default_init_
 from icl_tpu_torch.parallel.collectives import global_mean
+from icl_tpu_torch.parallel.tensor import gather_from_model, scatter_to_model
 
 
 class MLP(nn.Module):
@@ -45,7 +46,20 @@ class MLP(nn.Module):
 
 class QueryAttention(nn.Module):
     """Cross-attention from class queries to feature tokens that also
-    returns the pre-softmax logits (icl.py:56-85)."""
+    returns the pre-softmax logits (icl.py:56-85).
+
+    On heads [start, stop) of a model group (`tp`, set by
+    `parallel.mesh.shard_model`): `fc_q` and `fc_kv` are column-parallel,
+    `fc_kv` on its heads' k and v rows, `proj` row-parallel. The straight
+    reshapes interleave class and channel, so a block of `fc_q`'s output
+    channels is not a set of heads: its output is gathered, reshaped and
+    this rank's heads taken; the attended values are gathered over the
+    heads before the straight reshape back and `proj` takes this rank's
+    block of its columns. The logits feed `mlp2`, which needs every row,
+    and `attn_convs0`, whose channels are the heads: they are gathered
+    over the heads too."""
+
+    tp = None  # a `parallel.tensor.HeadShard` under tensor parallelism
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
@@ -59,12 +73,16 @@ class QueryAttention(nn.Module):
         num_classes = q.shape[1]
         H = self.num_heads
         head_dim = C // H
-        q = self.fc_q(q).reshape(B, H, num_classes, head_dim)  # straight reshape (quirk)
-        k, v = self.fc_kv(x).reshape(B, N, 2, H, head_dim).permute(2, 0, 3, 1, 4)
-        attn1 = torch.einsum("bhcd,bhnd->bhcn", q, k) * head_dim**-0.5  # [B, H, cls, N]
-        out = torch.einsum("bhcn,bhnd->bhcd", attn1.softmax(-1), v)
-        out = self.proj(out.reshape(B, num_classes, C))  # straight reshape back (quirk)
-        return out, attn1.transpose(1, 2)  # [B, cls, H, N] pre-softmax logits
+        mesh, heads = (None, H) if self.tp is None else (self.tp.mesh, self.tp.heads)
+        q = gather_from_model(self.fc_q(q), -1, mesh)  # [B, cls, C]
+        # straight reshape (quirk), then this rank's heads
+        q = scatter_to_model(q.reshape(B, H, num_classes, head_dim), 1, mesh)
+        k, v = self.fc_kv(x).reshape(B, N, 2, heads, head_dim).permute(2, 0, 3, 1, 4)
+        attn1 = torch.einsum("bhcd,bhnd->bhcn", q, k) * head_dim**-0.5  # [B, H / M, cls, N]
+        out = gather_from_model(torch.einsum("bhcn,bhnd->bhcd", attn1.softmax(-1), v), 1, mesh)
+        # straight reshape back (quirk), then this rank's block of proj's columns
+        out = self.proj(scatter_to_model(out.reshape(B, num_classes, C), -1, mesh))
+        return out, gather_from_model(attn1, 1, mesh).transpose(1, 2)  # [B, cls, H, N] logits
 
 
 class ClassDecoder(nn.Module):

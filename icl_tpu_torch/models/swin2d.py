@@ -33,6 +33,7 @@ from torch import nn
 from icl_tpu_torch.models.icl import MLP
 from icl_tpu_torch.models.layers import DropPath, layer_norm
 from icl_tpu_torch.ops.window_attention import window_attention
+from icl_tpu_torch.parallel.tensor import local_heads
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -76,7 +77,14 @@ def shifted_window_mask(H: int, W: int, ws: int, shift: int) -> np.ndarray:
 class WindowAttention(nn.Module):
     """W-MSA with relative position bias (swin2d.py:123-172). `attention`
     is the fused op; the plain version can be put in its place to compare
-    the two."""
+    the two. On heads [start, stop) of a model group (`tp`, set by
+    `parallel.mesh.shard_model`) `qkv` holds those heads' q, k and v rows,
+    `proj` their input columns (row-parallel), the op runs on the local
+    heads with their columns of the bias table (read through
+    `copy_to_model`, so that its gradient is summed over the model group),
+    and a dense mask [nW, N, N] as it is."""
+
+    tp = None  # a `parallel.tensor.HeadShard` under tensor parallelism
 
     def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
@@ -96,12 +104,13 @@ class WindowAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B_, N, C = x.shape
-        H = self.num_heads
-        q, k, v = (t.contiguous() for t in self.qkv(x).view(B_, N, 3, H, C // H).permute(2, 0, 3, 1, 4))
-        bias = self.relative_position_bias_table[self.relative_position_index.view(-1)]
+        table, H = local_heads(self.relative_position_bias_table, self.tp, self.num_heads)
+        hd = C // self.num_heads
+        q, k, v = (t.contiguous() for t in self.qkv(x).view(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4))
+        bias = table[self.relative_position_index.view(-1)]
         bias = bias.view(N, N, H).permute(2, 0, 1).float().contiguous()
         out = self.attention(q, k, v, bias, mask=mask, scale=self.scale)
-        return self.proj(out.transpose(1, 2).reshape(B_, N, C))
+        return self.proj(out.transpose(1, 2).reshape(B_, N, H * hd))
 
 
 class SwinBlock(nn.Module):

@@ -29,6 +29,7 @@ from torch import nn
 from icl_tpu_torch.models.layers import (call_remat, gelu_exact, instance_norm, layer_norm,
                                          layer_norm_no_affine)
 from icl_tpu_torch.ops.window_attention import window_attention
+from icl_tpu_torch.parallel.tensor import local_heads
 
 
 def get_window_size_3d(dims, window, shift):
@@ -105,7 +106,11 @@ class WindowAttention3D(nn.Module):
     `window_size` is the configured window (7^3): it sizes the bias table
     in every stage, and a stage with N < 343 tokens slices `[:N, :N]` of
     the 7^3 index. `attention` is the fused op; the plain version can be
-    put in its place to compare the two."""
+    put in its place to compare the two. Under tensor parallelism (`tp`)
+    it runs on its heads as the 2D `WindowAttention` does, with the region
+    ids as they are."""
+
+    tp = None  # a `parallel.tensor.HeadShard` under tensor parallelism
 
     def __init__(self, dim: int, num_heads: int, window_size: Sequence[int]):
         super().__init__()
@@ -125,14 +130,15 @@ class WindowAttention3D(nn.Module):
 
     def forward(self, x: torch.Tensor, region_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         B_, N, C = x.shape
-        H = self.num_heads
-        qkv = self.qkv(x).view(B_, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
+        table, H = local_heads(self.relative_position_bias_table, self.tp, self.num_heads)
+        hd = C // self.num_heads
+        qkv = self.qkv(x).view(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4)
         q, k, v = (t.contiguous() for t in qkv)
         rpi = self.relative_position_index[:N, :N].reshape(-1)
-        bias = self.relative_position_bias_table[rpi].view(N, N, H).permute(2, 0, 1)
+        bias = table[rpi].view(N, N, H).permute(2, 0, 1)
         bias = bias.float().contiguous()
         out = self.attention(q, k, v, bias, region_ids, scale=self.scale)
-        return self.proj(out.transpose(1, 2).reshape(B_, N, C))
+        return self.proj(out.transpose(1, 2).reshape(B_, N, H * hd))
 
 
 class Mlp(nn.Module):

@@ -104,8 +104,8 @@ def load_sgd_bf16() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     fn = lib.icl_sgd_bf16
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p,
-    ]
+        ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int,
+    ] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _declare_error_string(lib)
     return lib

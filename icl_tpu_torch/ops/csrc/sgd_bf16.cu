@@ -34,6 +34,14 @@
 // (int64) are read from device memory, so that a CUDA graph that captured
 // the launch takes each replay's values. A ragged tail, or a leaf that is
 // not 16-byte aligned, takes the scalar path of the same arithmetic.
+//
+// A shard of a leaf (tensor parallelism) draws the dithers of its
+// elements' indices in the whole leaf: local element i is global element
+// offset + (i / cols) * stride + i % cols (cols == stride: offset + i, a
+// block of rows; else a block of columns, cols of each row of stride).
+// Where a thread's 8 elements are 8 consecutive global elements from a
+// multiple of 4, it makes the two Philox calls of the unsharded leaf;
+// else one per element, of that element's group.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,23 +89,45 @@ __device__ __forceinline__ uint32_t word(const uint4& w, int j) {
   return j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
 }
 
+__device__ __forceinline__ uint4 dither_group(unsigned long long gi, uint32_t cnt, uint32_t leaf,
+                                              uint32_t seed_lo, uint32_t seed_hi) {
+  return philox4x32_10(make_uint4(static_cast<uint32_t>(gi), cnt, leaf, static_cast<uint32_t>(gi >> 32)),
+                       seed_lo, seed_hi);
+}
+
+struct IndexMap {
+  long long offset, cols, stride;
+  __device__ __forceinline__ long long operator()(long long i) const {
+    return offset + (i / cols) * stride + i % cols;
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
 sgd_bf16_kernel(__nv_bfloat16* __restrict__ p, const __nv_bfloat16* __restrict__ g,
                 __nv_bfloat16* __restrict__ buf, long long n, const float* __restrict__ lr,
                 const long long* __restrict__ count, float momentum, float wd, uint32_t seed_lo,
-                uint32_t seed_hi, uint32_t leaf, int vector_ok) {
+                uint32_t seed_hi, uint32_t leaf, int vector_ok, IndexMap map, int map_aligned) {
   const long long first = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kPerThread;
   if (first >= n) return;
   const Update upd{*lr, momentum, wd};
   const uint32_t cnt = static_cast<uint32_t>(*count);
-  const long long group = first >> 2;
-  uint4 dither[2];
+  uint32_t words[kPerThread];
+  if (map_aligned) {  // 8 consecutive global elements from a multiple of 4
+    const long long group = map(first) >> 2;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const unsigned long long gi = static_cast<unsigned long long>(group + h);
-    dither[h] = philox4x32_10(make_uint4(static_cast<uint32_t>(gi), cnt, leaf,
-                                         static_cast<uint32_t>(gi >> 32)),
-                              seed_lo, seed_hi);
+    for (int h = 0; h < 2; ++h) {
+      const uint4 d = dither_group(static_cast<unsigned long long>(group + h), cnt, leaf, seed_lo,
+                                   seed_hi);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) words[4 * h + j] = word(d, j);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kPerThread; ++e) {
+      const long long gi = map(first + e < n ? first + e : first);
+      words[e] = word(dither_group(static_cast<unsigned long long>(gi >> 2), cnt, leaf, seed_lo,
+                                   seed_hi), static_cast<int>(gi & 3));
+    }
   }
   if (vector_ok && first + kPerThread <= n) {
     uint4 gv = make_uint4(0u, 0u, 0u, 0u);
@@ -111,7 +141,7 @@ sgd_bf16_kernel(__nv_bfloat16* __restrict__ p, const __nv_bfloat16* __restrict__
     for (int e = 0; e < kPerThread; ++e) {
       float pf = __bfloat162float(pe[e]), bf = __bfloat162float(be[e]);
       upd(__bfloat162float(ge[e]), pf, bf);
-      const uint32_t w = word(dither[e >> 2], e & 3);
+      const uint32_t w = words[e];
       be[e] = round_bf16(bf, w & 0xFFFFu);
       pe[e] = round_bf16(pf, w >> 16);
     }
@@ -119,11 +149,13 @@ sgd_bf16_kernel(__nv_bfloat16* __restrict__ p, const __nv_bfloat16* __restrict__
     *reinterpret_cast<uint4*>(buf + first) = bv;
     return;
   }
-  for (int e = 0; e < kPerThread && first + e < n; ++e) {
+#pragma unroll
+  for (int e = 0; e < kPerThread; ++e) {  // unrolled, so that words[] stays in registers
     const long long i = first + e;
+    if (i >= n) break;
     float pf = __bfloat162float(p[i]), bf = __bfloat162float(buf[i]);
     upd(g != nullptr ? __bfloat162float(g[i]) : 0.0f, pf, bf);
-    const uint32_t w = word(dither[e >> 2], e & 3);
+    const uint32_t w = words[e];
     buf[i] = round_bf16(bf, w & 0xFFFFu);
     p[i] = round_bf16(pf, w >> 16);
   }
@@ -136,13 +168,21 @@ extern "C" {
 // Returns a cudaError_t: 0 when the launch was accepted. p, buf: the
 // leaf's bf16 parameter and momentum, updated in place; g: its bf16
 // gradient, or null for none (taken as 0); n elements, contiguous; lr: a
-// device f32; count: a device int64, the number of updates already made.
+// device f32; count: a device int64, the number of updates already made;
+// offset, cols, stride: the global index of local element i, offset + (i
+// / cols) * stride + i % cols (0, n, n for a whole leaf; cols == stride
+// for a block of rows).
 int icl_sgd_bf16(void* p, const void* g, void* buf, long long n, const void* lr,
                  const void* count, float momentum, float weight_decay,
-                 unsigned long long seed, int leaf, void* stream) {
+                 unsigned long long seed, int leaf, long long offset, long long cols,
+                 long long stride, void* stream) {
   if (n <= 0) return 0;
+  if (cols <= 0 || stride < cols || offset < 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool aligned = ((reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(buf) |
                          reinterpret_cast<uintptr_t>(g)) & 15u) == 0;
+  // every thread's 8 elements map to 8 consecutive global ones from a multiple of 4
+  const bool map_aligned = (offset & 3) == 0 &&
+                           (cols == stride ? true : (cols & 7) == 0 && (stride & 3) == 0);
   const long long threads = (n + kPerThread - 1) / kPerThread;
   const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
   sgd_bf16_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -150,7 +190,7 @@ int icl_sgd_bf16(void* p, const void* g, void* buf, long long n, const void* lr,
       static_cast<__nv_bfloat16*>(buf), n, static_cast<const float*>(lr),
       static_cast<const long long*>(count), momentum, weight_decay,
       static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32), static_cast<uint32_t>(leaf),
-      aligned ? 1 : 0);
+      aligned ? 1 : 0, IndexMap{offset, cols, stride}, map_aligned ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 

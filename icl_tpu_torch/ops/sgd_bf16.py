@@ -16,6 +16,12 @@ low half) and for p (stream 1, high half). The kernel
 (`csrc/sgd_bf16.cu`) and `sgd_bf16_plain` compute the same function, bit
 for bit. `lr` and `count` are 0-d device tensors, read by the kernel where
 it runs, so that a captured CUDA graph takes each replay's values.
+
+A shard of a leaf (tensor parallelism) draws the dithers of its elements'
+indices in the whole leaf, so that the update of a shard is the slice of
+the whole leaf's update bit for bit: local element i is global element
+`offset + (i // cols) * stride + i % cols` (`index_map`), a block of rows
+with cols == stride, a block of columns else.
 """
 from __future__ import annotations
 
@@ -50,14 +56,40 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int) -> list[torch.Tensor]:
     return [c0, c1, c2, c3]
 
 
-def dither_bits(n: int, seed: int, count: int, leaf: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+def index_map(n: int, offset: int = 0, cols: Optional[int] = None,
+              stride: Optional[int] = None) -> tuple[int, int, int]:
+    """(offset, cols, stride) of a shard of n elements: the whole leaf's
+    (0, n, n) by default; cols == stride without `stride`."""
+    cols = n if cols is None else cols
+    stride = cols if stride is None else stride
+    if cols <= 0 or stride < cols or offset < 0:
+        raise ValueError(f"sgd_bf16: index map offset {offset}, cols {cols}, stride {stride}")
+    return offset, cols, stride
+
+
+def dither_bits(n: int, seed: int, count: int, leaf: int, device=None, offset: int = 0,
+                cols: Optional[int] = None, stride: Optional[int] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The 16-bit dithers (int64, in [0, 2^16)) of the n elements of leaf
-    `leaf` at update `count`: (stream 0, for buf; stream 1, for p)."""
-    groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
-    zero = torch.zeros_like(groups)
-    words = philox4x32_10(groups & _MASK32, zero + (count & _MASK32), zero + (leaf & _MASK32),
-                          groups >> 32, seed & _MASK32, (seed >> 32) & _MASK32)
-    w = torch.stack(words, dim=1).reshape(-1)[:n]
+    `leaf` at update `count`: (stream 0, for buf; stream 1, for p). With an
+    index map (`index_map`), those of the global elements the n local
+    elements stand for."""
+    offset, cols, stride = index_map(n, offset, cols, stride)
+    key = (seed & _MASK32, (seed >> 32) & _MASK32)
+    if offset == 0 and cols == stride:
+        groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+        zero = torch.zeros_like(groups)
+        words = philox4x32_10(groups & _MASK32, zero + (count & _MASK32), zero + (leaf & _MASK32),
+                              groups >> 32, *key)
+        w = torch.stack(words, dim=1).reshape(-1)[:n]
+    else:  # each element's own group and word
+        i = torch.arange(n, dtype=torch.int64, device=device)
+        gi = offset + torch.div(i, cols, rounding_mode="floor") * stride + i % cols
+        groups = gi >> 2
+        zero = torch.zeros_like(groups)
+        words = torch.stack(philox4x32_10(groups & _MASK32, zero + (count & _MASK32),
+                                          zero + (leaf & _MASK32), groups >> 32, *key), dim=1)
+        w = words.gather(1, (gi & 3)[:, None])[:, 0]
     return w & 0xFFFF, w >> 16
 
 
@@ -73,15 +105,18 @@ def stochastic_round_bf16(x: torch.Tensor, dither: torch.Tensor) -> torch.Tensor
 
 def sgd_bf16_plain(p: torch.Tensor, g: Optional[torch.Tensor], buf: torch.Tensor, lr: torch.Tensor,
                    count: torch.Tensor, momentum: float, weight_decay: float, seed: int,
-                   leaf: int) -> None:
+                   leaf: int, offset: int = 0, cols: Optional[int] = None,
+                   stride: Optional[int] = None) -> None:
     """The plain PyTorch version: updates p and buf in place, each product
-    and sum in f32 rounded on its own, as the kernel does."""
+    and sum in f32 rounded on its own, as the kernel does; the dithers of
+    the index map's global elements (`index_map`)."""
     wd, m = torch.tensor(weight_decay, dtype=torch.float32), torch.tensor(momentum, dtype=torch.float32)
     p32 = p.float()
     g32 = (g.float() if g is not None else torch.zeros_like(p32)) + wd.to(p.device) * p32
     b32 = m.to(p.device) * buf.float() + g32
     p32 = p32 - lr.to(torch.float32) * b32
-    d_buf, d_p = dither_bits(p.numel(), seed, int(count), leaf, device=p.device)
+    d_buf, d_p = dither_bits(p.numel(), seed, int(count), leaf, device=p.device, offset=offset,
+                             cols=cols, stride=stride)
     buf.copy_(stochastic_round_bf16(b32, d_buf))
     p.copy_(stochastic_round_bf16(p32, d_p))
 
@@ -101,13 +136,17 @@ def _check(p, g, buf, lr, count) -> None:
 
 def sgd_bf16_update(p: torch.Tensor, g: Optional[torch.Tensor], buf: torch.Tensor,
                     lr: torch.Tensor, count: torch.Tensor, momentum: float, weight_decay: float,
-                    seed: int, leaf: int) -> None:
+                    seed: int, leaf: int, offset: int = 0, cols: Optional[int] = None,
+                    stride: Optional[int] = None) -> None:
     """One update of the bf16 leaf p and its momentum buf, in place: the
     kernel on CUDA tensors (built on first use), `sgd_bf16_plain` on CPU
-    tensors. g None means no gradient (taken as 0)."""
+    tensors. g None means no gradient (taken as 0). `offset`, `cols` and
+    `stride` map a shard's elements to the whole leaf's (`index_map`)."""
     _check(p, g, buf, lr, count)
+    offset, cols, stride = index_map(p.numel(), offset, cols, stride)
     if p.device.type == "cpu":
-        return sgd_bf16_plain(p, g, buf, lr, count, momentum, weight_decay, seed, leaf)
+        return sgd_bf16_plain(p, g, buf, lr, count, momentum, weight_decay, seed, leaf, offset,
+                              cols, stride)
     if p.device.type != "cuda":
         raise ValueError(f"sgd_bf16: tensors on {p.device}; want cuda or cpu")
     from icl_tpu_torch.ops.build import load_sgd_bf16
@@ -117,7 +156,8 @@ def sgd_bf16_update(p: torch.Tensor, g: Optional[torch.Tensor], buf: torch.Tenso
         err = lib.icl_sgd_bf16(p.data_ptr(), g.data_ptr() if g is not None else None,
                                buf.data_ptr(), p.numel(), lr.data_ptr(), count.data_ptr(),
                                float(momentum), float(weight_decay), int(seed) & ((1 << 64) - 1),
-                               int(leaf), torch.cuda.current_stream(p.device).cuda_stream)
+                               int(leaf), offset, cols, stride,
+                               torch.cuda.current_stream(p.device).cuda_stream)
     if err:
         raise RuntimeError(f"sgd_bf16: launch failed: {lib.icl_cuda_error_string(err).decode()}")
     sgd_bf16_update.launches += 1

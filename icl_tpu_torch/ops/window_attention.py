@@ -23,6 +23,14 @@ shared memory and reports them with its resident CTAs per SM
 Each launch adds its FLOPs to any count in progress (`utils.flops`):
 4*B*H*N^2*D forward, 10*B*H*N^2*D backward, what the plain versions'
 matmuls count on the CPU.
+
+Under tensor parallelism (counterpart of `_make_gspmd_fused` and
+`_dispatch_forward`) each rank calls the same kernels on its own rows and
+heads, q, k, v [B_local, H / M, N, D] with bias [H / M, N, N] (the
+attention layers of `models/swin2d.py` and `models/swinunetr.py`), and
+counts its own launches. A data rank's rows are whole images, so its
+windows are whole (`_check` asserts nW | B); the JAX package's einsum
+fallback for a misaligned shard has nothing to do here.
 """
 from __future__ import annotations
 

@@ -12,9 +12,19 @@ the global loss's, however many reductions it passed (each later one sums
 per-rank partial gradients, which is right). `reduce_gradients` sums the
 parameters' gradients over the ranks and divides by W once.
 
-Only `all_reduce` is used (gloo takes nothing else on CUDA tensors), so the
+Every reduction here defaults to the data group (`mesh.data_group`): under
+a (data, model) mesh the D ranks of one model index, which hold different
+rows and the same shards; the ranks of one model group hold the same rows,
+and summing over them would count each row M times. The model group's own
+sum, of a replicated leaf whose gradient each model rank computes only in
+part (the relative-position bias tables, of whose columns each rank reads
+its heads'), is taken in the backward by `parallel.tensor.copy_to_model`.
+
+Only `all_reduce` is used on tensors (gloo takes nothing else on CUDA
+tensors), and `broadcast_object` broadcasts a host value's bytes, so the
 group may be gloo or NCCL. With no group (`mesh.data_group()` None: one
-process) every function here is the identity.
+process, or a mesh whose data axis has one rank) every function here is
+the identity.
 """
 from __future__ import annotations
 
@@ -135,6 +145,16 @@ def reduce_mean_(tensors: list, group: Optional[dist.ProcessGroup] = None) -> No
         for g in bucket:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
             offset += g.numel()
+
+
+def broadcast_object(obj, src: int, group: Optional[dist.ProcessGroup]):
+    """`obj` of global rank `src` on every rank of `group`, pickled (a host
+    value, such as a validation's metrics); `obj` itself with no group."""
+    if group is None:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group, device=group_device(group))
+    return box[0]
 
 
 def barrier(group: Optional[dist.ProcessGroup] = None) -> None:

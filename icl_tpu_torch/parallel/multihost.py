@@ -10,7 +10,10 @@ runs on the rows of its rank, so each rank holds both branches: rank r
 holds labeled block r followed by unlabeled block r, and the concatenation
 over the ranks, per branch, is the global batch. That needs `labeled_bs`
 and `batch_size - labeled_bs` divisible by the number of processes (the JAX
-package needs only `batch_size`).
+package needs only `batch_size`). Under a (data, model) mesh the rows and
+the per-rank seeds go by the data rank and size (`mesh.data_group`): the
+ranks of one model group hold the same rows and draw the same dropout
+masks, or their replicas would drift apart.
 """
 from __future__ import annotations
 

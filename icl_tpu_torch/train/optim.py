@@ -29,6 +29,13 @@ nothing to the sum. With one process the reduction is nothing.
 `schedule` takes any schedule of the update count (`train/schedulers.py`);
 the poly LR is the default.
 
+Under tensor parallelism a parameter is this rank's shard of a leaf
+(`parallel.tensor.Split`, in `shards`): its momentum, accumulator and
+update live with the shard, and the bf16 update draws the dithers of the
+shard's elements' indices in the whole leaf (`ops.sgd_bf16.index_map`,
+one launch per contiguous run), so that it is the slice of the whole
+leaf's update bit for bit.
+
 The step is safe to capture in a CUDA graph: the LR, the update count and
 the micro-step's divisor live in 0-d device tensors, written before each
 step (`write_inputs`) and read by the device work; the momentum buffers
@@ -40,7 +47,8 @@ micro-step runs (accumulate only, or accumulate and update) is the host's
 """
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional
+import math
+from typing import Callable, Iterable, Optional, Sequence
 
 import torch
 
@@ -59,6 +67,25 @@ def poly_lr_schedule(base_lr: float, max_iterations: int, power: float = 0.9) ->
     return schedule
 
 
+def shard_runs(split, tensors: tuple) -> list:
+    """[(the tensors' views of one contiguous run, offset, cols, stride)]
+    of a leaf or its shard (`split`): the whole leaf is one run mapped to
+    itself; a block of rows (dim 0) one run per piece, each a block of the
+    whole leaf's elements; a block of columns (dim 1) one run whose rows
+    stride over the whole leaf's."""
+    n = tensors[0].numel()
+    if split is None:
+        return [(tensors, 0, n, n)]
+    inner = math.prod(tensors[0].shape[split.dim + 1:])
+    if split.dim == 0:
+        return [(tuple(t.narrow(0, local, length) for t in tensors), start * inner,
+                 length * inner, length * inner) for local, start, length in split.runs()]
+    if split.dim != 1 or split.pieces != 1:
+        raise ValueError(f"sgd_bf16: a shard along dim {split.dim} in {split.pieces} pieces")
+    (_, start, length), = split.runs()
+    return [(tensors, start * inner, length * inner, split.full * inner)]
+
+
 def _capturing(t: torch.Tensor) -> bool:
     return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
@@ -72,19 +99,25 @@ class PolySGD:
     "bfloat16" every parameter must be bf16; the momentum follows the
     parameters' dtype, and `seed` keys the stochastic rounding.
     `grad_accum` > 1 accumulates that many micro-steps per update (f32 or
-    f64 states only, as in the JAX package)."""
+    f64 states only, as in the JAX package). `shards` gives, parameter by
+    parameter, the `parallel.tensor.Split` of a tensor-parallel shard or
+    None."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], base_lr: float, max_iterations: int,
                  momentum: float = 0.9, weight_decay: float = 1e-4, power: float = 0.9,
                  state_dtype: str = "float32", seed: int = 0, grad_accum: int = 1,
-                 schedule: Optional[Callable[[int], float]] = None):
+                 schedule: Optional[Callable[[int], float]] = None,
+                 shards: Optional[Sequence] = None):
         if state_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"state_dtype: {state_dtype!r}")
         if grad_accum < 1:
             raise ValueError(f"grad_accum {grad_accum}: want >= 1")
         if state_dtype == "bfloat16" and grad_accum > 1:
             raise ValueError("state_dtype='bfloat16' requires grad_accum=1")
+        params = list(params)
+        shards = [None] * len(params) if shards is None else list(shards)
         self.params = [p for p in params if p.requires_grad]
+        self.shards = [sh for p, sh in zip(params, shards) if p.requires_grad]
         if state_dtype == "bfloat16" and any(p.dtype != torch.bfloat16 for p in self.params):
             raise ValueError("state_dtype bfloat16 needs bf16 parameters")
         self.schedule = schedule or poly_lr_schedule(base_lr, max_iterations, power)
@@ -151,8 +184,9 @@ class PolySGD:
             reduce_mean_(grads)
             if self.state_dtype == "bfloat16":
                 for i, (p, g, buf) in enumerate(zip(self.params, grads, self.momentum_buffers)):
-                    sgd_bf16_update(p, g, buf, self.lr, self.count_tensor, self.momentum,
-                                    self.weight_decay, self.seed, i)
+                    for run, offset, cols, stride in shard_runs(self.shards[i], (p, g, buf)):
+                        sgd_bf16_update(*run, self.lr, self.count_tensor, self.momentum,
+                                        self.weight_decay, self.seed, i, offset, cols, stride)
             else:
                 self._step_f32(grads)
             if self.grad_accum > 1:

@@ -35,6 +35,20 @@ a time there (no CUDA graph: the collectives run on the host's schedule).
 Dropout and drop-path masks come from torch's default generators seeded per
 (seed, rank).
 
+Under tensor parallelism (`Trainer(cfg, mesh=create_mesh(data=D,
+model=M))`, the JAX signature) the D x M processes form the mesh of
+`parallel.mesh`: each data rank steps on its rows, as above, and the M
+ranks of its model group hold the shards of the leaves `PARAM_RULES`
+split (`shard_model`: the whole model is built from the seed on every
+rank, then each keeps its slice), the collectives of `parallel.tensor`
+inside the forward and backward. Row layouts, seeds and the gradient
+reduction take the data rank and size, so the replicas of a model group
+draw the same dropout masks. Validation runs on every rank of data rank
+0's model group (its forward holds model-group collectives), rank 0 alone
+logging and saving; the other data ranks wait, as under data parallelism.
+Train states and the best model are written in the one-process layout
+(`utils.checkpoint.gather_train_state`) and restored from it at any M.
+
 `cfg.grad_accum` > 1 is the JAX trainer's optax.MultiSteps (:76-79): each
 update applies the mean gradient of that many micro-steps (`PolySGD`), the
 train state carries the accumulator and the micro-step index, and a group
@@ -55,9 +69,10 @@ import torch
 from icl_tpu_torch.config import ExperimentConfig
 from icl_tpu_torch.data.device_augment import AUGMENT_KEYS, augment_batch
 from icl_tpu_torch.models.registry import net_factory
-from icl_tpu_torch.parallel.collectives import barrier
-from icl_tpu_torch.parallel.mesh import create_mesh
+from icl_tpu_torch.parallel.collectives import barrier, broadcast_object
+from icl_tpu_torch.parallel.mesh import Mesh, create_mesh, shard_model, world_group
 from icl_tpu_torch.parallel.multihost import host_rows
+from icl_tpu_torch.parallel.tensor import param_splits
 from icl_tpu_torch.train.optim import PolySGD
 from icl_tpu_torch.train.steps import forward, make_icl_step, make_supervised_step
 from icl_tpu_torch.utils import checkpoint as ckpt
@@ -113,28 +128,32 @@ class Trainer:
     JAX package keeps `batch_stats` f32) and updated by the fused
     stochastic-rounding kernel; the forward follows `steps.forward`. With
     `cfg.device_augment` the step takes raw slices or a bank with indices,
-    and the augment draws (`to_device`). Under data parallelism
-    (`parallel.mesh.create_mesh`: more than one process) `device` "cuda"
-    means this rank's card, the model must be an ICL model, the step takes
-    this rank's rows (`parallel.multihost.host_rows`), and the device
-    augment is refused (the bank lives on one card)."""
+    and the augment draws (`to_device`). `mesh` is the JAX signature's
+    (`parallel.mesh.create_mesh(data, model)`; by default
+    `create_mesh(device=device)`, every process on the data axis). Under
+    more than one process `device` "cuda" means this rank's card, the model
+    must be an ICL model, the step takes this data rank's rows
+    (`parallel.multihost.host_rows`), and the device augment is refused
+    (the bank lives on one card); with a model axis the model is sharded
+    (`parallel.mesh.shard_model`)."""
 
     def __init__(self, cfg: ExperimentConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh: Optional[Mesh] = None):
         if cfg.model not in ICL_MODELS + SUPERVISED_MODELS:
             raise KeyError(f"model {cfg.model!r}: the port trains "
                            f"{list(ICL_MODELS + SUPERVISED_MODELS)} only")
         self.cfg = cfg
-        self.mesh = create_mesh(device=device)
+        self.mesh = create_mesh(device=device) if mesh is None else mesh
         self.device = self.mesh.device
         labeled_bs = cfg.labeled_bs
-        if self.mesh.size > 1:
+        if self.mesh.process_count > 1:
             if cfg.model not in ICL_MODELS:
                 raise ValueError(f"model {cfg.model!r}: multi-process training is ported for the "
                                  f"ICL models {list(ICL_MODELS)} only")
             if cfg.device_augment:
                 raise ValueError("device_augment (--input_mode device_bank) holds the bank on one "
                                  "card; use --input_mode host for multi-process runs")
+        if self.mesh.size > 1:
             host_rows(cfg.batch_size, cfg.labeled_bs, self.mesh.rank, self.mesh.size)
             labeled_bs = cfg.labeled_bs // self.mesh.size
             torch.manual_seed(rank_seed(cfg.seed, self.mesh.rank))
@@ -154,16 +173,23 @@ class Trainer:
             raise ValueError("state_dtype 'bfloat16' with remat is not ported")
         if cfg.device_augment and len(cfg.patch_size) != 2:
             raise ValueError("device_augment is 2D-only")
-        self.model = net_factory(cfg.model, cfg.in_chns, cfg.num_classes, device=self.device,
-                                 generator=generator, feature_size=cfg.feature_size,
-                                 patch_size=int(cfg.patch_size[0]), remat=cfg.remat,
-                                 **model_kwargs)
+        # under tensor parallelism the whole model is built on the host and
+        # sharded there, so that a rank's card holds its shard only
+        sharded = self.mesh.model_size > 1
+        self.model = net_factory(cfg.model, cfg.in_chns, cfg.num_classes,
+                                 device="cpu" if sharded else self.device, generator=generator,
+                                 feature_size=cfg.feature_size, patch_size=int(cfg.patch_size[0]),
+                                 remat=cfg.remat, **model_kwargs)
+        if sharded:
+            self.model = shard_model(self.model, self.mesh).to(self.device)
         if cfg.state_dtype == "bfloat16":
             for p in self.model.parameters():
                 p.data = p.data.to(torch.bfloat16)
+        splits = param_splits(self.model)
         self.optimizer = PolySGD(self.model.parameters(), cfg.base_lr, cfg.max_iterations,
                                  cfg.momentum, cfg.weight_decay, cfg.poly_power,
-                                 state_dtype=cfg.state_dtype, grad_accum=cfg.grad_accum)
+                                 state_dtype=cfg.state_dtype, grad_accum=cfg.grad_accum,
+                                 shards=[splits.get(n) for n, _ in self.model.named_parameters()])
         if cfg.model in ICL_MODELS:
             self.step_fn = make_icl_step(self.model, self.optimizer, cfg.num_classes,
                                          labeled_bs, cfg.patch_size, cfg.consis_weight,
@@ -194,9 +220,9 @@ class Trainer:
 
     @property
     def scan_steps(self) -> int:
-        """cfg.scan_steps, or 1 under data parallelism (the JAX trainer's
-        fallback, icl_tpu/train/trainer.py:282-287)."""
-        return 1 if self.mesh.size > 1 else self.cfg.scan_steps
+        """cfg.scan_steps, or 1 under more than one process (the JAX
+        trainer's fallback, icl_tpu/train/trainer.py:282-287)."""
+        return 1 if self.mesh.process_count > 1 else self.cfg.scan_steps
 
     def _augmenting(self, inner: Callable[[dict], dict]) -> Callable[[dict], dict]:
         """The device-augment step (icl_tpu/train/trainer.py:92-117): from
@@ -236,7 +262,9 @@ class Trainer:
         `num_batches_tracked`), the SGD state_dict (momentum buffers), the
         update count, the iteration, and the states of torch's CPU
         generator, of the card's default generator when the model is on
-        the card, and of the model's own generators."""
+        the card, and of the model's own generators. Under tensor
+        parallelism the model's and the optimizer's tensors are this rank's
+        shards (`utils.checkpoint.gather_train_state` gathers them)."""
         rng = {"cpu": torch.get_rng_state(),
                "modules": {n: g.get_state() for n, g in self._generators().items()}}
         if self.device.type == "cuda":
@@ -251,12 +279,14 @@ class Trainer:
         tensors are copied into the live ones, so a captured CUDA graph of
         the step stays valid. A state of another `state_dtype` raises. Under
         data parallelism the state holds rank 0's generators; every rank
-        then seeds torch's generators from (seed, rank, iteration)
-        instead."""
+        then seeds torch's generators from (seed, data rank, iteration)
+        instead. Under tensor parallelism `state` is in the one-process
+        layout, as every file is, and each rank takes its slice."""
         saved = state.get("state_dtype", "float32")
         if saved != self.cfg.state_dtype:
             raise ValueError(f"the train state's state_dtype is {saved!r}, the trainer's "
                              f"{self.cfg.state_dtype!r}")
+        state = ckpt.shard_train_state(state, self.model, self.optimizer)
         self.model.load_state_dict(state["model"], strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
         self.optimizer.count = int(state["count"])
@@ -285,15 +315,20 @@ class Trainer:
         return self.iteration
 
     def _save_state(self, logger, saves: list, step: Optional[int] = None) -> None:
-        """The rolling step file (`step` given) or `state_last`, timed; by
-        rank 0 alone, the others waiting for it."""
+        """The rolling step file (`step` given) or `state_last`, timed; the
+        state gathered by data rank 0's model group and written by rank 0
+        alone, the others waiting for it."""
+        world = world_group()
         if self.mesh.rank:
-            barrier()
+            barrier(world)
             return
         snapshot = self.cfg.snapshot_path
-        state = self.train_state()
-        nbytes = ckpt.state_bytes(state)
         t0 = time.perf_counter()
+        state = ckpt.gather_train_state(self.train_state(), self.model, self.optimizer)
+        if self.mesh.process_index:
+            barrier(world)
+            return
+        nbytes = ckpt.state_bytes(state)
         if step is None:
             path = ckpt.save_train_state(snapshot, state, "last")
         else:
@@ -304,7 +339,7 @@ class Trainer:
         logger.info("%s full-state save at iter %d: %.2f GB in %.2f s (%.2f GB/s) -> %s",
                     "final" if step is None else "periodic", self.iteration, nbytes / 1e9,
                     seconds, nbytes / 1e9 / max(seconds, 1e-9), path)
-        barrier()
+        barrier(world)
 
     def to_device(self, batch: dict) -> dict:
         """The batch on the device: numpy arrays or CPU tensors copied
@@ -353,15 +388,24 @@ class Trainer:
     def count_step_flops(self, batch: dict) -> torch.Tensor:
         """`_stacked_step(batch)` with its matmul and convolution FLOPs
         counted (`utils.flops.counting`: the kernels' by formula) into
-        `step_flops`, summed over the ranks under data parallelism. The
-        count runs the same kernels as any step."""
+        `step_flops`, summed over the data ranks; under tensor parallelism
+        the model group's sharded work (`parallel.tensor.is_sharded_module`)
+        is summed over its ranks and its replicated work counted once, so
+        that the count is the one-process count. The count runs the same
+        kernels as any step."""
         from icl_tpu_torch.parallel.collectives import all_reduce_sum, group_device
         from icl_tpu_torch.utils.flops import counting
 
-        with counting() as count:
+        with counting(self.model) as count:
             vec = self._stacked_step(batch)
-        where = group_device(self.mesh.group) if self.mesh.group is not None else "cpu"
-        total = torch.tensor(count.total, dtype=torch.float64, device=where)
+        mesh = self.mesh
+        # this rank's share: its shards' work, and 1/M of the work every rank repeats
+        share = count.sharded + (count.total - count.sharded) / mesh.model_size
+        group = mesh.model_group or mesh.group
+        total = torch.tensor(share, dtype=torch.float64,
+                             device=group_device(group) if group is not None else "cpu")
+        if mesh.model_group is not None:
+            total = all_reduce_sum(total, mesh.model_group)
         self.step_flops = float(all_reduce_sum(total))
         return vec
 
@@ -501,11 +545,11 @@ class Trainer:
         whatever cfg.grad_accum."""
         cfg = self.cfg
         snapshot = cfg.snapshot_path
-        if self.mesh.rank == 0:
+        if self.mesh.process_index == 0:
             logger = setup_logging(snapshot)
             writer = ScalarWriter(f"{snapshot}/log")
         else:
-            logger = logging.getLogger(f"icl_tpu_torch.rank{self.mesh.rank}")
+            logger = logging.getLogger(f"icl_tpu_torch.rank{self.mesh.process_index}")
             logger.propagate = False
             writer = NullWriter()
         try:
@@ -555,7 +599,7 @@ class Trainer:
         batch_iter = iter(train_batches)
         if self.iteration:
             logger.info("resuming from iteration %d", self.iteration)
-        if cfg.scan_steps > 1 and self.mesh.size > 1:
+        if cfg.scan_steps > 1 and self.mesh.process_count > 1:
             logger.info("scan_steps>1 unsupported under multi-process; falling back to per-step "
                         "dispatch")
         self.model.train()
@@ -614,11 +658,15 @@ class Trainer:
             it = self.iteration
             if evaluate is not None and cfg.val_interval and it % cfg.val_interval == 0:
                 drain()
-                if self.mesh.rank == 0:
+                if self.mesh.rank == 0:  # data rank 0's model group; rank 0 alone writes
                     self.model.eval()
                     t_val = time.perf_counter()
                     agg = evaluate(_Promoted(self.model) if cfg.state_dtype == "bfloat16"
                                    else self.model)
+                    # the model ranks' maps may part in the last bits (index_add_ stitches
+                    # with atomics on the card): model rank 0's decides for the group, so
+                    # every rank takes the same branch into save_best_model's collectives
+                    agg = broadcast_object(agg, self.mesh.model_ranks()[0], self.mesh.model_group)
                     val_s = time.perf_counter() - t_val
                     self.model.train()
                     vals.append({"iteration": it, "mean_dice": agg["mean_dice"],
@@ -636,7 +684,7 @@ class Trainer:
                         best = agg["mean_dice"]
                         best_path = ckpt.save_best_model(snapshot, self.model)
                         logger.info("saving best model at iter %d -> %s", it, best_path)
-                barrier()  # the other ranks wait for rank 0's validation
+                barrier(world_group())  # the other ranks wait for the validation
             if cfg.checkpoint_interval and it % cfg.checkpoint_interval == 0:
                 drain()
                 self._save_state(logger, saves, step=it)

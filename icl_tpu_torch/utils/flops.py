@@ -18,6 +18,11 @@ matmuls the mode counts, to the same totals.
 The functions run what they count: `analytic_step_flops(step, batch)` takes
 a real training step (the trainer counts its first eager step, before any
 CUDA graph capture).
+
+Given a tensor-parallel model, a count also keeps apart (`.sharded`) the
+FLOPs run inside its sharded modules (`parallel.tensor.is_sharded_module`),
+forward and backward, as FlopCounterMode's module tracker places them:
+each rank runs its share of those and the whole of the rest.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ def add_kernel_flops(flops: float) -> None:
     """A kernel wrapper's launch: add `flops` to every count in progress."""
     for counter in _OPEN:
         counter.kernel_flops += flops
+        if counter.in_shard():
+            counter.sharded += flops
 
 
 def _signature(args, out) -> str:
@@ -46,15 +53,23 @@ class _Counter(FlopCounterMode):
     """FlopCounterMode's totals, one row per (op, shape signature) beside
     them, and the kernels' FLOPs from their wrappers."""
 
-    def __init__(self):
+    def __init__(self, sharded_names: frozenset = frozenset()):
         super().__init__(display=False)
         self.rows: dict = {}
         self.kernel_flops = 0.0
+        self.sharded_names = sharded_names
+        self.sharded = 0.0
+
+    def in_shard(self) -> bool:
+        """Whether the op running now runs inside a sharded module."""
+        return bool(self.sharded_names) and not self.sharded_names.isdisjoint(self.mod_tracker.parents)
 
     def _count_flops(self, func_packet, out, args, kwargs):
         if func_packet in self.flop_registry:
             flops = self.flop_registry[func_packet](*args, **kwargs, out_val=out)
             self.flop_counts["Global"][func_packet] += flops
+            if self.in_shard():
+                self.sharded += flops
             row = self.rows.setdefault((str(func_packet), _signature(args, out)),
                                        {"flops": 0.0, "count": 0})
             row["flops"] += flops
@@ -66,11 +81,25 @@ class _Counter(FlopCounterMode):
         return float(self.get_total_flops()) + self.kernel_flops
 
 
+def _sharded_names(model) -> frozenset:
+    """The module tracker's names of `model`'s sharded modules (the root's
+    class name, then the module path)."""
+    if model is None:
+        return frozenset()
+    from icl_tpu_torch.parallel.tensor import is_sharded_module
+
+    root = type(model).__name__
+    return frozenset(f"{root}.{path}" for path, m in model.named_modules()
+                     if path and is_sharded_module(m))
+
+
 @contextlib.contextmanager
-def counting():
+def counting(model=None):
     """A count of the matmul and convolution FLOPs run inside the block
-    (`.total`, `.rows`), the kernels' included."""
-    counter = _Counter()
+    (`.total`, `.rows`), the kernels' included; given a tensor-parallel
+    `model` (called inside the block as the root module), also those run
+    in its sharded modules (`.sharded`)."""
+    counter = _Counter(_sharded_names(model))
     _OPEN.append(counter)
     try:
         with counter:

@@ -20,12 +20,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUP_TIMEOUT = datetime.timedelta(seconds=60)
 
 
-def run_ranks(tmp_path, task: str, job: dict, world: int = 2, timeout: float = 240.0) -> list:
+def run_ranks(tmp_path, task: str, job: dict, world: int = 2, timeout: float = 240.0,
+              script: str = __file__) -> list:
+    """`task` of the TASKS of `script` (this file, or another helper whose
+    `main` is `serve(TASKS)`) in `world` processes; each rank's result."""
     job_path = tmp_path / f"{task}_job.pt"
     torch.save(job, job_path)
     outs = [tmp_path / f"{task}_rank{r}.pt" for r in range(world)]
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    cmd = [sys.executable, os.path.abspath(__file__), task, str(world), str(tmp_path / f"{task}_init"),
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, os.path.abspath(script), task, str(world), str(tmp_path / f"{task}_init"),
            str(job_path)]
     procs = [subprocess.Popen(cmd + [str(r), str(outs[r])], cwd=ROOT, env=env, text=True,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(world)]
@@ -193,7 +196,9 @@ TASKS = {"steps": task_steps, "reductions": task_reductions, "multihost": task_m
          "accum": task_accum}
 
 
-def main() -> None:
+def serve(tasks: dict) -> None:
+    """A worker's main: join the gloo group of the command line, run its
+    task of `tasks` and save the result."""
     import torch.distributed as dist
 
     task, world, init, job_path, rank, out = sys.argv[1:]
@@ -202,14 +207,14 @@ def main() -> None:
     dist.init_process_group("gloo", init_method=f"file://{init}", world_size=world, rank=rank,
                             timeout=GROUP_TIMEOUT)
     try:
-        result = TASKS[task](torch.load(job_path, weights_only=False), rank, world)
+        result = tasks[task](torch.load(job_path, weights_only=False), rank, world)
         torch.save(result, out)
     finally:
         dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    main()
+    serve(TASKS)
 
 
 def assert_takes_multi_process_flags(cli, argv=("--root_path", "unused")) -> None:

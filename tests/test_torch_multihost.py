@@ -88,7 +88,7 @@ def test_initialize_takes_env_fallbacks_and_one_process_is_a_no_op(monkeypatch):
     assert not torch.distributed.is_initialized()
     mesh = create_mesh(device="cpu")
     assert (mesh.group, mesh.rank, mesh.size, mesh.device) == (None, 0, 1, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="model=2 does not divide the 1 processes"):
         create_mesh(model=2, device="cpu")
     monkeypatch.setenv("ICL_TPU_NUM_PROCESSES", "2")
     monkeypatch.setenv("ICL_TPU_PROCESS_ID", "1")

@@ -9,7 +9,8 @@ machine without JAX, with tests/conftest.py (which imports JAX) left out:
 
 Covered: the kernel at ragged lengths, at addresses that are not 16-byte
 aligned (its scalar path) and without a gradient, bit for bit against
-`sgd_bf16_plain` and across two runs; the wrapper's refusals; `PolySGD`
+`sgd_bf16_plain` and across two runs; a shard's update with the index map
+of its elements in the whole leaf, against the plain version; the wrapper's refusals; `PolySGD`
 with a bf16 state on the card against the same optimizer on the CPU, bit
 for bit; and `Trainer.graph_step` against the eager step for a small
 Swin-UNet (both window-attention kernels and the SR kernel in the graph),
@@ -53,6 +54,29 @@ def test_kernel_is_its_plain_version_bit_for_bit(card, n, offset, with_grad):
     for got in outs[:2]:
         assert torch.equal(got[0], outs[2][0]) and torch.equal(got[1], outs[2][1])
     assert int((outs[0][0] != p).sum()) > 0 or n < 8
+
+
+@pytest.mark.parametrize("n, offset, cols, stride", [
+    (288, 144, None, None),     # a block of rows at an offset that is a multiple of 4
+    (288, 3, None, None),       # ... that is not: one Philox call per element
+    (1600, 16, 16, 32),         # a block of 16 columns of rows of 32: the two-call path
+    (200, 20, 20, 40),          # 20 columns of rows of 40: the per-element path
+    (1_000_003, 7, 1_000_003, 2_000_011),
+])
+def test_shard_index_map_is_the_plain_versions(card, n, offset, cols, stride):
+    """A tensor-parallel shard's update, its dithers drawn at the whole
+    leaf's indices (`index_map`), bit for bit the plain version's, on the
+    kernel's aligned and per-element dither paths."""
+    p, g, buf = (_leaf(n, 0, s, sc, card) for s, sc in ((4, 0.05), (5, 0.01), (6, 0.01)))
+    lr = torch.tensor(0.011, device=card)
+    count = torch.tensor(9, dtype=torch.int64, device=card)
+    outs = []
+    for update in (sg.sgd_bf16_update, sg.sgd_bf16_plain):
+        pc, bc = p.clone(), buf.clone()
+        update(pc, g, bc, lr, count, 0.9, 1e-4, 23, 4, offset, cols, stride)
+        outs.append((pc, bc))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
