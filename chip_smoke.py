@@ -6,8 +6,10 @@
 Phases, each fatal on failure:
   1. the card: name and power limit (nvidia-smi), torch's device name;
   2. the builds of the window-attention CUDA kernels (forward and
-     backward) and of the SR kernel from ops/csrc, one nvcc each, started
-     together; each
+     backward) and of the SR kernel from ops/csrc, one nvcc each, and of
+     the host's C++ order-0 zoom and rotate (`icl_tpu_torch/native`, the
+     host's g++; required), started together; the host library's seconds
+     and the host CPU; each
      kernel instance's registers and spills from the ptxas log, and each
      kernel's warps, shared memory and resident CTAs per SM at the paths'
      window sizes, as the kernel reports them, and their refusal of a
@@ -62,7 +64,9 @@ Phases, each fatal on failure:
      batch 16 (8 labeled), consistency weight 50, f32 with TF32 off, no
      recompute, through Trainer.fit for 3 steps on seeded in-memory
      256^2 slices, with a validation at step 3 on two seeded volumes;
-     s/step after the warm-up step, the host's batch time, the validation
+     s/step after the warm-up step, the host's batch time (the same 3
+     batches made through the C++ helper and through scipy, the arrays
+     equal and the helper's calls some, asserted), the validation
      time, peak memory, every loss term, and the kernel launches (asserted
      per step: 28 forward and 28 backward, each 16 no-mask + 12 mask; per
      validation chunk 14 forward, 8 + 6);
@@ -79,7 +83,8 @@ Phases, each fatal on failure:
      weight 50, f32 with TF32 off, through Trainer.fit for 3 steps on
      phase 14's slices made on a `Prefetcher` thread, with a validation
      at step 3 on its two volumes; s/step after the warm-up step, the
-     step thread's wait for each batch, the validation time, the time to
+     step thread's wait for each batch, the host's batch time native
+     against scipy as in 14, the validation time, the time to
      build the model, peak memory, every loss term, and the
      window-attention launches (asserted: none);
  18. one U-Net-ICL step at 64^2 on the card against the same step on the
@@ -158,7 +163,10 @@ Phases, each fatal on failure:
      term, the mask ratio and probe proximity per step, the rate bins that
      moved (asserted: some), the window-attention launches (asserted:
      none); the host seconds of one cta_batches batch made alone (the CLI
-     makes its batches inline), and of the step alone;
+     makes its batches inline), native against scipy as in 14, split into
+     CTAugment's ops, the zooms and the rest, from phase 14's slices and
+     from their first 216 columns (256 x 216, an ACDC size); and of the step
+     alone;
  34. one FixMatch-CTA step at 64^2 on the card against the same step on
      the CPU (same weights and batch, dropout off, the threshold in a gap
      of the confidences near their median, so that the mask is neither
@@ -227,7 +235,7 @@ Phases, each fatal on failure:
      images times 1 + 1e-7; witness: per tensor the farthest of four
      one-process runs of the same steps in other f32 arithmetic: the
      images times 1 - 1e-7, reversed rows, the data-parallel BatchNorm
-     formula, both), the first step's loss terms within 1e-5, and 2 steps with a bf16
+     formula, both), the first step's loss terms within 1e-5, and 1 step with a bf16
      state: the replicas bitwise equal (f32 and bf16), the SR kernel's
      launches counted per rank;
  43. NCCL at world size 1 on the card: all_reduce_sum forward and backward,
@@ -301,6 +309,13 @@ Phases, each fatal on failure:
  52. save and restore at 128^2: a one-process save restored at tp=2 and a
      tp=2 save (the one-process layout) restored at tp=1, each bit for bit
      the saved state;
+ 53. the host's C++ helper: against scipy.ndimage pixel for pixel (f32
+     and u8; every rotation by the 40 integer angles in [-20, 20) and
+     every zoom to 256^2, 384^2 and 224^2, at seven ACDC slice sizes), ms
+     per call against scipy, and its calls in phases 14, 17 and 33 on a
+     `[native]` line; then both kernels at phase 49's tp=2 local shapes,
+     f32, timed on the idle card beside the bound, the plain versions and
+     SDPA;
 every `fit` ends with its full train state, which each phase deletes
 after its run; then a `kernels` JSON line (the six window-attention
 entries and `sgd_bf16`), the card line, and the result line. Exits
@@ -308,6 +323,7 @@ non-zero without a result when CUDA is absent, in a worker too.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -466,6 +482,7 @@ RESUME_STEPS = 4
 # resume of its rate-lag-1 run.
 CTA_EXP, CTA_EXP_LAG0 = "ACDC_chip_smoke/FixMatch_CTA", "ACDC_chip_smoke/FixMatch_CTA_lag0"
 CTA_STEPS, CTA_HOST_BATCHES, CTA_TIMED_STEPS = 4, 5, 3
+CTA_SLICE_WIDTH = 216  # phase 33's host batches also from 256 x 216 slices
 # the fused probe against a separate forward of the same weights: one f32
 # forward in another call
 CTA_PROXIMITY_ATOL = 1e-5
@@ -1021,6 +1038,80 @@ def acdc_batches(slices, cfg):
                               seed=cfg.seed)
 
 
+@contextlib.contextmanager
+def timed_cta_parts(parts: dict):
+    """A CTA batch's CTAugment ops and zooms timed into `parts` (seconds,
+    "cta_ops" and "zooms"): wrappers in place of the names that
+    `CTATransform` and `cta_batches`' probe call, for the block only."""
+    from icl_tpu_torch.data import pipeline, transforms
+
+    saved = []
+    for module in (transforms, pipeline):
+        for name, part in (("cta_apply", "cta_ops"), ("zoom_to", "zooms")):
+            fn = getattr(module, name)
+
+            def timed_call(*args, _fn=fn, _part=part, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    parts[_part] += time.perf_counter() - t0
+
+            saved.append((module, name, fn))
+            setattr(module, name, timed_call)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def host_batches_both_ways(make, n: int, tag: str, split: bool = False) -> tuple[dict, list]:
+    """The first `n` batches of `make()`, made on the host twice: through
+    the port's C++ rotate and zoom (its default) and through scipy (the
+    port's `native.available` switched off in this function only). The
+    seconds of each batch each way, the library's calls, and with `split`
+    the CTA batch's parts (`timed_cta_parts`); the arrays equal and the
+    native way's zooms reaching the library (both asserted). Returns the
+    numbers and the native way's batches."""
+    import numpy as np
+
+    from icl_tpu_torch import native
+
+    runs, made = {}, {}
+    for way in ("native", "scipy"):
+        parts = {"cta_ops": 0.0, "zooms": 0.0}
+        native.reset_call_counts()
+        available = native.available
+        if way == "scipy":
+            native.available = lambda: False
+        try:
+            with timed_cta_parts(parts) if split else contextlib.nullcontext():
+                batches, seconds, it = [], [], make()
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    batches.append(next(it))
+                    seconds.append(time.perf_counter() - t0)
+        finally:
+            native.available = available
+        runs[way] = {"batch_s": seconds, "mean_s": sum(seconds) / n,
+                     "native_calls": {"zoom": native.zoom_nearest.calls,
+                                      "rotate": native.rotate_nearest.calls}}
+        if split:
+            runs[way]["split_s_per_batch"] = {**{k: v / n for k, v in parts.items()},
+                                              "rest": (sum(seconds) - sum(parts.values())) / n}
+        made[way] = batches
+    differ = [(i, k) for i, (g, w) in enumerate(zip(made["native"], made["scipy"])) for k in g
+              if not (np.array_equal(g[k], w[k]) if isinstance(g[k], np.ndarray) else g[k] == w[k])]
+    print(f"{tag} host batches ({n}) made through the C++ helper and through scipy: "
+          f"{json.dumps(runs)}; arrays that differ {differ}", flush=True)
+    if differ:
+        fail(f"{tag} the native and the scipy host batches differ: {differ}")
+    if not runs["native"]["native_calls"]["zoom"] or any(runs["scipy"]["native_calls"].values()):
+        fail(f"{tag} the native batches did not reach the library, or the scipy ones did: {runs}")
+    return runs, made["native"]
+
+
 def phase_training_2d(torch, wa, slices, volumes) -> dict:
     """14: Trainer.fit of Swin-UNet-ICL at full width, the main path of
     this slice."""
@@ -1035,11 +1126,9 @@ def phase_training_2d(torch, wa, slices, volumes) -> dict:
     trainer = Trainer(cfg, device=DEVICE)
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in trainer.model.parameters())
-    probe = acdc_batches(slices, cfg)  # the host's time per batch, apart from the run
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        next(probe)
-    host_batch_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    # the host's time per batch, apart from the run
+    host, _ = host_batches_both_ways(lambda: acdc_batches(slices, cfg), TRAIN_STEPS, "[train2d]")
+    host_batch_s = host["native"]["mean_s"]
     validate = acdc_evaluator(volumes, CLASSES_2D, cfg.patch_size, trainer.device)
     per_steps, val_s = {}, []
 
@@ -1096,7 +1185,7 @@ def phase_training_2d(torch, wa, slices, volumes) -> dict:
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    return {"s_per_step": s_per_step, "host_batch_s": host_batch_s, "peak_bytes": peak,
+    return {"s_per_step": s_per_step, "host_batch_s": host_batch_s, "host": host, "peak_bytes": peak,
             "path_launches": path, "val_dice": val["mean_dice"], "best_path": result["best_path"],
             "swin_cfg": cfg.model_kwargs["swin_cfg"]}
 
@@ -1162,6 +1251,7 @@ def phase_training_unet(torch, wa, slices, volumes) -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in trainer.model.parameters())
+    host, _ = host_batches_both_ways(lambda: acdc_batches(slices, cfg), TRAIN_STEPS, "[unet]")
     validate = acdc_evaluator(volumes, CLASSES_2D, cfg.patch_size, trainer.device)
     waits, val_s = [], []  # the time each `next` blocks the step's thread; the validation's
 
@@ -1209,7 +1299,7 @@ def phase_training_unet(torch, wa, slices, volumes) -> dict:
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    return {"s_per_step": s_per_step, "waits_s": waits, "val_s": val_s[0], "build_s": build_s,
+    return {"s_per_step": s_per_step, "waits_s": waits, "host": host, "val_s": val_s[0], "build_s": build_s,
             "n_params": n_params, "peak_bytes": peak, "path_launches": path,
             "val_dice": val["mean_dice"], "best_path": result["best_path"]}
 
@@ -1993,7 +2083,8 @@ def phase_resume(torch, slices) -> dict:
     steps; run B takes 2 with checkpoint_interval 2 (the rolling save, then
     the final one), and a fresh Trainer restores `state_last` (every
     parameter, buffer, momentum, the count, the iteration and the RNG
-    states equal to run B's bit for bit) and takes A's batches 3-4. The
+    states equal to run B's bit for bit) and takes A's batches 3-4 with no
+    rolling save (its last step's state is `state_last`'s). The
     caller runs the phase under cuDNN's deterministic algorithms: after
     step 4, B must equal A bit for bit (no kernel of the 2D step adds with
     atomics since the linear resizes became matmuls; where B differs, a
@@ -2033,7 +2124,7 @@ def phase_resume(torch, slices) -> dict:
     first, result_first = run("resumeB", batches[:2], interval=2)
     rolling, last = result_first["saves"]
     torch.manual_seed(1)  # the restore must bring back the generators' states
-    b = Trainer(config("resumeB", 2), device=DEVICE)
+    b = Trainer(config("resumeB"), device=DEVICE)  # no rolling save at step 4: state_last has it
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     b.restore_state()
@@ -2176,13 +2267,22 @@ def phase_fixmatch_cta(torch, wa, slices, volumes) -> dict:
     if not all(n for n, _ in moved.values()):
         fail("[cta] no rate bin moved")
 
-    batches = cta_batches(slices, LABELED_SLICES_2D, BATCH_2D, LABELED_2D, (IMG_UNET, IMG_UNET),
-                          CTAugment(seed=1337), seed=1337)
-    batch_s = []
-    for _ in range(CTA_HOST_BATCHES):
-        t0 = time.perf_counter()
-        batch = next(batches)
-        batch_s.append(time.perf_counter() - t0)
+    host, batches = host_batches_both_ways(
+        lambda: cta_batches(slices, LABELED_SLICES_2D, BATCH_2D, LABELED_2D, (IMG_UNET, IMG_UNET),
+                            CTAugment(seed=1337), seed=1337), CTA_HOST_BATCHES, "[cta]", split=True)
+    batch_s, batch = host["native"]["batch_s"], batches[-1]
+    # the same from 256 x 216 slices, an ACDC slice size, where each zoom resamples
+    # (phase 14's slices are the patch's size): their first 216 columns
+    narrow = [{**item, "image": item["image"][:, :CTA_SLICE_WIDTH],
+               "label": item["label"][:, :CTA_SLICE_WIDTH]} for item in slices]
+    host_narrow, _ = host_batches_both_ways(
+        lambda: cta_batches(narrow, LABELED_SLICES_2D, BATCH_2D, LABELED_2D, (IMG_UNET, IMG_UNET),
+                            CTAugment(seed=1337), seed=1337), CTA_HOST_BATCHES,
+        f"[cta {SLICE_SIZE_2D}x{CTA_SLICE_WIDTH}]", split=True)
+    for size, runs in ((f"{SLICE_SIZE_2D}^2", host), (f"{SLICE_SIZE_2D}x{CTA_SLICE_WIDTH}", host_narrow)):
+        print(f"[cta] one batch from {size} slices, host seconds by part (CTAugment's ops, the zooms, "
+              "the rest): " + "; ".join(f"{way} {json.dumps(runs[way]['split_s_per_batch'])}"
+                                         for way in runs), flush=True)
     cfg = ExperimentConfig(root_path="in-memory-ACDC", exp=CTA_EXP, model="unet",
                            num_classes=CLASSES_2D, batch_size=BATCH_2D, labeled_bs=LABELED_2D,
                            patch_size=(IMG_UNET, IMG_UNET), experiments_dir=EXPERIMENTS)
@@ -2203,6 +2303,7 @@ def phase_fixmatch_cta(torch, wa, slices, volumes) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"lag1": lag1, "lag0": lag0, "moved": moved, "batch_s": batch_s, "step_s": step_s,
+            "host": {f"{SLICE_SIZE_2D}^2": host, f"{SLICE_SIZE_2D}x{CTA_SLICE_WIDTH}": host_narrow},
             "path_launches": {k: {m: lag1["path_launches"][k].get(m, 0)
                                   + lag0["path_launches"][k].get(m, 0)
                                   for m in ("none", "region", "mask")} for k in ("fwd", "bwd")}}
@@ -2839,16 +2940,16 @@ def phase_dispatch_and_resume(torch, slices) -> dict:
                                                checkpoint_interval=4)
                 stream = make_batches()
                 batches = [next(stream) for _ in range(8)]
-                cfg_b, _ = swin_cfg("resumeB", state_dtype="bfloat16", scan_steps=4,
-                                    checkpoint_interval=4)
+                cfg_b, _ = swin_cfg("resumeB", state_dtype="bfloat16", scan_steps=4)
                 cfg_r, _ = swin_cfg("resumeR", state_dtype="bfloat16", scan_steps=4)
             else:
                 cfg_a = fast_config("resumeA", 8, checkpoint_interval=4)
                 batches = fast_batches(torch, slices, cfg_a, 8)
-                cfg_b = fast_config("resumeB", 8, checkpoint_interval=4)
+                cfg_b = fast_config("resumeB", 8)
                 cfg_r = fast_config("resumeR", 8)
             a, result_a, initial = fit(cfg_a, batches)
             # B: a fresh trainer restores A's step-4 file and takes batches 5-8
+            # (no rolling save: its step-8 state is state_last's)
             step4 = [s for s in result_a["saves"] if s["iteration"] == 4]
             b, result_b, _ = fit(cfg_b, batches[4:], restore=(cfg_a.snapshot_path, "step_00000004"))
             if not step4 or [r["iteration"] for r in result_b["log"]] != [5, 6, 7, 8]:
@@ -3010,7 +3111,7 @@ def phase_3d_repeats(torch) -> dict:
 # Phases 42-43: data parallelism, 2 ranks on the one card (gloo: NCCL takes
 # one rank per card), each rank a process of this script (`--dp-worker`).
 DP_ROOT = os.path.join(ROOT, "build", "chip_smoke", "dp")
-DP_STEPS, DP_BF16_STEPS = 2, 2
+DP_STEPS, DP_BF16_STEPS = 2, 1
 DP_CLI_ARGV = ["--root_path", "in-memory-ACDC", "--exp", "ACDC_chip_smoke/DP", "--num_tries", "cli",
                "--device", DEVICE]
 DP_METRIC_RTOL = 1e-5  # the first step's loss terms, 2 ranks vs 1: f32 sums in another order
@@ -4506,6 +4607,49 @@ def phase_tp_local_kernels(torch, wa) -> list:
     return rows
 
 
+def phase_tp_local_times(torch, F, wa) -> list:
+    """53 (kernel times): phase 49's tp=2 local shapes, f32, timed on the
+    idle card (phase 49 checks them while its ranks run): each kernel
+    beside the bound, its plain version and SDPA (forward, and the
+    backward of q, k, v and the mask)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(49)
+    scale = HEAD_DIM ** -0.5
+    rows = []
+    for name, _, padded, ws, shift, heads in STAGES:
+        local = (name, LABELED_BS, padded, ws, shift, local_heads_of(heads))
+        for mode in ("none", "region"):
+            if name not in PER_FORWARD[mode]:
+                continue
+            q, k, v, bias, ids = stage_inputs(torch, local, torch.float32, gen)
+            ids = ids if mode == "region" else None
+            g = torch.randn(q.shape, device=DEVICE, generator=gen)
+            B, H, N, D = q.shape
+            dense = wa.mask_from_region_ids(ids) if ids is not None else None
+            if ids is None:
+                attn, qs, ks, vs = bias, q, k, v
+            else:
+                nW = ids.shape[0]
+                attn = bias[None] + dense[:, None]
+                qs, ks, vs = (t.view(B // nW, nW, H, N, D) for t in (q, k, v))
+            mask_floats = ids.numel() if ids is not None else 0
+            row = {"stage": name, "mode": mode, "shape": list(q.shape), "fwd": dict(
+                ms=cuda_ms(lambda: wa.window_attention(q, k, v, bias, ids, scale=scale)),
+                plain_ms=cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, ids, scale=scale)),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=attn, scale=scale)),
+                **bound_fields(*bound(B, H, N, D, mask_floats))), "bwd": dict(
+                ms=cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale)),
+                plain_ms=cuda_ms(lambda: wa.window_attention_plain_bwd(
+                    q, k, v, bias, ids, g, scale=scale), reps=3),
+                library_ms=sdpa_backward_ms(torch, F, q, k, v, bias, dense, g, scale),
+                **bound_fields(*bound(B, H, N, D, mask_floats, backward=True)))}
+            rows.append(row)
+            print(f"[tp-kernel-times] {json.dumps(row)}", flush=True)
+            del q, k, v, bias, g, attn, qs, ks, vs, dense
+            torch.cuda.empty_cache()
+    return rows
+
+
 def phase_tp_sgd_shards(torch, sg) -> dict:
     """51 (kernel): the SR kernel on each rank's shard of the flagship's
     largest leaves (`mlp2` fc1 rows, fc2 columns, its bias) and of an
@@ -4735,6 +4879,98 @@ def phase_tensor_parallel(torch, wa, sg, held_out, prep: dict, flagship: list) -
 DP_WORKERS.update({"tp-swin": tp_swin_worker, "tp-dp": tp_dp_worker})
 
 
+# 53: ACDC-like slice sizes (odd and even sides, square and not, 154 to 512
+# pixels) and the patch sides of the 2D paths
+NATIVE_SLICE_SIZES = [(256, 216), (255, 255), (213, 177), (232, 256), (154, 224), (428, 512), (201, 199)]
+NATIVE_ZOOM_SIDES = (IMG_UNET, IMG_2D, IMG_SWIN_SUP)
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (x86: the model name, vendor,
+    family, model and stepping; Arm: the implementer and part) and the
+    count of its cores."""
+    fields, cores = {}, 0
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            key = key.strip()
+            cores += key == "processor"
+            fields.setdefault(key, value.strip())
+    keys = (("model name", "vendor_id", "cpu family", "model", "stepping") if "vendor_id" in fields
+            else ("CPU implementer", "CPU part", "CPU variant"))
+    return ", ".join(f"{k} {fields.get(k)}" for k in keys) + f"; {cores} cores"
+
+
+def build_host_helper() -> dict:
+    """2 (host): the port's C++ order-0 zoom and rotate built with the
+    host's compiler (`icl_tpu_torch.native`), beside the nvcc builds."""
+    from icl_tpu_torch import native
+    from icl_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("no C++ compiler on the card's host: the host batches would run in scipy")
+    build_s = time.perf_counter() - t0
+    path, _ = build.build_host_library(native.SOURCE, build.find_cxx())
+    return {"library": os.path.relpath(path, ROOT), "compiler": build.find_cxx(),
+            "flags": " ".join(build.CXX_FLAGS), "build_s": build_s, "cpu": host_cpu()}
+
+
+def phase_native_helper(host_build: dict) -> dict:
+    """53: the port's C++ order-0 zoom and rotate on the card's host: built
+    in phase 2 (its seconds, the host CPU); against scipy.ndimage pixel for
+    pixel, f32 and u8, every rotation by the 40 integer angles the
+    augmentation draws and every zoom to the 2D paths' patch sides, at the
+    ACDC slice sizes; ms per call, the library against scipy."""
+    import numpy as np
+    from scipy import ndimage
+
+    from icl_tpu_torch import native
+
+    if not native.available():
+        fail("[native] the library is not available")
+    rng = np.random.default_rng(53)
+    differ, calls = {}, 0
+    for h, w in NATIVE_SLICE_SIZES:
+        image = rng.standard_normal((h, w)).astype(np.float32)
+        label = rng.integers(0, 4, (h, w)).astype(np.uint8)
+        for kind, x in (("f32", image), ("u8", label)):
+            n = sum(int(np.count_nonzero(native.rotate_nearest(x, a)
+                                         != ndimage.rotate(x, a, order=0, reshape=False)))
+                    for a in range(-20, 20))
+            n += sum(int(np.count_nonzero(native.zoom_nearest(x, (side, side))
+                                          != ndimage.zoom(x, (side / h, side / w), order=0)))
+                     for side in NATIVE_ZOOM_SIDES)
+            differ[f"{h}x{w} {kind}"] = n
+            calls += 40 + len(NATIVE_ZOOM_SIDES)
+    h, w = NATIVE_SLICE_SIZES[0]
+    image = rng.standard_normal((h, w)).astype(np.float32)
+    label = rng.integers(0, 4, (h, w)).astype(np.uint8)
+    side = IMG_UNET
+
+    def ms(fn, reps: int) -> float:
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    per_call = {}
+    for kind, x in (("f32", image), ("u8", label)):
+        per_call[f"zoom {h}x{w} to {side}^2 {kind}"] = {
+            "native_ms": ms(lambda: native.zoom_nearest(x, (side, side)), 200),
+            "scipy_ms": ms(lambda: ndimage.zoom(x, (side / h, side / w), order=0), 50)}
+        per_call[f"rotate {h}x{w} by 13 {kind}"] = {
+            "native_ms": ms(lambda: native.rotate_nearest(x, 13), 100),
+            "scipy_ms": ms(lambda: ndimage.rotate(x, 13, order=0, reshape=False), 20)}
+    result = {**host_build, "checked_calls": calls, "differing_pixels": sum(differ.values()),
+              "ms_per_call": per_call}
+    print(f"[native] {json.dumps(result)}; differing pixels by size {json.dumps(differ)}", flush=True)
+    if any(differ.values()):
+        fail(f"[native] the library differs from scipy: {differ}")
+    return result
+
+
 def main(argv: list) -> int:
     """Every phase. `--from 41` runs phases 1-2, 41-43 and 47-52 only (the
     multi-process ones, phase 42's ranks running phase 48), and prints no
@@ -4795,9 +5031,12 @@ def main(argv: list) -> int:
     # 2. the builds, one nvcc per source, started together
     t0 = time.perf_counter()
     sources = ("window_attention", "window_attention_bwd", "sgd_bf16")
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        host_build = pool.submit(build_host_helper)
         builds = list(pool.map(build_library, sources))
+        host_build = host_build.result()
     build_s = time.perf_counter() - t0
+    print(f"[build] the host's C++ helper {json.dumps(host_build)}", flush=True)
     for source, (lib_path, log) in zip(sources, builds[:2]):
         usage = ptxas_usage(log, f"{source}_kernel") if log else "already built"
         spills = sorted(n for n, (_, spill) in usage.items() if spill) if log else "not read"
@@ -5008,6 +5247,16 @@ def main(argv: list) -> int:
               f"{time.perf_counter() - t_script:.1f} s; the result lines belong to the whole run",
               flush=True)
         return 0
+    # 53. this slice: the host's C++ helper against scipy, and its calls on
+    # the host batches of phases 14, 17 and 33, native against scipy
+    helper = phase_native_helper(host_build)
+    tp_times = phase_tp_local_times(torch, F, wa)
+    on_paths = {"swin_unet_icl_2d": training_2d["host"], "unet_icl_2d": training_unet["host"],
+                "fixmatch_cta": cta["host"]}
+    print(f"[native] the host helper and the host batches of phases 14, 17 and 33: "
+          f"{json.dumps({'helper': helper, 'host_batches': on_paths})}", flush=True)
+    print(f"[summary] phase 53: {len(tp_times)} tp=2 local shapes timed, both kernels", flush=True)
+    stamp("53")
 
     # The kernels line, one entry per kernel and mode. Times are sums over
     # the shapes of a unit of work, each f32 launch time times its launches

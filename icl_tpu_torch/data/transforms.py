@@ -5,14 +5,21 @@ by an integer angle in [-20, 20) (order 0, same shape), then an order-0
 zoom to the patch; and the FixMatch pairs, `WeakStrongAugment` (rot/flip,
 then a colour jitter) and `CTATransform` (CTAugment policies). Every draw
 comes from the numpy Generator passed in, in the JAX package's order, so
-one seed gives the same arrays in both packages. scipy computes the
-rotation and the zoom, as in the reference (the JAX package may route
-them through its own C++ helpers). The pairs come out channel-first."""
+one seed gives the same arrays in both packages. The pairs come out
+channel-first.
+
+The rotation and the zoom are routed as in the JAX package: where
+`native.available()` (a C++ compiler is found), the rotation runs in
+`icl_tpu_torch.native` (the image cast to float32, the label as it is),
+and so does every order-0 zoom of a 2D float32 or uint8 array; every
+other zoom, and both without a compiler, run in scipy.ndimage, as in the
+reference. Both give the same pixels."""
 from __future__ import annotations
 
 import numpy as np
 from scipy import ndimage
 
+from icl_tpu_torch import native
 from icl_tpu_torch.data.ctaugment import cta_apply
 
 
@@ -26,12 +33,19 @@ def random_rot_flip(image: np.ndarray, label: np.ndarray, rng: np.random.Generat
 
 def random_rotate(image: np.ndarray, label: np.ndarray, rng: np.random.Generator):
     angle = int(rng.integers(-20, 20))
+    if native.available():
+        return (native.rotate_nearest(image.astype(np.float32), angle),
+                native.rotate_nearest(label, angle))
     return (ndimage.rotate(image, angle, order=0, reshape=False),
             ndimage.rotate(label, angle, order=0, reshape=False))
 
 
 def zoom_to(image: np.ndarray, output_size, order: int = 0) -> np.ndarray:
-    """scipy zoom of a 2D array to `output_size` (dataset.py:161-162)."""
+    """scipy's zoom of a 2D array to `output_size` (dataset.py:161-162),
+    through `native.zoom_nearest` where the module docstring says."""
+    if (order == 0 and image.ndim == 2 and image.dtype in (np.float32, np.uint8)
+            and native.available()):
+        return native.zoom_nearest(image, output_size)
     x, y = image.shape
     return ndimage.zoom(image, (output_size[0] / x, output_size[1] / y), order=order)
 

@@ -1,10 +1,12 @@
-"""Build step for the port's CUDA kernels.
+"""Build step for the port's CUDA kernels and its host C++ helper.
 
 Each kernel source under `ops/csrc/` has a plain C interface and is
 compiled with `nvcc` into a shared library that `ctypes` loads: no
-PyTorch headers, so a build takes seconds. The library lands in
-`<repo>/build/<name>-<hash>/`, keyed by the hash of the source, the
-headers under `ops/csrc/` and the flags, and is built at first use.
+PyTorch headers, so a build takes seconds. The host helper
+(`native/augment.cpp`) is compiled the same way with the host's C++
+compiler. A library lands in `<repo>/build/<name>-<hash>/`, keyed by the
+hash of its source, its flags and, for a kernel, the headers under
+`ops/csrc/`, for the host helper the compiler; it is built at first use.
 Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -28,6 +30,10 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# no -march=native: a library cached under build/ must run on any CPU of
+# its architecture; no FMA contraction (GCC contracts by default on
+# aarch64): a fused multiply-add rounds a coordinate's near-ties otherwise
+CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
 
 
 def find_nvcc() -> str:
@@ -40,13 +46,32 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def find_cxx() -> str | None:
+    """The host's C++ compiler, `$CXX` or else `g++`, as a path; None where
+    there is none."""
+    return shutil.which(os.environ.get("CXX") or "g++")
+
+
 def build_library(name: str) -> tuple[Path, str]:
     """Compile `csrc/<name>.cu` into `lib<name>.so` unless a build of the
     same source, headers and flags exists. Returns (library path,
     compiler log); the log is empty when the library was already built."""
     source = CSRC / f"{name}.cu"
     key = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(key + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _compile(name, key + " ".join(NVCC_FLAGS).encode(),
+                    [find_nvcc(), *NVCC_FLAGS, str(source)])
+
+
+def build_host_library(source: Path, cxx: str) -> tuple[Path, str]:
+    """Compile the C++ file `source` with the compiler `cxx` into
+    `lib<stem>.so` unless a build of the same source, compiler and flags
+    exists. Returns (library path, compiler log) as `build_library`."""
+    key = source.read_bytes() + " ".join((cxx, *CXX_FLAGS)).encode()
+    return _compile(source.stem, key, [cxx, *CXX_FLAGS, str(source)])
+
+
+def _compile(name: str, key: bytes, cmd: list) -> tuple[Path, str]:
+    digest = hashlib.sha256(key).hexdigest()[:16]
     out_dir = BUILD_ROOT / f"{name}-{digest}"
     lib = out_dir / f"lib{name}.so"
     if lib.exists():
@@ -55,11 +80,11 @@ def build_library(name: str) -> tuple[Path, str]:
     # compile to a private name, then rename: a reader never sees half a file
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib, proc.stdout + proc.stderr
 

@@ -11,9 +11,9 @@ tests hand both the same draws and compare pixels: 0 differing pixels
 everywhere. The rotation takes the JAX package's f32 cos and sin of each
 angle from a table: XLA's f32 sin is one ulp from the correctly rounded
 value at +-7, +-13 and +-19 degrees, and at +-13 degrees on a 255^2 slice
-torch's sin would move 2 sources (the odd size here). The fixture's
-comparison turns the JAX package's C++ resize off: the port resizes with
-scipy, as the JAX package does without its native helpers.
+torch's sin would move 2 sources (the odd size here). The bank and the
+raw batches are compared twice: both packages resizing through scipy,
+and each through its own C++ helper.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +21,6 @@ import pytest
 import torch
 from scipy import ndimage, stats
 
-from icl_tpu import native
 from icl_tpu.data import device_augment as jda
 from icl_tpu.data import device_bank as jdb
 from icl_tpu.data import pipeline as jpipe
@@ -32,6 +31,7 @@ from icl_tpu_torch.data import device_augment as da
 from icl_tpu_torch.data import device_bank as db
 from icl_tpu_torch.data import pipeline as pp
 from icl_tpu_torch.data.acdc import ACDCDataset
+from _torch_native import native_on_both, scipy_on_both  # noqa: F401  (fixtures)
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 
@@ -125,15 +125,22 @@ def test_draw_augment_params_follow_the_jax_distribution():
 
 
 @pytest.fixture
-def fixture_root(tmp_path, monkeypatch):
+def fixture_root(tmp_path):
     pytest.importorskip("h5py")
-    monkeypatch.setattr(native, "available", lambda: False)
     root = str(tmp_path / "ACDC")
     make_synthetic_acdc(root, num_slices=12, num_volumes=1, slice_size=40, vol_depth=2, seed=0)
     return root
 
 
-def test_bank_and_batches_match_jax(fixture_root):
+def test_bank_and_batches_match_jax(fixture_root, scipy_on_both):
+    _assert_bank_and_batches_match(fixture_root)
+
+
+def test_bank_and_batches_match_jax_on_the_native_path(fixture_root, native_on_both):
+    _assert_bank_and_batches_match(fixture_root)
+
+
+def _assert_bank_and_batches_match(fixture_root):
     jax_ds, ds = JaxACDCDataset(fixture_root, "train"), ACDCDataset(fixture_root, "train")
     for canon in (40, 32):
         want_img, want_lab = jdb.build_acdc_bank(jax_ds, canon)

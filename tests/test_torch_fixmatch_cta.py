@@ -13,8 +13,9 @@ held against the JAX step in `test_torch_fixmatch_cta_step.py`.
 
 Small sizes: the default U-Net features, 4 classes, batch 4 with 2
 labeled, 16^2, f32, JAX weights drawn with numpy, dropout off on both
-sides. The JAX package's C++ augment helpers are off (its rotation may
-round a .5 tie other than scipy does). Where both packages draw a
+sides. Both packages zoom through scipy, the reference's code, and the
+transforms and `cta_batches` again each through its own C++ helper. Where
+both packages draw a
 `cutout`, the JAX op's unseeded generator is replaced by one seeded as the
 port's (`seed + 3`). Tolerances: arrays, policies and probes equal; rates
 after `fit` 1e-5; the fused and the separate proximity 1e-5.
@@ -29,7 +30,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from icl_tpu import native
 from icl_tpu.config import ExperimentConfig as JaxConfig
 from icl_tpu.data import ctaugment as jax_cta
 from icl_tpu.data import transforms as jax_transforms
@@ -52,17 +52,13 @@ from icl_tpu_torch.scripts import train_fixmatch_cta_2D as cli
 from icl_tpu_torch.train.cta import CTATrainer
 from icl_tpu_torch.train.steps import FIXMATCH_METRIC_KEYS
 from icl_tpu_torch.utils.convert import unet2d_state_dict_from_jax
+from _torch_native import native_on_both, scipy_on_both  # noqa: F401  (fixtures)
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 from test_torch_icl import draw_tree, no_drop_path  # noqa: F401  (a fixture)
 
 NCLS, BATCH, LABELED_BS, STEP_SIDE, FIT_SIDE = 4, 4, 2, 32, 16
 BASE_LR, MAX_IT, SEED = 0.01, 10, 11
 MAKE_RNG = np.random.default_rng
-
-
-@pytest.fixture
-def no_native(monkeypatch):
-    monkeypatch.setattr(native, "available", lambda: False)
 
 
 def seed_jax_cutout(monkeypatch, seed: int) -> None:
@@ -87,7 +83,15 @@ def _no_dropout(model: torch.nn.Module) -> torch.nn.Module:
 
 
 # ---- data ------------------------------------------------------------------
-def test_transforms_match_jax(no_native, monkeypatch):
+def test_transforms_match_jax(scipy_on_both, monkeypatch):
+    _assert_transforms_match(monkeypatch)
+
+
+def test_transforms_match_jax_on_the_native_path(native_on_both, monkeypatch):
+    _assert_transforms_match(monkeypatch)
+
+
+def _assert_transforms_match(monkeypatch):
     item = _slices()[5]
     learner = cta.CTAugment(seed=1)
     port, ref = CTATransform((20, 28), learner), jax_transforms.CTATransform((20, 28), None)
@@ -125,10 +129,18 @@ def _recording(learner):
 
 
 @pytest.mark.parametrize("jax_cutout", ["unseeded", "seeded_as_the_port"])
-def test_cta_batches_match_jax(no_native, monkeypatch, jax_cutout):
+def test_cta_batches_match_jax(scipy_on_both, monkeypatch, jax_cutout):
     """4 batches from learners updated alike after each: the same policies
     and probes, and the same arrays for every batch whose weak policy drew
     no cutout (with the JAX cutout seeded as the port's: for every batch)."""
+    _assert_cta_batches_match(monkeypatch, jax_cutout)
+
+
+def test_cta_batches_match_jax_on_the_native_path(native_on_both, monkeypatch):
+    _assert_cta_batches_match(monkeypatch, "seeded_as_the_port")
+
+
+def _assert_cta_batches_match(monkeypatch, jax_cutout):
     if jax_cutout == "seeded_as_the_port":
         seed_jax_cutout(monkeypatch, SEED + 3)
     slices = _slices()
@@ -207,7 +219,7 @@ def _rates(learner) -> np.ndarray:
 
 
 @pytest.mark.parametrize("rate_lag", [0, 1])
-def test_fit_learns_the_jax_rates(jax_trainer, no_native, monkeypatch, tmp_path, rate_lag):
+def test_fit_learns_the_jax_rates(jax_trainer, scipy_on_both, monkeypatch, tmp_path, rate_lag):
     seed_jax_cutout(monkeypatch, SEED + 3)
     trainer_j, state0 = jax_trainer
     slices = _slices()
@@ -304,7 +316,7 @@ def test_models_with_one_logits_tensor_only():
                        jax.random.PRNGKey(0))
 
 
-def test_resume_continues_from_its_step_beside_jax(jax_trainer, no_native, monkeypatch, tmp_path):
+def test_resume_continues_from_its_step_beside_jax(jax_trainer, scipy_on_both, monkeypatch, tmp_path):
     """3 steps saved every step, then a resume to max_iterations 4. The
     port restores iteration 3, takes 1 step and saves step_00000004; the
     JAX fit counts from 0 again, takes 4 more steps (state.step 7) and

@@ -1,8 +1,10 @@
 """icl_tpu_torch (and chip_smoke.py, which drives it on the card, and the
 card's kernel tests) stands alone: it imports neither JAX nor the icl_tpu
 package, nor PIL (the card's machine has none: CTAugment's ops are numpy),
-and its entry points refuse to fall back to the CPU."""
+it reads no file of the JAX package (its C++ helper builds from its own
+copy of the source), and its entry points refuse to fall back to the CPU."""
 import ast
+import json
 import os
 import pathlib
 import re
@@ -110,6 +112,51 @@ def test_port_source_has_no_jax_or_icl_tpu_import(path):
     # also imports inside strings handed to exec or a subprocess
     leak = _IMPORT_LINE.search(path.read_text())
     assert leak is None, f"{path}: {leak.group(0).strip()}"
+
+
+_READS = r"""
+import json, os, sys, tempfile
+seen = []
+
+def audit(event, args):
+    if event in ("open", "ctypes.dlopen") and isinstance(args[0], (str, bytes, os.PathLike)):
+        seen.append(os.fsdecode(args[0]))
+    elif event == "subprocess.Popen":
+        seen.extend(os.fsdecode(a) for a in args[1])
+
+sys.addaudithook(audit)
+import importlib, pathlib, pkgutil
+import numpy as np
+import icl_tpu_torch
+for m in pkgutil.walk_packages(icl_tpu_torch.__path__, "icl_tpu_torch."):
+    importlib.import_module(m.name)
+from icl_tpu_torch import native
+from icl_tpu_torch.data import transforms
+from icl_tpu_torch.ops import build
+with tempfile.TemporaryDirectory() as tmp:
+    build.BUILD_ROOT = pathlib.Path(tmp)  # a fresh build: the compiler's command is seen
+    image = np.linspace(0, 1, 40 * 36, dtype=np.float32).reshape(40, 36)
+    for seed in range(12):
+        transforms.RandomGenerator((32, 32))(image, (image * 3).astype(np.uint8),
+                                             np.random.default_rng(seed))
+    assert native.zoom_nearest.calls == 24 and native.rotate_nearest.calls == 2
+print("SEEN", json.dumps(seen))
+"""
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    """Every file the port opens, loads or hands to a compiler while it is
+    imported, builds its C++ helper anew and augments through it, as the
+    interpreter's audit hooks see them: none under icl_tpu/ or the JAX
+    package's native/ at the repo root."""
+    proc = subprocess.run([sys.executable, "-c", _READS], cwd=ROOT, capture_output=True, text=True,
+                          timeout=240, env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr
+    seen = [pathlib.Path(ROOT, p).resolve() for p in json.loads(proc.stdout.split("SEEN ", 1)[1])]
+    for jax_side in (ROOT / "icl_tpu", ROOT / "native"):
+        read = [str(p) for p in seen if p.is_relative_to(jax_side)]
+        assert not read, f"the port read {read}"
+    assert PKG / "native" / "augment.cpp" in seen, "the build was not seen"
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):

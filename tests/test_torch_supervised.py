@@ -30,7 +30,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from icl_tpu import native
 from icl_tpu.data.pipeline import supervised_batches as jax_supervised_batches
 from icl_tpu.models import layers as jax_layers
 from icl_tpu.models import swin2d as jax_swin2d
@@ -54,6 +53,7 @@ from test_torch_train_unet2d import _exact_align_corners_matrix
 from test_torch_train_unet3d import _assert_step, _f64, _jax_step
 from test_torch_unet2d import assert_running_stats, bn_batch_sizes
 from test_torch_unet3d import no_stochastic_jax  # noqa: F401  (a fixture)
+from _torch_native import native_on_both, scipy_on_both  # noqa: F401  (fixtures)
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 NCLS, BATCH, UNET_SIDE, SWIN_SIDE, SWIN_WINDOW, SWIN_EMBED, FS = 4, 4, 64, 64, 4, 12, 12
@@ -97,10 +97,19 @@ def _slices():
     return slices
 
 
-def test_supervised_batches_match_jax(monkeypatch):
+def test_supervised_batches_match_jax(scipy_on_both):
     """Three epochs' worth of batches over 10 slices (2 batches of 4 an
-    epoch, the remainder dropped), the JAX transforms through scipy."""
-    monkeypatch.setattr(native, "available", lambda: False)
+    epoch, the remainder dropped), both packages' transforms through
+    scipy."""
+    _assert_supervised_batches_match()
+
+
+def test_supervised_batches_match_jax_on_the_native_path(native_on_both):
+    """The same, each package's transforms through its own C++ helper."""
+    _assert_supervised_batches_match()
+
+
+def _assert_supervised_batches_match():
     got = supervised_batches(_slices(), BATCH, (48, 32), seed=5)
     want = jax_supervised_batches(_slices(), BATCH, (48, 32), seed=5)
     for _ in range(6):

@@ -22,7 +22,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from icl_tpu import native
 from icl_tpu.data.acdc import ACDCDataset as JaxACDCDataset
 from icl_tpu.data.pipeline import acdc_train_batches as jax_acdc_train_batches
 from icl_tpu.data.synth import make_synthetic_acdc
@@ -45,16 +44,10 @@ from test_torch_swin2d import (  # noqa: F401  (pallas_interpret is a fixture)
     IMG, LABELED_BS, NCLS, WINDOW, images, jax_variables, pallas_interpret, port_model)
 from test_torch_train import _assert_close_to_scale, _capture_grads
 from _torch_dp import assert_takes_multi_process_flags
+from _torch_native import native_on_both, scipy_on_both  # noqa: F401  (fixtures)
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 BASE_LR, MAX_IT, CONSIS = 0.01, 10, 50.0
-
-
-@pytest.fixture
-def scipy_augment(monkeypatch):
-    """The JAX transforms through scipy, the reference's semantics, as the
-    port's are: its own C++ rotation may round a .5 tie the other way."""
-    monkeypatch.setattr(native, "available", lambda: False)
 
 
 def _labels(seed: int, n: int = 2 * LABELED_BS) -> np.ndarray:
@@ -141,10 +134,20 @@ def test_synthetic_acdc_matches_the_jax_fixture(tmp_path):
     assert len(ACDCDataset(str(tmp_path), "val_test")) == 2
 
 
-def test_acdc_batches_match_jax(tmp_path, scipy_augment):
+def test_acdc_batches_match_jax(tmp_path, scipy_on_both):
     """Five batches of 4 from one seed, read from an h5 tree by each
     package's own dataset: the same arrays, array for array; the seed
-    reaches both augmentation branches."""
+    reaches both augmentation branches. Both packages rotate and zoom
+    through scipy, the reference's code."""
+    _assert_acdc_batches_match(tmp_path)
+
+
+def test_acdc_batches_match_jax_on_the_native_path(tmp_path, native_on_both):
+    """The same, each package through its own C++ rotate and zoom."""
+    _assert_acdc_batches_match(tmp_path)
+
+
+def _assert_acdc_batches_match(tmp_path):
     pytest.importorskip("h5py")
     root = str(tmp_path / "ACDC")
     make_synthetic_acdc(root, num_slices=12, num_volumes=1, slice_size=40, seed=1)
