@@ -45,7 +45,11 @@ Phases, each fatal on failure:
  10. one training step through the kernels against the same step with the
      plain attention (same weights and batch, f32, drop path off): every
      loss term, and the updated bias tables and qkv weights of stages 1
-     and 4;
+     and 4; then, from the same state, the step with the fused sspa pair
+     against the two-call step over every parameter, by the same rule, the
+     fused step on the batch times 1 + 1e-7 as the control, and as the
+     witness, as in 42, per tensor the farthest of the two-call step on the
+     batch times 1 - 1e-7 and on each branch's rows reversed;
  11. train -> eval: the stripped best checkpoint loads strictly through
      the eval CLI's loader and gives the trainer's validation dice;
  12. the dense-mask (MASK) and no-mask forward kernels at head dim 32
@@ -71,7 +75,8 @@ Phases, each fatal on failure:
      per step: 28 forward and 28 backward, each 16 no-mask + 12 mask; per
      validation chunk 14 forward, 8 + 6);
  15. one 2D training step through the kernels against the same step with
-     the plain attention, beside a control step, as in 10;
+     the plain attention, beside a control step, and the fused sspa pair
+     against the two calls, as in 10;
  16. 2D train -> eval: the stripped best checkpoint loads strictly
      through the 2D eval CLI's loader and gives the trainer's validation
      dice;
@@ -152,8 +157,8 @@ Phases, each fatal on failure:
      bit: parameters, buffers, momentum, count, iteration, RNG states)
      and 2 more on the same batches, under cuDNN's deterministic
      algorithms: bit for bit (a repeat of the 4 steps runs only to say
-     which is at fault where they differ); the seconds of the rolling save,
-     the restore and the final save;
+     which is at fault where they differ); the seconds of the save and the
+     restore;
  33. FixMatch-CTA through its CLI's `main` at the JAX CLI's defaults (the
      U-Net, 256^2, batch 16 of which 8 labeled, 4 classes, threshold 0.95,
      unsupervised weight 1, f32 with TF32 off) on phase 14's slices in
@@ -225,7 +230,7 @@ Phases, each fatal on failure:
  42. the flagship as 2 ranks on the one card (gloo; each rank a process of
      this script, `--dp-worker`): its CLI's `main` at its defaults (256^2,
      batch 16 of which 8 labeled, f32, dropout on) through
-     --dist_coordinator on phase 14's data, 2 steps and a validation: the
+     --dist_coordinator on phase 14's data, 1 step and a validation: the
      ranks' final states bitwise equal, only rank 0 wrote, test_2D_ACDC on
      its best checkpoint gives the validation dice; each step's compute and
      all-reduce seconds and the peak memory per rank; then `Trainer` at
@@ -316,6 +321,24 @@ Phases, each fatal on failure:
      `[native]` line; then both kernels at phase 49's tp=2 local shapes,
      f32, timed on the idle card beside the bound, the plain versions and
      SDPA;
+ 54. both kernels at SwinUNETR fs24's shapes (head dim 8, run at the
+     kernels' tile of 16): the four stages of one inference forward
+     (stage 1 [1372, 3, 343, 8]) and of one training pass (stage 1
+     [686, 3, 343, 8]), no-mask and region ids, f32 and bf16, against their
+     plain versions and bitwise repeatable, f32 timed beside the bound, the
+     plain version and SDPA; head dims 4, 10, 12, 20 and 28 at the stage-1
+     shapes, held and repeated, 4 and 12 timed;
+ 55. SwinUNETR-ICL at --feature_size 24 through its CLI's `main` on phase
+     9's cases (96^3, batch 4 of which 2 labeled, f32 with TF32 off,
+     recompute on), 3 steps and a validation, the launches per step
+     asserted as phase 9's; test_3D_BraTS --model swinunetr_icl
+     --feature_size 24 on its stripped best checkpoint gives the
+     validation dice;
+ 56. the bf16 train state with recompute: one SwinUNETR-ICL step (phase
+     9's configuration) with remat against the same step without, from one
+     state, cuDNN deterministic, bit for bit, its SR launches (one a leaf)
+     and attention launches asserted; 2 replays of the captured step
+     against 2 eager steps, bit for bit;
 every `fit` ends with its full train state, which each phase deletes
 after its run; then a `kernels` JSON line (the six window-attention
 entries and `sgd_bf16`), the card line, and the result line. Exits
@@ -536,14 +559,14 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def stage_inputs(torch, stage, dtype, gen):
+def stage_inputs(torch, stage, dtype, gen, head_dim=HEAD_DIM):
     from icl_tpu_torch.models.swinunetr import window_region_ids_3d
 
     name, batch, padded, ws, shift, heads = stage
     nW = (padded[0] // ws[0]) * (padded[1] // ws[1]) * (padded[2] // ws[2])
     N = ws[0] * ws[1] * ws[2]
     B = batch * nW
-    q, k, v = (torch.randn(B, heads, N, HEAD_DIM, device=DEVICE, generator=gen).to(dtype)
+    q, k, v = (torch.randn(B, heads, N, head_dim, device=DEVICE, generator=gen).to(dtype)
                for _ in range(3))
     bias = torch.randn(heads, N, N, device=DEVICE, generator=gen)
     ids = window_region_ids_3d(padded, ws, shift)
@@ -565,16 +588,20 @@ def bound(B, H, N, D, mask_floats=0, backward=False, elem_bytes=4, flops_rate=F3
 
 
 def ptxas_usage(log: str, kernel: str) -> dict:
-    """{"<type> D<d> <mode>": [registers, spill stores in bytes]} of each
-    instance of `kernel`, from the `-Xptxas -v` build log."""
+    """{"<type> <dims> <mode>": [registers, spill stores in bytes]} of each
+    instance of `kernel`, from the `-Xptxas -v` build log. <dims>: "d<=16"
+    an instance that reads the head dim at run time, for every head dim of
+    its tile; the forward's "D16" the instance of head dim 16 itself and
+    "d<16" that of the head dims below."""
     import re
 
     out, name = {}, None
     modes = ("none", "region", "mask")
     for line in log.splitlines():
-        m = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", line)
+        m = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E(?:Lb(\d)E)?", line)
         if m:
-            name = f"{'f32' if m[1] == 'f' else 'bf16'} D{m[2]} {modes[int(m[3])]}"
+            dims = f"d<={m[2]}" if m[4] is None else f"D{m[2]}" if m[4] == "1" else f"d<{m[2]}"
+            name = f"{'f32' if m[1] == 'f' else 'bf16'} {dims} {modes[int(m[3])]}"
         elif name and "spill stores" in line:
             out[name] = [None, int(re.search(r"(\d+) bytes spill stores", line)[1])]
         elif name and "registers" in line:
@@ -607,21 +634,23 @@ def sdpa_backward_ms(torch, F, q, k, v, bias, mask, g, scale) -> float:
     return cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs, mask_leaf), gout, retain_graph=True))
 
 
-def phase_kernel_3d(torch, F, wa) -> list[dict]:
+def phase_kernel_3d(torch, F, wa, head_dim=HEAD_DIM, stages=STAGES, timed=True,
+                    tag="[kernel]") -> list[dict]:
     """3 + 4: the forward kernel against its plain version at the shapes of
-    one SwinUNETR inference forward, f32 and bf16, bitwise-repeatable; f32
-    times beside the bound."""
+    one SwinUNETR inference forward (fs48: head dim 16; `head_dim` and
+    `stages` choose others), f32 and bf16, bitwise-repeatable; with `timed`
+    the f32 times beside the bound."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     per_shape = []
-    for stage in STAGES:
+    for stage in stages:
         name = stage[0]
         for mode in ("none", "region"):
             if name not in PER_FORWARD[mode]:
                 continue
             for dtype in (torch.float32, torch.bfloat16):
-                q, k, v, bias, ids = stage_inputs(torch, stage, dtype, gen)
+                q, k, v, bias, ids = stage_inputs(torch, stage, dtype, gen, head_dim)
                 ids = ids if mode == "region" else None
-                scale = HEAD_DIM ** -0.5
+                scale = head_dim ** -0.5
                 got = wa.window_attention(q, k, v, bias, ids, scale=scale)
                 again = wa.window_attention(q, k, v, bias, ids, scale=scale)
                 torch.cuda.synchronize()
@@ -637,7 +666,7 @@ def phase_kernel_3d(torch, F, wa) -> list[dict]:
                        "max_abs_err": max_err, "bitwise_repeat": torch.equal(got, again)}
                 if not ok or not row["bitwise_repeat"] or not torch.isfinite(got).all():
                     fail(f"kernel disagrees with plain or is not repeatable: {row}")
-                if dtype == torch.float32:
+                if timed and dtype == torch.float32:
                     B, H, N, D = q.shape
                     nW = ids.shape[0] if ids is not None else B
                     if ids is None:
@@ -659,27 +688,31 @@ def phase_kernel_3d(torch, F, wa) -> list[dict]:
                     )
                     del mask, lib_out
                 per_shape.append(row)
-                print(f"[kernel] {json.dumps(row)}", flush=True)
+                print(f"{tag} {json.dumps(row)}", flush=True)
                 del q, k, v, bias, got, again, want, err
     torch.cuda.empty_cache()
     return per_shape
 
 
-def phase_backward_kernel(torch, F, wa) -> list[dict]:
+def phase_backward_kernel(torch, F, wa, head_dim=HEAD_DIM, stages=STAGES, timed=True,
+                          tag="[bwd]") -> list[dict]:
     """7 + 8: the backward kernel against its plain version at the training
-    shapes, f32 and bf16, bitwise-repeatable; f32 times beside the bound."""
+    shapes (fs48: head dim 16; `head_dim` and `stages` choose others), f32
+    and bf16, bitwise-repeatable; with `timed` the f32 times beside the
+    bound."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows = []
-    for stage in STAGES:
+    for stage in stages:
         name = stage[0]
         for mode in ("none", "region"):
             if name not in PER_FORWARD[mode]:
                 continue
             for dtype in (torch.float32, torch.bfloat16):
-                q, k, v, bias, ids = stage_inputs(torch, (name, LABELED_BS) + stage[2:], dtype, gen)
+                q, k, v, bias, ids = stage_inputs(torch, (name, LABELED_BS) + stage[2:], dtype, gen,
+                                                  head_dim)
                 ids = ids if mode == "region" else None
                 g = torch.randn(q.shape, device=DEVICE, generator=gen).to(dtype)
-                scale = HEAD_DIM ** -0.5
+                scale = head_dim ** -0.5
                 got = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale)
                 again = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale)
                 torch.cuda.synchronize()
@@ -697,7 +730,7 @@ def phase_backward_kernel(torch, F, wa) -> list[dict]:
                 finite = all(bool(torch.isfinite(a).all()) for a in got)
                 if not finite or not row["bitwise_repeat"] or any(errs[n] > tols[n] for n in names):
                     fail(f"backward kernel disagrees with plain or is not repeatable: {row}")
-                if dtype == torch.float32:
+                if timed and dtype == torch.float32:
                     B, H, N, D = q.shape
                     dense = wa.mask_from_region_ids(ids) if ids is not None else None
                     row.update(
@@ -710,7 +743,7 @@ def phase_backward_kernel(torch, F, wa) -> list[dict]:
                                               backward=True)),
                     )
                 rows.append(row)
-                print(f"[bwd] {json.dumps(row)}", flush=True)
+                print(f"{tag} {json.dumps(row)}", flush=True)
                 del q, k, v, g, bias, got, again, want
                 torch.cuda.empty_cache()
     return rows
@@ -728,7 +761,9 @@ def train_config(precision: str, max_iterations: int, val_interval: int, tries: 
 
 
 def phase_training(torch, wa, cases, held_out) -> dict:
-    """9: Trainer.fit at full width, then one bf16 step."""
+    """9: Trainer.fit at full width, then one bf16 step. Returns, under
+    "trainer", the f32 Trainer and its initial train state (phase 10's)."""
+    import copy
     import gc
 
     from icl_tpu_torch.data.brats import brats_train_batches
@@ -740,6 +775,7 @@ def phase_training(torch, wa, cases, held_out) -> dict:
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device=DEVICE)
     build_s = time.perf_counter() - t0
+    initial = copy.deepcopy(trainer.train_state())  # phase 10 starts from it
     n_params = sum(p.numel() for p in trainer.model.parameters())
     batches = brats_train_batches(cases, 2, len(cases), TRAIN_BATCH, LABELED_BS, cfg.patch_size,
                                   seed=cfg.seed)
@@ -789,29 +825,30 @@ def phase_training(torch, wa, cases, held_out) -> dict:
                  f"{want[kind]} per step")
     if result["best_path"] is None:
         fail(f"validation dice {val['mean_dice']}: no best checkpoint was saved")
-    del trainer
-    gc.collect()
-    torch.cuda.empty_cache()
 
     cfg16 = train_config("bfloat16", 1, 0, "bfloat16")
-    trainer = Trainer(cfg16, device=DEVICE)
+    trainer16 = Trainer(cfg16, device=DEVICE)
     batch16 = next(brats_train_batches(cases, 2, len(cases), TRAIN_BATCH, LABELED_BS,
                                        cfg16.patch_size, seed=cfg16.seed))
-    log16 = [dict(zip(METRIC_KEYS, trainer.train_step(trainer.to_device(batch16)).tolist()))]
+    log16 = [dict(zip(METRIC_KEYS, trainer16.train_step(trainer16.to_device(batch16)).tolist()))]
     print("[train] one bfloat16 autocast step: "
           + " ".join(f"{k} {log16[0][k]:.6f}" for k in METRIC_KEYS), flush=True)
     if not all(math.isfinite(log16[0][k]) for k in METRIC_KEYS):
         fail("non-finite loss under bfloat16")
-    del trainer
+    del trainer16
     gc.collect()
     torch.cuda.empty_cache()
     return {"s_per_step": s_per_step, "peak_bytes": peak, "path_launches": path,
-            "val_dice": val["mean_dice"], "best_path": result["best_path"], "log": log}
+            "val_dice": val["mean_dice"], "best_path": result["best_path"], "log": log,
+            "trainer": (trainer, initial)}
 
 
-def phase_step_parity(torch, wa, cases) -> None:
+def phase_step_parity(torch, wa, cases, built) -> None:
     """10: one SwinUNETR-ICL step through the kernels against the plain
-    attention (stages 1 and 4 watched)."""
+    attention (stages 1 and 4 watched); then, on the same model, the fused
+    sspa pair against the two calls (`fused_pair_agreement`). `built`:
+    phase 9's Trainer of the same model and its initial train state, each
+    step starting from that state."""
     from icl_tpu_torch.data.brats import brats_train_batches
     from icl_tpu_torch.models.swinunetr import WindowAttention3D
 
@@ -821,27 +858,44 @@ def phase_step_parity(torch, wa, cases) -> None:
     watched = [f"swinViT.layers{i}.0.blocks.{b}.attn.{t}" for i in (1, 4) for b in (0, 1)
                for t in ("relative_position_bias_table", "qkv.weight", "qkv.bias")]
     kernel_launches = (sum(FWD_PER_STEP.values()), sum(BWD_PER_STEP.values()))
-    step_parity(torch, wa, cfg, batch, watched, WindowAttention3D, kernel_launches, "[step]")
+    step_parity(torch, wa, cfg, batch, watched, WindowAttention3D, kernel_launches, "[step]",
+                built=built,
+                then=lambda model: fused_pair_agreement(torch, wa, model, batch, cfg.patch_size,
+                                                        "[fused-swinunetr]", classes=2,
+                                                        labeled=LABELED_BS, consis=cfg.consis_weight))
 
 
-def step_parity(torch, wa, cfg, batch, watched, attention_type, kernel_launches, tag) -> None:
+def step_parity(torch, wa, cfg, batch, watched, attention_type, kernel_launches, tag, then=None,
+                built=None) -> None:
     """One f32 step through the kernels against the same step (same
     weights, same batch, drop path off) with the plain attention, beside a
     control: the kernel step on the batch scaled by 1 + 1e-7, which shows
-    how far f32 rounding of the forward alone moves the step."""
+    how far f32 rounding of the forward alone moves the step. One model,
+    its train state put back before each step: a Trainer of `cfg`, or
+    `built`, a (Trainer, its initial train state) of the same model, whose
+    step at that state is cfg's; `then(model)`, if given, runs on it after,
+    with the state put back and the kernels in place."""
+    import copy
     import gc
 
     from icl_tpu_torch.models.layers import DropPath
     from icl_tpu_torch.train.trainer import Trainer
 
-    def one_step(plain: bool, input_scale: float = 1.0):
+    if built is None:
         trainer = Trainer(cfg, device=DEVICE)
-        for m in trainer.model.modules():
-            if isinstance(m, DropPath):
-                m.rate = 0.0
-            if plain and isinstance(m, attention_type):
-                m.attention = wa.window_attention_plain
-        params = dict(trainer.model.named_parameters())
+        s0 = copy.deepcopy(trainer.train_state())
+    else:
+        trainer, s0 = built
+    attentions = [m for m in trainer.model.modules() if isinstance(m, attention_type)]
+    for m in trainer.model.modules():
+        if isinstance(m, DropPath):
+            m.rate = 0.0
+    params = dict(trainer.model.named_parameters())
+
+    def one_step(plain: bool, input_scale: float = 1.0):
+        trainer.load_train_state(s0)
+        for m in attentions:
+            m.attention = wa.window_attention_plain if plain else wa.window_attention
         before = {n: params[n].detach().clone() for n in watched}
         on_card = trainer.to_device(batch)
         on_card["image"] = on_card["image"] * input_scale
@@ -849,9 +903,6 @@ def step_parity(torch, wa, cfg, batch, watched, attention_type, kernel_launches,
         metrics = {k: float(v) for k, v in trainer.step_fn(on_card).items()}
         launches = (wa.window_attention.launches, wa.window_attention_bwd.launches)
         after = {n: params[n].detach().clone() for n in watched}
-        del trainer, params, on_card
-        gc.collect()
-        torch.cuda.empty_cache()
         return metrics, before, after, launches
 
     kern, plain, ctl = one_step(False), one_step(True), one_step(False, 1.0 + 1e-7)
@@ -886,6 +937,15 @@ def step_parity(torch, wa, cfg, batch, watched, attention_type, kernel_launches,
     le, ue = errs["kernel_vs_plain"]
     if any(e > STEP_LOSS_RTOL for e in le.values()) or any(e > 1.0 for e in ue.values()):
         fail("the training step through the kernels disagrees with the plain-attention step")
+    if then is not None:
+        trainer.load_train_state(s0)
+        for m in attentions:
+            m.attention = wa.window_attention
+        s0 = built = None  # free the initial state
+        then(trainer.model)
+    del trainer, s0, built, params, attentions
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_train_to_eval(torch, held_out, training: dict) -> None:
@@ -1192,7 +1252,8 @@ def phase_training_2d(torch, wa, slices, volumes) -> dict:
 
 def phase_step_parity_2d(torch, wa, slices) -> None:
     """15: one Swin-UNet-ICL step through the kernels against the plain
-    attention (encoder stages 1 and 4 and the masked decoder block)."""
+    attention (encoder stages 1 and 4 and the masked decoder block); then,
+    on the same model, the fused sspa pair against the two calls."""
     from icl_tpu_torch.models.swin2d import WindowAttention
 
     cfg = train_config_2d(1, 0, "step")
@@ -1200,8 +1261,11 @@ def phase_step_parity_2d(torch, wa, slices) -> None:
     watched = [f"swin_unet.{blk}.attn.{t}" for blk in blocks
                for t in ("relative_position_bias_table", "qkv.weight", "qkv.bias")]
     per_step = sum(PER_STEP_2D.values())
-    step_parity(torch, wa, cfg, next(acdc_batches(slices, cfg)), watched, WindowAttention,
-                (per_step, per_step), "[step2d]")
+    batch = next(acdc_batches(slices, cfg))
+    step_parity(torch, wa, cfg, batch, watched, WindowAttention, (per_step, per_step), "[step2d]",
+                then=lambda model: fused_pair_agreement(torch, wa, model, batch, cfg.patch_size,
+                                                        "[fused-swinunet]", classes=CLASSES_2D,
+                                                        labeled=LABELED_2D, consis=cfg.consis_weight))
 
 
 def phase_train_to_eval_2d(torch, volumes, training: dict) -> None:
@@ -2080,8 +2144,10 @@ def flat(state: dict) -> dict:
 
 def phase_resume(torch, slices) -> dict:
     """32: resume on the flagship U-Net-ICL 2D at full width. Run A takes 4
-    steps; run B takes 2 with checkpoint_interval 2 (the rolling save, then
-    the final one), and a fresh Trainer restores `state_last` (every
+    steps (`train_step`, no save); run B, the same Trainer put back to its
+    initial state (`load_train_state`), takes 2 through `fit` (its final
+    save; phase 39 restores from rolling saves), and a fresh Trainer
+    restores `state_last` (every
     parameter, buffer, momentum, the count, the iteration and the RNG
     states equal to run B's bit for bit) and takes A's batches 3-4 with no
     rolling save (its last step's state is `state_last`'s). The
@@ -2090,6 +2156,7 @@ def phase_resume(torch, slices) -> dict:
     atomics since the linear resizes became matmuls; where B differs, a
     repeat of run A says whether the step or the resume is at fault, and
     the phase fails either way). The train states are deleted after."""
+    import copy
     import gc
 
     from icl_tpu_torch.train.trainer import Trainer
@@ -2099,13 +2166,10 @@ def phase_resume(torch, slices) -> dict:
         cfg.checkpoint_interval = interval
         return cfg
 
-    def params_on_host(trainer):
-        return {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
-
-    def run(tries, batches, interval=0):
+    def run(tries, batches):
         """A fresh Trainer from the seed through `fit`: (trainer, result)."""
         torch.manual_seed(0)  # dropout and drop-path masks
-        trainer = Trainer(config(tries, interval), device=DEVICE)
+        trainer = Trainer(config(tries), device=DEVICE)
         return trainer, trainer.fit(batches)
 
     def release():
@@ -2114,15 +2178,18 @@ def phase_resume(torch, slices) -> dict:
 
     batches = [b for _, b in zip(range(RESUME_STEPS), acdc_batches(slices, config("batches")))]
     torch.manual_seed(0)  # dropout and drop-path masks
-    a = Trainer(config("resumeA"), device=DEVICE)
-    result_a = a.fit(batches)
-    state_a = {k: v.clone() for k, v in flat(a.train_state()).items()}  # on the card
-    drop_states(result_a)
-    del a
+    first = Trainer(config("resumeA"), device=DEVICE)
+    s0 = copy.deepcopy(first.train_state())  # on the card, the generators' states included
+    for batch in batches:  # fit's steps, without its save
+        first.train_step(first.to_device(batch))
+    state_a = {k: v.clone() for k, v in flat(first.train_state()).items()}  # on the card
+    # run B on the same trainer, put back to its initial state
+    first.load_train_state(s0)
+    first.cfg = config("resumeB")
+    del s0
     release()
-
-    first, result_first = run("resumeB", batches[:2], interval=2)
-    rolling, last = result_first["saves"]
+    result_first = first.fit(batches[:2])
+    (last,) = result_first["saves"]
     torch.manual_seed(1)  # the restore must bring back the generators' states
     b = Trainer(config("resumeB"), device=DEVICE)  # no rolling save at step 4: state_last has it
     torch.cuda.synchronize()
@@ -2137,8 +2204,7 @@ def phase_resume(torch, slices) -> dict:
     del first, saved, restored
     release()
     nbytes = last["bytes"]
-    print(f"[resume] U-Net-ICL 2D {IMG_UNET}^2, state {nbytes / 1e9:.3f} GB: rolling save "
-          f"{rolling['seconds']:.2f} s ({rolling['bytes'] / 1e9 / rolling['seconds']:.2f} GB/s), "
+    print(f"[resume] U-Net-ICL 2D {IMG_UNET}^2, state {nbytes / 1e9:.3f} GB: "
           f"final save {last['seconds']:.2f} s ({nbytes / 1e9 / last['seconds']:.2f} GB/s), "
           f"restore_state {restore_s:.2f} s ({nbytes / 1e9 / restore_s:.2f} GB/s); restored tensors "
           f"that differ from the saved ones: {differ or 'none'}; (count, iteration) saved vs "
@@ -2168,7 +2234,7 @@ def phase_resume(torch, slices) -> dict:
               flush=True)
         drop_states(result_again)
         fail("[resume] B must equal A bit for bit under cuDNN's deterministic algorithms")
-    return {"bytes": nbytes, "rolling_s": rolling["seconds"], "final_s": last["seconds"],
+    return {"bytes": nbytes, "final_s": last["seconds"],
             "restore_s": restore_s, "bitwise": not differ_ab}
 
 
@@ -2542,7 +2608,7 @@ def phase_sgd_kernel(torch, sg) -> dict:
     (`mlp2`, 16384^2) beside its bound, plain version and fused SGD."""
     import gc
 
-    from icl_tpu_torch.models.registry import net_factory
+    from icl_tpu_torch.models.unet2d_icl import UNetICL
     from icl_tpu_torch.train.optim import PolySGD
 
     gen = torch.Generator(device=DEVICE).manual_seed(36)
@@ -2574,8 +2640,9 @@ def phase_sgd_kernel(torch, sg) -> dict:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    leaves = [p.shape for p in net_factory("icl_unet", 1, CLASSES_2D, device="meta",
-                                           patch_size=IMG_UNET, fuse_sspa_pair=True).parameters()]
+    with torch.device("meta"):  # the flagship's leaf shapes, no weights drawn
+        leaves = [p.shape for p in UNetICL(1, CLASSES_2D, patch_size=IMG_UNET,
+                                           fuse_sspa_pair=True).parameters()]
     n_params = sum(math.prod(s) for s in leaves)
     ps = [draw(math.prod(s), 0, 0.05).view(s) for s in leaves]
     gs = [draw(math.prod(s), 0, 0.01).view(s) for s in leaves]
@@ -2882,7 +2949,11 @@ def phase_dispatch_and_resume(torch, slices) -> dict:
     steps against 8 (scan_steps 4: the 8-step run replays steps 5-8, the
     resumed one runs step 5 eagerly): on the supervised Swin-UNet bit for
     bit; on the flagship's fast configuration bit for bit where an
-    8-step repeat is, else by the rule of phase 38."""
+    8-step repeat is, else by the rule of phase 38. Each model and state
+    type is built once: every run starts from its initial state put back
+    (`load_train_state`), the resumed one then from the step file, and
+    with no captured graph."""
+    import copy
     import gc
 
     from icl_tpu_torch.scripts.profile_train_step import setup
@@ -2901,19 +2972,28 @@ def phase_dispatch_and_resume(torch, slices) -> dict:
             setattr(cfg, k, v)
         return cfg, make_batches
 
+    built = {}  # (model, state_dtype) -> (Trainer from seed 0, its initial train state)
+
     def fit(cfg, batches, restore=None):
-        """A fresh Trainer from seed 0 through `fit` (after `restore_state`
-        from another snapshot's step file, when given): (flat state, result,
-        the parameters before the fit)."""
-        torch.manual_seed(0)
-        trainer = Trainer(cfg, device=DEVICE)
+        """`fit` under `cfg` on the Trainer of cfg's model and state type,
+        built once from seed 0, its graphs dropped and its initial state
+        put back first (then the step file of another snapshot, when
+        `restore` names one): (flat state, result, the parameters before
+        the fit)."""
+        key = (cfg.model, cfg.state_dtype)
+        if key not in built:
+            torch.manual_seed(0)
+            trainer = Trainer(cfg, device=DEVICE)
+            built[key] = (trainer, copy.deepcopy(trainer.train_state()))  # on the card
+        trainer, initial = built[key]
+        drop_graphs(trainer)
+        trainer.load_train_state(initial)
+        trainer.cfg = cfg
         if restore is not None:
             trainer.load_train_state(ckpt.load_train_state(*restore, device=DEVICE))
         start = {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
         result = trainer.fit(batches)
         state = {k: v.clone() for k, v in flat(trainer.train_state()).items()}  # on the card
-        del trainer
-        release()
         return state, result, start
 
     out = {}
@@ -2948,7 +3028,7 @@ def phase_dispatch_and_resume(torch, slices) -> dict:
                 cfg_b = fast_config("resumeB", 8)
                 cfg_r = fast_config("resumeR", 8)
             a, result_a, initial = fit(cfg_a, batches)
-            # B: a fresh trainer restores A's step-4 file and takes batches 5-8
+            # B: the trainer restores A's step-4 file and takes batches 5-8
             # (no rolling save: its step-8 state is state_last's)
             step4 = [s for s in result_a["saves"] if s["iteration"] == 4]
             b, result_b, _ = fit(cfg_b, batches[4:], restore=(cfg_a.snapshot_path, "step_00000004"))
@@ -2978,6 +3058,8 @@ def phase_dispatch_and_resume(torch, slices) -> dict:
             out[kind]["differ_repeat"] = len(differ_r)
     finally:
         torch.backends.cudnn.deterministic = False
+    built.clear()
+    release()
     return out
 
 
@@ -3112,6 +3194,7 @@ def phase_3d_repeats(torch) -> dict:
 # one rank per card), each rank a process of this script (`--dp-worker`).
 DP_ROOT = os.path.join(ROOT, "build", "chip_smoke", "dp")
 DP_STEPS, DP_BF16_STEPS = 2, 1
+DP_CLI_STEPS = 1  # the CLI's ranks: one step and a validation (the steady step: [dp-numbers])
 DP_CLI_ARGV = ["--root_path", "in-memory-ACDC", "--exp", "ACDC_chip_smoke/DP", "--num_tries", "cli",
                "--device", DEVICE]
 DP_METRIC_RTOL = 1e-5  # the first step's loss terms, 2 ranks vs 1: f32 sums in another order
@@ -3252,7 +3335,7 @@ def float_state(trainer) -> dict:
 def dp_cli_worker(torch, rank: int, world: int, port: int) -> dict:
     """Rank `rank` of the flagship CLI's `main` at its defaults (256^2, batch
     16 of which 8 labeled, f32, dropout on) over phase 14's slices and
-    volumes in memory, DP_STEPS steps and a validation, through
+    volumes in memory, DP_CLI_STEPS steps and a validation, through
     --dist_coordinator; rank 0 from SUP_ROOT (its snapshot in EXPERIMENTS),
     the others from a directory of their own, which must stay empty. Its
     steps timed, compute and all-reduce apart; peak memory; the digest of
@@ -3282,7 +3365,7 @@ def dp_cli_worker(torch, rank: int, world: int, port: int) -> dict:
     os.chdir(cwd)
     wa.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    result = cli.main(DP_CLI_ARGV + ["--max_iterations", str(DP_STEPS), "--val_interval", str(DP_STEPS),
+    result = cli.main(DP_CLI_ARGV + ["--max_iterations", str(DP_CLI_STEPS), "--val_interval", str(DP_CLI_STEPS),
                                      "--num_processes", str(world), "--process_id", str(rank),
                                      "--dist_coordinator", f"127.0.0.1:{port}"])
     torch.cuda.synchronize()
@@ -3570,10 +3653,10 @@ def phase_data_parallel(torch, slices, volumes) -> dict:
         fail(f"[dp-cli] the U-Net path launched window attention: {[r['attention'] for r in ranks]}")
     eval_dice = eval_cli(test_2D_ACDC, DP_CLI_ARGV, "ACDCDataset", InMemoryDataset(slices, volumes))
     val_dice = r0["vals"][0]["mean_dice"]
-    print(f"[dp-cli] the flagship CLI as 2 ranks on the card (gloo), {DP_STEPS} steps and a "
+    print(f"[dp-cli] the flagship CLI as 2 ranks on the card (gloo), {DP_CLI_STEPS} step(s) and a "
           f"validation in {cli_s:.1f} s: final states bitwise equal (sha256 {r0['digest'][:16]}); "
-          f"only rank 0 wrote; per step (after the first) compute / all-reduce s "
-          f"{[[(round(s['compute_s'], 4), round(s['all_reduce_s'], 4)) for s in r['steps'][1:]] for r in ranks]}; "
+          f"only rank 0 wrote; per step (the first with cuDNN's first calls) compute / all-reduce s "
+          f"{[[(round(s['compute_s'], 4), round(s['all_reduce_s'], 4)) for s in r['steps']] for r in ranks]}; "
           f"all-reduce per rank {[r['all_reduce'] for r in ranks]}; peak memory per rank "
           f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB; test_2D_ACDC on the best "
           f"checkpoint: mean dice {eval_dice!r}, the validation {val_dice!r}", flush=True)
@@ -3754,8 +3837,9 @@ def phase_grad_accum(torch, wa, slices, volumes) -> dict:
     the two captured graphs (accumulate, accumulate and update) against 4
     eager micro-steps from one state on 4 batches (every tensor a step
     changes and the metrics bit for bit); then, with cuDNN's deterministic
-    algorithms off as users run, s/step of k = 2 and k = 1 (a k = 1 trainer
-    built anew, both captured anew), eager and replayed, in turns; then
+    algorithms off as users run, s/step of k = 2 and k = 1 (the two
+    trainers of the bitwise check, both captured anew), eager and replayed,
+    in turns; then
     `fit` of the k = 2 trainer for 4 steps in
     a group of 4 replays with a validation at 4: its loss lines, its
     logged LRs (each that of its update), its FLOP lines and peak
@@ -3805,10 +3889,7 @@ def phase_grad_accum(torch, wa, slices, volumes) -> dict:
               f"window {frozen}; built both in {build_s:.2f} s", flush=True)
         if any(frozen) or any(n for pair in differ for n in pair):
             fail("[accum] the accumulated updates are not the k = 1 updates, or a window moved")
-
-        del ref, pr
-        gc.collect()
-        torch.cuda.empty_cache()
+        del pa, pr
 
         s0 = device_state(torch, acc)
         for b in batches[:ACCUM_K]:  # the captures, one graph a kind
@@ -3839,7 +3920,6 @@ def phase_grad_accum(torch, wa, slices, volumes) -> dict:
     drop_graphs(acc)
     gc.collect()
     torch.cuda.empty_cache()
-    ref = Trainer(cfg_1, device=DEVICE)
     times = {"k1_eager": [], "k2_eager": [], "k1_replayed": [], "k2_replayed": []}
     for trainer in (acc, ref):
         for b in batches[:ACCUM_K]:
@@ -4971,13 +5051,233 @@ def phase_native_helper(host_build: dict) -> dict:
     return result
 
 
+# Phases 54-56: SwinUNETR at a feature size other than 48 (MONAI's default
+# 24: head dim 8 at every stage, heads 3-6-12-24), which the kernels run at
+# their tile of 16 with zero columns; the head dims of other feature sizes
+# at the stage-1 shapes; the bf16 state with recompute. (The Swin ICL
+# models' fused sspa pair is checked in phases 10 and 15.)
+FS24 = 24
+HEAD_DIM_FS24 = FS24 // 3
+# head dims held at the stage-1 shapes only: fs12, fs30 (not a multiple of
+# 4: the kernels' value-by-value loads and stores), fs36, fs60, fs84; the
+# first tile's smallest and largest of them (fs12, fs36) also timed
+SWEEP_HEAD_DIMS = (4, 10, 12, 20, 28)
+TIMED_SWEEP_HEAD_DIMS = (4, 12)
+# tests/test_torch_window_attention_card.py's HEAD_DIMS, every mode, run
+# beside phase 39
+CARD_TEST_HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32)
+
+
+def phase_kernels_head_dims(torch, F, wa) -> dict:
+    """54: both kernels at fs24's shapes (head dim 8: the four stages of one
+    inference forward at sw_batch 4, stage 1 [1372, 3, 343, 8], and of one
+    training pass at batch 2, [686, 3, 343, 8]), no-mask and region ids,
+    f32 and bf16, bitwise repeatable, f32 timed beside the bound, the plain
+    version and SDPA; then head dims 4, 10, 12, 20 and 28 at the stage-1
+    shapes, held and repeated, f32 timed at head dims 4 and 12."""
+    fwd = phase_kernel_3d(torch, F, wa, head_dim=HEAD_DIM_FS24, tag="[kernel-fs24]")
+    bwd = phase_backward_kernel(torch, F, wa, head_dim=HEAD_DIM_FS24, tag="[bwd-fs24]")
+    sweep = {"fwd": [], "bwd": []}
+    for d in SWEEP_HEAD_DIMS:
+        timed = d in TIMED_SWEEP_HEAD_DIMS
+        sweep["fwd"] += phase_kernel_3d(torch, F, wa, head_dim=d, stages=STAGES[:1], timed=timed,
+                                        tag=f"[kernel-d{d}]")
+        sweep["bwd"] += phase_backward_kernel(torch, F, wa, head_dim=d, stages=STAGES[:1], timed=timed,
+                                              tag=f"[bwd-d{d}]")
+    largest = {d: max(r["max_abs_err"] for r in sweep["fwd"] + sweep["bwd"] if r["shape"][3] == d)
+               for d in SWEEP_HEAD_DIMS}
+    print(f"[head-dims] stage-1 shapes held at head dims {list(SWEEP_HEAD_DIMS)} (forward and backward, "
+          f"no-mask and region ids, f32 and bf16, bitwise repeatable): the largest abs error at each "
+          f"{json.dumps(largest)}", flush=True)
+    return {"fwd": fwd, "bwd": bwd, "sweep": sweep}
+
+
+def phases_54_56(torch, F, wa, sg, cases, held_out) -> dict:
+    """54-56 on phase 9's cases."""
+    t0 = time.perf_counter()
+    kernels = phase_kernels_head_dims(torch, F, wa)
+    fs24 = phase_fs24_cli(torch, wa, cases, held_out)
+    bf16_remat = phase_bf16_remat(torch, wa, sg, cases)
+    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
+    print(f"[summary] phases 54-56 in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps({'fs24': {k: fs24[k] for k in ('s_per_step', 'peak_bytes', 'val_dice')}, 'bf16_remat': bf16_remat})}",
+          flush=True)
+    return {"kernels": kernels, "fs24": fs24, "bf16_remat": bf16_remat}
+
+
+def phase_fs24_cli(torch, wa, cases, held_out) -> dict:
+    """55: SwinUNETR-ICL at --feature_size 24 through its CLI's `main` on
+    phase 9's cases (96^3, batch 4 of which 2 labeled, f32 with TF32 off,
+    recompute on), 3 steps and a validation, the launches per step
+    asserted as phase 9's; test_3D_BraTS --model swinunetr_icl
+    --feature_size 24 on the stripped best checkpoint gives the
+    validation dice."""
+    from icl_tpu_torch.scripts import test_3D_BraTS
+    from icl_tpu_torch.scripts import train_inherent_consistent_swinunetr_3D_BraTS as cli
+    from icl_tpu_torch.train.steps import METRIC_KEYS
+
+    data = InMemoryDataset(cases, held_out)
+    common = ["--root_path", "in-memory-BraTS", "--exp", "BraTS_chip_smoke/ICL_fs24", "--num_tries",
+              "fs24", "--labeled_num", "2", "--feature_size", str(FS24)]
+    torch.manual_seed(0)  # drop-path masks
+    run = run_cli(torch, wa, cli, common + ["--total_num", str(len(cases)), "--max_iterations",
+                                            str(TRAIN_STEPS), "--val_interval", str(TRAIN_STEPS),
+                                            "--precision", "float32"],
+                  "BraTS2019Dataset", data, "[fs24]", METRIC_KEYS, TRAIN_STEPS,
+                  {"fwd": FWD_PER_STEP, "bwd": BWD_PER_STEP})
+    eval_dice = eval_cli(test_3D_BraTS, common + ["--model", "swinunetr_icl"], "BraTS2019Dataset", data)
+    print(f"[eval-fs24] test_3D_BraTS --model swinunetr_icl --feature_size {FS24} on the best "
+          f"checkpoint: mean dice {eval_dice!r}, the trainer's validation {run['val_dice']!r}", flush=True)
+    if eval_dice != run["val_dice"]:
+        fail("test_3D_BraTS does not reproduce the fs24 SwinUNETR-ICL's validation dice")
+    return run
+
+
+def fused_pair_agreement(torch, wa, model, batch, patch, tag: str, **step_kw) -> None:
+    """One f32 step of `model` (drop path off) with the fused sspa pair
+    against the two-call step from the same state, by phase 10's rule over
+    every parameter: the fused step on the batch times 1 + 1e-7 is the
+    control, and, as in phase 42, the witness is per tensor the farthest
+    from the two-call step of two two-call steps that compute the same
+    step in exact arithmetic and another one in f32 (the batch times
+    1 - 1e-7; each branch's rows reversed). The fused pair runs the heads'
+    `mlp2` over both branches' rows in one product, so it sums their
+    gradients in another f32 order, and behind the heads' BatchNorms (near
+    constant attention maps at random weights) f32 rounding moves those
+    gradients past the fixed allowance under any such change."""
+    import gc
+
+    import numpy as np
+
+    from icl_tpu_torch.models.layers import DropPath
+
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.rate = 0.0
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    labeled = step_kw["labeled"]
+    n = len(batch["image"])
+    reversed_rows = np.concatenate([np.arange(labeled)[::-1], np.arange(labeled, n)[::-1]])
+
+    def run(fuse: bool, scale: float = 1.0, rows=None):
+        model.load_state_dict(start)
+        model.fuse_sspa_pair = fuse
+        wa.reset_launch_counts()
+        b = batch if rows is None else {k: np.asarray(v)[rows] for k, v in batch.items()}
+        metrics, after = unet_step(torch, model, b, patch, DEVICE, scale, **step_kw)
+        launches = launches_now(wa)
+        return (metrics, {n: t.clone() for n, t in after.items()}), launches
+
+    t0 = time.perf_counter()
+    (reference, ref_launches), (test, launches), (control, _) = run(False), run(True), run(True, 1.0 + 1e-7)
+    witness = run(False, 1.0 - 1e-7)[0]
+    for k, t in run(False, rows=reversed_rows)[0][1].items():
+        if (t - reference[1][k]).abs().max() > (witness[1][k] - reference[1][k]).abs().max():
+            witness[1][k] = t
+    torch.cuda.synchronize()
+    if launches != ref_launches:
+        fail(f"{tag} the fused step launched {launches}, the two-call step {ref_launches}")
+    before = {n: start[n] for n in reference[1]}
+    step_agreement(torch, tag, f"one f32 step, fused sspa pair vs two calls ({time.perf_counter() - t0:.1f} s "
+                   f"for the five; window-attention launches of each {launches})", before,
+                   {"test": test, "reference": reference, "control": control, "witness": witness})
+    del start, reference, test, control, witness, before
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_bf16_remat(torch, wa, sg, cases) -> dict:
+    """56: the bf16 train state with recompute: one SwinUNETR-ICL step
+    (phase 9's configuration, f32 forward on the upcast copies) with remat
+    against the same step without, from one state, under cuDNN's
+    deterministic algorithms: every tensor bit for bit; the SR kernel's
+    launches (one a leaf) and the attention launches (the recompute's 16
+    more forward) counted; then 2 replays of the captured step
+    (`--scan_steps`) against 2 eager steps with remat, bit for bit."""
+    import copy
+    import dataclasses
+    import gc
+
+    from icl_tpu_torch.data.brats import brats_train_batches
+    from icl_tpu_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(train_config("float32", 2, 0, "bf16_remat"), state_dtype="bfloat16",
+                              scan_steps=2)
+    trainer = Trainer(cfg, device=DEVICE)
+    remat_modules = [m for m in trainer.model.modules() if isinstance(getattr(m, "remat", None), bool)]
+    leaves = sum(1 for _ in trainer.model.parameters())
+    batches = brats_train_batches(cases, 2, len(cases), TRAIN_BATCH, LABELED_BS, cfg.patch_size, seed=57)
+    dev = [trainer.to_device(next(batches)) for _ in range(2)]
+    s0 = copy.deepcopy(trainer.train_state())
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        def eager(remat: bool, n: int):
+            trainer.load_train_state(s0)
+            for m in remat_modules:
+                m.remat = remat
+            wa.reset_launch_counts()
+            sg.reset_launch_counts()
+            vecs = [trainer._stacked_step(x) for x in dev[:n]]
+            torch.cuda.synchronize()
+            launches = {**launches_now(wa), "sgd_bf16": sg.sgd_bf16_update.launches}
+            return ({k: v.clone() for k, v in flat(trainer.train_state()).items()},
+                    torch.stack(vecs).cpu(), launches)
+
+        t0 = time.perf_counter()
+        with_remat, without = eager(True, 1), eager(False, 1)
+        step_s = time.perf_counter() - t0
+        differ = sorted(k for k in with_remat[0] if not torch.equal(with_remat[0][k], without[0][k]))
+        out["one_step"] = {"differ": len(differ), "tensors": len(with_remat[0]),
+                           "metrics_equal": torch.equal(with_remat[1], without[1]),
+                           "launches": {"remat": with_remat[2], "no_remat": without[2]}}
+        print(f"[bf16-remat] one bf16-state step with remat vs without, from one state (cuDNN "
+              f"deterministic; {step_s:.1f} s for the two): {len(differ)} of {len(with_remat[0])} "
+              f"tensors differ {differ[:8]}, metrics equal {out['one_step']['metrics_equal']}; "
+              f"launches {json.dumps(out['one_step']['launches'])}", flush=True)
+        want = {"remat": {"fwd": FWD_PER_STEP, "bwd": BWD_PER_STEP},
+                "no_remat": {"fwd": BWD_PER_STEP, "bwd": BWD_PER_STEP}}
+        for kind, run in (("remat", with_remat), ("no_remat", without)):
+            counts = run[2]
+            if counts["sgd_bf16"] != leaves or any(
+                    counts[d] != {**want[kind][d], "mask": 0} for d in ("fwd", "bwd")):
+                fail(f"[bf16-remat] {kind} launches {counts}, expected {want[kind]} and {leaves} SR")
+        if differ or not out["one_step"]["metrics_equal"]:
+            fail("[bf16-remat] the step with remat differs from the step without")
+        for m in remat_modules:
+            m.remat = True
+        a = eager(True, 2)
+        trainer.load_train_state(s0)
+        trainer.graph_step(dev[0])  # the eager first step on a side stream, then the capture
+        trainer.load_train_state(s0)
+        replayed = [trainer.graph_step(x) for x in dev]
+        torch.cuda.synchronize()
+        b = {k: v.clone() for k, v in flat(trainer.train_state()).items()}
+        differ = sorted(k for k in a[0] if not torch.equal(a[0][k], b[k]))
+        out["replay"] = {"differ": len(differ), "metrics_equal": torch.equal(a[1], torch.stack(replayed).cpu()),
+                         "graph_launches": dict(trainer.graph_launches)}
+        print(f"[bf16-remat] 2 replays of the captured bf16-state step with remat vs 2 eager steps from "
+              f"one state: {len(differ)} of {len(b)} tensors differ {differ[:8]}, metrics equal "
+              f"{out['replay']['metrics_equal']}; launches recorded in the graph "
+              f"{out['replay']['graph_launches']}", flush=True)
+        if differ or not out["replay"]["metrics_equal"]:
+            fail("[bf16-remat] the replayed steps differ from the eager steps")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del trainer, s0, dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv: list) -> int:
     """Every phase. `--from 41` runs phases 1-2, 41-43 and 47-52 only (the
-    multi-process ones, phase 42's ranks running phase 48), and prints no
-    result: a partial run, to iterate on them."""
+    multi-process ones, phase 42's ranks running phase 48), `--from 54`
+    phases 1-2 and 54-56, and neither prints a result: a partial run, to
+    iterate on them."""
     start = int(argv[argv.index("--from") + 1]) if "--from" in argv else 1
-    if start not in (1, 41):
-        print("chip_smoke: --from takes 41", file=sys.stderr)
+    if start not in (1, 41, 54):
+        print("chip_smoke: --from takes 41 or 54", file=sys.stderr)
         return 2
     t_script = time.perf_counter()
     marks = [t_script]
@@ -5060,6 +5360,16 @@ def main(argv: list) -> int:
     wa.window_attention(*z[:3], torch.zeros(1, 8, 8, device=DEVICE), scale=1.0)
     wa.window_attention_bwd(*z[:3], torch.zeros(1, 8, 8, device=DEVICE), None, z[3], scale=1.0)
     torch.cuda.synchronize()
+    if start == 54:
+        from icl_tpu_torch.data.synth import synthetic_acdc, synthetic_brats_cases
+
+        shutil.rmtree(EXPERIMENTS, ignore_errors=True)
+        phases_54_56(torch, F, wa, sg, synthetic_brats_cases(4, CASE_SIZE, seed=0),
+                     synthetic_brats_cases(1, CASE_SIZE, seed=1))
+        stamp("54-56")
+        print(f"[summary] a partial run from phase 54 passed in {time.perf_counter() - t_script:.1f} s; "
+              f"the result lines belong to the whole run", flush=True)
+        return 0
 
     if start <= 40:
         # 3 + 4. the forward kernel against its plain version, and times
@@ -5123,7 +5433,7 @@ def main(argv: list) -> int:
         cases = synthetic_brats_cases(4, CASE_SIZE, seed=0)
         held_out = synthetic_brats_cases(1, CASE_SIZE, seed=1)
         training = phase_training(torch, wa, cases, held_out)
-        phase_step_parity(torch, wa, cases)
+        phase_step_parity(torch, wa, cases, training.pop("trainer"))
         phase_train_to_eval(torch, held_out, training)
 
         stamp("9-11")
@@ -5257,6 +5567,11 @@ def main(argv: list) -> int:
           f"{json.dumps({'helper': helper, 'host_batches': on_paths})}", flush=True)
     print(f"[summary] phase 53: {len(tp_times)} tp=2 local shapes timed, both kernels", flush=True)
     stamp("53")
+    # 54 - 56. this slice: SwinUNETR at feature size 24 (the kernels at head
+    # dim 8 and its CLI end to end), other head dims, the bf16 state with
+    # recompute (the Swin ICL models' fused sspa pair runs in 10 and 15)
+    new = phases_54_56(torch, F, wa, sg, cases, held_out)
+    stamp("54-56")
 
     # The kernels line, one entry per kernel and mode. Times are sums over
     # the shapes of a unit of work, each f32 launch time times its launches
@@ -5304,6 +5619,8 @@ def main(argv: list) -> int:
                     [r for r in sup_rows["fwd3d"] if r["mode"] == "region"], sup_3d_fwd["region"])}},
         "bwd": {"none": {"swinunetr_training_step": totals(timed(bwd_rows, "none"),
                                                            BWD_PER_STEP_BY_STAGE["none"]),
+                         "swinunetr_icl_fs24_training_step": totals(timed(new["kernels"]["bwd"], "none"),
+                                                                    BWD_PER_STEP_BY_STAGE["none"]),
                          "swinunet2d_supervised_step": totals(
                              [r for r in sup_rows["bwd2d"] if r["mode"] == "none"], sup_2d["none"]),
                          "swinunetr_supervised_step_bf16": totals(
@@ -5311,8 +5628,13 @@ def main(argv: list) -> int:
                 "mask": {"swinunet2d_supervised_step": totals(
                     [r for r in sup_rows["bwd2d"] if r["mode"] == "mask"], sup_2d["mask"])},
                 "region": {"swinunetr_supervised_step_bf16": totals(
-                    [r for r in sup_rows["bwd3d"] if r["mode"] == "region"], PER_FORWARD["region"])}},
+                    [r for r in sup_rows["bwd3d"] if r["mode"] == "region"], PER_FORWARD["region"]),
+                    "swinunetr_icl_fs24_training_step": totals(timed(new["kernels"]["bwd"], "region"),
+                                                               BWD_PER_STEP_BY_STAGE["region"])}},
     }
+    for mode in ("none", "region"):  # fs24 (head dim 8) beside the fs48 units
+        paths["fwd"][mode]["swinunetr_fs24_inference_forward"] = totals(
+            timed(new["kernels"]["fwd"], mode), PER_FORWARD[mode])
     per = {"region": {"fwd": "SwinUNETR inference forward", "bwd": "SwinUNETR-ICL training step"},
            "none": "Swin-UNet-ICL training step", "mask": "Swin-UNet-ICL training step"}
     kernels = []
@@ -5341,6 +5663,7 @@ def main(argv: list) -> int:
                            cta_swin["val_launches"][direction].get(mode, 0),
                        "graph_swinunet_2d_supervised_first_step":
                            graph["swin_first_step"][direction][mode]}
+            by_path["training_3d_fs24"] = new["fs24"]["path_launches"][direction][mode]
             if direction == "fwd":
                 by_path["inference_3d"] = launches.get(mode, 0)
                 by_path["inference_3d_two_ranks"] = dp_window["launches"][mode]
@@ -5348,8 +5671,10 @@ def main(argv: list) -> int:
                 by_path[f"training_swinunetr_3d_tp2_rank{r}"] = counts[direction][mode]
             for r, counts in enumerate(tp["swin"]["val_launches"]):
                 by_path[f"validation_swinunetr_3d_tp2_rank{r}"] = counts[direction].get(mode, 0)
-            errs = [r["max_abs_err"] for r in rows_3d + rows_2d if r["mode"] == mode
+            held = rows_3d + rows_2d + new["kernels"][direction] + new["kernels"]["sweep"][direction]
+            errs = [r["max_abs_err"] for r in held if r["mode"] == mode
                     and (direction == "bwd" or r["dtype"] == "float32")]
+            head_dims = sorted({r["shape"][3] for r in held if r["mode"] == mode})
             kernels.append({
                 "name": f"{source}[{mode}]",
                 "route": "cuda",
@@ -5358,6 +5683,8 @@ def main(argv: list) -> int:
                 "launches": by_path["training_3d" if mode == "region" else "training_2d"],
                 "launches_by_path": by_path,
                 "max_abs_err": max(errs),
+                "head_dims": head_dims,
+                "head_dims_card_tests": list(CARD_TEST_HEAD_DIMS),
                 **units[direction][mode],
                 "per": per[mode][direction] if mode == "region" else per[mode],
                 "paths": paths[direction].get(mode, {}),
@@ -5366,6 +5693,8 @@ def main(argv: list) -> int:
         "name": "sgd_bf16", "route": "cuda", "source": "icl_tpu_torch/ops/csrc/sgd_bf16.cu",
         "replaces": SGD_REPLACES, "launches": fast["launches"],
         "launches_by_path": {"training_fast_unet_2d": fast["launches"],
+                             "training_swinunetr_icl_bf16_state_remat_step":
+                                 new["bf16_remat"]["one_step"]["launches"]["remat"]["sgd_bf16"],
                              "training_unet_2d_bf16_two_ranks": dp["sgd_bf16_launches"],
                              **{f"training_unet_2d_bf16_tp2_rank{r}": n
                                 for r, n in enumerate(tp["flagship"]["sgd_bf16_launches"])}},

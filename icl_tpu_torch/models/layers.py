@@ -172,7 +172,10 @@ def call_remat(remat: bool, fn, *args):
     with autocast's weight cache off in eager steps too
     (`train/steps.py:_forward_context`), where a cached cast would make
     eager and replayed steps sum a shared weight's gradients in another
-    precision."""
+    precision. With the bf16 train state `fn` reads the upcast copies of
+    the parameters in the recompute as in the first forward: the step
+    keeps them in place until its backward is done
+    (`train/steps.py:upcast_parameters`), in a capture too."""
     if remat and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)

@@ -25,6 +25,9 @@ def net_factory(net_type: str, in_chns: int, class_num: int, *, device=None,
     at inference, which its best checkpoint (ICL heads stripped) loads
     into. `swinunetr` builds that SwinUNETR.
 
+    `fuse_sspa_pair` (every ICL model, as the JAX Trainer passes it) runs
+    the two labeled-mode `sspa` calls as one (`models.icl.sspa_paired`).
+
     2D: `icl_swinunet` builds `SwinUNetICL`, `swinunet` and `icl_swinunet`
     with `inference=True` the `SwinUnetWrapper`. The image side is
     `img_size`, or `patch_size` when `img_size` keeps its default 224 (the
@@ -47,8 +50,8 @@ def net_factory(net_type: str, in_chns: int, class_num: int, *, device=None,
     which its best checkpoint loads into."""
     if net_type not in PORTED:
         raise KeyError(f"net_type {net_type!r} is not ported yet; ported: {list(PORTED)}")
-    if fuse_sspa_pair and net_type not in ("icl_unet", "unet_3D_icl"):
-        raise ValueError("fuse_sspa_pair is ported for icl_unet and unet_3D_icl only")
+    if fuse_sspa_pair and net_type not in ("icl_unet", "unet_3D_icl", "icl_swinunet", "swinunetr_icl"):
+        raise ValueError(f"fuse_sspa_pair is for the ICL models; {net_type!r} has no sspa head")
     if zero_stochastic and net_type not in ("icl_unet", "unet_3D", "unet_3D_icl"):
         raise ValueError("zero_stochastic is ported for icl_unet, unet_3D and unet_3D_icl only")
     from icl_tpu_torch.models.layers import build_model
@@ -87,15 +90,19 @@ def net_factory(net_type: str, in_chns: int, class_num: int, *, device=None,
         from icl_tpu_torch.models.swin2d_icl import SwinUNetICL
 
         side = img_size if img_size != 224 or patch_size is None else patch_size
-        cls = SwinUNetICL if net_type == "icl_swinunet" and not inference else SwinUnetWrapper
-        return build_model(cls, in_chns, class_num, img_size=side, window_size=window_size,
-                           cfg=swin_cfg, device=device, generator=generator)
+        if net_type == "icl_swinunet" and not inference:
+            return build_model(SwinUNetICL, in_chns, class_num, img_size=side,
+                               window_size=window_size, cfg=swin_cfg,
+                               fuse_sspa_pair=fuse_sspa_pair, device=device, generator=generator)
+        return build_model(SwinUnetWrapper, in_chns, class_num, img_size=side,
+                           window_size=window_size, cfg=swin_cfg, device=device,
+                           generator=generator)
     from icl_tpu_torch.models.swinunetr import SwinUNETR
     from icl_tpu_torch.models.swinunetr_icl import SwinUNETRICL
 
     if net_type == "swinunetr_icl" and not inference:
         return build_model(SwinUNETRICL, in_chns, class_num, img_size=patch_size or 96,
-                           feature_size=feature_size, remat=remat, device=device,
-                           generator=generator)
+                           feature_size=feature_size, remat=remat,
+                           fuse_sspa_pair=fuse_sspa_pair, device=device, generator=generator)
     return build_model(SwinUNETR, in_chns, class_num, feature_size=feature_size, remat=remat,
                        device=device, generator=generator)

@@ -7,9 +7,14 @@
 //     a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, which keeps f32 accuracy.
 //     A bf16 input is exact in TF32 (EXACT): its lo is zero and the terms
 //     with it are skipped.
-//   * An operand [N, D] staged in shared memory as f32 without padding, in
-//     4-float chunks permuted by an XOR (sidx) so that both fragment
-//     patterns hit 32 banks; f32 rows come in with cp.async.
+//   * An operand [N, d] (head dim d, rows d values apart in device memory)
+//     staged in shared memory as f32 at the tile width D >= d (16 or 32),
+//     columns d .. D - 1 and rows N .. Np - 1 zero (zero_pad), in 4-float
+//     chunks permuted by an XOR (sidx) so that both fragment patterns hit
+//     32 banks. f32 rows of whole aligned 16-byte chunks come in with
+//     cp.async, bf16 ones as 8-byte loads, any other d value by value. The
+//     zero columns add nothing to q.k^T and give zero columns of P.v, so
+//     every d of a tile runs the tile's code.
 //   * A C fragment used as the next product's A fragment in registers,
 //     through a permuted k index (product_cn).
 //   * The additive terms of a logit (bias, + dense mask, or -100 from the
@@ -36,6 +41,11 @@ constexpr int kNone = 0;
 constexpr int kRegion = 1;
 constexpr int kMask = 2;
 
+// The tile of head dim d: the width its operands are staged at and the
+// compiled instance that runs it, 16 for 1 <= d <= 16, 32 for 16 < d <= 32,
+// 0 for any other d.
+inline int head_dim_tile(int d) { return d < 1 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : 0; }
+
 // Warps of a CTA whose warps each own a 16-row tile of a window of N
 // tokens: as few as the fewest rounds over the tiles allow, at most
 // `max_warps`.
@@ -54,6 +64,30 @@ __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
 template <>
 __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename T>
+__device__ __forceinline__ void store1(T* p, float a);
+template <>
+__device__ __forceinline__ void store1<float>(float* p, float a) {
+  *p = a;
+}
+template <>
+__device__ __forceinline__ void store1<__nv_bfloat16>(__nv_bfloat16* p, float a) {
+  *p = __float2bfloat16_rn(a);
+}
+
+// Columns c and c + 1 (c even) of a row of d values in device memory, only
+// those below d: as one pair where d is even (the pair is then aligned,
+// given an aligned row 0), else value by value.
+template <typename T>
+__device__ __forceinline__ void store_cols(T* row, int c, int d, float a, float b) {
+  if ((d & 1) == 0) {
+    if (c < d) store2<T>(row + c, a, b);
+  } else {
+    if (c < d) store1<T>(row + c, a);
+    if (c + 1 < d) store1<T>(row + c + 1, b);
+  }
 }
 
 // x rounded to nearest TF32, as an f32 bit pattern with 13 low bits zero.
@@ -132,7 +166,7 @@ __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// Index of (row, col) of a staged [Np, D] operand, f32 without padding,
+// Index of (row, col) of a staged [Np, D] operand (D the tile), f32 without padding,
 // 4-float chunks permuted by an XOR so that both fragment patterns (rows
 // r0 + g at columns c + t, and rows r0 + 2t, r0 + 2t + 1 at columns c + g)
 // hit 32 banks. D = 32: a row is a 32-float line, chunk ^= row % 8. D = 16:
@@ -147,25 +181,61 @@ __device__ __forceinline__ int sidx(int row, int col) {
   return (row >> 1) * 32 + ((((row & 1) << 2 | chunk) ^ (2 * l + (l >> 1))) << 2) + (col & 3);
 }
 
-// rows [0, N) of a [N, D] operand into shared memory as f32
+// Rows [0, N) of a [N, d] operand (rows d values apart) into shared memory
+// as f32 at width D: whole 16-byte chunks with cp.async where d % 4 == 0
+// and the rows start 16-byte aligned, else value by value. Writes columns
+// < d only; zero_pad keeps the rest zero.
 template <int D>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int N) {
-  constexpr int kChunks = D / 4;
-  for (int i = threadIdx.x; i < N * kChunks; i += blockDim.x) {
-    const int r = i / kChunks;
-    cp_async16(dst + sidx<D>(r, (i - r * kChunks) * 4), src + 4 * i);
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int N, int d) {
+  if ((d & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int chunks = d >> 2;
+    for (int i = threadIdx.x; i < N * chunks; i += blockDim.x) {
+      const int r = i / chunks;
+      cp_async16(dst + sidx<D>(r, (i - r * chunks) * 4), src + 4 * i);
+    }
+  } else {
+    for (int i = threadIdx.x; i < N * d; i += blockDim.x) {
+      const int r = i / d;
+      dst[sidx<D>(r, i - r * d)] = src[i];
+    }
   }
 }
 
+// The same from bf16: 8-byte loads of 4 values where d % 4 == 0 and the rows
+// start 8-byte aligned, else value by value.
 template <int D>
-__device__ __forceinline__ void stage_rows(float* dst, const __nv_bfloat16* src, int N) {
+__device__ __forceinline__ void stage_rows(float* dst, const __nv_bfloat16* src, int N, int d) {
+  if ((d & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 7) == 0) {
+    const int chunks = d >> 2;
+    for (int i = threadIdx.x; i < N * chunks; i += blockDim.x) {
+      const int r = i / chunks;
+      const uint2 raw = *reinterpret_cast<const uint2*>(src + 4 * i);
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+      *reinterpret_cast<float4*>(dst + sidx<D>(r, (i - r * chunks) * 4)) = make_float4(a.x, a.y, b.x, b.y);
+    }
+  } else {
+    for (int i = threadIdx.x; i < N * d; i += blockDim.x) {
+      const int r = i / d;
+      dst[sidx<D>(r, i - r * d)] = __bfloat162float(src[i]);
+    }
+  }
+}
+
+// Zero what stage_rows never writes in a staged [Np, D] operand: rows
+// N .. Np - 1 (whole 4-float chunks), and columns d .. D - 1 of the rows
+// below N (none at the tile's own head dim). Once per CTA: those entries
+// stay zero for every window, and no staging copy touches them, so this
+// needs no barrier before the first stage.
+template <int D>
+__device__ __forceinline__ void zero_pad(float* dst, int N, int Np, int d) {
   constexpr int kChunks = D / 4;
-  for (int i = threadIdx.x; i < N * kChunks; i += blockDim.x) {
-    const int r = i / kChunks;
-    const uint2 raw = *reinterpret_cast<const uint2*>(src + 4 * i);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    *reinterpret_cast<float4*>(dst + sidx<D>(r, (i - r * kChunks) * 4)) = make_float4(a.x, a.y, b.x, b.y);
+  for (int i = threadIdx.x; i < (Np - N) * kChunks; i += blockDim.x)
+    *reinterpret_cast<float4*>(dst + sidx<D>(N + i / kChunks, (i % kChunks) * 4)) = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int w = D - d;
+  for (int i = threadIdx.x; i < N * w; i += blockDim.x) {
+    const int r = i / w;
+    dst[sidx<D>(r, d + i - r * w)] = 0.f;
   }
 }
 
@@ -268,13 +338,29 @@ __device__ __forceinline__ void load_terms(float (&term)[4], const int (&a)[2], 
 // that e^(x - ref) is 0 for those keys and never e^(-inf + inf).
 __device__ __forceinline__ float finite_or_zero(float m) { return m == -INFINITY ? 0.f : m; }
 
-// The logit of (row, key) from its raw q.k and its term; REGION adds -100
-// where the ids of a real row and key differ.
+// The region ids of rows or keys i and i + 1 (i even), one pair load from
+// shared memory; 0 outside REGION. Entries past N hold anything: `logit`
+// leaves them out.
 template <int MODE>
-__device__ __forceinline__ float logit(float qk, float term, int row, int key, int N, float scale,
-                                       const float* ids) {
+__device__ __forceinline__ float2 id_pair(const float* ids, int i) {
+  return MODE == kRegion ? *reinterpret_cast<const float2*>(ids + i) : make_float2(0.f, 0.f);
+}
+
+// The region id of row or key i (i < Np), 0 outside REGION.
+template <int MODE>
+__device__ __forceinline__ float id_of(const float* ids, int i) {
+  return MODE == kRegion ? ids[i] : 0.f;
+}
+
+// The logit of (row, key) from its raw q.k and its term; REGION adds -100
+// where the ids of a real row and key (`real`: both below N) differ. The
+// ids are loaded by the caller, a tile's own once and the other side's a
+// pair at a time, so that no load waits on the comparison.
+template <int MODE>
+__device__ __forceinline__ float logit(float qk, float term, bool real, float id_row, float id_key,
+                                       float scale) {
   float s = fmaf(qk, scale, term);
-  if (MODE == kRegion && row < N && key < N && ids[row] != ids[key]) s += -100.f;
+  if (MODE == kRegion && real && id_row != id_key) s += -100.f;
   return s;
 }
 

@@ -8,8 +8,10 @@
 //                          id of the key differs from the query's, else 0.
 //                          M is built here from the ids [nW, N]; the dense
 //                          [nW, N, N] mask never exists in device memory.
-// One template, MODE = NONE, REGION or MASK, head dim D = 16 or 32, input
-// type float or bf16, f32 math, output in the input type.
+// One template, MODE = NONE, REGION or MASK, tile DT = 16 or 32 (any head
+// dim d of 1 .. DT: the operands are staged at width DT with zero columns
+// past d, see mma_tf32.cuh), input type float or bf16, f32 math, output in
+// the input type.
 //
 // Layout (the same as window_attention_fused): q, k, v, out [B, H, N, D]
 // contiguous with B = batch * nW; bias [H, N, N] f32; region ids [nW, N]
@@ -30,7 +32,8 @@
 //     TF32 product alone misses the port's 1e-5 by about 100x). bf16 q, k,
 //     v are exact in TF32: q.k^T is one MMA, P.v two (P is f32).
 //   * One warp per 16-row query tile. Its Q fragments are read once from
-//     device memory, split into hi and lo, and held in registers. Flash-style
+//     device memory (zero past d), split into hi and lo, and held in
+//     registers. Flash-style
 //     online softmax over 8-key tiles: S = Q.K^T, the logits with the
 //     bias (+ mask, or -100 from the ids) read one tile ahead, the row max
 //     merged over the quad of lanes that holds a row (two shuffles), the
@@ -48,6 +51,14 @@
 //   * Short windows (N < 8 leaves lanes with only padded keys): the online
 //     softmax takes 0 as its reference while its max is -inf, so N = 4
 //     gives no e^(-inf + inf).
+//   * Head dims below the tile (SwinUNETR at feature sizes other than 48
+//     and 96: d = fs / 3) run the tile's products on zero columns: d = 8
+//     does the work of d = 16. Only the columns below d are stored. Each
+//     tile has two instances: FULL for its own head dim, with d a constant
+//     (the code the tile ran before it took smaller head dims), and one
+//     that reads d at run time, which alone made the f32 forward at head
+//     dim 16 2-4% slower than before in NONE and REGION (PERF.md). The
+//     backward has no such fork: its runtime-d instance is as fast.
 //   * The warps and the shared memory are chosen here from N and D;
 //     icl_window_attention_fwd_geometry reports them with the resident CTAs
 //     an SM, from which the caller sizes the grid. Every output element has
@@ -67,38 +78,40 @@ constexpr int kMaxWarps = 8;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// The A fragments of rows r0 .. r0 + 15 of a [N, D] operand in device
-// memory, split once into hi and lo (load_a_split's pattern); 0 past N.
-template <int D, bool EXACT, typename T>
-__device__ __forceinline__ void load_rows_split(FragA (&a)[D / 8], const T* x, int r0, int N, int g, int t) {
+// The A fragments of rows r0 .. r0 + 15 of a [N, d] operand in device
+// memory at tile width DT, split once into hi and lo (load_a_split's
+// pattern); 0 past N and past d.
+template <int DT, bool EXACT, typename T>
+__device__ __forceinline__ void load_rows_split(FragA (&a)[DT / 8], const T* x, int r0, int N, int d, int g,
+                                                int t) {
   const int lo = r0 + g;
   const int hi = r0 + g + 8;
+  auto at = [&](int row, int c) { return row < N && c < d ? to_float(x[row * d + c]) : 0.f; };
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
+  for (int kk = 0; kk < DT / 8; ++kk) {
     const int c = 8 * kk + t;
-    a[kk] = split_a<EXACT>(lo < N ? to_float(x[lo * D + c]) : 0.f, hi < N ? to_float(x[hi * D + c]) : 0.f,
-                           lo < N ? to_float(x[lo * D + c + 4]) : 0.f,
-                           hi < N ? to_float(x[hi * D + c + 4]) : 0.f);
+    a[kk] = split_a<EXACT>(at(lo, c), at(hi, c), at(lo, c + 4), at(hi, c + 4));
   }
 }
 
-// Per buffer: K [Np, D] and V [Np, D] (see sidx), then the ids [Np].
-__host__ __device__ inline int buffer_floats(int N, int D) {
+// Per buffer: K [Np, DT] and V [Np, DT] (see sidx), then the ids [Np].
+__host__ __device__ inline int buffer_floats(int N, int DT) {
   const int Np = (N + 15) & ~15;
-  return 2 * Np * D + Np;
+  return 2 * Np * DT + Np;
 }
 
-template <typename T, int D, int MODE>
+template <typename T, int DT, int MODE, bool FULL>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         const float* __restrict__ bias, const float* __restrict__ region_ids,
                         const float* __restrict__ mask, T* __restrict__ out, int B, int H, int N,
-                        int nW, int windows_per_cta, float scale) {
+                        int d_in, int nW, int windows_per_cta, float scale) {
+  const int d = FULL ? DT : d_in;  // the tile's own head dim: the compiler folds d
   constexpr bool kExact = std::is_same<T, __nv_bfloat16>::value;  // bf16 is exact in TF32
-  constexpr int KD = D / 8;
+  constexpr int KD = DT / 8;
   extern __shared__ __align__(16) float smem[];
   const int Np = (N + 15) & ~15;
-  const int per_buffer = buffer_floats(N, D);
+  const int per_buffer = buffer_floats(N, DT);
 
   const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32;
@@ -114,24 +127,20 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   // K, V (and the ids) of window b into buffer `buf`
   auto stage = [&](int buf, int b) {
     float* ks = smem + buf * per_buffer;
-    const size_t base = (static_cast<size_t>(b) * H + h) * N * D;
-    stage_rows<D>(ks, k + base, N);
-    stage_rows<D>(ks + Np * D, v + base, N);
+    const size_t base = (static_cast<size_t>(b) * H + h) * N * d;
+    stage_rows<DT>(ks, k + base, N, d);
+    stage_rows<DT>(ks + Np * DT, v + base, N, d);
     if (MODE == kRegion) {
       const float* w_ids = region_ids + static_cast<size_t>(b % nW) * N;
-      float* ids = ks + 2 * Np * D;
+      float* ids = ks + 2 * Np * DT;
       for (int i = threadIdx.x; i < N; i += blockDim.x) ids[i] = w_ids[i];
     }
     cp_async_commit();
   };
 
-  // the padded rows stay zero for every window, in both buffers
-  for (int i = threadIdx.x; i < (Np - N) * D; i += blockDim.x) {  // 4 operands x (Np - N) rows x D / 4 chunks
-    const int r = i / (D / 4);
-    const int op = r / (Np - N);  // 0, 1: K, V of buffer 0; 2, 3: of buffer 1
-    const int at = (op >> 1) * per_buffer + (op & 1) * Np * D + sidx<D>(N + r % (Np - N), (i % (D / 4)) * 4);
-    *reinterpret_cast<float4*>(smem + at) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  // the padded rows and columns stay zero for every window, in both buffers
+  for (int op = 0; op < 4; ++op)  // K, V of buffer 0; of buffer 1
+    zero_pad<DT>(smem + (op >> 1) * per_buffer + (op & 1) * Np * DT, N, Np, d);
   if (b_begin < b_end) stage(0, b_begin);
 
   for (int b = b_begin; b < b_end; ++b) {
@@ -145,9 +154,9 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
     __syncthreads();  // window b staged by every thread
 
     const float* ks = smem + cur * per_buffer;
-    const float* vs = ks + Np * D;
-    const float* ids = vs + Np * D;
-    const size_t base = (static_cast<size_t>(b) * H + h) * N * D;
+    const float* vs = ks + Np * DT;
+    const float* ids = vs + Np * DT;
+    const size_t base = (static_cast<size_t>(b) * H + h) * N * d;
     const float* mask_w = MODE == kMask ? mask + static_cast<size_t>(b % nW) * N * N : nullptr;
 
     // lane (g, t) holds rows i0 + g and i0 + g + 8 (e = 0, 1 and e = 2, 3)
@@ -155,7 +164,7 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
     for (int tile = warp; tile < tiles; tile += warps) {
       const int i0 = 16 * tile;
       FragA qa[KD];
-      load_rows_split<D, kExact>(qa, q + base, i0, N, g, t);
+      load_rows_split<DT, kExact>(qa, q + base, i0, N, d, g, t);
       const int rows[2] = {i0 + g, i0 + g + 8};
       float m[2] = {-INFINITY, -INFINITY};
       float l[2] = {0.f, 0.f};  // this lane's keys' share of the row sum
@@ -163,16 +172,19 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
 #pragma unroll
       for (int nn = 0; nn < KD; ++nn) acc[nn][0] = acc[nn][1] = acc[nn][2] = acc[nn][3] = 0.f;
 
+      const float id_row[2] = {id_of<MODE>(ids, rows[0]), id_of<MODE>(ids, rows[1])};
       float term[4];
       load_terms<MODE, false>(term, rows, 2 * t, N, bias_h, mask_w);
       for (int j0 = 0; j0 < Np; j0 += 8) {
         float next[4];
         load_terms<MODE, false>(next, rows, j0 + 8 + 2 * t, N, bias_h, mask_w);
         float s[4];
-        product_nt<D, kExact>(s, qa, ks, j0, g, t);
+        product_nt<DT, kExact>(s, qa, ks, j0, g, t);
+        const float2 id_key = id_pair<MODE>(ids, j0 + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          s[e] = logit<MODE>(s[e], term[e], rows[e >> 1], j0 + 2 * t + (e & 1), N, scale, ids);
+          s[e] = logit<MODE>(s[e], term[e], rows[e >> 1] < N && j0 + 2 * t + (e & 1) < N, id_row[e >> 1],
+                             (e & 1) ? id_key.y : id_key.x, scale);
         float p[4];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -193,7 +205,7 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
           }
           m[r] = m_new;
         }
-        product_cn<D, kExact>(acc, p, vs, j0, g, t);
+        product_cn<DT, kExact>(acc, p, vs, j0, g, t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) term[e] = next[e];
       }
@@ -204,31 +216,32 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
         l[r] += __shfl_xor_sync(kFullMask, l[r], 2);
         if (rows[r] >= N) continue;
         const float inv = 1.f / l[r];
-        T* o = out + base + static_cast<size_t>(rows[r]) * D + 2 * t;
+        T* o = out + base + static_cast<size_t>(rows[r]) * d;
 #pragma unroll
-        for (int nn = 0; nn < KD; ++nn) store2<T>(o + 8 * nn, acc[nn][2 * r] * inv, acc[nn][2 * r + 1] * inv);
+        for (int nn = 0; nn < KD; ++nn)
+          store_cols<T>(o, 8 * nn + 2 * t, d, acc[nn][2 * r] * inv, acc[nn][2 * r + 1] * inv);
       }
     }
     __syncthreads();  // every warp is done with buffer `cur` before it is staged again
   }
 }
 
-// K, V and ids buffers, two of them
-size_t smem_bytes(int N, int D) { return 2 * static_cast<size_t>(buffer_floats(N, D)) * sizeof(float); }
+// K, V and ids buffers, two of them, at tile width DT
+size_t smem_bytes(int N, int DT) { return 2 * static_cast<size_t>(buffer_floats(N, DT)) * sizeof(float); }
 
 int cta_warps(int N) { return tile_warps(N, kMaxWarps); }
 
-template <typename T, int D, int MODE>
+template <typename T, int DT, int MODE, bool FULL>
 cudaError_t prepare(size_t smem) {
-  return cudaFuncSetAttribute(window_attention_kernel<T, D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(window_attention_kernel<T, DT, MODE, FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
 // CTAs that fit one SM, from the compiled kernel's registers and the
 // window's shared memory; 0 when the shared memory exceeds a CTA's limit.
-template <typename T, int D, int MODE>
+template <typename T, int DT, int MODE, bool FULL>
 cudaError_t occupancy(int N, int* ctas) {
-  const size_t smem = smem_bytes(N, D);
+  const size_t smem = smem_bytes(N, DT);
   int device = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -237,17 +250,24 @@ cudaError_t occupancy(int N, int* ctas) {
     *ctas = 0;
     return cudaSuccess;
   }
-  err = prepare<T, D, MODE>(smem);
+  err = prepare<T, DT, MODE, FULL>(smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, window_attention_kernel<T, D, MODE>,
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, window_attention_kernel<T, DT, MODE, FULL>,
                                                        cta_warps(N) * 32, smem);
 }
 
-template <typename T, int D>
+template <typename T, int DT, bool FULL>
 cudaError_t occupancy_mode(int N, bool has_ids, bool has_mask, int* ctas) {
-  if (has_ids) return occupancy<T, D, kRegion>(N, ctas);
-  if (has_mask) return occupancy<T, D, kMask>(N, ctas);
-  return occupancy<T, D, kNone>(N, ctas);
+  if (has_ids) return occupancy<T, DT, kRegion, FULL>(N, ctas);
+  if (has_mask) return occupancy<T, DT, kMask, FULL>(N, ctas);
+  return occupancy<T, DT, kNone, FULL>(N, ctas);
+}
+
+// The instance of tile DT for head dim D: FULL where D is the tile's own.
+template <typename T, int DT>
+cudaError_t occupancy_dim(int N, int D, bool has_ids, bool has_mask, int* ctas) {
+  return D == DT ? occupancy_mode<T, DT, true>(N, has_ids, has_mask, ctas)
+                 : occupancy_mode<T, DT, false>(N, has_ids, has_mask, ctas);
 }
 
 // The pointers and sizes of one forward call.
@@ -255,33 +275,36 @@ struct Args {
   const void *q, *k, *v;
   const float *bias, *region_ids, *mask;
   void* out;
-  int B, H, N, nW, windows_per_cta;
+  int B, H, N, d, nW, windows_per_cta;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename T, int D, int MODE>
+template <typename T, int DT, int MODE, bool FULL>
 cudaError_t launch(const Args& a) {
-  const size_t smem = smem_bytes(a.N, D);
-  cudaError_t err = prepare<T, D, MODE>(smem);
+  const size_t smem = smem_bytes(a.N, DT);
+  cudaError_t err = prepare<T, DT, MODE, FULL>(smem);
   if (err != cudaSuccess) return err;
   const int groups = (a.B + a.windows_per_cta - 1) / a.windows_per_cta;
-  window_attention_kernel<T, D, MODE><<<dim3(groups, a.H), cta_warps(a.N) * 32, smem, a.stream>>>(
+  window_attention_kernel<T, DT, MODE, FULL><<<dim3(groups, a.H), cta_warps(a.N) * 32, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.bias, a.region_ids,
-      a.mask, static_cast<T*>(a.out), a.B, a.H, a.N, a.nW, a.windows_per_cta, a.scale);
+      a.mask, static_cast<T*>(a.out), a.B, a.H, a.N, a.d, a.nW, a.windows_per_cta, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DT, bool FULL>
 cudaError_t launch_mode(const Args& a) {
-  if (a.region_ids != nullptr) return launch<T, D, kRegion>(a);
-  if (a.mask != nullptr) return launch<T, D, kMask>(a);
-  return launch<T, D, kNone>(a);
+  if (a.region_ids != nullptr) return launch<T, DT, kRegion, FULL>(a);
+  if (a.mask != nullptr) return launch<T, DT, kMask, FULL>(a);
+  return launch<T, DT, kNone, FULL>(a);
 }
 
-template <int D>
+// The tile's own head dim runs the FULL instance (d folded to DT), any
+// smaller one the instance that reads d at run time.
+template <int DT>
 cudaError_t launch_type(const Args& a, int is_bf16) {
-  return is_bf16 ? launch_mode<__nv_bfloat16, D>(a) : launch_mode<float, D>(a);
+  if (a.d == DT) return is_bf16 ? launch_mode<__nv_bfloat16, DT, true>(a) : launch_mode<float, DT, true>(a);
+  return is_bf16 ? launch_mode<__nv_bfloat16, DT, false>(a) : launch_mode<float, DT, false>(a);
 }
 
 }  // namespace
@@ -290,11 +313,12 @@ extern "C" {
 
 // Returns a cudaError_t: 0 when the launch was accepted. `region_ids` set
 // selects REGION, else `mask` set selects MASK, else NONE (at most one of
-// the two is set). `is_bf16` selects the input type. The head dim D must
-// be 16 (SwinUNETR fs48: 48/3 = 96/6 = 192/12 = 384/24) or 32 (Swin-UNet
-// 2D, embed 96: 96/3 = 192/6 = 384/12 = 768/24). A CTA takes
-// `windows_per_cta` windows of one head; its width and shared memory are
-// those icl_window_attention_fwd_geometry reports.
+// the two is set). `is_bf16` selects the input type. The head dim D is any
+// of 1 .. 32 (SwinUNETR: feature size / 3, 16 at fs48, 8 at fs24; Swin-UNet
+// 2D, embed 96: 32); D <= 16 runs the tile-16 instance, D <= 32 the tile-32
+// one (head_dim_tile). A CTA takes `windows_per_cta` windows of one head;
+// its width and shared memory are those icl_window_attention_fwd_geometry
+// reports.
 int icl_window_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
                              const void* region_ids, const void* mask, void* out, int B, int H,
                              int N, int D, int nW, int windows_per_cta, float scale, int is_bf16,
@@ -303,27 +327,29 @@ int icl_window_attention_fwd(const void* q, const void* k, const void* v, const 
   const Args a{q, k, v,
                static_cast<const float*>(bias), static_cast<const float*>(region_ids),
                static_cast<const float*>(mask), out,
-               B, H, N, nW, windows_per_cta, scale, static_cast<cudaStream_t>(stream)};
-  if (D == 16) return launch_type<16>(a, is_bf16);
-  if (D == 32) return launch_type<32>(a, is_bf16);
+               B, H, N, D, nW, windows_per_cta, scale, static_cast<cudaStream_t>(stream)};
+  const int tile = head_dim_tile(D);
+  if (tile == 16) return launch_type<16>(a, is_bf16);
+  if (tile == 32) return launch_type<32>(a, is_bf16);
   return cudaErrorInvalidValue;
 }
 
-// The launch geometry at windows of N tokens and head dim D, in the mode
-// that `has_ids` (REGION), else `has_mask` (MASK), else neither (NONE)
-// selects: the warps of a CTA, its shared memory in bytes, and how many
-// such CTAs one SM of the current device holds, 0 when the window does not
-// fit. Returns a cudaError_t.
+// The launch geometry at windows of N tokens and head dim D (its tile's
+// instance), in the mode that `has_ids` (REGION), else `has_mask` (MASK),
+// else neither (NONE) selects: the warps of a CTA, its shared memory in
+// bytes, and how many such CTAs one SM of the current device holds, 0 when
+// the window does not fit. Returns a cudaError_t.
 int icl_window_attention_fwd_geometry(int N, int D, int has_ids, int has_mask, int is_bf16, int* warps,
                                       int* smem, int* ctas) {
-  if (N < 1 || (D != 16 && D != 32)) return cudaErrorInvalidValue;
+  const int tile = head_dim_tile(D);
+  if (N < 1 || tile == 0) return cudaErrorInvalidValue;
   *warps = cta_warps(N);
-  *smem = static_cast<int>(smem_bytes(N, D));
-  if (D == 16)
-    return is_bf16 ? occupancy_mode<__nv_bfloat16, 16>(N, has_ids, has_mask, ctas)
-                   : occupancy_mode<float, 16>(N, has_ids, has_mask, ctas);
-  return is_bf16 ? occupancy_mode<__nv_bfloat16, 32>(N, has_ids, has_mask, ctas)
-                 : occupancy_mode<float, 32>(N, has_ids, has_mask, ctas);
+  *smem = static_cast<int>(smem_bytes(N, tile));
+  if (tile == 16)
+    return is_bf16 ? occupancy_dim<__nv_bfloat16, 16>(N, D, has_ids, has_mask, ctas)
+                   : occupancy_dim<float, 16>(N, D, has_ids, has_mask, ctas);
+  return is_bf16 ? occupancy_dim<__nv_bfloat16, 32>(N, D, has_ids, has_mask, ctas)
+                 : occupancy_dim<float, 32>(N, D, has_ids, has_mask, ctas);
 }
 
 const char* icl_cuda_error_string(int err) {

@@ -12,9 +12,12 @@
 // for every (window, head). Three variants, as the forward: NONE, REGION
 // (M = -100 where the shift-region ids of key and query differ, built here
 // from ids [nW, N]) and MASK (any dense additive mask [nW, N, N], the
-// branch at :331-332); window index = b % nW. Head dim D = 16 or 32. f32
-// or bf16 q, k, v, dO; f32 math; dq, dk, dv in the input type; dbias in
-// f32. The mask and the ids get no gradient.
+// branch at :331-332); window index = b % nW. Head dim d = 1 .. 32, run by
+// the instance of its tile DT = 16 (d <= 16) or 32, the operands staged at
+// width DT with zero columns past d (mma_tf32.cuh): those add nothing to S
+// or dP, and the padded columns of dq, dk and dv are never stored. f32 or
+// bf16 q, k, v, dO; f32 math; dq, dk, dv in the input type; dbias in f32.
+// The mask and the ids get no gradient.
 //
 // Layout: q, k, v, dO, dq, dk, dv [B, H, N, D] contiguous; bias [H, N, N];
 // region ids [nW, N] f32; mask [nW, N, N] f32.
@@ -45,9 +48,10 @@
 //     and add it to the accumulator in f32.
 //   * One CTA per (group of windows, head), walking its windows in order.
 //     q, k, v and dO of a window are staged once in shared memory as f32
-//     (cp.async for f32 inputs), N padded with zero rows to Np, a multiple
-//     of 16, in 4-float chunks permuted by an XOR (sidx) so that both
-//     fragment patterns hit 32 banks without padding.
+//     (cp.async for f32 inputs whose d is a multiple of 4), N padded with
+//     zero rows to Np, a multiple of 16, d with zero columns to DT, in
+//     4-float chunks permuted by an XOR (sidx) so that both fragment
+//     patterns hit 32 banks without padding.
 //   * Row pass, one warp per 16-row tile, its Q and dO fragments split once
 //     and held in registers: sweep 1 forms S = Q.K^T and dP = dO.V^T per
 //     8-key tile and keeps the online row max, row sum and rowsum(P o dP),
@@ -69,8 +73,8 @@
 //     window order; a second kernel sums the G partials in order g = 0 ..
 //     G-1. Every output element has one owner and a fixed order of sums:
 //     no atomics, so two runs on the same inputs are bitwise equal.
-//   * Occupancy: at D = 16, 8 warps and 128 registers a thread, two CTAs
-//     an SM (96 KB of shared memory each at N = 343); at D = 32 the split
+//   * Occupancy: at tile 16, 8 warps and 128 registers a thread, two CTAs
+//     an SM (96 KB of shared memory each at N = 343); at tile 32 the split
 //     fragments need more, so at most 5 warps at up to 204 registers, two
 //     CTAs an SM (N = 144 has 9 tiles: two rounds of 5 warps). The warps
 //     and the shared memory are chosen here from N and D; the caller sizes
@@ -85,10 +89,10 @@
 
 namespace {
 
-// Warps per CTA at most: the launch bounds. At D = 32 the fragments held in
-// registers need more than 128 a thread; 5 warps at up to 204 registers
-// keep two CTAs on an SM, which is what N = 144 (9 tiles) can use.
-__host__ __device__ constexpr int max_warps(int D) { return D == 32 ? 5 : 8; }
+// Warps per CTA at most: the launch bounds. At tile DT = 32 the fragments
+// held in registers need more than 128 a thread; 5 warps at up to 204
+// registers keep two CTAs on an SM, which is what N = 144 (9 tiles) can use.
+__host__ __device__ constexpr int max_warps(int DT) { return DT == 32 ? 5 : 8; }
 
 // The dbias partial of the four (row, key) a lane holds in the row pass,
 // rows rows[e / 2] at keys key0 + e % 2: what the earlier windows of the
@@ -104,24 +108,24 @@ __device__ __forceinline__ void load_part(float (&old)[4], const float* part, co
   }
 }
 
-template <typename T, int D, int MODE>
-__global__ void __launch_bounds__(max_warps(D) * 32, 2)
+template <typename T, int DT, int MODE>
+__global__ void __launch_bounds__(max_warps(DT) * 32, 2)
 window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ dout,
                             const float* __restrict__ bias, const float* __restrict__ region_ids,
                             const float* __restrict__ mask, T* __restrict__ dq,
                             T* __restrict__ dk, T* __restrict__ dv,
-                            float* __restrict__ dbias_part, int B, int H, int N, int nW,
+                            float* __restrict__ dbias_part, int B, int H, int N, int d, int nW,
                             int windows_per_cta, float scale) {
   constexpr bool kExact = std::is_same<T, __nv_bfloat16>::value;  // bf16 is exact in TF32
-  constexpr int KD = D / 8;
+  constexpr int KD = DT / 8;
   extern __shared__ __align__(16) float smem[];
   const int Np = (N + 15) & ~15;
-  float* qs = smem;                // [Np, D], see sidx
-  float* ks = qs + Np * D;
-  float* vs = ks + Np * D;
-  float* gs = vs + Np * D;         // dO
-  float* row_max = gs + Np * D;    // [Np]
+  float* qs = smem;                // [Np, DT], see sidx
+  float* ks = qs + Np * DT;
+  float* vs = ks + Np * DT;
+  float* gs = vs + Np * DT;        // dO
+  float* row_max = gs + Np * DT;   // [Np]
   float* row_inv = row_max + Np;   // [Np], 1 / row sum
   float* row_dlt = row_inv + Np;   // [Np], rowsum(P o dP)
   float* ids = row_dlt + Np;       // [Np], kRegion only
@@ -139,24 +143,20 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b_begin = group * windows_per_cta;
   const int b_end = min(B, b_begin + windows_per_cta);
 
-  // the padded rows stay zero for every window
-  for (int i = threadIdx.x; i < (Np - N) * D / 4; i += blockDim.x) {
-    const int at = sidx<D>(N + i / (D / 4), (i % (D / 4)) * 4);
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(qs + at) = zero;
-    *reinterpret_cast<float4*>(ks + at) = zero;
-    *reinterpret_cast<float4*>(vs + at) = zero;
-    *reinterpret_cast<float4*>(gs + at) = zero;
-  }
+  // the padded rows and columns stay zero for every window
+  zero_pad<DT>(qs, N, Np, d);
+  zero_pad<DT>(ks, N, Np, d);
+  zero_pad<DT>(vs, N, Np, d);
+  zero_pad<DT>(gs, N, Np, d);
 
   for (int b = b_begin; b < b_end; ++b) {
     const bool first = b == b_begin;
-    const size_t base = (static_cast<size_t>(b) * H + h) * N * D;
+    const size_t base = (static_cast<size_t>(b) * H + h) * N * d;
     __syncthreads();  // the previous window is done with shared memory
-    stage_rows<D>(qs, q + base, N);
-    stage_rows<D>(ks, k + base, N);
-    stage_rows<D>(vs, v + base, N);
-    stage_rows<D>(gs, dout + base, N);
+    stage_rows<DT>(qs, q + base, N, d);
+    stage_rows<DT>(ks, k + base, N, d);
+    stage_rows<DT>(vs, v + base, N, d);
+    stage_rows<DT>(gs, dout + base, N, d);
     const float* mask_w = MODE == kMask ? mask + static_cast<size_t>(b % nW) * N * N : nullptr;
     if (MODE == kRegion) {
       const float* w_ids = region_ids + static_cast<size_t>(b % nW) * N;
@@ -170,9 +170,10 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int tile = warp; tile < tiles; tile += warps) {
       const int i0 = 16 * tile;
       FragA qa[KD], ga[KD];
-      load_a_split<D, kExact>(qa, qs, i0, g, t);
-      load_a_split<D, kExact>(ga, gs, i0, g, t);
+      load_a_split<DT, kExact>(qa, qs, i0, g, t);
+      load_a_split<DT, kExact>(ga, gs, i0, g, t);
       const int rows[2] = {i0 + g, i0 + g + 8};
+      const float id_row[2] = {id_of<MODE>(ids, rows[0]), id_of<MODE>(ids, rows[1])};
 
       // Sweep 1: row max m, row sum l and u = sum_j e^(s_j - m) dp_j.
       float m[2] = {-INFINITY, -INFINITY};
@@ -184,11 +185,13 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float next[4];
         load_terms<MODE, false>(next, rows, j0 + 8 + 2 * t, N, bias_h, mask_w);
         float s[4], dp[4];
-        product_nt<D, kExact>(s, qa, ks, j0, g, t);
-        product_nt<D, kExact>(dp, ga, vs, j0, g, t);
+        product_nt<DT, kExact>(s, qa, ks, j0, g, t);
+        product_nt<DT, kExact>(dp, ga, vs, j0, g, t);
+        const float2 id_key = id_pair<MODE>(ids, j0 + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          s[e] = logit<MODE>(s[e], term[e], rows[e >> 1], j0 + 2 * t + (e & 1), N, scale, ids);
+          s[e] = logit<MODE>(s[e], term[e], rows[e >> 1] < N && j0 + 2 * t + (e & 1) < N, id_row[e >> 1],
+                             (e & 1) ? id_key.y : id_key.x, scale);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const float m_new = fmaxf(m[r], fmaxf(s[2 * r], s[2 * r + 1]));
@@ -241,19 +244,22 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         load_terms<MODE, false>(next, rows, j0 + 8 + 2 * t, N, bias_h, mask_w);
         load_part(old_next, part, rows, j0 + 8 + 2 * t, N, first);
         float s[4], dp[4];
-        product_nt<D, kExact>(s, qa, ks, j0, g, t);
-        product_nt<D, kExact>(dp, ga, vs, j0, g, t);
+        product_nt<DT, kExact>(s, qa, ks, j0, g, t);
+        product_nt<DT, kExact>(dp, ga, vs, j0, g, t);
         float ds[4];
+        const float2 id_key = id_pair<MODE>(ids, j0 + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1;
           const int key = j0 + 2 * t + (e & 1);
-          const float p = __expf(logit<MODE>(s[e], term[e], rows[r], key, N, scale, ids) - m[r]) * inv[r];
+          const float sc = logit<MODE>(s[e], term[e], rows[r] < N && key < N, id_row[r],
+                                       (e & 1) ? id_key.y : id_key.x, scale);
+          const float p = __expf(sc - m[r]) * inv[r];
           ds[e] = p * (dp[e] - dlt[r]);
           // (row, key) has one owner thread; 0 + ds = ds for the first window
           if (rows[r] < N && key < N) part[static_cast<size_t>(rows[r]) * N + key] = old[e] + ds[e];
         }
-        product_cn<D, kExact>(acc, ds, ks, j0, g, t);
+        product_cn<DT, kExact>(acc, ds, ks, j0, g, t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           term[e] = next[e];
@@ -263,10 +269,10 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         if (rows[r] >= N) continue;
-        T* out = dq + base + static_cast<size_t>(rows[r]) * D + 2 * t;
+        T* out = dq + base + static_cast<size_t>(rows[r]) * d;
 #pragma unroll
         for (int nn = 0; nn < KD; ++nn)
-          store2<T>(out + 8 * nn, acc[nn][2 * r] * scale, acc[nn][2 * r + 1] * scale);
+          store_cols<T>(out, 8 * nn + 2 * t, d, acc[nn][2 * r] * scale, acc[nn][2 * r + 1] * scale);
       }
     }
     __syncthreads();  // row statistics visible to every warp
@@ -276,9 +282,10 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int tile = warp; tile < tiles; tile += warps) {
       const int j0 = 16 * tile;
       FragA ka[KD], va[KD];
-      load_a_split<D, kExact>(ka, ks, j0, g, t);
-      load_a_split<D, kExact>(va, vs, j0, g, t);
+      load_a_split<DT, kExact>(ka, ks, j0, g, t);
+      load_a_split<DT, kExact>(va, vs, j0, g, t);
       const int keys[2] = {j0 + g, j0 + g + 8};
+      const float id_key[2] = {id_of<MODE>(ids, keys[0]), id_of<MODE>(ids, keys[1])};
       float dka[KD][4], dva[KD][4];
 #pragma unroll
       for (int nn = 0; nn < KD; ++nn) {
@@ -291,34 +298,37 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float next[4];
         load_terms<MODE, true>(next, keys, i0 + 8 + 2 * t, N, bias_h, mask_w);
         float s[4], dp[4];
-        product_nt<D, kExact>(s, ka, qs, i0, g, t);
-        product_nt<D, kExact>(dp, va, gs, i0, g, t);
+        product_nt<DT, kExact>(s, ka, qs, i0, g, t);
+        product_nt<DT, kExact>(dp, va, gs, i0, g, t);
         const int r0 = i0 + 2 * t;
         const float2 mx = *reinterpret_cast<const float2*>(row_max + r0);
         const float2 iv = *reinterpret_cast<const float2*>(row_inv + r0);
         const float2 dl = *reinterpret_cast<const float2*>(row_dlt + r0);
+        const float2 id_row = id_pair<MODE>(ids, r0);
         float p[4], ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int row = r0 + (e & 1);
-          const float sc = logit<MODE>(s[e], term[e], row, keys[e >> 1], N, scale, ids);
+          const float sc = logit<MODE>(s[e], term[e], row < N && keys[e >> 1] < N, (e & 1) ? id_row.y : id_row.x,
+                                       id_key[e >> 1], scale);
           // a padded key has p = 0 already; a padded row is zeroed here
           p[e] = row < N ? __expf(sc - ((e & 1) ? mx.y : mx.x)) * ((e & 1) ? iv.y : iv.x) : 0.f;
           ds[e] = p[e] * (dp[e] - ((e & 1) ? dl.y : dl.x));
         }
-        product_cn<D, kExact>(dva, p, gs, i0, g, t);
-        product_cn<D, kExact>(dka, ds, qs, i0, g, t);
+        product_cn<DT, kExact>(dva, p, gs, i0, g, t);
+        product_cn<DT, kExact>(dka, ds, qs, i0, g, t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) term[e] = next[e];
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         if (keys[r] >= N) continue;
-        const size_t row = base + static_cast<size_t>(keys[r]) * D + 2 * t;
+        const size_t row = base + static_cast<size_t>(keys[r]) * d;
 #pragma unroll
         for (int nn = 0; nn < KD; ++nn) {
-          store2<T>(dk + row + 8 * nn, dka[nn][2 * r] * scale, dka[nn][2 * r + 1] * scale);
-          store2<T>(dv + row + 8 * nn, dva[nn][2 * r], dva[nn][2 * r + 1]);
+          const int c = 8 * nn + 2 * t;
+          store_cols<T>(dk + row, c, d, dka[nn][2 * r] * scale, dka[nn][2 * r + 1] * scale);
+          store_cols<T>(dv + row, c, d, dva[nn][2 * r], dva[nn][2 * r + 1]);
         }
       }
     }
@@ -343,32 +353,32 @@ struct Args {
   const float *bias, *region_ids, *mask;
   void *dq, *dk, *dv;
   float *dbias_part, *dbias;
-  int B, H, N, nW, windows_per_cta;
+  int B, H, N, d, nW, windows_per_cta;
   float scale;
   cudaStream_t stream;
 };
 
 // Warps per CTA: a warp owns a 16-row (then a 16-key) tile, so a CTA has as
 // few warps as the fewest rounds over the Np / 16 tiles allow, at most the
-// launch bounds at head dim D.
-int cta_warps(int N, int D) { return tile_warps(N, max_warps(D)); }
+// launch bounds at tile DT.
+int cta_warps(int N, int DT) { return tile_warps(N, max_warps(DT)); }
 
-// operands [Np, D] x 4, then row max, 1 / row sum, rowsum(P o dP), ids [Np] each
-size_t smem_bytes(int N, int D) {
-  return 4 * static_cast<size_t>((N + 15) / 16 * 16) * (D + 1) * sizeof(float);
+// operands [Np, DT] x 4, then row max, 1 / row sum, rowsum(P o dP), ids [Np] each
+size_t smem_bytes(int N, int DT) {
+  return 4 * static_cast<size_t>((N + 15) / 16 * 16) * (DT + 1) * sizeof(float);
 }
 
-template <typename T, int D, int MODE>
+template <typename T, int DT, int MODE>
 cudaError_t prepare(size_t smem) {
-  return cudaFuncSetAttribute(window_attention_bwd_kernel<T, D, MODE>,
+  return cudaFuncSetAttribute(window_attention_bwd_kernel<T, DT, MODE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
 }
 
 // CTAs that fit one SM, from the compiled kernel's registers and the
 // window's shared memory; 0 when the shared memory exceeds a CTA's limit.
-template <typename T, int D, int MODE>
+template <typename T, int DT, int MODE>
 cudaError_t occupancy(int N, int* ctas) {
-  const size_t smem = smem_bytes(N, D);
+  const size_t smem = smem_bytes(N, DT);
   int device = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -377,30 +387,30 @@ cudaError_t occupancy(int N, int* ctas) {
     *ctas = 0;
     return cudaSuccess;
   }
-  err = prepare<T, D, MODE>(smem);
+  err = prepare<T, DT, MODE>(smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, window_attention_bwd_kernel<T, D, MODE>,
-                                                       cta_warps(N, D) * 32, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, window_attention_bwd_kernel<T, DT, MODE>,
+                                                       cta_warps(N, DT) * 32, smem);
 }
 
-template <typename T, int D>
+template <typename T, int DT>
 cudaError_t occupancy_mode(int N, bool has_ids, bool has_mask, int* ctas) {
-  if (has_ids) return occupancy<T, D, kRegion>(N, ctas);
-  if (has_mask) return occupancy<T, D, kMask>(N, ctas);
-  return occupancy<T, D, kNone>(N, ctas);
+  if (has_ids) return occupancy<T, DT, kRegion>(N, ctas);
+  if (has_mask) return occupancy<T, DT, kMask>(N, ctas);
+  return occupancy<T, DT, kNone>(N, ctas);
 }
 
-template <typename T, int D, int MODE>
+template <typename T, int DT, int MODE>
 cudaError_t launch(const Args& a) {
-  const size_t smem = smem_bytes(a.N, D);
-  auto kernel = window_attention_bwd_kernel<T, D, MODE>;
-  cudaError_t err = prepare<T, D, MODE>(smem);
+  const size_t smem = smem_bytes(a.N, DT);
+  auto kernel = window_attention_bwd_kernel<T, DT, MODE>;
+  cudaError_t err = prepare<T, DT, MODE>(smem);
   if (err != cudaSuccess) return err;
   const int groups = (a.B + a.windows_per_cta - 1) / a.windows_per_cta;
-  kernel<<<dim3(groups, a.H), cta_warps(a.N, D) * 32, smem, a.stream>>>(
+  kernel<<<dim3(groups, a.H), cta_warps(a.N, DT) * 32, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.bias, a.region_ids, a.mask, static_cast<T*>(a.dq),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.dbias_part, a.B, a.H, a.N, a.nW,
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.dbias_part, a.B, a.H, a.N, a.d, a.nW,
       a.windows_per_cta, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -413,16 +423,16 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DT>
 cudaError_t launch_mode(const Args& a) {
-  if (a.region_ids != nullptr) return launch<T, D, kRegion>(a);
-  if (a.mask != nullptr) return launch<T, D, kMask>(a);
-  return launch<T, D, kNone>(a);
+  if (a.region_ids != nullptr) return launch<T, DT, kRegion>(a);
+  if (a.mask != nullptr) return launch<T, DT, kMask>(a);
+  return launch<T, DT, kNone>(a);
 }
 
-template <int D>
+template <int DT>
 cudaError_t launch_type(const Args& a, int is_bf16) {
-  return is_bf16 ? launch_mode<__nv_bfloat16, D>(a) : launch_mode<float, D>(a);
+  return is_bf16 ? launch_mode<__nv_bfloat16, DT>(a) : launch_mode<float, DT>(a);
 }
 
 }  // namespace
@@ -432,8 +442,8 @@ extern "C" {
 // Returns a cudaError_t: 0 when both launches were accepted. `region_ids`
 // set selects REGION, else `mask` set selects MASK, else NONE; `is_bf16`
 // the input type. The scratch `dbias_part` holds ceil(B / windows_per_cta)
-// * H * N * N floats. The head dim D must be 16 (SwinUNETR fs48) or 32
-// (Swin-UNet 2D, embed 96). The CTA's width and shared memory are those
+// * H * N * N floats. The head dim D is any of 1 .. 32, run by the instance
+// of its tile (head_dim_tile). The CTA's width and shared memory are those
 // icl_window_attention_bwd_geometry reports.
 int icl_window_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const void* bias, const void* region_ids, const void* mask, void* dq,
@@ -444,23 +454,25 @@ int icl_window_attention_bwd(const void* q, const void* k, const void* v, const 
                static_cast<const float*>(bias), static_cast<const float*>(region_ids),
                static_cast<const float*>(mask), dq, dk, dv,
                static_cast<float*>(dbias_part), static_cast<float*>(dbias),
-               B, H, N, nW, windows_per_cta, scale, static_cast<cudaStream_t>(stream)};
-  if (D == 16) return launch_type<16>(a, is_bf16);
-  if (D == 32) return launch_type<32>(a, is_bf16);
+               B, H, N, D, nW, windows_per_cta, scale, static_cast<cudaStream_t>(stream)};
+  const int tile = head_dim_tile(D);
+  if (tile == 16) return launch_type<16>(a, is_bf16);
+  if (tile == 32) return launch_type<32>(a, is_bf16);
   return cudaErrorInvalidValue;
 }
 
-// The launch geometry at windows of N tokens and head dim D, in the mode
-// that `has_ids` (REGION), else `has_mask` (MASK), else neither (NONE)
-// selects: the warps of a CTA, its shared memory in bytes, and how many
-// such CTAs one SM of the current device holds, 0 when the window does not
-// fit. Returns a cudaError_t.
+// The launch geometry at windows of N tokens and head dim D (its tile's
+// instance), in the mode that `has_ids` (REGION), else `has_mask` (MASK),
+// else neither (NONE) selects: the warps of a CTA, its shared memory in
+// bytes, and how many such CTAs one SM of the current device holds, 0 when
+// the window does not fit. Returns a cudaError_t.
 int icl_window_attention_bwd_geometry(int N, int D, int has_ids, int has_mask, int is_bf16, int* warps,
                                       int* smem, int* ctas) {
-  if (N < 1 || (D != 16 && D != 32)) return cudaErrorInvalidValue;
-  *warps = cta_warps(N, D);
-  *smem = static_cast<int>(smem_bytes(N, D));
-  if (D == 16)
+  const int tile = head_dim_tile(D);
+  if (N < 1 || tile == 0) return cudaErrorInvalidValue;
+  *warps = cta_warps(N, tile);
+  *smem = static_cast<int>(smem_bytes(N, tile));
+  if (tile == 16)
     return is_bf16 ? occupancy_mode<__nv_bfloat16, 16>(N, has_ids, has_mask, ctas)
                    : occupancy_mode<float, 16>(N, has_ids, has_mask, ctas);
   return is_bf16 ? occupancy_mode<__nv_bfloat16, 32>(N, has_ids, has_mask, ctas)

@@ -24,6 +24,13 @@ Each launch adds its FLOPs to any count in progress (`utils.flops`):
 4*B*H*N^2*D forward, 10*B*H*N^2*D backward, what the plain versions'
 matmuls count on the CPU.
 
+Head dims: the kernels take any head dim D of 1 .. `MAX_HEAD_DIM` (32),
+each through the instance compiled for its tile (`head_dim_tile`: 16 for
+D <= 16, 32 above), whose operands are staged at the tile's width with zero
+columns past D; SwinUNETR's head dim is feature_size / 3 (8 at fs24, 16 at
+fs48, 32 at fs96). A larger D raises ValueError, on the card only: the
+plain versions take any D.
+
 Under tensor parallelism (counterpart of `_make_gspmd_fused` and
 `_dispatch_forward`) each rank calls the same kernels on its own rows and
 heads, q, k, v [B_local, H / M, N, D] with bias [H / M, N, N] (the
@@ -41,7 +48,8 @@ import torch
 
 from icl_tpu_torch.utils.flops import add_kernel_flops
 
-HEAD_DIMS = (16, 32)  # the kernels' compiled head dims (SwinUNETR fs48, Swin-UNet 2D embed 96)
+MAX_HEAD_DIM = 32  # the largest head dim the kernels take
+HEAD_DIM_TILES = (16, 32)  # the kernels' compiled tiles: the width D is staged at
 _MAX_SMEM_BYTES = 232_448  # per CTA on Hopper
 _CHUNK_BYTES = 32 << 20  # the plain backward's score chunk (the JAX backward's rule)
 
@@ -122,12 +130,22 @@ def window_attention_plain_bwd(q, k, v, bias, region_ids, dout, *, scale: float,
     return dq, dk, dv, dbias
 
 
+def head_dim_tile(D: int) -> int:
+    """The tile of head dim D (`head_dim_tile` in `csrc/mma_tf32.cuh`):
+    the width the kernels stage D at, and so the instance that runs it.
+    Raises ValueError for a D the kernels do not take."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"window_attention: head dim {D}, the kernels take 1 .. {MAX_HEAD_DIM}")
+    return next(t for t in HEAD_DIM_TILES if D <= t)
+
+
 def _fwd_smem_bytes(N: int, D: int) -> int:
     """The forward kernel's shared memory per CTA (`smem_bytes` in
-    `csrc/window_attention.cu`): two buffers of K and V [Np, D] and the
-    region ids [Np] in f32, Np = N padded to a multiple of 16."""
+    `csrc/window_attention.cu`): two buffers of K and V [Np, tile] and the
+    region ids [Np] in f32, Np = N padded to a multiple of 16, tile =
+    `head_dim_tile(D)`."""
     Np = -(-N // 16) * 16
-    return 2 * (2 * Np * D + Np) * 4
+    return 2 * (2 * Np * head_dim_tile(D) + Np) * 4
 
 
 def _check(q, k, v, bias, region_ids, mask, dout=None):
@@ -142,8 +160,7 @@ def _check(q, k, v, bias, region_ids, mask, dout=None):
     if bias.shape != (H, N, N) or bias.dtype != torch.float32:
         raise ValueError(f"window_attention: bias {tuple(bias.shape)} {bias.dtype}, "
                          f"want ({H}, {N}, {N}) float32")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"window_attention: head dim {D}, the kernels take {HEAD_DIMS}")
+    head_dim_tile(D)
     # the forward's shared memory; the backward kernel reports its own (_bwd_geometry)
     if dout is None and _fwd_smem_bytes(N, D) > _MAX_SMEM_BYTES:
         raise ValueError(f"window_attention: window of {N} tokens does not fit shared memory")
@@ -199,9 +216,11 @@ def _window_groups(B: int, H: int, slots: int) -> tuple[int, int]:
 def _geometry(lib, what: str, N: int, D: int, has_ids: bool, has_mask: bool, bf16: bool,
               device: int) -> tuple[int, int, int]:
     """(warps per CTA, shared memory per CTA in bytes, resident CTAs per
-    SM) of kernel `what` for windows of N tokens at head dim D, as the
-    kernel chooses them and the CUDA runtime's occupancy of the compiled
-    kernel gives. Raises ValueError when the window does not fit an SM."""
+    SM) of kernel `what` for windows of N tokens at head dim D (the
+    instance of its tile), as the kernel chooses them and the CUDA
+    runtime's occupancy of the compiled kernel gives. Raises ValueError
+    when the window does not fit an SM or D is not taken."""
+    head_dim_tile(D)
     warps, smem, ctas = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
         err = getattr(lib, f"icl_{what}_geometry")(N, D, int(has_ids), int(has_mask), int(bf16),

@@ -3,12 +3,19 @@ shape of the port's paths: `chip_smoke.py`'s kernel phases 3 + 4 (the
 forward at the SwinUNETR inference shapes, N = 343 and 216, head dim 16),
 7 + 8 (the backward at the SwinUNETR-ICL training shapes) and 12 + 13
 (both at Swin-UNet 2D's 384^2, the 224^2 / window-7 stage 1 and a 2 x 2
-window, head dim 32) and 28 (both at the supervised Swin paths' shapes:
-224^2 / window 7 at batch 16 in f32, SwinUNETR at batch 4 in bf16), each
-case checked against the plain version,
-bitwise repeatable and timed, and nothing else of the smoke test.
+window, head dim 32), 28 (both at the supervised Swin paths' shapes:
+224^2 / window 7 at batch 16 in f32, SwinUNETR at batch 4 in bf16) and 54
+(both at SwinUNETR fs24's shapes, head dim 8, and at other head dims'
+stage 1), each case checked against the plain version, bitwise
+repeatable and timed, and nothing else of the smoke test. `--paths`
+leaves out 54; `--tiles` runs only the tile grid instead: both kernels
+at the head dims of their two tiles (16 and 32), f32 and bf16, no mask,
+region ids and the dense mask made from them, at SwinUNETR's training
+stage-1 windows ([686, 3, 343, D]), each checked against the plain
+version and timed. Neither calls a head dim other than 16 and 32, so
+both also time kernels compiled for those two only.
 
-    python icl_tpu_torch/scripts/bench_kernels.py [--device-time]
+    python icl_tpu_torch/scripts/bench_kernels.py [--device-time] [--paths | --tiles]
     PYTHONPATH=<other checkout> python icl_tpu_torch/scripts/bench_kernels.py
 
 Run it as a file. `icl_tpu_torch` comes from PYTHONPATH when that names
@@ -35,6 +42,11 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--device-time", action="store_true",
                    help="time the device alone: queue the timed calls behind a GPU sleep")
+    which = p.add_mutually_exclusive_group()
+    which.add_argument("--paths", action="store_true",
+                       help="the paths' shapes only (head dims 16 and 32), not phase 54")
+    which.add_argument("--tiles", action="store_true",
+                       help="only the tile grid: head dims 16 and 32, f32 and bf16, every mode")
     args = p.parse_args(argv)
     sys.path.append(str(ROOT))  # after PYTHONPATH: another checkout's package wins
     import torch
@@ -53,14 +65,60 @@ def main(argv=None) -> int:
           f"{'device time' if args.device_time else 'time per call'}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smoke.phase_kernel_3d(torch, F, wa)
-    smoke.phase_backward_kernel(torch, F, wa)
-    smoke.phase_kernels_2d(torch, F, wa)
-    smoke.phase_kernels_supervised(torch, F, wa)
+    if args.tiles:
+        tile_grid(torch, wa, smoke)
+    else:
+        smoke.phase_kernel_3d(torch, F, wa)
+        smoke.phase_backward_kernel(torch, F, wa)
+        smoke.phase_kernels_2d(torch, F, wa)
+        smoke.phase_kernels_supervised(torch, F, wa)
+        if not args.paths:
+            smoke.phase_kernels_head_dims(torch, F, wa)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60)
     print(card.stdout.strip() or "nvidia-smi: no output")
     return 0
+
+
+def tile_grid(torch, wa, smoke) -> None:
+    """`--tiles`: forward and backward at [686, 3, 343, D] for D 16 and 32,
+    f32 and bf16, in the NONE, REGION and MASK modes (the dense mask
+    [343, 343, 343] of the region ids), each against its plain version
+    with the smoke test's tolerances, then timed; one `[tiles]` line per
+    case."""
+    import json
+
+    stage = (smoke.STAGES[0][0], smoke.LABELED_BS) + tuple(smoke.STAGES[0][2:])
+    gen = torch.Generator(device=smoke.DEVICE).manual_seed(16)
+    for D in (16, 32):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias, ids = smoke.stage_inputs(torch, stage, dtype, gen, D)
+            g = torch.randn(q.shape, device=smoke.DEVICE, generator=gen).to(dtype)
+            dense = wa.mask_from_region_ids(ids)
+            scale = D ** -0.5
+            f32 = dtype == torch.float32
+            for mode, r, m in (("none", None, None), ("region", ids, None), ("mask", None, dense)):
+                out = wa.window_attention(q, k, v, bias, r, m, scale=scale)
+                want = wa.window_attention_plain(q, k, v, bias, r, m, scale=scale)
+                err = (out.float() - want.float()).abs()
+                ok = float(err.max()) <= smoke.F32_ATOL if f32 else \
+                    bool((err <= smoke.BF16_ATOL + smoke.BF16_RTOL * want.float().abs()).all())
+                grads = wa.window_attention_bwd(q, k, v, bias, r, g, scale=scale, mask=m)
+                wants = wa.window_attention_plain_bwd(q, k, v, bias, r, g, scale=scale, mask=m)
+                rel = {n: smoke.rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv", "dbias"), grads, wants)}
+                ok = ok and all(e <= (smoke.BWD_F32_RTOL if f32 or n == "dbias" else smoke.BWD_BF16_RTOL)
+                                for n, e in rel.items())
+                row = {"shape": list(q.shape), "dtype": str(dtype).split(".")[-1], "mode": mode,
+                       "fwd_max_abs_err": float(err.max()), "bwd_rel_err": rel,
+                       "fwd_ms": smoke.cuda_ms(lambda: wa.window_attention(q, k, v, bias, r, m, scale=scale)),
+                       "bwd_ms": smoke.cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, r, g,
+                                                                               scale=scale, mask=m))}
+                print(f"[tiles] {json.dumps(row)}", flush=True)
+                if not ok:
+                    smoke.fail(f"[tiles] a kernel disagrees with its plain version: {row}")
+                del out, want, err, grads, wants
+            del q, k, v, bias, ids, g, dense
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

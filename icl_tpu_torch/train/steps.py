@@ -48,26 +48,42 @@ def _forward_context(precision: str, device: torch.device):
     return contextlib.nullcontext()
 
 
-def forward(model: torch.nn.Module, precision: str, *args):
-    """model(*args) at `precision`. With bf16 parameters (the bf16 train
-    state) and precision "float32", the forward runs in f32 on upcast
-    copies (`torch.func.functional_call`), as flax promotes bf16 weights to
-    the f32 input's type; the bf16 leaves still receive bf16 gradients. With
-    "bfloat16" the bf16 weights go into autocast as they are, and only the
-    normalisation layers' affine parameters (BatchNorm, InstanceNorm) are
-    upcast, since their kernels take a bf16 input only with f32 parameters
-    beside the f32 running stats."""
+@contextlib.contextmanager
+def upcast_parameters(model: torch.nn.Module, precision: str):
+    """While in force, the model's bf16 parameters (the bf16 train state)
+    are replaced by upcast f32 copies, as `torch.func.functional_call`
+    replaces them for one call: all of them at precision "float32", as
+    flax promotes bf16 weights to the f32 input's type; at "bfloat16" the
+    normalisation layers' affine parameters only (BatchNorm,
+    InstanceNorm), since their kernels take a bf16 input only with f32
+    parameters beside the f32 running stats, and the other bf16 weights
+    go into autocast as they are. The copies are differentiable, so the
+    bf16 leaves receive bf16 gradients. A step holds this across its
+    forward and its backward: a block recomputed in the backward
+    (`models.layers.call_remat`) reads its parameters again, and must find
+    the copies the first forward used, not the bf16 leaves. Nothing
+    happens for a model whose parameters are not bf16; inside another
+    such context the parameters are the copies already (`.float()` of an
+    f32 tensor is the tensor itself)."""
     first = next(model.parameters(), None)
-    with _forward_context(precision, args[0].device):
-        if first is None or first.dtype != torch.bfloat16:
-            return model(*args)
-        if precision == "float32":
-            upcast = {n: p.float() for n, p in model.named_parameters()}
-        else:
-            upcast = {f"{mn}.{pn}": p.float() for mn, m in model.named_modules()
-                      if isinstance(m, torch.nn.modules.batchnorm._NormBase)
-                      for pn, p in m.named_parameters(recurse=False)}
-        return torch.func.functional_call(model, upcast, args)
+    if first is None or first.dtype != torch.bfloat16:
+        yield
+        return
+    if precision == "float32":
+        upcast = {n: p.float() for n, p in model.named_parameters()}
+    else:
+        upcast = {f"{mn}.{pn}": p.float() for mn, m in model.named_modules()
+                  if isinstance(m, torch.nn.modules.batchnorm._NormBase)
+                  for pn, p in m.named_parameters(recurse=False)}
+    with torch.nn.utils.stateless._reparametrize_module(model, upcast):
+        yield
+
+
+def forward(model: torch.nn.Module, precision: str, *args):
+    """model(*args) at `precision`, with the bf16 state's parameters upcast
+    as `upcast_parameters` says for the length of the call."""
+    with _forward_context(precision, args[0].device), upcast_parameters(model, precision):
+        return model(*args)
 
 
 def make_supervised_step(model: torch.nn.Module, optimizer: PolySGD, num_classes: int,
@@ -83,11 +99,12 @@ def make_supervised_step(model: torch.nn.Module, optimizer: PolySGD, num_classes
     def step(batch: dict) -> dict:
         x, y = batch["image"], batch["label"]
         optimizer.zero_grad()
-        logits = losses.at_least_f32(forward(model, precision, x))
-        loss_ce = losses.cross_entropy_loss(logits, y)
-        loss_dice = losses.multiclass_dice_loss(logits, y, num_classes, softmax=True)
-        loss = seg_weight * (loss_ce + loss_dice)
-        loss.backward()
+        with upcast_parameters(model, precision):  # forward and backward (a recompute) alike
+            logits = losses.at_least_f32(forward(model, precision, x))
+            loss_ce = losses.cross_entropy_loss(logits, y)
+            loss_dice = losses.multiclass_dice_loss(logits, y, num_classes, softmax=True)
+            loss = seg_weight * (loss_ce + loss_dice)
+            loss.backward()
         optimizer.step()
         return {k: v.detach() for k, v in zip(SUPERVISED_METRIC_KEYS, (loss, loss_ce, loss_dice))}
 
@@ -183,18 +200,19 @@ def make_icl_step(model: torch.nn.Module, optimizer: PolySGD, num_classes: int, 
         x_lab, x_unlab = x[:labeled_bs], x[labeled_bs:]
         y_lab = y[:labeled_bs]
         optimizer.zero_grad()
-        outs = forward(model, precision, x_lab, x_unlab)
-        out_lab, out_unlab, fm_lab, fm_unlab, fm_consis = (
-            losses.at_least_f32(o) if torch.is_tensor(o) else [losses.at_least_f32(m) for m in o]
-            for o in outs)
-        loss_ce = losses.cross_entropy_loss(out_lab, y_lab)
-        loss_dice = losses.multiclass_dice_loss(out_lab, y_lab, num_classes, softmax=True)
-        loss_aux = losses.aux_loss(fm_lab, y_lab, num_classes, patch)
-        loss_pse = losses.pseudo_soft_loss(fm_unlab, out_unlab, patch)
-        loss_consis = losses.softmax_mse_loss(fm_unlab, fm_consis)
-        loss_seg = loss_ce + loss_dice
-        loss = loss_seg + loss_aux + pse_weight * loss_pse + consis_weight * loss_consis
-        loss.backward()
+        with upcast_parameters(model, precision):  # forward and backward (a recompute) alike
+            outs = forward(model, precision, x_lab, x_unlab)
+            out_lab, out_unlab, fm_lab, fm_unlab, fm_consis = (
+                losses.at_least_f32(o) if torch.is_tensor(o) else [losses.at_least_f32(m) for m in o]
+                for o in outs)
+            loss_ce = losses.cross_entropy_loss(out_lab, y_lab)
+            loss_dice = losses.multiclass_dice_loss(out_lab, y_lab, num_classes, softmax=True)
+            loss_aux = losses.aux_loss(fm_lab, y_lab, num_classes, patch)
+            loss_pse = losses.pseudo_soft_loss(fm_unlab, out_unlab, patch)
+            loss_consis = losses.softmax_mse_loss(fm_unlab, fm_consis)
+            loss_seg = loss_ce + loss_dice
+            loss = loss_seg + loss_aux + pse_weight * loss_pse + consis_weight * loss_consis
+            loss.backward()
         optimizer.step()
         values = (loss, loss_seg, loss_ce, loss_dice, loss_aux, loss_pse, consis_weight * loss_consis)
         return {k: v.detach() for k, v in zip(METRIC_KEYS, values)}

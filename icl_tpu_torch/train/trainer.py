@@ -126,7 +126,9 @@ class Trainer:
     backward. With `cfg.state_dtype` "bfloat16" the parameters are stored
     in bf16 (BatchNorm running stats and counters stay as they are, as the
     JAX package keeps `batch_stats` f32) and updated by the fused
-    stochastic-rounding kernel; the forward follows `steps.forward`. With
+    stochastic-rounding kernel; the step runs on upcast copies, held
+    across its forward and backward (`steps.upcast_parameters`), so that
+    `cfg.remat`'s recompute sees what the first forward saw. With
     `cfg.device_augment` the step takes raw slices or a bank with indices,
     and the augment draws (`to_device`). `mesh` is the JAX signature's
     (`parallel.mesh.create_mesh(data, model)`; by default
@@ -166,11 +168,6 @@ class Trainer:
         model_kwargs = dict(cfg.model_kwargs)
         if cfg.fuse_icl_pair:
             model_kwargs["fuse_sspa_pair"] = True
-        if cfg.state_dtype == "bfloat16" and cfg.remat:
-            # the f32 forward of a bf16 state runs on upcast copies handed to
-            # functional_call; a recompute in the backward would run outside
-            # that call, on the module's own bf16 tensors
-            raise ValueError("state_dtype 'bfloat16' with remat is not ported")
         if cfg.device_augment and len(cfg.patch_size) != 2:
             raise ValueError("device_augment is 2D-only")
         # under tensor parallelism the whole model is built on the host and

@@ -136,7 +136,8 @@ def task_steps(job: dict, rank: int, world: int) -> dict:
         if case["kind"] == "swinunetr_icl":
             model = build_model(SwinUNETRICL, 1, case["classes"], img_size=case["patch"],
                                 feature_size=case["feature_size"], window_size=(case["window"],) * 3,
-                                device="cpu", generator=torch.Generator().manual_seed(0))
+                                fuse_sspa_pair=case.get("fuse", False), device="cpu",
+                                generator=torch.Generator().manual_seed(0))
             for m in model.modules():
                 if hasattr(m, "rate"):
                     m.rate = 0.0

@@ -1,8 +1,10 @@
 """icl_tpu_torch ICL heads and SwinUNETR-ICL against the JAX package's:
 the weight carry (`utils/convert.py` against `export_icl_heads` and
 `export_swinunetr`), one `InherentConsistent` head in both modes, the
-whole SwinUNETR-ICL in train mode (its 5-tuple) and in inference mode
-(its logits), and the BatchNorm running stats after a train-mode forward.
+whole SwinUNETR-ICL in train mode (its 5-tuple, with the two `sspa` calls
+and with the fused pair, the latter also against the port's two calls)
+and in inference mode (its logits), and the BatchNorm running stats after
+a train-mode forward.
 
 Small size: feature_size 12, patch 32^3 (head scales 2^3, 4^3, 8^3),
 batch 4 with 2 labeled, JAX on its einsum attention path. Weights are
@@ -13,7 +15,8 @@ are set to 0 and the JAX `DropPath.__call__` is patched to the identity
 
 Tolerances: f32 on both sides with the JAX matmuls at "highest"; 1e-4
 absolute and relative on logits and maps (sums of a few thousand terms
-in another order), 1e-5 on the BatchNorm stats.
+in another order), 1e-5 on the BatchNorm stats; the fused pair against
+the two calls 2e-5 (tests/test_torch_unet2d.py's rule).
 """
 import functools
 import math
@@ -71,17 +74,18 @@ def draw_tree(shapes, seed: int):
 
 
 @functools.cache
-def _jax_icl_model_and_shapes():
-    model = jax_net_factory("swinunetr_icl", 1, NCLS, patch_size=PATCH, feature_size=FS)
+def _jax_icl_model_and_shapes(fuse: bool = False):
+    model = jax_net_factory("swinunetr_icl", 1, NCLS, patch_size=PATCH, feature_size=FS,
+                            fuse_sspa_pair=fuse)
     x = jnp.zeros((LABELED_BS, PATCH, PATCH, PATCH, 1))
     shapes = jax.eval_shape(lambda: model.init(
         {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, x, x, train=True))
     return model, shapes
 
 
-def jax_icl_variables(seed: int):
+def jax_icl_variables(seed: int, fuse: bool = False):
     """(JAX SwinUNETRICL module, params, batch_stats) drawn with numpy."""
-    model, shapes = _jax_icl_model_and_shapes()
+    model, shapes = _jax_icl_model_and_shapes(fuse)
     return model, draw_tree(shapes["params"], seed), draw_tree(shapes["batch_stats"], seed + 1)
 
 
@@ -92,9 +96,9 @@ def no_port_drop_path(model: torch.nn.Module) -> torch.nn.Module:
     return model
 
 
-def port_icl_model(params, batch_stats, remat: bool = False) -> SwinUNETRICL:
+def port_icl_model(params, batch_stats, remat: bool = False, fuse: bool = False) -> SwinUNETRICL:
     model = net_factory("swinunetr_icl", 1, NCLS, device="cpu", feature_size=FS, patch_size=PATCH,
-                        remat=remat)
+                        remat=remat, fuse_sspa_pair=fuse)
     model.load_state_dict(swinunetr_icl_state_dict_from_jax(params, batch_stats), strict=True)
     return no_port_drop_path(model)
 
@@ -182,17 +186,16 @@ def test_inherent_consistent_head_matches_jax(modal, no_drop_path):
             assert int(sd[f"{key}.num_batches_tracked"]) == 1
 
 
-def test_swinunetr_icl_train_forward_matches_jax(no_drop_path):
-    """The 5-tuple (logits lab/unlab, maps lab/unlab/consis) of one
-    train-mode forward, and the running stats of both heads after it:
-    sspa runs twice (labeled, then unlabeled), uscl once."""
-    jax_model, params, bs = jax_icl_variables(1)
+def _train_forward_against_jax(fuse: bool):
+    """The port's 5-tuple and model after one train-mode forward, held
+    against the JAX model's with the same `fuse_sspa_pair`."""
+    jax_model, params, bs = jax_icl_variables(1, fuse)
     x, xt, _ = batch(2)
     outs_j, mut = jax.jit(lambda p, b, xl, xu: jax_model.apply(
         {"params": p, "batch_stats": b}, xl, xu, train=True, mutable=["batch_stats"],
         rngs={"dropout": jax.random.PRNGKey(0)}))(params, bs, jnp.asarray(x[:LABELED_BS]),
                                                    jnp.asarray(x[LABELED_BS:]))
-    model = port_icl_model(params, bs).train()
+    model = port_icl_model(params, bs, fuse=fuse).train()
     outs_p = model(torch.from_numpy(xt[:LABELED_BS]), torch.from_numpy(xt[LABELED_BS:]))
     assert len(outs_p) == 5
     for got, want in zip(outs_p[:2], outs_j[:2]):
@@ -213,6 +216,31 @@ def test_swinunetr_icl_train_forward_matches_jax(no_drop_path):
             want_var = expected_running_var(np.asarray(old["var"]), np.asarray(node["var"]),
                                             n=LABELED_BS * NCLS * r**3, updates=updates)
             np.testing.assert_allclose(sd[f"{key}.running_var"].numpy(), want_var, atol=1e-5, rtol=1e-5)
+    return outs_p, model, (params, bs, xt)
+
+
+def test_swinunetr_icl_train_forward_matches_jax(no_drop_path):
+    """The 5-tuple (logits lab/unlab, maps lab/unlab/consis) of one
+    train-mode forward, and the running stats of both heads after it:
+    sspa runs twice (labeled, then unlabeled), uscl once."""
+    _train_forward_against_jax(fuse=False)
+
+
+def test_swinunetr_icl_fused_pair_matches_jax_and_two_calls(no_drop_path):
+    """`fuse_sspa_pair`: the 5-tuple and the running stats against the
+    JAX model's fused pair, and against the port's two calls from the
+    same weights (every output and every state entry, 2e-5)."""
+    fused, model, (params, bs, xt) = _train_forward_against_jax(fuse=True)
+    two = port_icl_model(params, bs).train()
+    want = two(torch.from_numpy(xt[:LABELED_BS]), torch.from_numpy(xt[LABELED_BS:]))
+    for got, ref in zip(fused[:2], want[:2]):
+        np.testing.assert_allclose(got.detach().numpy(), ref.detach().numpy(), atol=2e-5, rtol=2e-5)
+    for maps_f, maps_t in zip(fused[2:], want[2:]):
+        for got, ref in zip(maps_f, maps_t):
+            np.testing.assert_allclose(got.detach().numpy(), ref.detach().numpy(), atol=2e-5, rtol=2e-5)
+    ref_sd = two.state_dict()
+    for k, v in model.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), ref_sd[k].numpy(), atol=2e-5, rtol=2e-5, err_msg=k)
 
 
 def test_swinunetr_icl_inference_logits_match_jax():

@@ -1,8 +1,9 @@
 """icl_tpu_torch's Swin-UNet 2D and Swin-UNet-ICL against the JAX package's:
 the geometry helpers, the weight carry (`utils/convert.py` against
 `export_swinunet2d`, buffers included, and the tokenized heads against
-`export_icl_heads`), the whole Swin-UNet-ICL in train mode (its 5-tuple)
-and in inference mode (its logits), the BatchNorm running stats after a
+`export_icl_heads`), the whole Swin-UNet-ICL in train mode (its 5-tuple,
+with the two `sspa` calls and with the fused pair, the latter also against
+the port's two calls) and in inference mode (its logits), the BatchNorm running stats after a
 train-mode forward, the yaml config, and the attention calls per forward.
 
 Small size: embed 12, 96^2 input, window 12, 4 classes, batch 4 with 2
@@ -16,7 +17,8 @@ plain version on the CPU. Weights are drawn with numpy and carried across;
 drop path is off on both sides (`no_drop_path`, as test_torch_icl.py).
 
 Tolerances: f32 on both sides, JAX matmuls at "highest"; 1e-4 absolute
-and relative on logits and maps, 1e-5 on the BatchNorm stats.
+and relative on logits and maps, 1e-5 on the BatchNorm stats; the fused
+pair against the two calls 2e-5 (tests/test_torch_unet2d.py's rule).
 """
 import functools
 
@@ -54,22 +56,22 @@ def pallas_interpret(monkeypatch):
 
 
 @functools.cache
-def _jax_model_and_shapes():
-    model = jax_net_factory("icl_swinunet", 1, NCLS, swin_cfg=JAX_CFG)
+def _jax_model_and_shapes(fuse: bool = False):
+    model = jax_net_factory("icl_swinunet", 1, NCLS, swin_cfg=JAX_CFG, fuse_sspa_pair=fuse)
     x = jnp.zeros((LABELED_BS, IMG, IMG, 1))
     shapes = jax.eval_shape(lambda: model.init(
         {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, x, x, train=True))
     return model, shapes
 
 
-def jax_variables(seed: int):
+def jax_variables(seed: int, fuse: bool = False):
     """(JAX SwinUNetICL, params, batch_stats) drawn with numpy."""
-    model, shapes = _jax_model_and_shapes()
+    model, shapes = _jax_model_and_shapes(fuse)
     return model, draw_tree(shapes["params"], seed), draw_tree(shapes["batch_stats"], seed + 1)
 
 
-def port_model(params, batch_stats):
-    model = net_factory("icl_swinunet", 1, NCLS, device="cpu", swin_cfg=PORT_CFG)
+def port_model(params, batch_stats, fuse: bool = False):
+    model = net_factory("icl_swinunet", 1, NCLS, device="cpu", swin_cfg=PORT_CFG, fuse_sspa_pair=fuse)
     model.load_state_dict(icl_swinunet2d_state_dict_from_jax(params, batch_stats, IMG, WINDOW),
                           strict=True)
     return no_port_drop_path(model)
@@ -122,17 +124,16 @@ def test_convert_matches_export_with_buffers_and_loads_strict():
     wrapper.load_state_dict(strip_icl_heads(full), strict=True)
 
 
-def test_swinunet_icl_train_forward_matches_jax(no_drop_path, pallas_interpret):
-    """The 5-tuple of one train-mode forward, and the running stats of
-    both heads after it: sspa runs twice (labeled, then unlabeled), uscl
-    once."""
-    jax_model, params, bs = jax_variables(1)
+def _train_forward_against_jax(fuse: bool):
+    """The port's 5-tuple and model after one train-mode forward, held
+    against the JAX model's with the same `fuse_sspa_pair`."""
+    jax_model, params, bs = jax_variables(1, fuse)
     x, xt = images(2)
     outs_j, mut = jax.jit(lambda p, b, xl, xu: jax_model.apply(
         {"params": p, "batch_stats": b}, xl, xu, train=True, mutable=["batch_stats"],
         rngs={"dropout": jax.random.PRNGKey(0)}))(params, bs, jnp.asarray(x[:LABELED_BS]),
                                                    jnp.asarray(x[LABELED_BS:]))
-    model = port_model(params, bs).train()
+    model = port_model(params, bs, fuse).train()
     outs_p = model(torch.from_numpy(xt[:LABELED_BS]), torch.from_numpy(xt[LABELED_BS:]))
     assert len(outs_p) == 5
     for got, want in zip(outs_p[:2], outs_j[:2]):
@@ -156,6 +157,31 @@ def test_swinunet_icl_train_forward_matches_jax(no_drop_path, pallas_interpret):
                                                 n=LABELED_BS * NCLS * r * r, updates=updates)
                 np.testing.assert_allclose(sd[f"{key}.running_var"].numpy(), want_var, atol=1e-5,
                                            rtol=1e-5)
+    return outs_p, model, (params, bs, xt)
+
+
+def test_swinunet_icl_train_forward_matches_jax(no_drop_path, pallas_interpret):
+    """The 5-tuple of one train-mode forward, and the running stats of
+    both heads after it: sspa runs twice (labeled, then unlabeled), uscl
+    once."""
+    _train_forward_against_jax(fuse=False)
+
+
+def test_swinunet_icl_fused_pair_matches_jax_and_two_calls(no_drop_path, pallas_interpret):
+    """`fuse_sspa_pair`: the 5-tuple and the running stats against the
+    JAX model's fused pair, and against the port's two calls from the
+    same weights (every output and every state entry, 2e-5)."""
+    fused, model, (params, bs, xt) = _train_forward_against_jax(fuse=True)
+    two = port_model(params, bs).train()
+    want = two(torch.from_numpy(xt[:LABELED_BS]), torch.from_numpy(xt[LABELED_BS:]))
+    for got, ref in zip(fused[:2], want[:2]):
+        np.testing.assert_allclose(got.detach().numpy(), ref.detach().numpy(), atol=2e-5, rtol=2e-5)
+    for maps_f, maps_t in zip(fused[2:], want[2:]):
+        for got, ref in zip(maps_f, maps_t):
+            np.testing.assert_allclose(got.detach().numpy(), ref.detach().numpy(), atol=2e-5, rtol=2e-5)
+    ref_sd = two.state_dict()
+    for k, v in model.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), ref_sd[k].numpy(), atol=2e-5, rtol=2e-5, err_msg=k)
 
 
 def test_swinunet_icl_inference_logits_match_jax(pallas_interpret):

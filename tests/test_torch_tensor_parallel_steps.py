@@ -150,8 +150,10 @@ def _bn_calls(job: dict) -> dict:
     return sizes
 
 
-def _check_against_jax(name: str, ranks: list):
-    job, (old, grads, new, met_j) = _reference(name)
+def _check_against_jax(name: str, ranks: list, reference: str | None = None):
+    """The ranks' case `name` against the JAX step of case `reference`
+    (default `name`)."""
+    job, (old, grads, new, met_j) = _reference(reference or name)
     first = ranks[0][name]
     for r in ranks[1:]:  # every rank holds the same whole state
         for k, v in first["state"].items():

@@ -1,8 +1,12 @@
 """icl_tpu_torch window attention against the JAX package's: the plain
 version against `window_attention_fused` (Pallas, interpret mode) and
 `window_attention_reference`, with no mask and with shift-region ids.
-The CUDA kernels run only on the card, against the plain versions, in
-`test_torch_window_attention_card.py`. The backward has its own file,
+Head dim 16 (SwinUNETR fs48) and, beside it, 4, 8, 12 and 24 (fs12,
+fs24, fs36, fs72), which the kernels run at the tile of 16 or 32 with zero
+columns: the plain version is their oracle on the card. The CUDA kernels
+run only on the card, against the plain versions, in
+`test_torch_window_attention_card.py`; the wrapper's rules for the head dim
+(its tile, the shared memory at the tile, the refusals) are checked here. The backward has its own file,
 `test_torch_window_attention_bwd.py`.
 
 Tolerance atol 2e-5 in f32, the JAX package's own kernel tolerance
@@ -31,7 +35,7 @@ GEOMETRY = {
 }
 
 
-def _inputs(N, seed):
+def _inputs(N, seed, d=D):
     dims, ws, ss = GEOMETRY[N]
     ids = window_region_ids_3d(dims, ws, ss)
     np.testing.assert_array_equal(ids, jax_region_ids(dims, ws, ss))
@@ -39,16 +43,14 @@ def _inputs(N, seed):
     assert ids.shape == (nW, N) and len(np.unique(ids)) > 1
     rng = np.random.default_rng(seed)
     B = 2 * nW
-    q, k, v = (rng.standard_normal((B, H, N, D)).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.standard_normal((B, H, N, d)).astype(np.float32) for _ in range(3))
     bias = rng.standard_normal((H, N, N)).astype(np.float32)
     return q, k, v, bias, ids, compute_mask_3d(dims, ws, ss)
 
 
-@pytest.mark.parametrize("masked", [False, True], ids=["none", "region"])
-@pytest.mark.parametrize("N", sorted(GEOMETRY))
-def test_plain_matches_jax(N, masked):
-    q, k, v, bias, ids, mask = _inputs(N, seed=N)
-    scale = D**-0.5
+def _plain_against_jax(N, d, masked, seed):
+    q, k, v, bias, ids, mask = _inputs(N, seed=seed, d=d)
+    scale = d**-0.5
     jq, jk, jv, jb = map(jnp.asarray, (q, k, v, bias))
     if masked:
         fused = window_attention_fused(jq, jk, jv, jb, region_ids=jnp.asarray(ids), scale=scale,
@@ -61,6 +63,49 @@ def test_plain_matches_jax(N, masked):
                                     torch.from_numpy(ids) if masked else None, scale=scale)
     np.testing.assert_allclose(got.numpy(), np.asarray(fused), atol=2e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["none", "region"])
+@pytest.mark.parametrize("N", sorted(GEOMETRY))
+def test_plain_matches_jax(N, masked):
+    _plain_against_jax(N, D, masked, seed=N)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["none", "region"])
+@pytest.mark.parametrize("d", [4, 8, 12, 24])
+@pytest.mark.parametrize("N", [49, 343])
+def test_plain_matches_jax_at_other_head_dims(N, d, masked):
+    """SwinUNETR's head dims at feature sizes 12, 24, 36 and 72 (fs / 3),
+    at the 7^3 window (N 343) and a 7^2 one."""
+    _plain_against_jax(N, d, masked, seed=N + d)
+
+
+def test_head_dim_tile_and_the_forwards_shared_memory_at_it():
+    """Head dims 1 .. 16 run the tile-16 instance, 17 .. 32 the tile-32
+    one; the forward's shared memory is that of the tile (two buffers of
+    K and V [Np, tile] and the ids [Np], f32): N 343 (Np 352) at fs24's
+    head dim 8 takes what fs48's 16 takes."""
+    assert [wa.head_dim_tile(d) for d in (1, 4, 8, 10, 12, 16)] == [16] * 6
+    assert [wa.head_dim_tile(d) for d in (17, 20, 24, 28, 32)] == [32] * 5
+    assert wa._fwd_smem_bytes(343, 8) == wa._fwd_smem_bytes(343, 16) == 2 * (2 * 352 * 16 + 352) * 4
+    assert wa._fwd_smem_bytes(144, 24) == wa._fwd_smem_bytes(144, 32) == 2 * (2 * 144 * 32 + 144) * 4
+    for d in (0, 33, 48):
+        with pytest.raises(ValueError, match=f"head dim {d}, the kernels take 1 .. 32"):
+            wa.head_dim_tile(d)
+
+
+@pytest.mark.parametrize("d", [0, 33])
+def test_check_refuses_a_head_dim_the_kernels_do_not_take(d):
+    """The wrapper's check before a launch (on CPU tensors here: the rule
+    does not need the card) names the head dim; the plain version takes
+    it on the CPU."""
+    q = torch.zeros(2, H, 49, d)
+    bias = torch.zeros(H, 49, 49)
+    with pytest.raises(ValueError, match=f"head dim {d}"):
+        wa._check(q, q, q, bias, None, None)
+    with pytest.raises(ValueError, match=f"head dim {d}"):
+        wa._check(q, q, q, bias, None, None, q)
+    assert wa.window_attention(q, q, q, bias, scale=1.0).shape == q.shape
 
 
 def test_mask_from_region_ids_matches_jax():

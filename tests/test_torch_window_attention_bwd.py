@@ -7,6 +7,9 @@ and `torch.autograd.gradcheck` of `WindowAttentionFn` in f64. The CUDA
 backward kernel is held against the plain backward on the card, in
 `test_torch_window_attention_card.py`.
 
+Head dim 16 (SwinUNETR fs48) and, beside it, 4, 8, 12 and 24 (fs12, fs24,
+fs36, fs72), which the backward kernel runs at its tile with zero columns.
+
 Tolerance 2e-5 absolute in f32 (the JAX package's own attention
 tolerance, tests/test_pallas_attention.py) on dq, dk, dv, and 1e-4 on
 dbias, which sums the windows' dS in another order.
@@ -34,12 +37,12 @@ GEOMETRY = {
 }
 
 
-def _inputs(N, seed, batch=2):
+def _inputs(N, seed, batch=2, d=D):
     dims, ws, ss = GEOMETRY[N]
     ids = window_region_ids_3d(dims, ws, ss)
     rng = np.random.default_rng(seed)
     B = batch * ids.shape[0]
-    q, k, v, g = (rng.standard_normal((B, H, N, D)).astype(np.float32) for _ in range(4))
+    q, k, v, g = (rng.standard_normal((B, H, N, d)).astype(np.float32) for _ in range(4))
     bias = rng.standard_normal((H, N, N)).astype(np.float32)
     return q, k, v, bias, g, ids, compute_mask_3d(dims, ws, ss)
 
@@ -49,25 +52,38 @@ def _jax_grads(fn, q, k, v, bias, g):
     return [np.asarray(t) for t in vjp(jnp.asarray(g))]
 
 
+def _plain_backward_against_jax(N, case, seed, d=D):
+    q, k, v, bias, g, ids, mask = _inputs(N, seed=seed, d=d)
+    scale = d**-0.5
+    kw = {"none": {}, "region": {"region_ids": jnp.asarray(ids)},
+          "dense": {"mask": jnp.asarray(mask)}}[case]
+    fused = _jax_grads(lambda *a: window_attention_fused(*a, scale=scale, interpret=True, **kw),
+                       q, k, v, bias, g)
+    ref = _jax_grads(lambda *a: window_attention_reference(
+        *a, jnp.asarray(mask) if case != "none" else None, scale=scale), q, k, v, bias, g)
+    got = wa.window_attention_plain_bwd(*map(torch.from_numpy, (q, k, v, bias)),
+                                        torch.from_numpy(ids) if case != "none" else None,
+                                        torch.from_numpy(g), scale=scale)
+    for name, x, f, r in zip(("dq", "dk", "dv", "dbias"), got, fused, ref):
+        atol = 1e-4 if name == "dbias" else 2e-5
+        np.testing.assert_allclose(x.numpy(), f, atol=atol, err_msg=f"{name} vs fused")
+        np.testing.assert_allclose(x.numpy(), r, atol=atol, err_msg=f"{name} vs reference")
+
+
 @pytest.mark.parametrize("case", ["none", "region", "dense"])
 @pytest.mark.parametrize("N", sorted(GEOMETRY))
 def test_plain_backward_matches_jax_vjp(N, case):
     """`dense` gives JAX the dense [nW, N, N] mask and the port the region
     ids it comes from: the same function, two encodings."""
-    q, k, v, bias, g, ids, mask = _inputs(N, seed=N + len(case))
-    kw = {"none": {}, "region": {"region_ids": jnp.asarray(ids)},
-          "dense": {"mask": jnp.asarray(mask)}}[case]
-    fused = _jax_grads(lambda *a: window_attention_fused(*a, scale=SCALE, interpret=True, **kw),
-                       q, k, v, bias, g)
-    ref = _jax_grads(lambda *a: window_attention_reference(
-        *a, jnp.asarray(mask) if case != "none" else None, scale=SCALE), q, k, v, bias, g)
-    got = wa.window_attention_plain_bwd(*map(torch.from_numpy, (q, k, v, bias)),
-                                        torch.from_numpy(ids) if case != "none" else None,
-                                        torch.from_numpy(g), scale=SCALE)
-    for name, x, f, r in zip(("dq", "dk", "dv", "dbias"), got, fused, ref):
-        atol = 1e-4 if name == "dbias" else 2e-5
-        np.testing.assert_allclose(x.numpy(), f, atol=atol, err_msg=f"{name} vs fused")
-        np.testing.assert_allclose(x.numpy(), r, atol=atol, err_msg=f"{name} vs reference")
+    _plain_backward_against_jax(N, case, seed=N + len(case))
+
+
+@pytest.mark.parametrize("case", ["none", "region"])
+@pytest.mark.parametrize("d", [4, 8, 12, 24])
+def test_plain_backward_matches_jax_vjp_at_other_head_dims(d, case):
+    """SwinUNETR's head dims at feature sizes 12, 24, 36 and 72, at a
+    shifted stage of 7^2 x 1 windows."""
+    _plain_backward_against_jax(49, case, seed=49 + d + len(case), d=d)
 
 
 def test_plain_backward_is_independent_of_its_chunking():

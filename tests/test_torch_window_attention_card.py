@@ -10,11 +10,16 @@ tests/conftest.py (which imports JAX) left out:
     python3 -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_window_attention_card.py
 
 Covered: forward and backward in NONE, REGION and MASK (the 2D shift mask
-where N is a square, and a random dense mask), head dims 16 and 32, N in
-{4, 49, 144, 343}, f32 and bf16, each bitwise equal across two runs; the
-same at the paths' shapes, where a CTA walks several windows; and each
-kernel's launch geometry (the forward's shared memory as `_check` reckons
-it, and the refusal of a window that cannot fit).
+where N is a square, and a random dense mask), head dims 1, 4, 7, 8, 10,
+12, 16, 20, 24, 28 and 32 (SwinUNETR fs3, fs12, fs21, fs24, fs30, fs36,
+fs48, fs60, fs72, fs84, fs96; 1, 7 and 10, head dims that are not a
+multiple of 4, take the kernels' value-by-value loads, 1 and 7 their
+value-by-value stores), N in {4, 49, 144, 343}, f32 and bf16, each bitwise equal across
+two runs; the same at the paths' shapes, where a CTA walks several
+windows, and at rows that start off a 16-byte boundary; each kernel's
+launch geometry (the forward's shared memory as `_check` reckons it at the
+head dim's tile, and the refusal of a window that cannot fit); and the
+refusal of head dims 0 and 33.
 
 Tolerances (those of chip_smoke.py): forward f32 1e-5 absolute (f32 sums
 in another order, __expf), bf16 1e-3 + 1e-2 relative (one bf16 rounding
@@ -35,15 +40,18 @@ H = 3
 # N -> (padded dims, window, shift) of a shifted 3D stage with windows of N tokens
 GEOMETRY_3D = {4: ((4, 4, 1), (2, 2, 1), (1, 1, 0)), 49: ((14, 14, 1), (7, 7, 1), (3, 3, 0)),
                144: ((12, 12, 8), (6, 6, 4), (3, 3, 2)), 343: ((14, 14, 14), (7, 7, 7), (3, 3, 3))}
+# the head dims held: both tiles' own (16, 32) and head dims below each
+HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32)  # chip_smoke.py's CARD_TEST_HEAD_DIMS
 CASES = [(kind, N, D, dtype) for kind in ("none", "region", "shift", "random") for N in sorted(GEOMETRY_3D)
-         for D in wa.HEAD_DIMS for dtype in ("float32", "bfloat16") if kind != "shift" or N != 343]
+         for D in HEAD_DIMS for dtype in ("float32", "bfloat16") if kind != "shift" or N != 343]
 # (kind, N, D, batch): shapes of the paths, with enough windows that a CTA
-# walks several (2D stage 1, the 224^2 / window-7 stage 1, 3D stage 1, a
-# 2 x 2 window)
+# walks several (2D stage 1, the 224^2 / window-7 stage 1, 3D stage 1 at
+# fs48 and fs24, a 2 x 2 window), and a head dim off the multiples of 4
 SEVERAL_WINDOWS = {"shift144": ("shift", 144, 32, 128), "random49": ("random", 49, 32, 128),
-                   "region343": ("region", 343, 16, 128), "none4": ("none", 4, 32, 1024)}
-# every (N, D) the port's paths call, and the other head dim at each N
-SHAPES = [(n, d) for n in (4, 49, 144, 216, 343) for d in wa.HEAD_DIMS]
+                   "region343": ("region", 343, 16, 128), "none4": ("none", 4, 32, 1024),
+                   "region343_d8": ("region", 343, 8, 128), "none343_d10": ("none", 343, 10, 128)}
+# every (N, D) the port's paths call, and the other head dims at each N
+SHAPES = [(n, d) for n in (4, 49, 144, 216, 343) for d in HEAD_DIMS]
 
 
 @pytest.fixture
@@ -96,10 +104,15 @@ def _check_forward(q, k, v, bias, ids, mask):
     assert wa.window_attention.launches_by_mode[_mode(ids, mask)] == wa.window_attention.launches == 2
 
 
-def _check_backward(q, k, v, bias, ids, mask):
-    scale = q.shape[-1] ** -0.5
+def _upstream(q):
+    """dO for the backward checks: N(0, 1) of q's shape and type."""
     g = torch.randn(q.shape, device=q.device, generator=torch.Generator(device=q.device).manual_seed(9))
-    g = g.to(q.dtype)
+    return g.to(q.dtype)
+
+
+def _check_backward(q, k, v, bias, ids, mask, g=None):
+    scale = q.shape[-1] ** -0.5
+    g = _upstream(q) if g is None else g
     wa.reset_launch_counts()
     got = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
     again = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
@@ -136,6 +149,39 @@ def test_kernels_walking_several_windows_per_cta_match_plain_on_card(card, case)
         assert per_cta >= 2, (geometry.__name__, per_cta)
     _check_forward(q, k, v, bias, ids, mask)
     _check_backward(q, k, v, bias, ids, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [4, 8, 16])
+def test_kernels_take_rows_off_a_16_byte_boundary_on_card(card, D, dtype):
+    """q, k, v and dO one value past a 16-byte boundary (contiguous views
+    into a larger buffer; in bf16 also off the 8-byte boundary that its
+    8-byte loads need): the kernels stage them value by value and agree
+    with the plain versions as at aligned rows."""
+    q, k, v, bias, ids, mask = _inputs("region", 343, D, dtype, batch=2, seed=D, device=card)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0 and view.data_ptr() % 8 != 0
+        return view
+
+    q, k, v = map(shifted, (q, k, v))
+    _check_forward(q, k, v, bias, ids, mask)
+    _check_backward(q, k, v, bias, ids, mask, shifted(_upstream(q)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [0, 33])
+def test_kernels_refuse_a_head_dim_they_do_not_take_on_card(card, D):
+    q = torch.zeros(2, H, 49, D, device=card)
+    bias = torch.zeros(H, 49, 49, device=card)
+    with pytest.raises(ValueError, match=f"head dim {D}"):
+        wa.window_attention(q, q, q, bias, scale=1.0)
+    with pytest.raises(ValueError, match=f"head dim {D}"):
+        wa.window_attention_bwd(q, q, q, bias, None, q, scale=1.0)
 
 
 @pytest.mark.cuda

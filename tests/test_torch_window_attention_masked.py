@@ -9,7 +9,9 @@ plain versions on the card, in `test_torch_window_attention_card.py`.
 
 Masks: the Swin-UNet 2D shift mask (0 / -100) of a 14^2 grid with window 7
 (N = 49) and of a 24^2 grid with window 12 (N = 144), and a random dense
-mask, since the kernels take any additive mask. Head dims 16 and 32.
+mask, since the kernels take any additive mask. Head dims 16 and 32, and
+4, 8, 12 and 24 beside them, which the kernels run at the tile of 16 or 32
+with zero columns.
 
 Tolerance 2e-5 absolute in f32 on outputs and dq, dk, dv (the JAX
 package's own attention tolerance, tests/test_pallas_attention.py), 1e-4
@@ -51,9 +53,11 @@ def _inputs(N, D, kind, seed, batch=2):
 
 
 CASES = [(N, D, kind) for N in sorted(GEOMETRY) for D in (16, 32) for kind in ("shift", "random")]
+# the head dims below each tile, at the 224^2 / window-7 shape
+OTHER_HEAD_DIMS = [(49, D, kind) for D in (4, 8, 12, 24) for kind in ("shift", "random")]
 
 
-@pytest.mark.parametrize("N,D,kind", CASES)
+@pytest.mark.parametrize("N,D,kind", CASES + OTHER_HEAD_DIMS)
 def test_plain_forward_matches_jax(N, D, kind):
     q, k, v, bias, mask, _ = _inputs(N, D, kind, seed=N + D)
     scale = D**-0.5
@@ -71,7 +75,7 @@ def _jax_grads(fn, q, k, v, bias, g):
     return [np.asarray(t) for t in vjp(jnp.asarray(g))]
 
 
-@pytest.mark.parametrize("N,D,kind", CASES)
+@pytest.mark.parametrize("N,D,kind", CASES + OTHER_HEAD_DIMS)
 def test_plain_backward_matches_jax_vjp(N, D, kind):
     q, k, v, bias, mask, g = _inputs(N, D, kind, seed=N + D + 1)
     scale = D**-0.5

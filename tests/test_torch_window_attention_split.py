@@ -36,7 +36,7 @@ BWD_F32_RTOL = 1e-5
 # Swin-UNet embed 96 (N 144 at window 12, 49 at window 7, D 32; N 4 where a
 # stage of 2 x 2 tokens shrinks the window to 2), and the other head dim at
 # each N
-SHAPES = [(n, d) for n in (4, 49, 144, 216, 343) for d in wa.HEAD_DIMS]
+SHAPES = [(n, d) for n in (4, 49, 144, 216, 343) for d in wa.HEAD_DIM_TILES]
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
