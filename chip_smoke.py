@@ -326,8 +326,8 @@ Phases, each fatal on failure:
      (stage 1 [1372, 3, 343, 8]) and of one training pass (stage 1
      [686, 3, 343, 8]), no-mask and region ids, f32 and bf16, against their
      plain versions and bitwise repeatable, f32 timed beside the bound, the
-     plain version and SDPA; head dims 4, 10, 12, 20 and 28 at the stage-1
-     shapes, held and repeated, 4 and 12 timed;
+     plain version and SDPA; head dims 4 and 12 at the stage-1 shapes,
+     held, repeated and timed;
  55. SwinUNETR-ICL at --feature_size 24 through its CLI's `main` on phase
      9's cases (96^3, batch 4 of which 2 labeled, f32 with TF32 off,
      recompute on), 3 steps and a validation, the launches per step
@@ -339,6 +339,23 @@ Phases, each fatal on failure:
      state, cuDNN deterministic, bit for bit, its SR launches (one a leaf)
      and attention launches asserted; 2 replays of the captured step
      against 2 eager steps, bit for bit;
+ 57. both kernels at head dims 33-64 (the kernels' tile of 64): SwinUNETR
+     fs192's shapes (head dim 64 at every stage) of one inference forward
+     at sw_batch 4 (stage 1 [1372, 3, 343, 64]) and of one training pass
+     (stage 1 [686, 3, 343, 64]), no-mask and region ids, and the
+     Swin-UNet 2D stage-1 shapes at head dim 64 ([512, 3, 144, 64] at
+     384^2 / window 12, [512, 3, 49, 64] at 224^2 / window 7), no-mask,
+     the shift mask and a random dense mask; f32 and bf16, against their
+     plain versions and bitwise repeatable; f32 timed beside the bound,
+     the plain version and SDPA (the 2D shapes with no mask and the shift
+     mask); then head dims 33, 40, 48 and 63 at the 3D stage-1 shapes,
+     held and repeated, 40 (fs120) timed;
+ 58. SwinUNETR-ICL at --feature_size 192 (head dim 64 at every stage,
+     1.85 B parameters) through its CLI's `main` on phase 9's cases, as
+     phase 55: 3 steps and a validation, the launches per step asserted
+     as phase 9's, s/step, peak memory and the seconds to build the
+     weights; test_3D_BraTS --model swinunetr_icl --feature_size 192 on
+     its stripped best checkpoint gives the validation dice;
 every `fit` ends with its full train state, which each phase deletes
 after its run; then a `kernels` JSON line (the six window-attention
 entries and `sgd_bf16`), the card line, and the result line. Exits
@@ -683,7 +700,7 @@ def phase_kernel_3d(torch, F, wa, head_dim=HEAD_DIM, stages=STAGES, timed=True,
                         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                             qs, ks, vs, attn_mask=mask, scale=scale)),
                         library_max_abs_err=lib_err,
-                        before_ms=FWD_BEFORE_MS.get((name, mode)),
+                        before_ms=FWD_BEFORE_MS.get((name, mode)) if head_dim == HEAD_DIM else None,
                         **bound_fields(*bound(B, H, N, D, ids.numel() if ids is not None else 0)),
                     )
                     del mask, lib_out
@@ -738,7 +755,7 @@ def phase_backward_kernel(torch, F, wa, head_dim=HEAD_DIM, stages=STAGES, timed=
                         plain_ms=cuda_ms(lambda: wa.window_attention_plain_bwd(
                             q, k, v, bias, ids, g, scale=scale), reps=3),
                         library_ms=sdpa_backward_ms(torch, F, q, k, v, bias, dense, g, scale),
-                        before_ms=BWD_BEFORE_MS.get((name, mode)),
+                        before_ms=BWD_BEFORE_MS.get((name, mode)) if head_dim == HEAD_DIM else None,
                         **bound_fields(*bound(B, H, N, D, ids.numel() if ids is not None else 0,
                                               backward=True)),
                     )
@@ -966,7 +983,7 @@ def phase_train_to_eval(torch, held_out, training: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def inputs_2d(torch, stage, dtype, gen, kind, batch=LABELED_2D):
+def inputs_2d(torch, stage, dtype, gen, kind, batch=LABELED_2D, head_dim=HEAD_DIM_2D):
     """q, k, v, bias and the mask of one Swin-UNet 2D attention shape at
     `batch`: `kind` None (no mask), "shift" (the shifted block's mask) or
     "random" (a dense mask N(0, 3^2): the kernels take any)."""
@@ -974,7 +991,7 @@ def inputs_2d(torch, stage, dtype, gen, kind, batch=LABELED_2D):
 
     _, side, ws, heads, _ = stage
     nW, N = (side // ws) ** 2, ws * ws
-    q, k, v = (torch.randn(batch * nW, heads, N, HEAD_DIM_2D, device=DEVICE, generator=gen)
+    q, k, v = (torch.randn(batch * nW, heads, N, head_dim, device=DEVICE, generator=gen)
                .to(dtype) for _ in range(3))
     bias = torch.randn(heads, N, N, device=DEVICE, generator=gen)
     mask = None
@@ -986,12 +1003,12 @@ def inputs_2d(torch, stage, dtype, gen, kind, batch=LABELED_2D):
 
 
 def check_2d(torch, F, wa, stage, mode, kind, dtype, gen, batch=LABELED_2D, timed=None,
-             tag="2d") -> tuple[dict, dict]:
+             tag="2d", head_dim=HEAD_DIM_2D) -> tuple[dict, dict]:
     """The forward and backward kernels at one 2D shape against their plain
     versions, bitwise-repeatable; timed (f32 with the shift mask or none,
     unless `timed` says) beside the bound, the plain version and SDPA."""
-    scale = HEAD_DIM_2D ** -0.5
-    q, k, v, bias, mask = inputs_2d(torch, stage, dtype, gen, kind, batch)
+    scale = head_dim ** -0.5
+    q, k, v, bias, mask = inputs_2d(torch, stage, dtype, gen, kind, batch, head_dim)
     B, H, N, D = q.shape
     nW = mask.shape[0] if mask is not None else B
     if timed is None:
@@ -1022,7 +1039,7 @@ def check_2d(torch, F, wa, stage, mode, kind, dtype, gen, batch=LABELED_2D, time
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=attn, scale=scale)),
             library_max_abs_err=float((lib_out.reshape(q.shape) - want).abs().max()),
-            before_ms=FWD2D_BEFORE_MS.get((stage[0], mode)),
+            before_ms=FWD2D_BEFORE_MS.get((stage[0], mode)) if head_dim == HEAD_DIM_2D else None,
             **bound_fields(*bound(B, H, N, D, mask.numel() if mask is not None else 0)),
         )
         del lib_out, attn
@@ -1052,7 +1069,7 @@ def check_2d(torch, F, wa, stage, mode, kind, dtype, gen, batch=LABELED_2D, time
             plain_ms=cuda_ms(lambda: wa.window_attention_plain_bwd(
                 q, k, v, bias, None, g, scale=scale, mask=mask), reps=3),
             library_ms=sdpa_backward_ms(torch, F, q, k, v, bias, mask, g, scale),
-            before_ms=BWD2D_BEFORE_MS.get((stage[0], mode)),
+            before_ms=BWD2D_BEFORE_MS.get((stage[0], mode)) if head_dim == HEAD_DIM_2D else None,
             **bound_fields(*bound(B, H, N, D, mask.numel() if mask is not None else 0,
                                   backward=True)),
         )
@@ -5058,14 +5075,16 @@ def phase_native_helper(host_build: dict) -> dict:
 # models' fused sspa pair is checked in phases 10 and 15.)
 FS24 = 24
 HEAD_DIM_FS24 = FS24 // 3
-# head dims held at the stage-1 shapes only: fs12, fs30 (not a multiple of
-# 4: the kernels' value-by-value loads and stores), fs36, fs60, fs84; the
-# first tile's smallest and largest of them (fs12, fs36) also timed
-SWEEP_HEAD_DIMS = (4, 10, 12, 20, 28)
+# head dims held and timed at the stage-1 shapes: fs12 and fs36, the
+# smallest and largest of the first tile's below 16 that a path calls; the
+# card's tests hold every other head dim in every mode (fs30's 10, not a
+# multiple of 4, and the tile of 32's 20 and 28 left this sweep to make
+# room for the time of phases 57-58)
+SWEEP_HEAD_DIMS = (4, 12)
 TIMED_SWEEP_HEAD_DIMS = (4, 12)
 # tests/test_torch_window_attention_card.py's HEAD_DIMS, every mode, run
 # beside phase 39
-CARD_TEST_HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32)
+CARD_TEST_HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32, 33, 40, 48, 64)
 
 
 def phase_kernels_head_dims(torch, F, wa) -> dict:
@@ -5073,8 +5092,8 @@ def phase_kernels_head_dims(torch, F, wa) -> dict:
     inference forward at sw_batch 4, stage 1 [1372, 3, 343, 8], and of one
     training pass at batch 2, [686, 3, 343, 8]), no-mask and region ids,
     f32 and bf16, bitwise repeatable, f32 timed beside the bound, the plain
-    version and SDPA; then head dims 4, 10, 12, 20 and 28 at the stage-1
-    shapes, held and repeated, f32 timed at head dims 4 and 12."""
+    version and SDPA; then head dims 4 and 12 at the stage-1 shapes, held,
+    repeated and timed."""
     fwd = phase_kernel_3d(torch, F, wa, head_dim=HEAD_DIM_FS24, tag="[kernel-fs24]")
     bwd = phase_backward_kernel(torch, F, wa, head_dim=HEAD_DIM_FS24, tag="[bwd-fs24]")
     sweep = {"fwd": [], "bwd": []}
@@ -5112,24 +5131,53 @@ def phase_fs24_cli(torch, wa, cases, held_out) -> dict:
     asserted as phase 9's; test_3D_BraTS --model swinunetr_icl
     --feature_size 24 on the stripped best checkpoint gives the
     validation dice."""
+    return feature_size_cli(torch, wa, cases, held_out, FS24)
+
+
+def feature_size_cli(torch, wa, cases, held_out, fs: int) -> dict:
+    """SwinUNETR-ICL at --feature_size `fs` through its CLI's `main` (phase
+    55's run), timing the Trainer's model build (the weights drawn on the
+    host and moved to the card); test_3D_BraTS on the best checkpoint."""
     from icl_tpu_torch.scripts import test_3D_BraTS
     from icl_tpu_torch.scripts import train_inherent_consistent_swinunetr_3D_BraTS as cli
+    from icl_tpu_torch.train import trainer as trainer_module
     from icl_tpu_torch.train.steps import METRIC_KEYS
 
     data = InMemoryDataset(cases, held_out)
-    common = ["--root_path", "in-memory-BraTS", "--exp", "BraTS_chip_smoke/ICL_fs24", "--num_tries",
-              "fs24", "--labeled_num", "2", "--feature_size", str(FS24)]
+    tag = f"[fs{fs}]"
+    common = ["--root_path", "in-memory-BraTS", "--exp", f"BraTS_chip_smoke/ICL_fs{fs}", "--num_tries",
+              f"fs{fs}", "--labeled_num", "2", "--feature_size", str(fs)]
+    built = {}
+    factory = trainer_module.net_factory
+
+    def timed_factory(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = factory(*args, **kwargs)
+        torch.cuda.synchronize()
+        built.setdefault("build_s", time.perf_counter() - t0)
+        built.setdefault("n_params", sum(p.numel() for p in model.parameters()))
+        return model
+
+    trainer_module.net_factory = timed_factory
     torch.manual_seed(0)  # drop-path masks
-    run = run_cli(torch, wa, cli, common + ["--total_num", str(len(cases)), "--max_iterations",
-                                            str(TRAIN_STEPS), "--val_interval", str(TRAIN_STEPS),
-                                            "--precision", "float32"],
-                  "BraTS2019Dataset", data, "[fs24]", METRIC_KEYS, TRAIN_STEPS,
-                  {"fwd": FWD_PER_STEP, "bwd": BWD_PER_STEP})
+    try:
+        run = run_cli(torch, wa, cli, common + ["--total_num", str(len(cases)), "--max_iterations",
+                                                str(TRAIN_STEPS), "--val_interval", str(TRAIN_STEPS),
+                                                "--precision", "float32"],
+                      "BraTS2019Dataset", data, tag, METRIC_KEYS, TRAIN_STEPS,
+                      {"fwd": FWD_PER_STEP, "bwd": BWD_PER_STEP})
+    finally:
+        trainer_module.net_factory = factory
+    run.update(built)
+    print(f"{tag} SwinUNETR-ICL fs{fs}: {built['n_params']} parameters, the Trainer's model built in "
+          f"{built['build_s']:.2f} s; {run['s_per_step']:.4f} s/step, peak memory "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB", flush=True)
     eval_dice = eval_cli(test_3D_BraTS, common + ["--model", "swinunetr_icl"], "BraTS2019Dataset", data)
-    print(f"[eval-fs24] test_3D_BraTS --model swinunetr_icl --feature_size {FS24} on the best "
+    print(f"[eval-fs{fs}] test_3D_BraTS --model swinunetr_icl --feature_size {fs} on the best "
           f"checkpoint: mean dice {eval_dice!r}, the trainer's validation {run['val_dice']!r}", flush=True)
     if eval_dice != run["val_dice"]:
-        fail("test_3D_BraTS does not reproduce the fs24 SwinUNETR-ICL's validation dice")
+        fail(f"test_3D_BraTS does not reproduce the fs{fs} SwinUNETR-ICL's validation dice")
     return run
 
 
@@ -5270,6 +5318,71 @@ def phase_bf16_remat(torch, wa, sg, cases) -> dict:
     return out
 
 
+# Phases 57-58: head dims 33-64, run at the kernels' tile of 64 (one
+# forward buffer of K and V where two do not fit, N = 343; the backward
+# restaging between its passes): SwinUNETR fs192 (head dim 64 at every
+# stage, heads 3-6-12-24) and the Swin-UNet 2D stage 1 at embed 192 (3
+# heads of 64); then other head dims of the tile at the 3D stage-1 shapes:
+# fs99 (33: not a multiple of 4, the value-by-value loads and stores), fs120
+# (40, also timed), fs144 (48), fs189 (63).
+FS192 = 192
+HEAD_DIM_FS192 = FS192 // 3
+TILE64_SWEEP_HEAD_DIMS = (33, 40, 48, 63)
+TIMED_TILE64_SWEEP_HEAD_DIMS = (40,)
+STAGES_2D_D64 = [STAGES_2D[0], REF_STAGE_2D]
+
+
+def phase_kernels_tile64(torch, F, wa) -> dict:
+    """57: both kernels at fs192's 3D shapes and the 2D stage-1 shapes at
+    head dim 64, every mode, f32 and bf16, held, repeated and timed; head
+    dims 33, 40, 48 and 63 at the 3D stage-1 shapes, 40 timed."""
+    fwd = phase_kernel_3d(torch, F, wa, head_dim=HEAD_DIM_FS192, tag="[kernel-fs192]")
+    bwd = phase_backward_kernel(torch, F, wa, head_dim=HEAD_DIM_FS192, tag="[bwd-fs192]")
+    gen = torch.Generator(device=DEVICE).manual_seed(57)
+    fwd2d, bwd2d = [], []
+    for stage in STAGES_2D_D64:
+        for mode in stage[4]:
+            for kind in ((None,) if mode == "none" else ("shift", "random")):
+                for dtype in (torch.float32, torch.bfloat16):
+                    row, brow = check_2d(torch, F, wa, stage, mode, kind, dtype, gen, tag="2d-d64",
+                                         head_dim=HEAD_DIM_FS192)
+                    fwd2d.append(row)
+                    bwd2d.append(brow)
+    sweep = {"fwd": [], "bwd": []}
+    for d in TILE64_SWEEP_HEAD_DIMS:
+        timed = d in TIMED_TILE64_SWEEP_HEAD_DIMS
+        sweep["fwd"] += phase_kernel_3d(torch, F, wa, head_dim=d, stages=STAGES[:1], timed=timed,
+                                        tag=f"[kernel-d{d}]")
+        sweep["bwd"] += phase_backward_kernel(torch, F, wa, head_dim=d, stages=STAGES[:1], timed=timed,
+                                              tag=f"[bwd-d{d}]")
+    held = fwd + bwd + fwd2d + bwd2d + sweep["fwd"] + sweep["bwd"]
+    largest = {d: max(r["max_abs_err"] for r in held if r["shape"][3] == d)
+               for d in (HEAD_DIM_FS192,) + TILE64_SWEEP_HEAD_DIMS}
+    print(f"[tile64] fs192's 3D shapes and the 2D stage-1 shapes at head dim 64, and head dims "
+          f"{list(TILE64_SWEEP_HEAD_DIMS)} at the 3D stage-1 shapes, held (forward and backward, every "
+          f"mode, f32 and bf16, bitwise repeatable): the largest abs error at each {json.dumps(largest)}",
+          flush=True)
+    return {"fwd": fwd, "bwd": bwd, "fwd2d": fwd2d, "bwd2d": bwd2d, "sweep": sweep}
+
+
+def phase_fs192_cli(torch, wa, cases, held_out) -> dict:
+    """58: SwinUNETR-ICL at --feature_size 192 through its CLI, as phase 55,
+    with the seconds its Trainer takes to build the weights."""
+    return feature_size_cli(torch, wa, cases, held_out, FS192)
+
+
+def phases_57_58(torch, F, wa, cases, held_out) -> dict:
+    """57-58 on phase 9's cases."""
+    t0 = time.perf_counter()
+    kernels = phase_kernels_tile64(torch, F, wa)
+    fs192 = phase_fs192_cli(torch, wa, cases, held_out)
+    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
+    keys = ("s_per_step", "peak_bytes", "build_s", "n_params", "val_dice")
+    print(f"[summary] phases 57-58 in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps({'fs192': {k: fs192[k] for k in keys}})}", flush=True)
+    return {"kernels": kernels, "fs192": fs192}
+
+
 def main(argv: list) -> int:
     """Every phase. `--from 41` runs phases 1-2, 41-43 and 47-52 only (the
     multi-process ones, phase 42's ranks running phase 48), `--from 54`
@@ -5349,13 +5462,15 @@ def main(argv: list) -> int:
                                    ("window_attention_bwd", wa._bwd_geometry, 450)):
         geometry = {f"N{n} D{d}": dict(zip(("warps", "smem_bytes", "ctas_per_sm"),
                                            query(n, d, False, True, False, 0)))
-                    for n, d in ((343, 16), (216, 16), (144, 32), (49, 32), (4, 32))}
+                    for n, d in ((343, 16), (216, 16), (144, 32), (49, 32), (4, 32), (343, 64), (144, 64),
+                                 (49, 64))}
         print(f"[build] {what} f32 MASK geometry per CTA: {json.dumps(geometry)}", flush=True)
-        try:
-            query(too_large, HEAD_DIM_2D, False, False, False, 0)
-            fail(f"{what}'s geometry took a window of {too_large} tokens at head dim 32")
-        except ValueError as e:
-            print(f"[build] refused as it should be: {e}", flush=True)
+        for n, d in ((too_large, HEAD_DIM_2D), (450, HEAD_DIM_FS192)):
+            try:
+                query(n, d, False, False, False, 0)
+                fail(f"{what}'s geometry took a window of {n} tokens at head dim {d}")
+            except ValueError as e:
+                print(f"[build] refused as it should be: {e}", flush=True)
     z = [torch.zeros(1, 1, 8, HEAD_DIM, device=DEVICE) for _ in range(4)]
     wa.window_attention(*z[:3], torch.zeros(1, 8, 8, device=DEVICE), scale=1.0)
     wa.window_attention_bwd(*z[:3], torch.zeros(1, 8, 8, device=DEVICE), None, z[3], scale=1.0)
@@ -5364,9 +5479,11 @@ def main(argv: list) -> int:
         from icl_tpu_torch.data.synth import synthetic_acdc, synthetic_brats_cases
 
         shutil.rmtree(EXPERIMENTS, ignore_errors=True)
-        phases_54_56(torch, F, wa, sg, synthetic_brats_cases(4, CASE_SIZE, seed=0),
-                     synthetic_brats_cases(1, CASE_SIZE, seed=1))
+        cases, held_out = synthetic_brats_cases(4, CASE_SIZE, seed=0), synthetic_brats_cases(1, CASE_SIZE, seed=1)
+        phases_54_56(torch, F, wa, sg, cases, held_out)
         stamp("54-56")
+        phases_57_58(torch, F, wa, cases, held_out)
+        stamp("57-58")
         print(f"[summary] a partial run from phase 54 passed in {time.perf_counter() - t_script:.1f} s; "
               f"the result lines belong to the whole run", flush=True)
         return 0
@@ -5572,6 +5689,11 @@ def main(argv: list) -> int:
     # recompute (the Swin ICL models' fused sspa pair runs in 10 and 15)
     new = phases_54_56(torch, F, wa, sg, cases, held_out)
     stamp("54-56")
+    # 57 - 58. this slice: head dims 33-64 (the kernels' tile of 64) at
+    # SwinUNETR fs192's and the 2D stage-1 shapes, and SwinUNETR-ICL at
+    # feature size 192 through its CLI end to end
+    tile64 = phases_57_58(torch, F, wa, cases, held_out)
+    stamp("57-58")
 
     # The kernels line, one entry per kernel and mode. Times are sums over
     # the shapes of a unit of work, each f32 launch time times its launches
@@ -5632,9 +5754,18 @@ def main(argv: list) -> int:
                     "swinunetr_icl_fs24_training_step": totals(timed(new["kernels"]["bwd"], "region"),
                                                                BWD_PER_STEP_BY_STAGE["region"])}},
     }
-    for mode in ("none", "region"):  # fs24 (head dim 8) beside the fs48 units
+    for mode in ("none", "region"):  # fs24 (head dim 8), fs192 (64) beside the fs48 units
         paths["fwd"][mode]["swinunetr_fs24_inference_forward"] = totals(
             timed(new["kernels"]["fwd"], mode), PER_FORWARD[mode])
+        paths["fwd"][mode]["swinunetr_fs192_inference_forward"] = totals(
+            timed(tile64["kernels"]["fwd"], mode), PER_FORWARD[mode])
+        paths["bwd"][mode]["swinunetr_icl_fs192_training_step"] = totals(
+            timed(tile64["kernels"]["bwd"], mode), BWD_PER_STEP_BY_STAGE[mode])
+    for direction in ("fwd", "bwd"):  # the 2D stage-1 shapes at head dim 64, a launch each
+        for r in timed(tile64["kernels"][f"{direction}2d"], "none") + timed(tile64["kernels"][f"{direction}2d"],
+                                                                               "mask"):
+            paths[direction].setdefault(r["mode"], {})[f"swinunet2d_d64_{r['stage']}_launch"] = {
+                k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     per = {"region": {"fwd": "SwinUNETR inference forward", "bwd": "SwinUNETR-ICL training step"},
            "none": "Swin-UNet-ICL training step", "mask": "Swin-UNet-ICL training step"}
     kernels = []
@@ -5664,6 +5795,7 @@ def main(argv: list) -> int:
                        "graph_swinunet_2d_supervised_first_step":
                            graph["swin_first_step"][direction][mode]}
             by_path["training_3d_fs24"] = new["fs24"]["path_launches"][direction][mode]
+            by_path["training_3d_fs192"] = tile64["fs192"]["path_launches"][direction][mode]
             if direction == "fwd":
                 by_path["inference_3d"] = launches.get(mode, 0)
                 by_path["inference_3d_two_ranks"] = dp_window["launches"][mode]
@@ -5671,7 +5803,9 @@ def main(argv: list) -> int:
                 by_path[f"training_swinunetr_3d_tp2_rank{r}"] = counts[direction][mode]
             for r, counts in enumerate(tp["swin"]["val_launches"]):
                 by_path[f"validation_swinunetr_3d_tp2_rank{r}"] = counts[direction].get(mode, 0)
-            held = rows_3d + rows_2d + new["kernels"][direction] + new["kernels"]["sweep"][direction]
+            held = (rows_3d + rows_2d + new["kernels"][direction] + new["kernels"]["sweep"][direction]
+                    + tile64["kernels"][direction] + tile64["kernels"][f"{direction}2d"]
+                    + tile64["kernels"]["sweep"][direction])
             errs = [r["max_abs_err"] for r in held if r["mode"] == mode
                     and (direction == "bwd" or r["dtype"] == "float32")]
             head_dims = sorted({r["shape"][3] for r in held if r["mode"] == mode})

@@ -8,7 +8,7 @@
 //     A bf16 input is exact in TF32 (EXACT): its lo is zero and the terms
 //     with it are skipped.
 //   * An operand [N, d] (head dim d, rows d values apart in device memory)
-//     staged in shared memory as f32 at the tile width D >= d (16 or 32),
+//     staged in shared memory as f32 at the tile width D >= d (16, 32 or 64),
 //     columns d .. D - 1 and rows N .. Np - 1 zero (zero_pad), in 4-float
 //     chunks permuted by an XOR (sidx) so that both fragment patterns hit
 //     32 banks. f32 rows of whole aligned 16-byte chunks come in with
@@ -43,8 +43,11 @@ constexpr int kMask = 2;
 
 // The tile of head dim d: the width its operands are staged at and the
 // compiled instance that runs it, 16 for 1 <= d <= 16, 32 for 16 < d <= 32,
-// 0 for any other d.
-inline int head_dim_tile(int d) { return d < 1 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : 0; }
+// 64 for 32 < d <= 64, 0 for any other d.
+inline int head_dim_tile(int d) { return d < 1 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 0; }
+
+// Shared memory a CTA can opt into on Hopper (sm_90a): 227 KB.
+constexpr int kMaxSmemBytes = 232448;
 
 // Warps of a CTA whose warps each own a 16-row tile of a window of N
 // tokens: as few as the fewest rounds over the tiles allow, at most
@@ -169,14 +172,15 @@ __device__ __forceinline__ void cp_async_wait_group() {
 // Index of (row, col) of a staged [Np, D] operand (D the tile), f32 without padding,
 // 4-float chunks permuted by an XOR so that both fragment patterns (rows
 // r0 + g at columns c + t, and rows r0 + 2t, r0 + 2t + 1 at columns c + g)
-// hit 32 banks. D = 32: a row is a 32-float line, chunk ^= row % 8. D = 16:
+// hit 32 banks. D = 32 or 64: a row is one or two 32-float lines, chunk ^=
+// row % 8 (the low three bits of the chunk, so a row keeps its own). D = 16:
 // rows 2l and 2l + 1 share a line of 8 chunks, chunk ^= 2 (l % 4) + (l % 4) / 2.
 // For r0 a multiple of 8, sidx(r0 + r, col) = r0 * D + sidx(r, col).
 template <int D>
 __device__ __forceinline__ int sidx(int row, int col) {
-  static_assert(D == 16 || D == 32, "head dim 16 or 32");
+  static_assert(D == 16 || D == 32 || D == 64, "head dim 16, 32 or 64");
   const int chunk = col >> 2;
-  if (D == 32) return row * 32 + ((chunk ^ (row & 7)) << 2) + (col & 3);
+  if (D != 16) return row * D + ((chunk ^ (row & 7)) << 2) + (col & 3);
   const int l = (row >> 1) & 3;
   return (row >> 1) * 32 + ((((row & 1) << 2 | chunk) ^ (2 * l + (l >> 1))) << 2) + (col & 3);
 }
@@ -265,12 +269,45 @@ __device__ __forceinline__ void load_a_split(FragA (&a)[D / 8], const float* xs,
   for (int kk = 0; kk < D / 8; ++kk) a[kk] = split_a<EXACT>(raw[kk][0], raw[kk][1], raw[kk][2], raw[kk][3]);
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// The A fragments (raw f32) of rows r0 .. r0 + 15 of a [N, d] operand in
+// device memory at tile width D, load_a's pattern; 0 past N and past d.
+template <int D, typename T>
+__device__ __forceinline__ void load_rows(float (&a)[D / 8][4], const T* x, int r0, int N, int d, int g,
+                                          int t) {
+  const int lo = r0 + g;
+  const int hi = r0 + g + 8;
+  auto at = [&](int row, int c) { return row < N && c < d ? to_float(x[row * d + c]) : 0.f; };
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const int c = 8 * kk + t;
+    a[kk][0] = at(lo, c);
+    a[kk][1] = at(hi, c);
+    a[kk][2] = at(lo, c + 4);
+    a[kk][3] = at(hi, c + 4);
+  }
+}
+
+// An A fragment as hi and lo: one held split already, or raw values split
+// here, at each use (fewer registers held, the split repeated).
+template <bool EXACT>
+__device__ __forceinline__ const FragA& as_split(const FragA& a) {
+  return a;
+}
+template <bool EXACT>
+__device__ __forceinline__ FragA as_split(const float (&a)[4]) {
+  return split_a<EXACT>(a[0], a[1], a[2], a[3]);
+}
+
 // acc[16 x 8] = X[r0 .. r0+15] . Y[c0 .. c0+7]^T over D, 3xTF32: the A side
-// split in registers, the B side b0 = Y[c0 + g][d + t], b1 = ...[d + t + 4].
+// in registers (FragA split, or raw float[4] split at each use, as_split),
+// the B side b0 = Y[c0 + g][d + t], b1 = ...[d + t + 4].
 // The two small terms and a_hi.b_hi sum apart: three short chains of
 // dependent MMAs instead of one long one.
-template <int D, bool EXACT>
-__device__ __forceinline__ void product_nt(float (&acc)[4], const FragA (&xa)[D / 8], const float* ys,
+template <int D, bool EXACT, typename A>
+__device__ __forceinline__ void product_nt(float (&acc)[4], const A (&xa)[D / 8], const float* ys,
                                            int c0, int g, int t) {
   const float* y = ys + c0 * D;
   float small[4] = {0.f, 0.f, 0.f, 0.f};
@@ -279,11 +316,12 @@ __device__ __forceinline__ void product_nt(float (&acc)[4], const FragA (&xa)[D 
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
     const FragB b = split_b<EXACT>(y[sidx<D>(g, 8 * kk + t)], y[sidx<D>(g, 8 * kk + t + 4)]);
+    const FragA& a = as_split<EXACT>(xa[kk]);
     if (!EXACT) {
-      mma(small, xa[kk].lo, b.hi);
-      mma(small2, xa[kk].hi, b.lo);
+      mma(small, a.lo, b.hi);
+      mma(small2, a.hi, b.lo);
     }
-    mma(acc, xa[kk].hi, b.hi);
+    mma(acc, a.hi, b.hi);
   }
   if (!EXACT) {
 #pragma unroll

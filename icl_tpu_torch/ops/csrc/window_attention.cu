@@ -8,10 +8,10 @@
 //                          id of the key differs from the query's, else 0.
 //                          M is built here from the ids [nW, N]; the dense
 //                          [nW, N, N] mask never exists in device memory.
-// One template, MODE = NONE, REGION or MASK, tile DT = 16 or 32 (any head
-// dim d of 1 .. DT: the operands are staged at width DT with zero columns
-// past d, see mma_tf32.cuh), input type float or bf16, f32 math, output in
-// the input type.
+// One template, MODE = NONE, REGION or MASK, tile DT = 16, 32 or 64 (any
+// head dim d of 1 .. DT: the operands are staged at width DT with zero
+// columns past d, see mma_tf32.cuh; so d = 1 .. 64 in all), input type
+// float or bf16, f32 math, output in the input type.
 //
 // Layout (the same as window_attention_fused): q, k, v, out [B, H, N, D]
 // contiguous with B = batch * nW; bias [H, N, N] f32; region ids [nW, N]
@@ -48,6 +48,22 @@
 //     one; N is padded with zero rows to Np, a multiple of 16, and padded
 //     keys score -inf. The head's bias rows stay hot in L1 and L2 across
 //     the group's windows.
+//   * Tile 64 (head dims 33 .. 64: SwinUNETR fs99 .. fs192, Swin-UNet
+//     embeddings of 33 .. 64 a head): two buffers of K and V [Np, 64] take
+//     363 KB at N = 343 (Np 352), past a CTA's 227 KB. Where two do not
+//     fit, K and V are staged once per window into one buffer (181 KB),
+//     after every warp is done with the window before, giving up the
+//     overlap of the next window's load with this one's products; where
+//     they fit (N = 144: 148 KB, N = 49) the two buffers stay. Chosen over
+//     streaming key blocks through shared memory under the online softmax,
+//     which would make the shared memory independent of N, because a warp
+//     would then hold the running state of every row tile it owns across
+//     the key blocks (22 tiles at N = 343) or the CTA would need a warp per
+//     row tile, neither of which the registers allow at tile 64. The Q
+//     fragments (64 registers a lane in f32) and the 16 x 64 accumulator
+//     (32) need more than 128 registers a thread, so the tile-64 instances
+//     run one CTA an SM (its launch bounds), which the shared memory at
+//     N = 343 forces anyway.
 //   * Short windows (N < 8 leaves lanes with only padded keys): the online
 //     softmax takes 0 as its reference while its max is -inf, so N = 4
 //     gives no e^(-inf + inf).
@@ -57,8 +73,10 @@
 //     tile has two instances: FULL for its own head dim, with d a constant
 //     (the code the tile ran before it took smaller head dims), and one
 //     that reads d at run time, which alone made the f32 forward at head
-//     dim 16 2-4% slower than before in NONE and REGION (PERF.md). The
-//     backward has no such fork: its runtime-d instance is as fast.
+//     dim 16 2-4% slower than before in NONE and REGION (PERF.md). At tile
+//     64 the runtime-d instance is 16-25% slower at head dim 64 in REGION
+//     and MASK (f32 and bf16), so it keeps its FULL instance too (PERF.md).
+//     The backward has no such fork: its runtime-d instance is as fast.
 //   * The warps and the shared memory are chosen here from N and D;
 //     icl_window_attention_fwd_geometry reports them with the resident CTAs
 //     an SM, from which the caller sizes the grid. Every output element has
@@ -72,26 +90,20 @@
 namespace {
 
 // Warps per CTA at most: the launch bounds, with two CTAs an SM at up to
-// 128 registers a thread.
+// 128 registers a thread (tiles 16 and 32), one at up to 255 (tile 64).
 constexpr int kMaxWarps = 8;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__host__ __device__ constexpr int min_ctas(int DT) { return DT == 64 ? 1 : 2; }
 
 // The A fragments of rows r0 .. r0 + 15 of a [N, d] operand in device
-// memory at tile width DT, split once into hi and lo (load_a_split's
-// pattern); 0 past N and past d.
+// memory at tile width DT (load_rows), split once into hi and lo; 0 past N
+// and past d.
 template <int DT, bool EXACT, typename T>
 __device__ __forceinline__ void load_rows_split(FragA (&a)[DT / 8], const T* x, int r0, int N, int d, int g,
                                                 int t) {
-  const int lo = r0 + g;
-  const int hi = r0 + g + 8;
-  auto at = [&](int row, int c) { return row < N && c < d ? to_float(x[row * d + c]) : 0.f; };
+  float raw[DT / 8][4];
+  load_rows<DT>(raw, x, r0, N, d, g, t);
 #pragma unroll
-  for (int kk = 0; kk < DT / 8; ++kk) {
-    const int c = 8 * kk + t;
-    a[kk] = split_a<EXACT>(at(lo, c), at(hi, c), at(lo, c + 4), at(hi, c + 4));
-  }
+  for (int kk = 0; kk < DT / 8; ++kk) a[kk] = split_a<EXACT>(raw[kk][0], raw[kk][1], raw[kk][2], raw[kk][3]);
 }
 
 // Per buffer: K [Np, DT] and V [Np, DT] (see sidx), then the ids [Np].
@@ -100,8 +112,14 @@ __host__ __device__ inline int buffer_floats(int N, int DT) {
   return 2 * Np * DT + Np;
 }
 
+// Buffers of K, V and ids: two, but one at tile 64 where two exceed a
+// CTA's shared memory (N > 224).
+__host__ __device__ inline int buffers(int N, int DT) {
+  return DT < 64 || 2 * buffer_floats(N, DT) * static_cast<int>(sizeof(float)) <= kMaxSmemBytes ? 2 : 1;
+}
+
 template <typename T, int DT, int MODE, bool FULL>
-__global__ void __launch_bounds__(kMaxWarps * 32, 2)
+__global__ void __launch_bounds__(kMaxWarps * 32, min_ctas(DT))
 window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         const float* __restrict__ bias, const float* __restrict__ region_ids,
                         const float* __restrict__ mask, T* __restrict__ out, int B, int H, int N,
@@ -112,6 +130,7 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   extern __shared__ __align__(16) float smem[];
   const int Np = (N + 15) & ~15;
   const int per_buffer = buffer_floats(N, DT);
+  const int nbuf = DT == 64 ? buffers(N, DT) : 2;  // 2 folded in at tiles 16 and 32
 
   const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32;
@@ -138,14 +157,14 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
     cp_async_commit();
   };
 
-  // the padded rows and columns stay zero for every window, in both buffers
-  for (int op = 0; op < 4; ++op)  // K, V of buffer 0; of buffer 1
+  // the padded rows and columns stay zero for every window, in every buffer
+  for (int op = 0; op < 2 * nbuf; ++op)  // K, V of buffer 0; of buffer 1
     zero_pad<DT>(smem + (op >> 1) * per_buffer + (op & 1) * Np * DT, N, Np, d);
   if (b_begin < b_end) stage(0, b_begin);
 
   for (int b = b_begin; b < b_end; ++b) {
-    const int cur = (b - b_begin) & 1;
-    if (b + 1 < b_end) {
+    const int cur = nbuf == 2 ? (b - b_begin) & 1 : 0;
+    if (nbuf == 2 && b + 1 < b_end) {
       stage(cur ^ 1, b + 1);  // its buffer was released at the end of window b - 1
       cp_async_wait_group<1>();
     } else {
@@ -223,11 +242,14 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
       }
     }
     __syncthreads();  // every warp is done with buffer `cur` before it is staged again
+    if (nbuf == 1 && b + 1 < b_end) stage(0, b + 1);  // one buffer: free only now
   }
 }
 
-// K, V and ids buffers, two of them, at tile width DT
-size_t smem_bytes(int N, int DT) { return 2 * static_cast<size_t>(buffer_floats(N, DT)) * sizeof(float); }
+// K, V and ids buffers at tile width DT, two of them or one (buffers)
+size_t smem_bytes(int N, int DT) {
+  return static_cast<size_t>(buffers(N, DT)) * buffer_floats(N, DT) * sizeof(float);
+}
 
 int cta_warps(int N) { return tile_warps(N, kMaxWarps); }
 
@@ -314,9 +336,10 @@ extern "C" {
 // Returns a cudaError_t: 0 when the launch was accepted. `region_ids` set
 // selects REGION, else `mask` set selects MASK, else NONE (at most one of
 // the two is set). `is_bf16` selects the input type. The head dim D is any
-// of 1 .. 32 (SwinUNETR: feature size / 3, 16 at fs48, 8 at fs24; Swin-UNet
-// 2D, embed 96: 32); D <= 16 runs the tile-16 instance, D <= 32 the tile-32
-// one (head_dim_tile). A CTA takes `windows_per_cta` windows of one head;
+// of 1 .. 64 (SwinUNETR: feature size / 3, 16 at fs48, 8 at fs24, 64 at
+// fs192; Swin-UNet 2D, embed 96: 32); D <= 16 runs the tile-16 instance,
+// D <= 32 the tile-32 one, D <= 64 the tile-64 one (head_dim_tile). A CTA
+// takes `windows_per_cta` windows of one head;
 // its width and shared memory are those icl_window_attention_fwd_geometry
 // reports.
 int icl_window_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
@@ -331,6 +354,7 @@ int icl_window_attention_fwd(const void* q, const void* k, const void* v, const 
   const int tile = head_dim_tile(D);
   if (tile == 16) return launch_type<16>(a, is_bf16);
   if (tile == 32) return launch_type<32>(a, is_bf16);
+  if (tile == 64) return launch_type<64>(a, is_bf16);
   return cudaErrorInvalidValue;
 }
 
@@ -348,8 +372,11 @@ int icl_window_attention_fwd_geometry(int N, int D, int has_ids, int has_mask, i
   if (tile == 16)
     return is_bf16 ? occupancy_dim<__nv_bfloat16, 16>(N, D, has_ids, has_mask, ctas)
                    : occupancy_dim<float, 16>(N, D, has_ids, has_mask, ctas);
-  return is_bf16 ? occupancy_dim<__nv_bfloat16, 32>(N, D, has_ids, has_mask, ctas)
-                 : occupancy_dim<float, 32>(N, D, has_ids, has_mask, ctas);
+  if (tile == 32)
+    return is_bf16 ? occupancy_dim<__nv_bfloat16, 32>(N, D, has_ids, has_mask, ctas)
+                   : occupancy_dim<float, 32>(N, D, has_ids, has_mask, ctas);
+  return is_bf16 ? occupancy_dim<__nv_bfloat16, 64>(N, D, has_ids, has_mask, ctas)
+                 : occupancy_dim<float, 64>(N, D, has_ids, has_mask, ctas);
 }
 
 const char* icl_cuda_error_string(int err) {

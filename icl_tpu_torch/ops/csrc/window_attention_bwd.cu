@@ -12,12 +12,12 @@
 // for every (window, head). Three variants, as the forward: NONE, REGION
 // (M = -100 where the shift-region ids of key and query differ, built here
 // from ids [nW, N]) and MASK (any dense additive mask [nW, N, N], the
-// branch at :331-332); window index = b % nW. Head dim d = 1 .. 32, run by
-// the instance of its tile DT = 16 (d <= 16) or 32, the operands staged at
-// width DT with zero columns past d (mma_tf32.cuh): those add nothing to S
-// or dP, and the padded columns of dq, dk and dv are never stored. f32 or
-// bf16 q, k, v, dO; f32 math; dq, dk, dv in the input type; dbias in f32.
-// The mask and the ids get no gradient.
+// branch at :331-332); window index = b % nW. Head dim d = 1 .. 64, run by
+// the instance of its tile DT = 16 (d <= 16), 32 (d <= 32) or 64, the
+// operands staged at width DT with zero columns past d (mma_tf32.cuh):
+// those add nothing to S or dP, and the padded columns of dq, dk and dv are
+// never stored. f32 or bf16 q, k, v, dO; f32 math; dq, dk, dv in the input
+// type; dbias in f32. The mask and the ids get no gradient.
 //
 // Layout: q, k, v, dO, dq, dk, dv [B, H, N, D] contiguous; bias [H, N, N];
 // region ids [nW, N] f32; mask [nW, N, N] f32.
@@ -79,6 +79,20 @@
 //     CTAs an SM (N = 144 has 9 tiles: two rounds of 5 warps). The warps
 //     and the shared memory are chosen here from N and D; the caller sizes
 //     the grid from icl_window_attention_bwd_geometry's resident CTAs.
+//   * Tile 64 (head dims 33 .. 64: SwinUNETR fs99 .. fs192): the four
+//     operands [Np, 64] take 360 KB at N = 343 (Np 352), past a CTA's 227
+//     KB, so the passes restage between them. The row pass reads only K
+//     and V from shared memory (its Q and dO fragments come from device
+//     memory), the column pass only Q and dO (its K and V fragments come
+//     from device memory): two operand buffers, K and V staged before the
+//     row pass, Q and dO into the same buffers after it (182 KB at N = 343,
+//     one CTA an SM). The fragments a warp holds are kept raw and split into
+//     hi and lo at each use (as_split): split, the row pass's Q and dO
+//     fragments alone would take 128 registers a lane, the column pass's K
+//     and V as many beside 64 of dK and dV accumulators, past the 255 a
+//     thread has; raw they take half. The split is repeated per 8-key (row)
+//     step, ALU work beside the tensor cores'. 8 warps at up to 255
+//     registers, one CTA an SM (the launch bounds).
 //   What still binds it (times in PERF.md): latency more than any unit's
 //   rate, with 10-16 warps an SM, among it the bias and mask reads of the
 //   three sweeps and the per-window read-modify-write of the dbias partial.
@@ -89,10 +103,16 @@
 
 namespace {
 
-// Warps per CTA at most: the launch bounds. At tile DT = 32 the fragments
-// held in registers need more than 128 a thread; 5 warps at up to 204
-// registers keep two CTAs on an SM, which is what N = 144 (9 tiles) can use.
+// Warps per CTA at most, and CTAs an SM at least: the launch bounds. At
+// tile DT = 32 the fragments held in registers need more than 128 a thread;
+// 5 warps at up to 204 registers keep two CTAs on an SM, which is what N =
+// 144 (9 tiles) can use. At tile 64, 8 warps at up to 255, one CTA.
 __host__ __device__ constexpr int max_warps(int DT) { return DT == 32 ? 5 : 8; }
+__host__ __device__ constexpr int min_ctas(int DT) { return DT == 64 ? 1 : 2; }
+
+// Tile 64 restages between the passes (two operand buffers, not four).
+__host__ __device__ constexpr bool restages(int DT) { return DT == 64; }
+__host__ __device__ constexpr int operand_buffers(int DT) { return restages(DT) ? 2 : 4; }
 
 // The dbias partial of the four (row, key) a lane holds in the row pass,
 // rows rows[e / 2] at keys key0 + e % 2: what the earlier windows of the
@@ -109,7 +129,7 @@ __device__ __forceinline__ void load_part(float (&old)[4], const float* part, co
 }
 
 template <typename T, int DT, int MODE>
-__global__ void __launch_bounds__(max_warps(DT) * 32, 2)
+__global__ void __launch_bounds__(max_warps(DT) * 32, min_ctas(DT))
 window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ dout,
                             const float* __restrict__ bias, const float* __restrict__ region_ids,
@@ -118,14 +138,19 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             float* __restrict__ dbias_part, int B, int H, int N, int d, int nW,
                             int windows_per_cta, float scale) {
   constexpr bool kExact = std::is_same<T, __nv_bfloat16>::value;  // bf16 is exact in TF32
+  constexpr bool kRestage = restages(DT);
   constexpr int KD = DT / 8;
+  // a warp's A fragments: split once (FragA), or raw and split at each use
+  using Frag = std::conditional_t<kRestage, float[4], FragA>;
   extern __shared__ __align__(16) float smem[];
   const int Np = (N + 15) & ~15;
-  float* qs = smem;                // [Np, DT], see sidx
-  float* ks = qs + Np * DT;
+  // [Np, DT] each, see sidx; restaging, Q and K share the first buffer,
+  // V and dO the second
+  float* qs = smem;
+  float* ks = kRestage ? qs : qs + Np * DT;
   float* vs = ks + Np * DT;
-  float* gs = vs + Np * DT;        // dO
-  float* row_max = gs + Np * DT;   // [Np]
+  float* gs = kRestage ? vs : vs + Np * DT;  // dO
+  float* row_max = smem + operand_buffers(DT) * Np * DT;  // [Np]
   float* row_inv = row_max + Np;   // [Np], 1 / row sum
   float* row_dlt = row_inv + Np;   // [Np], rowsum(P o dP)
   float* ids = row_dlt + Np;       // [Np], kRegion only
@@ -144,19 +169,16 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b_end = min(B, b_begin + windows_per_cta);
 
   // the padded rows and columns stay zero for every window
-  zero_pad<DT>(qs, N, Np, d);
-  zero_pad<DT>(ks, N, Np, d);
-  zero_pad<DT>(vs, N, Np, d);
-  zero_pad<DT>(gs, N, Np, d);
+  for (int op = 0; op < operand_buffers(DT); ++op) zero_pad<DT>(smem + op * Np * DT, N, Np, d);
 
   for (int b = b_begin; b < b_end; ++b) {
     const bool first = b == b_begin;
     const size_t base = (static_cast<size_t>(b) * H + h) * N * d;
     __syncthreads();  // the previous window is done with shared memory
-    stage_rows<DT>(qs, q + base, N, d);
+    if (!kRestage) stage_rows<DT>(qs, q + base, N, d);
     stage_rows<DT>(ks, k + base, N, d);
     stage_rows<DT>(vs, v + base, N, d);
-    stage_rows<DT>(gs, dout + base, N, d);
+    if (!kRestage) stage_rows<DT>(gs, dout + base, N, d);
     const float* mask_w = MODE == kMask ? mask + static_cast<size_t>(b % nW) * N * N : nullptr;
     if (MODE == kRegion) {
       const float* w_ids = region_ids + static_cast<size_t>(b % nW) * N;
@@ -169,9 +191,14 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // i0 + g + 8 (e = 0, 1 and e = 2, 3) at keys j0 + 2t and j0 + 2t + 1.
     for (int tile = warp; tile < tiles; tile += warps) {
       const int i0 = 16 * tile;
-      FragA qa[KD], ga[KD];
-      load_a_split<DT, kExact>(qa, qs, i0, g, t);
-      load_a_split<DT, kExact>(ga, gs, i0, g, t);
+      Frag qa[KD], ga[KD];
+      if constexpr (kRestage) {
+        load_rows<DT>(qa, q + base, i0, N, d, g, t);
+        load_rows<DT>(ga, dout + base, i0, N, d, g, t);
+      } else {
+        load_a_split<DT, kExact>(qa, qs, i0, g, t);
+        load_a_split<DT, kExact>(ga, gs, i0, g, t);
+      }
       const int rows[2] = {i0 + g, i0 + g + 8};
       const float id_row[2] = {id_of<MODE>(ids, rows[0]), id_of<MODE>(ids, rows[1])};
 
@@ -276,14 +303,25 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();  // row statistics visible to every warp
+    if (kRestage) {  // K and V are done with: Q and dO into their buffers
+      stage_rows<DT>(qs, q + base, N, d);
+      stage_rows<DT>(gs, dout + base, N, d);
+      cp_async_wait_all();
+      __syncthreads();
+    }
 
     // Column pass: warp per 16-key tile; lane (g, t) holds keys j0 + g and
     // j0 + g + 8 (e = 0, 1 and e = 2, 3) at rows i0 + 2t and i0 + 2t + 1.
     for (int tile = warp; tile < tiles; tile += warps) {
       const int j0 = 16 * tile;
-      FragA ka[KD], va[KD];
-      load_a_split<DT, kExact>(ka, ks, j0, g, t);
-      load_a_split<DT, kExact>(va, vs, j0, g, t);
+      Frag ka[KD], va[KD];
+      if constexpr (kRestage) {
+        load_rows<DT>(ka, k + base, j0, N, d, g, t);
+        load_rows<DT>(va, v + base, j0, N, d, g, t);
+      } else {
+        load_a_split<DT, kExact>(ka, ks, j0, g, t);
+        load_a_split<DT, kExact>(va, vs, j0, g, t);
+      }
       const int keys[2] = {j0 + g, j0 + g + 8};
       const float id_key[2] = {id_of<MODE>(ids, keys[0]), id_of<MODE>(ids, keys[1])};
       float dka[KD][4], dva[KD][4];
@@ -363,9 +401,10 @@ struct Args {
 // launch bounds at tile DT.
 int cta_warps(int N, int DT) { return tile_warps(N, max_warps(DT)); }
 
-// operands [Np, DT] x 4, then row max, 1 / row sum, rowsum(P o dP), ids [Np] each
+// operands [Np, DT] x 4 (x 2 restaging), then row max, 1 / row sum,
+// rowsum(P o dP), ids [Np] each
 size_t smem_bytes(int N, int DT) {
-  return 4 * static_cast<size_t>((N + 15) / 16 * 16) * (DT + 1) * sizeof(float);
+  return static_cast<size_t>((N + 15) / 16 * 16) * (operand_buffers(DT) * DT + 4) * sizeof(float);
 }
 
 template <typename T, int DT, int MODE>
@@ -442,7 +481,7 @@ extern "C" {
 // Returns a cudaError_t: 0 when both launches were accepted. `region_ids`
 // set selects REGION, else `mask` set selects MASK, else NONE; `is_bf16`
 // the input type. The scratch `dbias_part` holds ceil(B / windows_per_cta)
-// * H * N * N floats. The head dim D is any of 1 .. 32, run by the instance
+// * H * N * N floats. The head dim D is any of 1 .. 64, run by the instance
 // of its tile (head_dim_tile). The CTA's width and shared memory are those
 // icl_window_attention_bwd_geometry reports.
 int icl_window_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
@@ -458,6 +497,7 @@ int icl_window_attention_bwd(const void* q, const void* k, const void* v, const 
   const int tile = head_dim_tile(D);
   if (tile == 16) return launch_type<16>(a, is_bf16);
   if (tile == 32) return launch_type<32>(a, is_bf16);
+  if (tile == 64) return launch_type<64>(a, is_bf16);
   return cudaErrorInvalidValue;
 }
 
@@ -475,8 +515,11 @@ int icl_window_attention_bwd_geometry(int N, int D, int has_ids, int has_mask, i
   if (tile == 16)
     return is_bf16 ? occupancy_mode<__nv_bfloat16, 16>(N, has_ids, has_mask, ctas)
                    : occupancy_mode<float, 16>(N, has_ids, has_mask, ctas);
-  return is_bf16 ? occupancy_mode<__nv_bfloat16, 32>(N, has_ids, has_mask, ctas)
-                 : occupancy_mode<float, 32>(N, has_ids, has_mask, ctas);
+  if (tile == 32)
+    return is_bf16 ? occupancy_mode<__nv_bfloat16, 32>(N, has_ids, has_mask, ctas)
+                   : occupancy_mode<float, 32>(N, has_ids, has_mask, ctas);
+  return is_bf16 ? occupancy_mode<__nv_bfloat16, 64>(N, has_ids, has_mask, ctas)
+                 : occupancy_mode<float, 64>(N, has_ids, has_mask, ctas);
 }
 
 const char* icl_cuda_error_string(int err) {

@@ -24,12 +24,13 @@ Each launch adds its FLOPs to any count in progress (`utils.flops`):
 4*B*H*N^2*D forward, 10*B*H*N^2*D backward, what the plain versions'
 matmuls count on the CPU.
 
-Head dims: the kernels take any head dim D of 1 .. `MAX_HEAD_DIM` (32),
+Head dims: the kernels take any head dim D of 1 .. `MAX_HEAD_DIM` (64),
 each through the instance compiled for its tile (`head_dim_tile`: 16 for
-D <= 16, 32 above), whose operands are staged at the tile's width with zero
-columns past D; SwinUNETR's head dim is feature_size / 3 (8 at fs24, 16 at
-fs48, 32 at fs96). A larger D raises ValueError, on the card only: the
-plain versions take any D.
+D <= 16, 32 for D <= 32, 64 above), whose operands are staged at the
+tile's width with zero columns past D; SwinUNETR's head dim is
+feature_size / 3 (8 at fs24, 16 at fs48, 32 at fs96, 64 at fs192). A
+larger D raises ValueError, on the card only: the plain versions take any
+D.
 
 Under tensor parallelism (counterpart of `_make_gspmd_fused` and
 `_dispatch_forward`) each rank calls the same kernels on its own rows and
@@ -48,8 +49,8 @@ import torch
 
 from icl_tpu_torch.utils.flops import add_kernel_flops
 
-MAX_HEAD_DIM = 32  # the largest head dim the kernels take
-HEAD_DIM_TILES = (16, 32)  # the kernels' compiled tiles: the width D is staged at
+MAX_HEAD_DIM = 64  # the largest head dim the kernels take
+HEAD_DIM_TILES = (16, 32, 64)  # the kernels' compiled tiles: the width D is staged at
 _MAX_SMEM_BYTES = 232_448  # per CTA on Hopper
 _CHUNK_BYTES = 32 << 20  # the plain backward's score chunk (the JAX backward's rule)
 
@@ -143,9 +144,12 @@ def _fwd_smem_bytes(N: int, D: int) -> int:
     """The forward kernel's shared memory per CTA (`smem_bytes` in
     `csrc/window_attention.cu`): two buffers of K and V [Np, tile] and the
     region ids [Np] in f32, Np = N padded to a multiple of 16, tile =
-    `head_dim_tile(D)`."""
+    `head_dim_tile(D)`; at tile 64 one buffer where two exceed a CTA's
+    shared memory (N > 224)."""
     Np = -(-N // 16) * 16
-    return 2 * (2 * Np * head_dim_tile(D) + Np) * 4
+    tile = head_dim_tile(D)
+    one = (2 * Np * tile + Np) * 4
+    return one if tile == 64 and 2 * one > _MAX_SMEM_BYTES else 2 * one
 
 
 def _check(q, k, v, bias, region_ids, mask, dout=None):

@@ -6,14 +6,16 @@ forward at the SwinUNETR inference shapes, N = 343 and 216, head dim 16),
 window, head dim 32), 28 (both at the supervised Swin paths' shapes:
 224^2 / window 7 at batch 16 in f32, SwinUNETR at batch 4 in bf16) and 54
 (both at SwinUNETR fs24's shapes, head dim 8, and at other head dims'
-stage 1), each case checked against the plain version, bitwise
-repeatable and timed, and nothing else of the smoke test. `--paths`
-leaves out 54; `--tiles` runs only the tile grid instead: both kernels
-at the head dims of their two tiles (16 and 32), f32 and bf16, no mask,
-region ids and the dense mask made from them, at SwinUNETR's training
-stage-1 windows ([686, 3, 343, D]), each checked against the plain
-version and timed. Neither calls a head dim other than 16 and 32, so
-both also time kernels compiled for those two only.
+stage 1) and 57 (both at fs192's shapes, head dim 64, at the 2D
+stage-1 shapes at head dim 64, and at head dims 33-63), each case checked
+against the plain version, bitwise repeatable and timed, and nothing else
+of the smoke test. `--paths` leaves out 54 and 57; `--tiles` runs only the
+tile grid instead: both kernels at the head dim of each of their tiles
+(`HEAD_DIM_TILES` of the package timed: 16, 32 and 64), f32 and bf16, no
+mask, region ids and the dense mask made from them, at SwinUNETR's
+training stage-1 windows ([686, 3, 343, D]), each checked against the
+plain version and timed. `--paths` calls head dims 16 and 32 only, so it
+also times kernels compiled for those two only.
 
     python icl_tpu_torch/scripts/bench_kernels.py [--device-time] [--paths | --tiles]
     PYTHONPATH=<other checkout> python icl_tpu_torch/scripts/bench_kernels.py
@@ -44,9 +46,9 @@ def main(argv=None) -> int:
                    help="time the device alone: queue the timed calls behind a GPU sleep")
     which = p.add_mutually_exclusive_group()
     which.add_argument("--paths", action="store_true",
-                       help="the paths' shapes only (head dims 16 and 32), not phase 54")
+                       help="the paths' shapes only (head dims 16 and 32), not phases 54 and 57")
     which.add_argument("--tiles", action="store_true",
-                       help="only the tile grid: head dims 16 and 32, f32 and bf16, every mode")
+                       help="only the tile grid: each tile's head dim, f32 and bf16, every mode")
     args = p.parse_args(argv)
     sys.path.append(str(ROOT))  # after PYTHONPATH: another checkout's package wins
     import torch
@@ -74,6 +76,7 @@ def main(argv=None) -> int:
         smoke.phase_kernels_supervised(torch, F, wa)
         if not args.paths:
             smoke.phase_kernels_head_dims(torch, F, wa)
+            smoke.phase_kernels_tile64(torch, F, wa)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60)
     print(card.stdout.strip() or "nvidia-smi: no output")
@@ -81,16 +84,16 @@ def main(argv=None) -> int:
 
 
 def tile_grid(torch, wa, smoke) -> None:
-    """`--tiles`: forward and backward at [686, 3, 343, D] for D 16 and 32,
-    f32 and bf16, in the NONE, REGION and MASK modes (the dense mask
-    [343, 343, 343] of the region ids), each against its plain version
-    with the smoke test's tolerances, then timed; one `[tiles]` line per
-    case."""
+    """`--tiles`: forward and backward at [686, 3, 343, D] for D each tile
+    of the package timed (`wa.HEAD_DIM_TILES`), f32 and bf16, in the NONE,
+    REGION and MASK modes (the dense mask [343, 343, 343] of the region
+    ids), each against its plain version with the smoke test's
+    tolerances, then timed; one `[tiles]` line per case."""
     import json
 
     stage = (smoke.STAGES[0][0], smoke.LABELED_BS) + tuple(smoke.STAGES[0][2:])
     gen = torch.Generator(device=smoke.DEVICE).manual_seed(16)
-    for D in (16, 32):
+    for D in wa.HEAD_DIM_TILES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, bias, ids = smoke.stage_inputs(torch, stage, dtype, gen, D)
             g = torch.randn(q.shape, device=smoke.DEVICE, generator=gen).to(dtype)

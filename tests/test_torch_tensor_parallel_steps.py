@@ -70,6 +70,29 @@ def _jax_model(case: dict):
                            feature_size=case["feature_size"], window_size=(case["window"],) * 3)
 
 
+def jax_icl_step_f64(model, case: dict, params, bs, x, y):
+    """One ICL step of the JAX `model` in f64 (its align-corners weights,
+    map resizes and one-hot labels kept in f64, dropout and drop path
+    off) from `params`, `bs` on the image batch `x` (channels last) and
+    labels `y`: (new state, metrics) on the host; the new state's optimizer
+    state holds the gradients first."""
+    spatial = (case["patch"],) * case["dims"]
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(jax_layers, "_align_corners_matrix", _exact_align_corners_matrix)
+        mp.setattr(jax_losses, "_resize_maps", lambda fm, s: jax.image.resize(
+            fm, (fm.shape[0], *s, fm.shape[-1]), method="linear"))
+        mp.setattr(jax_losses, "one_hot", lambda labels, n: jax.nn.one_hot(labels, n, dtype=jnp.float64))
+        mp.setattr(flax_nn.Dropout, "__call__", lambda self, x, *a, **k: x)
+        mp.setattr(jax_layers.DropPath, "__call__", lambda self, x, train: x)
+        tx = optax.chain(_capture_grads(), make_sgd(BASE_LR, MAX_IT))
+        step = jax_make_icl_step(model, tx, case["classes"], case["labeled_bs"], spatial,
+                                 case["consis"])
+        new_state, metrics = jax.jit(step)(TrainState.create(_f64(params), _f64(bs), tx),
+                                           {"image": jnp.asarray(x, jnp.float64),
+                                            "label": jnp.asarray(y)}, jax.random.PRNGKey(0))
+        return jax.device_get((new_state, metrics))
+
+
 @functools.cache
 def _reference(name: str):
     """(the ranks' job case, the JAX step's (old, grads, new state, metrics)
@@ -84,20 +107,7 @@ def _reference(name: str):
     rng = np.random.default_rng(7)
     x = rng.standard_normal((case["batch"], *spatial, 1)).astype(np.float32)
     y = rng.integers(0, case["classes"], (case["batch"], *spatial)).astype(np.int32)
-    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
-        mp.setattr(jax_layers, "_align_corners_matrix", _exact_align_corners_matrix)
-        mp.setattr(jax_losses, "_resize_maps", lambda fm, s: jax.image.resize(
-            fm, (fm.shape[0], *s, fm.shape[-1]), method="linear"))
-        mp.setattr(jax_losses, "one_hot", lambda labels, n: jax.nn.one_hot(labels, n, dtype=jnp.float64))
-        mp.setattr(flax_nn.Dropout, "__call__", lambda self, x, *a, **k: x)
-        mp.setattr(jax_layers.DropPath, "__call__", lambda self, x, train: x)
-        tx = optax.chain(_capture_grads(), make_sgd(BASE_LR, MAX_IT))
-        step = jax_make_icl_step(model, tx, case["classes"], case["labeled_bs"], spatial,
-                                 case["consis"])
-        new_state, metrics = jax.jit(step)(TrainState.create(_f64(params), _f64(bs), tx),
-                                           {"image": jnp.asarray(x, jnp.float64),
-                                            "label": jnp.asarray(y)}, jax.random.PRNGKey(0))
-        new_state, metrics = jax.device_get((new_state, metrics))
+    new_state, metrics = jax_icl_step_f64(model, case, params, bs, x, y)
     convert = (icl_unet2d_state_dict_from_jax if case["kind"] == "icl_unet"
                else swinunetr_icl_state_dict_from_jax)
     new_bs = new_state.batch_stats

@@ -1,9 +1,10 @@
 """icl_tpu_torch window attention against the JAX package's: the plain
 version against `window_attention_fused` (Pallas, interpret mode) and
 `window_attention_reference`, with no mask and with shift-region ids.
-Head dim 16 (SwinUNETR fs48) and, beside it, 4, 8, 12 and 24 (fs12,
-fs24, fs36, fs72), which the kernels run at the tile of 16 or 32 with zero
-columns: the plain version is their oracle on the card. The CUDA kernels
+Head dim 16 (SwinUNETR fs48) and, beside it, 4, 8, 12, 24, 40 and 64
+(fs12, fs24, fs36, fs72, fs120, fs192), which the kernels run at the tile
+of 16, 32 or 64 with zero columns: the plain version is their oracle on
+the card. The CUDA kernels
 run only on the card, against the plain versions, in
 `test_torch_window_attention_card.py`; the wrapper's rules for the head dim
 (its tile, the shared memory at the tile, the refusals) are checked here. The backward has its own file,
@@ -72,29 +73,36 @@ def test_plain_matches_jax(N, masked):
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["none", "region"])
-@pytest.mark.parametrize("d", [4, 8, 12, 24])
+@pytest.mark.parametrize("d", [4, 8, 12, 24, 40, 64])
 @pytest.mark.parametrize("N", [49, 343])
 def test_plain_matches_jax_at_other_head_dims(N, d, masked):
-    """SwinUNETR's head dims at feature sizes 12, 24, 36 and 72 (fs / 3),
-    at the 7^3 window (N 343) and a 7^2 one."""
+    """SwinUNETR's head dims at feature sizes 12, 24, 36, 72, 120 and 192
+    (fs / 3), at the 7^3 window (N 343) and a 7^2 one."""
     _plain_against_jax(N, d, masked, seed=N + d)
 
 
 def test_head_dim_tile_and_the_forwards_shared_memory_at_it():
     """Head dims 1 .. 16 run the tile-16 instance, 17 .. 32 the tile-32
-    one; the forward's shared memory is that of the tile (two buffers of
-    K and V [Np, tile] and the ids [Np], f32): N 343 (Np 352) at fs24's
-    head dim 8 takes what fs48's 16 takes."""
+    one, 33 .. 64 the tile-64 one; the forward's shared memory is that of
+    the tile (two buffers of K and V [Np, tile] and the ids [Np], f32): N
+    343 (Np 352) at fs24's head dim 8 takes what fs48's 16 takes. At tile
+    64 two buffers fit up to Np 224 (N 144: 148,608 bytes); past it the
+    forward stages K and V into one (N 343: 181,632 of a CTA's 232,448)."""
     assert [wa.head_dim_tile(d) for d in (1, 4, 8, 10, 12, 16)] == [16] * 6
     assert [wa.head_dim_tile(d) for d in (17, 20, 24, 28, 32)] == [32] * 5
+    assert [wa.head_dim_tile(d) for d in range(33, 65)] == [64] * 32
     assert wa._fwd_smem_bytes(343, 8) == wa._fwd_smem_bytes(343, 16) == 2 * (2 * 352 * 16 + 352) * 4
     assert wa._fwd_smem_bytes(144, 24) == wa._fwd_smem_bytes(144, 32) == 2 * (2 * 144 * 32 + 144) * 4
-    for d in (0, 33, 48):
-        with pytest.raises(ValueError, match=f"head dim {d}, the kernels take 1 .. 32"):
+    assert wa._fwd_smem_bytes(144, 40) == wa._fwd_smem_bytes(144, 64) == 2 * (2 * 144 * 64 + 144) * 4
+    assert wa._fwd_smem_bytes(224, 64) == 2 * (2 * 224 * 64 + 224) * 4 <= wa._MAX_SMEM_BYTES
+    assert wa._fwd_smem_bytes(225, 64) == (2 * 240 * 64 + 240) * 4
+    assert wa._fwd_smem_bytes(343, 48) == wa._fwd_smem_bytes(343, 64) == (2 * 352 * 64 + 352) * 4
+    for d in (0, 65, 96):
+        with pytest.raises(ValueError, match=f"head dim {d}, the kernels take 1 .. 64"):
             wa.head_dim_tile(d)
 
 
-@pytest.mark.parametrize("d", [0, 33])
+@pytest.mark.parametrize("d", [0, 65])
 def test_check_refuses_a_head_dim_the_kernels_do_not_take(d):
     """The wrapper's check before a launch (on CPU tensors here: the rule
     does not need the card) names the head dim; the plain version takes

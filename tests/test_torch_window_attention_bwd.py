@@ -7,8 +7,9 @@ and `torch.autograd.gradcheck` of `WindowAttentionFn` in f64. The CUDA
 backward kernel is held against the plain backward on the card, in
 `test_torch_window_attention_card.py`.
 
-Head dim 16 (SwinUNETR fs48) and, beside it, 4, 8, 12 and 24 (fs12, fs24,
-fs36, fs72), which the backward kernel runs at its tile with zero columns.
+Head dim 16 (SwinUNETR fs48) and, beside it, 4, 8, 12, 24, 40 and 64
+(fs12, fs24, fs36, fs72, fs120, fs192), which the backward kernel runs at
+its tile with zero columns.
 
 Tolerance 2e-5 absolute in f32 (the JAX package's own attention
 tolerance, tests/test_pallas_attention.py) on dq, dk, dv, and 1e-4 on
@@ -79,10 +80,10 @@ def test_plain_backward_matches_jax_vjp(N, case):
 
 
 @pytest.mark.parametrize("case", ["none", "region"])
-@pytest.mark.parametrize("d", [4, 8, 12, 24])
+@pytest.mark.parametrize("d", [4, 8, 12, 24, 40, 64])
 def test_plain_backward_matches_jax_vjp_at_other_head_dims(d, case):
-    """SwinUNETR's head dims at feature sizes 12, 24, 36 and 72, at a
-    shifted stage of 7^2 x 1 windows."""
+    """SwinUNETR's head dims at feature sizes 12, 24, 36, 72, 120 and 192,
+    at a shifted stage of 7^2 x 1 windows."""
     _plain_backward_against_jax(49, case, seed=49 + d + len(case), d=d)
 
 

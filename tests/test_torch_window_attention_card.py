@@ -11,15 +11,17 @@ tests/conftest.py (which imports JAX) left out:
 
 Covered: forward and backward in NONE, REGION and MASK (the 2D shift mask
 where N is a square, and a random dense mask), head dims 1, 4, 7, 8, 10,
-12, 16, 20, 24, 28 and 32 (SwinUNETR fs3, fs12, fs21, fs24, fs30, fs36,
-fs48, fs60, fs72, fs84, fs96; 1, 7 and 10, head dims that are not a
-multiple of 4, take the kernels' value-by-value loads, 1 and 7 their
-value-by-value stores), N in {4, 49, 144, 343}, f32 and bf16, each bitwise equal across
-two runs; the same at the paths' shapes, where a CTA walks several
-windows, and at rows that start off a 16-byte boundary; each kernel's
+12, 16, 20, 24, 28, 32, 33, 40, 48 and 64 (SwinUNETR fs3, fs12, fs21,
+fs24, fs30, fs36, fs48, fs60, fs72, fs84, fs96, fs99, fs120, fs144,
+fs192; 1, 7, 10 and 33, head dims that are not a multiple of 4, take the
+kernels' value-by-value loads, 1, 7 and 33 their value-by-value stores),
+N in {4, 49, 144, 343}, f32 and bf16, each bitwise equal across two runs;
+the same at the paths' shapes, where a CTA walks several windows (at
+tile 64 both through the forward's one buffer, N = 343, and its two,
+N = 144), and at rows that start off a 16-byte boundary; each kernel's
 launch geometry (the forward's shared memory as `_check` reckons it at the
 head dim's tile, and the refusal of a window that cannot fit); and the
-refusal of head dims 0 and 33.
+refusal of head dims 0 and 65.
 
 Tolerances (those of chip_smoke.py): forward f32 1e-5 absolute (f32 sums
 in another order, __expf), bf16 1e-3 + 1e-2 relative (one bf16 rounding
@@ -40,8 +42,8 @@ H = 3
 # N -> (padded dims, window, shift) of a shifted 3D stage with windows of N tokens
 GEOMETRY_3D = {4: ((4, 4, 1), (2, 2, 1), (1, 1, 0)), 49: ((14, 14, 1), (7, 7, 1), (3, 3, 0)),
                144: ((12, 12, 8), (6, 6, 4), (3, 3, 2)), 343: ((14, 14, 14), (7, 7, 7), (3, 3, 3))}
-# the head dims held: both tiles' own (16, 32) and head dims below each
-HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32)  # chip_smoke.py's CARD_TEST_HEAD_DIMS
+# the head dims held: the tiles' own (16, 32, 64) and head dims below each
+HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32, 33, 40, 48, 64)  # chip_smoke.py's CARD_TEST_HEAD_DIMS
 CASES = [(kind, N, D, dtype) for kind in ("none", "region", "shift", "random") for N in sorted(GEOMETRY_3D)
          for D in HEAD_DIMS for dtype in ("float32", "bfloat16") if kind != "shift" or N != 343]
 # (kind, N, D, batch): shapes of the paths, with enough windows that a CTA
@@ -49,7 +51,8 @@ CASES = [(kind, N, D, dtype) for kind in ("none", "region", "shift", "random") f
 # fs48 and fs24, a 2 x 2 window), and a head dim off the multiples of 4
 SEVERAL_WINDOWS = {"shift144": ("shift", 144, 32, 128), "random49": ("random", 49, 32, 128),
                    "region343": ("region", 343, 16, 128), "none4": ("none", 4, 32, 1024),
-                   "region343_d8": ("region", 343, 8, 128), "none343_d10": ("none", 343, 10, 128)}
+                   "region343_d8": ("region", 343, 8, 128), "none343_d10": ("none", 343, 10, 128),
+                   "region343_d64": ("region", 343, 64, 128), "shift144_d48": ("shift", 144, 48, 128)}
 # every (N, D) the port's paths call, and the other head dims at each N
 SHAPES = [(n, d) for n in (4, 49, 144, 216, 343) for d in HEAD_DIMS]
 
@@ -153,7 +156,7 @@ def test_kernels_walking_several_windows_per_cta_match_plain_on_card(card, case)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [4, 8, 16])
+@pytest.mark.parametrize("D", [4, 8, 16, 40])
 def test_kernels_take_rows_off_a_16_byte_boundary_on_card(card, D, dtype):
     """q, k, v and dO one value past a 16-byte boundary (contiguous views
     into a larger buffer; in bf16 also off the 8-byte boundary that its
@@ -174,7 +177,7 @@ def test_kernels_take_rows_off_a_16_byte_boundary_on_card(card, D, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [0, 33])
+@pytest.mark.parametrize("D", [0, 65])
 def test_kernels_refuse_a_head_dim_they_do_not_take_on_card(card, D):
     q = torch.zeros(2, H, 49, D, device=card)
     bias = torch.zeros(H, 49, 49, device=card)
@@ -200,11 +203,19 @@ def test_forward_geometry_agrees_with_the_check_rule_on_card(card, N, D):
 def test_geometry_refuses_a_window_that_cannot_fit_on_card(card):
     """N = 1000 at head dim 32 exceeds a CTA's shared memory in the
     forward (two buffers of K and V [1008, 32]), N = 450 in the backward
-    (four [464, 33] f32 operands); the windows the port calls fit."""
+    (four [464, 33] f32 operands); at head dim 64 N = 450 in both (the
+    forward's one buffer of K and V [464, 64], the backward's two operand
+    buffers [464, 64] and four [464] vectors); the windows the port calls
+    fit, at tile 64 N = 343 through the forward's one buffer."""
     with pytest.raises(ValueError, match="does not fit"):
         wa._fwd_geometry(1000, 32, False, False, False, card.index)
     with pytest.raises(ValueError, match="does not fit"):
         wa._bwd_geometry(450, 32, False, False, False, card.index)
+    for geometry in (wa._fwd_geometry, wa._bwd_geometry):
+        with pytest.raises(ValueError, match="does not fit"):
+            geometry(450, 64, False, False, False, card.index)
+    assert wa._fwd_geometry(343, 64, False, False, False, card.index)[1] == (2 * 352 * 64 + 352) * 4
+    assert wa._bwd_geometry(343, 64, False, False, False, card.index)[1] == (2 * 64 + 4) * 352 * 4
     for N, D in SHAPES:
         warps, smem, ctas = wa._bwd_geometry(N, D, False, True, False, card.index)
         assert warps >= 1 and smem > 0 and ctas >= 1
