@@ -346,10 +346,14 @@ Phases, each fatal on failure:
      Swin-UNet 2D stage-1 shapes at head dim 64 ([512, 3, 144, 64] at
      384^2 / window 12, [512, 3, 49, 64] at 224^2 / window 7), no-mask,
      the shift mask and a random dense mask; f32 and bf16, against their
-     plain versions and bitwise repeatable; f32 timed beside the bound,
-     the plain version and SDPA (the 2D shapes with no mask and the shift
-     mask); then head dims 33, 40, 48 and 63 at the 3D stage-1 shapes,
-     held and repeated, 40 (fs120) timed;
+     plain versions and bitwise repeatable (the backward fed the forward
+     kernel's output and row log-sum-exp, as WindowAttentionFn saves them,
+     and held against both plain backwards: the one recomputing the
+     softmax and window_attention_plain_bwd_lse from the same output and
+     log-sum-exp); f32 timed beside the bound, the plain version and SDPA
+     (the 2D shapes with no mask and the shift mask); then head dims 33,
+     40, 48 and 63 at the 3D stage-1 shapes, held and repeated, 40 (fs120)
+     timed;
  58. SwinUNETR-ICL at --feature_size 192 (head dim 64 at every stage,
      1.85 B parameters) through its CLI's `main` on phase 9's cases, as
      phase 55: 3 steps and a validation, the launches per step asserted
@@ -357,7 +361,8 @@ Phases, each fatal on failure:
      weights; test_3D_BraTS --model swinunetr_icl --feature_size 192 on
      its stripped best checkpoint gives the validation dice;
 every `fit` ends with its full train state, which each phase deletes
-after its run; then a `kernels` JSON line (the six window-attention
+after its run (in the phases of UNWRITTEN_FINAL_STATES gathered but not
+written, a depth cut for the time limit); then a `kernels` JSON line (the six window-attention
 entries and `sgd_bf16`), the card line, and the result line. Exits
 non-zero without a result when CUDA is absent, in a worker too.
 """
@@ -604,21 +609,27 @@ def bound(B, H, N, D, mask_floats=0, backward=False, elem_bytes=4, flops_rate=F3
     return flops / flops_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def ptxas_usage(log: str, kernel: str) -> dict:
+def ptxas_usage(log: str, source: str) -> dict:
     """{"<type> <dims> <mode>": [registers, spill stores in bytes]} of each
-    instance of `kernel`, from the `-Xptxas -v` build log. <dims>: "d<=16"
-    an instance that reads the head dim at run time, for every head dim of
-    its tile; the forward's "D16" the instance of head dim 16 itself and
-    "d<16" that of the head dims below."""
+    kernel instance of library `source`, from its `-Xptxas -v` build log.
+    <dims>: "d<=16" an instance that reads the head dim at run time, for
+    every head dim of its tile; the forward's "D16" the instance of head dim
+    16 itself and "d<16" that of the head dims below, " lse" its tile-64
+    instances that store the row log-sum-exp; "dq" and "dkdv" the tile-64
+    backward's two kernels."""
     import re
 
     out, name = {}, None
     modes = ("none", "region", "mask")
+    types = r"I(f|13__nv_bfloat16)"
     for line in log.splitlines():
-        m = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E(?:Lb(\d)E)?", line)
+        m = re.search(source + "_kernel" + types + r"Li(\d+)ELi(\d)E(?:Lb(\d)E)?(?:Lb(\d)E)?", line)
+        m64 = re.search(source + r"64_(dq|dkdv)_kernel" + types + r"Li(\d)E", line)
         if m:
             dims = f"d<={m[2]}" if m[4] is None else f"D{m[2]}" if m[4] == "1" else f"d<{m[2]}"
-            name = f"{'f32' if m[1] == 'f' else 'bf16'} {dims} {modes[int(m[3])]}"
+            name = f"{'f32' if m[1] == 'f' else 'bf16'} {dims} {modes[int(m[3])]}{' lse' if m[5] == '1' else ''}"
+        elif m64:
+            name = f"{'f32' if m64[2] == 'f' else 'bf16'} {m64[1]} {modes[int(m64[3])]}"
         elif name and "spill stores" in line:
             out[name] = [None, int(re.search(r"(\d+) bytes spill stores", line)[1])]
         elif name and "registers" in line:
@@ -634,6 +645,28 @@ def bound_fields(flop_ms, byte_ms) -> dict:
 
 def rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def saved_forward(wa, q, k, v, bias, ids, mask, scale) -> dict:
+    """The keywords a direct backward call needs: at head dims above
+    `wa.SAVED_LSE_ABOVE` (the tile-64 backward) the forward kernel's output
+    and row log-sum-exp, as `WindowAttentionFn` saves them; none at the
+    smaller head dims, or for a package whose backward takes none."""
+    if q.shape[-1] <= getattr(wa, "SAVED_LSE_ABOVE", 64):
+        return {}
+    out, lse = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    return {"out": out, "lse": lse}
+
+
+def lse_plain_errors(wa, q, k, v, bias, ids, mask, g, scale, saved, got) -> dict:
+    """Each gradient's error, as `rel_err`, against the plain version of the
+    tile-64 arithmetic on the same inputs (`window_attention_plain_bwd_lse`
+    from the saved output and log-sum-exp); {} where nothing was saved."""
+    if not saved:
+        return {}
+    want = wa.window_attention_plain_bwd_lse(q, k, v, bias, ids, saved["out"], saved["lse"], g, scale=scale,
+                                             mask=mask)
+    return {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv", "dbias"), got, want)}
 
 
 def sdpa_backward_ms(torch, F, q, k, v, bias, mask, g, scale) -> float:
@@ -730,28 +763,34 @@ def phase_backward_kernel(torch, F, wa, head_dim=HEAD_DIM, stages=STAGES, timed=
                 ids = ids if mode == "region" else None
                 g = torch.randn(q.shape, device=DEVICE, generator=gen).to(dtype)
                 scale = head_dim ** -0.5
-                got = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale)
-                again = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale)
+                saved = saved_forward(wa, q, k, v, bias, ids, None, scale)
+                got = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, **saved)
+                again = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, **saved)
                 torch.cuda.synchronize()
                 want = wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale)
                 names = ("dq", "dk", "dv", "dbias")
                 errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
                 tols = {n: BWD_F32_RTOL if dtype == torch.float32 or n == "dbias" else BWD_BF16_RTOL
                         for n in names}
+                lse_errs = lse_plain_errors(wa, q, k, v, bias, ids, None, g, scale, saved, got)
                 row = {"stage": name, "mode": mode, "dtype": str(dtype).split(".")[-1],
                        "shape": list(q.shape), "nW": ids.shape[0] if ids is not None else None,
                        "rel_err": errs, "tolerance": tols,
                        "max_abs_err": max(float((a.float() - b.float()).abs().max())
                                           for a, b in zip(got, want)),
                        "bitwise_repeat": all(torch.equal(a, b) for a, b in zip(got, again))}
+                if lse_errs:
+                    row["rel_err_lse_plain"] = lse_errs
                 finite = all(bool(torch.isfinite(a).all()) for a in got)
-                if not finite or not row["bitwise_repeat"] or any(errs[n] > tols[n] for n in names):
+                if (not finite or not row["bitwise_repeat"] or any(errs[n] > tols[n] for n in names)
+                        or any(lse_errs[n] > tols[n] for n in lse_errs)):
                     fail(f"backward kernel disagrees with plain or is not repeatable: {row}")
                 if timed and dtype == torch.float32:
                     B, H, N, D = q.shape
                     dense = wa.mask_from_region_ids(ids) if ids is not None else None
                     row.update(
-                        ms=cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale)),
+                        ms=cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale,
+                                                                   **saved)),
                         plain_ms=cuda_ms(lambda: wa.window_attention_plain_bwd(
                             q, k, v, bias, ids, g, scale=scale), reps=3),
                         library_ms=sdpa_backward_ms(torch, F, q, k, v, bias, dense, g, scale),
@@ -761,7 +800,7 @@ def phase_backward_kernel(torch, F, wa, head_dim=HEAD_DIM, stages=STAGES, timed=
                     )
                 rows.append(row)
                 print(f"{tag} {json.dumps(row)}", flush=True)
-                del q, k, v, g, bias, got, again, want
+                del q, k, v, g, bias, got, again, want, saved
                 torch.cuda.empty_cache()
     return rows
 
@@ -1046,26 +1085,31 @@ def check_2d(torch, F, wa, stage, mode, kind, dtype, gen, batch=LABELED_2D, time
     print(f"[kernel{tag}] {json.dumps(row)}", flush=True)
     del again
     g = torch.randn(q.shape, device=DEVICE, generator=gen).to(dtype)
-    got = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
-    again = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
+    saved = saved_forward(wa, q, k, v, bias, None, mask, scale)
+    got = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask, **saved)
+    again = wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale, mask=mask, **saved)
     torch.cuda.synchronize()
     want = wa.window_attention_plain_bwd(q, k, v, bias, None, g, scale=scale, mask=mask)
     names = ("dq", "dk", "dv", "dbias")
     errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
     tols = {n: BWD_F32_RTOL if dtype == torch.float32 or n == "dbias" else BWD_BF16_RTOL
             for n in names}
+    lse_errs = lse_plain_errors(wa, q, k, v, bias, None, mask, g, scale, saved, got)
     brow = {k: row[k] for k in ("stage", "mode", "mask", "dtype", "shape", "nW")}
     brow.update(rel_err=errs, tolerance=tols,
                 max_abs_err=max(float((a.float() - b.float()).abs().max())
                                 for a, b in zip(got, want)),
                 bitwise_repeat=all(torch.equal(a, b) for a, b in zip(got, again)))
+    if lse_errs:
+        brow["rel_err_lse_plain"] = lse_errs
     finite = all(bool(torch.isfinite(a).all()) for a in got)
-    if not finite or not brow["bitwise_repeat"] or any(errs[n] > tols[n] for n in names):
+    if (not finite or not brow["bitwise_repeat"] or any(errs[n] > tols[n] for n in names)
+            or any(lse_errs[n] > tols[n] for n in lse_errs)):
         fail(f"2D backward kernel disagrees with plain or is not repeatable: {brow}")
     if timed:
         brow.update(
             ms=cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, None, g, scale=scale,
-                                                       mask=mask)),
+                                                       mask=mask, **saved)),
             plain_ms=cuda_ms(lambda: wa.window_attention_plain_bwd(
                 q, k, v, bias, None, g, scale=scale, mask=mask), reps=3),
             library_ms=sdpa_backward_ms(torch, F, q, k, v, bias, mask, g, scale),
@@ -1074,7 +1118,7 @@ def check_2d(torch, F, wa, stage, mode, kind, dtype, gen, batch=LABELED_2D, time
                                   backward=True)),
         )
     print(f"[bwd{tag}] {json.dumps(brow)}", flush=True)
-    del q, k, v, bias, mask, g, got, again, want
+    del q, k, v, bias, mask, g, got, again, want, saved
     torch.cuda.empty_cache()
     return row, brow
 
@@ -1795,6 +1839,39 @@ def phase_train_to_eval_unet3d(torch, held_out, training: dict) -> None:
         fail("the 3D U-Net eval path does not reproduce the trainer's validation dice")
     del model
     torch.cuda.empty_cache()
+
+
+# A depth cut for the 1200 s limit: on a slow host (Intel family 6 model
+# 143) the whole script took 1262.2 s, 180 s of it writing train states at
+# ~0.7 GB/s, most of them deleted unread. These phases' `fit`s gather their
+# final train state and record its size, but write it to no file; the
+# write is exercised where a phase reads a state back (32, 35, 39, 42, 45,
+# 52).
+UNWRITTEN_FINAL_STATES = {"phase_training", "phase_training_2d", "phase_training_unet", "phase_training_unet3d",
+                          "phase_supervised_unet3d", "phase_amos", "phase_grad_accum", "phase_fs24_cli",
+                          "phase_fs192_cli"}
+
+
+@contextlib.contextmanager
+def final_state_not_written(tag: str):
+    """`fit`'s final `state_last.pt` gathered but not written while inside
+    (rolling step files are written as ever); one line a skipped write."""
+    from icl_tpu_torch.utils import checkpoint as ckpt
+
+    write = ckpt.save_train_state
+
+    def gathered(snapshot_path, state, name="last"):
+        if name != "last":
+            return write(snapshot_path, state, name)
+        print(f"[depth] {tag}: the final train state ({ckpt.state_bytes(state) / 1e9:.2f} GB) gathered, "
+              "not written", flush=True)
+        return ckpt.state_path(snapshot_path, name)
+
+    ckpt.save_train_state = gathered
+    try:
+        yield
+    finally:
+        ckpt.save_train_state = write
 
 
 def drop_states(result: dict) -> None:
@@ -5084,7 +5161,7 @@ SWEEP_HEAD_DIMS = (4, 12)
 TIMED_SWEEP_HEAD_DIMS = (4, 12)
 # tests/test_torch_window_attention_card.py's HEAD_DIMS, every mode, run
 # beside phase 39
-CARD_TEST_HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32, 33, 40, 48, 64)
+CARD_TEST_HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32, 33, 40, 48, 63, 64)
 
 
 def phase_kernels_head_dims(torch, F, wa) -> dict:
@@ -5319,8 +5396,9 @@ def phase_bf16_remat(torch, wa, sg, cases) -> dict:
 
 
 # Phases 57-58: head dims 33-64, run at the kernels' tile of 64 (one
-# forward buffer of K and V where two do not fit, N = 343; the backward
-# restaging between its passes): SwinUNETR fs192 (head dim 64 at every
+# forward buffer of K and V where two do not fit, N = 343; the backward's
+# dQ and dK/dV kernels, fed the forward's output and row log-sum-exp):
+# SwinUNETR fs192 (head dim 64 at every
 # stage, heads 3-6-12-24) and the Swin-UNet 2D stage 1 at embed 192 (3
 # heads of 64); then other head dims of the tile at the 3D stage-1 shapes:
 # fs99 (33: not a multiple of 4, the value-by-value loads and stores), fs120
@@ -5404,7 +5482,8 @@ def main(argv: list) -> int:
         def run(*args, **kwargs):
             t0 = time.perf_counter()
             try:
-                return fn(*args, **kwargs)
+                with final_state_not_written(name) if name in UNWRITTEN_FINAL_STATES else contextlib.nullcontext():
+                    return fn(*args, **kwargs)
             finally:
                 print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
         return run
@@ -5451,7 +5530,7 @@ def main(argv: list) -> int:
     build_s = time.perf_counter() - t0
     print(f"[build] the host's C++ helper {json.dumps(host_build)}", flush=True)
     for source, (lib_path, log) in zip(sources, builds[:2]):
-        usage = ptxas_usage(log, f"{source}_kernel") if log else "already built"
+        usage = ptxas_usage(log, source) if log else "already built"
         spills = sorted(n for n, (_, spill) in usage.items() if spill) if log else "not read"
         print(f"[build] {lib_path}: registers and spill stores (bytes) per instance {json.dumps(usage)}; "
               f"instances that spill: {spills or 'none'}", flush=True)
@@ -5465,7 +5544,8 @@ def main(argv: list) -> int:
                     for n, d in ((343, 16), (216, 16), (144, 32), (49, 32), (4, 32), (343, 64), (144, 64),
                                  (49, 64))}
         print(f"[build] {what} f32 MASK geometry per CTA: {json.dumps(geometry)}", flush=True)
-        for n, d in ((too_large, HEAD_DIM_2D), (450, HEAD_DIM_FS192)):
+        # the tile-64 backward's shared memory does not grow with N but for the ids
+        for n, d in ((too_large, HEAD_DIM_2D),) + (((450, HEAD_DIM_FS192),) if what == "window_attention" else ()):
             try:
                 query(n, d, False, False, False, 0)
                 fail(f"{what}'s geometry took a window of {n} tokens at head dim {d}")

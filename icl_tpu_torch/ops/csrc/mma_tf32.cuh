@@ -19,6 +19,12 @@
 //     through a permuted k index (product_cn).
 //   * The additive terms of a logit (bias, + dense mask, or -100 from the
 //     region ids) read from device memory one tile ahead of their use.
+//   * For the tile-64 backward: tiles staged once with cp.async and split
+//     once into hi and lo arrays in shared memory (issue_rows, split_rows),
+//     and the products that read them (product_nt_hilo, product_nt_tiles,
+//     product_cn_tile); for bf16 inputs m16n8k16 bf16 products
+//     (product_nt_bf16, and product_cn_bf16 with P or dS split into bf16 hi
+//     and lo).
 //
 // Fragment layout of m16n8k8 (lane = 4 g + t): A rows g and g + 8 at
 // columns t and t + 4; B column g at rows t and t + 4; C rows g and g + 8
@@ -31,6 +37,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -290,20 +298,15 @@ __device__ __forceinline__ void load_rows(float (&a)[D / 8][4], const T* x, int 
   }
 }
 
-// An A fragment as hi and lo: one held split already, or raw values split
-// here, at each use (fewer registers held, the split repeated).
+// An A fragment as hi and lo, held split already.
 template <bool EXACT>
 __device__ __forceinline__ const FragA& as_split(const FragA& a) {
   return a;
 }
-template <bool EXACT>
-__device__ __forceinline__ FragA as_split(const float (&a)[4]) {
-  return split_a<EXACT>(a[0], a[1], a[2], a[3]);
-}
 
 // acc[16 x 8] = X[r0 .. r0+15] . Y[c0 .. c0+7]^T over D, 3xTF32: the A side
-// in registers (FragA split, or raw float[4] split at each use, as_split),
-// the B side b0 = Y[c0 + g][d + t], b1 = ...[d + t + 4].
+// in registers (FragA, split once), the B side b0 = Y[c0 + g][d + t], b1 =
+// ...[d + t + 4], split here.
 // The two small terms and a_hi.b_hi sum apart: three short chains of
 // dependent MMAs instead of one long one.
 template <int D, bool EXACT, typename A>
@@ -345,6 +348,329 @@ __device__ __forceinline__ void product_cn(float (&out)[D / 8][4], const float (
     float part[4] = {0.f, 0.f, 0.f, 0.f};
     mma3<false, Y_EXACT>(part, a, split_b<Y_EXACT>(y[sidx<D>(2 * t, 8 * nn + g)],
                                                    y[sidx<D>(2 * t + 1, 8 * nn + g)]));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[nn][e] += part[e];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Staged tiles (the tile-64 backward): an operand tile [R][64] at sidx<64>,
+// copied once with cp.async. f32 lands in a hi array and is split there, by
+// the thread that copied it once its own copies landed (cp.async.wait_all
+// and wait_group make them visible to it), into hi = tf32(x) and lo =
+// tf32(x - hi): one __syncthreads then publishes the split tile, and no
+// fragment is split at its use. bf16 stays raw (fill_rows): exact in TF32,
+// and read as bf16 pairs by the m16n8k16 products. Rows past N and columns
+// past d are written as zeros by that pass, so a slot never holds a stale
+// row.
+
+// cp.async of BYTES (4, 8 or 16) into shared memory; `src_bytes` 0 reads
+// nothing and fills the destination with zeros.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes = BYTES) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async copies 4, 8 or 16 bytes");
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src), "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(s), "l"(src), "n"(BYTES), "r"(src_bytes)
+                 : "memory");
+}
+
+// Rows of a [N, d] operand come in whole 4-value chunks where d % 4 == 0 and
+// its row 0 is aligned to a chunk (16 bytes in f32, 8 in bf16); else value
+// by value.
+template <typename T>
+__device__ __forceinline__ bool chunked(const T* x, int d) {
+  return (d & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & (4 * sizeof(T) - 1)) == 0;
+}
+
+// This thread's chunks of a [R][64] tile (R rows): i = threadIdx.x, +
+// blockDim.x, ... over R * 16 chunks, row i / 16, column 4 (i % 16). issue_rows, fill_rows
+// and split_rows walk the same chunks, so the thread that copies a chunk is
+// the one that finishes it.
+//
+// cp.async of the chunks of rows r0 .. r0 + R - 1 of x [N, d] (rows below N,
+// columns below d) into `raw` (T at sidx<64>); nothing where !chunks.
+template <typename T>
+__device__ __forceinline__ void issue_rows(T* raw, const T* x, int r0, int R, int N, int d, bool chunks) {
+  if (!chunks) return;
+  for (int i = threadIdx.x; i < R * 16; i += blockDim.x) {
+    const int r = i >> 4;
+    const int c = (i & 15) << 2;
+    if (r0 + r < N && c < d)
+      cp_async<static_cast<int>(4 * sizeof(T))>(raw + sidx<64>(r, c), x + static_cast<size_t>(r0 + r) * d + c);
+  }
+}
+
+// The four values of chunk (r, c) of such a tile as f32: from `raw` where it
+// was copied, from x value by value where !chunks, 0 past N and d.
+__device__ __forceinline__ void raw_chunk(float (&v)[4], const float* raw, int at) {
+  const float4 x = *reinterpret_cast<const float4*>(raw + at);
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+}
+__device__ __forceinline__ void raw_chunk(float (&v)[4], const __nv_bfloat16* raw, int at) {
+  const uint2 x = *reinterpret_cast<const uint2*>(raw + at);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+}
+
+template <typename T>
+__device__ __forceinline__ void chunk_values(float (&v)[4], const T* raw, const T* x, int row, int r, int c,
+                                             int N, int d, bool chunks) {
+  v[0] = v[1] = v[2] = v[3] = 0.f;
+  if (row >= N || c >= d) return;
+  if (chunks) {
+    raw_chunk(v, raw, sidx<64>(r, c));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c + e < d) v[e] = to_float(x[static_cast<size_t>(row) * d + c + e]);
+  }
+}
+
+// Finish a raw tile kept raw (its fragments are split once in registers):
+// the chunks issue_rows did not copy, value by value or zero.
+template <typename T>
+__device__ __forceinline__ void fill_rows(T* raw, const T* x, int r0, int R, int N, int d, bool chunks) {
+  for (int i = threadIdx.x; i < R * 16; i += blockDim.x) {
+    const int r = i >> 4;
+    const int c = (i & 15) << 2;
+    if (chunks && r0 + r < N && c < d) continue;  // copied
+    float v[4];
+    chunk_values(v, raw, x, r0 + r, r, c, N, d, chunks);
+    T* at = raw + sidx<64>(r, c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) store1<T>(at + e, v[e]);
+  }
+}
+
+// Finish a pre-split tile: this thread's chunks as hi (and lo unless the
+// type is bf16, exact in TF32) at sidx<64>. For f32 `raw` is `hi` itself.
+template <typename T>
+__device__ __forceinline__ void split_rows(float* hi, float* lo, const T* raw, const T* x, int r0, int R, int N,
+                                           int d, bool chunks) {
+  constexpr bool kExact = !std::is_same<T, float>::value;
+  for (int i = threadIdx.x; i < R * 16; i += blockDim.x) {
+    const int r = i >> 4;
+    const int c = (i & 15) << 2;
+    float v[4];
+    chunk_values(v, raw, x, r0 + r, r, c, N, d, chunks);
+    const int at = sidx<64>(r, c);
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split<kExact>(v[e], h[e], l[e]);
+    *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
+    if (!kExact) *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// The A fragments of rows r0 .. r0 + 15 (r0 a multiple of 8) of a raw tile
+// [*][64], split once: the hi halves into registers and the lo halves
+// (unless EXACT) into `lo` at the tile's own places: `lo` may be the raw tile itself, each
+// lane writing only the values it read.
+template <typename T, bool EXACT>
+__device__ __forceinline__ void load_frags_hi(uint32_t (&hi)[8][4], float* lo, const T* raw, int r0, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int at[4] = {sidx<64>(r0 + g, 8 * kk + t), sidx<64>(r0 + g + 8, 8 * kk + t), sidx<64>(r0 + g, 8 * kk + t + 4),
+                       sidx<64>(r0 + g + 8, 8 * kk + t + 4)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t l;
+      split<EXACT>(to_float(raw[at[e]]), hi[kk][e], l);
+      if (!EXACT) lo[at[e]] = __uint_as_float(l);
+    }
+  }
+  __syncwarp();
+}
+
+// The lo halves of the A fragment of rows r0 .. r0 + 15 at columns 8 kk ..
+// 8 kk + 7 of a pre-split tile (0 when EXACT).
+template <bool EXACT>
+__device__ __forceinline__ void frag_lo(uint32_t (&lo)[4], const float* xlo, int r0, int kk, int g, int t) {
+  const int at[4] = {sidx<64>(r0 + g, 8 * kk + t), sidx<64>(r0 + g + 8, 8 * kk + t), sidx<64>(r0 + g, 8 * kk + t + 4),
+                     sidx<64>(r0 + g + 8, 8 * kk + t + 4)};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) lo[e] = EXACT ? 0u : __float_as_uint(xlo[at[e]]);
+}
+
+// The A fragment of rows r0 .. r0 + 15 at columns 8 kk .. 8 kk + 7 of a
+// pre-split tile.
+template <bool EXACT>
+__device__ __forceinline__ FragA frag_a(const float* xhi, const float* xlo, int r0, int kk, int g, int t) {
+  FragA a;
+  const int at[4] = {sidx<64>(r0 + g, 8 * kk + t), sidx<64>(r0 + g + 8, 8 * kk + t), sidx<64>(r0 + g, 8 * kk + t + 4),
+                     sidx<64>(r0 + g + 8, 8 * kk + t + 4)};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    a.hi[e] = __float_as_uint(xhi[at[e]]);
+    a.lo[e] = EXACT ? 0u : __float_as_uint(xlo[at[e]]);
+  }
+  return a;
+}
+
+// acc[nt] += A . Y[c0 + 8 nt .. c0 + 8 nt + 7]^T over columns 8 kk .. 8 kk +
+// 7, Y pre-split: b0 = Y[c0 + 8 nt + g][8 kk + t], b1 = ...[8 kk + t + 4].
+// 3xTF32 into the one accumulator, the small terms first (as CUTLASS's
+// 3xTF32 GEMMs sum them; a chain of their own measured no faster on the
+// tile-64 backward and cost registers).
+template <int NT, bool EXACT>
+__device__ __forceinline__ void mma_nt_step(float (&acc)[NT][4], const FragA& a, const float* yhi, const float* ylo,
+                                            int c0, int kk, int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int at0 = sidx<64>(c0 + 8 * nt + g, 8 * kk + t);
+    const int at1 = sidx<64>(c0 + 8 * nt + g, 8 * kk + t + 4);
+    const uint32_t bh[2] = {__float_as_uint(yhi[at0]), __float_as_uint(yhi[at1])};
+    if (!EXACT) {
+      const uint32_t bl[2] = {__float_as_uint(ylo[at0]), __float_as_uint(ylo[at1])};
+      mma(acc[nt], a.lo, bh);
+      mma(acc[nt], a.hi, bl);
+    }
+    mma(acc[nt], a.hi, bh);
+  }
+}
+
+// acc[NT][16 x 8] = X . Y^T over 64 columns, X's rows x0 .. x0 + 15 with
+// their hi halves in registers (load_frags_hi) and their lo halves in the
+// pre-split tile xlo, Y's rows c0 .. c0 + 8 NT - 1 pre-split.
+template <int NT, bool EXACT>
+__device__ __forceinline__ void product_nt_hilo(float (&acc)[NT][4], const uint32_t (&xh)[8][4], const float* xlo,
+                                                int x0, const float* yhi, const float* ylo, int c0, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    FragA a;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a.hi[e] = xh[kk][e];
+    frag_lo<EXACT>(a.lo, xlo, x0, kk, g, t);
+    mma_nt_step<NT, EXACT>(acc, a, yhi, ylo, c0, kk, g, t);
+  }
+}
+
+// The same with X's rows x0 .. x0 + 15 read from a pre-split tile.
+template <int NT, bool EXACT>
+__device__ __forceinline__ void product_nt_tiles(float (&acc)[NT][4], const float* xhi, const float* xlo, int x0,
+                                                 const float* yhi, const float* ylo, int c0, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) mma_nt_step<NT, EXACT>(acc, frag_a<EXACT>(xhi, xlo, x0, kk, g, t), yhi, ylo, c0, kk, g, t);
+}
+
+// bf16 x bf16 products, exact in f32, as mma.sync m16n8k16: the work of
+// two m16n8k8 TF32 products in one. Fragments (lane = 4 g + t): A rows g
+// and g + 8 at columns (2t, 2t + 1) and (2t + 8, 2t + 9), two bf16 a
+// register; B column g at rows (2t, 2t + 1) and (2t + 8, 2t + 9); C as
+// m16n8k8's.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two adjacent bf16 of a tile at sidx<64>(row, col), col even: one word.
+__device__ __forceinline__ uint32_t bf16_pair(const __nv_bfloat16* x, int row, int col) {
+  return *reinterpret_cast<const uint32_t*>(x + sidx<64>(row, col));
+}
+
+// The m16n8k16 A fragment of rows r0 .. r0 + 15 (r0 a multiple of 8) at
+// columns 16 kk .. 16 kk + 15 of a bf16 tile [*][64].
+__device__ __forceinline__ void frag_bf16(uint32_t (&a)[4], const __nv_bfloat16* x, int r0, int kk, int g, int t) {
+  a[0] = bf16_pair(x, r0 + g, 16 * kk + 2 * t);
+  a[1] = bf16_pair(x, r0 + g + 8, 16 * kk + 2 * t);
+  a[2] = bf16_pair(x, r0 + g, 16 * kk + 2 * t + 8);
+  a[3] = bf16_pair(x, r0 + g + 8, 16 * kk + 2 * t + 8);
+}
+
+// acc[NT][16 x 8] += X . Y^T over 64 columns in m16n8k16 bf16 products: X's
+// rows x0 .. x0 + 15 as A fragments held in registers (xa, frag_bf16 at kk
+// = 0 .. 3) or read from a bf16 tile (x), Y's rows c0 .. c0 + 8 NT - 1 a
+// bf16 tile.
+template <int NT>
+__device__ __forceinline__ void mma_nt_bf16_step(float (&acc)[NT][4], const uint32_t (&a)[4], const __nv_bfloat16* y,
+                                                 int c0, int kk, int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const uint32_t b[2] = {bf16_pair(y, c0 + 8 * nt + g, 16 * kk + 2 * t), bf16_pair(y, c0 + 8 * nt + g, 16 * kk + 2 * t + 8)};
+    mma_bf16(acc[nt], a, b);
+  }
+}
+template <int NT>
+__device__ __forceinline__ void product_nt_bf16(float (&acc)[NT][4], const uint32_t (&xa)[4][4],
+                                                const __nv_bfloat16* y, int c0, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma_nt_bf16_step<NT>(acc, xa[kk], y, c0, kk, g, t);
+}
+template <int NT>
+__device__ __forceinline__ void product_nt_bf16(float (&acc)[NT][4], const __nv_bfloat16* x, int x0,
+                                                const __nv_bfloat16* y, int c0, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4];
+    frag_bf16(a, x, x0, kk, g, t);
+    mma_nt_bf16_step<NT>(acc, a, y, c0, kk, g, t);
+  }
+}
+
+// x as bf16 hi + lo (16 mantissa bits), for the A side of a bf16 product.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Two bf16 of rows r and r + 1 at column c of a bf16 tile, as one word.
+__device__ __forceinline__ uint32_t bf16_rows(const __nv_bfloat16* y, int r, int c) {
+  const uint32_t a = *reinterpret_cast<const uint16_t*>(y + sidx<64>(r, c));
+  const uint32_t b = *reinterpret_cast<const uint16_t*>(y + sidx<64>(r + 1, c));
+  return a | (b << 16);
+}
+
+// out[16 x 64] += C . Y[r0 .. r0 + 15] over 16 k in m16n8k16 bf16 products,
+// Y a bf16 tile: the C fragments c0 and c1 of two 16 x 8 tiles (k 0 .. 7 and
+// 8 .. 15) are the A fragment, split into bf16 hi and lo (P and dS are not
+// bf16); b0 = Y[r0 + 2t, r0 + 2t + 1][8 nn + g], b1 = the same 8 rows on.
+// Each 16-term product starts from zero and is added to `out` in f32.
+__device__ __forceinline__ void product_cn_bf16(float (&out)[8][4], const float (&c0)[4], const float (&c1)[4],
+                                                const __nv_bfloat16* y, int r0, int g, int t) {
+  uint32_t hi[4], lo[4];
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn) {
+    const uint32_t b[2] = {bf16_rows(y, r0 + 2 * t, 8 * nn + g), bf16_rows(y, r0 + 2 * t + 8, 8 * nn + g)};
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_bf16(part, lo, b);
+    mma_bf16(part, hi, b);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[nn][e] += part[e];
+  }
+}
+
+// out[16 x 64] += C . Y[r0 .. r0 + 7] with Y a pre-split tile: product_cn's
+// permuted k (C the C fragment of a 16 x 8 tile, split here: P and dS are
+// not TF32), b0 = Y[r0 + 2t][8 nn + g], b1 = Y[r0 + 2t + 1][8 nn + g]. Each
+// 8-term product starts from zero and is added to `out` in f32.
+template <bool Y_EXACT>
+__device__ __forceinline__ void product_cn_tile(float (&out)[8][4], const float (&c)[4], const float* yhi,
+                                                const float* ylo, int r0, int g, int t) {
+  const FragA a = split_a<false>(c[0], c[2], c[1], c[3]);
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn) {
+    const int at0 = sidx<64>(r0 + 2 * t, 8 * nn + g);
+    const int at1 = sidx<64>(r0 + 2 * t + 1, 8 * nn + g);
+    FragB b;
+    b.hi[0] = __float_as_uint(yhi[at0]);
+    b.hi[1] = __float_as_uint(yhi[at1]);
+    b.lo[0] = Y_EXACT ? 0u : __float_as_uint(ylo[at0]);
+    b.lo[1] = Y_EXACT ? 0u : __float_as_uint(ylo[at1]);
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+    mma3<false, Y_EXACT>(part, a, b);
 #pragma unroll
     for (int e = 0; e < 4; ++e) out[nn][e] += part[e];
   }

@@ -77,6 +77,14 @@
 //     64 the runtime-d instance is 16-25% slower at head dim 64 in REGION
 //     and MASK (f32 and bf16), so it keeps its FULL instance too (PERF.md).
 //     The backward has no such fork: its runtime-d instance is as fast.
+//   * The row log-sum-exp, lse = m + log l of the online softmax (f32 [B,
+//     H, N]), is stored at tile 64 where the caller passes a buffer for it:
+//     the tile-64 backward takes P = e^(s - lse) from it instead of a sweep
+//     over the keys. The wrapper passes one only when the output needs a
+//     gradient. The store is an instance of its own (LSE): with it merely
+//     compiled into every instance, the forward ran 2-4% slower at tiles 16
+//     and 32 and 6-8% in bf16 at tile 64 (PERF.md), so every instance
+//     without it is the code it was.
 //   * The warps and the shared memory are chosen here from N and D;
 //     icl_window_attention_fwd_geometry reports them with the resident CTAs
 //     an SM, from which the caller sizes the grid. Every output element has
@@ -118,12 +126,12 @@ __host__ __device__ inline int buffers(int N, int DT) {
   return DT < 64 || 2 * buffer_floats(N, DT) * static_cast<int>(sizeof(float)) <= kMaxSmemBytes ? 2 : 1;
 }
 
-template <typename T, int DT, int MODE, bool FULL>
+template <typename T, int DT, int MODE, bool FULL, bool LSE>
 __global__ void __launch_bounds__(kMaxWarps * 32, min_ctas(DT))
 window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         const float* __restrict__ bias, const float* __restrict__ region_ids,
-                        const float* __restrict__ mask, T* __restrict__ out, int B, int H, int N,
-                        int d_in, int nW, int windows_per_cta, float scale) {
+                        const float* __restrict__ mask, T* __restrict__ out, float* __restrict__ lse, int B,
+                        int H, int N, int d_in, int nW, int windows_per_cta, float scale) {
   const int d = FULL ? DT : d_in;  // the tile's own head dim: the compiler folds d
   constexpr bool kExact = std::is_same<T, __nv_bfloat16>::value;  // bf16 is exact in TF32
   constexpr int KD = DT / 8;
@@ -239,6 +247,8 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
 #pragma unroll
         for (int nn = 0; nn < KD; ++nn)
           store_cols<T>(o, 8 * nn + 2 * t, d, acc[nn][2 * r] * inv, acc[nn][2 * r + 1] * inv);
+        // l is relative to m, the row's max, finite at a real row
+        if (LSE && t == 0) lse[(static_cast<size_t>(b) * H + h) * N + rows[r]] = m[r] + __logf(l[r]);
       }
     }
     __syncthreads();  // every warp is done with buffer `cur` before it is staged again
@@ -253,10 +263,10 @@ size_t smem_bytes(int N, int DT) {
 
 int cta_warps(int N) { return tile_warps(N, kMaxWarps); }
 
-template <typename T, int DT, int MODE, bool FULL>
+template <typename T, int DT, int MODE, bool FULL, bool LSE = false>
 cudaError_t prepare(size_t smem) {
-  return cudaFuncSetAttribute(window_attention_kernel<T, DT, MODE, FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  return cudaFuncSetAttribute(window_attention_kernel<T, DT, MODE, FULL, LSE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
 }
 
 // CTAs that fit one SM, from the compiled kernel's registers and the
@@ -274,7 +284,7 @@ cudaError_t occupancy(int N, int* ctas) {
   }
   err = prepare<T, DT, MODE, FULL>(smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, window_attention_kernel<T, DT, MODE, FULL>,
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, window_attention_kernel<T, DT, MODE, FULL, false>,
                                                        cta_warps(N) * 32, smem);
 }
 
@@ -297,36 +307,45 @@ struct Args {
   const void *q, *k, *v;
   const float *bias, *region_ids, *mask;
   void* out;
+  float* lse;
   int B, H, N, d, nW, windows_per_cta;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename T, int DT, int MODE, bool FULL>
+template <typename T, int DT, int MODE, bool FULL, bool LSE>
 cudaError_t launch(const Args& a) {
   const size_t smem = smem_bytes(a.N, DT);
-  cudaError_t err = prepare<T, DT, MODE, FULL>(smem);
+  cudaError_t err = prepare<T, DT, MODE, FULL, LSE>(smem);
   if (err != cudaSuccess) return err;
   const int groups = (a.B + a.windows_per_cta - 1) / a.windows_per_cta;
-  window_attention_kernel<T, DT, MODE, FULL><<<dim3(groups, a.H), cta_warps(a.N) * 32, smem, a.stream>>>(
+  window_attention_kernel<T, DT, MODE, FULL, LSE><<<dim3(groups, a.H), cta_warps(a.N) * 32, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.bias, a.region_ids,
-      a.mask, static_cast<T*>(a.out), a.B, a.H, a.N, a.d, a.nW, a.windows_per_cta, a.scale);
+      a.mask, static_cast<T*>(a.out), a.lse, a.B, a.H, a.N, a.d, a.nW, a.windows_per_cta, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int DT, bool FULL>
+template <typename T, int DT, bool FULL, bool LSE>
 cudaError_t launch_mode(const Args& a) {
-  if (a.region_ids != nullptr) return launch<T, DT, kRegion, FULL>(a);
-  if (a.mask != nullptr) return launch<T, DT, kMask, FULL>(a);
-  return launch<T, DT, kNone, FULL>(a);
+  if (a.region_ids != nullptr) return launch<T, DT, kRegion, FULL, LSE>(a);
+  if (a.mask != nullptr) return launch<T, DT, kMask, FULL, LSE>(a);
+  return launch<T, DT, kNone, FULL, LSE>(a);
+}
+
+template <int DT, bool LSE>
+cudaError_t launch_lse(const Args& a, int is_bf16) {
+  if (a.d == DT) return is_bf16 ? launch_mode<__nv_bfloat16, DT, true, LSE>(a) : launch_mode<float, DT, true, LSE>(a);
+  return is_bf16 ? launch_mode<__nv_bfloat16, DT, false, LSE>(a) : launch_mode<float, DT, false, LSE>(a);
 }
 
 // The tile's own head dim runs the FULL instance (d folded to DT), any
-// smaller one the instance that reads d at run time.
+// smaller one the instance that reads d at run time; at tile 64 an
+// instance that also stores the row log-sum-exp where `lse` is set.
 template <int DT>
 cudaError_t launch_type(const Args& a, int is_bf16) {
-  if (a.d == DT) return is_bf16 ? launch_mode<__nv_bfloat16, DT, true>(a) : launch_mode<float, DT, true>(a);
-  return is_bf16 ? launch_mode<__nv_bfloat16, DT, false>(a) : launch_mode<float, DT, false>(a);
+  if (a.lse == nullptr) return launch_lse<DT, false>(a, is_bf16);
+  if constexpr (DT == 64) return launch_lse<DT, true>(a, is_bf16);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -335,7 +354,8 @@ extern "C" {
 
 // Returns a cudaError_t: 0 when the launch was accepted. `region_ids` set
 // selects REGION, else `mask` set selects MASK, else NONE (at most one of
-// the two is set). `is_bf16` selects the input type. The head dim D is any
+// the two is set). `lse`, where set, receives the row log-sum-exp [B, H, N]
+// f32 of the scaled logits; head dims 33 .. 64 only (tile 64). `is_bf16` selects the input type. The head dim D is any
 // of 1 .. 64 (SwinUNETR: feature size / 3, 16 at fs48, 8 at fs24, 64 at
 // fs192; Swin-UNet 2D, embed 96: 32); D <= 16 runs the tile-16 instance,
 // D <= 32 the tile-32 one, D <= 64 the tile-64 one (head_dim_tile). A CTA
@@ -343,13 +363,13 @@ extern "C" {
 // its width and shared memory are those icl_window_attention_fwd_geometry
 // reports.
 int icl_window_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
-                             const void* region_ids, const void* mask, void* out, int B, int H,
-                             int N, int D, int nW, int windows_per_cta, float scale, int is_bf16,
+                             const void* region_ids, const void* mask, void* out, void* lse, int B,
+                             int H, int N, int D, int nW, int windows_per_cta, float scale, int is_bf16,
                              void* stream) {
   if (windows_per_cta < 1 || N < 1) return cudaErrorInvalidValue;
   const Args a{q, k, v,
                static_cast<const float*>(bias), static_cast<const float*>(region_ids),
-               static_cast<const float*>(mask), out,
+               static_cast<const float*>(mask), out, static_cast<float*>(lse),
                B, H, N, D, nW, windows_per_cta, scale, static_cast<cudaStream_t>(stream)};
   const int tile = head_dim_tile(D);
   if (tile == 16) return launch_type<16>(a, is_bf16);

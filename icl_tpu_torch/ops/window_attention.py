@@ -13,11 +13,16 @@ exclusive, as in `window_attention_fused`. Layout is that of
 `window_attention_fused`: q, k, v [B*nW, H, N, D], bias [H, N, N].
 
 `window_attention` is differentiable through `WindowAttentionFn`, which
-saves its inputs (as `_fused_attention_fwd` does) and recomputes the
-softmax in the backward. On CUDA tensors the forward launches
-`csrc/window_attention.cu` and the backward `csrc/window_attention_bwd.cu`;
-on CPU tensors they run `window_attention_plain` and
-`window_attention_plain_bwd`. Each kernel chooses its CTA's warps and
+saves its inputs (as `_fused_attention_fwd` does) and, at head dims above
+32, also its output and the forward's row log-sum-exp: the backward then
+takes the softmax from them (`window_attention_plain_bwd_lse` is its
+arithmetic) where at 32 and below it recomputes the softmax's statistics.
+On CUDA tensors the forward launches `csrc/window_attention.cu` and the
+backward `csrc/window_attention_bwd.cu` (at head dims above 32 its tile-64
+kernels, which need the saved output and log-sum-exp); on CPU tensors they
+run `window_attention_plain` and `window_attention_plain_bwd` (or
+`window_attention_plain_bwd_lse` where the output and log-sum-exp are
+given). Each kernel chooses its CTA's warps and
 shared memory and reports them with its resident CTAs per SM
 (`_fwd_geometry`, `_bwd_geometry`); `_window_groups` sizes both grids.
 Each launch adds its FLOPs to any count in progress (`utils.flops`):
@@ -51,6 +56,8 @@ from icl_tpu_torch.utils.flops import add_kernel_flops
 
 MAX_HEAD_DIM = 64  # the largest head dim the kernels take
 HEAD_DIM_TILES = (16, 32, 64)  # the kernels' compiled tiles: the width D is staged at
+SAVED_LSE_ABOVE = 32  # head dims above this: the backward takes the forward's output and lse
+_BLOCK64 = 64  # rows of the tile-64 backward's dQ CTA (and keys of its dK/dV CTA)
 _MAX_SMEM_BYTES = 232_448  # per CTA on Hopper
 _CHUNK_BYTES = 32 << 20  # the plain backward's score chunk (the JAX backward's rule)
 
@@ -74,10 +81,12 @@ def _mode(region_ids, mask) -> str:
     return "region" if region_ids is not None else "mask" if mask is not None else "none"
 
 
-def window_attention_plain(q, k, v, bias, region_ids=None, mask=None, *, scale: float):
+def window_attention_plain(q, k, v, bias, region_ids=None, mask=None, *, scale: float,
+                           return_lse: bool = False):
     """Plain PyTorch version: einsum, + bias, + mask (from ids or dense),
     softmax, einsum. f32 arithmetic (f64 for f64 inputs), output in the
-    dtype of q."""
+    dtype of q; with `return_lse` also the row log-sum-exp of the logits
+    [B, H, N] in that arithmetic's dtype."""
     B, H, N, _ = q.shape
     ct = _compute_dtype(q)
     s = torch.einsum("bhnd,bhmd->bhnm", q.to(ct), k.to(ct)) * scale
@@ -88,7 +97,8 @@ def window_attention_plain(q, k, v, bias, region_ids=None, mask=None, *, scale: 
         nW = mask.shape[0]
         s = (s.view(B // nW, nW, H, N, N) + mask.to(ct)[None, :, None]).view(B, H, N, N)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhnm,bhmd->bhnd", p, v.to(ct)).to(q.dtype)
+    out = torch.einsum("bhnm,bhmd->bhnd", p, v.to(ct)).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
 def _chunk_scores(qc, kc, bias, region_ids, mask, b0: int, scale: float) -> torch.Tensor:
@@ -125,6 +135,36 @@ def window_attention_plain_bwd(q, k, v, bias, region_ids, dout, *, scale: float,
         dv[sl] = torch.einsum("bhnm,bhnd->bhmd", p, gc).to(q.dtype)
         dp = torch.einsum("bhnd,bhmd->bhnm", gc, vc)
         ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        dq[sl] = (torch.einsum("bhnm,bhmd->bhnd", ds, kc) * scale).to(q.dtype)
+        dk[sl] = (torch.einsum("bhnm,bhnd->bhmd", ds, qc) * scale).to(q.dtype)
+        dbias += ds.sum(0)
+    return dq, dk, dv, dbias
+
+
+def window_attention_plain_bwd_lse(q, k, v, bias, region_ids, out, lse, dout, *, scale: float,
+                                   mask=None):
+    """Plain PyTorch version of the tile-64 backward kernel's arithmetic:
+    the softmax from the forward's row log-sum-exp, p = exp(s - lse), and
+    u = rowsum(dout * out) from its output, in place of a softmax and
+    rowsum(dp * p) recomputed from the scores; then ds = p * (dp - u) and
+    the gradients as `window_attention_plain_bwd` forms them, over the same
+    chunks of windows. An output rounded to bf16 would move u (and every
+    ds, dbias by about 2e-3 of its size), so there, as in the kernel, u is
+    rowsum(p * dp) in f32. Returns (dq, dk, dv in the dtype of q, dbias in
+    f32, or f64 for f64 inputs)."""
+    B, H, N, _ = q.shape
+    ct = _compute_dtype(q)
+    chunk = max(1, min(B, _CHUNK_BYTES // max(1, H * N * N * 4)))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dbias = torch.zeros((H, N, N), dtype=ct, device=q.device)
+    for b0 in range(0, B, chunk):
+        sl = slice(b0, b0 + chunk)
+        qc, kc, vc, gc, oc = (t[sl].to(ct) for t in (q, k, v, dout, out))
+        p = torch.exp(_chunk_scores(qc, kc, bias, region_ids, mask, b0, scale) - lse[sl].to(ct)[..., None])
+        dv[sl] = torch.einsum("bhnm,bhnd->bhmd", p, gc).to(q.dtype)
+        dp = torch.einsum("bhnd,bhmd->bhnm", gc, vc)
+        u = (gc * oc).sum(-1, keepdim=True) if out.dtype == ct else (p * dp).sum(-1, keepdim=True)
+        ds = p * (dp - u)
         dq[sl] = (torch.einsum("bhnm,bhmd->bhnd", ds, kc) * scale).to(q.dtype)
         dk[sl] = (torch.einsum("bhnm,bhnd->bhmd", ds, qc) * scale).to(q.dtype)
         dbias += ds.sum(0)
@@ -207,12 +247,14 @@ def _windows(B, region_ids, mask) -> int:
     return B if t is None else t.shape[0]
 
 
-def _window_groups(B: int, H: int, slots: int) -> tuple[int, int]:
+def _window_groups(B: int, H: int, slots: int, whole_wave: bool = False) -> tuple[int, int]:
     """(windows per CTA, number of window groups) of either kernel: the
     (group, head) grid fills the card's `slots` resident CTAs (CTAs per
     SM, from the compiled kernel's registers and the window's shared
-    memory, times the SMs) once, every group non-empty."""
-    groups = max(1, min(B, -(-slots // H)))
+    memory, times the SMs) once, every group non-empty. `whole_wave`
+    (the tile-64 backward's dQ kernel, whose `H` counts its CTAs of a
+    group: heads times 64-row blocks) keeps the grid within one wave."""
+    groups = max(1, min(B, slots // H if whole_wave else -(-slots // H)))
     per_cta = -(-B // groups)
     return per_cta, -(-B // per_cta)
 
@@ -262,6 +304,8 @@ def _cached_grid(geometry, B: int, H: int, N: int, D: int, has_ids: bool, has_ma
                  bf16: bool, device: int) -> tuple[int, int]:
     _, _, ctas = geometry(N, D, has_ids, has_mask, bf16, device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if geometry is _bwd_geometry and head_dim_tile(D) == 64:  # the dQ kernel's grid
+        return _window_groups(B, H * -(-N // _BLOCK64), ctas * sms, whole_wave=True)
     return _window_groups(B, H, ctas * sms)
 
 
@@ -274,23 +318,33 @@ def _grid(geometry, q, region_ids, mask) -> tuple[int, int]:
                         q.dtype == torch.bfloat16, q.device.index)
 
 
-def window_attention_fwd(q, k, v, bias, region_ids=None, mask=None, *, scale: float):
+def window_attention_fwd(q, k, v, bias, region_ids=None, mask=None, *, scale: float,
+                         return_lse: bool = False):
     """The forward alone, without autograd: the kernel on CUDA tensors
-    (built on first use), `window_attention_plain` on CPU tensors."""
+    (built on first use), `window_attention_plain` on CPU tensors. With
+    `return_lse` also the row log-sum-exp [B, H, N] f32 (f64 for f64 CPU
+    inputs), which the kernel stores beside its output at head dims above
+    `SAVED_LSE_ABOVE` (on CUDA tensors a smaller head dim raises)."""
     mode = _mode(region_ids, mask)
     if _device_of(q) == "cpu":
+        if return_lse:
+            return window_attention_plain(q, k, v, bias, region_ids, mask, scale=scale, return_lse=True)
         return window_attention_plain(q, k, v, bias, region_ids, mask, scale=scale)
     _check(q, k, v, bias, region_ids, mask)
+    B, H, N, D = q.shape
+    if return_lse and D <= SAVED_LSE_ABOVE:
+        raise ValueError(f"window_attention_fwd: head dim {D}: the kernel stores the log-sum-exp at head dims "
+                         f"above {SAVED_LSE_ABOVE} only (the tile-64 backward's)")
     from icl_tpu_torch.ops.build import load_window_attention
 
     lib = load_window_attention()
-    B, H, N, D = q.shape
     per_cta, _ = _grid(_fwd_geometry, q, region_ids, mask)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         err = lib.icl_window_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _ptr(region_ids),
-            _ptr(mask), out.data_ptr(), B, H, N, D, _windows(B, region_ids, mask), per_cta,
+            _ptr(mask), out.data_ptr(), _ptr(lse), B, H, N, D, _windows(B, region_ids, mask), per_cta,
             float(scale), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -298,31 +352,65 @@ def window_attention_fwd(q, k, v, bias, region_ids=None, mask=None, *, scale: fl
     add_kernel_flops(4.0 * B * H * N * N * D)
     window_attention.launches += 1
     window_attention.launches_by_mode[mode] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=None):
+def _check_saved(q, out, lse) -> None:
+    """The forward's output and row log-sum-exp, as the tile-64 backward
+    kernel takes them."""
+    if out is None or lse is None:
+        raise ValueError(f"window_attention_bwd: head dim {q.shape[-1]} runs the tile-64 backward, which "
+                         "takes the forward's out and lse (window_attention_fwd(..., return_lse=True))")
+    B, H, N, _ = q.shape
+    if out.shape != q.shape or out.dtype != q.dtype or lse.shape != (B, H, N) or lse.dtype != torch.float32:
+        raise ValueError(f"window_attention_bwd: out {tuple(out.shape)} {out.dtype}, lse {tuple(lse.shape)} "
+                         f"{lse.dtype}, want {tuple(q.shape)} {q.dtype} and ({B}, {H}, {N}) float32")
+    if out.device != q.device or lse.device != q.device or not (out.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("window_attention_bwd: out and lse must be contiguous on q's device")
+
+
+def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=None, out=None,
+                         lse=None):
     """(dq, dk, dv, dbias) of the fused attention: the backward kernel on
-    CUDA tensors (built on first use), `window_attention_plain_bwd` on
-    CPU tensors. dbias is f32; the rest keep the dtype of q."""
+    CUDA tensors (built on first use); on CPU tensors
+    `window_attention_plain_bwd_lse` where the forward's `out` and `lse`
+    are given, else `window_attention_plain_bwd`. At head dims above 32 the
+    kernel is the tile-64 one, which needs `out` and `lse` (from
+    `window_attention_fwd(..., return_lse=True)`) and raises without them;
+    at 32 and below it recomputes the softmax and leaves them unread. dbias
+    is f32; the rest keep the dtype of q."""
     mode = _mode(region_ids, mask)
     if _device_of(q) == "cpu":
+        if lse is not None:
+            return window_attention_plain_bwd_lse(q, k, v, bias, region_ids, out, lse, dout, scale=scale,
+                                                  mask=mask)
         return window_attention_plain_bwd(q, k, v, bias, region_ids, dout, scale=scale, mask=mask)
     _check(q, k, v, bias, region_ids, mask, dout)
+    B, H, N, D = q.shape
+    tile64 = head_dim_tile(D) == 64
+    if tile64:
+        _check_saved(q, out, lse)
     from icl_tpu_torch.ops.build import load_window_attention_bwd
 
     lib = load_window_attention_bwd()
-    B, H, N, D = q.shape
     per_cta, groups = _grid(_bwd_geometry, q, region_ids, mask)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
-    part = torch.empty((groups, H, N, N), dtype=torch.float32, device=q.device)
+    Np = -(-N // 16) * 16
+    # the dbias partial of each window group; tile 64 keeps its rows Np apart
+    part = torch.empty((groups, H, N, Np if tile64 else N), dtype=torch.float32, device=q.device)
+    delta = terms = None
+    if tile64:  # rowsum(dO o O), and bias (+ each window's mask) in rows Np apart
+        delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+        planes = mask.shape[0] if mask is not None else 1
+        terms = torch.empty((planes, H, Np, Np), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.icl_window_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            _ptr(out) if tile64 else None, _ptr(lse) if tile64 else None, bias.data_ptr(),
             _ptr(region_ids), _ptr(mask), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            part.data_ptr(), dbias.data_ptr(), B, H, N, D, _windows(B, region_ids, mask), per_cta,
-            float(scale), int(q.dtype == torch.bfloat16),
+            _ptr(delta), _ptr(terms), part.data_ptr(), dbias.data_ptr(), B, H, N, D,
+            _windows(B, region_ids, mask), per_cta, float(scale), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, lib, "window_attention_bwd")
@@ -334,27 +422,36 @@ def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=
 
 class WindowAttentionFn(torch.autograd.Function):
     """The fused op under autograd (`_fused_attention`, a custom_vjp in the
-    JAX package): saves q, k, v, bias and the region ids or the mask; its
-    backward returns dq, dk, dv, dbias, and None for the ids and the mask,
-    which is torch's spelling of the zero gradients the JAX backward
-    returns for them (:346-347). Both directions run with autocast off, so
-    the plain versions keep their f32 math."""
+    JAX package): saves q, k, v, bias and the region ids or the mask, and,
+    at head dims above `SAVED_LSE_ABOVE` when a gradient will be asked for
+    (`for_grad`: grad mode on and an input that requires one), its output
+    and row log-sum-exp for the tile-64 backward; its backward
+    returns dq, dk, dv, dbias, and None for the ids and the mask, which is
+    torch's spelling of the zero gradients the JAX backward returns for
+    them (:346-347). Both directions run with autocast off, so the plain
+    versions keep their f32 math."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, region_ids, mask, scale):
-        ctx.save_for_backward(q, k, v, bias, region_ids, mask)
+    def forward(ctx, q, k, v, bias, region_ids, mask, scale, for_grad):
         ctx.scale = scale
+        save_lse = for_grad and q.shape[-1] > SAVED_LSE_ABOVE
         with torch.autocast(q.device.type, enabled=False):
-            return window_attention_fwd(q, k, v, bias, region_ids, mask, scale=scale)
+            if save_lse:
+                out, lse = window_attention_fwd(q, k, v, bias, region_ids, mask, scale=scale,
+                                                return_lse=True)
+            else:
+                out, lse = window_attention_fwd(q, k, v, bias, region_ids, mask, scale=scale), None
+        ctx.save_for_backward(q, k, v, bias, region_ids, mask, out if save_lse else None, lse)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, bias, region_ids, mask = ctx.saved_tensors
+        q, k, v, bias, region_ids, mask, out, lse = ctx.saved_tensors
         with torch.autocast(q.device.type, enabled=False):
             dq, dk, dv, dbias = window_attention_bwd(
                 q, k, v, bias, region_ids, dout.contiguous().to(q.dtype), scale=ctx.scale,
-                mask=mask)
-        return dq, dk, dv, dbias, None, None, None
+                mask=mask, out=out, lse=lse)
+        return dq, dk, dv, dbias, None, None, None, None
 
 
 def window_attention(q, k, v, bias, region_ids=None, mask=None, *, scale: float):
@@ -363,7 +460,9 @@ def window_attention(q, k, v, bias, region_ids=None, mask=None, *, scale: float)
     `region_ids` and `mask` are mutually exclusive."""
     _device_of(q)
     _mode(region_ids, mask)
-    return WindowAttentionFn.apply(q, k, v, bias, region_ids, mask, float(scale))
+    # a gradient will be asked for (the forward runs under no_grad inside the Function)
+    for_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias))
+    return WindowAttentionFn.apply(q, k, v, bias, region_ids, mask, float(scale), for_grad)
 
 
 def reset_launch_counts() -> None:

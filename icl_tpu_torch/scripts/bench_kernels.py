@@ -15,9 +15,16 @@ tile grid instead: both kernels at the head dim of each of their tiles
 mask, region ids and the dense mask made from them, at SwinUNETR's
 training stage-1 windows ([686, 3, 343, D]), each checked against the
 plain version and timed. `--paths` calls head dims 16 and 32 only, so it
-also times kernels compiled for those two only.
+also times kernels compiled for those two only. `--bwd64` runs only the
+tile-64 shapes of SwinUNETR fs192's and fs120's training stage 1 ([686, 3,
+343, 64] and [.., 40], no mask and region ids) and of the Swin-UNet 2D
+stage 1 at 3 heads of 64 ([512, 3, 144, 64] and [512, 3, 49, 64], no mask
+and the shift mask), f32 and bf16: the backward (fed the forward's output
+and log-sum-exp where the package's backward takes them), the forward, and
+the backward of F.scaled_dot_product_attention on the same inputs, each
+checked against the plain version and timed.
 
-    python icl_tpu_torch/scripts/bench_kernels.py [--device-time] [--paths | --tiles]
+    python icl_tpu_torch/scripts/bench_kernels.py [--device-time] [--paths | --tiles | --bwd64]
     PYTHONPATH=<other checkout> python icl_tpu_torch/scripts/bench_kernels.py
 
 Run it as a file. `icl_tpu_torch` comes from PYTHONPATH when that names
@@ -49,6 +56,8 @@ def main(argv=None) -> int:
                        help="the paths' shapes only (head dims 16 and 32), not phases 54 and 57")
     which.add_argument("--tiles", action="store_true",
                        help="only the tile grid: each tile's head dim, f32 and bf16, every mode")
+    which.add_argument("--bwd64", action="store_true",
+                       help="only the tile-64 training shapes, f32 and bf16, beside SDPA's backward")
     args = p.parse_args(argv)
     sys.path.append(str(ROOT))  # after PYTHONPATH: another checkout's package wins
     import torch
@@ -69,6 +78,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.tiles:
         tile_grid(torch, wa, smoke)
+    elif args.bwd64:
+        tile64_shapes(torch, F, wa, smoke)
     else:
         smoke.phase_kernel_3d(torch, F, wa)
         smoke.phase_backward_kernel(torch, F, wa)
@@ -106,7 +117,8 @@ def tile_grid(torch, wa, smoke) -> None:
                 err = (out.float() - want.float()).abs()
                 ok = float(err.max()) <= smoke.F32_ATOL if f32 else \
                     bool((err <= smoke.BF16_ATOL + smoke.BF16_RTOL * want.float().abs()).all())
-                grads = wa.window_attention_bwd(q, k, v, bias, r, g, scale=scale, mask=m)
+                saved = smoke.saved_forward(wa, q, k, v, bias, r, m, scale)
+                grads = wa.window_attention_bwd(q, k, v, bias, r, g, scale=scale, mask=m, **saved)
                 wants = wa.window_attention_plain_bwd(q, k, v, bias, r, g, scale=scale, mask=m)
                 rel = {n: smoke.rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv", "dbias"), grads, wants)}
                 ok = ok and all(e <= (smoke.BWD_F32_RTOL if f32 or n == "dbias" else smoke.BWD_BF16_RTOL)
@@ -115,12 +127,65 @@ def tile_grid(torch, wa, smoke) -> None:
                        "fwd_max_abs_err": float(err.max()), "bwd_rel_err": rel,
                        "fwd_ms": smoke.cuda_ms(lambda: wa.window_attention(q, k, v, bias, r, m, scale=scale)),
                        "bwd_ms": smoke.cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, r, g,
-                                                                               scale=scale, mask=m))}
+                                                                               scale=scale, mask=m, **saved))}
                 print(f"[tiles] {json.dumps(row)}", flush=True)
                 if not ok:
                     smoke.fail(f"[tiles] a kernel disagrees with its plain version: {row}")
-                del out, want, err, grads, wants
+                del out, want, err, grads, wants, saved
             del q, k, v, bias, ids, g, dense
+            torch.cuda.empty_cache()
+
+
+def tile64_shapes(torch, F, wa, smoke) -> None:
+    """`--bwd64`: the backward, the forward and SDPA's backward at the
+    tile-64 training shapes, f32 and bf16, each against its plain version
+    with the smoke test's tolerances, then timed; one `[bwd64]` line per
+    case."""
+    import json
+
+    gen = torch.Generator(device=smoke.DEVICE).manual_seed(64)
+    stage3d = (smoke.STAGES[0][0], smoke.LABELED_BS) + tuple(smoke.STAGES[0][2:])
+    cases = [("fs192_stage1", 64, mode) for mode in ("none", "region")]
+    cases += [("fs120_stage1", 40, mode) for mode in ("none", "region")]
+    cases += [(stage[0] + "_2d", 64, mode) for stage in smoke.STAGES_2D_D64 for mode in ("none", "mask")]
+    for name, D, mode in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            ids = mask = None
+            if name.endswith("_2d"):
+                stage = next(st for st in smoke.STAGES_2D_D64 if st[0] + "_2d" == name)
+                q, k, v, bias, mask = smoke.inputs_2d(torch, stage, dtype, gen, "shift" if mode == "mask" else None,
+                                                      head_dim=D)
+            else:
+                q, k, v, bias, ids = smoke.stage_inputs(torch, stage3d, dtype, gen, D)
+                ids = ids if mode == "region" else None
+            g = torch.randn(q.shape, device=smoke.DEVICE, generator=gen).to(dtype)
+            scale = D ** -0.5
+            f32 = dtype == torch.float32
+            saved = smoke.saved_forward(wa, q, k, v, bias, ids, mask, scale)
+            grads = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask, **saved)
+            wants = wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
+            rel = {n: smoke.rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv", "dbias"), grads, wants)}
+            ok = all(e <= (smoke.BWD_F32_RTOL if f32 or n == "dbias" else smoke.BWD_BF16_RTOL)
+                     for n, e in rel.items())
+            dense = mask if mask is not None else wa.mask_from_region_ids(ids) if ids is not None else None
+            B, H, N, _ = q.shape
+            flop_ms, byte_ms = smoke.bound(B, H, N, D, dense.numel() if dense is not None else 0, backward=True,
+                                           elem_bytes=4 if f32 else 2,
+                                           flops_rate=smoke.F32_ACCURATE_FLOPS if f32 else smoke.BF16_FLOPS)
+            row = {"case": name, "shape": list(q.shape), "dtype": str(dtype).split(".")[-1], "mode": mode,
+                   "bwd_rel_err": rel, "saved_lse": bool(saved),
+                   "bwd_ms": smoke.cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale,
+                                                                           mask=mask, **saved)),
+                   "fwd_ms": smoke.cuda_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)),
+                   "sdpa_bwd_ms": smoke.sdpa_backward_ms(torch, F, q, k, v, bias, dense, g, scale),
+                   **smoke.bound_fields(flop_ms, byte_ms)}
+            if saved:
+                row["fwd_lse_ms"] = smoke.cuda_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ids, mask,
+                                                                                  scale=scale, return_lse=True))
+            print(f"[bwd64] {json.dumps(row)}", flush=True)
+            if not ok:
+                smoke.fail(f"[bwd64] the backward kernel disagrees with its plain version: {row}")
+            del q, k, v, bias, g, grads, wants, saved, dense
             torch.cuda.empty_cache()
 
 

@@ -11,10 +11,16 @@ tests/conftest.py (which imports JAX) left out:
 
 Covered: forward and backward in NONE, REGION and MASK (the 2D shift mask
 where N is a square, and a random dense mask), head dims 1, 4, 7, 8, 10,
-12, 16, 20, 24, 28, 32, 33, 40, 48 and 64 (SwinUNETR fs3, fs12, fs21,
+12, 16, 20, 24, 28, 32, 33, 40, 48, 63 and 64 (SwinUNETR fs3, fs12, fs21,
 fs24, fs30, fs36, fs48, fs60, fs72, fs84, fs96, fs99, fs120, fs144,
-fs192; 1, 7, 10 and 33, head dims that are not a multiple of 4, take the
-kernels' value-by-value loads, 1, 7 and 33 their value-by-value stores),
+fs189, fs192; 1, 7, 10, 33 and 63, head dims that are not a multiple of 4,
+take the kernels' value-by-value loads, 1, 7, 33 and 63 their
+value-by-value stores); above head dim 32 the backward is the tile-64
+kernel, fed the forward kernel's output and row log-sum-exp, and is held
+against both plain backwards (recomputing the softmax, and
+`window_attention_plain_bwd_lse` from the same output and log-sum-exp); the
+forward's log-sum-exp against the plain one, and the tile-64 backward's
+refusal without them;
 N in {4, 49, 144, 343}, f32 and bf16, each bitwise equal across two runs;
 the same at the paths' shapes, where a CTA walks several windows (at
 tile 64 both through the forward's one buffer, N = 343, and its two,
@@ -43,7 +49,7 @@ H = 3
 GEOMETRY_3D = {4: ((4, 4, 1), (2, 2, 1), (1, 1, 0)), 49: ((14, 14, 1), (7, 7, 1), (3, 3, 0)),
                144: ((12, 12, 8), (6, 6, 4), (3, 3, 2)), 343: ((14, 14, 14), (7, 7, 7), (3, 3, 3))}
 # the head dims held: the tiles' own (16, 32, 64) and head dims below each
-HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32, 33, 40, 48, 64)  # chip_smoke.py's CARD_TEST_HEAD_DIMS
+HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32, 33, 40, 48, 63, 64)  # chip_smoke.py's CARD_TEST_HEAD_DIMS
 CASES = [(kind, N, D, dtype) for kind in ("none", "region", "shift", "random") for N in sorted(GEOMETRY_3D)
          for D in HEAD_DIMS for dtype in ("float32", "bfloat16") if kind != "shift" or N != 343]
 # (kind, N, D, batch): shapes of the paths, with enough windows that a CTA
@@ -113,20 +119,35 @@ def _upstream(q):
     return g.to(q.dtype)
 
 
+def _saved(q, k, v, bias, ids, mask, scale):
+    """The forward kernel's output and row log-sum-exp where the backward
+    takes them (the tile-64 kernel, head dims above 32), as
+    `WindowAttentionFn` saves them; {} below."""
+    if q.shape[-1] <= wa.SAVED_LSE_ABOVE:
+        return {}
+    out, lse = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    return {"out": out, "lse": lse}
+
+
 def _check_backward(q, k, v, bias, ids, mask, g=None):
     scale = q.shape[-1] ** -0.5
     g = _upstream(q) if g is None else g
+    saved = _saved(q, k, v, bias, ids, mask, scale)
     wa.reset_launch_counts()
-    got = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
-    again = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
+    got = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask, **saved)
+    again = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask, **saved)
     torch.cuda.synchronize()
-    want = wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
-    for name, a, b, w in zip(("dq", "dk", "dv", "dbias"), got, again, want):
-        assert torch.equal(a, b), f"{name} is not bitwise repeatable"
-        assert bool(torch.isfinite(a).all()), name
-        tol = BWD_F32_RTOL if q.dtype == torch.float32 or name == "dbias" else BWD_BF16_RTOL
-        err = float((a.float() - w.float()).abs().max() / w.float().abs().max())
-        assert err <= tol, (name, err)
+    wants = [wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)]
+    if saved:
+        wants.append(wa.window_attention_plain_bwd_lse(q, k, v, bias, ids, saved["out"], saved["lse"], g,
+                                                       scale=scale, mask=mask))
+    for want in wants:
+        for name, a, b, w in zip(("dq", "dk", "dv", "dbias"), got, again, want):
+            assert torch.equal(a, b), f"{name} is not bitwise repeatable"
+            assert bool(torch.isfinite(a).all()), name
+            tol = BWD_F32_RTOL if q.dtype == torch.float32 or name == "dbias" else BWD_BF16_RTOL
+            err = float((a.float() - w.float()).abs().max() / w.float().abs().max())
+            assert err <= tol, (name, err)
     assert wa.window_attention_bwd.launches_by_mode[_mode(ids, mask)] == wa.window_attention_bwd.launches == 2
 
 
@@ -140,6 +161,37 @@ def test_forward_kernel_matches_plain_on_card(card, kind, N, D, dtype):
 @pytest.mark.parametrize("kind,N,D,dtype", CASES)
 def test_backward_kernel_matches_plain_on_card(card, kind, N, D, dtype):
     _check_backward(*_inputs(kind, N, D, dtype, batch=2, seed=N + D + 1, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [33, 40, 64])
+@pytest.mark.parametrize("N", [49, 144, 343])
+@pytest.mark.parametrize("kind", ["none", "region", "random"])
+def test_forward_log_sum_exp_matches_plain_on_card(card, kind, N, D, dtype):
+    """The row log-sum-exp the forward kernel stores for the tile-64
+    backward, against the plain version's (f32 1e-5 of its magnitude, as
+    the output: f32 sums in another order, __expf); storing it leaves the
+    output's bits as they are."""
+    q, k, v, bias, ids, mask = _inputs(kind, N, D, dtype, batch=2, seed=N + D + 2, device=card)
+    scale = D ** -0.5
+    out, lse = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    alone = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)
+    torch.cuda.synchronize()
+    _, want = wa.window_attention_plain(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    assert torch.equal(out, alone)
+    assert lse.shape == want.shape and lse.dtype == torch.float32
+    err = float((lse - want).abs().max())
+    assert err <= F32_ATOL * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.cuda
+def test_tile64_backward_refuses_without_the_saved_forward_on_card(card):
+    """No fallback: at head dims above 32 the backward kernel needs the
+    forward's output and log-sum-exp, and a call without them raises."""
+    q, k, v, bias, ids, _ = _inputs("region", 49, 40, "float32", batch=2, seed=3, device=card)
+    with pytest.raises(ValueError, match="return_lse=True"):
+        wa.window_attention_bwd(q, k, v, bias, ids, q, scale=1.0)
 
 
 @pytest.mark.cuda
@@ -203,19 +255,25 @@ def test_forward_geometry_agrees_with_the_check_rule_on_card(card, N, D):
 def test_geometry_refuses_a_window_that_cannot_fit_on_card(card):
     """N = 1000 at head dim 32 exceeds a CTA's shared memory in the
     forward (two buffers of K and V [1008, 32]), N = 450 in the backward
-    (four [464, 33] f32 operands); at head dim 64 N = 450 in both (the
-    forward's one buffer of K and V [464, 64], the backward's two operand
-    buffers [464, 64] and four [464] vectors); the windows the port calls
-    fit, at tile 64 N = 343 through the forward's one buffer."""
+    (four [464, 33] f32 operands); at head dim 64 N = 450 in the forward
+    (its one buffer of K and V [464, 64]); the windows the port calls fit,
+    at tile 64 N = 343 through the forward's one buffer. The tile-64
+    backward stages 64 rows or keys and a ring of 16 at a time: its shared
+    memory does not grow with N but for the region ids, and at least two
+    CTAs share an SM. f32 MASK: the dK/dV kernel's, the larger, 4 [64][64]
+    (K and V hi and lo) + 2 ring slots of 4 [16][64] (Q, dO hi and lo), the
+    term tile [16][64] and 2 [16] (lse, u) floats."""
     with pytest.raises(ValueError, match="does not fit"):
         wa._fwd_geometry(1000, 32, False, False, False, card.index)
     with pytest.raises(ValueError, match="does not fit"):
         wa._bwd_geometry(450, 32, False, False, False, card.index)
-    for geometry in (wa._fwd_geometry, wa._bwd_geometry):
-        with pytest.raises(ValueError, match="does not fit"):
-            geometry(450, 64, False, False, False, card.index)
+    with pytest.raises(ValueError, match="does not fit"):
+        wa._fwd_geometry(450, 64, False, False, False, card.index)
     assert wa._fwd_geometry(343, 64, False, False, False, card.index)[1] == (2 * 352 * 64 + 352) * 4
-    assert wa._bwd_geometry(343, 64, False, False, False, card.index)[1] == (2 * 64 + 4) * 352 * 4
+    tile64 = (4 * 64 * 64 + 2 * (4 * 16 * 64 + 16 * 64 + 2 * 16)) * 4
+    for N in (49, 343, 450):
+        warps, smem, ctas = wa._bwd_geometry(N, 64, False, True, False, card.index)
+        assert (warps, smem) == (4, tile64) and ctas >= 2, (N, warps, smem, ctas)
     for N, D in SHAPES:
         warps, smem, ctas = wa._bwd_geometry(N, D, False, True, False, card.index)
         assert warps >= 1 and smem > 0 and ctas >= 1
