@@ -346,14 +346,16 @@ Phases, each fatal on failure:
      Swin-UNet 2D stage-1 shapes at head dim 64 ([512, 3, 144, 64] at
      384^2 / window 12, [512, 3, 49, 64] at 224^2 / window 7), no-mask,
      the shift mask and a random dense mask; f32 and bf16, against their
-     plain versions and bitwise repeatable (the backward fed the forward
-     kernel's output and row log-sum-exp, as WindowAttentionFn saves them,
-     and held against both plain backwards: the one recomputing the
-     softmax and window_attention_plain_bwd_lse from the same output and
-     log-sum-exp); f32 timed beside the bound, the plain version and SDPA
-     (the 2D shapes with no mask and the shift mask); then head dims 33,
-     40, 48 and 63 at the 3D stage-1 shapes, held and repeated, 40 (fs120)
-     timed;
+     plain versions and bitwise repeatable (the forward's row log-sum-exp
+     against the plain one, its store leaving the output's bits; the
+     backward fed the forward kernel's output and row log-sum-exp, as
+     WindowAttentionFn saves them, and held against both plain backwards:
+     the one recomputing the softmax and window_attention_plain_bwd_lse
+     from the same output and log-sum-exp); the forward timed in f32 and
+     bf16 beside the bound, the plain version and SDPA in the same type,
+     the backward in f32 (the 2D shapes with no mask and the shift mask);
+     then head dims 33, 40, 48 and 63 at the 3D stage-1 shapes, held and
+     repeated, 40 (fs120) timed;
  58. SwinUNETR-ICL at --feature_size 192 (head dim 64 at every stage,
      1.85 B parameters) through its CLI's `main` on phase 9's cases, as
      phase 55: 3 steps and a validation, the launches per step asserted
@@ -614,8 +616,10 @@ def ptxas_usage(log: str, source: str) -> dict:
     kernel instance of library `source`, from its `-Xptxas -v` build log.
     <dims>: "d<=16" an instance that reads the head dim at run time, for
     every head dim of its tile; the forward's "D16" the instance of head dim
-    16 itself and "d<16" that of the head dims below, " lse" its tile-64
-    instances that store the row log-sum-exp; "dq" and "dkdv" the tile-64
+    16 itself and "d<16" that of the head dims below; the forward's
+    "d<=64" its tile-64 kernel (" lse": the instance that stores the row
+    log-sum-exp), whose registers are those a thread starts with (its
+    warpgroups then move them with setmaxnreg); "dq" and "dkdv" the tile-64
     backward's two kernels."""
     import re
 
@@ -625,9 +629,12 @@ def ptxas_usage(log: str, source: str) -> dict:
     for line in log.splitlines():
         m = re.search(source + "_kernel" + types + r"Li(\d+)ELi(\d)E(?:Lb(\d)E)?(?:Lb(\d)E)?", line)
         m64 = re.search(source + r"64_(dq|dkdv)_kernel" + types + r"Li(\d)E", line)
+        f64 = re.search(source + r"64_kernel" + types + r"Li(\d)ELb(\d)E", line)
         if m:
             dims = f"d<={m[2]}" if m[4] is None else f"D{m[2]}" if m[4] == "1" else f"d<{m[2]}"
             name = f"{'f32' if m[1] == 'f' else 'bf16'} {dims} {modes[int(m[3])]}{' lse' if m[5] == '1' else ''}"
+        elif f64:
+            name = f"{'f32' if f64[1] == 'f' else 'bf16'} d<=64 {modes[int(f64[2])]}{' lse' if f64[3] == '1' else ''}"
         elif m64:
             name = f"{'f32' if m64[2] == 'f' else 'bf16'} {m64[1]} {modes[int(m64[3])]}"
         elif name and "spill stores" in line:
@@ -684,12 +691,30 @@ def sdpa_backward_ms(torch, F, q, k, v, bias, mask, g, scale) -> float:
     return cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs, mask_leaf), gout, retain_graph=True))
 
 
+def forward_lse_error(torch, wa, q, k, v, bias, ids, mask, scale, got) -> dict:
+    """At head dims above `wa.SAVED_LSE_ABOVE` (the tile-64 forward), the
+    forward kernel's row log-sum-exp against the plain version's: {"lse_max_abs_err":
+    its largest error}, after checking that the output with the store has
+    the bits of `got`, the output without it, and that the error is within
+    F32_ATOL of the log-sum-exp's magnitude; {} at the smaller head dims."""
+    if q.shape[-1] <= getattr(wa, "SAVED_LSE_ABOVE", 64):
+        return {}
+    out, lse = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    _, want = wa.window_attention_plain(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    err = float((lse - want).abs().max())
+    if not torch.equal(out, got) or err > F32_ATOL * max(1.0, float(want.abs().max())):
+        fail(f"the forward's log-sum-exp store changed its output or disagrees with plain: lse error {err}")
+    return {"lse_max_abs_err": err}
+
+
 def phase_kernel_3d(torch, F, wa, head_dim=HEAD_DIM, stages=STAGES, timed=True,
-                    tag="[kernel]") -> list[dict]:
+                    tag="[kernel]", timed_bf16=False) -> list[dict]:
     """3 + 4: the forward kernel against its plain version at the shapes of
     one SwinUNETR inference forward (fs48: head dim 16; `head_dim` and
-    `stages` choose others), f32 and bf16, bitwise-repeatable; with `timed`
-    the f32 times beside the bound."""
+    `stages` choose others), f32 and bf16, bitwise-repeatable (above head
+    dim 32 its log-sum-exp too, forward_lse_error); with `timed` the f32
+    times beside the bound, and with `timed_bf16` the bf16 ones too (SDPA
+    in bf16 beside them)."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     per_shape = []
     for stage in stages:
@@ -716,17 +741,18 @@ def phase_kernel_3d(torch, F, wa, head_dim=HEAD_DIM, stages=STAGES, timed=True,
                        "max_abs_err": max_err, "bitwise_repeat": torch.equal(got, again)}
                 if not ok or not row["bitwise_repeat"] or not torch.isfinite(got).all():
                     fail(f"kernel disagrees with plain or is not repeatable: {row}")
-                if timed and dtype == torch.float32:
+                row.update(forward_lse_error(torch, wa, q, k, v, bias, ids, None, scale, got))
+                if timed and (dtype == torch.float32 or timed_bf16):
                     B, H, N, D = q.shape
                     nW = ids.shape[0] if ids is not None else B
                     if ids is None:
-                        mask = bias
+                        mask = bias.to(dtype)
                         qs, ks, vs = q, k, v
                     else:
-                        mask = bias[None] + wa.mask_from_region_ids(ids)[:, None]  # [nW, H, N, N]
+                        mask = (bias[None] + wa.mask_from_region_ids(ids)[:, None]).to(dtype)  # [nW, H, N, N]
                         qs, ks, vs = (t.view(B // nW, nW, H, N, D) for t in (q, k, v))
                     lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)
-                    lib_err = float((lib_out.reshape(q.shape) - want).abs().max())
+                    lib_err = float((lib_out.reshape(q.shape).float() - want.float()).abs().max())
                     row.update(
                         ms=cuda_ms(lambda: wa.window_attention(q, k, v, bias, ids, scale=scale)),
                         plain_ms=cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, ids, scale=scale)),
@@ -734,7 +760,10 @@ def phase_kernel_3d(torch, F, wa, head_dim=HEAD_DIM, stages=STAGES, timed=True,
                             qs, ks, vs, attn_mask=mask, scale=scale)),
                         library_max_abs_err=lib_err,
                         before_ms=FWD_BEFORE_MS.get((name, mode)) if head_dim == HEAD_DIM else None,
-                        **bound_fields(*bound(B, H, N, D, ids.numel() if ids is not None else 0)),
+                        **bound_fields(*bound(B, H, N, D, ids.numel() if ids is not None else 0,
+                                              elem_bytes=4 if dtype == torch.float32 else 2,
+                                              flops_rate=F32_ACCURATE_FLOPS if dtype == torch.float32
+                                              else BF16_FLOPS)),
                     )
                     del mask, lib_out
                 per_shape.append(row)
@@ -1066,10 +1095,11 @@ def check_2d(torch, F, wa, stage, mode, kind, dtype, gen, batch=LABELED_2D, time
            "max_abs_err": float(err.max()), "bitwise_repeat": torch.equal(got, again)}
     if not ok or not row["bitwise_repeat"] or not torch.isfinite(got).all():
         fail(f"2D kernel disagrees with plain or is not repeatable: {row}")
+    row.update(forward_lse_error(torch, wa, q, k, v, bias, None, mask, scale, got))
     if timed:
         shape = (B // nW, nW, H, N, D) if mask is not None else (B, H, N, D)
         qs, ks, vs = (t.view(shape) for t in (q, k, v))
-        attn = bias if mask is None else bias[None] + mask[:, None]
+        attn = (bias if mask is None else bias[None] + mask[:, None]).to(dtype)
         lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn, scale=scale)
         row.update(
             ms=cuda_ms(lambda: wa.window_attention(q, k, v, bias, mask=mask, scale=scale)),
@@ -1077,9 +1107,11 @@ def check_2d(torch, F, wa, stage, mode, kind, dtype, gen, batch=LABELED_2D, time
                                                                scale=scale)),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=attn, scale=scale)),
-            library_max_abs_err=float((lib_out.reshape(q.shape) - want).abs().max()),
+            library_max_abs_err=float((lib_out.reshape(q.shape).float() - want.float()).abs().max()),
             before_ms=FWD2D_BEFORE_MS.get((stage[0], mode)) if head_dim == HEAD_DIM_2D else None,
-            **bound_fields(*bound(B, H, N, D, mask.numel() if mask is not None else 0)),
+            **bound_fields(*bound(B, H, N, D, mask.numel() if mask is not None else 0,
+                                  elem_bytes=4 if dtype == torch.float32 else 2,
+                                  flops_rate=F32_ACCURATE_FLOPS if dtype == torch.float32 else BF16_FLOPS)),
         )
         del lib_out, attn
     print(f"[kernel{tag}] {json.dumps(row)}", flush=True)
@@ -5414,7 +5446,7 @@ def phase_kernels_tile64(torch, F, wa) -> dict:
     """57: both kernels at fs192's 3D shapes and the 2D stage-1 shapes at
     head dim 64, every mode, f32 and bf16, held, repeated and timed; head
     dims 33, 40, 48 and 63 at the 3D stage-1 shapes, 40 timed."""
-    fwd = phase_kernel_3d(torch, F, wa, head_dim=HEAD_DIM_FS192, tag="[kernel-fs192]")
+    fwd = phase_kernel_3d(torch, F, wa, head_dim=HEAD_DIM_FS192, tag="[kernel-fs192]", timed_bf16=True)
     bwd = phase_backward_kernel(torch, F, wa, head_dim=HEAD_DIM_FS192, tag="[bwd-fs192]")
     gen = torch.Generator(device=DEVICE).manual_seed(57)
     fwd2d, bwd2d = [], []
@@ -5423,14 +5455,14 @@ def phase_kernels_tile64(torch, F, wa) -> dict:
             for kind in ((None,) if mode == "none" else ("shift", "random")):
                 for dtype in (torch.float32, torch.bfloat16):
                     row, brow = check_2d(torch, F, wa, stage, mode, kind, dtype, gen, tag="2d-d64",
-                                         head_dim=HEAD_DIM_FS192)
+                                         head_dim=HEAD_DIM_FS192, timed=kind != "random")
                     fwd2d.append(row)
                     bwd2d.append(brow)
     sweep = {"fwd": [], "bwd": []}
     for d in TILE64_SWEEP_HEAD_DIMS:
         timed = d in TIMED_TILE64_SWEEP_HEAD_DIMS
         sweep["fwd"] += phase_kernel_3d(torch, F, wa, head_dim=d, stages=STAGES[:1], timed=timed,
-                                        tag=f"[kernel-d{d}]")
+                                        tag=f"[kernel-d{d}]", timed_bf16=True)
         sweep["bwd"] += phase_backward_kernel(torch, F, wa, head_dim=d, stages=STAGES[:1], timed=timed,
                                               tag=f"[bwd-d{d}]")
     held = fwd + bwd + fwd2d + bwd2d + sweep["fwd"] + sweep["bwd"]
@@ -5544,8 +5576,8 @@ def main(argv: list) -> int:
                     for n, d in ((343, 16), (216, 16), (144, 32), (49, 32), (4, 32), (343, 64), (144, 64),
                                  (49, 64))}
         print(f"[build] {what} f32 MASK geometry per CTA: {json.dumps(geometry)}", flush=True)
-        # the tile-64 backward's shared memory does not grow with N but for the ids
-        for n, d in ((too_large, HEAD_DIM_2D),) + (((450, HEAD_DIM_FS192),) if what == "window_attention" else ()):
+        # the tile-64 kernels' shared memory does not grow with N (the backward's but for the ids)
+        for n, d in ((too_large, HEAD_DIM_2D),):
             try:
                 query(n, d, False, False, False, 0)
                 fail(f"{what}'s geometry took a window of {n} tokens at head dim {d}")
@@ -5791,8 +5823,8 @@ def main(argv: list) -> int:
         return {"ms": tot["ms"], "plain_ms": tot["plain_ms"], "library_ms": tot["library_ms"],
                 **bound_fields(tot["flop_ms"], tot["byte_ms"])}
 
-    def timed(rows, mode):
-        return [r for r in rows if r["mode"] == mode and "ms" in r]
+    def timed(rows, mode, dtype="float32"):
+        return [r for r in rows if r["mode"] == mode and "ms" in r and r.get("dtype", "float32") == dtype]
 
     step_2d = {m: {st[0]: 2 * st[4][m] for st in STAGES_2D if m in st[4]} for m in PER_FORWARD_2D}
     units = {
@@ -5839,6 +5871,8 @@ def main(argv: list) -> int:
             timed(new["kernels"]["fwd"], mode), PER_FORWARD[mode])
         paths["fwd"][mode]["swinunetr_fs192_inference_forward"] = totals(
             timed(tile64["kernels"]["fwd"], mode), PER_FORWARD[mode])
+        paths["fwd"][mode]["swinunetr_fs192_inference_forward_bf16"] = totals(
+            timed(tile64["kernels"]["fwd"], mode, "bfloat16"), PER_FORWARD[mode])
         paths["bwd"][mode]["swinunetr_icl_fs192_training_step"] = totals(
             timed(tile64["kernels"]["bwd"], mode), BWD_PER_STEP_BY_STAGE[mode])
     for direction in ("fwd", "bwd"):  # the 2D stage-1 shapes at head dim 64, a launch each

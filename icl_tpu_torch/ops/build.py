@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
 # -split-compile=0: nvcc optimises and assembles a library's kernel
-# instances (48 in the forward, 29 in the backward) on all the host's
+# instances (36 in the forward, 29 in the backward) on all the host's
 # cores, so a cold build of the three libraries takes 18 s instead of 30 s
 # on the H100's 8-core host, with the same registers and spills per
 # instance
@@ -102,7 +102,7 @@ def load_window_attention() -> ctypes.CDLL:
     path, _ = build_library("window_attention")
     lib = ctypes.CDLL(str(path))
     fn = lib.icl_window_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int

@@ -19,6 +19,8 @@
 //     through a permuted k index (product_cn).
 //   * The additive terms of a logit (bias, + dense mask, or -100 from the
 //     region ids) read from device memory one tile ahead of their use.
+//   * The tile-64 kernels' term array of bias (+ mask) in aligned rows
+//     (window_attention64_terms_kernel).
 //   * For the tile-64 backward: tiles staged once with cp.async and split
 //     once into hi and lo arrays in shared memory (issue_rows, split_rows),
 //     and the products that read them (product_nt_hilo, product_nt_tiles,
@@ -726,6 +728,46 @@ __device__ __forceinline__ float logit(float qk, float term, bool real, float id
   float s = fmaf(qk, scale, term);
   if (MODE == kRegion && real && id_row != id_key) s += -100.f;
   return s;
+}
+
+// The tile-64 kernels' prologue (forward and backward): the term array [T,
+// H, Np, P], bias[h] (+ mask[w] in MASK, T = nW; else T = 1), rows P apart
+// (the backward: P = Np, N padded to a multiple of 16) so that every 16-byte
+// chunk of a tile and every pair of keys is aligned, 0 past N. PERMUTED (the
+// forward: P = N padded to a multiple of 32): within each block of 32 keys,
+// key 8 j + 2 t + e at place 8 t + 2 j + e, so that the eight keys a lane
+// (g, t) of a wgmma accumulator holds in a row are two 16-byte chunks.
+__global__ void __launch_bounds__(256)
+window_attention64_terms_kernel(const float* __restrict__ bias, const float* __restrict__ mask,
+                                float* __restrict__ terms, int T, int H, int N, int Np, int P, int permuted) {
+  const size_t total = static_cast<size_t>(T) * H * Np * P;
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total; i += stride) {
+    const int at = static_cast<int>(i % P);
+    const int j = permuted ? (at & ~31) + 8 * ((at >> 1) & 3) + 2 * ((at >> 3) & 3) + (at & 1) : at;
+    const size_t wh_row = i / P;  // (w H + h) Np + row
+    const int row = static_cast<int>(wh_row % Np);
+    const size_t wh = wh_row / Np;
+    const int h = static_cast<int>(wh % H);
+    const int w = static_cast<int>(wh / H);
+    float x = 0.f;
+    if (row < N && j < N) {
+      x = bias[(static_cast<size_t>(h) * N + row) * N + j];
+      if (mask != nullptr) x += mask[(static_cast<size_t>(w) * N + row) * N + j];
+    }
+    terms[i] = x;
+  }
+}
+
+// The term array of `planes` planes (nW with a dense mask, else 1), rows P
+// apart, on `stream`; returns the launch's error.
+inline cudaError_t launch_terms(const float* bias, const float* mask, float* terms, int planes, int H, int N,
+                                int Np, int P, bool permuted, cudaStream_t stream) {
+  const size_t floats = static_cast<size_t>(planes) * H * Np * P;
+  const size_t blocks = (floats + 255) / 256;
+  window_attention64_terms_kernel<<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), 256, 0, stream>>>(
+      bias, mask, terms, planes, H, N, Np, P, permuted ? 1 : 0);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -500,30 +500,6 @@ struct DkdvLayout {
   }
 };
 
-// The prologue's term array [T, H, Np, Np]: bias[h] (+ mask[w] in MASK, T =
-// nW; else T = 1), rows Np apart so that every 16-byte chunk of a tile is
-// aligned, 0 past N.
-__global__ void __launch_bounds__(256)
-window_attention_bwd64_terms_kernel(const float* __restrict__ bias, const float* __restrict__ mask,
-                                    float* __restrict__ terms, int T, int H, int N, int Np) {
-  const size_t total = static_cast<size_t>(T) * H * Np * Np;
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total; i += stride) {
-    const int j = static_cast<int>(i % Np);
-    const size_t wh_row = i / Np;  // (w H + h) Np + row
-    const int row = static_cast<int>(wh_row % Np);
-    const size_t wh = wh_row / Np;
-    const int h = static_cast<int>(wh % H);
-    const int w = static_cast<int>(wh / H);
-    float x = 0.f;
-    if (row < N && j < N) {
-      x = bias[(static_cast<size_t>(h) * N + row) * N + j];
-      if (mask != nullptr) x += mask[(static_cast<size_t>(w) * N + row) * N + j];
-    }
-    terms[i] = x;
-  }
-}
-
 // u[row] = sum_c dO[row][c] O[row][c] over the B H N rows, one warp a row,
 // f32: the prologue of f32 calls (bf16's u comes from the dQ kernel).
 template <typename T>
@@ -1179,12 +1155,8 @@ cudaError_t launch64(const Args& a) {
   cudaError_t err = fit(dq_kernel, dq_smem, 0, nullptr);
   if (err == cudaSuccess) err = fit(kv_kernel, kv_smem, 0, nullptr);
   if (err != cudaSuccess) return err;
-  const int planes = MODE == kMask ? a.nW : 1;
-  const size_t term_floats = static_cast<size_t>(planes) * a.H * Np * Np;
-  const unsigned term_blocks = static_cast<unsigned>(std::min<size_t>((term_floats + 255) / 256, 8192));
-  window_attention_bwd64_terms_kernel<<<term_blocks, 256, 0, a.stream>>>(a.bias, MODE == kMask ? a.mask : nullptr,
-                                                                         a.terms, planes, a.H, a.N, Np);
-  err = cudaGetLastError();
+  err = launch_terms(a.bias, MODE == kMask ? a.mask : nullptr, a.terms, MODE == kMask ? a.nW : 1, a.H, a.N, Np, Np,
+                     false, a.stream);
   if (err != cudaSuccess) return err;
   if (!kBf16) {  // bf16's u comes from the dQ kernel's sweep, not from the rounded O
     const size_t rows = static_cast<size_t>(a.B) * a.H * a.N;

@@ -22,9 +22,13 @@ backward `csrc/window_attention_bwd.cu` (at head dims above 32 its tile-64
 kernels, which need the saved output and log-sum-exp); on CPU tensors they
 run `window_attention_plain` and `window_attention_plain_bwd` (or
 `window_attention_plain_bwd_lse` where the output and log-sum-exp are
-given). Each kernel chooses its CTA's warps and
+given). At head dims above 32 both directions run tile-64 kernels that
+read bias (+ mask) from a term array [T, H, Np, Np] which their prologue
+writes into scratch the wrapper allocates (`_terms`); the forward's is a
+CTA of a producer warpgroup and one to three consumer warpgroups of 64 rows
+(`_fwd64_groups`) on `wgmma`. Each kernel chooses its CTA's warps and
 shared memory and reports them with its resident CTAs per SM
-(`_fwd_geometry`, `_bwd_geometry`); `_window_groups` sizes both grids.
+(`_fwd_geometry`, `_bwd_geometry`); `_grid_of` sizes both grids.
 Each launch adds its FLOPs to any count in progress (`utils.flops`):
 4*B*H*N^2*D forward, 10*B*H*N^2*D backward, what the plain versions'
 matmuls count on the CPU.
@@ -57,7 +61,7 @@ from icl_tpu_torch.utils.flops import add_kernel_flops
 MAX_HEAD_DIM = 64  # the largest head dim the kernels take
 HEAD_DIM_TILES = (16, 32, 64)  # the kernels' compiled tiles: the width D is staged at
 SAVED_LSE_ABOVE = 32  # head dims above this: the backward takes the forward's output and lse
-_BLOCK64 = 64  # rows of the tile-64 backward's dQ CTA (and keys of its dK/dV CTA)
+_BLOCK64 = 64  # rows of a tile-64 forward and dQ CTA (and keys of the dK/dV CTA)
 _MAX_SMEM_BYTES = 232_448  # per CTA on Hopper
 _CHUNK_BYTES = 32 << 20  # the plain backward's score chunk (the JAX backward's rule)
 
@@ -180,16 +184,36 @@ def head_dim_tile(D: int) -> int:
     return next(t for t in HEAD_DIM_TILES if D <= t)
 
 
-def _fwd_smem_bytes(N: int, D: int) -> int:
+def _fwd64_groups(N: int) -> int:
+    """Consumer warpgroups of a tile-64 forward CTA, 64 rows each
+    (`groups64` in `csrc/window_attention.cu`): 3 or 2 where they divide
+    the window's 64-row blocks, else 1."""
+    blocks = -(-N // _BLOCK64)
+    return 3 if blocks % 3 == 0 else 2 if blocks % 2 == 0 else 1
+
+
+def _fwd_smem_bytes(N: int, D: int, bf16: bool = False) -> int:
     """The forward kernel's shared memory per CTA (`smem_bytes` in
-    `csrc/window_attention.cu`): two buffers of K and V [Np, tile] and the
-    region ids [Np] in f32, Np = N padded to a multiple of 16, tile =
-    `head_dim_tile(D)`; at tile 64 one buffer where two exceed a CTA's
-    shared memory (N > 224)."""
-    Np = -(-N // 16) * 16
+    `csrc/window_attention.cu`). Tiles 16 and 32 (`head_dim_tile(D)`): two
+    buffers of K and V [Np, tile] and the region ids [Np] in f32, Np = N
+    padded to a multiple of 16. Tile 64 (`Fwd64Layout`), for G =
+    `_fwd64_groups(N)` consumer warpgroups: a kilobyte to align its tiles;
+    each group's Q tile [64, 64] (f32 hi and lo, 32 KB; bf16 8 KB); a ring
+    of S slots of 32 keys (f32: K and V^T in hi and lo, 32 KB, S = 2 for one
+    group, else 3; bf16: K and V, 8 KB, S = 3); f32's plain V tiles [32,
+    64] (8 KB, one for one group, else two); each slot's 32 keys' region
+    ids and two mbarriers: independent of N but through G."""
     tile = head_dim_tile(D)
-    one = (2 * Np * tile + Np) * 4
-    return one if tile == 64 and 2 * one > _MAX_SMEM_BYTES else 2 * one
+    if tile == 64:
+        groups = _fwd64_groups(N)
+        slots = 2 if groups == 1 and not bf16 else 3
+        if bf16:
+            tiles = 8 * groups + 8 * slots
+        else:
+            tiles = 32 * groups + 32 * slots + 8 * (1 if groups == 1 else 2)
+        return 1024 + tiles * 1024 + slots * (32 * 4 + 16)
+    Np = -(-N // 16) * 16
+    return 2 * (2 * Np * tile + Np) * 4
 
 
 def _check(q, k, v, bias, region_ids, mask, dout=None):
@@ -206,7 +230,7 @@ def _check(q, k, v, bias, region_ids, mask, dout=None):
                          f"want ({H}, {N}, {N}) float32")
     head_dim_tile(D)
     # the forward's shared memory; the backward kernel reports its own (_bwd_geometry)
-    if dout is None and _fwd_smem_bytes(N, D) > _MAX_SMEM_BYTES:
+    if dout is None and _fwd_smem_bytes(N, D, q.dtype == torch.bfloat16) > _MAX_SMEM_BYTES:
         raise ValueError(f"window_attention: window of {N} tokens does not fit shared memory")
     tensors = [q, k, v, bias] + ([dout] if dout is not None else [])
     if region_ids is not None:
@@ -252,8 +276,9 @@ def _window_groups(B: int, H: int, slots: int, whole_wave: bool = False) -> tupl
     (group, head) grid fills the card's `slots` resident CTAs (CTAs per
     SM, from the compiled kernel's registers and the window's shared
     memory, times the SMs) once, every group non-empty. `whole_wave`
-    (the tile-64 backward's dQ kernel, whose `H` counts its CTAs of a
-    group: heads times 64-row blocks) keeps the grid within one wave."""
+    (the tile-64 forward and backward dQ kernels, whose `H` counts their
+    CTAs of a group: heads times row blocks) keeps the grid within one
+    wave."""
     groups = max(1, min(B, slots // H if whole_wave else -(-slots // H)))
     per_cta = -(-B // groups)
     return per_cta, -(-B // per_cta)
@@ -299,14 +324,23 @@ def _bwd_geometry(N: int, D: int, has_ids: bool, has_mask: bool, bf16: bool,
                      bf16, device)
 
 
+def _grid_of(B: int, H: int, N: int, D: int, slots: int, rows: int = _BLOCK64) -> tuple[int, int]:
+    """`_window_groups` of either kernel at `slots` resident CTAs: at tiles
+    16 and 32 a CTA per (window group, head); at tile 64 a CTA per (block
+    of `rows` rows, head, window group), within one wave: the forward's
+    blocks are 64 rows a consumer warpgroup (`_fwd64_groups`), the
+    backward's dQ kernel's 64."""
+    if head_dim_tile(D) == 64:
+        return _window_groups(B, H * -(-N // rows), slots, whole_wave=True)
+    return _window_groups(B, H, slots)
+
+
 @functools.cache
 def _cached_grid(geometry, B: int, H: int, N: int, D: int, has_ids: bool, has_mask: bool,
                  bf16: bool, device: int) -> tuple[int, int]:
     _, _, ctas = geometry(N, D, has_ids, has_mask, bf16, device)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    if geometry is _bwd_geometry and head_dim_tile(D) == 64:  # the dQ kernel's grid
-        return _window_groups(B, H * -(-N // _BLOCK64), ctas * sms, whole_wave=True)
-    return _window_groups(B, H, ctas * sms)
+    rows = _BLOCK64 * (_fwd64_groups(N) if geometry is _fwd_geometry else 1)
+    return _grid_of(B, H, N, D, ctas * torch.cuda.get_device_properties(device).multi_processor_count, rows)
 
 
 def _grid(geometry, q, region_ids, mask) -> tuple[int, int]:
@@ -316,6 +350,17 @@ def _grid(geometry, q, region_ids, mask) -> tuple[int, int]:
     per call at the smallest windows."""
     return _cached_grid(geometry, *q.shape, region_ids is not None, mask is not None,
                         q.dtype == torch.bfloat16, q.device.index)
+
+
+def _terms(H: int, N: int, mask, device, pitch: int = 16) -> torch.Tensor:
+    """Scratch for the tile-64 kernels' term array [T, H, Np, P] f32, bias
+    (+ each window's mask, T = nW; else T = 1), Np = N padded to a multiple
+    of 16, in rows P apart (N padded to a multiple of `pitch`: 16 for the
+    backward, the forward's 32 keys a step for it), which their prologue
+    writes."""
+    Np = -(-N // 16) * 16
+    planes = mask.shape[0] if mask is not None else 1
+    return torch.empty((planes, H, Np, -(-N // pitch) * pitch), dtype=torch.float32, device=device)
 
 
 def window_attention_fwd(q, k, v, bias, region_ids=None, mask=None, *, scale: float,
@@ -341,10 +386,12 @@ def window_attention_fwd(q, k, v, bias, region_ids=None, mask=None, *, scale: fl
     per_cta, _ = _grid(_fwd_geometry, q, region_ids, mask)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if return_lse else None
+    terms = _terms(H, N, mask, q.device, pitch=32) if head_dim_tile(D) == 64 else None
     with torch.cuda.device(q.device):
         err = lib.icl_window_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _ptr(region_ids),
-            _ptr(mask), out.data_ptr(), _ptr(lse), B, H, N, D, _windows(B, region_ids, mask), per_cta,
+            _ptr(mask), out.data_ptr(), _ptr(lse), _ptr(terms), B, H, N, D,
+            _windows(B, region_ids, mask), per_cta,
             float(scale), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -402,8 +449,7 @@ def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=
     delta = terms = None
     if tile64:  # rowsum(dO o O), and bias (+ each window's mask) in rows Np apart
         delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-        planes = mask.shape[0] if mask is not None else 1
-        terms = torch.empty((planes, H, Np, Np), dtype=torch.float32, device=q.device)
+        terms = _terms(H, N, mask, q.device)
     with torch.cuda.device(q.device):
         err = lib.icl_window_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),

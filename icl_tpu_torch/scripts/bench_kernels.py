@@ -22,9 +22,16 @@ stage 1 at 3 heads of 64 ([512, 3, 144, 64] and [512, 3, 49, 64], no mask
 and the shift mask), f32 and bf16: the backward (fed the forward's output
 and log-sum-exp where the package's backward takes them), the forward, and
 the backward of F.scaled_dot_product_attention on the same inputs, each
-checked against the plain version and timed.
+checked against the plain version and timed. `--fwd64` runs only the
+tile-64 forward at SwinUNETR fs192's inference stage 1 ([1372, 3, 343,
+64]) and at head dim 40 (fs120), no mask and region ids, and at the
+Swin-UNet 2D stage 1 at 3 heads of 64 ([512, 3, 144, 64] and [512, 3, 49,
+64]), no mask and the shift mask, f32 and bf16: the forward without and
+with its row log-sum-exp store, each checked against the plain version
+(the log-sum-exp too), beside F.scaled_dot_product_attention's forward in
+the same type, the plain version and the bound.
 
-    python icl_tpu_torch/scripts/bench_kernels.py [--device-time] [--paths | --tiles | --bwd64]
+    python icl_tpu_torch/scripts/bench_kernels.py [--device-time] [--paths | --tiles | --bwd64 | --fwd64]
     PYTHONPATH=<other checkout> python icl_tpu_torch/scripts/bench_kernels.py
 
 Run it as a file. `icl_tpu_torch` comes from PYTHONPATH when that names
@@ -58,6 +65,8 @@ def main(argv=None) -> int:
                        help="only the tile grid: each tile's head dim, f32 and bf16, every mode")
     which.add_argument("--bwd64", action="store_true",
                        help="only the tile-64 training shapes, f32 and bf16, beside SDPA's backward")
+    which.add_argument("--fwd64", action="store_true",
+                       help="only the tile-64 forward, f32 and bf16, with and without its LSE, beside SDPA's forward")
     args = p.parse_args(argv)
     sys.path.append(str(ROOT))  # after PYTHONPATH: another checkout's package wins
     import torch
@@ -80,6 +89,8 @@ def main(argv=None) -> int:
         tile_grid(torch, wa, smoke)
     elif args.bwd64:
         tile64_shapes(torch, F, wa, smoke)
+    elif args.fwd64:
+        tile64_forward(torch, F, wa, smoke)
     else:
         smoke.phase_kernel_3d(torch, F, wa)
         smoke.phase_backward_kernel(torch, F, wa)
@@ -186,6 +197,65 @@ def tile64_shapes(torch, F, wa, smoke) -> None:
             if not ok:
                 smoke.fail(f"[bwd64] the backward kernel disagrees with its plain version: {row}")
             del q, k, v, bias, g, grads, wants, saved, dense
+            torch.cuda.empty_cache()
+
+
+def tile64_forward(torch, F, wa, smoke) -> None:
+    """`--fwd64`: the tile-64 forward without and with its log-sum-exp,
+    SDPA's forward and the plain version at fs192's and fs120's inference
+    stage 1 (no mask, region ids) and the 2D stage-1 shapes at head dim 64
+    (no mask, the shift mask), f32 and bf16, each checked against the plain
+    version with the smoke test's tolerances (the log-sum-exp at f32's
+    1e-5 of its magnitude), then timed; one `[fwd64]` line per case."""
+    import json
+
+    gen = torch.Generator(device=smoke.DEVICE).manual_seed(19)
+    cases = [("fs192_stage1", 64, mode) for mode in ("none", "region")]
+    cases += [("fs120_stage1", 40, mode) for mode in ("none", "region")]
+    cases += [(stage[0] + "_2d", 64, mode) for stage in smoke.STAGES_2D_D64 for mode in ("none", "mask")]
+    for name, D, mode in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            ids = mask = None
+            if name.endswith("_2d"):
+                stage = next(st for st in smoke.STAGES_2D_D64 if st[0] + "_2d" == name)
+                q, k, v, bias, mask = smoke.inputs_2d(torch, stage, dtype, gen, "shift" if mode == "mask" else None,
+                                                      head_dim=D)
+            else:
+                q, k, v, bias, ids = smoke.stage_inputs(torch, smoke.STAGES[0], dtype, gen, D)
+                ids = ids if mode == "region" else None
+            scale = D ** -0.5
+            f32 = dtype == torch.float32
+            out, lse = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+            alone = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)
+            want, want_lse = wa.window_attention_plain(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+            err = (out.float() - want.float()).abs()
+            ok = float(err.max()) <= smoke.F32_ATOL if f32 else \
+                bool((err <= smoke.BF16_ATOL + smoke.BF16_RTOL * want.float().abs()).all())
+            lse_err = float((lse - want_lse).abs().max())
+            ok = ok and torch.equal(out, alone) and lse_err <= smoke.F32_ATOL * max(1.0, float(want_lse.abs().max()))
+            dense = mask if mask is not None else wa.mask_from_region_ids(ids) if ids is not None else None
+            B, H, N, _ = q.shape
+            nW = dense.shape[0] if dense is not None else B
+            shape = (B // nW, nW, H, N, D) if dense is not None else (B, H, N, D)
+            qs, ks, vs = (t.view(shape) for t in (q, k, v))
+            attn = (bias if dense is None else bias[None] + dense[:, None]).to(dtype)
+            flop_ms, byte_ms = smoke.bound(B, H, N, D, dense.numel() if dense is not None else 0,
+                                           elem_bytes=4 if f32 else 2,
+                                           flops_rate=smoke.F32_ACCURATE_FLOPS if f32 else smoke.BF16_FLOPS)
+            row = {"case": name, "shape": list(q.shape), "dtype": str(dtype).split(".")[-1], "mode": mode,
+                   "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err,
+                   "fwd_ms": smoke.cuda_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)),
+                   "fwd_lse_ms": smoke.cuda_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale,
+                                                                               return_lse=True)),
+                   "sdpa_ms": smoke.cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn,
+                                                                                   scale=scale)),
+                   "plain_ms": smoke.cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, ids, mask,
+                                                                               scale=scale), reps=3),
+                   **smoke.bound_fields(flop_ms, byte_ms)}
+            print(f"[fwd64] {json.dumps(row)}", flush=True)
+            if not ok:
+                smoke.fail(f"[fwd64] the forward kernel disagrees with its plain version: {row}")
+            del q, k, v, bias, out, lse, alone, want, want_lse, err, dense, qs, ks, vs, attn
             torch.cuda.empty_cache()
 
 

@@ -83,20 +83,25 @@ def test_plain_matches_jax_at_other_head_dims(N, d, masked):
 
 def test_head_dim_tile_and_the_forwards_shared_memory_at_it():
     """Head dims 1 .. 16 run the tile-16 instance, 17 .. 32 the tile-32
-    one, 33 .. 64 the tile-64 one; the forward's shared memory is that of
-    the tile (two buffers of K and V [Np, tile] and the ids [Np], f32): N
-    343 (Np 352) at fs24's head dim 8 takes what fs48's 16 takes. At tile
-    64 two buffers fit up to Np 224 (N 144: 148,608 bytes); past it the
-    forward stages K and V into one (N 343: 181,632 of a CTA's 232,448)."""
+    one, 33 .. 64 the tile-64 kernel; the forward's shared memory is that of
+    the tile: at tiles 16 and 32 two buffers of K and V [Np, tile] and the
+    ids [Np], f32 (N 343, Np 352, at fs24's head dim 8 takes what fs48's 16
+    takes); at tile 64, for G consumer warpgroups (3 where N's 64-row
+    blocks come in threes, N 144 and 343; 2 in twos, N 224; else 1), a
+    kilobyte of alignment, G Q tiles (f32 32 KB, bf16 8 KB), a ring of
+    32-key slots (f32 32 KB each, 3 of them, 2 for G = 1; bf16 8 KB, 3), in
+    f32 plain V tiles (8 KB, 2; 1 for G = 1) and 144 bytes a slot of ids
+    and mbarriers, the same for every head dim of the tile and, but for G,
+    for every N (N 343: 214,448 bytes in f32, one CTA of 16 warps an SM)."""
     assert [wa.head_dim_tile(d) for d in (1, 4, 8, 10, 12, 16)] == [16] * 6
     assert [wa.head_dim_tile(d) for d in (17, 20, 24, 28, 32)] == [32] * 5
     assert [wa.head_dim_tile(d) for d in range(33, 65)] == [64] * 32
     assert wa._fwd_smem_bytes(343, 8) == wa._fwd_smem_bytes(343, 16) == 2 * (2 * 352 * 16 + 352) * 4
     assert wa._fwd_smem_bytes(144, 24) == wa._fwd_smem_bytes(144, 32) == 2 * (2 * 144 * 32 + 144) * 4
-    assert wa._fwd_smem_bytes(144, 40) == wa._fwd_smem_bytes(144, 64) == 2 * (2 * 144 * 64 + 144) * 4
-    assert wa._fwd_smem_bytes(224, 64) == 2 * (2 * 224 * 64 + 224) * 4 <= wa._MAX_SMEM_BYTES
-    assert wa._fwd_smem_bytes(225, 64) == (2 * 240 * 64 + 240) * 4
-    assert wa._fwd_smem_bytes(343, 48) == wa._fwd_smem_bytes(343, 64) == (2 * 352 * 64 + 352) * 4
+    assert wa._fwd_smem_bytes(144, 40) == wa._fwd_smem_bytes(144, 64) == 1024 + (96 + 96 + 16) * 1024 + 3 * 144
+    assert wa._fwd_smem_bytes(224, 64) == 1024 + (64 + 96 + 16) * 1024 + 3 * 144 <= wa._MAX_SMEM_BYTES
+    assert wa._fwd_smem_bytes(49, 64, bf16=True) == 1024 + (8 + 24) * 1024 + 3 * 144
+    assert wa._fwd_smem_bytes(343, 48) == wa._fwd_smem_bytes(343, 64) == 1024 + 208 * 1024 + 3 * 144 == 214_448
     for d in (0, 65, 96):
         with pytest.raises(ValueError, match=f"head dim {d}, the kernels take 1 .. 64"):
             wa.head_dim_tile(d)

@@ -15,7 +15,9 @@ where N is a square, and a random dense mask), head dims 1, 4, 7, 8, 10,
 fs24, fs30, fs36, fs48, fs60, fs72, fs84, fs96, fs99, fs120, fs144,
 fs189, fs192; 1, 7, 10, 33 and 63, head dims that are not a multiple of 4,
 take the kernels' value-by-value loads, 1, 7, 33 and 63 their
-value-by-value stores); above head dim 32 the backward is the tile-64
+value-by-value stores); the tile-64 forward with and without its
+log-sum-exp at head dims 33, 40, 48, 63 and 64 and N 343, 216, 144, 49 and
+4 (3, 2 and 1 consumer warpgroups), and its geometry; above head dim 32 the backward is the tile-64
 kernel, fed the forward kernel's output and row log-sum-exp, and is held
 against both plain backwards (recomputing the softmax, and
 `window_attention_plain_bwd_lse` from the same output and log-sum-exp); the
@@ -50,6 +52,11 @@ GEOMETRY_3D = {4: ((4, 4, 1), (2, 2, 1), (1, 1, 0)), 49: ((14, 14, 1), (7, 7, 1)
                144: ((12, 12, 8), (6, 6, 4), (3, 3, 2)), 343: ((14, 14, 14), (7, 7, 7), (3, 3, 3))}
 # the head dims held: the tiles' own (16, 32, 64) and head dims below each
 HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32, 33, 40, 48, 63, 64)  # chip_smoke.py's CARD_TEST_HEAD_DIMS
+# the tile-64 forward's own sweep: N -> (padded dims, window, shift), its
+# windows taking 3, 2 and 1 consumer warpgroups (343 and 144, 216, 49 and 4)
+TILE64_GEOMETRY = {**GEOMETRY_3D, 216: ((12, 12, 12), (6, 6, 6), (3, 3, 3))}
+TILE64_CASES = [(kind, N, D, dtype) for kind in ("none", "region", "random") for N in sorted(TILE64_GEOMETRY)
+                for D in (33, 40, 48, 63, 64) for dtype in ("float32", "bfloat16")]
 CASES = [(kind, N, D, dtype) for kind in ("none", "region", "shift", "random") for N in sorted(GEOMETRY_3D)
          for D in HEAD_DIMS for dtype in ("float32", "bfloat16") if kind != "shift" or N != 343]
 # (kind, N, D, batch): shapes of the paths, with enough windows that a CTA
@@ -78,7 +85,7 @@ def _inputs(kind, N, D, dtype, batch, seed, device):
     ids = mask = None
     nW = 4
     if kind == "region":
-        ids = torch.from_numpy(window_region_ids_3d(*GEOMETRY_3D[N])).to(device)
+        ids = torch.from_numpy(window_region_ids_3d(*TILE64_GEOMETRY[N])).to(device)
         nW = ids.shape[0]
     elif kind == "shift":  # a 2 x 2 grid of windows, shifted by half a window
         ws = int(round(N ** 0.5))
@@ -186,6 +193,50 @@ def test_forward_log_sum_exp_matches_plain_on_card(card, kind, N, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,D,dtype", TILE64_CASES)
+def test_tile64_forward_and_its_log_sum_exp_match_plain_on_card(card, kind, N, D, dtype):
+    """The tile-64 forward (wgmma, a producer and 1-3 consumer warpgroups)
+    at head dims 33, 40, 48, 63 and 64 and windows of 343, 216, 144, 49 and
+    4 tokens, every mode: the output without and with the log-sum-exp store
+    (equal bits, both bitwise repeatable) against the plain version, the
+    log-sum-exp against the plain one (f32 1e-5 of its magnitude)."""
+    q, k, v, bias, ids, mask = _inputs(kind, N, D, dtype, batch=2, seed=N + D + 5, device=card)
+    scale = D ** -0.5
+    out, lse = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    out2, lse2 = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    alone = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)
+    torch.cuda.synchronize()
+    want, want_lse = wa.window_attention_plain(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(out, alone)
+    assert out.dtype == q.dtype and bool(torch.isfinite(out).all())
+    err = (out.float() - want.float()).abs()
+    if q.dtype == torch.float32:
+        assert float(err.max()) <= F32_ATOL, float(err.max())
+    else:
+        assert bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all()), float(err.max())
+    lse_err = float((lse - want_lse).abs().max())
+    assert lse_err <= F32_ATOL * max(1.0, float(want_lse.abs().max())), lse_err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [343, 216, 144, 49, 4])
+def test_tile64_forward_geometry_on_card(card, N, dtype):
+    """The tile-64 forward's CTA: a producer warpgroup and G consumer
+    warpgroups of 64 rows (3 at N 343 and 144, 2 at 216, 1 at 49 and 4),
+    the shared memory `_check` reckons in every mode; at three consumer
+    warpgroups one CTA of 16 warps an SM in f32 (214,448 bytes of shared
+    memory: two would need 428 KB), at one, two CTAs of 8 warps."""
+    bf16 = dtype == "bfloat16"
+    groups = wa._fwd64_groups(N)
+    for has_ids, has_mask in ((False, False), (True, False), (False, True)):
+        warps, smem, ctas = wa._fwd_geometry(N, 64, has_ids, has_mask, bf16, card.index)
+        assert (warps, smem) == (4 * (groups + 1), wa._fwd_smem_bytes(N, 64, bf16)), (warps, smem)
+        assert ctas >= (1 if groups > 1 or bf16 else 2), ctas
+    assert groups == {343: 3, 216: 2, 144: 3, 49: 1, 4: 1}[N]
+
+
+@pytest.mark.cuda
 def test_tile64_backward_refuses_without_the_saved_forward_on_card(card):
     """No fallback: at head dims above 32 the backward kernel needs the
     forward's output and log-sum-exp, and a call without them raises."""
@@ -247,29 +298,30 @@ def test_forward_geometry_agrees_with_the_check_rule_on_card(card, N, D):
     for has_ids, has_mask, bf16 in ((False, False, False), (True, False, False), (False, True, False),
                                     (False, True, True)):
         warps, smem, ctas = wa._fwd_geometry(N, D, has_ids, has_mask, bf16, card.index)
-        assert smem == wa._fwd_smem_bytes(N, D), (smem, wa._fwd_smem_bytes(N, D))
-        assert 1 <= warps <= 8 and ctas >= 1
+        assert smem == wa._fwd_smem_bytes(N, D, bf16), (smem, wa._fwd_smem_bytes(N, D, bf16))
+        assert 1 <= warps <= (16 if D > 32 else 8) and ctas >= 1
 
 
 @pytest.mark.cuda
 def test_geometry_refuses_a_window_that_cannot_fit_on_card(card):
     """N = 1000 at head dim 32 exceeds a CTA's shared memory in the
     forward (two buffers of K and V [1008, 32]), N = 450 in the backward
-    (four [464, 33] f32 operands); at head dim 64 N = 450 in the forward
-    (its one buffer of K and V [464, 64]); the windows the port calls fit,
-    at tile 64 N = 343 through the forward's one buffer. The tile-64
-    backward stages 64 rows or keys and a ring of 16 at a time: its shared
-    memory does not grow with N but for the region ids, and at least two
-    CTAs share an SM. f32 MASK: the dK/dV kernel's, the larger, 4 [64][64]
-    (K and V hi and lo) + 2 ring slots of 4 [16][64] (Q, dO hi and lo), the
-    term tile [16][64] and 2 [16] (lse, u) floats."""
+    (four [464, 33] f32 operands); the windows the port calls fit. Both
+    tile-64 kernels stage 64 (a forward consumer warpgroup's, 3 to a CTA
+    at N 343, 2 at N 450 and 1000) rows or keys and a ring of keys or rows
+    at a time: the forward's shared memory does not grow with N but through
+    its warpgroups, the backward's but for the region ids, and at least two
+    backward CTAs share an SM. f32 MASK: the dK/dV kernel's, the larger, 4
+    [64][64] (K and V hi and lo) + 2 ring slots of 4 [16][64] (Q, dO hi
+    and lo), the term tile [16][64] and 2 [16] (lse, u) floats."""
     with pytest.raises(ValueError, match="does not fit"):
         wa._fwd_geometry(1000, 32, False, False, False, card.index)
     with pytest.raises(ValueError, match="does not fit"):
         wa._bwd_geometry(450, 32, False, False, False, card.index)
-    with pytest.raises(ValueError, match="does not fit"):
-        wa._fwd_geometry(450, 64, False, False, False, card.index)
-    assert wa._fwd_geometry(343, 64, False, False, False, card.index)[1] == (2 * 352 * 64 + 352) * 4
+    for N in (450, 1000):  # 8 and 16 blocks of 64 rows: two consumer warpgroups a CTA
+        warps, smem, ctas = wa._fwd_geometry(N, 64, False, False, False, card.index)
+        assert (warps, smem) == (12, wa._fwd_smem_bytes(N, 64)) and smem < 214_448 and ctas >= 1
+    assert wa._fwd_geometry(343, 64, False, False, False, card.index)[1] == 214_448
     tile64 = (4 * 64 * 64 + 2 * (4 * 16 * 64 + 16 * 64 + 2 * 16)) * 4
     for N in (49, 343, 450):
         warps, smem, ctas = wa._bwd_geometry(N, 64, False, True, False, card.index)

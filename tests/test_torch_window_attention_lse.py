@@ -9,7 +9,8 @@ backward) and against the port's `window_attention_plain_bwd`, which
 recomputes the softmax; `torch.autograd.gradcheck` of `WindowAttentionFn`
 in f64 through that route; and which route `WindowAttentionFn` takes.
 
-Head dims 33, 40 and 64 (SwinUNETR fs99, fs120, fs192), no mask, region
+Head dims 33, 40 and 64 (SwinUNETR fs99, fs120, fs192; the forward and
+its lse also at 63, fs189), no mask, region
 ids (the JAX side given the same ids) and a dense mask N(0, 3^2) on both
 sides, N = 16 and 49. Tolerance 2e-5 absolute in f32 (the JAX package's
 own attention tolerance, tests/test_pallas_attention.py) on the lse, dq,
@@ -37,6 +38,9 @@ GEOMETRY = {
     49: ((14, 14, 1), (7, 7, 1), (3, 3, 0)),
 }
 CASES = [(d, mode, N) for d in (33, 40, 64) for mode in ("none", "region", "mask") for N in sorted(GEOMETRY)]
+# the forward alone also at head dim 63 (fs189): every column of the tile
+# but one, not a multiple of 4
+FORWARD_CASES = CASES + [(63, mode, N) for mode in ("none", "region", "mask") for N in sorted(GEOMETRY)]
 
 
 def _inputs(N, d, mode, seed, batch=2):
@@ -72,7 +76,7 @@ def _jax_scores(q, k, bias, jx, scale):
     return s
 
 
-@pytest.mark.parametrize("d,mode,N", CASES)
+@pytest.mark.parametrize("d,mode,N", FORWARD_CASES)
 def test_plain_lse_matches_jax_log_sum_exp(d, mode, N):
     (q, k, v, _, bias), port, jx = _inputs(N, d, mode, seed=N + d + len(mode))
     scale = d**-0.5

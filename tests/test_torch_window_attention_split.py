@@ -159,6 +159,37 @@ def test_check_and_geometry_take_every_window_the_port_calls(N, D):
         assert groups <= max(1, -(-slots // H))  # one wave of the resident CTAs
 
 
+# (B, H, N, D, slots): the tile-64 shapes of the paths (fs192's inference
+# stage 1 and training stages, the 2D stage 1 at 3 heads of 64, a short
+# window) at the resident CTAs of 132 SMs (one an SM at 2 or 3 consumer
+# warpgroups, two at one), and fewer slots than blocks
+TILE64_GRIDS = [(1372, 3, 343, 64, 132), (686, 3, 343, 40, 132), (128, 6, 343, 64, 132), (16, 12, 343, 64, 132),
+                (4, 24, 216, 64, 132), (512, 3, 144, 64, 132), (512, 3, 49, 64, 264), (1024, 3, 4, 33, 264),
+                (7, 3, 343, 64, 5)]
+
+
+@pytest.mark.parametrize("B,H,N,D,slots", TILE64_GRIDS)
+def test_tile64_grid_is_one_wave_of_row_blocks(B, H, N, D, slots):
+    """The tile-64 forward grid: a CTA per block of 64 G rows (G consumer
+    warpgroups, `_fwd64_groups`), head and window group; every window of
+    every block once, no group empty, and the blocks of all groups within
+    one wave of the resident CTAs (at least one group)."""
+    rows = 64 * wa._fwd64_groups(N)
+    per_cta, groups = wa._grid_of(B, H, N, D, slots, rows)
+    ctas_per_group = H * -(-N // rows)
+    assert rows * -(-N // rows) == -(-N // 64) * 64  # no block of 64 rows is empty
+    assert groups * per_cta >= B > (groups - 1) * per_cta
+    assert groups == 1 or groups * ctas_per_group <= slots
+    if (B, H, N) == (1372, 3, 343):  # fs192 stage 1: 2 CTAs of 192 rows a head, 22 groups of 63 windows
+        assert (rows, per_cta, groups) == (192, 63, 22)
+
+
+@pytest.mark.parametrize("B,H,N,D,slots", [(686, 3, 343, 16, 264), (512, 3, 144, 32, 264), (8, 3, 49, 32, 264)])
+def test_tile16_and_32_grid_is_a_group_per_head(B, H, N, D, slots):
+    """Tiles 16 and 32 keep a CTA per (window group, head)."""
+    assert wa._grid_of(B, H, N, D, slots) == wa._window_groups(B, H, slots)
+
+
 def test_check_refuses_a_window_the_forward_cannot_take():
     N, D = 1000, 32
     q = torch.zeros(1, 1, N, D)
