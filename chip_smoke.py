@@ -6,7 +6,9 @@
 Phases, each fatal on failure:
   1. the card: name and power limit (nvidia-smi), torch's device name;
   2. the builds of the window-attention CUDA kernels (forward and
-     backward) and of the SR kernel from ops/csrc, one nvcc each, and of
+     backward, each up to head dim 64 and, a library of its own, above it
+     in 64-column chunks) and of the SR kernel from ops/csrc, one nvcc
+     each, and of
      the host's C++ order-0 zoom and rotate (`icl_tpu_torch/native`, the
      host's g++; required), started together; the host library's seconds
      and the host CPU; each
@@ -354,14 +356,24 @@ Phases, each fatal on failure:
      from the same output and log-sum-exp); the forward timed in f32 and
      bf16 beside the bound, the plain version and SDPA in the same type,
      the backward in f32 (the 2D shapes with no mask and the shift mask);
-     then head dims 33, 40, 48 and 63 at the 3D stage-1 shapes, held and
-     repeated, 40 (fs120) timed;
+     then head dims 40 and 63 at the 3D stage-1 shapes, held and repeated,
+     40 (fs120) timed;
  58. SwinUNETR-ICL at --feature_size 192 (head dim 64 at every stage,
      1.85 B parameters) through its CLI's `main` on phase 9's cases, as
      phase 55: 3 steps and a validation, the launches per step asserted
      as phase 9's, s/step, peak memory and the seconds to build the
      weights; test_3D_BraTS --model swinunetr_icl --feature_size 192 on
      its stripped best checkpoint gives the validation dice;
+ 59. both kernels at head dims above 64 (the tile-64 kernels in chunks of
+     64 columns, a CTA per chunk of the output): SwinUNETR fs240's shapes
+     (head dim 80 at every stage) of one inference forward at sw_batch 4
+     and of one training pass, and fs384's stage 1 (head dim 128), no-mask
+     and region ids, and the Swin-UNet 2D stage-1 shapes at 3 heads of 128,
+     no-mask, the shift mask and a random dense mask; held, repeated and
+     timed as phase 57;
+ 60. SwinUNETR-ICL at --feature_size 240 (head dim 80 at every stage)
+     through its CLI's `main` at the CLI's default precision (bf16
+     autocast, recompute on) on phase 9's cases, as phase 58;
 every `fit` ends with its full train state, which each phase deletes
 after its run (in the phases of UNWRITTEN_FINAL_STATES gathered but not
 written, a depth cut for the time limit); then a `kernels` JSON line (the six window-attention
@@ -620,7 +632,8 @@ def ptxas_usage(log: str, source: str) -> dict:
     "d<=64" its tile-64 kernel (" lse": the instance that stores the row
     log-sum-exp), whose registers are those a thread starts with (its
     warpgroups then move them with setmaxnreg); "dq" and "dkdv" the tile-64
-    backward's two kernels."""
+    backward's two kernels; "d>64" the chunked tile-64 kernels of the
+    `_wide` libraries (head dims above 64)."""
     import re
 
     out, name = {}, None
@@ -628,15 +641,16 @@ def ptxas_usage(log: str, source: str) -> dict:
     types = r"I(f|13__nv_bfloat16)"
     for line in log.splitlines():
         m = re.search(source + "_kernel" + types + r"Li(\d+)ELi(\d)E(?:Lb(\d)E)?(?:Lb(\d)E)?", line)
-        m64 = re.search(source + r"64_(dq|dkdv)_kernel" + types + r"Li(\d)E", line)
-        f64 = re.search(source + r"64_kernel" + types + r"Li(\d)ELb(\d)E", line)
+        m64 = re.search(r"window_attention_bwd64_(wide_)?(dq|dkdv)_kernel" + types + r"Li(\d)E", line)
+        f64 = re.search(r"window_attention64_(wide_)?kernel" + types + r"Li(\d)ELb(\d)E", line)
         if m:
             dims = f"d<={m[2]}" if m[4] is None else f"D{m[2]}" if m[4] == "1" else f"d<{m[2]}"
             name = f"{'f32' if m[1] == 'f' else 'bf16'} {dims} {modes[int(m[3])]}{' lse' if m[5] == '1' else ''}"
         elif f64:
-            name = f"{'f32' if f64[1] == 'f' else 'bf16'} d<=64 {modes[int(f64[2])]}{' lse' if f64[3] == '1' else ''}"
+            name = (f"{'f32' if f64[2] == 'f' else 'bf16'} {'d>64' if f64[1] else 'd<=64'} {modes[int(f64[3])]}"
+                    f"{' lse' if f64[4] == '1' else ''}")
         elif m64:
-            name = f"{'f32' if m64[2] == 'f' else 'bf16'} {m64[1]} {modes[int(m64[3])]}"
+            name = f"{'f32' if m64[3] == 'f' else 'bf16'} {m64[2]}{' d>64' if m64[1] else ''} {modes[int(m64[4])]}"
         elif name and "spill stores" in line:
             out[name] = [None, int(re.search(r"(\d+) bytes spill stores", line)[1])]
         elif name and "registers" in line:
@@ -1876,26 +1890,28 @@ def phase_train_to_eval_unet3d(torch, held_out, training: dict) -> None:
 # A depth cut for the 1200 s limit: on a slow host (Intel family 6 model
 # 143) the whole script took 1262.2 s, 180 s of it writing train states at
 # ~0.7 GB/s, most of them deleted unread. These phases' `fit`s gather their
-# final train state and record its size, but write it to no file; the
-# write is exercised where a phase reads a state back (32, 35, 39, 42, 45,
-# 52).
+# final train state and record its size, but write it to no file (as do
+# the second half of 32 and rank 0 of 42's CLI, whose states are compared
+# in memory: phases 59-60 took their ~55 s); the write is exercised where a
+# phase reads a state back (32, 35, 45, 52; 39 restores a rolling step file).
 UNWRITTEN_FINAL_STATES = {"phase_training", "phase_training_2d", "phase_training_unet", "phase_training_unet3d",
                           "phase_supervised_unet3d", "phase_amos", "phase_grad_accum", "phase_fs24_cli",
-                          "phase_fs192_cli"}
+                          "phase_fs192_cli", "phase_fs240_cli", "phase_fast_cli", "phase_dispatch_and_resume"}
 
 
 @contextlib.contextmanager
-def final_state_not_written(tag: str):
-    """`fit`'s final `state_last.pt` gathered but not written while inside
-    (rolling step files are written as ever); one line a skipped write."""
+def final_state_not_written(tag: str, names=("last",)):
+    """`fit`'s final `state_last.pt` (and the states of `names`) gathered
+    but not written while inside (other rolling step files are written as
+    ever); one line a skipped write."""
     from icl_tpu_torch.utils import checkpoint as ckpt
 
     write = ckpt.save_train_state
 
     def gathered(snapshot_path, state, name="last"):
-        if name != "last":
+        if name not in names:
             return write(snapshot_path, state, name)
-        print(f"[depth] {tag}: the final train state ({ckpt.state_bytes(state) / 1e9:.2f} GB) gathered, "
+        print(f"[depth] {tag}: the train state {name} ({ckpt.state_bytes(state) / 1e9:.2f} GB) gathered, "
               "not written", flush=True)
         return ckpt.state_path(snapshot_path, name)
 
@@ -2337,7 +2353,8 @@ def phase_resume(torch, slices) -> dict:
           f"restored {scalars}", flush=True)
     if differ or any(x != y for x, y in scalars.values()) or scalars["iteration"][1] != 2:
         fail("[resume] the restored state is not the saved one bit for bit")
-    result_b = b.fit(batches[2:])
+    with final_state_not_written("phase_resume (B's last two steps, compared in memory)"):
+        result_b = b.fit(batches[2:])
     if [r["iteration"] for r in result_b["log"]] != [3, 4]:
         fail(f"[resume] the resumed run logged {[r['iteration'] for r in result_b['log']]}")
     state_b = flat(b.train_state())
@@ -2659,7 +2676,9 @@ def phase_fixmatch_resume(torch, wa, slices, volumes, cta: dict) -> dict:
 # rounding kernel, one launch per parameter leaf.
 FAST_ARGV = ["--fuse_icl_pair", "--precision", "bfloat16", "--state_dtype", "bfloat16",
              "--input_mode", "device_bank", "--scan_steps", "4", "--dispatch_depth", "2"]
-FAST_STEPS, FAST_CHECKPOINT = 8, 4
+# the fast CLI's rolling save at its last step only (a depth cut: the
+# states at 4 and 8 were written unread; 39 restores a step-4 file)
+FAST_STEPS, FAST_CHECKPOINT = 8, 8
 GRAPH_STEPS = 4
 # the SR kernel's shapes: the flagship's largest leaf (`mlp2`, 16384^2), a
 # small leaf, a ragged length, and the ragged length at an address that is
@@ -2675,34 +2694,46 @@ SWIN_SUP_PER_STEP = {"none": 8, "mask": 6}
 CARD_TEST_FILES = ["tests/test_torch_window_attention_card.py", "tests/test_torch_sgd_bf16_card.py"]
 
 
-def start_card_tests() -> subprocess.Popen:
+# The card tests in two pytest processes side by side, the two -k
+# selections splitting both files' cases between them (716 and 833 of
+# 1549; the SR file's go with the first): one process took about as long
+# as phase 39 beside it
+CARD_TEST_SPLIT = ("not (wide or tile64 or backward)", "wide or tile64 or backward")
+
+
+def start_card_tests() -> list:
     """The card's kernel tests (JAX-free, without tests/conftest.py), both
-    files in one pytest, started beside the phases that time nothing
-    (`run_card_tests` reads them)."""
-    proc = subprocess.Popen([sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
-                             "-q", "-rs", "-m", "cuda", *CARD_TEST_FILES], cwd=ROOT,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    STARTED.append(proc)
-    return proc
+    files in two pytest processes (CARD_TEST_SPLIT), started beside the
+    phases that time nothing (`run_card_tests` reads them)."""
+    procs = []
+    for select in CARD_TEST_SPLIT:
+        procs.append(subprocess.Popen([sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
+                                       "-q", "-rs", "-m", "cuda", "-k", select, *CARD_TEST_FILES], cwd=ROOT,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        STARTED.append(procs[-1])
+    return procs
 
 
-def run_card_tests(proc: subprocess.Popen) -> dict:
-    """The card tests' summary: fatal on any failure or skip."""
-    try:
-        out, err = proc.communicate(timeout=900)
-    except subprocess.TimeoutExpired:
-        fail("[card-tests] the card's kernel tests outlived 900 s")
-    tail = out.strip().splitlines()[-1] if out.strip() else err[-2000:]
-    print(f"[card-tests] {' '.join(CARD_TEST_FILES)}: {tail}", flush=True)
-    if proc.returncode != 0 or "skipped" in tail or "passed" not in tail:
-        print(out[-6000:], err[-3000:], flush=True)
-        fail("[card-tests] the card's kernel tests did not all pass")
-    return {"summary": tail}
+def run_card_tests(procs: list) -> dict:
+    """The card tests' summaries: fatal on any failure or skip."""
+    tails = []
+    for proc in procs:
+        try:
+            out, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            fail("[card-tests] the card's kernel tests outlived 900 s")
+        tail = out.strip().splitlines()[-1] if out.strip() else err[-2000:]
+        print(f"[card-tests] -k {proc.args[proc.args.index('-k') + 1]!r}: {tail}", flush=True)
+        if proc.returncode != 0 or "skipped" in tail or "passed" not in tail:
+            print(out[-6000:], err[-3000:], flush=True)
+            fail("[card-tests] the card's kernel tests did not all pass")
+        tails.append(tail)
+    return {"summary": tails}
 
 
 def fast_config(tries: str, max_iterations: int, **kw):
     """The flagship's fast configuration as an ExperimentConfig (the CLI's
-    FAST_ARGV), with a checkpoint every FAST_CHECKPOINT steps."""
+    FAST_ARGV); `kw` sets its fields."""
     cfg = unet_config(max_iterations, 0, tries)
     cfg.precision, cfg.state_dtype, cfg.fuse_icl_pair = "bfloat16", "bfloat16", True
     cfg.device_augment, cfg.scan_steps, cfg.dispatch_depth = True, 4, 2
@@ -3118,7 +3149,9 @@ def phase_dispatch_and_resume(torch, slices) -> dict:
         if restore is not None:
             trainer.load_train_state(ckpt.load_train_state(*restore, device=DEVICE))
         start = {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
-        result = trainer.fit(batches)
+        # the run's rolling state at step 8 (B restores step 4) and final state: compared in memory
+        with final_state_not_written("phase_dispatch_and_resume", names=("last", "step_00000008")):
+            result = trainer.fit(batches)
         state = {k: v.clone() for k, v in flat(trainer.train_state()).items()}  # on the card
         return state, result, start
 
@@ -3491,9 +3524,10 @@ def dp_cli_worker(torch, rank: int, world: int, port: int) -> dict:
     os.chdir(cwd)
     wa.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    result = cli.main(DP_CLI_ARGV + ["--max_iterations", str(DP_CLI_STEPS), "--val_interval", str(DP_CLI_STEPS),
-                                     "--num_processes", str(world), "--process_id", str(rank),
-                                     "--dist_coordinator", f"127.0.0.1:{port}"])
+    with final_state_not_written(f"phase_data_parallel rank {rank} (its digest is compared)"):
+        result = cli.main(DP_CLI_ARGV + ["--max_iterations", str(DP_CLI_STEPS), "--val_interval",
+                                         str(DP_CLI_STEPS), "--num_processes", str(world), "--process_id",
+                                         str(rank), "--dist_coordinator", f"127.0.0.1:{port}"])
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     out = {"steps": steps, "log": result["log"], "vals": result["vals"],
@@ -5193,7 +5227,7 @@ SWEEP_HEAD_DIMS = (4, 12)
 TIMED_SWEEP_HEAD_DIMS = (4, 12)
 # tests/test_torch_window_attention_card.py's HEAD_DIMS, every mode, run
 # beside phase 39
-CARD_TEST_HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32, 33, 40, 48, 63, 64)
+CARD_TEST_HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32, 33, 40, 48, 63, 64, 65, 72, 80, 96, 127, 128)
 
 
 def phase_kernels_head_dims(torch, F, wa) -> dict:
@@ -5243,10 +5277,11 @@ def phase_fs24_cli(torch, wa, cases, held_out) -> dict:
     return feature_size_cli(torch, wa, cases, held_out, FS24)
 
 
-def feature_size_cli(torch, wa, cases, held_out, fs: int) -> dict:
+def feature_size_cli(torch, wa, cases, held_out, fs: int, precision: str | None = "float32") -> dict:
     """SwinUNETR-ICL at --feature_size `fs` through its CLI's `main` (phase
-    55's run), timing the Trainer's model build (the weights drawn on the
-    host and moved to the card); test_3D_BraTS on the best checkpoint."""
+    55's run) at `precision` (None: the CLI's default, bf16 autocast),
+    timing the Trainer's model build (the weights drawn on the host and
+    moved to the card); test_3D_BraTS on the best checkpoint."""
     from icl_tpu_torch.scripts import test_3D_BraTS
     from icl_tpu_torch.scripts import train_inherent_consistent_swinunetr_3D_BraTS as cli
     from icl_tpu_torch.train import trainer as trainer_module
@@ -5272,14 +5307,15 @@ def feature_size_cli(torch, wa, cases, held_out, fs: int) -> dict:
     torch.manual_seed(0)  # drop-path masks
     try:
         run = run_cli(torch, wa, cli, common + ["--total_num", str(len(cases)), "--max_iterations",
-                                                str(TRAIN_STEPS), "--val_interval", str(TRAIN_STEPS),
-                                                "--precision", "float32"],
+                                                str(TRAIN_STEPS), "--val_interval", str(TRAIN_STEPS)]
+                      + (["--precision", precision] if precision else []),
                       "BraTS2019Dataset", data, tag, METRIC_KEYS, TRAIN_STEPS,
                       {"fwd": FWD_PER_STEP, "bwd": BWD_PER_STEP})
     finally:
         trainer_module.net_factory = factory
     run.update(built)
-    print(f"{tag} SwinUNETR-ICL fs{fs}: {built['n_params']} parameters, the Trainer's model built in "
+    print(f"{tag} SwinUNETR-ICL fs{fs} ({precision or 'the CLI default precision'}): {built['n_params']} "
+          f"parameters, the Trainer's model built in "
           f"{built['build_s']:.2f} s; {run['s_per_step']:.4f} s/step, peak memory "
           f"{run['peak_bytes'] / 2**30:.2f} GiB", flush=True)
     eval_dice = eval_cli(test_3D_BraTS, common + ["--model", "swinunetr_icl"], "BraTS2019Dataset", data)
@@ -5437,7 +5473,9 @@ def phase_bf16_remat(torch, wa, sg, cases) -> dict:
 # (40, also timed), fs144 (48), fs189 (63).
 FS192 = 192
 HEAD_DIM_FS192 = FS192 // 3
-TILE64_SWEEP_HEAD_DIMS = (33, 40, 48, 63)
+# (33 and 48 left this sweep for the time of phases 59-60: the card tests
+# hold them at every N and mode)
+TILE64_SWEEP_HEAD_DIMS = (40, 63)
 TIMED_TILE64_SWEEP_HEAD_DIMS = (40,)
 STAGES_2D_D64 = [STAGES_2D[0], REF_STAGE_2D]
 
@@ -5445,7 +5483,7 @@ STAGES_2D_D64 = [STAGES_2D[0], REF_STAGE_2D]
 def phase_kernels_tile64(torch, F, wa) -> dict:
     """57: both kernels at fs192's 3D shapes and the 2D stage-1 shapes at
     head dim 64, every mode, f32 and bf16, held, repeated and timed; head
-    dims 33, 40, 48 and 63 at the 3D stage-1 shapes, 40 timed."""
+    dims 40 and 63 at the 3D stage-1 shapes, 40 timed."""
     fwd = phase_kernel_3d(torch, F, wa, head_dim=HEAD_DIM_FS192, tag="[kernel-fs192]", timed_bf16=True)
     bwd = phase_backward_kernel(torch, F, wa, head_dim=HEAD_DIM_FS192, tag="[bwd-fs192]")
     gen = torch.Generator(device=DEVICE).manual_seed(57)
@@ -5481,6 +5519,68 @@ def phase_fs192_cli(torch, wa, cases, held_out) -> dict:
     return feature_size_cli(torch, wa, cases, held_out, FS192)
 
 
+# Head dims above 64 (the tile-64 kernels in 64-column chunks): SwinUNETR
+# fs240 (head dim 80, two chunks, the next feature size that divides by 48
+# after 192) and fs384 (128, two whole chunks), and a Swin-UNet at 128 a
+# head at the 2D stage-1 shapes
+FS240, FS384 = 240, 384
+HEAD_DIM_2D_WIDE = 128
+
+
+def phase_kernels_wide(torch, F, wa) -> dict:
+    """59: both kernels at fs240's 3D shapes (head dim 80 at every stage:
+    the inference forward at sw_batch 4 and the training pass, NONE and
+    REGION), at fs384's stage 1 (head dim 128; its other stages run the
+    same instances as fs240's) and at the 2D stage-1 shapes at 3 heads of
+    128 (NONE, MASK with the shift mask and a random mask), f32 and bf16,
+    held and bitwise repeatable (the forward's log-sum-exp too); timed
+    beside the bound, the plain version and SDPA (f32; the 3D forward in
+    bf16 too)."""
+    out = {}
+    for fs, stages in ((FS240, STAGES), (FS384, STAGES[:1])):
+        out[f"fwd_fs{fs}"] = phase_kernel_3d(torch, F, wa, head_dim=fs // 3, stages=stages, tag=f"[kernel-fs{fs}]",
+                                             timed_bf16=True)
+        out[f"bwd_fs{fs}"] = phase_backward_kernel(torch, F, wa, head_dim=fs // 3, stages=stages,
+                                                   tag=f"[bwd-fs{fs}]")
+    gen = torch.Generator(device=DEVICE).manual_seed(59)
+    out["fwd2d"], out["bwd2d"] = [], []
+    for stage in STAGES_2D_D64:
+        for mode in stage[4]:
+            for kind in ((None,) if mode == "none" else ("shift", "random")):
+                for dtype in (torch.float32, torch.bfloat16):
+                    row, brow = check_2d(torch, F, wa, stage, mode, kind, dtype, gen, tag="2d-d128",
+                                         head_dim=HEAD_DIM_2D_WIDE, timed=kind != "random")
+                    out["fwd2d"].append(row)
+                    out["bwd2d"].append(brow)
+    held = [r for rows in out.values() for r in rows]
+    largest = {d: max(r["max_abs_err"] for r in held if r["shape"][3] == d)
+               for d in (FS240 // 3, FS384 // 3)}
+    print(f"[wide] fs240's and fs384's 3D shapes (head dims 80 and 128, two 64-column chunks) and the 2D "
+          f"stage-1 shapes at head dim 128, held (forward and backward, every mode, f32 and bf16, "
+          f"bitwise repeatable): the largest abs error at each {json.dumps(largest)}", flush=True)
+    return out
+
+
+def phase_fs240_cli(torch, wa, cases, held_out) -> dict:
+    """60: SwinUNETR-ICL at --feature_size 240 (head dim 80 at every stage)
+    through its CLI at the CLI's default precision (bf16 autocast, recompute
+    on), as phase 58, with the launches of a step asserted and
+    test_3D_BraTS reproducing the validation dice."""
+    return feature_size_cli(torch, wa, cases, held_out, FS240, precision=None)
+
+
+def phases_59_60(torch, F, wa, cases, held_out) -> dict:
+    """59-60 on phase 9's cases."""
+    t0 = time.perf_counter()
+    kernels = phase_kernels_wide(torch, F, wa)
+    fs240 = phase_fs240_cli(torch, wa, cases, held_out)
+    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
+    keys = ("s_per_step", "peak_bytes", "build_s", "n_params", "val_dice")
+    print(f"[summary] phases 59-60 in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps({'fs240': {k: fs240[k] for k in keys}})}", flush=True)
+    return {"kernels": kernels, "fs240": fs240}
+
+
 def phases_57_58(torch, F, wa, cases, held_out) -> dict:
     """57-58 on phase 9's cases."""
     t0 = time.perf_counter()
@@ -5496,7 +5596,7 @@ def phases_57_58(torch, F, wa, cases, held_out) -> dict:
 def main(argv: list) -> int:
     """Every phase. `--from 41` runs phases 1-2, 41-43 and 47-52 only (the
     multi-process ones, phase 42's ranks running phase 48), `--from 54`
-    phases 1-2 and 54-56, and neither prints a result: a partial run, to
+    phases 1-2 and 54-60, and neither prints a result: a partial run, to
     iterate on them."""
     start = int(argv[argv.index("--from") + 1]) if "--from" in argv else 1
     if start not in (1, 41, 54):
@@ -5554,30 +5654,32 @@ def main(argv: list) -> int:
 
     # 2. the builds, one nvcc per source, started together
     t0 = time.perf_counter()
-    sources = ("window_attention", "window_attention_bwd", "sgd_bf16")
+    sources = ("window_attention", "window_attention_bwd", "window_attention_wide", "window_attention_bwd_wide",
+               "sgd_bf16")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host_build = pool.submit(build_host_helper)
         builds = list(pool.map(build_library, sources))
         host_build = host_build.result()
     build_s = time.perf_counter() - t0
     print(f"[build] the host's C++ helper {json.dumps(host_build)}", flush=True)
-    for source, (lib_path, log) in zip(sources, builds[:2]):
+    for source, (lib_path, log) in zip(sources, builds[:4]):
         usage = ptxas_usage(log, source) if log else "already built"
         spills = sorted(n for n, (_, spill) in usage.items() if spill) if log else "not read"
         print(f"[build] {lib_path}: registers and spill stores (bytes) per instance {json.dumps(usage)}; "
               f"instances that spill: {spills or 'none'}", flush=True)
-    sgd_log = [line.strip() for line in builds[2][1].splitlines() if "Used" in line or "spill" in line]
-    print(f"[build] {builds[2][0]}: {sgd_log or 'already built'}", flush=True)
-    print(f"[build] the three libraries in {build_s:.2f} s", flush=True)
+    sgd_log = [line.strip() for line in builds[4][1].splitlines() if "Used" in line or "spill" in line]
+    print(f"[build] {builds[4][0]}: {sgd_log or 'already built'}", flush=True)
+    print(f"[build] the five libraries in {build_s:.2f} s", flush=True)
     for what, query, too_large in (("window_attention", wa._fwd_geometry, 1000),
                                    ("window_attention_bwd", wa._bwd_geometry, 450)):
         geometry = {f"N{n} D{d}": dict(zip(("warps", "smem_bytes", "ctas_per_sm"),
                                            query(n, d, False, True, False, 0)))
                     for n, d in ((343, 16), (216, 16), (144, 32), (49, 32), (4, 32), (343, 64), (144, 64),
-                                 (49, 64))}
+                                 (49, 64), (343, 80), (144, 128), (49, 128))}
         print(f"[build] {what} f32 MASK geometry per CTA: {json.dumps(geometry)}", flush=True)
-        # the tile-64 kernels' shared memory does not grow with N (the backward's but for the ids)
-        for n, d in ((too_large, HEAD_DIM_2D),):
+        # the tile-64 kernels' shared memory does not grow with N (the backward's but for the ids);
+        # three 64-column chunks of the head dim fit neither in f32
+        for n, d in ((too_large, HEAD_DIM_2D), (343, 129)):
             try:
                 query(n, d, False, False, False, 0)
                 fail(f"{what}'s geometry took a window of {n} tokens at head dim {d}")
@@ -5596,6 +5698,8 @@ def main(argv: list) -> int:
         stamp("54-56")
         phases_57_58(torch, F, wa, cases, held_out)
         stamp("57-58")
+        phases_59_60(torch, F, wa, cases, held_out)
+        stamp("59-60")
         print(f"[summary] a partial run from phase 54 passed in {time.perf_counter() - t_script:.1f} s; "
               f"the result lines belong to the whole run", flush=True)
         return 0
@@ -5730,10 +5834,10 @@ def main(argv: list) -> int:
 
         fast = phase_fast_cli(torch, wa, sg, slices, volumes)
         graph = phase_graph_vs_eager(torch, wa, slices)
-        card_run = start_card_tests()  # beside 39, which times nothing on the card
+        card_run = start_card_tests()  # beside 39 and 40, which time nothing on the card
         dispatch = phase_dispatch_and_resume(torch, slices)
-        card_tests = run_card_tests(card_run)
         augment = phase_device_augment(torch, slices)
+        card_tests = run_card_tests(card_run)
         shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
         print(f"[summary] fast configuration phases 36-40 in {time.perf_counter() - t0:.1f} s: "
               f"{json.dumps({'card_tests': card_tests, 'fast_peak_gib': fast['peak_bytes'] / 2**30, 'fast_state_bytes': fast['state_bytes'], 'graph': {k: graph[k] for k in ('fast', 'swin', 'amos')}, 'upsample_backward_bitwise': graph['upsample_backward_bitwise'], 'dispatch': dispatch, 'augment': augment})}",
@@ -5806,6 +5910,11 @@ def main(argv: list) -> int:
     # feature size 192 through its CLI end to end
     tile64 = phases_57_58(torch, F, wa, cases, held_out)
     stamp("57-58")
+    # 59 - 60. this slice: head dims above 64 (the tile-64 kernels in chunks of
+    # 64 columns) at SwinUNETR fs240's and fs384's and the 2D stage-1 shapes,
+    # and SwinUNETR-ICL at feature size 240 through its CLI end to end
+    wide = phases_59_60(torch, F, wa, cases, held_out)
+    stamp("59-60")
 
     # The kernels line, one entry per kernel and mode. Times are sums over
     # the shapes of a unit of work, each f32 launch time times its launches
@@ -5875,10 +5984,25 @@ def main(argv: list) -> int:
             timed(tile64["kernels"]["fwd"], mode, "bfloat16"), PER_FORWARD[mode])
         paths["bwd"][mode]["swinunetr_icl_fs192_training_step"] = totals(
             timed(tile64["kernels"]["bwd"], mode), BWD_PER_STEP_BY_STAGE[mode])
+        # head dims 80 and 128: two 64-column chunks (fs384 at stage 1 alone)
+        paths["fwd"][mode]["swinunetr_fs240_inference_forward"] = totals(
+            timed(wide["kernels"]["fwd_fs240"], mode), PER_FORWARD[mode])
+        paths["fwd"][mode]["swinunetr_fs240_inference_forward_bf16"] = totals(
+            timed(wide["kernels"]["fwd_fs240"], mode, "bfloat16"), PER_FORWARD[mode])
+        paths["bwd"][mode]["swinunetr_icl_fs240_training_step"] = totals(
+            timed(wide["kernels"]["bwd_fs240"], mode), BWD_PER_STEP_BY_STAGE[mode])
+        for direction in ("fwd", "bwd"):
+            for r in timed(wide["kernels"][f"{direction}_fs384"], mode):
+                paths[direction][mode][f"swinunetr_fs384_{r['stage']}_launch"] = {
+                    k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     for direction in ("fwd", "bwd"):  # the 2D stage-1 shapes at head dim 64, a launch each
         for r in timed(tile64["kernels"][f"{direction}2d"], "none") + timed(tile64["kernels"][f"{direction}2d"],
                                                                                "mask"):
             paths[direction].setdefault(r["mode"], {})[f"swinunet2d_d64_{r['stage']}_launch"] = {
+                k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        for r in timed(wide["kernels"][f"{direction}2d"], "none") + timed(wide["kernels"][f"{direction}2d"],
+                                                                             "mask"):
+            paths[direction].setdefault(r["mode"], {})[f"swinunet2d_d128_{r['stage']}_launch"] = {
                 k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     per = {"region": {"fwd": "SwinUNETR inference forward", "bwd": "SwinUNETR-ICL training step"},
            "none": "Swin-UNet-ICL training step", "mask": "Swin-UNet-ICL training step"}
@@ -5910,6 +6034,7 @@ def main(argv: list) -> int:
                            graph["swin_first_step"][direction][mode]}
             by_path["training_3d_fs24"] = new["fs24"]["path_launches"][direction][mode]
             by_path["training_3d_fs192"] = tile64["fs192"]["path_launches"][direction][mode]
+            by_path["training_3d_fs240_bf16"] = wide["fs240"]["path_launches"][direction][mode]
             if direction == "fwd":
                 by_path["inference_3d"] = launches.get(mode, 0)
                 by_path["inference_3d_two_ranks"] = dp_window["launches"][mode]
@@ -5919,7 +6044,8 @@ def main(argv: list) -> int:
                 by_path[f"validation_swinunetr_3d_tp2_rank{r}"] = counts[direction].get(mode, 0)
             held = (rows_3d + rows_2d + new["kernels"][direction] + new["kernels"]["sweep"][direction]
                     + tile64["kernels"][direction] + tile64["kernels"][f"{direction}2d"]
-                    + tile64["kernels"]["sweep"][direction])
+                    + tile64["kernels"]["sweep"][direction] + wide["kernels"][f"{direction}2d"]
+                    + [r for fs in (FS240, FS384) for r in wide["kernels"][f"{direction}_fs{fs}"]])
             errs = [r["max_abs_err"] for r in held if r["mode"] == mode
                     and (direction == "bwd" or r["dtype"] == "float32")]
             head_dims = sorted({r["shape"][3] for r in held if r["mode"] == mode})

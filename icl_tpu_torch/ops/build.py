@@ -23,10 +23,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
 # -split-compile=0: nvcc optimises and assembles a library's kernel
-# instances (36 in the forward, 29 in the backward) on all the host's
-# cores, so a cold build of the three libraries takes 18 s instead of 30 s
-# on the H100's 8-core host, with the same registers and spills per
-# instance
+# instances (36 in the forward, 29 in the backward; 12 and 14 in their
+# head-dim-chunked libraries) on all the host's cores, so a cold build of
+# the three libraries took 18 s instead of 30 s on the H100's 8-core host,
+# with the same registers and spills per instance
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -96,33 +96,37 @@ def _compile(name: str, key: bytes, cmd: list) -> tuple[Path, str]:
 
 
 @functools.cache
-def load_window_attention() -> ctypes.CDLL:
+def load_window_attention(wide: bool = False) -> ctypes.CDLL:
     """The window-attention library, built on first use, with its C
-    signatures declared."""
-    path, _ = build_library("window_attention")
+    signatures declared: head dims up to 64, or (`wide`) above 64, in
+    64-column chunks (`window_attention_wide.cu`, `icl_window_attention_wide_*`)."""
+    path, _ = build_library("window_attention_wide" if wide else "window_attention")
     lib = ctypes.CDLL(str(path))
-    fn = lib.icl_window_attention_fwd
+    prefix = "icl_window_attention_wide" if wide else "icl_window_attention"
+    fn = getattr(lib, f"{prefix}_fwd")
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    _declare_geometry(lib.icl_window_attention_fwd_geometry)
+    _declare_geometry(getattr(lib, f"{prefix}_fwd_geometry"))
     _declare_error_string(lib)
     return lib
 
 
 @functools.cache
-def load_window_attention_bwd() -> ctypes.CDLL:
+def load_window_attention_bwd(wide: bool = False) -> ctypes.CDLL:
     """The window-attention backward library, built on first use, with its
-    C signatures declared."""
-    path, _ = build_library("window_attention_bwd")
+    C signatures declared: head dims up to 64, or (`wide`) above 64
+    (`window_attention_bwd_wide.cu`, `icl_window_attention_wide_*`)."""
+    path, _ = build_library("window_attention_bwd_wide" if wide else "window_attention_bwd")
     lib = ctypes.CDLL(str(path))
-    fn = lib.icl_window_attention_bwd
+    prefix = "icl_window_attention_wide" if wide else "icl_window_attention"
+    fn = getattr(lib, f"{prefix}_bwd")
     fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    _declare_geometry(lib.icl_window_attention_bwd_geometry)
+    _declare_geometry(getattr(lib, f"{prefix}_bwd_geometry"))
     _declare_error_string(lib)
     return lib
 

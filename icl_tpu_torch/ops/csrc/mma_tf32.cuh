@@ -468,6 +468,71 @@ __device__ __forceinline__ void split_rows(float* hi, float* lo, const T* raw, c
   }
 }
 
+// The chunked tile-64 kernels (head dims above 64: window_attention_wide.cu,
+// window_attention_bwd_wide.cu) stage a head dim of d in head_dim_chunks(d)
+// chunks of 64 columns: the overloads below take the chunk's first column
+// of x, `col0` (a multiple of 64), the tile's column c being x's column
+// col0 + c, the rows d values apart as above.
+__host__ __device__ inline int head_dim_chunks(int d) { return d <= 64 ? 1 : (d + 63) / 64; }
+
+template <typename T>
+__device__ __forceinline__ void issue_rows(T* raw, const T* x, int r0, int R, int N, int d, bool chunks, int col0) {
+  if (!chunks) return;
+  for (int i = threadIdx.x; i < R * 16; i += blockDim.x) {
+    const int r = i >> 4;
+    const int c = (i & 15) << 2;
+    if (r0 + r < N && col0 + c < d)
+      cp_async<static_cast<int>(4 * sizeof(T))>(raw + sidx<64>(r, c),
+                                                x + static_cast<size_t>(r0 + r) * d + col0 + c);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void chunk_values(float (&v)[4], const T* raw, const T* x, int row, int r, int c,
+                                             int N, int d, bool chunks, int col0) {
+  v[0] = v[1] = v[2] = v[3] = 0.f;
+  if (row >= N || col0 + c >= d) return;
+  if (chunks) {
+    raw_chunk(v, raw, sidx<64>(r, c));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (col0 + c + e < d) v[e] = to_float(x[static_cast<size_t>(row) * d + col0 + c + e]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void fill_rows(T* raw, const T* x, int r0, int R, int N, int d, bool chunks, int col0) {
+  for (int i = threadIdx.x; i < R * 16; i += blockDim.x) {
+    const int r = i >> 4;
+    const int c = (i & 15) << 2;
+    if (chunks && r0 + r < N && col0 + c < d) continue;  // copied
+    float v[4];
+    chunk_values(v, raw, x, r0 + r, r, c, N, d, chunks, col0);
+    T* at = raw + sidx<64>(r, c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) store1<T>(at + e, v[e]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void split_rows(float* hi, float* lo, const T* raw, const T* x, int r0, int R, int N,
+                                           int d, bool chunks, int col0) {
+  constexpr bool kExact = !std::is_same<T, float>::value;
+  for (int i = threadIdx.x; i < R * 16; i += blockDim.x) {
+    const int r = i >> 4;
+    const int c = (i & 15) << 2;
+    float v[4];
+    chunk_values(v, raw, x, r0 + r, r, c, N, d, chunks, col0);
+    const int at = sidx<64>(r, c);
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split<kExact>(v[e], h[e], l[e]);
+    *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
+    if (!kExact) *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
 // The A fragments of rows r0 .. r0 + 15 (r0 a multiple of 8) of a raw tile
 // [*][64], split once: the hi halves into registers and the lo halves
 // (unless EXACT) into `lo` at the tile's own places: `lo` may be the raw tile itself, each

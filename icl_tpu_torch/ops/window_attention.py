@@ -19,7 +19,9 @@ takes the softmax from them (`window_attention_plain_bwd_lse` is its
 arithmetic) where at 32 and below it recomputes the softmax's statistics.
 On CUDA tensors the forward launches `csrc/window_attention.cu` and the
 backward `csrc/window_attention_bwd.cu` (at head dims above 32 its tile-64
-kernels, which need the saved output and log-sum-exp); on CPU tensors they
+kernels, which need the saved output and log-sum-exp; above 64 their
+chunked forms, `csrc/window_attention_wide.cu` and
+`window_attention_bwd_wide.cu`, libraries of their own); on CPU tensors they
 run `window_attention_plain` and `window_attention_plain_bwd` (or
 `window_attention_plain_bwd_lse` where the output and log-sum-exp are
 given). At head dims above 32 both directions run tile-64 kernels that
@@ -33,13 +35,16 @@ Each launch adds its FLOPs to any count in progress (`utils.flops`):
 4*B*H*N^2*D forward, 10*B*H*N^2*D backward, what the plain versions'
 matmuls count on the CPU.
 
-Head dims: the kernels take any head dim D of 1 .. `MAX_HEAD_DIM` (64),
-each through the instance compiled for its tile (`head_dim_tile`: 16 for
-D <= 16, 32 for D <= 32, 64 above), whose operands are staged at the
-tile's width with zero columns past D; SwinUNETR's head dim is
-feature_size / 3 (8 at fs24, 16 at fs48, 32 at fs96, 64 at fs192). A
-larger D raises ValueError, on the card only: the plain versions take any
-D.
+Head dims: the kernels take any head dim D >= 1 whose shared memory fits
+a CTA, each through the instance compiled for its tile (`head_dim_tile`:
+16 for D <= 16, 32 for D <= 32, 64 above), whose operands are staged at
+the tile's width with zero columns past D; above 64 the chunked tile-64
+kernels walk D in `head_dim_chunks(D)` chunks of 64 columns, a CTA (in the
+backward, a quad of warps) per chunk of the output. SwinUNETR's head dim is feature_size /
+3 (8 at fs24, 16 at fs48, 32 at fs96, 64 at fs192, 80 at fs240, 128 at
+fs384). A D whose geometry does not fit (f32 above 128; bf16 above 640 in
+the forward, at N = 343 above 128 in the backward) raises ValueError
+naming D and N, on the card only: the plain versions take any D.
 
 Under tensor parallelism (counterpart of `_make_gspmd_fused` and
 `_dispatch_forward`) each rank calls the same kernels on its own rows and
@@ -58,10 +63,10 @@ import torch
 
 from icl_tpu_torch.utils.flops import add_kernel_flops
 
-MAX_HEAD_DIM = 64  # the largest head dim the kernels take
 HEAD_DIM_TILES = (16, 32, 64)  # the kernels' compiled tiles: the width D is staged at
 SAVED_LSE_ABOVE = 32  # head dims above this: the backward takes the forward's output and lse
 _BLOCK64 = 64  # rows of a tile-64 forward and dQ CTA (and keys of the dK/dV CTA)
+_BWD64_QUADS = 2  # above head dim 64, the chunks of one tile-64 backward CTA (`kQuads`)
 _MAX_SMEM_BYTES = 232_448  # per CTA on Hopper
 _CHUNK_BYTES = 32 << 20  # the plain backward's score chunk (the JAX backward's rule)
 
@@ -176,44 +181,88 @@ def window_attention_plain_bwd_lse(q, k, v, bias, region_ids, out, lse, dout, *,
 
 
 def head_dim_tile(D: int) -> int:
-    """The tile of head dim D (`head_dim_tile` in `csrc/mma_tf32.cuh`):
-    the width the kernels stage D at, and so the instance that runs it.
-    Raises ValueError for a D the kernels do not take."""
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"window_attention: head dim {D}, the kernels take 1 .. {MAX_HEAD_DIM}")
-    return next(t for t in HEAD_DIM_TILES if D <= t)
+    """The tile of head dim D (`head_dim_tile` in `csrc/mma_tf32.cuh` up to
+    64): the width the kernels stage D at, and so the instance that runs it
+    (64 for every D above 32; above 64 in `head_dim_chunks(D)` chunks, the
+    `_wide` libraries). Raises ValueError for D < 1."""
+    if D < 1:
+        raise ValueError(f"window_attention: head dim {D}, the kernels take head dims of 1 and above")
+    return next((t for t in HEAD_DIM_TILES if D <= t), HEAD_DIM_TILES[-1])
 
 
-def _fwd64_groups(N: int) -> int:
+def head_dim_chunks(D: int) -> int:
+    """The 64-column chunks the tile-64 kernels walk head dim D in
+    (`head_dim_chunks` in `csrc/mma_tf32.cuh`): 1 up to 64, ceil(D / 64)
+    above, where each chunk of the output has CTAs (in the backward, quads
+    of warps) of its own."""
+    return 1 if D <= _BLOCK64 else -(-D // _BLOCK64)
+
+
+def _fwd64_layout_bytes(groups: int, chunks: int, bf16: bool) -> int:
+    """`Fwd64Layout(...).total`, in `csrc/window_attention.cu` at one chunk
+    and `csrc/window_attention_wide.cu` above: a kilobyte to align its tiles; each
+    group's Q tile [64, 64] of each chunk (f32 hi and lo, 32 KB; bf16 8
+    KB); a ring of S slots of 32 keys, each K of every chunk (f32 hi and
+    lo, 16 KB; bf16 4 KB) and V of the CTA's chunk (f32 V^T hi and lo, 16
+    KB; bf16 4 KB), S = 2 in f32 for one group at one chunk or several
+    above, else 3; f32's plain V tiles [32, 64] at one chunk (8 KB, one for
+    one group, else two); each slot's 32 keys' region ids and two
+    mbarriers."""
+    slots = 2 if not bf16 and (groups == 1 if chunks == 1 else groups > 1) else 3
+    if bf16:
+        tiles = 8 * groups * chunks + 4 * slots * (chunks + 1)
+    else:
+        raws = 0 if chunks > 1 else 1 if groups == 1 else 2
+        tiles = 32 * groups * chunks + 16 * slots * (chunks + 1) + 8 * raws
+    return 1024 + tiles * 1024 + slots * (32 * 4 + 16)
+
+
+def _fwd64_groups(N: int, D: int = 64, bf16: bool = False) -> int:
     """Consumer warpgroups of a tile-64 forward CTA, 64 rows each
-    (`groups64` in `csrc/window_attention.cu`): 3 or 2 where they divide
-    the window's 64-row blocks, else 1."""
-    blocks = -(-N // _BLOCK64)
-    return 3 if blocks % 3 == 0 else 2 if blocks % 2 == 0 else 1
+    (`groups64` in `csrc/window_attention.cu` and `window_attention_wide.cu`): 3 or 2 where they divide
+    the window's 64-row blocks and their layout fits a CTA's shared memory
+    (at head dim D's chunks; always at 64 and below), else 1."""
+    blocks, chunks = -(-N // _BLOCK64), head_dim_chunks(D)
+    return next((g for g in (3, 2) if blocks % g == 0
+                 and _fwd64_layout_bytes(g, chunks, bf16) <= _MAX_SMEM_BYTES), 1)
 
 
 def _fwd_smem_bytes(N: int, D: int, bf16: bool = False) -> int:
     """The forward kernel's shared memory per CTA (`smem_bytes` in
     `csrc/window_attention.cu`). Tiles 16 and 32 (`head_dim_tile(D)`): two
     buffers of K and V [Np, tile] and the region ids [Np] in f32, Np = N
-    padded to a multiple of 16. Tile 64 (`Fwd64Layout`), for G =
-    `_fwd64_groups(N)` consumer warpgroups: a kilobyte to align its tiles;
-    each group's Q tile [64, 64] (f32 hi and lo, 32 KB; bf16 8 KB); a ring
-    of S slots of 32 keys (f32: K and V^T in hi and lo, 32 KB, S = 2 for one
-    group, else 3; bf16: K and V, 8 KB, S = 3); f32's plain V tiles [32,
-    64] (8 KB, one for one group, else two); each slot's 32 keys' region
-    ids and two mbarriers: independent of N but through G."""
+    padded to a multiple of 16. Tile 64: `_fwd64_layout_bytes` of
+    `_fwd64_groups(N, D, bf16)` consumer warpgroups: independent of N but
+    through them."""
     tile = head_dim_tile(D)
     if tile == 64:
-        groups = _fwd64_groups(N)
-        slots = 2 if groups == 1 and not bf16 else 3
-        if bf16:
-            tiles = 8 * groups + 8 * slots
-        else:
-            tiles = 32 * groups + 32 * slots + 8 * (1 if groups == 1 else 2)
-        return 1024 + tiles * 1024 + slots * (32 * 4 + 16)
+        return _fwd64_layout_bytes(_fwd64_groups(N, D, bf16), head_dim_chunks(D), bf16)
     Np = -(-N // 16) * 16
     return 2 * (2 * Np * tile + Np) * 4
+
+
+def _bwd64_smem_bytes(N: int, D: int, bf16: bool = False, region: bool = False) -> int:
+    """The tile-64 backward's shared memory per CTA, the larger of its two
+    kernels' (`DqLayout`, `DkdvLayout` in `csrc/window_attention_bwd.cu`,
+    and above head dim 64 in `window_attention_bwd_wide.cu`) at C =
+    `head_dim_chunks(D)`, Np = N padded to a multiple of 16, in floats:
+    the dQ kernel's raw Q and dO [64, 64] of each chunk (f32 at C > 1 also
+    their lo halves), then f32 two ring slots of K and V hi and lo [16, 64]
+    of each chunk and a term tile [64, 16], bf16 the window's K and V
+    [Np, 64] of each chunk (bf16 two to a float); the dK/dV kernel's K and V
+    [64, 64] of each chunk (f32 hi and lo), then f32 two ring slots of Q
+    and dO hi and lo [16, 64] of each chunk, a term tile and 32 floats of
+    lse and u, bf16 the window's Q and dO of each chunk and its lse and u
+    [Np]; both the ids [Np] in REGION."""
+    C, Np = head_dim_chunks(D), -(-N // 16) * 16
+    tile = 64 * 64 // (2 if bf16 else 1)  # floats of a [64, 64] tile
+    if bf16:
+        dq = 2 * C * tile + 2 * C * Np * 32
+        dkdv = 2 * C * tile + 2 * C * Np * 32 + 2 * Np
+    else:
+        dq = (4 if C > 1 else 2) * C * tile + 2 * (4 * C * 1024 + 1024)
+        dkdv = 4 * C * tile + 2 * (4 * C * 1024 + 1024 + 32)
+    return 4 * (max(dq, dkdv) + (Np if region else 0))
 
 
 def _check(q, k, v, bias, region_ids, mask, dout=None):
@@ -228,10 +277,16 @@ def _check(q, k, v, bias, region_ids, mask, dout=None):
     if bias.shape != (H, N, N) or bias.dtype != torch.float32:
         raise ValueError(f"window_attention: bias {tuple(bias.shape)} {bias.dtype}, "
                          f"want ({H}, {N}, {N}) float32")
-    head_dim_tile(D)
-    # the forward's shared memory; the backward kernel reports its own (_bwd_geometry)
-    if dout is None and _fwd_smem_bytes(N, D, q.dtype == torch.bfloat16) > _MAX_SMEM_BYTES:
-        raise ValueError(f"window_attention: window of {N} tokens does not fit shared memory")
+    bf16 = q.dtype == torch.bfloat16
+    # the forward's shared memory, and the tile-64 backward's; the backward's
+    # tiles 16 and 32 report theirs on the card (_bwd_geometry)
+    if dout is None:
+        smem = _fwd_smem_bytes(N, D, bf16)
+    else:
+        smem = _bwd64_smem_bytes(N, D, bf16, region_ids is not None) if head_dim_tile(D) == 64 else 0
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(f"window_attention: window of {N} tokens at head dim {D} does not fit shared memory "
+                         f"({smem} bytes a CTA)")
     tensors = [q, k, v, bias] + ([dout] if dout is not None else [])
     if region_ids is not None:
         nW = region_ids.shape[0]
@@ -307,31 +362,55 @@ def _geometry(lib, what: str, N: int, D: int, has_ids: bool, has_mask: bool, bf1
 @functools.cache
 def _fwd_geometry(N: int, D: int, has_ids: bool, has_mask: bool, bf16: bool,
                   device: int) -> tuple[int, int, int]:
-    """`_geometry` of the forward kernel."""
+    """`_geometry` of the forward kernel (above head dim 64 the chunked
+    one's)."""
     from icl_tpu_torch.ops.build import load_window_attention
 
-    return _geometry(load_window_attention(), "window_attention_fwd", N, D, has_ids, has_mask, bf16,
-                     device)
+    wide = head_dim_chunks(D) > 1
+    return _geometry(load_window_attention(wide), "window_attention_wide_fwd" if wide else "window_attention_fwd",
+                     N, D, has_ids, has_mask, bf16, device)
 
 
 @functools.cache
 def _bwd_geometry(N: int, D: int, has_ids: bool, has_mask: bool, bf16: bool,
                   device: int) -> tuple[int, int, int]:
-    """`_geometry` of the backward kernel."""
+    """`_geometry` of the backward kernel (above head dim 64 the chunked
+    one's)."""
     from icl_tpu_torch.ops.build import load_window_attention_bwd
 
-    return _geometry(load_window_attention_bwd(), "window_attention_bwd", N, D, has_ids, has_mask,
-                     bf16, device)
+    wide = head_dim_chunks(D) > 1
+    return _geometry(load_window_attention_bwd(wide), "window_attention_wide_bwd" if wide else "window_attention_bwd",
+                     N, D, has_ids, has_mask, bf16, device)
 
 
-def _grid_of(B: int, H: int, N: int, D: int, slots: int, rows: int = _BLOCK64) -> tuple[int, int]:
+def _balanced_groups(B: int, ctas: int, slots: int) -> tuple[int, int]:
+    """(windows per CTA, window groups) for `ctas` CTAs a group at `slots`
+    resident CTAs, that make the fewest waves times windows a CTA, a CTA's
+    prologue counted as one window more: at head dims above 64 a group
+    has so many CTAs (row blocks x chunks x heads) that one wave of whole
+    groups leaves SMs idle (fs240 stage 2: 72 CTAs of 132)."""
+    def cost(groups: int) -> tuple[int, int]:
+        per_cta = -(-B // groups)
+        return -(-(-(-B // per_cta) * ctas) // slots) * (per_cta + 1), groups
+
+    per_cta = -(-B // min(range(1, B + 1), key=cost))
+    return per_cta, -(-B // per_cta)
+
+
+def _grid_of(B: int, H: int, N: int, D: int, slots: int, rows: int = _BLOCK64,
+             chunks_a_cta: int = 1) -> tuple[int, int]:
     """`_window_groups` of either kernel at `slots` resident CTAs: at tiles
     16 and 32 a CTA per (window group, head); at tile 64 a CTA per (block
-    of `rows` rows, head, window group), within one wave: the forward's
-    blocks are 64 rows a consumer warpgroup (`_fwd64_groups`), the
-    backward's dQ kernel's 64."""
+    of `rows` rows, `chunks_a_cta` chunks of the head dim, head, window
+    group): the forward's blocks are 64 rows a consumer warpgroup
+    (`_fwd64_groups`) and one chunk, the backward's dQ kernel's 64 and
+    `_BWD64_QUADS`; within one wave at head dims up to 64,
+    `_balanced_groups` above."""
     if head_dim_tile(D) == 64:
-        return _window_groups(B, H * -(-N // rows), slots, whole_wave=True)
+        ctas = H * -(-N // rows) * -(-head_dim_chunks(D) // chunks_a_cta)
+        if head_dim_chunks(D) > 1:
+            return _balanced_groups(B, ctas, slots)
+        return _window_groups(B, ctas, slots, whole_wave=True)
     return _window_groups(B, H, slots)
 
 
@@ -339,8 +418,10 @@ def _grid_of(B: int, H: int, N: int, D: int, slots: int, rows: int = _BLOCK64) -
 def _cached_grid(geometry, B: int, H: int, N: int, D: int, has_ids: bool, has_mask: bool,
                  bf16: bool, device: int) -> tuple[int, int]:
     _, _, ctas = geometry(N, D, has_ids, has_mask, bf16, device)
-    rows = _BLOCK64 * (_fwd64_groups(N) if geometry is _fwd_geometry else 1)
-    return _grid_of(B, H, N, D, ctas * torch.cuda.get_device_properties(device).multi_processor_count, rows)
+    fwd = geometry is _fwd_geometry
+    rows = _BLOCK64 * (_fwd64_groups(N, D, bf16) if fwd else 1)
+    return _grid_of(B, H, N, D, ctas * torch.cuda.get_device_properties(device).multi_processor_count, rows,
+                    1 if fwd else _BWD64_QUADS)
 
 
 def _grid(geometry, q, region_ids, mask) -> tuple[int, int]:
@@ -382,13 +463,14 @@ def window_attention_fwd(q, k, v, bias, region_ids=None, mask=None, *, scale: fl
                          f"above {SAVED_LSE_ABOVE} only (the tile-64 backward's)")
     from icl_tpu_torch.ops.build import load_window_attention
 
-    lib = load_window_attention()
+    wide = head_dim_chunks(D) > 1  # the chunked tile-64 kernel's own library
+    lib = load_window_attention(wide)
     per_cta, _ = _grid(_fwd_geometry, q, region_ids, mask)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if return_lse else None
     terms = _terms(H, N, mask, q.device, pitch=32) if head_dim_tile(D) == 64 else None
     with torch.cuda.device(q.device):
-        err = lib.icl_window_attention_fwd(
+        err = (lib.icl_window_attention_wide_fwd if wide else lib.icl_window_attention_fwd)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _ptr(region_ids),
             _ptr(mask), out.data_ptr(), _ptr(lse), _ptr(terms), B, H, N, D,
             _windows(B, region_ids, mask), per_cta,
@@ -439,7 +521,8 @@ def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=
         _check_saved(q, out, lse)
     from icl_tpu_torch.ops.build import load_window_attention_bwd
 
-    lib = load_window_attention_bwd()
+    wide = head_dim_chunks(D) > 1  # the chunked tile-64 kernels' own library
+    lib = load_window_attention_bwd(wide)
     per_cta, groups = _grid(_bwd_geometry, q, region_ids, mask)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
@@ -451,7 +534,7 @@ def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=
         delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
         terms = _terms(H, N, mask, q.device)
     with torch.cuda.device(q.device):
-        err = lib.icl_window_attention_bwd(
+        err = (lib.icl_window_attention_wide_bwd if wide else lib.icl_window_attention_bwd)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             _ptr(out) if tile64 else None, _ptr(lse) if tile64 else None, bias.data_ptr(),
             _ptr(region_ids), _ptr(mask), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

@@ -29,9 +29,15 @@ Swin-UNet 2D stage 1 at 3 heads of 64 ([512, 3, 144, 64] and [512, 3, 49,
 64]), no mask and the shift mask, f32 and bf16: the forward without and
 with its row log-sum-exp store, each checked against the plain version
 (the log-sum-exp too), beside F.scaled_dot_product_attention's forward in
-the same type, the plain version and the bound.
+the same type, the plain version and the bound. `--wide` runs only head
+dims above 64 (the tile-64 kernels in 64-column chunks): SwinUNETR fs240's
+and fs384's stage 1 (head dims 80 and 128; the forward at the inference
+shape [1372, 3, 343, D], the backward at the training one [686, 3, 343,
+D]), no mask and region ids, and the Swin-UNet 2D stage-1 shapes at 3
+heads of 128, no mask and the shift mask, f32 and bf16: the `--fwd64` row
+and the `--bwd64` row of each.
 
-    python icl_tpu_torch/scripts/bench_kernels.py [--device-time] [--paths | --tiles | --bwd64 | --fwd64]
+    python icl_tpu_torch/scripts/bench_kernels.py [--device-time] [--paths | --tiles | --bwd64 | --fwd64 | --wide]
     PYTHONPATH=<other checkout> python icl_tpu_torch/scripts/bench_kernels.py
 
 Run it as a file. `icl_tpu_torch` comes from PYTHONPATH when that names
@@ -67,6 +73,8 @@ def main(argv=None) -> int:
                        help="only the tile-64 training shapes, f32 and bf16, beside SDPA's backward")
     which.add_argument("--fwd64", action="store_true",
                        help="only the tile-64 forward, f32 and bf16, with and without its LSE, beside SDPA's forward")
+    which.add_argument("--wide", action="store_true",
+                       help="only head dims above 64 (80, 128), both kernels, f32 and bf16, beside SDPA")
     args = p.parse_args(argv)
     sys.path.append(str(ROOT))  # after PYTHONPATH: another checkout's package wins
     import torch
@@ -91,6 +99,8 @@ def main(argv=None) -> int:
         tile64_shapes(torch, F, wa, smoke)
     elif args.fwd64:
         tile64_forward(torch, F, wa, smoke)
+    elif args.wide:
+        wide_head_dims(torch, F, wa, smoke)
     else:
         smoke.phase_kernel_3d(torch, F, wa)
         smoke.phase_backward_kernel(torch, F, wa)
@@ -149,114 +159,151 @@ def tile_grid(torch, wa, smoke) -> None:
 
 def tile64_shapes(torch, F, wa, smoke) -> None:
     """`--bwd64`: the backward, the forward and SDPA's backward at the
-    tile-64 training shapes, f32 and bf16, each against its plain version
-    with the smoke test's tolerances, then timed; one `[bwd64]` line per
-    case."""
-    import json
-
+    tile-64 training shapes, f32 and bf16 (`backward_row`); one `[bwd64]`
+    line per case."""
     gen = torch.Generator(device=smoke.DEVICE).manual_seed(64)
-    stage3d = (smoke.STAGES[0][0], smoke.LABELED_BS) + tuple(smoke.STAGES[0][2:])
     cases = [("fs192_stage1", 64, mode) for mode in ("none", "region")]
     cases += [("fs120_stage1", 40, mode) for mode in ("none", "region")]
     cases += [(stage[0] + "_2d", 64, mode) for stage in smoke.STAGES_2D_D64 for mode in ("none", "mask")]
     for name, D, mode in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            ids = mask = None
-            if name.endswith("_2d"):
-                stage = next(st for st in smoke.STAGES_2D_D64 if st[0] + "_2d" == name)
-                q, k, v, bias, mask = smoke.inputs_2d(torch, stage, dtype, gen, "shift" if mode == "mask" else None,
-                                                      head_dim=D)
-            else:
-                q, k, v, bias, ids = smoke.stage_inputs(torch, stage3d, dtype, gen, D)
-                ids = ids if mode == "region" else None
-            g = torch.randn(q.shape, device=smoke.DEVICE, generator=gen).to(dtype)
-            scale = D ** -0.5
-            f32 = dtype == torch.float32
-            saved = smoke.saved_forward(wa, q, k, v, bias, ids, mask, scale)
-            grads = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask, **saved)
-            wants = wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
-            rel = {n: smoke.rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv", "dbias"), grads, wants)}
-            ok = all(e <= (smoke.BWD_F32_RTOL if f32 or n == "dbias" else smoke.BWD_BF16_RTOL)
-                     for n, e in rel.items())
-            dense = mask if mask is not None else wa.mask_from_region_ids(ids) if ids is not None else None
-            B, H, N, _ = q.shape
-            flop_ms, byte_ms = smoke.bound(B, H, N, D, dense.numel() if dense is not None else 0, backward=True,
-                                           elem_bytes=4 if f32 else 2,
-                                           flops_rate=smoke.F32_ACCURATE_FLOPS if f32 else smoke.BF16_FLOPS)
-            row = {"case": name, "shape": list(q.shape), "dtype": str(dtype).split(".")[-1], "mode": mode,
-                   "bwd_rel_err": rel, "saved_lse": bool(saved),
-                   "bwd_ms": smoke.cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale,
-                                                                           mask=mask, **saved)),
-                   "fwd_ms": smoke.cuda_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)),
-                   "sdpa_bwd_ms": smoke.sdpa_backward_ms(torch, F, q, k, v, bias, dense, g, scale),
-                   **smoke.bound_fields(flop_ms, byte_ms)}
-            if saved:
-                row["fwd_lse_ms"] = smoke.cuda_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ids, mask,
-                                                                                  scale=scale, return_lse=True))
-            print(f"[bwd64] {json.dumps(row)}", flush=True)
-            if not ok:
-                smoke.fail(f"[bwd64] the backward kernel disagrees with its plain version: {row}")
-            del q, k, v, bias, g, grads, wants, saved, dense
+            backward_row(torch, F, wa, smoke, "bwd64", gen, *case_inputs(torch, smoke, gen, name, D, mode, dtype,
+                                                                         training=True))
             torch.cuda.empty_cache()
 
 
 def tile64_forward(torch, F, wa, smoke) -> None:
-    """`--fwd64`: the tile-64 forward without and with its log-sum-exp,
-    SDPA's forward and the plain version at fs192's and fs120's inference
+    """`--fwd64`: the tile-64 forward at fs192's and fs120's inference
     stage 1 (no mask, region ids) and the 2D stage-1 shapes at head dim 64
-    (no mask, the shift mask), f32 and bf16, each checked against the plain
-    version with the smoke test's tolerances (the log-sum-exp at f32's
-    1e-5 of its magnitude), then timed; one `[fwd64]` line per case."""
-    import json
-
+    (no mask, the shift mask), f32 and bf16 (`forward_row`); one `[fwd64]`
+    line per case."""
     gen = torch.Generator(device=smoke.DEVICE).manual_seed(19)
     cases = [("fs192_stage1", 64, mode) for mode in ("none", "region")]
     cases += [("fs120_stage1", 40, mode) for mode in ("none", "region")]
     cases += [(stage[0] + "_2d", 64, mode) for stage in smoke.STAGES_2D_D64 for mode in ("none", "mask")]
     for name, D, mode in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            ids = mask = None
-            if name.endswith("_2d"):
-                stage = next(st for st in smoke.STAGES_2D_D64 if st[0] + "_2d" == name)
-                q, k, v, bias, mask = smoke.inputs_2d(torch, stage, dtype, gen, "shift" if mode == "mask" else None,
-                                                      head_dim=D)
-            else:
-                q, k, v, bias, ids = smoke.stage_inputs(torch, smoke.STAGES[0], dtype, gen, D)
-                ids = ids if mode == "region" else None
-            scale = D ** -0.5
-            f32 = dtype == torch.float32
-            out, lse = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
-            alone = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)
-            want, want_lse = wa.window_attention_plain(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
-            err = (out.float() - want.float()).abs()
-            ok = float(err.max()) <= smoke.F32_ATOL if f32 else \
-                bool((err <= smoke.BF16_ATOL + smoke.BF16_RTOL * want.float().abs()).all())
-            lse_err = float((lse - want_lse).abs().max())
-            ok = ok and torch.equal(out, alone) and lse_err <= smoke.F32_ATOL * max(1.0, float(want_lse.abs().max()))
-            dense = mask if mask is not None else wa.mask_from_region_ids(ids) if ids is not None else None
-            B, H, N, _ = q.shape
-            nW = dense.shape[0] if dense is not None else B
-            shape = (B // nW, nW, H, N, D) if dense is not None else (B, H, N, D)
-            qs, ks, vs = (t.view(shape) for t in (q, k, v))
-            attn = (bias if dense is None else bias[None] + dense[:, None]).to(dtype)
-            flop_ms, byte_ms = smoke.bound(B, H, N, D, dense.numel() if dense is not None else 0,
-                                           elem_bytes=4 if f32 else 2,
-                                           flops_rate=smoke.F32_ACCURATE_FLOPS if f32 else smoke.BF16_FLOPS)
-            row = {"case": name, "shape": list(q.shape), "dtype": str(dtype).split(".")[-1], "mode": mode,
-                   "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err,
-                   "fwd_ms": smoke.cuda_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)),
-                   "fwd_lse_ms": smoke.cuda_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale,
-                                                                               return_lse=True)),
-                   "sdpa_ms": smoke.cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn,
-                                                                                   scale=scale)),
-                   "plain_ms": smoke.cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, ids, mask,
-                                                                               scale=scale), reps=3),
-                   **smoke.bound_fields(flop_ms, byte_ms)}
-            print(f"[fwd64] {json.dumps(row)}", flush=True)
-            if not ok:
-                smoke.fail(f"[fwd64] the forward kernel disagrees with its plain version: {row}")
-            del q, k, v, bias, out, lse, alone, want, want_lse, err, dense, qs, ks, vs, attn
+            forward_row(torch, F, wa, smoke, "fwd64", *case_inputs(torch, smoke, gen, name, D, mode, dtype,
+                                                                   training=False))
             torch.cuda.empty_cache()
+
+
+def wide_head_dims(torch, F, wa, smoke) -> None:
+    """`--wide`: head dims above 64, both kernels at SwinUNETR fs240's and
+    fs384's stage 1 (the forward at the inference shape, the backward at
+    the training one; no mask, region ids) and the 2D stage-1 shapes at 3
+    heads of 128 (no mask, the shift mask), f32 and bf16: a `[wide-fwd]`
+    line (`forward_row`) and a `[wide-bwd]` line (`backward_row`) per
+    case."""
+    gen = torch.Generator(device=smoke.DEVICE).manual_seed(20)
+    cases = [(f"fs{3 * D}_stage1", D, mode) for D in (80, 128) for mode in ("none", "region")]
+    cases += [(stage[0] + "_2d", 128, mode) for stage in smoke.STAGES_2D_D64 for mode in ("none", "mask")]
+    for name, D, mode in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            forward_row(torch, F, wa, smoke, "wide-fwd", *case_inputs(torch, smoke, gen, name, D, mode, dtype,
+                                                                      training=False))
+            torch.cuda.empty_cache()
+            backward_row(torch, F, wa, smoke, "wide-bwd", gen, *case_inputs(torch, smoke, gen, name, D, mode, dtype,
+                                                                            training=True))
+            torch.cuda.empty_cache()
+
+
+def case_inputs(torch, smoke, gen, name: str, D: int, mode: str, dtype, training: bool) -> tuple:
+    """(name, mode, q, k, v, bias, ids, mask) of a case: a 2D stage-1 shape
+    (`name` ending in _2d; the shift mask for `mode` mask), or the 3D stage
+    1 of SwinUNETR's inference forward, or of its training pass
+    (`training`), with region ids for `mode` region."""
+    ids = mask = None
+    if name.endswith("_2d"):
+        stage = next(st for st in smoke.STAGES_2D_D64 if st[0] + "_2d" == name)
+        q, k, v, bias, mask = smoke.inputs_2d(torch, stage, dtype, gen, "shift" if mode == "mask" else None,
+                                              head_dim=D)
+    else:
+        stage = (smoke.STAGES[0][0], smoke.LABELED_BS) + tuple(smoke.STAGES[0][2:]) if training else smoke.STAGES[0]
+        q, k, v, bias, ids = smoke.stage_inputs(torch, stage, dtype, gen, D)
+        ids = ids if mode == "region" else None
+    return name, mode, q, k, v, bias, ids, mask
+
+
+def dense_mask(wa, ids, mask):
+    """The additive mask SDPA and the bound take: the dense mask, or the
+    one the region ids make, or None."""
+    return mask if mask is not None else wa.mask_from_region_ids(ids) if ids is not None else None
+
+
+def backward_row(torch, F, wa, smoke, tag: str, gen, name, mode, q, k, v, bias, ids, mask) -> None:
+    """The backward (fed the forward's output and log-sum-exp where the
+    package's backward takes them), the forward and SDPA's backward on one
+    case, checked against the plain backward with the smoke test's
+    tolerances, then timed beside the bound; a `[<tag>]` line."""
+    import json
+
+    dtype, (B, H, N, D) = q.dtype, q.shape
+    g = torch.randn(q.shape, device=smoke.DEVICE, generator=gen).to(dtype)
+    scale = D ** -0.5
+    f32 = dtype == torch.float32
+    saved = smoke.saved_forward(wa, q, k, v, bias, ids, mask, scale)
+    grads = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask, **saved)
+    wants = wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
+    rel = {n: smoke.rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv", "dbias"), grads, wants)}
+    ok = all(e <= (smoke.BWD_F32_RTOL if f32 or n == "dbias" else smoke.BWD_BF16_RTOL) for n, e in rel.items())
+    dense = dense_mask(wa, ids, mask)
+    flop_ms, byte_ms = smoke.bound(B, H, N, D, dense.numel() if dense is not None else 0, backward=True,
+                                   elem_bytes=4 if f32 else 2,
+                                   flops_rate=smoke.F32_ACCURATE_FLOPS if f32 else smoke.BF16_FLOPS)
+    row = {"case": name, "shape": list(q.shape), "dtype": str(dtype).split(".")[-1], "mode": mode,
+           "bwd_rel_err": rel, "saved_lse": bool(saved),
+           "bwd_ms": smoke.cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask,
+                                                                   **saved)),
+           "fwd_ms": smoke.cuda_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)),
+           "sdpa_bwd_ms": smoke.sdpa_backward_ms(torch, F, q, k, v, bias, dense, g, scale),
+           "plain_bwd_ms": smoke.cuda_ms(lambda: wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale,
+                                                                               mask=mask), reps=3),
+           **smoke.bound_fields(flop_ms, byte_ms)}
+    if saved:
+        row["fwd_lse_ms"] = smoke.cuda_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale,
+                                                                          return_lse=True))
+    print(f"[{tag}] {json.dumps(row)}", flush=True)
+    if not ok:
+        smoke.fail(f"[{tag}] the backward kernel disagrees with its plain version: {row}")
+
+
+def forward_row(torch, F, wa, smoke, tag: str, name, mode, q, k, v, bias, ids, mask) -> None:
+    """The forward without and with its log-sum-exp, SDPA's forward in the
+    same type and the plain version on one case, checked against the plain
+    version with the smoke test's tolerances (the log-sum-exp at f32's 1e-5
+    of its magnitude), then timed beside the bound; a `[<tag>]` line."""
+    import json
+
+    dtype, (B, H, N, D) = q.dtype, q.shape
+    scale = D ** -0.5
+    f32 = dtype == torch.float32
+    out, lse = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    alone = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)
+    want, want_lse = wa.window_attention_plain(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    err = (out.float() - want.float()).abs()
+    ok = float(err.max()) <= smoke.F32_ATOL if f32 else \
+        bool((err <= smoke.BF16_ATOL + smoke.BF16_RTOL * want.float().abs()).all())
+    lse_err = float((lse - want_lse).abs().max())
+    ok = ok and torch.equal(out, alone) and lse_err <= smoke.F32_ATOL * max(1.0, float(want_lse.abs().max()))
+    dense = dense_mask(wa, ids, mask)
+    nW = dense.shape[0] if dense is not None else B
+    shape = (B // nW, nW, H, N, D) if dense is not None else (B, H, N, D)
+    qs, ks, vs = (t.view(shape) for t in (q, k, v))
+    attn = (bias if dense is None else bias[None] + dense[:, None]).to(dtype)
+    flop_ms, byte_ms = smoke.bound(B, H, N, D, dense.numel() if dense is not None else 0, elem_bytes=4 if f32 else 2,
+                                   flops_rate=smoke.F32_ACCURATE_FLOPS if f32 else smoke.BF16_FLOPS)
+    row = {"case": name, "shape": list(q.shape), "dtype": str(dtype).split(".")[-1], "mode": mode,
+           "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err,
+           "fwd_ms": smoke.cuda_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)),
+           "fwd_lse_ms": smoke.cuda_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale,
+                                                                       return_lse=True)),
+           "sdpa_ms": smoke.cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn, scale=scale)),
+           "plain_ms": smoke.cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, ids, mask, scale=scale), reps=3),
+           **smoke.bound_fields(flop_ms, byte_ms)}
+    print(f"[{tag}] {json.dumps(row)}", flush=True)
+    if not ok:
+        smoke.fail(f"[{tag}] the forward kernel disagrees with its plain version: {row}")
 
 
 if __name__ == "__main__":

@@ -2,10 +2,10 @@
 train-mode forward (its 5-tuple, f32) and one ICL train step (metrics,
 gradients, parameter updates, f64), weights carried by `utils/convert.py`.
 
-feature_size 12 with heads (1, 1, 1, 2) gives the four stages head dims
-12, 24, 48 and 48: the last two are what SwinUNETR's default heads give at
-feature sizes 144 and 192 (fs / 3 at every stage), which the kernels run
-at their tile of 64. On the CPU the port's attention is the plain version
+feature_size 12 with heads (1, 1, 1, 1) gives the four stages head dims
+12, 24, 48 and 96: the kernels' tiles of 16 and 32, the tile of 64 (what
+SwinUNETR's default heads give at feature size 144), and two 64-column
+chunks of that tile (fs288's head dim), in one model. On the CPU the port's attention is the plain version
 (the kernels are held against it on the card), so these tests show that
 the model passes such head dims through as the JAX model does. Small size
 and tolerances as `test_torch_icl.py` and `test_torch_train.py`: patch
@@ -37,7 +37,7 @@ from test_torch_train import BASE_LR, CONSIS, MAX_IT, _assert_close_to_scale
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 FS = 12
-HEADS = (1, 1, 1, 2)
+HEADS = (1, 1, 1, 1)
 HEAD_DIMS = tuple(FS * 2**i // h for i, h in enumerate(HEADS))
 
 
@@ -62,7 +62,7 @@ def _variables(seed: int):
 
 
 def test_train_forward_at_head_dim_48_matches_jax(no_drop_path):
-    """Also: the window attention is called at head dims 12, 24 and 48."""
+    """Also: the window attention is called at head dims 12, 24, 48 and 96."""
     jax_model, params, bs, model = _variables(11)
     seen = set()
     for m in model.modules():
@@ -83,7 +83,7 @@ def test_train_forward_at_head_dim_48_matches_jax(no_drop_path):
     for maps_p, maps_j in zip(outs_p[2:], outs_j[2:]):
         for got, want in zip(maps_p, maps_j):
             np.testing.assert_allclose(got.detach().numpy(), cl2cf(want), atol=ATOL, rtol=RTOL)
-    assert HEAD_DIMS == (12, 24, 48, 48) and seen == set(HEAD_DIMS)
+    assert HEAD_DIMS == (12, 24, 48, 96) and seen == set(HEAD_DIMS)
 
 
 def test_icl_step_at_head_dim_48_matches_jax_in_f64(no_drop_path):

@@ -83,7 +83,8 @@ def test_plain_matches_jax_at_other_head_dims(N, d, masked):
 
 def test_head_dim_tile_and_the_forwards_shared_memory_at_it():
     """Head dims 1 .. 16 run the tile-16 instance, 17 .. 32 the tile-32
-    one, 33 .. 64 the tile-64 kernel; the forward's shared memory is that of
+    one, every larger one the tile-64 kernel (above 64 in chunks, the
+    rules of `test_torch_window_attention_wide.py`), 0 none; the forward's shared memory is that of
     the tile: at tiles 16 and 32 two buffers of K and V [Np, tile] and the
     ids [Np], f32 (N 343, Np 352, at fs24's head dim 8 takes what fs48's 16
     takes); at tile 64, for G consumer warpgroups (3 where N's 64-row
@@ -102,16 +103,18 @@ def test_head_dim_tile_and_the_forwards_shared_memory_at_it():
     assert wa._fwd_smem_bytes(224, 64) == 1024 + (64 + 96 + 16) * 1024 + 3 * 144 <= wa._MAX_SMEM_BYTES
     assert wa._fwd_smem_bytes(49, 64, bf16=True) == 1024 + (8 + 24) * 1024 + 3 * 144
     assert wa._fwd_smem_bytes(343, 48) == wa._fwd_smem_bytes(343, 64) == 1024 + 208 * 1024 + 3 * 144 == 214_448
-    for d in (0, 65, 96):
-        with pytest.raises(ValueError, match=f"head dim {d}, the kernels take 1 .. 64"):
-            wa.head_dim_tile(d)
+    assert [wa.head_dim_tile(d) for d in (65, 96, 128, 640)] == [64] * 4
+    with pytest.raises(ValueError, match="head dim 0, the kernels take head dims of 1 and above"):
+        wa.head_dim_tile(0)
 
 
-@pytest.mark.parametrize("d", [0, 65])
+@pytest.mark.parametrize("d", [0, 129])
 def test_check_refuses_a_head_dim_the_kernels_do_not_take(d):
     """The wrapper's check before a launch (on CPU tensors here: the rule
-    does not need the card) names the head dim; the plain version takes
-    it on the CPU."""
+    does not need the card) names the head dim: 0, and 129, the first in
+    f32 whose three 64-column chunks fit neither kernel's shared memory
+    (the forward's one consumer warpgroup, the backward's dQ and dK/dV
+    CTAs); the plain version takes it on the CPU."""
     q = torch.zeros(2, H, 49, d)
     bias = torch.zeros(H, 49, 49)
     with pytest.raises(ValueError, match=f"head dim {d}"):

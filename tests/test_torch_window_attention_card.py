@@ -29,7 +29,15 @@ tile 64 both through the forward's one buffer, N = 343, and its two,
 N = 144), and at rows that start off a 16-byte boundary; each kernel's
 launch geometry (the forward's shared memory as `_check` reckons it at the
 head dim's tile, and the refusal of a window that cannot fit); and the
-refusal of head dims 0 and 65.
+refusal of head dims 0 and 129.
+
+Head dims above 64 (the tile-64 kernels in 64-column chunks): 65, 72, 80
+(SwinUNETR fs240), 96, 127 and 128 (fs384) at N 343, 216, 144, 49 and 4,
+every mode, f32 and bf16, the forward with its log-sum-exp and the
+backward fed them, as above; both kernels' geometry against the
+wrapper's rules; and the largest head dim each kernel's geometry takes at
+N = 343 (f32 128 both; bf16 640 the forward, 128 the backward), run
+there, and the next one refused with its D and N named.
 
 Tolerances (those of chip_smoke.py): forward f32 1e-5 absolute (f32 sums
 in another order, __expf), bf16 1e-3 + 1e-2 relative (one bf16 rounding
@@ -51,14 +59,19 @@ H = 3
 GEOMETRY_3D = {4: ((4, 4, 1), (2, 2, 1), (1, 1, 0)), 49: ((14, 14, 1), (7, 7, 1), (3, 3, 0)),
                144: ((12, 12, 8), (6, 6, 4), (3, 3, 2)), 343: ((14, 14, 14), (7, 7, 7), (3, 3, 3))}
 # the head dims held: the tiles' own (16, 32, 64) and head dims below each
-HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32, 33, 40, 48, 63, 64)  # chip_smoke.py's CARD_TEST_HEAD_DIMS
+TILE_HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32, 33, 40, 48, 63, 64)
+# above 64: two chunks of the tile of 64 (65 and 127 not a multiple of 4)
+WIDE_HEAD_DIMS = (65, 72, 80, 96, 127, 128)
+HEAD_DIMS = TILE_HEAD_DIMS + WIDE_HEAD_DIMS  # chip_smoke.py's CARD_TEST_HEAD_DIMS
 # the tile-64 forward's own sweep: N -> (padded dims, window, shift), its
 # windows taking 3, 2 and 1 consumer warpgroups (343 and 144, 216, 49 and 4)
 TILE64_GEOMETRY = {**GEOMETRY_3D, 216: ((12, 12, 12), (6, 6, 6), (3, 3, 3))}
 TILE64_CASES = [(kind, N, D, dtype) for kind in ("none", "region", "random") for N in sorted(TILE64_GEOMETRY)
                 for D in (33, 40, 48, 63, 64) for dtype in ("float32", "bfloat16")]
 CASES = [(kind, N, D, dtype) for kind in ("none", "region", "shift", "random") for N in sorted(GEOMETRY_3D)
-         for D in HEAD_DIMS for dtype in ("float32", "bfloat16") if kind != "shift" or N != 343]
+         for D in TILE_HEAD_DIMS for dtype in ("float32", "bfloat16") if kind != "shift" or N != 343]
+WIDE_CASES = [(kind, N, D, dtype) for kind in ("none", "region", "random") for N in sorted(TILE64_GEOMETRY)
+              for D in WIDE_HEAD_DIMS for dtype in ("float32", "bfloat16")]
 # (kind, N, D, batch): shapes of the paths, with enough windows that a CTA
 # walks several (2D stage 1, the 224^2 / window-7 stage 1, 3D stage 1 at
 # fs48 and fs24, a 2 x 2 window), and a head dim off the multiples of 4
@@ -280,7 +293,74 @@ def test_kernels_take_rows_off_a_16_byte_boundary_on_card(card, D, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [0, 65])
+@pytest.mark.parametrize("kind,N,D,dtype", WIDE_CASES)
+def test_wide_kernels_and_the_log_sum_exp_match_plain_on_card(card, kind, N, D, dtype):
+    """Head dims above 64, a CTA per 64-column chunk of the output: the
+    forward with and without its log-sum-exp store (equal bits, bitwise
+    repeatable) against the plain version, the log-sum-exp against the
+    plain one (only chunk 0's CTAs store it), then the backward fed that
+    output and log-sum-exp against both plain backwards (dbias written by
+    chunk 0's dQ CTAs alone), as at head dims up to 64."""
+    q, k, v, bias, ids, mask = _inputs(kind, N, D, dtype, batch=2, seed=N + D + 7, device=card)
+    scale = D ** -0.5
+    out, lse = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    alone = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)
+    torch.cuda.synchronize()
+    _, want_lse = wa.window_attention_plain(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    assert torch.equal(out, alone)
+    lse_err = float((lse - want_lse).abs().max())
+    assert lse_err <= F32_ATOL * max(1.0, float(want_lse.abs().max())), lse_err
+    _check_forward(q, k, v, bias, ids, mask)
+    _check_backward(q, k, v, bias, ids, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
+def test_wide_geometry_agrees_with_the_rules_on_card(card, D, dtype):
+    """Both kernels' geometry above head dim 64 is what the wrapper
+    reckons: the forward's producer and `_fwd64_groups` consumer
+    warpgroups and `_fwd_smem_bytes`, the backward's two quads of four
+    warps (a chunk each) and `_bwd64_smem_bytes`, at least one CTA an
+    SM."""
+    bf16 = dtype == "bfloat16"
+    for N in sorted(TILE64_GEOMETRY):
+        for has_ids, has_mask in ((False, False), (True, False), (False, True)):
+            warps, smem, ctas = wa._fwd_geometry(N, D, has_ids, has_mask, bf16, card.index)
+            assert (warps, smem) == (4 * (wa._fwd64_groups(N, D, bf16) + 1), wa._fwd_smem_bytes(N, D, bf16))
+            assert ctas >= 1
+            warps, smem, ctas = wa._bwd_geometry(N, D, has_ids, has_mask, bf16, card.index)
+            assert (warps, smem) == (4 * wa._BWD64_QUADS, wa._bwd64_smem_bytes(N, D, bf16, has_ids)) and ctas >= 1, \
+                (N, warps, smem, ctas)
+
+
+# the largest head dim each kernel takes at N = 343 (f32, bf16), as the
+# wrapper's rules give it (test_torch_window_attention_wide.py)
+LARGEST_AT_343 = {"forward": (128, 640), "backward": (128, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_largest_head_dims_at_343_run_and_the_next_is_refused_on_card(card, dtype):
+    """At N = 343 (REGION) each kernel's geometry takes its largest head
+    dim and refuses the next, naming D and N; the forward at its largest
+    and the backward at its largest match the plain versions."""
+    bf16 = dtype == "bfloat16"
+    for what, geometry in (("forward", wa._fwd_geometry), ("backward", wa._bwd_geometry)):
+        D = LARGEST_AT_343[what][bf16]
+        assert geometry(343, D, True, False, bf16, card.index)[2] >= 1
+        with pytest.raises(ValueError, match=f"window of 343 tokens at head dim {D + 1} does not fit"):
+            geometry(343, D + 1, True, False, bf16, card.index)
+    q, k, v, bias, ids, mask = _inputs("region", 343, LARGEST_AT_343["forward"][bf16], dtype, batch=1, seed=11,
+                                       device=card)
+    _check_forward(q, k, v, bias, ids, mask)
+    q, k, v, bias, ids, mask = _inputs("region", 343, LARGEST_AT_343["backward"][bf16], dtype, batch=1, seed=12,
+                                       device=card)
+    _check_backward(q, k, v, bias, ids, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [0, 129])
 def test_kernels_refuse_a_head_dim_they_do_not_take_on_card(card, D):
     q = torch.zeros(2, H, 49, D, device=card)
     bias = torch.zeros(H, 49, 49, device=card)

@@ -1,0 +1,166 @@
+"""Head dims above 64 in icl_tpu_torch's fused window attention, where the
+tile-64 kernels walk the head dim in 64-column chunks (`head_dim_chunks`),
+a CTA per chunk of the output.
+
+On the CPU: the rules the wrapper shares with the kernels (the tile, the
+chunk count, the forward's consumer warpgroups and shared memory, the
+tile-64 backward's shared memory, the grids), which refuse a head dim
+whose chunks do not fit a CTA; and the plain versions that the kernels
+are held against on the card (`test_torch_window_attention_card.py`)
+against the JAX package at head dims 72, 80 (SwinUNETR fs240) and 128
+(fs384): the forward and its row log-sum-exp against the Pallas kernel in
+interpret mode, the saved-LSE backward against `jax.vjp` of
+`window_attention_fused`. No mask, region ids and a dense mask, N = 16
+and 49; tolerances as `test_torch_window_attention_lse.py` states them
+(2e-5 absolute, dbias 1e-4).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from icl_tpu.ops.pallas.window_attention import window_attention_fused
+
+from icl_tpu_torch.ops import window_attention as wa
+from test_torch_window_attention_lse import GEOMETRY, _inputs, _jax_scores
+from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
+
+KB = 1024
+# the forward's bytes a CTA at 2 chunks, f32: a kilobyte of alignment, Q of
+# 2 chunks a consumer warpgroup (64 KB), ring slots of K of 2 chunks and V
+# of one (48 KB each; V lands in its own slot, no plain V tile), 144 bytes a
+# slot of ids and mbarriers; two warpgroups with two slots where N's row
+# blocks come in twos (N 343, 216), else one with three; bf16 at three
+# warpgroups (Q 8 KB a chunk and group, slots of 12 KB)
+FWD_F32_C2_G2 = KB + (128 + 96) * KB + 2 * 144
+FWD_F32_C2_G1 = KB + (64 + 144) * KB + 3 * 144
+FWD_BF16_C2_G3 = KB + (48 + 36) * KB + 3 * 144
+# the tile-64 backward's at 2 chunks, f32 (the dK/dV kernel's K and V hi
+# and lo of 2 chunks, 128 KB, two ring slots of Q and dO hi and lo of 2
+# chunks, a term tile, lse and u) and bf16 at N = 343 (the dK/dV kernel's
+# resident Q and dO of 2 chunks, [352, 64] bf16 each, K and V, lse and u)
+BWD_F32_C2 = 4 * (4 * 2 * 4096 + 2 * (4 * 2 * 1024 + 1024 + 32))
+BWD_BF16_C2_343 = 4 * (2 * 2 * 2048 + 2 * 2 * 352 * 32 + 2 * 352)
+
+
+@pytest.mark.parametrize("D", [65, 72, 80, 127, 128, 192])
+def test_head_dims_above_64_run_tile_64_in_chunks(D):
+    """Every head dim above 64 runs the tile-64 kernels in ceil(D / 64)
+    chunks; at 2 chunks the f32 forward keeps two consumer warpgroups where
+    N's row blocks come in twos (three would need 288 KB) and one
+    elsewhere, bf16 three where they come in threes, and both fit; at 3
+    chunks f32 fits neither direction."""
+    chunks = -(-D // 64)
+    assert wa.head_dim_tile(D) == 64 and wa.head_dim_chunks(D) == chunks
+    assert wa.head_dim_chunks(64) == wa.head_dim_chunks(33) == 1
+    if chunks == 2:
+        for N in (343, 216, 144, 49, 4):
+            groups = 2 if N in (343, 216) else 1
+            smem = FWD_F32_C2_G2 if groups == 2 else FWD_F32_C2_G1
+            assert wa._fwd64_groups(N, D) == groups and wa._fwd_smem_bytes(N, D) == smem
+            assert wa._bwd64_smem_bytes(N, D) == BWD_F32_C2 == 205_056
+        assert FWD_F32_C2_G2 == 230_688 <= wa._MAX_SMEM_BYTES and FWD_F32_C2_G1 == 214_448
+        assert [wa._fwd64_groups(N, D, bf16=True) for N in (343, 216, 144, 49)] == [3, 2, 3, 1]
+        assert wa._fwd_smem_bytes(343, D, bf16=True) == FWD_BF16_C2_G3 == 87_472
+        assert wa._bwd64_smem_bytes(343, D, bf16=True) == BWD_BF16_C2_343 == 215_808
+        assert wa._bwd64_smem_bytes(343, D, bf16=True, region=True) == 215_808 + 4 * 352 <= wa._MAX_SMEM_BYTES
+    else:
+        assert wa._fwd_smem_bytes(49, D) > wa._MAX_SMEM_BYTES
+        assert wa._bwd64_smem_bytes(49, D) > wa._MAX_SMEM_BYTES
+        assert wa._bwd64_smem_bytes(343, D, bf16=True) > wa._MAX_SMEM_BYTES  # the resident window
+        assert wa._bwd64_smem_bytes(49, D, bf16=True) <= wa._MAX_SMEM_BYTES
+
+
+def test_largest_head_dims_each_kernel_takes():
+    """The largest head dim each rule takes, at N = 343 and 49: the f32
+    forward and backward 128 (two chunks); the bf16 forward 640 (ten chunks
+    at one consumer warpgroup, its Q tiles 80 KB), the bf16 backward 128
+    at N = 343 (its resident window of 3 chunks would need 323 KB) and
+    448 at N = 49."""
+    def largest(fits):
+        return max(D for D in range(1, 1025) if fits(D))
+
+    for N in (343, 49):
+        assert largest(lambda D: wa._fwd_smem_bytes(N, D) <= wa._MAX_SMEM_BYTES) == 128
+        assert largest(lambda D: wa._fwd_smem_bytes(N, D, bf16=True) <= wa._MAX_SMEM_BYTES) == 640
+        assert largest(lambda D: wa._bwd64_smem_bytes(N, D, region=True) <= wa._MAX_SMEM_BYTES) == 128
+    assert largest(lambda D: wa._bwd64_smem_bytes(343, D, True, True) <= wa._MAX_SMEM_BYTES) == 128
+    assert largest(lambda D: wa._bwd64_smem_bytes(49, D, True, True) <= wa._MAX_SMEM_BYTES) == 448
+
+
+@pytest.mark.parametrize("D,dtype", [(129, torch.float32), (192, torch.bfloat16)])
+def test_check_names_the_head_dim_and_window_it_refuses(D, dtype):
+    """The wrapper's refusal names D and N: the f32 forward at 129, the
+    bf16 backward at N = 343 and 192 (whose forward fits)."""
+    q = torch.zeros(2, 1, 343, D, dtype=dtype)
+    bias = torch.zeros(1, 343, 343)
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match=f"window of 343 tokens at head dim {D} does not fit"):
+            wa._check(q, q, q, bias, None, None)
+    else:
+        wa._check(q, q, q, bias, None, None)
+    with pytest.raises(ValueError, match=f"window of 343 tokens at head dim {D} does not fit"):
+        wa._check(q, q, q, bias, None, None, q)
+
+
+# (B, H, N, D, slots): fs240's and fs384's inference stage 1 and training
+# stages, the 2D stage 1 at 3 heads of 128, a short window, and fewer
+# slots than CTAs, at 132 SMs' resident CTAs
+WIDE_GRIDS = [(1372, 3, 343, 80, 132), (686, 3, 343, 128, 132), (128, 6, 343, 80, 132), (4, 24, 216, 80, 132),
+              (512, 3, 144, 128, 132), (512, 3, 49, 128, 132), (1024, 3, 4, 65, 264), (7, 3, 343, 128, 5)]
+
+
+@pytest.mark.parametrize("B,H,N,D,slots", WIDE_GRIDS)
+def test_wide_grids_have_a_cta_per_chunk(B, H, N, D, slots):
+    """Both tile-64 grids at head dims above 64: a CTA per (block of rows,
+    chunk of the head dim, or two in the backward, head) and window group;
+    every window once, no group empty, and no more waves times windows a
+    CTA (one more for its prologue) than one wave of whole groups would
+    take."""
+    def waves_times_windows(per_cta, groups, ctas):
+        return -(-groups * ctas // slots) * (per_cta + 1)
+
+    # the forward's, the backward's dQ (two chunks a CTA, one of its quads of warps each)
+    for rows, chunks_a_cta in ((64 * wa._fwd64_groups(N, D), 1), (64, wa._BWD64_QUADS)):
+        per_cta, groups = wa._grid_of(B, H, N, D, slots, rows, chunks_a_cta)
+        ctas = H * -(-N // rows) * -(-wa.head_dim_chunks(D) // chunks_a_cta)
+        assert groups * per_cta >= B > (groups - 1) * per_cta
+        assert waves_times_windows(per_cta, groups, ctas) <= waves_times_windows(
+            *wa._window_groups(B, ctas, slots, whole_wave=True), ctas)
+    if (B, H, N, D) == (1372, 3, 343, 80):  # fs240 stage 1: 6 blocks x 2 chunks x 3 heads, 11 groups of 125 windows
+        assert wa._grid_of(B, H, N, D, slots) == (125, 11)  # 3 waves of 132 CTAs; one wave: 3 groups of 458
+
+
+CASES = [(d, mode, N) for d in (72, 80, 128) for mode in ("none", "region", "mask") for N in sorted(GEOMETRY)]
+
+
+@pytest.mark.parametrize("d,mode,N", CASES)
+def test_plain_forward_and_lse_match_pallas_above_64(d, mode, N):
+    (q, k, v, _, bias), port, jx = _inputs(N, d, mode, seed=3 * N + d + len(mode))
+    scale = d**-0.5
+    out, lse = wa.window_attention_plain(*map(torch.from_numpy, (q, k, v, bias)), scale=scale, return_lse=True,
+                                         **port)
+    fused = np.asarray(window_attention_fused(*map(jnp.asarray, (q, k, v, bias)), scale=scale, interpret=True, **jx))
+    np.testing.assert_allclose(out.numpy(), fused, atol=2e-5)
+    want = np.asarray(jax.nn.logsumexp(_jax_scores(q, k, bias, jx, scale), axis=-1))
+    np.testing.assert_allclose(lse.numpy(), want, atol=2e-5)
+
+
+@pytest.mark.parametrize("d,mode,N", CASES)
+def test_plain_lse_backward_matches_jax_vjp_above_64(d, mode, N):
+    """dq, dk, dv, dbias of the tile-64 kernels' arithmetic (from the
+    forward's out and lse) against JAX's custom_vjp."""
+    (q, k, v, g, bias), port, jx = _inputs(N, d, mode, seed=5 * N + d + len(mode))
+    scale = d**-0.5
+    tq, tk, tv, tg, tbias = map(torch.from_numpy, (q, k, v, g, bias))
+    out, lse = wa.window_attention_plain(tq, tk, tv, tbias, scale=scale, return_lse=True, **port)
+    got = wa.window_attention_bwd(tq, tk, tv, tbias, port.get("region_ids"), tg, scale=scale,
+                                  mask=port.get("mask"), out=out, lse=lse)
+    _, vjp = jax.vjp(lambda *a: window_attention_fused(*a, scale=scale, interpret=True, **jx),
+                     *map(jnp.asarray, (q, k, v, bias)))
+    for name, x, f in zip(("dq", "dk", "dv", "dbias"), got, vjp(jnp.asarray(g))):
+        assert x.shape == f.shape
+        np.testing.assert_allclose(x.numpy(), np.asarray(f), atol=1e-4 if name == "dbias" else 2e-5,
+                                   err_msg=f"{name} vs JAX's vjp")
