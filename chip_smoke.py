@@ -2695,8 +2695,8 @@ CARD_TEST_FILES = ["tests/test_torch_window_attention_card.py", "tests/test_torc
 
 
 # The card tests in two pytest processes side by side, the two -k
-# selections splitting both files' cases between them (716 and 833 of
-# 1549; the SR file's go with the first): one process took about as long
+# selections splitting both files' cases between them (716 and 839 of
+# 1555; the SR file's go with the first): one process took about as long
 # as phase 39 beside it
 CARD_TEST_SPLIT = ("not (wide or tile64 or backward)", "wide or tile64 or backward")
 

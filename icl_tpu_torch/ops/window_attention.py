@@ -67,6 +67,10 @@ HEAD_DIM_TILES = (16, 32, 64)  # the kernels' compiled tiles: the width D is sta
 SAVED_LSE_ABOVE = 32  # head dims above this: the backward takes the forward's output and lse
 _BLOCK64 = 64  # rows of a tile-64 forward and dQ CTA (and keys of the dK/dV CTA)
 _BWD64_QUADS = 2  # above head dim 64, the chunks of one tile-64 backward CTA (`kQuads`)
+# above head dim 64, the exchange of partial scores (then dS; dK/dV: P and
+# dS) between a backward CTA's two quads: 4 pairs of warps, 3 KB (dK/dV
+# 4 KB) a pair (`kXchDq`, `kXchDkdv`)
+_BWD64_EXCHANGE_BYTES = {"dq": 4 * 3072, "dkdv": 4 * 4096}
 _MAX_SMEM_BYTES = 232_448  # per CTA on Hopper
 _CHUNK_BYTES = 32 << 20  # the plain backward's score chunk (the JAX backward's rule)
 
@@ -246,22 +250,25 @@ def _bwd64_smem_bytes(N: int, D: int, bf16: bool = False, region: bool = False) 
     kernels' (`DqLayout`, `DkdvLayout` in `csrc/window_attention_bwd.cu`,
     and above head dim 64 in `window_attention_bwd_wide.cu`) at C =
     `head_dim_chunks(D)`, Np = N padded to a multiple of 16, in floats:
-    the dQ kernel's raw Q and dO [64, 64] of each chunk (f32 at C > 1 also
-    their lo halves), then f32 two ring slots of K and V hi and lo [16, 64]
-    of each chunk and a term tile [64, 16], bf16 the window's K and V
-    [Np, 64] of each chunk (bf16 two to a float); the dK/dV kernel's K and V
-    [64, 64] of each chunk (f32 hi and lo), then f32 two ring slots of Q
-    and dO hi and lo [16, 64] of each chunk, a term tile and 32 floats of
-    lse and u, bf16 the window's Q and dO of each chunk and its lse and u
-    [Np]; both the ids [Np] in REGION."""
+    the dQ kernel's raw Q and dO [64, 64] of each chunk, then f32 two ring
+    slots of K and V hi and lo [16, 64] of each chunk and a term tile
+    [64, 16], bf16 the window's K and V [Np, 64] of each chunk (bf16 two to
+    a float); the dK/dV kernel's K and V [64, 64] of each chunk (f32 hi and
+    lo), then f32 two ring slots of Q and dO hi and lo [16, 64] of each
+    chunk, a term tile and 32 floats of lse and u, bf16 the window's Q and
+    dO of each chunk and its lse and u [Np]; at C > 1 f32 adds each
+    kernel's exchange between its two quads (`_BWD64_EXCHANGE_BYTES`), which
+    bf16 lays over the Q (dK/dV: K) tiles of chunks 0 and 1; both the ids
+    [Np] in REGION."""
     C, Np = head_dim_chunks(D), -(-N // 16) * 16
     tile = 64 * 64 // (2 if bf16 else 1)  # floats of a [64, 64] tile
     if bf16:
         dq = 2 * C * tile + 2 * C * Np * 32
         dkdv = 2 * C * tile + 2 * C * Np * 32 + 2 * Np
     else:
-        dq = (4 if C > 1 else 2) * C * tile + 2 * (4 * C * 1024 + 1024)
-        dkdv = 4 * C * tile + 2 * (4 * C * 1024 + 1024 + 32)
+        xdq, xdkdv = (_BWD64_EXCHANGE_BYTES[k] // 4 if C > 1 else 0 for k in ("dq", "dkdv"))
+        dq = 2 * C * tile + 2 * (4 * C * 1024 + 1024) + xdq
+        dkdv = 4 * C * tile + 2 * (4 * C * 1024 + 1024 + 32) + xdkdv
     return 4 * (max(dq, dkdv) + (Np if region else 0))
 
 

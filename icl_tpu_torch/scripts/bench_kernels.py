@@ -35,9 +35,12 @@ and fs384's stage 1 (head dims 80 and 128; the forward at the inference
 shape [1372, 3, 343, D], the backward at the training one [686, 3, 343,
 D]), no mask and region ids, and the Swin-UNet 2D stage-1 shapes at 3
 heads of 128, no mask and the shift mask, f32 and bf16: the `--fwd64` row
-and the `--bwd64` row of each.
+and the `--bwd64` row of each; `--wide-bwd` the `--bwd64` rows alone, then
+the backward at every SwinUNETR fs240 training stage (`chip_smoke.py`'s
+phase 59 rows, f32 timed), whose times and launches a step make its
+per-step sum.
 
-    python icl_tpu_torch/scripts/bench_kernels.py [--device-time] [--paths | --tiles | --bwd64 | --fwd64 | --wide]
+    python icl_tpu_torch/scripts/bench_kernels.py [--device-time] [--paths | --tiles | --bwd64 | --fwd64 | --wide | --wide-bwd]
     PYTHONPATH=<other checkout> python icl_tpu_torch/scripts/bench_kernels.py
 
 Run it as a file. `icl_tpu_torch` comes from PYTHONPATH when that names
@@ -75,6 +78,8 @@ def main(argv=None) -> int:
                        help="only the tile-64 forward, f32 and bf16, with and without its LSE, beside SDPA's forward")
     which.add_argument("--wide", action="store_true",
                        help="only head dims above 64 (80, 128), both kernels, f32 and bf16, beside SDPA")
+    which.add_argument("--wide-bwd", action="store_true",
+                       help="only the backward rows of --wide, then the backward at fs240's training stages")
     args = p.parse_args(argv)
     sys.path.append(str(ROOT))  # after PYTHONPATH: another checkout's package wins
     import torch
@@ -99,8 +104,10 @@ def main(argv=None) -> int:
         tile64_shapes(torch, F, wa, smoke)
     elif args.fwd64:
         tile64_forward(torch, F, wa, smoke)
-    elif args.wide:
-        wide_head_dims(torch, F, wa, smoke)
+    elif args.wide or args.wide_bwd:
+        wide_head_dims(torch, F, wa, smoke, forward=args.wide)
+        if args.wide_bwd:
+            smoke.phase_backward_kernel(torch, F, wa, head_dim=smoke.FS240 // 3, tag="[wide-step]")
     else:
         smoke.phase_kernel_3d(torch, F, wa)
         smoke.phase_backward_kernel(torch, F, wa)
@@ -188,21 +195,22 @@ def tile64_forward(torch, F, wa, smoke) -> None:
             torch.cuda.empty_cache()
 
 
-def wide_head_dims(torch, F, wa, smoke) -> None:
+def wide_head_dims(torch, F, wa, smoke, forward: bool = True) -> None:
     """`--wide`: head dims above 64, both kernels at SwinUNETR fs240's and
     fs384's stage 1 (the forward at the inference shape, the backward at
     the training one; no mask, region ids) and the 2D stage-1 shapes at 3
     heads of 128 (no mask, the shift mask), f32 and bf16: a `[wide-fwd]`
-    line (`forward_row`) and a `[wide-bwd]` line (`backward_row`) per
-    case."""
+    line (`forward_row`, unless not `forward`) and a `[wide-bwd]` line
+    (`backward_row`) per case."""
     gen = torch.Generator(device=smoke.DEVICE).manual_seed(20)
     cases = [(f"fs{3 * D}_stage1", D, mode) for D in (80, 128) for mode in ("none", "region")]
     cases += [(stage[0] + "_2d", 128, mode) for stage in smoke.STAGES_2D_D64 for mode in ("none", "mask")]
     for name, D, mode in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            forward_row(torch, F, wa, smoke, "wide-fwd", *case_inputs(torch, smoke, gen, name, D, mode, dtype,
-                                                                      training=False))
-            torch.cuda.empty_cache()
+            if forward:
+                forward_row(torch, F, wa, smoke, "wide-fwd", *case_inputs(torch, smoke, gen, name, D, mode, dtype,
+                                                                          training=False))
+                torch.cuda.empty_cache()
             backward_row(torch, F, wa, smoke, "wide-bwd", gen, *case_inputs(torch, smoke, gen, name, D, mode, dtype,
                                                                             training=True))
             torch.cuda.empty_cache()

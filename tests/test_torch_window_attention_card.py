@@ -35,9 +35,10 @@ Head dims above 64 (the tile-64 kernels in 64-column chunks): 65, 72, 80
 (SwinUNETR fs240), 96, 127 and 128 (fs384) at N 343, 216, 144, 49 and 4,
 every mode, f32 and bf16, the forward with its log-sum-exp and the
 backward fed them, as above; both kernels' geometry against the
-wrapper's rules; and the largest head dim each kernel's geometry takes at
+wrapper's rules; the largest head dim each kernel's geometry takes at
 N = 343 (f32 128 both; bf16 640 the forward, 128 the backward), run
-there, and the next one refused with its D and N named.
+there, and the next one refused with its D and N named; and the bf16
+backward above two chunks (N = 49, D 192 and 448), every mode.
 
 Tolerances (those of chip_smoke.py): forward f32 1e-5 absolute (f32 sums
 in another order, __expf), bf16 1e-3 + 1e-2 relative (one bf16 rounding
@@ -312,6 +313,19 @@ def test_wide_kernels_and_the_log_sum_exp_match_plain_on_card(card, kind, N, D, 
     assert lse_err <= F32_ATOL * max(1.0, float(want_lse.abs().max())), lse_err
     _check_forward(q, k, v, bias, ids, mask)
     _check_backward(q, k, v, bias, ids, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [192, 448])
+@pytest.mark.parametrize("kind", ["none", "region", "random"])
+def test_wide_backward_above_two_chunks_matches_plain_on_card(card, kind, D):
+    """bf16 above two chunks (N = 49: 3 chunks at D 192, 7 at D 448, the
+    largest the backward takes there), where each pair of output chunks is
+    a CTA of its own whose quads sum the partial scores of chunks j, j + 2,
+    ... (and read them past chunk 1 from the staged tiles): the backward fed
+    the forward's output and log-sum-exp against both plain backwards,
+    bitwise repeatable, as at two chunks."""
+    _check_backward(*_inputs(kind, 49, D, "bfloat16", batch=2, seed=D + len(kind), device=card))
 
 
 @pytest.mark.cuda

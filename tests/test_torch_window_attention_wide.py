@@ -39,9 +39,11 @@ FWD_F32_C2_G1 = KB + (64 + 144) * KB + 3 * 144
 FWD_BF16_C2_G3 = KB + (48 + 36) * KB + 3 * 144
 # the tile-64 backward's at 2 chunks, f32 (the dK/dV kernel's K and V hi
 # and lo of 2 chunks, 128 KB, two ring slots of Q and dO hi and lo of 2
-# chunks, a term tile, lse and u) and bf16 at N = 343 (the dK/dV kernel's
-# resident Q and dO of 2 chunks, [352, 64] bf16 each, K and V, lse and u)
-BWD_F32_C2 = 4 * (4 * 2 * 4096 + 2 * (4 * 2 * 1024 + 1024 + 32))
+# chunks, a term tile, lse and u, and the 16 KB exchange between its two
+# quads) and bf16 at N = 343 (the dK/dV kernel's resident Q and dO of 2
+# chunks, [352, 64] bf16 each, K and V, lse and u; the exchange lies over
+# K's tiles)
+BWD_F32_C2 = 4 * (4 * 2 * 4096 + 2 * (4 * 2 * 1024 + 1024 + 32) + 4096)
 BWD_BF16_C2_343 = 4 * (2 * 2 * 2048 + 2 * 2 * 352 * 32 + 2 * 352)
 
 
@@ -60,7 +62,7 @@ def test_head_dims_above_64_run_tile_64_in_chunks(D):
             groups = 2 if N in (343, 216) else 1
             smem = FWD_F32_C2_G2 if groups == 2 else FWD_F32_C2_G1
             assert wa._fwd64_groups(N, D) == groups and wa._fwd_smem_bytes(N, D) == smem
-            assert wa._bwd64_smem_bytes(N, D) == BWD_F32_C2 == 205_056
+            assert wa._bwd64_smem_bytes(N, D) == BWD_F32_C2 == 221_440
         assert FWD_F32_C2_G2 == 230_688 <= wa._MAX_SMEM_BYTES and FWD_F32_C2_G1 == 214_448
         assert [wa._fwd64_groups(N, D, bf16=True) for N in (343, 216, 144, 49)] == [3, 2, 3, 1]
         assert wa._fwd_smem_bytes(343, D, bf16=True) == FWD_BF16_C2_G3 == 87_472
@@ -88,6 +90,54 @@ def test_largest_head_dims_each_kernel_takes():
         assert largest(lambda D: wa._bwd64_smem_bytes(N, D, region=True) <= wa._MAX_SMEM_BYTES) == 128
     assert largest(lambda D: wa._bwd64_smem_bytes(343, D, True, True) <= wa._MAX_SMEM_BYTES) == 128
     assert largest(lambda D: wa._bwd64_smem_bytes(49, D, True, True) <= wa._MAX_SMEM_BYTES) == 448
+
+
+@pytest.mark.parametrize("region", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_backward_exchange_between_quads_fits_at_343(bf16, region):
+    """The chunked backward's exchange between a CTA's two quads (partial
+    scores, then dS; in the dK/dV kernel P and dS: 12 KB and 16 KB) at N =
+    343, head dims 80 and 128: f32 adds it to the larger kernel's bytes
+    (the dK/dV kernel's), bf16 lays it over the Q (dK/dV: K) tiles of chunks
+    0 and 1 and keeps the bytes it had; with or without the region ids a
+    CTA's shared memory holds it."""
+    xch = wa._BWD64_EXCHANGE_BYTES
+    assert (xch["dq"], xch["dkdv"]) == (12 * KB, 16 * KB)
+    ids = 4 * 352 if region else 0
+    for D in (80, 128):
+        smem = wa._bwd64_smem_bytes(343, D, bf16, region)
+        assert smem == (BWD_BF16_C2_343 if bf16 else BWD_F32_C2) + ids <= wa._MAX_SMEM_BYTES
+    if bf16:
+        assert max(xch.values()) <= 2 * 64 * 64 * 2  # two chunks of a [64, 64] bf16 tile
+    else:
+        assert BWD_F32_C2 - xch["dkdv"] == 205_056  # the dK/dV kernel's bytes without it
+
+
+def _pair_partials(C: int) -> list[int]:
+    """The chunk-products of S (and of dP) a quad of the chunked backward
+    forms a step, quad j summing chunks j, j + 2, ... of the head dim."""
+    return [len(range(j, C, wa._BWD64_QUADS)) for j in range(wa._BWD64_QUADS)]
+
+
+@pytest.mark.parametrize("D,passes", [(80, 1), (128, 1), (192, 2), (448, 4)])
+def test_backward_takes_a_pass_per_pair_of_output_chunks(D, passes):
+    """The chunked backward walks its output chunks two at a time, a pass
+    (a CTA of each row or key block) per pair, its quads splitting the
+    partial scores of every chunk: at two chunks one pass forms the
+    function's C chunk-products of S a step (the parent's quads formed 2 C);
+    above two (bf16 at N = 49: 3 chunks at D 192, 7 at 448) every pass
+    forms all C, and the grid has `passes` CTAs a block and head. bf16
+    takes these windows, f32 does not above two chunks."""
+    C = wa.head_dim_chunks(D)
+    assert -(-C // wa._BWD64_QUADS) == passes
+    assert sum(_pair_partials(C)) == C and max(_pair_partials(C)) == -(-C // 2)
+    assert wa._bwd64_smem_bytes(49, D, bf16=True, region=True) <= wa._MAX_SMEM_BYTES
+    assert (wa._bwd64_smem_bytes(49, D, region=True) <= wa._MAX_SMEM_BYTES) == (C == 2)
+    B, H, slots = 512, 3, 132
+    per_cta, groups = wa._grid_of(B, H, 49, D, slots, 64, wa._BWD64_QUADS)
+    ctas = H * 1 * passes  # one row block at N = 49
+    assert groups * per_cta >= B > (groups - 1) * per_cta
+    assert (per_cta, groups) == wa._balanced_groups(B, ctas, slots)
 
 
 @pytest.mark.parametrize("D,dtype", [(129, torch.float32), (192, torch.bfloat16)])
