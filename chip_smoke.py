@@ -365,12 +365,14 @@ Phases, each fatal on failure:
      weights; test_3D_BraTS --model swinunetr_icl --feature_size 192 on
      its stripped best checkpoint gives the validation dice;
  59. both kernels at head dims above 64 (the tile-64 kernels in chunks of
-     64 columns, a CTA per chunk of the output): SwinUNETR fs240's shapes
+     64 columns, a CTA per pair of output chunks): SwinUNETR fs240's shapes
      (head dim 80 at every stage) of one inference forward at sw_batch 4
-     and of one training pass, and fs384's stage 1 (head dim 128), no-mask
-     and region ids, and the Swin-UNet 2D stage-1 shapes at 3 heads of 128,
-     no-mask, the shift mask and a random dense mask; held, repeated and
-     timed as phase 57;
+     and of one training pass (the forward at both), and fs384's stage 1
+     (head dim 128), no-mask and region ids, and the Swin-UNet 2D stage-1
+     shapes at 3 heads of 128, no-mask, the shift mask and a random dense
+     mask; held, repeated and timed as phase 57; then the bf16 forward
+     above two chunks (head dims 192, 320, 640) at N 343 and 49, held with
+     its log-sum-exp and repeated;
  60. SwinUNETR-ICL at --feature_size 240 (head dim 80 at every stage)
      through its CLI's `main` at the CLI's default precision (bf16
      autocast, recompute on) on phase 9's cases, as phase 58;
@@ -5525,23 +5527,75 @@ def phase_fs192_cli(torch, wa, cases, held_out) -> dict:
 # head at the 2D stage-1 shapes
 FS240, FS384 = 240, 384
 HEAD_DIM_2D_WIDE = 128
+# the bf16 forward above two chunks: 3, 5 and 10 (the largest it takes),
+# each pair of output chunks a CTA of its own
+WIDE_ABOVE_TWO_HEAD_DIMS = (192, 320, 640)
+# fs240's training stages: each backbone pass at batch LABELED_BS, and the
+# forward's launches a step by stage (the pass and its recompute, 2 passes)
+TRAIN_STAGES = [(st[0], LABELED_BS) + tuple(st[2:]) for st in STAGES]
+FWD_PER_STEP_BY_STAGE = {m: {st: 2 * n for st, n in BWD_PER_STEP_BY_STAGE[m].items()} for m in ("none", "region")}
+
+
+def wide_forward_above_two(torch, wa) -> list[dict]:
+    """59: the bf16 forward above two chunks (head dims 192, 320 and 640) at
+    N = 343 (fs48's stage 3 at batch 1: 8 shifted windows, 12 heads; no mask
+    and region ids) and N = 49 (the 224^2 / window-7 stage 1 at batch 2;
+    no mask and the shift mask), against the plain version with its
+    log-sum-exp, the output with and without the store equal and bitwise
+    repeatable; a `[wide-c>2]` line a case."""
+    gen = torch.Generator(device=DEVICE).manual_seed(592)
+    rows = []
+    for D in WIDE_ABOVE_TWO_HEAD_DIMS:
+        cases = [("stage3", mode, None) for mode in ("none", "region")]
+        cases += [(REF_STAGE_2D[0], "none" if kind is None else "mask", kind) for kind in (None, "shift")]
+        for name, mode, kind in cases:
+            ids = mask = None
+            if name == "stage3":
+                q, k, v, bias, ids = stage_inputs(torch, (name, 1) + tuple(STAGES[2][2:]), torch.bfloat16, gen, D)
+                ids = ids if mode == "region" else None
+            else:
+                q, k, v, bias, mask = inputs_2d(torch, REF_STAGE_2D, torch.bfloat16, gen, kind, batch=2, head_dim=D)
+            scale = D ** -0.5
+            out, lse = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+            again, lse2 = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+            alone = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)
+            torch.cuda.synchronize()
+            want, want_lse = wa.window_attention_plain(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+            err = (out.float() - want.float()).abs()
+            lse_err = float((lse - want_lse).abs().max())
+            row = {"stage": name, "mode": mode, "dtype": "bfloat16", "shape": list(q.shape),
+                   "chunks": -(-D // 64), "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err,
+                   "bitwise_repeat": torch.equal(out, again) and torch.equal(lse, lse2),
+                   "lse_store_keeps_output": torch.equal(out, alone)}
+            ok = (bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all()) and row["bitwise_repeat"]
+                  and row["lse_store_keeps_output"] and lse_err <= F32_ATOL * max(1.0, float(want_lse.abs().max())))
+            print(f"[wide-c>2] {json.dumps(row)}", flush=True)
+            if not ok:
+                fail(f"the forward above two chunks disagrees with plain or is not repeatable: {row}")
+            rows.append(row)
+            del q, k, v, bias, out, again, alone, want, err
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_kernels_wide(torch, F, wa) -> dict:
     """59: both kernels at fs240's 3D shapes (head dim 80 at every stage:
-    the inference forward at sw_batch 4 and the training pass, NONE and
-    REGION), at fs384's stage 1 (head dim 128; its other stages run the
-    same instances as fs240's) and at the 2D stage-1 shapes at 3 heads of
-    128 (NONE, MASK with the shift mask and a random mask), f32 and bf16,
-    held and bitwise repeatable (the forward's log-sum-exp too); timed
-    beside the bound, the plain version and SDPA (f32; the 3D forward in
-    bf16 too)."""
+    the inference forward at sw_batch 4 and the training pass, the forward
+    at both, NONE and REGION), at fs384's stage 1 (head dim 128; its other
+    stages run the same instances as fs240's) and at the 2D stage-1 shapes
+    at 3 heads of 128 (NONE, MASK with the shift mask and a random mask),
+    f32 and bf16, held and bitwise repeatable (the forward's log-sum-exp
+    too); timed beside the bound, the plain version and SDPA (f32; the 3D
+    forward in bf16 too); then the bf16 forward above two chunks, held
+    (`wide_forward_above_two`)."""
     out = {}
     for fs, stages in ((FS240, STAGES), (FS384, STAGES[:1])):
         out[f"fwd_fs{fs}"] = phase_kernel_3d(torch, F, wa, head_dim=fs // 3, stages=stages, tag=f"[kernel-fs{fs}]",
                                              timed_bf16=True)
         out[f"bwd_fs{fs}"] = phase_backward_kernel(torch, F, wa, head_dim=fs // 3, stages=stages,
                                                    tag=f"[bwd-fs{fs}]")
+    out["fwd_fs240_step"] = phase_kernel_3d(torch, F, wa, head_dim=FS240 // 3, stages=TRAIN_STAGES,
+                                            tag="[kernel-fs240-step]", timed_bf16=True)
     gen = torch.Generator(device=DEVICE).manual_seed(59)
     out["fwd2d"], out["bwd2d"] = [], []
     for stage in STAGES_2D_D64:
@@ -5552,6 +5606,7 @@ def phase_kernels_wide(torch, F, wa) -> dict:
                                          head_dim=HEAD_DIM_2D_WIDE, timed=kind != "random")
                     out["fwd2d"].append(row)
                     out["bwd2d"].append(brow)
+    out["fwd_above_two"] = wide_forward_above_two(torch, wa)
     held = [r for rows in out.values() for r in rows]
     largest = {d: max(r["max_abs_err"] for r in held if r["shape"][3] == d)
                for d in (FS240 // 3, FS384 // 3)}
@@ -5989,6 +6044,10 @@ def main(argv: list) -> int:
             timed(wide["kernels"]["fwd_fs240"], mode), PER_FORWARD[mode])
         paths["fwd"][mode]["swinunetr_fs240_inference_forward_bf16"] = totals(
             timed(wide["kernels"]["fwd_fs240"], mode, "bfloat16"), PER_FORWARD[mode])
+        paths["fwd"][mode]["swinunetr_icl_fs240_training_step"] = totals(
+            timed(wide["kernels"]["fwd_fs240_step"], mode), FWD_PER_STEP_BY_STAGE[mode])
+        paths["fwd"][mode]["swinunetr_icl_fs240_training_step_bf16"] = totals(
+            timed(wide["kernels"]["fwd_fs240_step"], mode, "bfloat16"), FWD_PER_STEP_BY_STAGE[mode])
         paths["bwd"][mode]["swinunetr_icl_fs240_training_step"] = totals(
             timed(wide["kernels"]["bwd_fs240"], mode), BWD_PER_STEP_BY_STAGE[mode])
         for direction in ("fwd", "bwd"):
@@ -6045,7 +6104,9 @@ def main(argv: list) -> int:
             held = (rows_3d + rows_2d + new["kernels"][direction] + new["kernels"]["sweep"][direction]
                     + tile64["kernels"][direction] + tile64["kernels"][f"{direction}2d"]
                     + tile64["kernels"]["sweep"][direction] + wide["kernels"][f"{direction}2d"]
-                    + [r for fs in (FS240, FS384) for r in wide["kernels"][f"{direction}_fs{fs}"]])
+                    + [r for fs in (FS240, FS384) for r in wide["kernels"][f"{direction}_fs{fs}"]]
+                    + (wide["kernels"]["fwd_fs240_step"] + wide["kernels"]["fwd_above_two"]
+                       if direction == "fwd" else []))
             errs = [r["max_abs_err"] for r in held if r["mode"] == mode
                     and (direction == "bwd" or r["dtype"] == "float32")]
             head_dims = sorted({r["shape"][3] for r in held if r["mode"] == mode})

@@ -1,7 +1,8 @@
 // Fused window attention forward for Hopper (sm_90a) at head dims above
 // 64, on tensor cores: the tile-64 kernel of window_attention.cu
-// (window_attention64_kernel, whose note this one follows) walking the head
-// dim in C = ceil(d / 64) chunks of 64 columns.
+// (window_attention64_kernel, whose note this one follows) with the head
+// dim in C = ceil(d / 64) chunks of 64 columns, a CTA per pair of output
+// chunks.
 //
 // Replaces the same three Pallas TPU kernels of
 // icl_tpu/ops/pallas/window_attention.py as window_attention.cu (_kernel
@@ -13,30 +14,56 @@
 //
 // What bounds it: the function's 4 B H N^2 d flops at the card's
 // f32-accurate rate (3xTF32, 165 TFLOP/s; bf16's bytes), as at tile 64.
+// Like the tile-64 kernel it is bound by latency and issue, not by a
+// unit's rate (PERF.md): in f32 the producer's split and
+// transposition of each step's tiles (5.8 ms of fs240 stage 1 alone) and
+// the consumers' chain of products, exchange and softmax (4.7 ms alone);
+// in bf16 the consumers' chain. So it issues no product the function does
+// not need: a CTA of one chunk's columns that summed S over every chunk
+// issued 2 C chunk-products of S a row block at C = 2 where the function
+// needs C, with a wait between chunks, and staged K C times (1.75x SDPA's
+// f32 time). And it keeps enough independent work on
+// an SM: coupling two warpgroups on one block of rows in bf16 too ran 6.1
+// ms at fs240's stage 1, against 3.5 for a CTA a chunk.
 //
-// Design (kept from the tile-64 kernel: the producer warpgroup and up to
-// three consumer warpgroups of 64 rows on an mbarrier ring of 32-key
-// slots, wgmma in the 3xTF32 split or bf16, V^T with its keys permuted so
-// that S's accumulator is P.V's A fragment, each step's P.V summed from
-// zero and added in f32, the term array, padded keys at -inf, no atomics,
-// bitwise repeatable):
-//   * the grid's row blocks times C: a CTA owns one chunk c of the
-//     output's columns. Each sums S = sum_j Q_j.K_j^T over all C chunks (a
-//     group of products a chunk, waited for before the next, so that none
-//     is in flight across the runtime loop), runs the same online softmax,
-//     and stores O_c = P.V_c. The C CTAs of a row block recompute the same
-//     S: the work of the function plus (C - 1) of its S products, about
-//     1.5x its products at C = 2. Only chunk 0's CTAs store the row
-//     log-sum-exp (the instance LSE).
-//   * shared memory (Fwd64Layout): each consumer's Q tile of every chunk,
-//     and each ring slot K of every chunk but V of the CTA's own. In f32 V
-//     lands in its slot's V^T lo tile and is transposed in place (the
-//     producer's threads all read before any writes), so no plain V tile
-//     takes room: at C = 2 two consumer warpgroups fit with two slots (Q
-//     128 KB, slots of 48 KB, 230,688 bytes) where N's row blocks come in
-//     twos (N 343, 216), else one with three slots (214,448); bf16 keeps
-//     three warpgroups up to C = 5. groups64 picks the most that fit, and
-//     the geometry refuses a head dim none fits (f32 above 128, bf16 above
+// Design (kept from the tile-64 kernel: producer warpgroups on an mbarrier
+// ring of 32-key slots, wgmma in the 3xTF32 split or bf16, V^T with its
+// keys permuted so that S's accumulator is P.V's A fragment, the term
+// array, padded keys at -inf, no atomics, bitwise repeatable):
+//   * A CTA owns one pair p of output chunks (p = 0 at C = 2; above, bf16
+//     only, each pair is a CTA of its own that forms S over every chunk:
+//     S is recomputed once a pair of chunks). Each ring slot holds K of
+//     every chunk and V of the pair.
+//   * f32, the pair of warpgroups: two consumer warpgroups own the same
+//     block of 64 rows; warpgroup j holds Q of chunk j alone and stores
+//     output chunk j. Each step it forms only the partial S_j = Q_j.K_j^T,
+//     warp w of each (a pair of warps, the same 16 rows) stages its S_j in
+//     the pair's exchange (a float4 a lane, two buffers by the step's
+//     parity, so one named barrier a step) and adds the other's: S_0 + S_1
+//     == S_1 + S_0, so both hold the same bits and run the same online
+//     softmax. P.V of its chunk is summed from zero and added in f32. Only
+//     warpgroup 0 stores the row log-sum-exp. Q of two chunks, split hi
+//     and lo, takes 64 KB, so one block of rows a CTA, and the ring two
+//     slots; two producer warpgroups split the tiles, each transposing one
+//     chunk's V.
+//   * bf16, a warpgroup a block of rows: one to three consumer warpgroups
+//     (as many as divide the window's row blocks), each on 64 rows of its
+//     own, hold Q of every chunk and the accumulators of both output
+//     chunks: S over every chunk in one group of products, no exchange,
+//     P.V of both chunks added in place to the rescaled accumulators; each
+//     stores its rows' log-sum-exp in pair 0. One producer, whose copies of
+//     whole 16-byte chunks need no finishing.
+//   * Zero columns: the S products of the last chunk skip its k-steps
+//     that lie wholly past d (at d = 80, 6 of 8 in f32), in a guarded form
+//     of their own (`unrolled`), and f32's P.V of a last chunk of 16 or 32
+//     real columns runs at n16 or n32; the form is chosen once a chunk,
+//     never by a branch inside a whole chunk's k-steps.
+//   * The ring (FwdWideLayout): as many slots as fit, up to six (f32 at C
+//     = 2 two, 230,688 bytes; bf16 six up to C = 4, at one consumer
+//     warpgroup four, so that two CTAs share an SM); the producers copy
+//     step f while they finish step f - (slots - 2), so their work runs
+//     beside the consumers' steps. The geometry refuses a head dim whose
+//     two slots do not fit, or above ten chunks (f32 above 128, bf16 above
 //     640).
 //   * A kernel of its own beside window_attention.cu's, which stays as it
 //     was at head dims up to 64: one template for both perturbed the
@@ -55,53 +82,194 @@ namespace {
 // ---------------------------------------------------------------------------
 // The chunked tile-64 kernel.
 
-constexpr int kRows64 = 64;      // query rows of a consumer warpgroup, a warp per 16
-constexpr int kKeys64 = 32;      // keys a step
-constexpr int kMaxGroups64 = 3;  // consumer warpgroups of a CTA at most
-// Registers a thread: 128 at launch (4 warpgroups), the producer gives 72
-// of its own to the consumers' 24 each (three of them). At 32 and 160 the
-// producer spilled 88-112 bytes and ran slower.
-constexpr int kProducerRegs = 56;
-constexpr int kConsumerRegs = 152;
-constexpr int kProducerBarrier = 1;  // named barriers: the producer's, then each consumer's
+constexpr int kRows64 = 64;  // query rows of a consumer warpgroup, a warp per 16
+constexpr int kKeys64 = 32;  // keys a step
+// Output chunks of a CTA: pair p of them, chunks kPair p and kPair p + 1
+constexpr int kPair = 2;
+__host__ __device__ inline int pair_ctas(int chunks) { return (chunks + kPair - 1) / kPair; }
+// f32: the pair of consumer warpgroups on one block of rows, warpgroup j
+// summing the partial scores of chunks j, j + kPair, ... (one chunk: f32
+// takes two) and storing output chunk kPair p + j. bf16: up to kMaxGroups
+// consumer warpgroups, each on 64 rows of its own, holding Q of every
+// chunk (up to ten) and the accumulators of both output chunks.
+constexpr int kMaxOwnF32 = 1;
+constexpr int kMaxChunksBf16 = 10;
+constexpr int kMaxGroups = 3;
+// Producer warpgroups and registers a thread. f32: two producer
+// warpgroups (the split and transposition of each step's tiles bound one:
+// it took 7.9 ms of fs240 stage 1 alone, PERF.md), 128 registers at launch
+// (4 warpgroups), the producers give 40 of their own to the consumers' 40
+// each (producers at 80 and below spilled 8-104 bytes). bf16: one
+// producer, 128 at launch (4 warpgroups), the producer gives 72 to the
+// consumers' 24 each.
+template <bool BF16>
+struct Regs {
+  static constexpr int kProducers = BF16 ? 1 : 2;
+  static constexpr int kProducer = BF16 ? 56 : 88;
+  static constexpr int kConsumer = BF16 ? 152 : 168;
+  static constexpr int kThreads = 128 * ((BF16 ? kMaxGroups : kPair) + kProducers);  // at most
+};
+// named barriers: the producers', each consumer warpgroup's, then (f32)
+// each pair of warps' (warp w of both consumer warpgroups) and each
+// producer warpgroup's (its V transposition)
+constexpr int kProducerBarrier = 1;
+constexpr int kPairBarrier = kProducerBarrier + 1 + kMaxGroups;
+constexpr int kTransposeBarrier = kPairBarrier + 4;
+constexpr int kXchBytes = kRows64 * kKeys64 * 4;  // a warpgroup's partial S of a step, f32
 
 // Shared memory of the kernel in bytes, from a 1024-aligned base (the
-// swizzle's atoms; `total` has the kilobyte that aligns it), for `groups`
-// consumer warpgroups and a head dim of `chunks` 64-column chunks: each
-// group's Q tile of each chunk (f32: hi [64][64] as two [64][32] halves,
-// then lo, 32 KB; bf16 [64][64], 8 KB; `q_chunk` apart); a ring of `slots`
-// slots, each K of every chunk (f32 hi and lo [32][32] x 2 each, 16 KB;
-// bf16 [32][64], 4 KB; `k_chunk` apart), then V of the CTA's own chunk (f32
-// V^T hi, V^T lo [64][32] each: V lands in the lo tile and is transposed in
-// place; bf16 V [32][64]); each slot's region ids of its 32 keys; each
-// slot's two mbarriers (full, free). Independent of N.
-struct Fwd64Layout {
-  int q_chunk, q_tile, slots, k_chunk, slot, k_lo, v_hi, v_lo, ids, bars, total;
-  __host__ __device__ Fwd64Layout(int groups, bool bf16, int chunks) {
+// swizzle's atoms; `total` has the kilobyte that aligns it), for a head
+// dim of `chunks` 64-column chunks, `groups` consumer warpgroups (bf16; f32
+// has the pair) and `slots` ring slots: each consumer warpgroup's Q tile
+// of each of its chunks (f32: hi [64][64] as two [64][32] halves, then
+// lo, 32 KB, of ceil(C / 2) chunks; bf16 [64][64], 8 KB, of every chunk;
+// `q_chunk` apart); the ring, each slot K of every chunk (f32 hi and lo
+// [32][32] x 2 each, 16 KB; bf16 [32][64], 4 KB; `k_chunk` apart), then V
+// of the CTA's two output chunks from `v` (f32 V^T hi, V^T lo [64][32]
+// each: V lands in the lo tile and is transposed in place; bf16 V
+// [32][64]; `v_chunk` apart); f32's exchange, two buffers of each
+// warpgroup's partial S; each slot's region ids of its 32 keys; each
+// slot's two mbarriers (full, free).
+struct FwdWideLayout {
+  int q_chunk, q_tile, slots, k_chunk, k_lo, v, v_chunk, slot, xch, ids, bars, total;
+  __host__ __device__ FwdWideLayout(bool bf16, int chunks, int groups, int slots_) {
     q_chunk = bf16 ? 8192 : 32768;
-    q_tile = chunks * q_chunk;
-    slots = !bf16 && groups > 1 ? 2 : 3;  // f32: two let a second group fit
+    q_tile = (bf16 ? chunks : pair_ctas(chunks)) * q_chunk;
+    slots = slots_;
     k_chunk = bf16 ? 4096 : 16384;
     k_lo = 8192;
-    v_hi = chunks * k_chunk;
-    v_lo = v_hi + 8192;
-    slot = v_hi + (bf16 ? 4096 : 16384);
-    ids = groups * q_tile + slots * slot;
+    v = chunks * k_chunk;
+    v_chunk = bf16 ? 4096 : 16384;
+    slot = v + kPair * v_chunk;
+    xch = (bf16 ? groups : kPair) * q_tile + slots * slot;
+    ids = xch + (bf16 ? 0 : 2 * kPair * kXchBytes);
     bars = ids + slots * kKeys64 * 4;
     total = bars + 2 * slots * 8 + 1024;
   }
 };
 
-// Consumer warpgroups of a CTA at windows of N tokens: they share each
-// staged K and V tile, so as many as divide the window's 64-row blocks
-// without an empty one, up to 3, whose Q tiles and ring fit a CTA's shared
-// memory (f32 at 2 chunks: 2 at N = 343 and 216, else 1; 1 where none fits,
-// which the geometry then refuses).
-__host__ __device__ inline int groups64(int N, int chunks, bool bf16) {
+// The consumer warpgroups of a CTA at windows of N tokens: f32 the pair;
+// bf16 as many as divide the window's 64-row blocks without an empty one,
+// up to kMaxGroups, whose layout with two slots fits a CTA's shared memory.
+__host__ __device__ inline int wide_groups(int N, int chunks, bool bf16) {
+  if (!bf16) return kPair;
   const int blocks = (N + kRows64 - 1) / kRows64;
-  for (int g = kMaxGroups64; g > 1; --g)
-    if (blocks % g == 0 && Fwd64Layout(g, bf16, chunks).total <= kMaxSmemBytes) return g;
+  for (int g = kMaxGroups; g > 1; --g)
+    if (blocks % g == 0 && FwdWideLayout(true, chunks, g, 2).total <= kMaxSmemBytes) return g;
   return 1;
+}
+
+// The most ring slots, up to kMaxSlots, that fit a CTA's shared memory
+// (at least two: the geometry refuses a head dim whose two do not fit);
+// bf16 with one consumer warpgroup up to kMaxSlotsShared, so that two CTAs
+// share an SM (at N = 49, six slots kept it to one and ran 6% slower than
+// a CTA a chunk).
+constexpr int kMaxSlots = 6;
+constexpr int kMaxSlotsShared = 4;
+__host__ __device__ inline FwdWideLayout fwd_wide_layout(bool bf16, int chunks, int groups) {
+  int slots = bf16 && groups == 1 ? kMaxSlotsShared : kMaxSlots;
+  while (slots > 2 && FwdWideLayout(bf16, chunks, groups, slots).total > kMaxSmemBytes) --slots;
+  return FwdWideLayout(bf16, chunks, groups, slots);
+}
+
+// cp.async.wait_group at a count known at run time, up to kMaxSlots - 2.
+__device__ __forceinline__ void cp_async_wait_for(int groups) {
+  switch (groups) {
+    case 0: cp_async_wait_group<0>(); break;
+    case 1: cp_async_wait_group<1>(); break;
+    case 2: cp_async_wait_group<2>(); break;
+    case 3: cp_async_wait_group<3>(); break;
+    default: cp_async_wait_group<4>(); break;
+  }
+}
+
+// The k-steps of 8 (TF32) and 16 (bf16) columns of the chunk whose first
+// column is col0 that hold columns below d.
+__device__ __forceinline__ int ksteps8(int d, int col0) { return min(8, (d - col0 + 7) >> 3); }
+__device__ __forceinline__ int ksteps16(int d, int col0) { return min(4, (d - col0 + 15) >> 4); }
+
+// f(0) .. f(K - 1), unrolled, or only those below kmax where kmax < K (the
+// last chunk's k-steps past d): a whole chunk runs no guard.
+template <int K, typename F>
+__device__ __forceinline__ void unrolled(int kmax, F&& f) {
+  if (kmax >= K) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) f(i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      if (i < kmax) f(i);
+  }
+}
+
+// d[64 x N] (+)= A[64 x 8] . B[8 x N], tf32, A from registers, B K-major,
+// at N = 16 and 32: the first N / 2 accumulators of d (wgmma.cuh's n64
+// layout).
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  if constexpr (N == 16)
+    wgmma_tf32_rs_n16(d, a, b, scale_d);
+  else if constexpr (N == 32)
+    wgmma_tf32_rs_n32(d, a, b, scale_d);
+  else
+    wgmma_tf32_rs_n64(d, a, b, scale_d);
+}
+
+// pv = P.V of a step's 32 keys in 3xTF32 (the small terms first), from
+// zero, for the first N columns of the chunk whose V^T hi and lo tiles
+// `dv_hi` and `dv_lo` describe; P's k-step kk holds keys 8 kk .. 8 kk + 7
+// in V^T's order. One group of products, waited for.
+template <int N>
+__device__ __forceinline__ void pv_tf32(float (&pv)[32], uint32_t (&ph)[4][4], uint32_t (&pl)[4][4], uint64_t dv_hi,
+                                        uint64_t dv_lo) {
+  fence_operands(pv);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    fence_operands(ph[kk]);
+    fence_operands(pl[kk]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_tf32_rs<N>(pv, pl[kk], desc_at(dv_hi, 32 * kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_tf32_rs<N>(pv, ph[kk], desc_at(dv_lo, 32 * kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_tf32_rs<N>(pv, ph[kk], desc_at(dv_hi, 32 * kk), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    fence_operands(ph[kk]);
+    fence_operands(pl[kk]);
+  }
 }
 
 // The f32 plain V tile [32][64]: chunk c of key row r at 16 (c ^ swz(r)),
@@ -178,13 +346,15 @@ struct Tile64 {
   }
   __device__ void finish(unsigned char* dst, int lo_offset, int R, int rank, int count) const {
     const bool chunks = chunked16(x, d);
+    // bf16 copied in whole chunks has nothing to finish (a pass over its
+    // chunks took a quarter of fs240's stage 1, PERF.md)
+    if (std::is_same<T, __nv_bfloat16>::value && chunks) return;
     for (int i = rank; i < R * kChunks; i += count) {
       const int r = i / kChunks;
       const int c = i - r * kChunks;
       if (row0 + r >= N || col0 + c * kVals >= d) continue;
       unsigned char* at = dst + sw128_chunk(r, c, R);
       if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-        if (chunks) continue;  // copied
         float f[8];
         chunk_vals<T, 8>(f, at, x, row0 + r, col0 + c * kVals, N, d, false);
         __nv_bfloat162* b = reinterpret_cast<__nv_bfloat162*>(at);
@@ -212,11 +382,11 @@ struct Tile64 {
 // the eight cc, which puts both their reads and their writes on 8 bank
 // groups. The dims are x's from `col0` (a head dim's chunk, Tile64). The
 // plain tile is the lo tile itself (8 KB either way), so every thread
-// reads its values before any writes, across one named barrier of the
-// `count` (128: one item a thread) producer threads.
+// reads its values before any writes, across named barrier `barrier` of
+// the `count` (128: one item a thread) threads that run it.
 template <typename T>
 __device__ __forceinline__ void transpose_split(unsigned char* hi, unsigned char* lo, const T* x, int key0, int N,
-                                                int d, int col0, int rank, int count) {
+                                                int d, int col0, int rank, int count, int barrier) {
   const unsigned char* raw = lo;
   const bool chunks = chunked16(x, d);
   for (int i = rank; i < 16 * 8; i += count) {
@@ -240,7 +410,7 @@ __device__ __forceinline__ void transpose_split(unsigned char* hi, unsigned char
           if (col0 + 4 * nb + u < d) f[e][u] = to_float(x[static_cast<size_t>(row) * d + col0 + 4 * nb + u]);
       }
     }
-    named_barrier(kProducerBarrier, count);
+    named_barrier(barrier, count);
     if (!dims) continue;
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -255,30 +425,37 @@ __device__ __forceinline__ void transpose_split(unsigned char* hi, unsigned char
 }
 
 // Head dims above 64, in chunks of 64 columns (head_dim_chunks): the CTA's
-// chunk c is blockIdx.x % chunks, its rows' block blockIdx.x / chunks. S
-// sums Q.K^T over every chunk, and the CTA stores the 64 columns of O = P.V
-// from 64 c; the chunks' CTAs compute the same P, so only chunk 0's store
-// the log-sum-exp.
+// pair of output chunks is blockIdx.x % pair_ctas(chunks), its blocks of
+// rows (f32: one; bf16: one a consumer warpgroup) blockIdx.x /
+// pair_ctas(chunks).
 template <typename T, int MODE, bool LSE>
-__global__ void __launch_bounds__((kMaxGroups64 + 1) * 128, 1)
+__global__ void __launch_bounds__(Regs<std::is_same<T, __nv_bfloat16>::value>::kThreads, 1)
 window_attention64_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                           const float* __restrict__ terms, const float* __restrict__ region_ids,
                           T* __restrict__ out, float* __restrict__ lse, int B, int H, int N, int d, int nW,
                           int windows_per_cta, float scale) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool kPaired = !kBf16;  // f32: the pair on one block of rows
+  constexpr int kMaxOwn = kPaired ? kMaxOwnF32 : kMaxChunksBf16;
+  constexpr int kOuts = kPaired ? 1 : kPair;  // output chunks a warpgroup stores
+  constexpr int kSteps = kBf16 ? 4 : 8;       // k-steps of a whole chunk's S product
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (shared_addr(smem_raw) & 1023)) & 1023);
   const int steps = (N + kKeys64 - 1) / kKeys64;
   const int P = steps * kKeys64;  // the term array's rows, N padded to the steps
   const int Np = (N + 15) & ~15;
-  const int groups = blockDim.x / 128 - 1;  // consumer warpgroups; the last one produces
   const int chunks = head_dim_chunks(d);
-  const int chunk = blockIdx.x % chunks;  // the CTA's columns of O
-  const int col0 = kRows64 * chunk;
-  const Fwd64Layout L(groups, kBf16, chunks);
+  const int pairs = pair_ctas(chunks);
+  const int pair = blockIdx.x % pairs;  // the CTA's output chunks: kPair pair and kPair pair + 1
+  constexpr int kProducerThreads = 128 * Regs<kBf16>::kProducers;
+  const int groups = blockDim.x / 128 - Regs<kBf16>::kProducers;  // consumer warpgroups; the last ones produce
+  const FwdWideLayout L = fwd_wide_layout(kBf16, chunks, groups);
   const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  const int r0 = blockIdx.x / chunks * kRows64 * groups;  // the CTA's rows
+  // the warpgroup, read from lane 0 so that the compiler knows it is the
+  // same across the warp: branches on it (and on what a warpgroup owns)
+  // are then uniform, and keep its products from being serialized
+  const int wg = __shfl_sync(kFullMask, tid / 128, 0);
+  const int r0 = blockIdx.x / pairs * kRows64 * (kPaired ? 1 : groups);  // the CTA's rows
   const int h = blockIdx.y;
   const int b_begin = blockIdx.z * windows_per_cta;
   const int b_end = min(B, b_begin + windows_per_cta);
@@ -295,16 +472,17 @@ window_attention64_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < L.ids / 16; i += blockDim.x) reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
   if (tid == 0)
     for (int s = 0; s < L.slots; ++s) {
-      mbar_init(full_bar(s), 128);           // the producer's threads
-      mbar_init(free_bar(s), 128 * groups);  // every consumer thread
+      mbar_init(full_bar(s), kProducerThreads);  // the producers' threads
+      mbar_init(free_bar(s), 128 * groups);      // every consumer thread
     }
   __syncthreads();
 
-  if (wg == groups) {
-    // The producer: K and V of each step (and the window's region ids)
-    // into the ring, f32 split (V transposed), a step ahead of the
-    // consumers and at most `slots` steps ahead of the slowest.
-    setmaxnreg_dec<kProducerRegs>();
+  if (wg >= groups) {
+    // The producers: K of every chunk and V of the CTA's output chunks of
+    // each step (and the window's region ids) into the ring, f32 split (V
+    // transposed, a producer warpgroup a chunk), ahead of the consumers and
+    // at most `slots` steps ahead of the slowest.
+    setmaxnreg_dec<Regs<kBf16>::kProducer>();
     const int rank = tid - 128 * groups;
     auto issue = [&](int f) {
       const int b = window_of(f);
@@ -312,10 +490,13 @@ window_attention64_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mbar_wait(free_bar(f), ((f / L.slots) & 1) ^ 1);  // the slot's last step, f - slots, done
       for (int j = 0; j < chunks; ++j) {  // K of every chunk
         const Tile64<T> kt{k + base_of(b), key0, N, d, kRows64 * j};
-        kt.issue(slot_at(f) + j * L.k_chunk, kKeys64, false, rank, 128);
+        kt.issue(slot_at(f) + j * L.k_chunk, kKeys64, false, rank, kProducerThreads);
       }
-      const Tile64<T> vt{v + base_of(b), key0, N, d, col0};  // V of the CTA's chunk
-      vt.issue(slot_at(f) + (kBf16 ? L.v_hi : L.v_lo), kKeys64, !kBf16, rank, 128);  // f32: plain, into V^T lo
+      for (int j = 0; j < kPair && kPair * pair + j < chunks; ++j) {  // V of the CTA's chunks
+        const Tile64<T> vt{v + base_of(b), key0, N, d, kRows64 * (kPair * pair + j)};
+        vt.issue(slot_at(f) + L.v + j * L.v_chunk + (kBf16 ? 0 : 8192), kKeys64, !kBf16, rank,
+                 kProducerThreads);  // f32: plain, into V^T lo
+      }
       if (MODE == kRegion && rank < kKeys64 && key0 + rank < N)  // the step's keys' ids
         cp_async<4>(ids_at(f) + rank, region_ids + static_cast<size_t>(b % nW) * N + key0 + rank);
       cp_async_commit();
@@ -325,60 +506,86 @@ window_attention64_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int key0 = kKeys64 * (f % steps);
       for (int j = 0; j < chunks; ++j) {
         const Tile64<T> kt{k + base_of(b), key0, N, d, kRows64 * j};
-        kt.finish(slot_at(f) + j * L.k_chunk, L.k_lo, kKeys64, rank, 128);
+        kt.finish(slot_at(f) + j * L.k_chunk, L.k_lo, kKeys64, rank, kProducerThreads);
       }
-      if constexpr (kBf16) {
-        const Tile64<T> vt{v + base_of(b), key0, N, d, col0};
-        vt.finish(slot_at(f) + L.v_hi, 0, kKeys64, rank, 128);
-      } else {
-        transpose_split(slot_at(f) + L.v_hi, slot_at(f) + L.v_lo, v + base_of(b), key0, N, d, col0, rank, 128);
+      for (int j = 0; j < kPair && kPair * pair + j < chunks; ++j) {
+        const int col0 = kRows64 * (kPair * pair + j);
+        unsigned char* vt = slot_at(f) + L.v + j * L.v_chunk;
+        if constexpr (kBf16) {
+          Tile64<T>{v + base_of(b), key0, N, d, col0}.finish(vt, 0, kKeys64, rank, kProducerThreads);
+        } else if (j == rank / 128) {  // producer warpgroup j transposes V of chunk j
+          transpose_split(vt, vt + 8192, v + base_of(b), key0, N, d, col0, rank % 128, 128, kTransposeBarrier + j);
+        }
       }
       fence_proxy_async();  // the tiles, to the products' proxy
       mbar_arrive(full_bar(f));
     };
-    // Step f's copies go out (into its own slot) before step f - 1 is finished.
-    for (int f = 0; f <= total; ++f) {
+    // Step f's copies go out (into its own slot) before step f - lag is
+    // finished: the consumers hold one slot and the producer the rest, so
+    // the copies of `lag` steps are in flight while one is finished, and
+    // the producer works beside the consumers, not between their steps.
+    const int lag = L.slots - 2;
+    for (int f = 0; f < total + lag; ++f) {
       if (f < total) issue(f);
-      if (f > 0) {
-        if (f < total)
-          cp_async_wait_group<1>();
-        else
-          cp_async_wait_group<0>();
-        named_barrier(kProducerBarrier, 128);  // step f - 1 landed, every thread's copies
-        finish(f - 1);
+      const int g = f - lag;
+      if (g >= 0) {
+        cp_async_wait_for(min(lag, total - 1 - g));  // the groups issued after step g's
+        named_barrier(kProducerBarrier, kProducerThreads);  // step g landed, every thread's copies
+        finish(g);
       }
     }
     return;
   }
 
-  // The consumers: warpgroup wg owns rows w0 .. w0 + 63, warp `warp` of it
-  // 16 of them; lane (g, t) rows rows[0] and rows[1].
-  setmaxnreg_inc<kConsumerRegs>();
+  // The consumers. Warpgroup wg owns rows w0 .. w0 + 63, warp `warp` of it
+  // 16 of them; lane (g, t) rows rows[0] and rows[1]. It holds Q of chunks
+  // c0, c0 + cstep, ... (`own` of them) and stores output chunks oc0 + k,
+  // k < kOuts, where there are such chunks.
+  setmaxnreg_inc<Regs<kBf16>::kConsumer>();
   const int rank = tid - 128 * wg;
   const int warp = rank / 32;
   const int lane = rank % 32;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int w0 = r0 + kRows64 * wg;
+  const int w0 = kPaired ? r0 : r0 + kRows64 * wg;
   const int rows[2] = {w0 + 16 * warp + g, w0 + 16 * warp + g + 8};
+  const int c0 = kPaired ? wg : 0;
+  const int cstep = kPaired ? kPair : 1;
+  const int own = kPaired ? (chunks - wg + kPair - 1) / kPair : chunks;
+  const int oc0 = kPair * pair + (kPaired ? wg : 0);
+  auto stores = [&](int k) { return oc0 + k < chunks; };
+  // the k-steps of this warpgroup's last chunk that hold columns below d
+  const int last_col0 = kRows64 * (c0 + cstep * (own - 1));
+  const int kmax = kBf16 ? ksteps16(d, last_col0) : ksteps8(d, last_col0);
+  // f32's P.V at the output chunk's real columns, rounded up to 16, 32 or 64
+  const int width = stores(0) ? min(kRows64, d - kRows64 * oc0) : kRows64;
+  const int nw = width <= 16 ? 16 : width <= 32 ? 32 : 64;
   unsigned char* q_tile = smem + wg * L.q_tile;  // each chunk's (f32: hi, then lo 16 KB on), q_chunk apart
   const uint64_t dq_hi = sw128_desc(shared_addr(q_tile));
   const uint64_t dq_lo = sw128_desc(shared_addr(q_tile + 16384));
   // Q of window b: its chunks' copies issued, or split in place by the threads that copied them
   auto q_issue = [&](int b) {
-    for (int j = 0; j < chunks; ++j)
-      Tile64<T>{q + base_of(b), w0, N, d, kRows64 * j}.issue(q_tile + j * L.q_chunk, kRows64, false, rank, 128);
+    for (int i = 0; i < own; ++i)
+      Tile64<T>{q + base_of(b), w0, N, d, kRows64 * (c0 + cstep * i)}.issue(q_tile + i * L.q_chunk, kRows64, false,
+                                                                           rank, 128);
   };
   auto q_finish = [&](int b) {
-    for (int j = 0; j < chunks; ++j)
-      Tile64<T>{q + base_of(b), w0, N, d, kRows64 * j}.finish(q_tile + j * L.q_chunk, 16384, kRows64, rank, 128);
+    for (int i = 0; i < own; ++i)
+      Tile64<T>{q + base_of(b), w0, N, d, kRows64 * (c0 + cstep * i)}.finish(q_tile + i * L.q_chunk, 16384,
+                                                                            kRows64, rank, 128);
   };
   q_issue(b_begin);
   cp_async_commit();
 
-  float o[32], pv[32], s[16];
+  // o: each output chunk's accumulator; f32 adds each step's pv to it,
+  // bf16 rescales it and adds the step's products in place
+  float o[kOuts][32], pv[kPaired ? 32 : 1], s[16];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = pv[i] = 0.f;
+  for (int i = 0; i < 32; ++i) {
+#pragma unroll
+    for (int c = 0; c < kOuts; ++c) o[c][i] = 0.f;
+    if constexpr (kPaired) pv[i] = 0.f;
+  }
 #pragma unroll
   for (int i = 0; i < 16; ++i) s[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
@@ -400,7 +607,9 @@ window_attention64_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[0] = m[1] = -INFINITY;
       l[0] = l[1] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      for (int i = 0; i < 32; ++i)
+#pragma unroll
+        for (int c = 0; c < kOuts; ++c) o[c][i] = 0.f;
       plane = terms + (static_cast<size_t>(MODE == kMask ? b % nW : 0) * H + h) * Np * P;
     }
     if (MODE == kRegion && j == 0)
@@ -410,42 +619,41 @@ window_attention64_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     mbar_wait(full_bar(f), (f / L.slots) & 1);  // step f's K, V (and key ids) staged
     const float* ids = ids_at(f);
 
-    // S = Q.K^T of the 64 rows and 32 keys: one group of products a chunk,
-    // the first chunk's first product from zero, the groups before the
-    // last waited for here, so that none is in flight across the loop
+    // S = Q.K^T of the 64 rows and 32 keys over this warpgroup's chunks
+    // (f32: its partial S_wg), one group of products, the first from zero
     unsigned char* slot = slot_at(f);
-    auto products = [&](int j) {
-      const uint64_t dk_hi = sw128_desc(shared_addr(slot + j * L.k_chunk));
-      const uint64_t dqj_hi = desc_at(dq_hi, j * L.q_chunk);
-      wgmma_fence();
+    auto products = [&](int i, int ksteps) {  // own chunk i, its first `ksteps` k-steps
+      const int c = c0 + cstep * i;
+      const uint64_t dk_hi = sw128_desc(shared_addr(slot + c * L.k_chunk));
+      const uint64_t dqi_hi = desc_at(dq_hi, i * L.q_chunk);
       if constexpr (kBf16) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_bf16_ss_n32(s, desc_at(dqj_hi, 32 * kk), desc_at(dk_hi, 32 * kk), kk + j);
+        unrolled<4>(ksteps, [&](int kk) {
+          wgmma_bf16_ss_n32(s, desc_at(dqi_hi, 32 * kk), desc_at(dk_hi, 32 * kk), kk + i);
+        });
       } else {
-        const uint64_t dqj_lo = desc_at(dq_lo, j * L.q_chunk);
+        const uint64_t dqi_lo = desc_at(dq_lo, i * L.q_chunk);
         const uint64_t dk_lo = desc_at(dk_hi, L.k_lo);
         // k-step kk: dims 8 kk .. 8 kk + 7, in the half of dims 32 (kk / 4) ..
         auto qk = [](int kk) { return (kk >> 2) * kRows64 * 128 + 32 * (kk & 3); };
         auto kk_at = [](int kk) { return (kk >> 2) * kKeys64 * 128 + 32 * (kk & 3); };
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
-          wgmma_tf32_ss_n32(s, desc_at(dqj_lo, qk(kk)), desc_at(dk_hi, kk_at(kk)), kk + j);
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) wgmma_tf32_ss_n32(s, desc_at(dqj_hi, qk(kk)), desc_at(dk_lo, kk_at(kk)), 1);
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) wgmma_tf32_ss_n32(s, desc_at(dqj_hi, qk(kk)), desc_at(dk_hi, kk_at(kk)), 1);
+        unrolled<8>(ksteps, [&](int kk) {
+          wgmma_tf32_ss_n32(s, desc_at(dqi_lo, qk(kk)), desc_at(dk_hi, kk_at(kk)), kk + i);
+        });
+        unrolled<8>(ksteps, [&](int kk) {
+          wgmma_tf32_ss_n32(s, desc_at(dqi_hi, qk(kk)), desc_at(dk_lo, kk_at(kk)), 1);
+        });
+        unrolled<8>(ksteps, [&](int kk) {
+          wgmma_tf32_ss_n32(s, desc_at(dqi_hi, qk(kk)), desc_at(dk_hi, kk_at(kk)), 1);
+        });
       }
-      wgmma_commit();
     };
     fence_operands(s);
-#pragma unroll 1
-    for (int j = 0; j + 1 < chunks; ++j) {
-      products(j);
-      wgmma_wait<0>();
-      fence_operands(s);
-    }
-    products(chunks - 1);
+    wgmma_fence();
+    products(0, own == 1 ? kmax : kSteps);
+#pragma unroll
+    for (int i = 1; i < kMaxOwn; ++i)  // bf16
+      if (i < own) products(i, i + 1 == own ? kmax : kSteps);
+    wgmma_commit();
     // the terms of this lane's rows at its eight keys (two chunks of the
     // permuted term array), from L2 while the products run
     float4 tm[2][2];
@@ -462,6 +670,24 @@ window_attention64_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       named_barrier(kProducerBarrier + 1 + wg, 128);
       q_issue(b + 1);
       cp_async_commit();
+    }
+
+    if constexpr (kPaired) {
+      // S = S_0 + S_1 through the pair's exchange: this lane's partial out,
+      // the other warpgroup's lane of the same rank in (the buffer of this
+      // step's parity; the pair's barrier of the next step orders its reuse)
+      float4* x = reinterpret_cast<float4*>(smem + L.xch + (f & 1) * kPair * kXchBytes);
+      float4* mine = x + wg * (kXchBytes / 16);
+      const float4* theirs = x + (1 - wg) * (kXchBytes / 16);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mine[128 * i + rank] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+      named_barrier(kPairBarrier + warp, 2 * 32);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 y = theirs[128 * i + rank];
+        s[4 * i] += y.x, s[4 * i + 1] += y.y, s[4 * i + 2] += y.z, s[4 * i + 3] += y.w;
+      }
     }
 
     // the online softmax; s[4 jn + 2 r + e] is row rows[r] at key key0 + 8 jn + 2 t + e
@@ -506,65 +732,69 @@ window_attention64_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[r] = m_new;
     }
 
-    // pv = P.V of the step's 32 keys, from zero
-    const uint64_t dv_hi = sw128_desc(shared_addr(slot + L.v_hi));
+    // P.V of the step's 32 keys for each output chunk
+    unsigned char* vt = slot + L.v + (kPaired ? wg : 0) * L.v_chunk;
     if constexpr (kBf16) {
+      // o = o corr + P.V, the products added in place
       uint32_t ph[2][4], pl[2][4];  // k-step kk: keys 16 kk .. 16 kk + 15
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
         for (int e = 0; e < 4; ++e) split_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1], ph[kk][e], pl[kk][e]);
-      fence_operands(pv);
+#pragma unroll
+      for (int c = 0; c < kOuts; ++c) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] *= corr[(i >> 1) & 1];
+        fence_operands(o[c]);
+      }
       fence_operands(ph[0]);
       fence_operands(ph[1]);
       fence_operands(pl[0]);
       fence_operands(pl[1]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) wgmma_bf16_rs_n64(pv, pl[kk], desc_at(dv_hi, 2048 * kk), kk);
+      for (int c = 0; c < kOuts; ++c) {
+        if (!stores(c)) continue;
+        const uint64_t dv = sw128_desc(shared_addr(vt + c * L.v_chunk));
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) wgmma_bf16_rs_n64(pv, ph[kk], desc_at(dv_hi, 2048 * kk), 1);
+        for (int kk = 0; kk < 2; ++kk) wgmma_bf16_rs_n64(o[c], pl[kk], desc_at(dv, 2048 * kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) wgmma_bf16_rs_n64(o[c], ph[kk], desc_at(dv, 2048 * kk), 1);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(ph[0]);
       fence_operands(ph[1]);
       fence_operands(pl[0]);
       fence_operands(pl[1]);
+#pragma unroll
+      for (int c = 0; c < kOuts; ++c) fence_operands(o[c]);
+      mbar_arrive(free_bar(f));  // this thread is done with the slot
     } else {
-      // k-step kk: keys 8 kk .. 8 kk + 7 in V^T's order 0, 2, 4, 6, 1, 3, 5, 7
-      uint32_t ph[4][4], pl[4][4];
+      // pv = P.V_oc from zero, then o = o corr + pv
+      if (stores(0)) {
+        // k-step kk: keys 8 kk .. 8 kk + 7 in V^T's order 0, 2, 4, 6, 1, 3, 5, 7
+        uint32_t ph[4][4], pl[4][4];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int from[4] = {0, 2, 1, 3};
+        for (int kk = 0; kk < 4; ++kk) {
+          const int from[4] = {0, 2, 1, 3};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) split<false>(s[4 * kk + from[e]], ph[kk][e], pl[kk][e]);
+          for (int e = 0; e < 4; ++e) split<false>(s[4 * kk + from[e]], ph[kk][e], pl[kk][e]);
+        }
+        const uint64_t dv_hi = sw128_desc(shared_addr(vt));
+        const uint64_t dv_lo = sw128_desc(shared_addr(vt + 8192));
+        if (nw == 16)
+          pv_tf32<16>(pv, ph, pl, dv_hi, dv_lo);
+        else if (nw == 32)
+          pv_tf32<32>(pv, ph, pl, dv_hi, dv_lo);
+        else
+          pv_tf32<64>(pv, ph, pl, dv_hi, dv_lo);
+        fence_operands(pv);
       }
-      const uint64_t dv_lo = sw128_desc(shared_addr(slot + L.v_lo));
-      fence_operands(pv);
+      mbar_arrive(free_bar(f));  // this thread is done with the slot
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        fence_operands(ph[kk]);
-        fence_operands(pl[kk]);
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_tf32_rs_n64(pv, pl[kk], desc_at(dv_hi, 32 * kk), kk);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_tf32_rs_n64(pv, ph[kk], desc_at(dv_lo, 32 * kk), 1);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_tf32_rs_n64(pv, ph[kk], desc_at(dv_hi, 32 * kk), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        fence_operands(ph[kk]);
-        fence_operands(pl[kk]);
-      }
+      for (int i = 0; i < 32; ++i) o[0][i] = fmaf(o[0][i], corr[(i >> 1) & 1], pv[i]);
     }
-    fence_operands(pv);
-    mbar_arrive(free_bar(f));  // this thread is done with the slot
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = fmaf(o[i], corr[(i >> 1) & 1], pv[i]);
 
     if (last) {
       const size_t base = base_of(b);
@@ -575,12 +805,18 @@ window_attention64_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l[r] += __shfl_xor_sync(kFullMask, l[r], 2);
         if (rows[r] >= N) continue;
         const float inv = 1.f / l[r];
-        T* orow = out + base + static_cast<size_t>(rows[r]) * d + col0;
 #pragma unroll
-        for (int nn = 0; nn < 8; ++nn)
-          store_cols<T>(orow, 8 * nn + 2 * t, d - col0, o[4 * nn + 2 * r] * inv, o[4 * nn + 2 * r + 1] * inv);
-        // l is relative to m, the row's max, finite at a real row
-        if (LSE && t == 0 && chunk == 0) lse[(static_cast<size_t>(b) * H + h) * N + rows[r]] = m[r] + __logf(l[r]);
+        for (int c = 0; c < kOuts; ++c) {
+          if (!stores(c)) continue;
+          const int col0 = kRows64 * (oc0 + c);
+          T* orow = out + base + static_cast<size_t>(rows[r]) * d + col0;
+#pragma unroll
+          for (int nn = 0; nn < 8; ++nn)
+            store_cols<T>(orow, 8 * nn + 2 * t, d - col0, o[c][4 * nn + 2 * r] * inv, o[c][4 * nn + 2 * r + 1] * inv);
+        }
+        // l is relative to m, the row's max, finite at a real row; one
+        // warpgroup of pair 0 stores each row's
+        if (LSE && t == 0 && oc0 == 0) lse[(static_cast<size_t>(b) * H + h) * N + rows[r]] = m[r] + __logf(l[r]);
       }
     }
   }
@@ -590,10 +826,19 @@ window_attention64_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Shared memory and warps of a CTA at windows of N tokens and head dim d.
 size_t smem_bytes(int N, bool bf16, int d) {
   const int chunks = head_dim_chunks(d);
-  return static_cast<size_t>(Fwd64Layout(groups64(N, chunks, bf16), bf16, chunks).total);
+  return static_cast<size_t>(fwd_wide_layout(bf16, chunks, wide_groups(N, chunks, bf16)).total);
 }
 
-int cta_warps(int N, bool bf16, int d) { return 4 * (groups64(N, head_dim_chunks(d), bf16) + 1); }
+int cta_warps(int N, bool bf16, int d) {
+  return 4 * (wide_groups(N, head_dim_chunks(d), bf16) + (bf16 ? Regs<true>::kProducers : Regs<false>::kProducers));
+}
+
+// Whether the kernel takes head dim d: a warpgroup's chunks within its
+// registers' reach (f32 two chunks, bf16 ten); the geometry's occupancy
+// refuses a layout that does not fit a CTA's shared memory.
+bool takes(bool bf16, int d) {
+  return bf16 ? head_dim_chunks(d) <= kMaxChunksBf16 : pair_ctas(head_dim_chunks(d)) <= kMaxOwnF32;
+}
 
 // Allow `kernel` `smem` bytes of shared memory before a launch.
 template <typename K>
@@ -621,6 +866,10 @@ cudaError_t fit(K kernel, size_t smem, int threads, int* ctas) {
 template <typename T, int MODE>
 cudaError_t occupancy(int N, int d, int* ctas) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if (!takes(kBf16, d)) {
+    *ctas = 0;
+    return cudaSuccess;
+  }
   return fit(window_attention64_wide_kernel<T, MODE, false>, smem_bytes(N, kBf16, d), cta_warps(N, kBf16, d) * 32,
              ctas);
 }
@@ -643,11 +892,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The term array, then the kernel over (row blocks x chunks of the head
-// dim, heads, window groups), in stream order.
+// The term array, then the kernel over (row blocks x pairs of output
+// chunks, heads, window groups), in stream order.
 template <typename T, int MODE, bool LSE>
 cudaError_t launch(const Args& a) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if (!takes(kBf16, a.d)) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(a.N, kBf16, a.d);
   auto kernel = window_attention64_wide_kernel<T, MODE, LSE>;
   cudaError_t err = prepare(kernel, smem);
@@ -658,9 +908,9 @@ cudaError_t launch(const Args& a) {
   if (err != cudaSuccess) return err;
   const int groups = (a.B + a.windows_per_cta - 1) / a.windows_per_cta;
   const int chunks = head_dim_chunks(a.d);
-  const int cta_rows = kRows64 * groups64(a.N, chunks, kBf16);
-  kernel<<<dim3((a.N + cta_rows - 1) / cta_rows * chunks, a.H, groups), cta_warps(a.N, kBf16, a.d) * 32, smem,
-           a.stream>>>(
+  const int cta_rows = kRows64 * (kBf16 ? wide_groups(a.N, chunks, true) : 1);
+  kernel<<<dim3((a.N + cta_rows - 1) / cta_rows * pair_ctas(chunks), a.H, groups), cta_warps(a.N, kBf16, a.d) * 32,
+           smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.terms, a.region_ids,
       static_cast<T*>(a.out), a.lse, a.B, a.H, a.N, a.d, a.nW, a.windows_per_cta, a.scale);
   return cudaGetLastError();
@@ -685,8 +935,9 @@ extern "C" {
 // scratch `terms` [T, H, Np, P] f32 (T = nW in MASK, else 1; Np = N padded
 // to a multiple of 16, P to a multiple of 32) for the term array; where
 // `lse` is set the row log-sum-exp [B, H, N] f32 of the scaled logits is
-// stored there. A CTA takes `windows_per_cta` windows of one block of rows
-// and one chunk of one head; its width and shared memory are those
+// stored there. A CTA takes `windows_per_cta` windows of its blocks of 64
+// rows (f32: one; bf16: one a consumer warpgroup) and one pair of 64-column
+// chunks of the output of one head; its width and shared memory are those
 // icl_window_attention_wide_fwd_geometry reports.
 int icl_window_attention_wide_fwd(const void* q, const void* k, const void* v, const void* bias,
                                   const void* region_ids, const void* mask, void* out, void* lse, void* terms,

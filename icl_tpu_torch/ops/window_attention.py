@@ -28,7 +28,10 @@ given). At head dims above 32 both directions run tile-64 kernels that
 read bias (+ mask) from a term array [T, H, Np, Np] which their prologue
 writes into scratch the wrapper allocates (`_terms`); the forward's is a
 CTA of a producer warpgroup and one to three consumer warpgroups of 64 rows
-(`_fwd64_groups`) on `wgmma`. Each kernel chooses its CTA's warps and
+(`_fwd64_groups`) on `wgmma`; above head dim 64 in f32 a pair of them on
+the same 64 rows, each forming the partial scores of its own chunks, in
+bf16 one to three, each holding its rows' accumulators of two output
+chunks. Each kernel chooses its CTA's warps and
 shared memory and reports them with its resident CTAs per SM
 (`_fwd_geometry`, `_bwd_geometry`); `_grid_of` sizes both grids.
 Each launch adds its FLOPs to any count in progress (`utils.flops`):
@@ -39,8 +42,8 @@ Head dims: the kernels take any head dim D >= 1 whose shared memory fits
 a CTA, each through the instance compiled for its tile (`head_dim_tile`:
 16 for D <= 16, 32 for D <= 32, 64 above), whose operands are staged at
 the tile's width with zero columns past D; above 64 the chunked tile-64
-kernels walk D in `head_dim_chunks(D)` chunks of 64 columns, a CTA (in the
-backward, a quad of warps) per chunk of the output. SwinUNETR's head dim is feature_size /
+kernels walk D in `head_dim_chunks(D)` chunks of 64 columns, a CTA per pair
+of output chunks. SwinUNETR's head dim is feature_size /
 3 (8 at fs24, 16 at fs48, 32 at fs96, 64 at fs192, 80 at fs240, 128 at
 fs384). A D whose geometry does not fit (f32 above 128; bf16 above 640 in
 the forward, at N = 343 above 128 in the backward) raises ValueError
@@ -67,6 +70,15 @@ HEAD_DIM_TILES = (16, 32, 64)  # the kernels' compiled tiles: the width D is sta
 SAVED_LSE_ABOVE = 32  # head dims above this: the backward takes the forward's output and lse
 _BLOCK64 = 64  # rows of a tile-64 forward and dQ CTA (and keys of the dK/dV CTA)
 _BWD64_QUADS = 2  # above head dim 64, the chunks of one tile-64 backward CTA (`kQuads`)
+# above head dim 64, a forward CTA's output chunks (`kPair`), and in f32 its
+# consumer warpgroups, on the same 64 rows, whose exchange of partial
+# scores is two buffers of [64, 32] f32 each
+_FWD_WIDE_PAIR = 2
+_FWD_WIDE_MAX_SLOTS = 6  # its ring's slots at most (`kMaxSlots`)
+_FWD_WIDE_MAX_SLOTS_SHARED = 4  # bf16's at one consumer warpgroup (`kMaxSlotsShared`)
+_FWD_WIDE_MAX_CHUNKS_BF16 = 10  # the chunks a bf16 warpgroup holds Q of at most (`kMaxChunksBf16`)
+_FWD_WIDE_PRODUCERS = 2  # f32's producer warpgroups (`Regs<false>::kProducers`)
+_FWD_WIDE_EXCHANGE_BYTES = 2 * _FWD_WIDE_PAIR * 64 * 32 * 4
 # above head dim 64, the exchange of partial scores (then dS; dK/dV: P and
 # dS) between a backward CTA's two quads: 4 pairs of warps, 3 KB (dK/dV
 # 4 KB) a pair (`kXchDq`, `kXchDkdv`)
@@ -202,33 +214,72 @@ def head_dim_chunks(D: int) -> int:
     return 1 if D <= _BLOCK64 else -(-D // _BLOCK64)
 
 
-def _fwd64_layout_bytes(groups: int, chunks: int, bf16: bool) -> int:
-    """`Fwd64Layout(...).total`, in `csrc/window_attention.cu` at one chunk
-    and `csrc/window_attention_wide.cu` above: a kilobyte to align its tiles; each
-    group's Q tile [64, 64] of each chunk (f32 hi and lo, 32 KB; bf16 8
-    KB); a ring of S slots of 32 keys, each K of every chunk (f32 hi and
-    lo, 16 KB; bf16 4 KB) and V of the CTA's chunk (f32 V^T hi and lo, 16
-    KB; bf16 4 KB), S = 2 in f32 for one group at one chunk or several
-    above, else 3; f32's plain V tiles [32, 64] at one chunk (8 KB, one for
-    one group, else two); each slot's 32 keys' region ids and two
-    mbarriers."""
-    slots = 2 if not bf16 and (groups == 1 if chunks == 1 else groups > 1) else 3
+def _fwd64_layout_bytes(groups: int, bf16: bool) -> int:
+    """`Fwd64Layout(...).total` in `csrc/window_attention.cu` (head dims 33
+    to 64): a kilobyte to align its tiles; each group's Q tile [64, 64]
+    (f32 hi and lo, 32 KB; bf16 8 KB); a ring of S slots of 32 keys, each K
+    (f32 hi and lo, 16 KB; bf16 4 KB) and V (f32 V^T hi and lo, 16 KB; bf16
+    4 KB), S = 2 in f32 for one group, else 3; f32's plain V tiles [32, 64]
+    (8 KB, one for one group, else two); each slot's 32 keys' region ids and
+    two mbarriers."""
+    slots = 2 if not bf16 and groups == 1 else 3
     if bf16:
-        tiles = 8 * groups * chunks + 4 * slots * (chunks + 1)
+        tiles = 8 * groups + 4 * slots * 2
     else:
-        raws = 0 if chunks > 1 else 1 if groups == 1 else 2
-        tiles = 32 * groups * chunks + 16 * slots * (chunks + 1) + 8 * raws
+        tiles = 32 * groups + 16 * slots * 2 + 8 * (1 if groups == 1 else 2)
     return 1024 + tiles * 1024 + slots * (32 * 4 + 16)
 
 
+def _fwd_wide_layout_bytes(chunks: int, bf16: bool, groups: int = _FWD_WIDE_PAIR) -> int:
+    """`fwd_wide_layout(...).total` in `csrc/window_attention_wide.cu`
+    (head dims above 64, in `chunks` 64-column chunks): a kilobyte to align
+    its tiles; each consumer warpgroup's Q tiles [64, 64] (f32: the pair's,
+    ceil(C / 2) chunks each, hi and lo, 32 KB a chunk; bf16: `groups` of
+    them, every chunk, 8 KB); a ring of S slots of 32 keys, each K of every
+    chunk (f32 hi and lo, 16 KB; bf16 4 KB) and V of the CTA's two output
+    chunks (f32 V^T hi and lo, 16 KB; bf16 4 KB); f32's exchange of partial
+    scores between the pair (`_FWD_WIDE_EXCHANGE_BYTES`); each slot's 32
+    keys' region ids and two mbarriers. S the most, up to
+    `_FWD_WIDE_MAX_SLOTS` (bf16 at one warpgroup `_FWD_WIDE_MAX_SLOTS_SHARED`,
+    so that two CTAs share an SM), that fit a CTA's shared memory, at least
+    2."""
+    most = _FWD_WIDE_MAX_SLOTS_SHARED if bf16 and groups == 1 else _FWD_WIDE_MAX_SLOTS
+    slots = next((s for s in range(most, 2, -1) if _fwd_wide_bytes(chunks, bf16, groups, s) <= _MAX_SMEM_BYTES), 2)
+    return _fwd_wide_bytes(chunks, bf16, groups, slots)
+
+
+def _fwd_wide_bytes(chunks: int, bf16: bool, groups: int, slots: int) -> int:
+    """`FwdWideLayout(...).total` at `slots` ring slots."""
+    tile = 4 if bf16 else 16
+    q = groups * chunks * 2 * tile if bf16 else _FWD_WIDE_PAIR * -(-chunks // _FWD_WIDE_PAIR) * 2 * tile
+    tiles = q + slots * (chunks + _FWD_WIDE_PAIR) * tile
+    return 1024 + tiles * 1024 + (0 if bf16 else _FWD_WIDE_EXCHANGE_BYTES) + slots * (32 * 4 + 16)
+
+
 def _fwd64_groups(N: int, D: int = 64, bf16: bool = False) -> int:
-    """Consumer warpgroups of a tile-64 forward CTA, 64 rows each
-    (`groups64` in `csrc/window_attention.cu` and `window_attention_wide.cu`): 3 or 2 where they divide
-    the window's 64-row blocks and their layout fits a CTA's shared memory
-    (at head dim D's chunks; always at 64 and below), else 1."""
+    """Consumer warpgroups of a tile-64 forward CTA. Head dims up to 64
+    (`groups64` in `csrc/window_attention.cu`): 3 or 2 where they divide the
+    window's 64-row blocks and their layout fits a CTA's shared memory
+    (always), else 1, each on 64 rows of its own. Above (`wide_groups` in
+    `csrc/window_attention_wide.cu`): f32 the pair `_FWD_WIDE_PAIR`, both on
+    the same 64 rows; bf16 3 or 2 where they divide the row blocks and their
+    layout with two ring slots fits, else 1, each on rows of its own."""
     blocks, chunks = -(-N // _BLOCK64), head_dim_chunks(D)
-    return next((g for g in (3, 2) if blocks % g == 0
-                 and _fwd64_layout_bytes(g, chunks, bf16) <= _MAX_SMEM_BYTES), 1)
+    if chunks > 1 and not bf16:
+        return _FWD_WIDE_PAIR
+
+    def fits(g: int) -> bool:
+        return (_fwd64_layout_bytes(g, bf16) if chunks == 1 else _fwd_wide_bytes(chunks, bf16, g, 2)) <= _MAX_SMEM_BYTES
+
+    return next((g for g in (3, 2) if blocks % g == 0 and fits(g)), 1)
+
+
+def _fwd_warps(N: int, D: int, bf16: bool = False) -> int:
+    """Warps of a tile-64 forward CTA (`cta_warps` in the kernels): four a
+    consumer warpgroup (`_fwd64_groups`) and a producer warpgroup, above
+    head dim 64 in f32 two (`_FWD_WIDE_PRODUCERS`)."""
+    producers = _FWD_WIDE_PRODUCERS if head_dim_chunks(D) > 1 and not bf16 else 1
+    return 4 * (_fwd64_groups(N, D, bf16) + producers)
 
 
 def _fwd_smem_bytes(N: int, D: int, bf16: bool = False) -> int:
@@ -236,13 +287,27 @@ def _fwd_smem_bytes(N: int, D: int, bf16: bool = False) -> int:
     `csrc/window_attention.cu`). Tiles 16 and 32 (`head_dim_tile(D)`): two
     buffers of K and V [Np, tile] and the region ids [Np] in f32, Np = N
     padded to a multiple of 16. Tile 64: `_fwd64_layout_bytes` of
-    `_fwd64_groups(N, D, bf16)` consumer warpgroups: independent of N but
-    through them."""
+    `_fwd64_groups(N, D, bf16)` consumer warpgroups, independent of N but
+    through them; above head dim 64 `_fwd_wide_layout_bytes` of its chunks
+    and those warpgroups."""
     tile = head_dim_tile(D)
+    if head_dim_chunks(D) > 1:
+        return _fwd_wide_layout_bytes(head_dim_chunks(D), bf16, _fwd64_groups(N, D, bf16))
     if tile == 64:
-        return _fwd64_layout_bytes(_fwd64_groups(N, D, bf16), head_dim_chunks(D), bf16)
+        return _fwd64_layout_bytes(_fwd64_groups(N, D, bf16), bf16)
     Np = -(-N // 16) * 16
     return 2 * (2 * Np * tile + Np) * 4
+
+
+def _fwd_fits(N: int, D: int, bf16: bool = False) -> bool:
+    """Whether the forward kernel takes windows of N tokens at head dim D:
+    its shared memory fits a CTA and, above head dim 64, a consumer
+    warpgroup holds Q of its chunks (`takes` in
+    `csrc/window_attention_wide.cu`: f32 one of two chunks, bf16 up to
+    `_FWD_WIDE_MAX_CHUNKS_BF16`, all of them)."""
+    chunks = head_dim_chunks(D)
+    within = chunks <= (_FWD_WIDE_MAX_CHUNKS_BF16 if bf16 else _FWD_WIDE_PAIR)
+    return within and _fwd_smem_bytes(N, D, bf16) <= _MAX_SMEM_BYTES
 
 
 def _bwd64_smem_bytes(N: int, D: int, bf16: bool = False, region: bool = False) -> int:
@@ -291,7 +356,7 @@ def _check(q, k, v, bias, region_ids, mask, dout=None):
         smem = _fwd_smem_bytes(N, D, bf16)
     else:
         smem = _bwd64_smem_bytes(N, D, bf16, region_ids is not None) if head_dim_tile(D) == 64 else 0
-    if smem > _MAX_SMEM_BYTES:
+    if smem > _MAX_SMEM_BYTES or (dout is None and not _fwd_fits(N, D, bf16)):
         raise ValueError(f"window_attention: window of {N} tokens at head dim {D} does not fit shared memory "
                          f"({smem} bytes a CTA)")
     tensors = [q, k, v, bias] + ([dout] if dout is not None else [])
@@ -410,7 +475,8 @@ def _grid_of(B: int, H: int, N: int, D: int, slots: int, rows: int = _BLOCK64,
     16 and 32 a CTA per (window group, head); at tile 64 a CTA per (block
     of `rows` rows, `chunks_a_cta` chunks of the head dim, head, window
     group): the forward's blocks are 64 rows a consumer warpgroup
-    (`_fwd64_groups`) and one chunk, the backward's dQ kernel's 64 and
+    (`_fwd64_groups`) at head dims up to 64, above them 64 rows and
+    `_FWD_WIDE_PAIR` chunks; the backward's dQ kernel's 64 and
     `_BWD64_QUADS`; within one wave at head dims up to 64,
     `_balanced_groups` above."""
     if head_dim_tile(D) == 64:
@@ -421,14 +487,23 @@ def _grid_of(B: int, H: int, N: int, D: int, slots: int, rows: int = _BLOCK64,
     return _window_groups(B, H, slots)
 
 
+def _grid_blocks(fwd: bool, N: int, D: int, bf16: bool) -> tuple[int, int]:
+    """(rows, chunks of the head dim) a CTA of the forward (`fwd`) or the
+    backward's dQ kernel takes, as `_grid_of`'s `rows` and
+    `chunks_a_cta`."""
+    if not fwd:
+        return _BLOCK64, _BWD64_QUADS
+    if head_dim_chunks(D) > 1:  # f32's pair on one block; bf16's warpgroups a block each
+        return _BLOCK64 * (_fwd64_groups(N, D, bf16) if bf16 else 1), _FWD_WIDE_PAIR
+    return _BLOCK64 * _fwd64_groups(N, D, bf16), 1
+
+
 @functools.cache
 def _cached_grid(geometry, B: int, H: int, N: int, D: int, has_ids: bool, has_mask: bool,
                  bf16: bool, device: int) -> tuple[int, int]:
     _, _, ctas = geometry(N, D, has_ids, has_mask, bf16, device)
-    fwd = geometry is _fwd_geometry
-    rows = _BLOCK64 * (_fwd64_groups(N, D, bf16) if fwd else 1)
-    return _grid_of(B, H, N, D, ctas * torch.cuda.get_device_properties(device).multi_processor_count, rows,
-                    1 if fwd else _BWD64_QUADS)
+    return _grid_of(B, H, N, D, ctas * torch.cuda.get_device_properties(device).multi_processor_count,
+                    *_grid_blocks(geometry is _fwd_geometry, N, D, bf16))
 
 
 def _grid(geometry, q, region_ids, mask) -> tuple[int, int]:

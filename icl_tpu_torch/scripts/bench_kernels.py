@@ -38,9 +38,17 @@ heads of 128, no mask and the shift mask, f32 and bf16: the `--fwd64` row
 and the `--bwd64` row of each; `--wide-bwd` the `--bwd64` rows alone, then
 the backward at every SwinUNETR fs240 training stage (`chip_smoke.py`'s
 phase 59 rows, f32 timed), whose times and launches a step make its
-per-step sum.
+per-step sum; `--wide-fwd` the `--fwd64` rows alone, then the forward at
+every SwinUNETR fs240 inference and training stage (`chip_smoke.py`'s
+phase 59 rows, f32 and bf16 timed), whose times and launches a forward or
+a step make its sums; `--fs240-cli` runs only
+`chip_smoke.py`'s phase 60 (SwinUNETR-ICL fs240 through its CLI's `main`
+at its default bf16 precision, 3 steps and a validation on seeded
+synthetic cases, its final train state gathered but not written): its
+s/step and peak memory, as the kernels' users pay for them.
 
-    python icl_tpu_torch/scripts/bench_kernels.py [--device-time] [--paths | --tiles | --bwd64 | --fwd64 | --wide | --wide-bwd]
+    python icl_tpu_torch/scripts/bench_kernels.py [--device-time] [--paths | --tiles | --bwd64 | --fwd64 |
+                                                   --wide | --wide-bwd | --wide-fwd | --fs240-cli]
     PYTHONPATH=<other checkout> python icl_tpu_torch/scripts/bench_kernels.py
 
 Run it as a file. `icl_tpu_torch` comes from PYTHONPATH when that names
@@ -80,6 +88,10 @@ def main(argv=None) -> int:
                        help="only head dims above 64 (80, 128), both kernels, f32 and bf16, beside SDPA")
     which.add_argument("--wide-bwd", action="store_true",
                        help="only the backward rows of --wide, then the backward at fs240's training stages")
+    which.add_argument("--wide-fwd", action="store_true",
+                       help="only the forward rows of --wide, then the forward at fs240's stages")
+    which.add_argument("--fs240-cli", action="store_true",
+                       help="only chip_smoke.py's phase 60: SwinUNETR-ICL fs240 through its CLI, s/step and peak")
     args = p.parse_args(argv)
     sys.path.append(str(ROOT))  # after PYTHONPATH: another checkout's package wins
     import torch
@@ -104,6 +116,10 @@ def main(argv=None) -> int:
         tile64_shapes(torch, F, wa, smoke)
     elif args.fwd64:
         tile64_forward(torch, F, wa, smoke)
+    elif args.wide_fwd:
+        wide_forward(torch, F, wa, smoke)
+    elif args.fs240_cli:
+        fs240_cli(torch, wa, smoke)
     elif args.wide or args.wide_bwd:
         wide_head_dims(torch, F, wa, smoke, forward=args.wide)
         if args.wide_bwd:
@@ -214,6 +230,41 @@ def wide_head_dims(torch, F, wa, smoke, forward: bool = True) -> None:
             backward_row(torch, F, wa, smoke, "wide-bwd", gen, *case_inputs(torch, smoke, gen, name, D, mode, dtype,
                                                                             training=True))
             torch.cuda.empty_cache()
+
+
+def wide_forward(torch, F, wa, smoke) -> None:
+    """`--wide-fwd`: the `[wide-fwd]` lines of `--wide` alone, then the
+    forward at every fs240 inference stage (`[wide-fwd-fs240]`) and
+    training stage (`[wide-fwd-fs240-step]`), no mask and region ids, f32
+    and bf16 (`chip_smoke.phase_kernel_3d`)."""
+    gen = torch.Generator(device=smoke.DEVICE).manual_seed(20)
+    cases = [(f"fs{3 * D}_stage1", D, mode) for D in (80, 128) for mode in ("none", "region")]
+    cases += [(stage[0] + "_2d", 128, mode) for stage in smoke.STAGES_2D_D64 for mode in ("none", "mask")]
+    for name, D, mode in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            forward_row(torch, F, wa, smoke, "wide-fwd", *case_inputs(torch, smoke, gen, name, D, mode, dtype,
+                                                                      training=False))
+            torch.cuda.empty_cache()
+    for stages, tag in ((smoke.STAGES, "[wide-fwd-fs240]"), (smoke.TRAIN_STAGES, "[wide-fwd-fs240-step]")):
+        smoke.phase_kernel_3d(torch, F, wa, head_dim=smoke.FS240 // 3, stages=stages, tag=tag, timed_bf16=True)
+
+
+def fs240_cli(torch, wa, smoke) -> None:
+    """`--fs240-cli`: phase 60 on phase 9's seeded cases, its final state
+    gathered but not written; a `[fs240-cli]` line."""
+    import json
+    import shutil
+
+    from icl_tpu_torch.data.synth import synthetic_brats_cases
+
+    shutil.rmtree(smoke.EXPERIMENTS, ignore_errors=True)
+    cases = synthetic_brats_cases(4, smoke.CASE_SIZE, seed=0)
+    held_out = synthetic_brats_cases(1, smoke.CASE_SIZE, seed=1)
+    with smoke.final_state_not_written("phase_fs240_cli"):
+        run = smoke.phase_fs240_cli(torch, wa, cases, held_out)
+    shutil.rmtree(smoke.EXPERIMENTS, ignore_errors=True)
+    keys = ("s_per_step", "peak_bytes", "build_s", "val_dice", "path_launches")
+    print(f"[fs240-cli] {json.dumps({k: run[k] for k in keys})}", flush=True)
 
 
 def case_inputs(torch, smoke, gen, name: str, D: int, mode: str, dtype, training: bool) -> tuple:

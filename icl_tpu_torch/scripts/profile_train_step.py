@@ -1,11 +1,12 @@
 """Where the time of one training step goes on the card.
 
     python -m icl_tpu_torch.scripts.profile_train_step [--model swinunetr_icl]
-        [--precision float32] [--dataset brats]
+        [--precision float32] [--dataset brats] [--feature_size 48]
 
 Builds the trainer of one training CLI with seeded weights and seeded
 synthetic data: `swinunetr_icl`, the BraTS CLI's (SwinUNETR-ICL fs48, 96^3
-patches, batch 4 of which 2 labeled, recompute on, 128^3 cases),
+patches, batch 4 of which 2 labeled, recompute on, 128^3 cases; another
+`--feature_size` builds it wider, as the CLI's flag),
 `icl_swinunet`, the ACDC Swin CLI's at 384^2 with window 12 (Swin-UNet-ICL
 embed 96, batch 16 of which 8 labeled, consistency weight 50, 256^2
 slices), `icl_unet`, the ACDC U-Net CLI's defaults (U-Net-ICL at 256^2,
@@ -58,7 +59,7 @@ from icl_tpu_torch.train.cta import CTATrainer
 from icl_tpu_torch.train.trainer import Trainer
 
 
-def brats_setup(precision: str, model: str = "swinunetr_icl", dataset: str = "brats"):
+def brats_setup(precision: str, model: str = "swinunetr_icl", dataset: str = "brats", feature_size: int = 48):
     from icl_tpu_torch.data.brats import brats_train_batches
     from icl_tpu_torch.data.synth import synthetic_brats_cases
 
@@ -66,8 +67,8 @@ def brats_setup(precision: str, model: str = "swinunetr_icl", dataset: str = "br
                   labeled_bs=2, patch_size=(96, 96, 96), labeled_num=2, consis_weight=10.0)
     cases = synthetic_brats_cases(4, 128, seed=0)
     if model == "swinunetr_icl":
-        cfg = ExperimentConfig(**common, precision=precision, remat=True, feature_size=48)
-        what = "SwinUNETR-ICL fs48, 96^3, batch 4 (2 labeled), recompute on"
+        cfg = ExperimentConfig(**common, precision=precision, remat=True, feature_size=feature_size)
+        what = f"SwinUNETR-ICL fs{feature_size}, 96^3, batch 4 (2 labeled), recompute on"
     elif dataset == "brats":
         cfg = ExperimentConfig(**common, precision=precision)
         what = "U-Net-ICL 3D, 96^3, batch 4 (2 labeled), 2 classes (the BraTS CLI's)"
@@ -156,12 +157,12 @@ def cta_setup():
     return cfg, make_batches, "FixMatch-CTA U-Net, 256^2, batch 16 (8 labeled), the probe fused"
 
 
-def setup(model: str, precision: str, dataset: str = "brats"):
+def setup(model: str, precision: str, dataset: str = "brats", feature_size: int = 48):
     """(cfg, make_batches, description) of the training CLI of `model` (on
     `dataset` for unet_3D_icl); make_batches() starts the seeded batch
     stream anew."""
     if model in ("swinunetr_icl", "unet_3D_icl"):
-        return brats_setup(precision, model, dataset)
+        return brats_setup(precision, model, dataset, feature_size)
     if model in ("unet", "swinunet", "swinunetr"):
         return supervised_setup(precision, model)
     if model == "fixmatch_cta":
@@ -248,6 +249,7 @@ def main(argv=None):
     p.add_argument("--scan_steps", type=int, default=1)
     p.add_argument("--dispatch_depth", type=int, default=1)
     p.add_argument("--fuse_icl_pair", action="store_true")
+    p.add_argument("--feature_size", type=int, default=48, help="swinunetr_icl only: the CLI's --feature_size")
     args = p.parse_args(argv)
     if args.precision is None:
         amos = args.model == "unet_3D_icl" and args.dataset == "amos"
@@ -261,7 +263,7 @@ def main(argv=None):
         raise SystemExit("profile_train_step needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    cfg, make_batches, what = setup(args.model, args.precision, args.dataset)
+    cfg, make_batches, what = setup(args.model, args.precision, args.dataset, args.feature_size)
     cfg.state_dtype, cfg.fuse_icl_pair = args.state_dtype, args.fuse_icl_pair
     cfg.scan_steps, cfg.dispatch_depth = args.scan_steps, args.dispatch_depth
     if args.input_mode == "device_bank":

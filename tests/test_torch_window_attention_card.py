@@ -296,10 +296,10 @@ def test_kernels_take_rows_off_a_16_byte_boundary_on_card(card, D, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,N,D,dtype", WIDE_CASES)
 def test_wide_kernels_and_the_log_sum_exp_match_plain_on_card(card, kind, N, D, dtype):
-    """Head dims above 64, a CTA per 64-column chunk of the output: the
-    forward with and without its log-sum-exp store (equal bits, bitwise
+    """Head dims above 64, a CTA per pair of 64-column chunks of the output:
+    the forward with and without its log-sum-exp store (equal bits, bitwise
     repeatable) against the plain version, the log-sum-exp against the
-    plain one (only chunk 0's CTAs store it), then the backward fed that
+    plain one (only pair 0's CTAs store it), then the backward fed that
     output and log-sum-exp against both plain backwards (dbias written by
     chunk 0's dQ CTAs alone), as at head dims up to 64."""
     q, k, v, bias, ids, mask = _inputs(kind, N, D, dtype, batch=2, seed=N + D + 7, device=card)
@@ -328,21 +328,57 @@ def test_wide_backward_above_two_chunks_matches_plain_on_card(card, kind, D):
     _check_backward(*_inputs(kind, 49, D, "bfloat16", batch=2, seed=D + len(kind), device=card))
 
 
+# the bf16 forward above two chunks: 3, 5 and 10 chunks (the largest it
+# takes), a CTA per pair of output chunks
+WIDE_FWD_ABOVE_TWO = [(kind, N, D) for kind in ("none", "region", "random") for N in (49, 343)
+                      for D in (192, 320, 640)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,D", WIDE_FWD_ABOVE_TWO)
+def test_wide_forward_above_two_chunks_matches_plain_on_card(card, kind, N, D):
+    """bf16 above two chunks, each pair of output chunks a CTA of its own
+    whose warpgroups sum the scores over every chunk (the last pair at an
+    odd count storing one chunk): the output
+    with and without the log-sum-exp store (equal bits), both bitwise
+    repeatable, against the plain version, the log-sum-exp against the
+    plain one, and the launch counted once a call."""
+    q, k, v, bias, ids, mask = _inputs(kind, N, D, "bfloat16", batch=2, seed=N + D + 13, device=card)
+    scale = D ** -0.5
+    out, lse = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    out2, lse2 = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    alone = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)
+    torch.cuda.synchronize()
+    want, want_lse = wa.window_attention_plain(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(out, alone)
+    err = (out.float() - want.float()).abs()
+    assert bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all()), float(err.max())
+    lse_err = float((lse - want_lse).abs().max())
+    assert lse_err <= F32_ATOL * max(1.0, float(want_lse.abs().max())), lse_err
+    _check_forward(q, k, v, bias, ids, mask)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
 def test_wide_geometry_agrees_with_the_rules_on_card(card, D, dtype):
     """Both kernels' geometry above head dim 64 is what the wrapper
-    reckons: the forward's producer and `_fwd64_groups` consumer
-    warpgroups and `_fwd_smem_bytes`, the backward's two quads of four
-    warps (a chunk each) and `_bwd64_smem_bytes`, at least one CTA an
-    SM."""
+    reckons: the forward's producer and consumer warpgroups (f32 two
+    producers and the pair `_FWD_WIDE_PAIR` at every N, one CTA an SM;
+    bf16 one producer and `_fwd64_groups`: 3 at N 343 and 144, 2 at 216, 1
+    at 49 and 4, two CTAs an SM) and `_fwd_wide_layout_bytes`,
+    the backward's two quads of four warps (a chunk each) and
+    `_bwd64_smem_bytes`, at least one CTA an SM."""
     bf16 = dtype == "bfloat16"
     for N in sorted(TILE64_GEOMETRY):
+        groups = wa._fwd64_groups(N, D, bf16)
+        assert groups == ({343: 3, 216: 2, 144: 3, 49: 1, 4: 1}[N] if bf16 else wa._FWD_WIDE_PAIR)
         for has_ids, has_mask in ((False, False), (True, False), (False, True)):
             warps, smem, ctas = wa._fwd_geometry(N, D, has_ids, has_mask, bf16, card.index)
-            assert (warps, smem) == (4 * (wa._fwd64_groups(N, D, bf16) + 1), wa._fwd_smem_bytes(N, D, bf16))
-            assert ctas >= 1
+            assert (warps, smem) == (wa._fwd_warps(N, D, bf16), wa._fwd_wide_layout_bytes(2, bf16, groups))
+            assert warps == 4 * (groups + (1 if bf16 else wa._FWD_WIDE_PRODUCERS))
+            assert smem == wa._fwd_smem_bytes(N, D, bf16) and ctas >= 1 and (bf16 or ctas == 1), ctas
+            assert groups > 1 or not bf16 or ctas == 2, ctas  # one warpgroup: two CTAs share an SM
             warps, smem, ctas = wa._bwd_geometry(N, D, has_ids, has_mask, bf16, card.index)
             assert (warps, smem) == (4 * wa._BWD64_QUADS, wa._bwd64_smem_bytes(N, D, bf16, has_ids)) and ctas >= 1, \
                 (N, warps, smem, ctas)

@@ -1,11 +1,12 @@
 """Head dims above 64 in icl_tpu_torch's fused window attention, where the
 tile-64 kernels walk the head dim in 64-column chunks (`head_dim_chunks`),
-a CTA per chunk of the output.
+a CTA per pair of output chunks (in the forward a consumer warpgroup per
+chunk, in the backward a quad of warps).
 
 On the CPU: the rules the wrapper shares with the kernels (the tile, the
-chunk count, the forward's consumer warpgroups and shared memory, the
-tile-64 backward's shared memory, the grids), which refuse a head dim
-whose chunks do not fit a CTA; and the plain versions that the kernels
+chunk count, the forward's consumer warpgroups and shared memory at every
+chunk count it takes, the tile-64 backward's shared memory, the grids),
+which refuse a head dim whose chunks do not fit a CTA; and the plain versions that the kernels
 are held against on the card (`test_torch_window_attention_card.py`)
 against the JAX package at head dims 72, 80 (SwinUNETR fs240) and 128
 (fs384): the forward and its row log-sum-exp against the Pallas kernel in
@@ -28,15 +29,20 @@ from test_torch_window_attention_lse import GEOMETRY, _inputs, _jax_scores
 from _torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 KB = 1024
-# the forward's bytes a CTA at 2 chunks, f32: a kilobyte of alignment, Q of
-# 2 chunks a consumer warpgroup (64 KB), ring slots of K of 2 chunks and V
-# of one (48 KB each; V lands in its own slot, no plain V tile), 144 bytes a
-# slot of ids and mbarriers; two warpgroups with two slots where N's row
-# blocks come in twos (N 343, 216), else one with three; bf16 at three
-# warpgroups (Q 8 KB a chunk and group, slots of 12 KB)
-FWD_F32_C2_G2 = KB + (128 + 96) * KB + 2 * 144
-FWD_F32_C2_G1 = KB + (64 + 144) * KB + 3 * 144
-FWD_BF16_C2_G3 = KB + (48 + 36) * KB + 3 * 144
+# the forward's bytes a CTA above head dim 64: a kilobyte of alignment, the
+# consumer warpgroups' Q tiles (f32: the pair's, ceil(C / 2) chunks each,
+# 32 KB a chunk; bf16: G warpgroups' of every chunk, 8 KB), ring slots of K
+# of every chunk and V of the CTA's two output chunks (f32 16 KB a chunk,
+# bf16 4 KB), f32's exchange of partial scores between the pair (two
+# buffers of [64, 32] f32 a warpgroup, 32 KB), 144 bytes a slot of ids and
+# mbarriers; as many slots as fit, up to six (bf16 at one warpgroup four,
+# so that two CTAs share an SM). f32 at 2 chunks: two slots, independent of
+# N; bf16 at 2 chunks six at three warpgroups (N 343, 144), four at one (N
+# 49); at 10 chunks (D 640) one warpgroup and three slots
+FWD_F32_C2 = KB + (2 * 32 + 2 * 4 * 16 + 32) * KB + 2 * 144
+FWD_BF16_C2_G3 = KB + (3 * 2 * 8 + 6 * 4 * 4) * KB + 6 * 144
+FWD_BF16_C2_G1 = KB + (2 * 8 + 4 * 4 * 4) * KB + 4 * 144
+FWD_BF16_C10 = KB + (10 * 8 + 3 * 12 * 4) * KB + 3 * 144
 # the tile-64 backward's at 2 chunks, f32 (the dK/dV kernel's K and V hi
 # and lo of 2 chunks, 128 KB, two ring slots of Q and dO hi and lo of 2
 # chunks, a term tile, lse and u, and the 16 KB exchange between its two
@@ -50,43 +56,83 @@ BWD_BF16_C2_343 = 4 * (2 * 2 * 2048 + 2 * 2 * 352 * 32 + 2 * 352)
 @pytest.mark.parametrize("D", [65, 72, 80, 127, 128, 192])
 def test_head_dims_above_64_run_tile_64_in_chunks(D):
     """Every head dim above 64 runs the tile-64 kernels in ceil(D / 64)
-    chunks; at 2 chunks the f32 forward keeps two consumer warpgroups where
-    N's row blocks come in twos (three would need 288 KB) and one
-    elsewhere, bf16 three where they come in threes, and both fit; at 3
+    chunks; at 2 chunks the f32 forward's CTA is a pair of consumer
+    warpgroups on one block of 64 rows, a chunk each, at every N, the bf16
+    forward's one to three warpgroups on rows of their own where N's row
+    blocks come in threes, twos or neither, and both directions fit; at 3
     chunks f32 fits neither direction."""
     chunks = -(-D // 64)
     assert wa.head_dim_tile(D) == 64 and wa.head_dim_chunks(D) == chunks
     assert wa.head_dim_chunks(64) == wa.head_dim_chunks(33) == 1
     if chunks == 2:
         for N in (343, 216, 144, 49, 4):
-            groups = 2 if N in (343, 216) else 1
-            smem = FWD_F32_C2_G2 if groups == 2 else FWD_F32_C2_G1
-            assert wa._fwd64_groups(N, D) == groups and wa._fwd_smem_bytes(N, D) == smem
+            assert wa._fwd64_groups(N, D) == wa._FWD_WIDE_PAIR == 2
+            assert wa._fwd_warps(N, D) == 4 * (2 + wa._FWD_WIDE_PRODUCERS) == 16
+            assert wa._fwd_warps(N, D, bf16=True) == 4 * (wa._fwd64_groups(N, D, bf16=True) + 1)
+            assert wa._fwd_smem_bytes(N, D) == FWD_F32_C2 and wa._fwd_fits(N, D)
             assert wa._bwd64_smem_bytes(N, D) == BWD_F32_C2 == 221_440
-        assert FWD_F32_C2_G2 == 230_688 <= wa._MAX_SMEM_BYTES and FWD_F32_C2_G1 == 214_448
-        assert [wa._fwd64_groups(N, D, bf16=True) for N in (343, 216, 144, 49)] == [3, 2, 3, 1]
-        assert wa._fwd_smem_bytes(343, D, bf16=True) == FWD_BF16_C2_G3 == 87_472
+        assert FWD_F32_C2 == 230_688 <= wa._MAX_SMEM_BYTES
+        assert [wa._fwd64_groups(N, D, bf16=True) for N in (343, 216, 144, 49, 4)] == [3, 2, 3, 1, 1]
+        assert wa._fwd_smem_bytes(343, D, bf16=True) == wa._fwd_smem_bytes(144, D, bf16=True) == FWD_BF16_C2_G3
+        assert wa._fwd_smem_bytes(49, D, bf16=True) == FWD_BF16_C2_G1 and (FWD_BF16_C2_G3, FWD_BF16_C2_G1) == (
+            149_344, 83_520)
         assert wa._bwd64_smem_bytes(343, D, bf16=True) == BWD_BF16_C2_343 == 215_808
         assert wa._bwd64_smem_bytes(343, D, bf16=True, region=True) == 215_808 + 4 * 352 <= wa._MAX_SMEM_BYTES
     else:
-        assert wa._fwd_smem_bytes(49, D) > wa._MAX_SMEM_BYTES
+        assert wa._fwd_smem_bytes(49, D) > wa._MAX_SMEM_BYTES and not wa._fwd_fits(49, D)
         assert wa._bwd64_smem_bytes(49, D) > wa._MAX_SMEM_BYTES
         assert wa._bwd64_smem_bytes(343, D, bf16=True) > wa._MAX_SMEM_BYTES  # the resident window
         assert wa._bwd64_smem_bytes(49, D, bf16=True) <= wa._MAX_SMEM_BYTES
 
 
+def _bf16_forward_bytes(C: int, groups: int) -> int:
+    """The bf16 chunked forward's bytes at C chunks and `groups` consumer
+    warpgroups: Q of every chunk a warpgroup, as many ring slots of K of
+    every chunk and V of two as fit, up to six (four at one warpgroup)."""
+    def total(slots):
+        return KB + (groups * C * 8 + slots * (C + 2) * 4) * KB + slots * 144
+
+    most = 4 if groups == 1 else 6
+    return total(max(s for s in range(2, most + 1) if s == 2 or total(s) <= wa._MAX_SMEM_BYTES))
+
+
+@pytest.mark.parametrize("C", range(2, 11))
+def test_forward_layout_fits_at_every_chunk_count_it_takes(C):
+    """The chunked forward's shared memory at C chunks (head dims 64 C - 63
+    to 64 C), independent of N but through its warpgroups: bf16 fits a CTA
+    at N = 343 at every C up to 10, at the most warpgroups (3, 2, 1) that
+    divide its six row blocks and fit with two ring slots, and as many
+    slots as fit, up to six (four at one warpgroup); 11 chunks are
+    refused. f32 fits at C = 2 at
+    every N of GEOMETRY, the pair with two slots, and at no larger C."""
+    groups = next(g for g in (3, 2, 1) if g == 1 or KB + (g * C * 8 + 2 * (C + 2) * 4) * KB + 2 * 144
+                  <= wa._MAX_SMEM_BYTES)
+    for D in (64 * C - 63, 64 * C):
+        assert wa._fwd64_groups(343, D, bf16=True) == groups
+        assert wa._fwd_smem_bytes(343, D, bf16=True) == _bf16_forward_bytes(C, groups) <= wa._MAX_SMEM_BYTES
+        assert wa._fwd_fits(343, D, bf16=True)
+        for N in sorted(GEOMETRY):
+            assert wa._fwd_fits(N, D) == (C == 2) and wa._fwd_fits(N, D, bf16=True)
+    if C == 2:
+        assert wa._fwd_smem_bytes(343, 128) == KB + (2 * 32 + 2 * 4 * 16 + 32) * KB + 2 * 144
+    if C == 10:
+        assert wa._fwd_smem_bytes(343, 640, bf16=True) == FWD_BF16_C10 == 230_832
+        assert not wa._fwd_fits(343, 641, bf16=True)  # 11 chunks
+
+
 def test_largest_head_dims_each_kernel_takes():
     """The largest head dim each rule takes, at N = 343 and 49: the f32
-    forward and backward 128 (two chunks); the bf16 forward 640 (ten chunks
-    at one consumer warpgroup, its Q tiles 80 KB), the bf16 backward 128
+    forward and backward 128 (two chunks); the bf16 forward 640 (ten chunks,
+    the most a consumer warpgroup holds Q of: 80 KB, three ring slots of 48
+    KB), the bf16 backward 128
     at N = 343 (its resident window of 3 chunks would need 323 KB) and
     448 at N = 49."""
     def largest(fits):
         return max(D for D in range(1, 1025) if fits(D))
 
     for N in (343, 49):
-        assert largest(lambda D: wa._fwd_smem_bytes(N, D) <= wa._MAX_SMEM_BYTES) == 128
-        assert largest(lambda D: wa._fwd_smem_bytes(N, D, bf16=True) <= wa._MAX_SMEM_BYTES) == 640
+        assert largest(lambda D: wa._fwd_fits(N, D)) == 128
+        assert largest(lambda D: wa._fwd_fits(N, D, bf16=True)) == 640
         assert largest(lambda D: wa._bwd64_smem_bytes(N, D, region=True) <= wa._MAX_SMEM_BYTES) == 128
     assert largest(lambda D: wa._bwd64_smem_bytes(343, D, True, True) <= wa._MAX_SMEM_BYTES) == 128
     assert largest(lambda D: wa._bwd64_smem_bytes(49, D, True, True) <= wa._MAX_SMEM_BYTES) == 448
@@ -163,24 +209,28 @@ WIDE_GRIDS = [(1372, 3, 343, 80, 132), (686, 3, 343, 128, 132), (128, 6, 343, 80
 
 
 @pytest.mark.parametrize("B,H,N,D,slots", WIDE_GRIDS)
-def test_wide_grids_have_a_cta_per_chunk(B, H, N, D, slots):
-    """Both tile-64 grids at head dims above 64: a CTA per (block of rows,
-    chunk of the head dim, or two in the backward, head) and window group;
+def test_wide_grids_have_a_cta_per_pair_of_chunks(B, H, N, D, slots):
+    """Both tile-64 grids at head dims above 64: a CTA per (blocks of rows,
+    pair of output chunks, head) and window group: f32's forward pair of
+    consumer warpgroups and the backward dQ kernel's pair of quads a chunk
+    each on one block of 64 rows, bf16's forward warpgroups a block each;
     every window once, no group empty, and no more waves times windows a
     CTA (one more for its prologue) than one wave of whole groups would
     take."""
     def waves_times_windows(per_cta, groups, ctas):
         return -(-groups * ctas // slots) * (per_cta + 1)
 
-    # the forward's, the backward's dQ (two chunks a CTA, one of its quads of warps each)
-    for rows, chunks_a_cta in ((64 * wa._fwd64_groups(N, D), 1), (64, wa._BWD64_QUADS)):
+    assert wa._grid_blocks(True, N, D, False) == wa._grid_blocks(False, N, D, True) == (64, 2)
+    assert wa._grid_blocks(True, N, D, True) == (64 * wa._fwd64_groups(N, D, True), 2)
+    for fwd, bf16 in ((True, False), (True, True), (False, False)):
+        rows, chunks_a_cta = wa._grid_blocks(fwd, N, D, bf16)
         per_cta, groups = wa._grid_of(B, H, N, D, slots, rows, chunks_a_cta)
         ctas = H * -(-N // rows) * -(-wa.head_dim_chunks(D) // chunks_a_cta)
         assert groups * per_cta >= B > (groups - 1) * per_cta
         assert waves_times_windows(per_cta, groups, ctas) <= waves_times_windows(
             *wa._window_groups(B, ctas, slots, whole_wave=True), ctas)
-    if (B, H, N, D) == (1372, 3, 343, 80):  # fs240 stage 1: 6 blocks x 2 chunks x 3 heads, 11 groups of 125 windows
-        assert wa._grid_of(B, H, N, D, slots) == (125, 11)  # 3 waves of 132 CTAs; one wave: 3 groups of 458
+    if (B, H, N, D) == (1372, 3, 343, 80):  # fs240 stage 1: 6 blocks x 1 pair x 3 heads, 22 groups of 63 windows
+        assert wa._grid_of(B, H, N, D, slots, 64, 2) == (63, 22)  # 3 waves of 132 CTAs
 
 
 CASES = [(d, mode, N) for d in (72, 80, 128) for mode in ("none", "region", "mask") for N in sorted(GEOMETRY)]
