@@ -6,9 +6,9 @@
 Phases, each fatal on failure:
   1. the card: name and power limit (nvidia-smi), torch's device name;
   2. the builds of the window-attention CUDA kernels (forward and
-     backward, each up to head dim 64 and, a library of its own, above it
-     in 64-column chunks) and of the SR kernel from ops/csrc, one nvcc
-     each, and of
+     backward, each up to head dim 64, a library of its own above it in
+     64-column chunks, and one streaming the chunks at every head dim) and
+     of the SR kernel from ops/csrc, one nvcc each, and of
      the host's C++ order-0 zoom and rotate (`icl_tpu_torch/native`, the
      host's g++; required), started together; the host library's seconds
      and the host CPU; each
@@ -304,9 +304,9 @@ Phases, each fatal on failure:
      the one-process layout) loads strictly into the one-process model,
      whose eval gives the tp=2 validation dice within 1e-4; the flagship
      over dp2 x tp2 (4 ranks) at 256^2 when four tp=2 peaks fit the card,
-     else 128^2 (said): 2 steps, the replicated leaves bitwise equal on the
+     else 128^2 (said): one step, the replicated leaves bitwise equal on the
      four ranks and each shard on both data ranks, the first step's loss
-     terms against one process within 1e-5, s/step, collectives, peak
+     terms against one process within 1e-5, its seconds, collectives, peak
      memory per rank;
  51. the bf16 state over tp=2: the SR kernel on each rank's shard of the
      flagship's `mlp2` fc1 (rows), fc2 (columns), its bias and an `fc_kv`
@@ -376,10 +376,35 @@ Phases, each fatal on failure:
  60. SwinUNETR-ICL at --feature_size 240 (head dim 80 at every stage)
      through its CLI's `main` at the CLI's default precision (bf16
      autocast, recompute on) on phase 9's cases, as phase 58;
+ 61. the streamed kernels (every head dim and window: `_route` sends a
+     call there where the chunked kernels' tiles do not fit a CTA),
+     asked for by route: SwinUNETR fs432's stage 1 (head dim 144, three
+     64-column chunks) at the inference forward's [1372, 3, 343, 144] and
+     the training pass's [686, 3, 343, 144], no mask and region ids; the
+     Swin-UNet 2D stage 1 at 192 a head [512, 1, 144, 192], no mask, the
+     shift mask and a random mask; head dims 129, 255, 256, 320 and 648
+     at N 343 (region ids), 144 (the shift mask) and 49 (a random mask);
+     f32 and bf16, the forward with its log-sum-exp and the backward fed
+     them, against the plain versions and bitwise repeatable, every launch
+     on the streamed route (asserted); f32 timed at fs432 and the 2D shape
+     beside the bound, the plain version and SDPA; then SwinUNETR fs48
+     with one head a stage (head dims 48, 96, 192, 384: the tile-64,
+     chunked and streamed kernels in one model) through phase 5's sliding
+     window and one f32 backward pass, launches by route and mode
+     asserted, probabilities, loss and gradients against the plain
+     attention;
+ 62. Swin-UNet-ICL 2D at head dim 192 through its CLIs: phase 14's
+     configuration with a `--cfg` yaml of EMBED_DIM 192 and NUM_HEADS
+     1-2-4-8, 3 steps and a validation through the training CLI's `main`,
+     the launches per step asserted as phase 14's and every launch of the
+     run on the streamed route; s/step, peak memory, build seconds and
+     parameters; one step through the kernels against the plain attention
+     by phase 15's rule; test_2D_ACDC --model icl_swinunet --cfg on the
+     best checkpoint gives the validation dice;
 every `fit` ends with its full train state, which each phase deletes
 after its run (in the phases of UNWRITTEN_FINAL_STATES gathered but not
 written, a depth cut for the time limit); then a `kernels` JSON line (the six window-attention
-entries and `sgd_bf16`), the card line, and the result line. Exits
+entries, the six of the streamed kernels and `sgd_bf16`), the card line, and the result line. Exits
 non-zero without a result when CUDA is absent, in a worker too.
 """
 from __future__ import annotations
@@ -635,7 +660,8 @@ def ptxas_usage(log: str, source: str) -> dict:
     log-sum-exp), whose registers are those a thread starts with (its
     warpgroups then move them with setmaxnreg); "dq" and "dkdv" the tile-64
     backward's two kernels; "d>64" the chunked tile-64 kernels of the
-    `_wide` libraries (head dims above 64)."""
+    `_wide` libraries (head dims above 64); "stream fwd", "stream dq" and
+    "stream dkdv" the streamed libraries' kernels (every head dim)."""
     import re
 
     out, name = {}, None
@@ -645,7 +671,11 @@ def ptxas_usage(log: str, source: str) -> dict:
         m = re.search(source + "_kernel" + types + r"Li(\d+)ELi(\d)E(?:Lb(\d)E)?(?:Lb(\d)E)?", line)
         m64 = re.search(r"window_attention_bwd64_(wide_)?(dq|dkdv)_kernel" + types + r"Li(\d)E", line)
         f64 = re.search(r"window_attention64_(wide_)?kernel" + types + r"Li(\d)ELb(\d)E", line)
-        if m:
+        st = re.search(r"window_attention_stream_(fwd|dq|dkdv)_kernel" + types + r"Li(\d)E(?:Lb(\d)E)?", line)
+        if st:
+            name = (f"{'f32' if st[2] == 'f' else 'bf16'} stream {st[1]} {modes[int(st[3])]}"
+                    f"{' lse' if st[4] == '1' else ''}")
+        elif m:
             dims = f"d<={m[2]}" if m[4] is None else f"D{m[2]}" if m[4] == "1" else f"d<{m[2]}"
             name = f"{'f32' if m[1] == 'f' else 'bf16'} {dims} {modes[int(m[3])]}{' lse' if m[5] == '1' else ''}"
         elif f64:
@@ -1644,6 +1674,12 @@ def launches_now(wa) -> dict:
             "bwd": dict(wa.window_attention_bwd.launches_by_mode)}
 
 
+def launches_by_route_now(wa) -> dict:
+    """The launches so far by route and mode, forward and backward."""
+    return {kind: {r: dict(c) for r, c in fn.launches_by_route_mode.items()}
+            for kind, fn in (("fwd", wa.window_attention), ("bwd", wa.window_attention_bwd))}
+
+
 def no_attention(tag: str, path: dict) -> None:
     if any(n for counts in path.values() for n in counts.values()):
         fail(f"{tag} the 3D U-Net path launched window attention: {path}")
@@ -1898,7 +1934,8 @@ def phase_train_to_eval_unet3d(torch, held_out, training: dict) -> None:
 # phase reads a state back (32, 35, 45, 52; 39 restores a rolling step file).
 UNWRITTEN_FINAL_STATES = {"phase_training", "phase_training_2d", "phase_training_unet", "phase_training_unet3d",
                           "phase_supervised_unet3d", "phase_amos", "phase_grad_accum", "phase_fs24_cli",
-                          "phase_fs192_cli", "phase_fs240_cli", "phase_fast_cli", "phase_dispatch_and_resume"}
+                          "phase_fs192_cli", "phase_fs240_cli", "phase_fast_cli", "phase_dispatch_and_resume",
+                          "phase_swinunet_d192_cli"}
 
 
 @contextlib.contextmanager
@@ -2046,6 +2083,7 @@ def run_cli(torch, wa, cli, argv: list, dataset_attr: str, data: InMemoryDataset
 
         def evaluate(model):
             per_steps.setdefault("at_validation", launches_now(wa))
+            per_steps.setdefault("at_validation_by_route", launches_by_route_now(wa))
             return validate(model)
 
         return evaluate
@@ -2095,7 +2133,8 @@ def run_cli(torch, wa, cli, argv: list, dataset_attr: str, data: InMemoryDataset
             if at_val[kind] != want:
                 fail(f"{tag} {kind} launches over {steps} steps: {at_val[kind]}, expected {want}")
     return {"s_per_step": s_per_step, "peak_bytes": peak, "path_launches": at_val,
-            "run_launches": path, "val_dice": val["mean_dice"], "val_s": val["seconds"],
+            "path_launches_by_route_mode": per_steps["at_validation_by_route"], "run_launches": path,
+            "val_dice": val["mean_dice"], "val_s": val["seconds"],
             "best_path": result["best_path"], "log": log,
             "saves": [{k: v[k] for k in ("iteration", "bytes", "seconds")} for v in result["saves"]]}
 
@@ -2697,9 +2736,9 @@ CARD_TEST_FILES = ["tests/test_torch_window_attention_card.py", "tests/test_torc
 
 
 # The card tests in two pytest processes side by side, the two -k
-# selections splitting both files' cases between them (716 and 839 of
-# 1555; the SR file's go with the first): one process took about as long
-# as phase 39 beside it
+# selections splitting both files' cases between them (884 and 861 of
+# 1745; the SR file's and the streamed kernels' go with the first): one
+# process took about as long as phase 39 beside it
 CARD_TEST_SPLIT = ("not (wide or tile64 or backward)", "wide or tile64 or backward")
 
 
@@ -4370,7 +4409,7 @@ def phase_flop_lines(torch) -> dict:
 # flagship over dp2 x tp2; every rank a `--dp-worker` process of this script
 # on the one card, joined by gloo (NCCL takes one rank per card).
 TP_ROOT = os.path.join(ROOT, "build", "chip_smoke_tp")  # outlives phase 43's clean-up
-TP_SWIN_STEPS, TP_DP_STEPS, TP_SMALL_SIDE = 2, 2, 128
+TP_SWIN_STEPS, TP_DP_STEPS, TP_SMALL_SIDE = 2, 1, 128
 # the tp=2 validation against one process and the two ranks' against each
 # other: f32 sums in another order, and the sliding window's stitch adds
 # overlapping patches with atomics on the card (a near-tie may flip a voxel)
@@ -5230,6 +5269,8 @@ TIMED_SWEEP_HEAD_DIMS = (4, 12)
 # tests/test_torch_window_attention_card.py's HEAD_DIMS, every mode, run
 # beside phase 39
 CARD_TEST_HEAD_DIMS = (1, 4, 7, 8, 10, 12, 16, 20, 24, 28, 32, 33, 40, 48, 63, 64, 65, 72, 80, 96, 127, 128)
+# and its STREAM_HEAD_DIMS, the streamed kernels' (every mode, N 4 to 343)
+CARD_TEST_STREAM_HEAD_DIMS = (129, 144, 192, 256, 320)
 
 
 def phase_kernels_head_dims(torch, F, wa) -> dict:
@@ -5648,14 +5689,378 @@ def phases_57_58(torch, F, wa, cases, held_out) -> dict:
     return {"kernels": kernels, "fs192": fs192}
 
 
+# Every head dim (the streamed kernels, ops/csrc/window_attention_stream.cu
+# and window_attention_bwd_stream.cu, where the chunked kernels' tiles do not
+# fit a CTA): SwinUNETR fs432 (head dim 144, three 64-column chunks) at its
+# stage 1, the next feature size that divides by 48 after fs384; a
+# Swin-UNet at 192 a head (EMBED_DIM 192, NUM_HEADS 1-2-4-8) at its 2D
+# stage 1 and through its CLIs; head dims with ragged and whole last chunks
+FS432 = 432
+HEAD_DIM_2D_STREAM = 192
+STREAM_SWEEP_HEAD_DIMS = (129, 255, 256, 320, 648)
+# the 2D path at 192 a head: phase 14's configuration with the yaml's
+# EMBED_DIM and NUM_HEADS (head dim 192 at every stage; ~0.33 s/step)
+EMBED_2D_STREAM, HEADS_2D_STREAM = 192, (1, 2, 4, 8)
+# SwinUNETR fs48 with one head a stage: head dims 48, 96, 192 and 384, the
+# tile-64, chunked and streamed kernels in one model; launches by route of
+# one inference forward (stage 1 tile, stage 2 wide, stage 3 and stage 4's
+# two stream; region ids in stages 1-3)
+ONE_HEAD_ROUTES = {"tile": 2, "wide": 2, "stream": 4}
+ONE_HEAD_STREAM_MODES = {"none": 3, "region": 1, "mask": 0}
+
+
+@contextlib.contextmanager
+def streamed_route(wa):
+    """Every window-attention call in the block on the streamed kernels,
+    whatever route the rule would take (it still refuses head dim 0)."""
+    rule = wa._route
+    wa._route = lambda *a, **kw: rule(*a, **kw) and "stream"
+    try:
+        yield
+    finally:
+        wa._route = rule
+
+
+def stream_case(torch, F, wa, q, k, v, bias, ids, mask, row: dict, timed: bool = False) -> tuple[dict, dict]:
+    """The streamed kernels (`streamed_route`, whatever the rule would
+    take) on one shape: the forward with its log-sum-exp and the backward
+    fed them, each against its plain version (the output and the
+    log-sum-exp; both plain backwards) and bitwise repeatable, every launch
+    on the streamed route; with `timed` (f32) each direction's time beside
+    the bound, the plain version and SDPA. Returns the forward's and the
+    backward's rows."""
+    with streamed_route(wa):
+        return streamed_case(torch, F, wa, q, k, v, bias, ids, mask, row, timed)
+
+
+def streamed_case(torch, F, wa, q, k, v, bias, ids, mask, row: dict, timed: bool) -> tuple[dict, dict]:
+    B, H, N, D = q.shape
+    scale = D ** -0.5
+    f32 = q.dtype == torch.float32
+    wa.reset_launch_counts()
+    out, lse = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    again, lse2 = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = wa.window_attention_plain(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    err = (out.float() - want.float()).abs()
+    lse_err = float((lse - want_lse).abs().max())
+    frow = {**row, "dtype": str(q.dtype).split(".")[-1], "shape": list(q.shape), "route": "stream",
+            "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err,
+            "bitwise_repeat": torch.equal(out, again) and torch.equal(lse, lse2)}
+    ok = float(err.max()) <= F32_ATOL if f32 else bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all())
+    if (not ok or not frow["bitwise_repeat"] or not torch.isfinite(out).all()
+            or lse_err > F32_ATOL * max(1.0, float(want_lse.abs().max()))):
+        fail(f"the streamed forward disagrees with plain or is not repeatable: {frow}")
+    del again, want, err
+    g = torch.randn(q.shape, device=DEVICE, generator=torch.Generator(device=DEVICE).manual_seed(D)).to(q.dtype)
+    saved = {"out": out, "lse": lse}
+    got = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask, **saved)
+    rep = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask, **saved)
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv", "dbias")
+    tols = {n: BWD_F32_RTOL if f32 or n == "dbias" else BWD_BF16_RTOL for n in names}
+    want = wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask)
+    errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+    brow = {k: frow[k] for k in frow if k not in ("max_abs_err", "lse_max_abs_err", "bitwise_repeat")}
+    brow.update(rel_err=errs, tolerance=tols,
+                max_abs_err=max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)),
+                rel_err_lse_plain=lse_plain_errors(wa, q, k, v, bias, ids, mask, g, scale, saved, got),
+                bitwise_repeat=all(torch.equal(a, b) for a, b in zip(got, rep)))
+    del want, rep
+    routes = (dict(wa.window_attention.launches_by_route), dict(wa.window_attention_bwd.launches_by_route))
+    if routes != ({"tile": 0, "wide": 0, "stream": 2}, {"tile": 0, "wide": 0, "stream": 2}):
+        fail(f"the streamed kernels' launches went elsewhere: {routes}")
+    if (not brow["bitwise_repeat"] or not all(bool(torch.isfinite(a).all()) for a in got)
+            or any(e > tols[n] for part in (errs, brow["rel_err_lse_plain"]) for n, e in part.items())):
+        fail(f"the streamed backward disagrees with plain or is not repeatable: {brow}")
+    if timed:
+        nW = ids.shape[0] if ids is not None else mask.shape[0] if mask is not None else B
+        dense = wa.mask_from_region_ids(ids) if ids is not None else mask
+        shape = (B // nW, nW, H, N, D) if dense is not None else (B, H, N, D)
+        qs, ks, vs = (t.view(shape) for t in (q, k, v))
+        attn = (bias if dense is None else bias[None] + dense[:, None]).to(q.dtype)
+        mask_floats = ids.numel() if ids is not None else mask.numel() if mask is not None else 0
+        frow.update(ms=cuda_ms(lambda: wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)),
+                    plain_ms=cuda_ms(lambda: wa.window_attention_plain(q, k, v, bias, ids, mask, scale=scale)),
+                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn,
+                                                                              scale=scale)),
+                    **bound_fields(*bound(B, H, N, D, mask_floats)))
+        brow.update(ms=cuda_ms(lambda: wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask,
+                                                               **saved), reps=5, warmup=1),
+                    plain_ms=cuda_ms(lambda: wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale,
+                                                                           mask=mask), reps=3),
+                    library_ms=sdpa_backward_ms(torch, F, q, k, v, bias, dense, g, scale),
+                    **bound_fields(*bound(B, H, N, D, mask_floats, backward=True)))
+        del attn
+    print(f"[stream] {json.dumps(frow)}", flush=True)
+    print(f"[stream-bwd] {json.dumps(brow)}", flush=True)
+    del q, k, v, g, out, lse, got, saved
+    torch.cuda.empty_cache()
+    return frow, brow
+
+
+def one_head_path(torch, wa) -> dict:
+    """61: SwinUNETR fs48 with one head a stage (head dims 48, 96, 192 and
+    384) on phase 5's volume: one sliding-window inference forward's
+    launches by route and the streamed ones by mode (asserted:
+    `ONE_HEAD_ROUTES` and `ONE_HEAD_STREAM_MODES` a forward), its
+    probabilities against the plain
+    attention, then one f32 supervised pass's backward (cross-entropy on
+    a seeded label map, drop path off) through the same kernels: its
+    launches by route, by mode and the streamed ones by mode (asserted:
+    `ONE_HEAD_ROUTES`, 5 no-mask + 3 region and `ONE_HEAD_STREAM_MODES`),
+    the loss and the gradients of the streamed
+    stages' attention parameters against the plain attention's, by
+    phase 10's rule (loss 1e-4 relative; each gradient within
+    STEP_UPDATE_RTOL of its largest magnitude), beside a control: the
+    kernels' pass on the input times 1 + 1e-7, which shows how far f32
+    rounding of the forward alone moves those gradients."""
+    import numpy as np
+
+    from icl_tpu_torch.eval.infer3d import make_patch_predictor, sliding_window_predict
+    from icl_tpu_torch.models.layers import DropPath, build_model
+    from icl_tpu_torch.models.swinunetr import SwinUNETR, WindowAttention3D
+
+    model = build_model(SwinUNETR, 1, 2, feature_size=FEATURE_SIZE, num_heads=(1, 1, 1, 1),
+                        device=DEVICE, generator=torch.Generator().manual_seed(61)).eval()
+    probs_fn = make_patch_predictor(model)
+    volume = np.random.default_rng(61).standard_normal(VOLUME).astype(np.float32)
+    wa.reset_launch_counts()
+    labels = sliding_window_predict(probs_fn, volume, 2, (PATCH,) * 3, STRIDE, STRIDE, SW_BATCH, device=DEVICE)
+    torch.cuda.synchronize()
+    routes = dict(wa.window_attention.launches_by_route)
+    fwd_stream = dict(wa.window_attention.launches_by_route_mode["stream"])
+    n_forwards = wa.window_attention.launches // sum(ONE_HEAD_ROUTES.values())
+    if routes != {r: n_forwards * n for r, n in ONE_HEAD_ROUTES.items()} or n_forwards < 1 \
+            or fwd_stream != {m: n_forwards * n for m, n in ONE_HEAD_STREAM_MODES.items()} \
+            or labels.shape != volume.shape:
+        fail(f"[one-head] launches by route {routes}, streamed by mode {fwd_stream}, over "
+             f"{wa.window_attention.launches} launches, expected {ONE_HEAD_ROUTES} and {ONE_HEAD_STREAM_MODES} "
+             "a forward")
+    x = torch.from_numpy(volume[None, None, :PATCH, :PATCH, :PATCH]).to(DEVICE).repeat(2, 1, 1, 1, 1)
+    x[1] = x[1].flip(-1)
+    y = torch.from_numpy(np.random.default_rng(62).integers(0, 2, (2,) + (PATCH,) * 3)).to(DEVICE)
+    attns = [m for m in model.modules() if isinstance(m, WindowAttention3D)]
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.rate = 0.0
+    streamed = [n for n, p in model.named_parameters() if "attn" in n and ("layers3" in n or "layers4" in n)]
+    params = dict(model.named_parameters())
+    runs = {}
+    for name, fn, scale in (("kernel", wa.window_attention, 1.0), ("plain", wa.window_attention_plain, 1.0),
+                            ("control", wa.window_attention, 1.0 + 1e-7)):
+        for m in attns:
+            m.attention = fn
+        model.zero_grad(set_to_none=True)
+        wa.reset_launch_counts()
+        model.train()
+        loss = torch.nn.functional.cross_entropy(model(x * scale), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[name] = {"loss": float(loss.detach()), "grads": {n: params[n].grad.detach().clone() for n in streamed},
+                      "bwd_routes": dict(wa.window_attention_bwd.launches_by_route),
+                      "bwd_modes": dict(wa.window_attention_bwd.launches_by_mode),
+                      "bwd_stream": dict(wa.window_attention_bwd.launches_by_route_mode["stream"])}
+        with torch.no_grad():
+            model.eval()
+            runs[name]["probs"] = probs_fn(x)
+    for m in attns:
+        m.attention = wa.window_attention
+    probs_err = float((runs["kernel"]["probs"] - runs["plain"]["probs"]).abs().max())
+    grad_err = {n: rel_err(runs["kernel"]["grads"][n], runs["plain"]["grads"][n]) for n in streamed}
+    control_err = {n: rel_err(runs["control"]["grads"][n], runs["kernel"]["grads"][n]) for n in streamed}
+    loss_err = abs(runs["kernel"]["loss"] - runs["plain"]["loss"]) / abs(runs["plain"]["loss"])
+    out = {"launches_by_route": routes, "forwards": n_forwards, "probs_max_abs_err": probs_err,
+           "loss_rel_err": loss_err, "grad_rel_err_max": max(grad_err.values()),
+           "control_grad_rel_err_max": max(control_err.values()),
+           "bwd_launches_by_route": runs["kernel"]["bwd_routes"], "bwd_launches_by_mode": runs["kernel"]["bwd_modes"],
+           "fwd_stream_by_mode": fwd_stream, "bwd_stream_by_mode": runs["kernel"]["bwd_stream"]}
+    print(f"[one-head] SwinUNETR fs48, heads (1, 1, 1, 1) (head dims 48, 96, 192, 384): {json.dumps(out)}",
+          flush=True)
+    if probs_err > PROBS_ATOL or loss_err > STEP_LOSS_RTOL or max(grad_err.values()) > STEP_UPDATE_RTOL \
+            or runs["kernel"]["bwd_routes"] != ONE_HEAD_ROUTES \
+            or runs["kernel"]["bwd_modes"] != {"none": 5, "region": 3, "mask": 0} \
+            or runs["kernel"]["bwd_stream"] != ONE_HEAD_STREAM_MODES:
+        fail(f"[one-head] the streamed path disagrees with the plain attention or missed a kernel: {out}, "
+             f"grads {grad_err}")
+    del model, probs_fn, runs, params, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernels_stream(torch, F, wa) -> dict:
+    """61: the streamed kernels alone (`stream_shape_rows`), then
+    `one_head_path`."""
+    return {**stream_shape_rows(torch, F, wa), "one_head": one_head_path(torch, wa)}
+
+
+def stream_shape_rows(torch, F, wa) -> dict:
+    """61: the streamed kernels alone (asked for by route, the rule's route
+    asserted where it takes them): SwinUNETR fs432's stage 1 (head dim 144)
+    at the inference forward's [1372, 3, 343, 144] and the training pass's
+    [686, 3, 343, 144], no mask and region ids; the Swin-UNet 2D stage 1
+    at 192 a head [512, 1, 144, 192], no mask, the shift mask and a random
+    mask; head dims 129, 255, 256, 320 and 648 at N 343 (region ids), 144
+    (the shift mask) and 49 (a random mask); f32 and bf16, forward with its
+    log-sum-exp and backward, held and bitwise repeatable (`stream_case`),
+    f32 timed at fs432 and the 2D shape."""
+    gen = torch.Generator(device=DEVICE).manual_seed(61)
+    rows = {"fwd": [], "bwd": []}
+
+    def add(pair):
+        rows["fwd"].append(pair[0])
+        rows["bwd"].append(pair[1])
+
+    for stage, name in (((STAGES[0][0], SW_BATCH) + tuple(STAGES[0][2:]), "fs432_stage1"),
+                        ((STAGES[0][0], LABELED_BS) + tuple(STAGES[0][2:]), "fs432_train_stage1")):
+        for mode in ("none", "region"):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, bias, ids = stage_inputs(torch, stage, dtype, gen, FS432 // 3)
+                ids = ids if mode == "region" else None
+                if dtype == torch.float32 and wa._route(q.shape[2], q.shape[3]) != "stream":
+                    fail(f"the rule does not stream fs432's f32 stage 1: {wa._route(q.shape[2], q.shape[3])}")
+                add(stream_case(torch, F, wa, q, k, v, bias, ids, None, {"stage": name, "mode": mode},
+                                timed=dtype == torch.float32))
+    stage = (STAGES_2D[0][0], STAGES_2D[0][1], STAGES_2D[0][2], 1, STAGES_2D[0][4])
+    for kind in (None, "shift", "random"):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias, mask = inputs_2d(torch, stage, dtype, gen, kind, head_dim=HEAD_DIM_2D_STREAM)
+            add(stream_case(torch, F, wa, q, k, v, bias, None, mask,
+                            {"stage": "2d_d192_stage1", "mode": "none" if kind is None else "mask", "mask": kind},
+                            timed=dtype == torch.float32 and kind != "random"))
+    for D in STREAM_SWEEP_HEAD_DIMS:
+        for N, kind in ((343, "region"), (144, "shift"), (49, "random")):
+            for dtype in (torch.float32, torch.bfloat16):
+                if N == 343:
+                    q, k, v, bias, ids = stage_inputs(torch, ("stage3", 1) + tuple(STAGES[2][2:5]) + (3,),
+                                                      dtype, gen, D)
+                    mask = None
+                else:
+                    side, ws = (24, 12) if N == 144 else (14, 7)
+                    q, k, v, bias, mask = inputs_2d(torch, ("sweep", side, ws, 3, {}), dtype, gen, kind, batch=2,
+                                                    head_dim=D)
+                    ids = None
+                add(stream_case(torch, F, wa, q, k, v, bias, ids, mask,
+                                {"stage": f"d{D}_n{N}", "mode": "region" if ids is not None else "mask",
+                                 "mask": kind}))
+    largest = {d: max(r["max_abs_err"] for r in rows["fwd"] + rows["bwd"] if r["shape"][3] == d and
+                      r["dtype"] == "float32") for d in (FS432 // 3, HEAD_DIM_2D_STREAM) + STREAM_SWEEP_HEAD_DIMS}
+    print(f"[stream] the streamed kernels at fs432's stage 1, the 2D stage 1 at head dim 192 and head dims "
+          f"{list(STREAM_SWEEP_HEAD_DIMS)}, held (forward with its log-sum-exp and backward, every mode, f32 and "
+          f"bf16, bitwise repeatable): the largest f32 abs error at each {json.dumps(largest)}", flush=True)
+    return rows
+
+
+def stream_2d_cfg_file() -> str:
+    """The repo's Swin yaml with EMBED_DIM 192, NUM_HEADS 1-2-4-8 and
+    WINDOW_SIZE 12, written under SUP_ROOT; its path."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", "swin_tiny_patch4_window7_224_lite.yaml")) as f:
+        spec = yaml.safe_load(f)
+    spec["MODEL"]["SWIN"].update(EMBED_DIM=EMBED_2D_STREAM, NUM_HEADS=list(HEADS_2D_STREAM), WINDOW_SIZE=WINDOW_2D)
+    spec["DATA"]["IMG_SIZE"] = IMG_2D
+    os.makedirs(SUP_ROOT, exist_ok=True)
+    path = os.path.join(SUP_ROOT, "swin_d192_window12_384.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(spec, f)
+    return path
+
+
+def phase_swinunet_d192_cli(torch, wa, slices, volumes) -> dict:
+    """62: Swin-UNet-ICL 2D at head dim 192 through its CLI's `main`:
+    phase 14's configuration (384^2, window 12, batch 16 of which 8
+    labeled, f32 with TF32 off) with a `--cfg` yaml of EMBED_DIM 192 and
+    NUM_HEADS 1-2-4-8, on phase 14's slices and volumes in memory: 3 steps
+    and a validation, the launches per step asserted as phase 14's (28
+    forward and 28 backward, 16 no-mask + 12 mask) and every launch of the
+    run on the streamed route; s/step, peak memory, the seconds to build
+    the model and its parameters; one step through the kernels against the
+    plain attention by phase 15's rule; test_2D_ACDC --model icl_swinunet
+    --cfg on the best checkpoint gives the validation dice."""
+    from icl_tpu_torch.models.swin2d import SwinConfig, WindowAttention
+    from icl_tpu_torch.scripts import test_2D_ACDC
+    from icl_tpu_torch.scripts import train_inherent_consistent_swinunet_2D as cli
+    from icl_tpu_torch.train import trainer as trainer_module
+    from icl_tpu_torch.train.steps import METRIC_KEYS
+
+    cfg_path = stream_2d_cfg_file()
+    data = InMemoryDataset(slices, volumes)
+    common = ["--root_path", "in-memory-ACDC", "--exp", "ACDC_chip_smoke/SwinICL_d192", "--num_tries", "d192",
+              "--patch_size", str(IMG_2D), str(IMG_2D), "--cfg", cfg_path]
+    built = {}
+    factory = trainer_module.net_factory
+
+    def timed_factory(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = factory(*args, **kwargs)
+        torch.cuda.synchronize()
+        built.setdefault("build_s", time.perf_counter() - t0)
+        built.setdefault("n_params", sum(p.numel() for p in model.parameters()))
+        return model
+
+    saved = cli.patients_to_slices
+    cli.patients_to_slices = lambda root, num: LABELED_SLICES_2D
+    trainer_module.net_factory = timed_factory
+    torch.manual_seed(0)  # drop-path masks
+    try:
+        run = run_cli(torch, wa, cli, common + ["--max_iterations", str(TRAIN_STEPS), "--val_interval",
+                                                str(TRAIN_STEPS)], "ACDCDataset", data, "[d192]", METRIC_KEYS,
+                      TRAIN_STEPS, {"fwd": PER_STEP_2D, "bwd": PER_STEP_2D})
+    finally:
+        cli.patients_to_slices = saved
+        trainer_module.net_factory = factory
+    run.update(built)
+    routes = {"fwd": dict(wa.window_attention.launches_by_route),
+              "bwd": dict(wa.window_attention_bwd.launches_by_route)}
+    totals = {kind: sum(run["run_launches"][kind].values()) for kind in ("fwd", "bwd")}
+    print(f"[d192] Swin-UNet-ICL embed {EMBED_2D_STREAM}, heads {list(HEADS_2D_STREAM)} (head dim "
+          f"{HEAD_DIM_2D_STREAM}): {built['n_params']} parameters, the Trainer's model built in "
+          f"{built['build_s']:.2f} s; {run['s_per_step']:.4f} s/step, peak memory "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB; launches of the run by route {routes}", flush=True)
+    steps_by_route = run["path_launches_by_route_mode"]
+    if routes != {kind: {"tile": 0, "wide": 0, "stream": totals[kind]} for kind in ("fwd", "bwd")} or any(
+            steps_by_route[kind]["stream"] != run["path_launches"][kind] for kind in ("fwd", "bwd")):
+        fail(f"[d192] launches off the streamed route: {routes}, the steps' {steps_by_route}")
+    run["path_launches_by_route"] = routes
+    step_cfg = train_config_2d(1, 0, "step-d192")
+    step_cfg.model_kwargs = {"swin_cfg": SwinConfig(img_size=IMG_2D, window_size=WINDOW_2D,
+                                                    embed_dim=EMBED_2D_STREAM, num_heads=HEADS_2D_STREAM)}
+    blocks = [f"layers.{i}.blocks.{b}" for i in (0, 3) for b in (0, 1)] + ["layers_up.3.blocks.1"]
+    watched = [f"swin_unet.{blk}.attn.{t}" for blk in blocks
+               for t in ("relative_position_bias_table", "qkv.weight", "qkv.bias")]
+    per_step = sum(PER_STEP_2D.values())
+    step_parity(torch, wa, step_cfg, next(acdc_batches(slices, step_cfg)), watched, WindowAttention,
+                (per_step, per_step), "[step-d192]")
+    eval_dice = eval_cli(test_2D_ACDC, common + ["--model", "icl_swinunet"], "ACDCDataset", data)
+    print(f"[eval-d192] test_2D_ACDC --model icl_swinunet --cfg (embed {EMBED_2D_STREAM}) on the best "
+          f"checkpoint: mean dice {eval_dice!r}, the trainer's validation {run['val_dice']!r}", flush=True)
+    if eval_dice != run["val_dice"]:
+        fail("test_2D_ACDC does not reproduce the head-dim-192 Swin-UNet-ICL's validation dice")
+    return run
+
+
+def phases_61_62(torch, F, wa, slices, volumes) -> dict:
+    """61-62 on phase 14's slices and volumes."""
+    t0 = time.perf_counter()
+    kernels = phase_kernels_stream(torch, F, wa)
+    d192 = phase_swinunet_d192_cli(torch, wa, slices, volumes)
+    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke"), ignore_errors=True)
+    keys = ("s_per_step", "peak_bytes", "build_s", "n_params", "val_dice")
+    print(f"[summary] phases 61-62 in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps({'d192': {k: d192[k] for k in keys}, 'one_head': kernels['one_head']})}", flush=True)
+    return {"kernels": kernels, "d192": d192}
+
+
 def main(argv: list) -> int:
     """Every phase. `--from 41` runs phases 1-2, 41-43 and 47-52 only (the
     multi-process ones, phase 42's ranks running phase 48), `--from 54`
-    phases 1-2 and 54-60, and neither prints a result: a partial run, to
-    iterate on them."""
+    phases 1-2 and 54-60, `--from 61` phases 1-2 and 61-62, and none of
+    them prints a result: a partial run, to iterate on them."""
     start = int(argv[argv.index("--from") + 1]) if "--from" in argv else 1
-    if start not in (1, 41, 54):
-        print("chip_smoke: --from takes 41 or 54", file=sys.stderr)
+    if start not in (1, 41, 54, 61):
+        print("chip_smoke: --from takes 41, 54 or 61", file=sys.stderr)
         return 2
     t_script = time.perf_counter()
     marks = [t_script]
@@ -5710,21 +6115,21 @@ def main(argv: list) -> int:
     # 2. the builds, one nvcc per source, started together
     t0 = time.perf_counter()
     sources = ("window_attention", "window_attention_bwd", "window_attention_wide", "window_attention_bwd_wide",
-               "sgd_bf16")
+               "window_attention_stream", "window_attention_bwd_stream", "sgd_bf16")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host_build = pool.submit(build_host_helper)
         builds = list(pool.map(build_library, sources))
         host_build = host_build.result()
     build_s = time.perf_counter() - t0
     print(f"[build] the host's C++ helper {json.dumps(host_build)}", flush=True)
-    for source, (lib_path, log) in zip(sources, builds[:4]):
+    for source, (lib_path, log) in zip(sources, builds[:6]):
         usage = ptxas_usage(log, source) if log else "already built"
         spills = sorted(n for n, (_, spill) in usage.items() if spill) if log else "not read"
         print(f"[build] {lib_path}: registers and spill stores (bytes) per instance {json.dumps(usage)}; "
               f"instances that spill: {spills or 'none'}", flush=True)
-    sgd_log = [line.strip() for line in builds[4][1].splitlines() if "Used" in line or "spill" in line]
-    print(f"[build] {builds[4][0]}: {sgd_log or 'already built'}", flush=True)
-    print(f"[build] the five libraries in {build_s:.2f} s", flush=True)
+    sgd_log = [line.strip() for line in builds[6][1].splitlines() if "Used" in line or "spill" in line]
+    print(f"[build] {builds[6][0]}: {sgd_log or 'already built'}", flush=True)
+    print(f"[build] the seven libraries in {build_s:.2f} s", flush=True)
     for what, query, too_large in (("window_attention", wa._fwd_geometry, 1000),
                                    ("window_attention_bwd", wa._bwd_geometry, 450)):
         geometry = {f"N{n} D{d}": dict(zip(("warps", "smem_bytes", "ctas_per_sm"),
@@ -5732,6 +6137,11 @@ def main(argv: list) -> int:
                     for n, d in ((343, 16), (216, 16), (144, 32), (49, 32), (4, 32), (343, 64), (144, 64),
                                  (49, 64), (343, 80), (144, 128), (49, 128))}
         print(f"[build] {what} f32 MASK geometry per CTA: {json.dumps(geometry)}", flush=True)
+        # the rule's mirror of the backward's tiles 16 and 32, which sends larger windows to the streamed kernels
+        if what == "window_attention_bwd" and any(
+                geometry[f"N{n} D{d}"]["smem_bytes"] != wa._bwd_tile_smem_bytes(n, d)
+                for n, d in ((343, 16), (216, 16), (144, 32), (49, 32), (4, 32))):
+            fail(f"the tiles 16 and 32 of the backward disagree with _bwd_tile_smem_bytes: {geometry}")
         # the tile-64 kernels' shared memory does not grow with N (the backward's but for the ids);
         # three 64-column chunks of the head dim fit neither in f32
         for n, d in ((too_large, HEAD_DIM_2D), (343, 129)):
@@ -5740,6 +6150,15 @@ def main(argv: list) -> int:
                 fail(f"{what}'s geometry took a window of {n} tokens at head dim {d}")
             except ValueError as e:
                 print(f"[build] refused as it should be: {e}", flush=True)
+    # the streamed kernels take those: one geometry at every head dim and window
+    for what, query in (("window_attention_stream", wa._stream_fwd_geometry),
+                        ("window_attention_bwd_stream", wa._stream_bwd_geometry)):
+        geometry = {f"N{n} D{d} {'bf16' if bf16 else 'f32'}": query(n, d, False, True, bf16, 0)
+                    for n, d in ((343, 129), (343, 144), (144, 192), (1000, 32), (49, 648)) for bf16 in (False, True)}
+        if len(set(geometry.values())) != 1:
+            fail(f"{what}'s geometry changes with the head dim, window or type: {geometry}")
+        print(f"[build] {what} MASK (warps, smem_bytes, ctas_per_sm) at every head dim, window and type: "
+              f"{json.dumps(geometry)}", flush=True)
     z = [torch.zeros(1, 1, 8, HEAD_DIM, device=DEVICE) for _ in range(4)]
     wa.window_attention(*z[:3], torch.zeros(1, 8, 8, device=DEVICE), scale=1.0)
     wa.window_attention_bwd(*z[:3], torch.zeros(1, 8, 8, device=DEVICE), None, z[3], scale=1.0)
@@ -5756,6 +6175,16 @@ def main(argv: list) -> int:
         phases_59_60(torch, F, wa, cases, held_out)
         stamp("59-60")
         print(f"[summary] a partial run from phase 54 passed in {time.perf_counter() - t_script:.1f} s; "
+              f"the result lines belong to the whole run", flush=True)
+        return 0
+    if start == 61:
+        from icl_tpu_torch.data.synth import synthetic_acdc
+
+        shutil.rmtree(EXPERIMENTS, ignore_errors=True)
+        slices, volumes = synthetic_acdc(SLICES_2D, VOLUMES_2D, SLICE_SIZE_2D, VOL_DEPTH_2D, CLASSES_2D, seed=0)
+        phases_61_62(torch, F, wa, slices, volumes)
+        stamp("61-62")
+        print(f"[summary] a partial run from phase 61 passed in {time.perf_counter() - t_script:.1f} s; "
               f"the result lines belong to the whole run", flush=True)
         return 0
 
@@ -5970,6 +6399,11 @@ def main(argv: list) -> int:
     # and SwinUNETR-ICL at feature size 240 through its CLI end to end
     wide = phases_59_60(torch, F, wa, cases, held_out)
     stamp("59-60")
+    # 61 - 62. this slice: every head dim (the streamed kernels) at SwinUNETR
+    # fs432's and the 2D stage-1 shapes at head dim 192, a one-head SwinUNETR
+    # through every route, and Swin-UNet-ICL 2D at head dim 192 through its CLIs
+    stream = phases_61_62(torch, F, wa, slices, volumes)
+    stamp("61-62")
 
     # The kernels line, one entry per kernel and mode. Times are sums over
     # the shapes of a unit of work, each f32 launch time times its launches
@@ -6123,6 +6557,42 @@ def main(argv: list) -> int:
                 **units[direction][mode],
                 "per": per[mode][direction] if mode == "region" else per[mode],
                 "paths": paths[direction].get(mode, {}),
+            })
+    # The streamed kernels, a mode each. `launches`: no mask and mask those of
+    # phase 62's CLI run (Swin-UNet-ICL 2D at head dim 192, 3 steps), region
+    # those of phase 61's one-head SwinUNETR path (its sliding window, and
+    # its backward pass). Times per launch: no mask and mask at the 2D stage
+    # 1 [512, 1, 144, 192] (the shift mask), region at fs432's stage 1 (the
+    # inference forward's [1372, 3, 343, 144]; the backward at the training
+    # pass's [686, 3, 343, 144]); the other timed shapes under `paths`.
+    srows, one = stream["kernels"], stream["kernels"]["one_head"]
+    for direction, source in (("fwd", "window_attention_stream"), ("bwd", "window_attention_bwd_stream")):
+        for mode in ("none", "region", "mask"):
+            timed_rows = [r for r in srows[direction] if r["mode"] == mode and "ms" in r]
+            unit_stage = ("fs432_stage1" if direction == "fwd" else "fs432_train_stage1") if mode == "region" \
+                else "2d_d192_stage1"
+            unit = next(r for r in timed_rows if r["stage"] == unit_stage)
+            one_head = "inference_3d_fs48_one_head" if direction == "fwd" else "training_pass_3d_fs48_one_head"
+            by_path = {"training_2d_d192": stream["d192"]["path_launches_by_route_mode"][direction]["stream"][mode],
+                       one_head: one[f"{direction}_stream_by_mode"][mode]}
+            launches = by_path[one_head if mode == "region" else "training_2d_d192"]
+            errs = [r["max_abs_err"] for r in srows[direction] if r["mode"] == mode
+                    and (direction == "bwd" or r["dtype"] == "float32")]
+            kernels.append({
+                "name": f"{source}[{mode}]",
+                "route": "cuda",
+                "source": f"icl_tpu_torch/ops/csrc/{source}.cu",
+                "replaces": REPLACES[mode] if direction == "fwd" else BWD_REPLACES,
+                "launches": launches,
+                "launches_by_path": by_path,
+                "max_abs_err": max(errs),
+                "head_dims": sorted({r["shape"][3] for r in srows[direction] if r["mode"] == mode}),
+                "head_dims_card_tests": list(CARD_TEST_STREAM_HEAD_DIMS),
+                **{k: unit[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                "per": f"one launch at {unit['shape']}",
+                "paths": {f"{r['stage']}_launch": {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                                                    "bound_ms", "bound_by")}
+                          for r in timed_rows if r is not unit},
             })
     kernels.append({
         "name": "sgd_bf16", "route": "cuda", "source": "icl_tpu_torch/ops/csrc/sgd_bf16.cu",

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
 # -split-compile=0: nvcc optimises and assembles a library's kernel
 # instances (36 in the forward, 29 in the backward; 12 and 14 in their
-# head-dim-chunked libraries) on all the host's cores, so a cold build of
+# head-dim-chunked libraries, 12 and 14 in the streamed ones) on all the
+# host's cores, so a cold build of
 # the three libraries took 18 s instead of 30 s on the H100's 8-core host,
 # with the same registers and spills per instance
 NVCC_FLAGS = (
@@ -127,6 +128,26 @@ def load_window_attention_bwd(wide: bool = False) -> ctypes.CDLL:
     ]
     fn.restype = ctypes.c_int
     _declare_geometry(getattr(lib, f"{prefix}_bwd_geometry"))
+    _declare_error_string(lib)
+    return lib
+
+
+@functools.cache
+def load_window_attention_stream(backward: bool = False) -> ctypes.CDLL:
+    """The streamed window-attention library, forward or (`backward`)
+    backward, built on first use, with its C signatures declared: every
+    head dim and window, the head dim's 64-column chunks streamed
+    (`window_attention_stream.cu`, `window_attention_bwd_stream.cu`,
+    `icl_window_attention_stream_*`)."""
+    path, _ = build_library("window_attention_bwd_stream" if backward else "window_attention_stream")
+    lib = ctypes.CDLL(str(path))
+    what = "bwd" if backward else "fwd"
+    fn = getattr(lib, f"icl_window_attention_stream_{what}")
+    fn.argtypes = [ctypes.c_void_p] * (15 if backward else 8) + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    _declare_geometry(getattr(lib, f"icl_window_attention_stream_{what}_geometry"))
     _declare_error_string(lib)
     return lib
 

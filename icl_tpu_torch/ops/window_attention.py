@@ -14,14 +14,17 @@ exclusive, as in `window_attention_fused`. Layout is that of
 
 `window_attention` is differentiable through `WindowAttentionFn`, which
 saves its inputs (as `_fused_attention_fwd` does) and, at head dims above
-32, also its output and the forward's row log-sum-exp: the backward then
-takes the softmax from them (`window_attention_plain_bwd_lse` is its
-arithmetic) where at 32 and below it recomputes the softmax's statistics.
+32 and wherever the backward streams (`_saves_lse`), also its output and
+the forward's row log-sum-exp: the backward then takes the softmax from
+them (`window_attention_plain_bwd_lse` is its arithmetic) where at 32 and
+below it recomputes the softmax's statistics.
 On CUDA tensors the forward launches `csrc/window_attention.cu` and the
 backward `csrc/window_attention_bwd.cu` (at head dims above 32 its tile-64
 kernels, which need the saved output and log-sum-exp; above 64 their
 chunked forms, `csrc/window_attention_wide.cu` and
-`window_attention_bwd_wide.cu`, libraries of their own); on CPU tensors they
+`window_attention_bwd_wide.cu`, libraries of their own; where none of
+those fits, the streamed kernels, `csrc/window_attention_stream.cu` and
+`window_attention_bwd_stream.cu`: `_route`); on CPU tensors they
 run `window_attention_plain` and `window_attention_plain_bwd` (or
 `window_attention_plain_bwd_lse` where the output and log-sum-exp are
 given). At head dims above 32 both directions run tile-64 kernels that
@@ -38,16 +41,26 @@ Each launch adds its FLOPs to any count in progress (`utils.flops`):
 4*B*H*N^2*D forward, 10*B*H*N^2*D backward, what the plain versions'
 matmuls count on the CPU.
 
-Head dims: the kernels take any head dim D >= 1 whose shared memory fits
-a CTA, each through the instance compiled for its tile (`head_dim_tile`:
-16 for D <= 16, 32 for D <= 32, 64 above), whose operands are staged at
-the tile's width with zero columns past D; above 64 the chunked tile-64
-kernels walk D in `head_dim_chunks(D)` chunks of 64 columns, a CTA per pair
-of output chunks. SwinUNETR's head dim is feature_size /
-3 (8 at fs24, 16 at fs48, 32 at fs96, 64 at fs192, 80 at fs240, 128 at
-fs384). A D whose geometry does not fit (f32 above 128; bf16 above 640 in
-the forward, at N = 343 above 128 in the backward) raises ValueError
-naming D and N, on the card only: the plain versions take any D.
+Head dims: the kernels take every head dim D >= 1 (`_route` picks the
+kernel). Where its shared memory fits a CTA, D runs the instance compiled
+for its tile (`head_dim_tile`: 16 for D <= 16, 32 for D <= 32, 64 above),
+whose operands are staged at the tile's width with zero columns past D;
+above 64 the chunked tile-64 kernels walk D in `head_dim_chunks(D)` chunks
+of 64 columns, a CTA per pair of output chunks ("tile" and "wide"). Where
+those do not fit (f32 above 128; bf16 above 640 in the forward, at N =
+343 above 128 in the backward; `_fwd_fits`, `_bwd64_smem_bytes`) the
+streamed kernels take D ("stream"): a CTA per block of 64 rows (keys) and
+pair of output chunks streams every chunk's tiles through a ring of two
+buffers, its shared memory (`_STREAM_SMEM_BYTES`) and registers the same
+at every D and N. SwinUNETR's head dim is feature_size / 3 (8 at fs24, 16
+at fs48, 32 at fs96, 64 at fs192, 80 at fs240, 128 at fs384, 144 at
+fs432); a 2D Swin's is EMBED_DIM / NUM_HEADS. At head dims up to 32 the
+streamed kernels also take a window whose tiles do not fit a CTA
+(`_bwd_tile_smem_bytes`), and a forward asked for its log-sum-exp, which
+the tiles 16 and 32 do not store. Only D < 1 raises ValueError, on any
+device (`_check`); the plain versions take any D. Launches are counted by
+mode, by route (`launches_by_route`) and by both
+(`launches_by_route_mode`).
 
 Under tensor parallelism (counterpart of `_make_gspmd_fused` and
 `_dispatch_forward`) each rank calls the same kernels on its own rows and
@@ -84,6 +97,15 @@ _FWD_WIDE_EXCHANGE_BYTES = 2 * _FWD_WIDE_PAIR * 64 * 32 * 4
 # 4 KB) a pair (`kXchDq`, `kXchDkdv`)
 _BWD64_EXCHANGE_BYTES = {"dq": 4 * 3072, "dkdv": 4 * 4096}
 _MAX_SMEM_BYTES = 232_448  # per CTA on Hopper
+ROUTES = ("tile", "wide", "stream")  # the kernels a call can take (`_route`)
+# the streamed kernels: 64 rows (keys) a CTA, its pair of output chunks
+# (`kStreamPair`), 32 keys a forward and dQ step, 16 rows a dK/dV step; a
+# ring of two buffers, each a [64, 64] f32 tile beside a [32, 64] one (the
+# dK/dV kernel's: [16, 64]), the same at every D and N
+_STREAM_PAIR = 2
+_STREAM_KEYS, _STREAM_ROWS = 32, 16
+_STREAM_SMEM_BYTES = {"fwd": 2 * (64 + _STREAM_KEYS) * 64 * 4, "dq": 2 * (64 + _STREAM_KEYS) * 64 * 4,
+                      "dkdv": 2 * (64 + _STREAM_ROWS) * 64 * 4}
 _CHUNK_BYTES = 32 << 20  # the plain backward's score chunk (the JAX backward's rule)
 
 
@@ -337,7 +359,51 @@ def _bwd64_smem_bytes(N: int, D: int, bf16: bool = False, region: bool = False) 
     return 4 * (max(dq, dkdv) + (Np if region else 0))
 
 
-def _check(q, k, v, bias, region_ids, mask, dout=None):
+def _bwd_tile_smem_bytes(N: int, D: int) -> int:
+    """The backward's shared memory per CTA at tiles 16 and 32 (`smem_bytes`
+    in `csrc/window_attention_bwd.cu`): q, k, v and dO [Np, tile] and four
+    rows [Np] (row max, 1 / row sum, rowsum(P o dP), the region ids), f32 in
+    either type, Np = N padded to a multiple of 16."""
+    Np = -(-N // 16) * 16
+    return 4 * Np * (4 * head_dim_tile(D) + 4)
+
+
+def _stream_smem_bytes(backward: bool = False) -> int:
+    """The streamed kernels' shared memory per CTA (`kFwdSmemBytes`, and
+    the larger of `kDqSmemBytes` and `kDkdvSmemBytes`): independent of the
+    head dim, the window and the mode."""
+    return max(_STREAM_SMEM_BYTES[k] for k in (("dq", "dkdv") if backward else ("fwd",)))
+
+
+def _route(N: int, D: int, bf16: bool = False, backward: bool = False, region: bool = False,
+           lse: bool = False) -> str:
+    """The kernel a call at windows of N tokens and head dim D takes: the
+    forward "tile" (head dims up to 64) or "wide" (above, in 64-column
+    chunks) where `_fwd_fits` and, where its log-sum-exp is asked for
+    (`lse`), the head dim is above 32, else "stream"; the backward the same
+    where its shared memory fits (`_bwd_tile_smem_bytes` at head dims up to
+    32, else `_bwd64_smem_bytes`, with the region ids where `region`), else
+    "stream". Raises ValueError for D < 1."""
+    head_dim_tile(D)
+    if backward:
+        smem = _bwd_tile_smem_bytes(N, D) if D <= SAVED_LSE_ABOVE else _bwd64_smem_bytes(N, D, bf16, region)
+        fits = smem <= _MAX_SMEM_BYTES
+    else:
+        fits = _fwd_fits(N, D, bf16) and not (lse and D <= SAVED_LSE_ABOVE)
+    return "stream" if not fits else "wide" if head_dim_chunks(D) > 1 else "tile"
+
+
+def _saves_lse(N: int, D: int, bf16: bool, region: bool) -> bool:
+    """Whether the backward at windows of N tokens and head dim D takes the
+    forward's output and row log-sum-exp: above head dim 32 (the tile-64,
+    chunked and streamed kernels) and wherever it streams."""
+    return D > SAVED_LSE_ABOVE or (D >= 1 and _route(N, D, bf16, backward=True, region=region) == "stream")
+
+
+def _check(q, k, v, bias, region_ids, mask, dout=None, lse: bool = False) -> str:
+    """The inputs' shapes, types and devices as the kernels take them;
+    returns the call's route (`_route`: forward, asking for the
+    log-sum-exp where `lse`, or backward with `dout`)."""
     B, H, N, D = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"window_attention: q dtype {q.dtype}, want float32 or bfloat16")
@@ -349,16 +415,7 @@ def _check(q, k, v, bias, region_ids, mask, dout=None):
     if bias.shape != (H, N, N) or bias.dtype != torch.float32:
         raise ValueError(f"window_attention: bias {tuple(bias.shape)} {bias.dtype}, "
                          f"want ({H}, {N}, {N}) float32")
-    bf16 = q.dtype == torch.bfloat16
-    # the forward's shared memory, and the tile-64 backward's; the backward's
-    # tiles 16 and 32 report theirs on the card (_bwd_geometry)
-    if dout is None:
-        smem = _fwd_smem_bytes(N, D, bf16)
-    else:
-        smem = _bwd64_smem_bytes(N, D, bf16, region_ids is not None) if head_dim_tile(D) == 64 else 0
-    if smem > _MAX_SMEM_BYTES or (dout is None and not _fwd_fits(N, D, bf16)):
-        raise ValueError(f"window_attention: window of {N} tokens at head dim {D} does not fit shared memory "
-                         f"({smem} bytes a CTA)")
+    route = _route(N, D, q.dtype == torch.bfloat16, dout is not None, region_ids is not None, lse)
     tensors = [q, k, v, bias] + ([dout] if dout is not None else [])
     if region_ids is not None:
         nW = region_ids.shape[0]
@@ -375,6 +432,7 @@ def _check(q, k, v, bias, region_ids, mask, dout=None):
     for t in tensors:
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("window_attention: all inputs must be contiguous on one device")
+    return route
 
 
 def _device_of(q: torch.Tensor) -> str:
@@ -455,6 +513,27 @@ def _bwd_geometry(N: int, D: int, has_ids: bool, has_mask: bool, bf16: bool,
                      N, D, has_ids, has_mask, bf16, device)
 
 
+@functools.cache
+def _stream_fwd_geometry(N: int, D: int, has_ids: bool, has_mask: bool, bf16: bool,
+                         device: int) -> tuple[int, int, int]:
+    """`_geometry` of the streamed forward kernel."""
+    from icl_tpu_torch.ops.build import load_window_attention_stream
+
+    return _geometry(load_window_attention_stream(), "window_attention_stream_fwd", N, D, has_ids, has_mask, bf16,
+                     device)
+
+
+@functools.cache
+def _stream_bwd_geometry(N: int, D: int, has_ids: bool, has_mask: bool, bf16: bool,
+                         device: int) -> tuple[int, int, int]:
+    """`_geometry` of the streamed backward kernels (the dQ kernel's CTAs
+    an SM)."""
+    from icl_tpu_torch.ops.build import load_window_attention_stream
+
+    return _geometry(load_window_attention_stream(backward=True), "window_attention_stream_bwd", N, D, has_ids,
+                     has_mask, bf16, device)
+
+
 def _balanced_groups(B: int, ctas: int, slots: int) -> tuple[int, int]:
     """(windows per CTA, window groups) for `ctas` CTAs a group at `slots`
     resident CTAs, that make the fewest waves times windows a CTA, a CTA's
@@ -487,6 +566,14 @@ def _grid_of(B: int, H: int, N: int, D: int, slots: int, rows: int = _BLOCK64,
     return _window_groups(B, H, slots)
 
 
+def _stream_grid_of(B: int, H: int, N: int, D: int, slots: int) -> tuple[int, int]:
+    """(windows per CTA, window groups) of the streamed kernels, both
+    directions: a CTA per (block of 64 rows or keys, pair of output chunks,
+    head) a group, `_balanced_groups` at `slots` resident CTAs."""
+    ctas = H * -(-N // _BLOCK64) * -(-head_dim_chunks(D) // _STREAM_PAIR)
+    return _balanced_groups(B, ctas, slots)
+
+
 def _grid_blocks(fwd: bool, N: int, D: int, bf16: bool) -> tuple[int, int]:
     """(rows, chunks of the head dim) a CTA of the forward (`fwd`) or the
     backward's dQ kernel takes, as `_grid_of`'s `rows` and
@@ -502,13 +589,16 @@ def _grid_blocks(fwd: bool, N: int, D: int, bf16: bool) -> tuple[int, int]:
 def _cached_grid(geometry, B: int, H: int, N: int, D: int, has_ids: bool, has_mask: bool,
                  bf16: bool, device: int) -> tuple[int, int]:
     _, _, ctas = geometry(N, D, has_ids, has_mask, bf16, device)
-    return _grid_of(B, H, N, D, ctas * torch.cuda.get_device_properties(device).multi_processor_count,
-                    *_grid_blocks(geometry is _fwd_geometry, N, D, bf16))
+    slots = ctas * torch.cuda.get_device_properties(device).multi_processor_count
+    if geometry in (_stream_fwd_geometry, _stream_bwd_geometry):
+        return _stream_grid_of(B, H, N, D, slots)
+    return _grid_of(B, H, N, D, slots, *_grid_blocks(geometry is _fwd_geometry, N, D, bf16))
 
 
 def _grid(geometry, q, region_ids, mask) -> tuple[int, int]:
     """`_window_groups` of a call on q [B, H, N, D] to the kernel whose
-    geometry query is `geometry` (`_fwd_geometry` or `_bwd_geometry`),
+    geometry query is `geometry` (`_fwd_geometry`, `_bwd_geometry` or
+    their streamed forms),
     worked out once per call shape: the wrapper's host time sets the time
     per call at the smallest windows."""
     return _cached_grid(geometry, *q.shape, region_ids is not None, mask is not None,
@@ -529,49 +619,58 @@ def _terms(H: int, N: int, mask, device, pitch: int = 16) -> torch.Tensor:
 def window_attention_fwd(q, k, v, bias, region_ids=None, mask=None, *, scale: float,
                          return_lse: bool = False):
     """The forward alone, without autograd: the kernel on CUDA tensors
-    (built on first use), `window_attention_plain` on CPU tensors. With
-    `return_lse` also the row log-sum-exp [B, H, N] f32 (f64 for f64 CPU
-    inputs), which the kernel stores beside its output at head dims above
-    `SAVED_LSE_ABOVE` (on CUDA tensors a smaller head dim raises)."""
+    (built on first use; `_route`'s), `window_attention_plain` on CPU
+    tensors. With `return_lse` also the row log-sum-exp [B, H, N] f32 (f64
+    for f64 CPU inputs), which the kernel stores beside its output (at head
+    dims up to `SAVED_LSE_ABOVE` the streamed kernel: the tiles 16 and 32
+    store none)."""
     mode = _mode(region_ids, mask)
     if _device_of(q) == "cpu":
         if return_lse:
             return window_attention_plain(q, k, v, bias, region_ids, mask, scale=scale, return_lse=True)
         return window_attention_plain(q, k, v, bias, region_ids, mask, scale=scale)
-    _check(q, k, v, bias, region_ids, mask)
+    route = _check(q, k, v, bias, region_ids, mask, lse=return_lse)
     B, H, N, D = q.shape
-    if return_lse and D <= SAVED_LSE_ABOVE:
-        raise ValueError(f"window_attention_fwd: head dim {D}: the kernel stores the log-sum-exp at head dims "
-                         f"above {SAVED_LSE_ABOVE} only (the tile-64 backward's)")
-    from icl_tpu_torch.ops.build import load_window_attention
+    from icl_tpu_torch.ops.build import load_window_attention, load_window_attention_stream
 
-    wide = head_dim_chunks(D) > 1  # the chunked tile-64 kernel's own library
-    lib = load_window_attention(wide)
-    per_cta, _ = _grid(_fwd_geometry, q, region_ids, mask)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if return_lse else None
-    terms = _terms(H, N, mask, q.device, pitch=32) if head_dim_tile(D) == 64 else None
-    with torch.cuda.device(q.device):
-        err = (lib.icl_window_attention_wide_fwd if wide else lib.icl_window_attention_fwd)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _ptr(region_ids),
-            _ptr(mask), out.data_ptr(), _ptr(lse), _ptr(terms), B, H, N, D,
-            _windows(B, region_ids, mask), per_cta,
-            float(scale), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "stream":
+        lib = load_window_attention_stream()
+        per_cta, _ = _grid(_stream_fwd_geometry, q, region_ids, mask)
+        with torch.cuda.device(q.device):
+            err = lib.icl_window_attention_stream_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _ptr(region_ids), _ptr(mask),
+                out.data_ptr(), _ptr(lse), B, H, N, D, _windows(B, region_ids, mask), per_cta, float(scale),
+                int(q.dtype == torch.bfloat16), stream)
+    else:
+        wide = route == "wide"  # the chunked tile-64 kernel's own library
+        lib = load_window_attention(wide)
+        per_cta, _ = _grid(_fwd_geometry, q, region_ids, mask)
+        terms = _terms(H, N, mask, q.device, pitch=32) if head_dim_tile(D) == 64 else None
+        with torch.cuda.device(q.device):
+            err = (lib.icl_window_attention_wide_fwd if wide else lib.icl_window_attention_fwd)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), _ptr(region_ids),
+                _ptr(mask), out.data_ptr(), _ptr(lse), _ptr(terms), B, H, N, D,
+                _windows(B, region_ids, mask), per_cta,
+                float(scale), int(q.dtype == torch.bfloat16), stream,
+            )
     _raise_on(err, lib, "window_attention")
     add_kernel_flops(4.0 * B * H * N * N * D)
     window_attention.launches += 1
     window_attention.launches_by_mode[mode] += 1
+    window_attention.launches_by_route[route] += 1
+    window_attention.launches_by_route_mode[route][mode] += 1
     return (out, lse) if return_lse else out
 
 
 def _check_saved(q, out, lse) -> None:
-    """The forward's output and row log-sum-exp, as the tile-64 backward
-    kernel takes them."""
+    """The forward's output and row log-sum-exp, as the tile-64 and
+    streamed backward kernels take them."""
     if out is None or lse is None:
-        raise ValueError(f"window_attention_bwd: head dim {q.shape[-1]} runs the tile-64 backward, which "
-                         "takes the forward's out and lse (window_attention_fwd(..., return_lse=True))")
+        raise ValueError(f"window_attention_bwd: head dim {q.shape[-1]} runs the tile-64 or streamed backward, "
+                         "which takes the forward's out and lse (window_attention_fwd(..., return_lse=True))")
     B, H, N, _ = q.shape
     if out.shape != q.shape or out.dtype != q.dtype or lse.shape != (B, H, N) or lse.dtype != torch.float32:
         raise ValueError(f"window_attention_bwd: out {tuple(out.shape)} {out.dtype}, lse {tuple(lse.shape)} "
@@ -583,12 +682,13 @@ def _check_saved(q, out, lse) -> None:
 def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=None, out=None,
                          lse=None):
     """(dq, dk, dv, dbias) of the fused attention: the backward kernel on
-    CUDA tensors (built on first use); on CPU tensors
+    CUDA tensors (built on first use; `_route`'s); on CPU tensors
     `window_attention_plain_bwd_lse` where the forward's `out` and `lse`
-    are given, else `window_attention_plain_bwd`. At head dims above 32 the
-    kernel is the tile-64 one, which needs `out` and `lse` (from
+    are given, else `window_attention_plain_bwd`. At head dims above 32,
+    and wherever it streams (`_saves_lse`), the kernel is a tile-64 or
+    streamed one, which needs `out` and `lse` (from
     `window_attention_fwd(..., return_lse=True)`) and raises without them;
-    at 32 and below it recomputes the softmax and leaves them unread. dbias
+    the tiles 16 and 32 recompute the softmax and leave them unread. dbias
     is f32; the rest keep the dtype of q."""
     mode = _mode(region_ids, mask)
     if _device_of(q) == "cpu":
@@ -596,47 +696,60 @@ def window_attention_bwd(q, k, v, bias, region_ids, dout, *, scale: float, mask=
             return window_attention_plain_bwd_lse(q, k, v, bias, region_ids, out, lse, dout, scale=scale,
                                                   mask=mask)
         return window_attention_plain_bwd(q, k, v, bias, region_ids, dout, scale=scale, mask=mask)
-    _check(q, k, v, bias, region_ids, mask, dout)
+    route = _check(q, k, v, bias, region_ids, mask, dout)
     B, H, N, D = q.shape
     tile64 = head_dim_tile(D) == 64
-    if tile64:
+    if tile64 or route == "stream":
         _check_saved(q, out, lse)
-    from icl_tpu_torch.ops.build import load_window_attention_bwd
+    from icl_tpu_torch.ops.build import load_window_attention_bwd, load_window_attention_stream
 
-    wide = head_dim_chunks(D) > 1  # the chunked tile-64 kernels' own library
-    lib = load_window_attention_bwd(wide)
-    per_cta, groups = _grid(_bwd_geometry, q, region_ids, mask)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
-    Np = -(-N // 16) * 16
-    # the dbias partial of each window group; tile 64 keeps its rows Np apart
-    part = torch.empty((groups, H, N, Np if tile64 else N), dtype=torch.float32, device=q.device)
-    delta = terms = None
-    if tile64:  # rowsum(dO o O), and bias (+ each window's mask) in rows Np apart
-        delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-        terms = _terms(H, N, mask, q.device)
-    with torch.cuda.device(q.device):
-        err = (lib.icl_window_attention_wide_bwd if wide else lib.icl_window_attention_bwd)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            _ptr(out) if tile64 else None, _ptr(lse) if tile64 else None, bias.data_ptr(),
-            _ptr(region_ids), _ptr(mask), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _ptr(delta), _ptr(terms), part.data_ptr(), dbias.data_ptr(), B, H, N, D,
-            _windows(B, region_ids, mask), per_cta, float(scale), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # rowsum(dO o O) (bf16: the dQ kernel's rowsum(P o dP))
+    delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if tile64 or route == "stream" else None
+    if route == "stream":
+        lib = load_window_attention_stream(backward=True)
+        per_cta, groups = _grid(_stream_bwd_geometry, q, region_ids, mask)
+        part = torch.empty((groups, H, N, N), dtype=torch.float32, device=q.device)  # each window group's dbias
+        with torch.cuda.device(q.device):
+            err = lib.icl_window_attention_stream_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                bias.data_ptr(), _ptr(region_ids), _ptr(mask), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                delta.data_ptr(), part.data_ptr(), dbias.data_ptr(), B, H, N, D, _windows(B, region_ids, mask),
+                per_cta, float(scale), int(q.dtype == torch.bfloat16), stream)
+    else:
+        wide = route == "wide"  # the chunked tile-64 kernels' own library
+        lib = load_window_attention_bwd(wide)
+        per_cta, groups = _grid(_bwd_geometry, q, region_ids, mask)
+        Np = -(-N // 16) * 16
+        # the dbias partial of each window group; tile 64 keeps its rows Np apart
+        part = torch.empty((groups, H, N, Np if tile64 else N), dtype=torch.float32, device=q.device)
+        # bias (+ each window's mask) in rows Np apart
+        terms = _terms(H, N, mask, q.device) if tile64 else None
+        with torch.cuda.device(q.device):
+            err = (lib.icl_window_attention_wide_bwd if wide else lib.icl_window_attention_bwd)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                _ptr(out) if tile64 else None, _ptr(lse) if tile64 else None, bias.data_ptr(),
+                _ptr(region_ids), _ptr(mask), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                _ptr(delta), _ptr(terms), part.data_ptr(), dbias.data_ptr(), B, H, N, D,
+                _windows(B, region_ids, mask), per_cta, float(scale), int(q.dtype == torch.bfloat16), stream,
+            )
     _raise_on(err, lib, "window_attention_bwd")
     add_kernel_flops(10.0 * B * H * N * N * D)
     window_attention_bwd.launches += 1
     window_attention_bwd.launches_by_mode[mode] += 1
+    window_attention_bwd.launches_by_route[route] += 1
+    window_attention_bwd.launches_by_route_mode[route][mode] += 1
     return dq, dk, dv, dbias
 
 
 class WindowAttentionFn(torch.autograd.Function):
     """The fused op under autograd (`_fused_attention`, a custom_vjp in the
     JAX package): saves q, k, v, bias and the region ids or the mask, and,
-    at head dims above `SAVED_LSE_ABOVE` when a gradient will be asked for
-    (`for_grad`: grad mode on and an input that requires one), its output
-    and row log-sum-exp for the tile-64 backward; its backward
+    where the backward takes them (`_saves_lse`) when a gradient will be
+    asked for (`for_grad`: grad mode on and an input that requires one),
+    its output and row log-sum-exp; its backward
     returns dq, dk, dv, dbias, and None for the ids and the mask, which is
     torch's spelling of the zero gradients the JAX backward returns for
     them (:346-347). Both directions run with autocast off, so the plain
@@ -645,7 +758,8 @@ class WindowAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, region_ids, mask, scale, for_grad):
         ctx.scale = scale
-        save_lse = for_grad and q.shape[-1] > SAVED_LSE_ABOVE
+        _, _, N, D = q.shape
+        save_lse = for_grad and _saves_lse(N, D, q.dtype == torch.bfloat16, region_ids is not None)
         with torch.autocast(q.device.type, enabled=False):
             if save_lse:
                 out, lse = window_attention_fwd(q, k, v, bias, region_ids, mask, scale=scale,
@@ -678,10 +792,13 @@ def window_attention(q, k, v, bias, region_ids=None, mask=None, *, scale: float)
 
 def reset_launch_counts() -> None:
     """Kernel launches since the last reset, forward and backward, by
-    mask mode (the CPU path counts nothing)."""
+    mask mode, by route (`_route`) and by both, route first (the CPU path
+    counts nothing)."""
     for fn in (window_attention, window_attention_bwd):
         fn.launches = 0
         fn.launches_by_mode = {"none": 0, "region": 0, "mask": 0}
+        fn.launches_by_route = dict.fromkeys(ROUTES, 0)
+        fn.launches_by_route_mode = {r: {"none": 0, "region": 0, "mask": 0} for r in ROUTES}
 
 
 reset_launch_counts()

@@ -45,10 +45,17 @@ a step make its sums; `--fs240-cli` runs only
 `chip_smoke.py`'s phase 60 (SwinUNETR-ICL fs240 through its CLI's `main`
 at its default bf16 precision, 3 steps and a validation on seeded
 synthetic cases, its final train state gathered but not written): its
-s/step and peak memory, as the kernels' users pay for them.
+s/step and peak memory, as the kernels' users pay for them. `--stream`
+runs only `chip_smoke.py`'s phase 61 shapes (the streamed kernels, every
+head dim: SwinUNETR fs432's stage 1 [1372, 3, 343, 144] and [686, 3, 343,
+144], no mask and region ids; the Swin-UNet 2D stage 1 at 192 a head
+[512, 1, 144, 192], no mask, the shift mask and a random one; head dims
+129-648), f32 and bf16, both directions checked, f32 timed beside the
+bound, the plain version and SDPA.
 
     python icl_tpu_torch/scripts/bench_kernels.py [--device-time] [--paths | --tiles | --bwd64 | --fwd64 |
-                                                   --wide | --wide-bwd | --wide-fwd | --fs240-cli]
+                                                   --wide | --wide-bwd | --wide-fwd | --fs240-cli |
+                                                   --stream]
     PYTHONPATH=<other checkout> python icl_tpu_torch/scripts/bench_kernels.py
 
 Run it as a file. `icl_tpu_torch` comes from PYTHONPATH when that names
@@ -92,6 +99,8 @@ def main(argv=None) -> int:
                        help="only the forward rows of --wide, then the forward at fs240's stages")
     which.add_argument("--fs240-cli", action="store_true",
                        help="only chip_smoke.py's phase 60: SwinUNETR-ICL fs240 through its CLI, s/step and peak")
+    which.add_argument("--stream", action="store_true",
+                       help="only chip_smoke.py's phase 61 shapes: the streamed kernels, every head dim")
     args = p.parse_args(argv)
     sys.path.append(str(ROOT))  # after PYTHONPATH: another checkout's package wins
     import torch
@@ -120,6 +129,8 @@ def main(argv=None) -> int:
         wide_forward(torch, F, wa, smoke)
     elif args.fs240_cli:
         fs240_cli(torch, wa, smoke)
+    elif args.stream:
+        smoke.stream_shape_rows(torch, F, wa)
     elif args.wide or args.wide_bwd:
         wide_head_dims(torch, F, wa, smoke, forward=args.wide)
         if args.wide_bwd:

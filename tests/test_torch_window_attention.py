@@ -111,16 +111,20 @@ def test_head_dim_tile_and_the_forwards_shared_memory_at_it():
 @pytest.mark.parametrize("d", [0, 129])
 def test_check_refuses_a_head_dim_the_kernels_do_not_take(d):
     """The wrapper's check before a launch (on CPU tensors here: the rule
-    does not need the card) names the head dim: 0, and 129, the first in
-    f32 whose three 64-column chunks fit neither kernel's shared memory
-    (the forward's one consumer warpgroup, the backward's dQ and dK/dV
-    CTAs); the plain version takes it on the CPU."""
+    does not need the card) refuses head dim 0, naming it; 129, the first
+    in f32 whose three 64-column chunks fit neither chunked kernel's
+    shared memory (the forward's pair of consumer warpgroups, the
+    backward's dQ and dK/dV CTAs), it takes in both directions through the
+    streamed kernels. The plain version takes both on the CPU."""
     q = torch.zeros(2, H, 49, d)
     bias = torch.zeros(H, 49, 49)
-    with pytest.raises(ValueError, match=f"head dim {d}"):
-        wa._check(q, q, q, bias, None, None)
-    with pytest.raises(ValueError, match=f"head dim {d}"):
-        wa._check(q, q, q, bias, None, None, q)
+    if d == 0:
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            wa._check(q, q, q, bias, None, None)
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            wa._check(q, q, q, bias, None, None, q)
+    else:
+        assert wa._check(q, q, q, bias, None, None) == wa._check(q, q, q, bias, None, None, q) == "stream"
     assert wa.window_attention(q, q, q, bias, scale=1.0).shape == q.shape
 
 

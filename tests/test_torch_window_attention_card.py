@@ -40,6 +40,22 @@ N = 343 (f32 128 both; bf16 640 the forward, 128 the backward), run
 there, and the next one refused with its D and N named; and the bf16
 backward above two chunks (N = 49, D 192 and 448), every mode.
 
+Every head dim (the streamed kernels, `window_attention_stream.cu` and
+`window_attention_bwd_stream.cu`): head dims 129, 144 (SwinUNETR fs432),
+192 (a Swin-UNet at 192 a head), 256 and 320 at N 343, 216, 144, 49 and 4,
+no mask, region ids and a dense mask (the 2D shift mask where N is a
+square, else a random one), f32 and bf16, on the streamed route (where
+the rule would take the chunked kernel, as bf16's forward does up to 640,
+with the rule patched to stream): the forward with its log-sum-exp and the
+backward fed them, each bitwise repeatable, against the plain versions as
+above; one chunk (head dims 1, 7, 16, 32 and 64) at windows of 450 to
+1000 tokens whose tiles do not fit, through autograd; the route the rule
+takes at D 128 / 129 (f32), 640 / 641 (the bf16 forward) and 128 / 129 at
+N 343 (the bf16 backward), counted by `launches_by_route` and
+`launches_by_route_mode`; their geometry; and head dim 129, and each
+largest head dim + 1, run where they were refused before (head dim 0
+still is).
+
 Tolerances (those of chip_smoke.py): forward f32 1e-5 absolute (f32 sums
 in another order, __expf), bf16 1e-3 + 1e-2 relative (one bf16 rounding
 of the output); backward f32 1e-5 of each gradient's largest magnitude,
@@ -82,6 +98,13 @@ SEVERAL_WINDOWS = {"shift144": ("shift", 144, 32, 128), "random49": ("random", 4
                    "region343_d64": ("region", 343, 64, 128), "shift144_d48": ("shift", 144, 48, 128)}
 # every (N, D) the port's paths call, and the other head dims at each N
 SHAPES = [(n, d) for n in (4, 49, 144, 216, 343) for d in HEAD_DIMS]
+# the streamed kernels: ragged and whole last chunks (129, 144, 192, 256,
+# 320) at every window, no mask, region ids and a dense mask (the shift
+# mask where N is a square)
+STREAM_HEAD_DIMS = (129, 144, 192, 256, 320)
+STREAM_CASES = [(kind if kind != "mask" else "shift" if N in (4, 49, 144) else "random", N, D, dtype)
+                for kind in ("none", "region", "mask") for N in sorted(TILE64_GEOMETRY)
+                for D in STREAM_HEAD_DIMS for dtype in ("float32", "bfloat16")]
 
 
 @pytest.fixture
@@ -384,17 +407,18 @@ def test_wide_geometry_agrees_with_the_rules_on_card(card, D, dtype):
                 (N, warps, smem, ctas)
 
 
-# the largest head dim each kernel takes at N = 343 (f32, bf16), as the
-# wrapper's rules give it (test_torch_window_attention_wide.py)
+# the largest head dim each chunked kernel takes at N = 343 (f32, bf16), as
+# the wrapper's rules give it (test_torch_window_attention_wide.py)
 LARGEST_AT_343 = {"forward": (128, 640), "backward": (128, 128)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_largest_head_dims_at_343_run_and_the_next_is_refused_on_card(card, dtype):
-    """At N = 343 (REGION) each kernel's geometry takes its largest head
-    dim and refuses the next, naming D and N; the forward at its largest
-    and the backward at its largest match the plain versions."""
+    """At N = 343 (REGION) each chunked kernel's geometry takes its largest
+    head dim and refuses the next, naming D and N; the forward at its
+    largest and the backward at its largest match the plain versions; the
+    next head dim runs through the streamed kernels and matches them too."""
     bf16 = dtype == "bfloat16"
     for what, geometry in (("forward", wa._fwd_geometry), ("backward", wa._bwd_geometry)):
         D = LARGEST_AT_343[what][bf16]
@@ -407,17 +431,177 @@ def test_largest_head_dims_at_343_run_and_the_next_is_refused_on_card(card, dtyp
     q, k, v, bias, ids, mask = _inputs("region", 343, LARGEST_AT_343["backward"][bf16], dtype, batch=1, seed=12,
                                        device=card)
     _check_backward(q, k, v, bias, ids, mask)
+    for what, check in (("forward", _check_forward), ("backward", _check_backward)):
+        D = LARGEST_AT_343[what][bf16] + 1
+        check(*_inputs("region", 343, D, dtype, batch=1, seed=D, device=card))
+        counts = (wa.window_attention if what == "forward" else wa.window_attention_bwd).launches_by_route
+        assert counts == {"tile": 0, "wide": 0, "stream": 2}, (what, D, counts)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [0, 129])
 def test_kernels_refuse_a_head_dim_they_do_not_take_on_card(card, D):
+    """Head dim 0 is refused, naming it; 129, which the chunked kernels do
+    not fit in f32, runs through the streamed kernels in both directions
+    and matches the plain versions."""
     q = torch.zeros(2, H, 49, D, device=card)
     bias = torch.zeros(H, 49, 49, device=card)
-    with pytest.raises(ValueError, match=f"head dim {D}"):
-        wa.window_attention(q, q, q, bias, scale=1.0)
-    with pytest.raises(ValueError, match=f"head dim {D}"):
-        wa.window_attention_bwd(q, q, q, bias, None, q, scale=1.0)
+    if D == 0:
+        with pytest.raises(ValueError, match=f"head dim {D}"):
+            wa.window_attention(q, q, q, bias, scale=1.0)
+        with pytest.raises(ValueError, match=f"head dim {D}"):
+            wa.window_attention_bwd(q, q, q, bias, None, q, scale=1.0)
+        return
+    _check_forward(*_inputs("none", 49, D, "float32", batch=2, seed=D, device=card))
+    assert wa.window_attention.launches_by_route["stream"] == 2
+    _check_backward(*_inputs("none", 49, D, "float32", batch=2, seed=D + 1, device=card))
+    assert wa.window_attention_bwd.launches_by_route["stream"] == 2
+
+
+@pytest.fixture
+def streamed(monkeypatch):
+    """Every call on the streamed kernels, whatever route the rule would
+    take (it still refuses head dim 0)."""
+    rule = wa._route
+    monkeypatch.setattr(wa, "_route", lambda *a, **kw: rule(*a, **kw) and "stream")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,D,dtype", STREAM_CASES)
+def test_streamed_kernels_and_the_log_sum_exp_match_plain_on_card(card, streamed, kind, N, D, dtype):
+    """The streamed kernels, where the rule would take them or not: the
+    forward with its log-sum-exp and without (equal bits), both bitwise
+    repeatable, against the plain version and its log-sum-exp; then the
+    backward fed that output and log-sum-exp against both plain backwards,
+    bitwise repeatable; every launch on the streamed route."""
+    q, k, v, bias, ids, mask = _inputs(kind, N, D, dtype, batch=2, seed=N + D + 17, device=card)
+    scale = D ** -0.5
+    wa.reset_launch_counts()
+    out, lse = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    out2, lse2 = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    alone = wa.window_attention_fwd(q, k, v, bias, ids, mask, scale=scale)
+    torch.cuda.synchronize()
+    want, want_lse = wa.window_attention_plain(q, k, v, bias, ids, mask, scale=scale, return_lse=True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(out, alone)
+    assert out.dtype == q.dtype and bool(torch.isfinite(out).all())
+    err = (out.float() - want.float()).abs()
+    if q.dtype == torch.float32:
+        assert float(err.max()) <= F32_ATOL, float(err.max())
+    else:
+        assert bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all()), float(err.max())
+    lse_err = float((lse - want_lse).abs().max())
+    assert lse_err <= F32_ATOL * max(1.0, float(want_lse.abs().max())), lse_err
+    g = _upstream(q)
+    got = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask, out=out, lse=lse)
+    again = wa.window_attention_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask, out=out, lse=lse)
+    torch.cuda.synchronize()
+    wants = (wa.window_attention_plain_bwd(q, k, v, bias, ids, g, scale=scale, mask=mask),
+             wa.window_attention_plain_bwd_lse(q, k, v, bias, ids, out, lse, g, scale=scale, mask=mask))
+    for want in wants:
+        for name, a, b, w in zip(("dq", "dk", "dv", "dbias"), got, again, want):
+            assert torch.equal(a, b), f"{name} is not bitwise repeatable"
+            assert bool(torch.isfinite(a).all()), name
+            tol = BWD_F32_RTOL if q.dtype == torch.float32 or name == "dbias" else BWD_BF16_RTOL
+            e = float((a.float() - w.float()).abs().max() / w.float().abs().max())
+            assert e <= tol, (name, e)
+    assert wa.window_attention.launches_by_route == {"tile": 0, "wide": 0, "stream": 3}
+    assert wa.window_attention_bwd.launches_by_route == {"tile": 0, "wide": 0, "stream": 2}
+    assert wa.window_attention.launches_by_mode[_mode(ids, mask)] == 3
+    assert wa.window_attention.launches_by_route_mode["stream"][_mode(ids, mask)] == 3
+    assert wa.window_attention_bwd.launches_by_route_mode["stream"][_mode(ids, mask)] == 2
+
+
+# (kind, N, D): head dims of one chunk at windows whose tiles do not fit a
+# CTA (the backward's tiles 16 and 32 from N 849 and 433, the bf16 tile-64
+# backward's window of K and V from N 817), which the rule sends to the
+# streamed kernels; at N 864 the tile-16 forward fits but its backward does
+# not, so the forward streams to store its log-sum-exp; N 900 a 30 x 30
+# window with the shift mask
+ONE_CHUNK_CASES = [("none", 450, 32), ("none", 864, 16), ("random", 900, 7), ("none", 900, 16),
+                   ("shift", 900, 1), ("random", 1000, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,N,D", ONE_CHUNK_CASES)
+def test_one_chunk_at_large_windows_streams_through_autograd_on_card(card, kind, N, D, dtype):
+    """`window_attention` under autograd at one chunk of the head dim and a
+    window the tiles do not take: the forward saves its log-sum-exp where
+    the backward streams, each direction takes the rule's route (streamed
+    at head dims up to 32, and in the bf16 backward at head dim 64) and
+    `launches_by_route_mode` counts it, and out and the four gradients
+    match the plain versions (the backward's tolerances of
+    `_check_backward`), bitwise repeatable."""
+    q, k, v, bias, ids, mask = _inputs(kind, N, D, dtype, batch=1, seed=N + D, device=card)
+    g = _upstream(q)
+    bf16 = dtype == "bfloat16"
+    routes = {"fwd": wa._route(N, D, bf16, lse=wa._saves_lse(N, D, bf16, False)),
+              "bwd": wa._route(N, D, bf16, backward=True)}
+    assert routes == {"fwd": "tile" if D > 32 else "stream", "bwd": "tile" if D > 32 and not bf16 else "stream"}
+    runs = []
+    wa.reset_launch_counts()
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, bias)]
+        out = wa.window_attention(*leaves, mask=mask, scale=D ** -0.5)
+        out.backward(g)
+        runs.append([out.detach()] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    mode = _mode(ids, mask)
+    assert wa.window_attention.launches_by_route_mode[routes["fwd"]][mode] == 2
+    assert wa.window_attention_bwd.launches_by_route_mode[routes["bwd"]][mode] == 2
+    assert wa.window_attention.launches == wa.window_attention_bwd.launches == 2
+    want = [wa.window_attention_plain(q, k, v, bias, mask=mask, scale=D ** -0.5)]
+    want += wa.window_attention_plain_bwd(q, k, v, bias, None, g, scale=D ** -0.5, mask=mask)
+    for name, a, b, w in zip(("out", "dq", "dk", "dv", "dbias"), *runs, want):
+        assert torch.equal(a, b), f"{name} is not bitwise repeatable"
+        assert bool(torch.isfinite(a).all()), name
+        if name == "out":
+            assert a.dtype == q.dtype
+            err = (a.float() - w.float()).abs()
+            if bf16:
+                assert bool((err <= BF16_ATOL + BF16_RTOL * w.float().abs()).all()), float(err.max())
+            else:
+                assert float(err.max()) <= F32_ATOL, float(err.max())
+        else:
+            tol = BWD_BF16_RTOL if bf16 and name != "dbias" else BWD_F32_RTOL
+            e = float((a.float() - w.float()).abs().max() / w.float().abs().max())
+            assert e <= tol, (name, e)
+
+
+# (N, D, dtype, direction): the largest head dim a chunked kernel takes and
+# the next, which the rule sends to the streamed kernels
+ROUTE_EDGES = [(343, 128, "float32", "forward"), (343, 129, "float32", "forward"),
+               (49, 128, "float32", "backward"), (49, 129, "float32", "backward"),
+               (343, 640, "bfloat16", "forward"), (343, 641, "bfloat16", "forward"),
+               (343, 128, "bfloat16", "backward"), (343, 129, "bfloat16", "backward")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,dtype,direction", ROUTE_EDGES)
+def test_route_at_each_chunked_kernels_edge_on_card(card, N, D, dtype, direction):
+    """The rule's route, unasked, at each chunked kernel's largest head dim
+    (the chunked kernel) and the next (the streamed one), as
+    `launches_by_route` counts it, the result held as above."""
+    args = _inputs("region", N, D, dtype, batch=1, seed=N + D, device=card)
+    (_check_forward if direction == "forward" else _check_backward)(*args)
+    want = "wide" if D in (128, 640) else "stream"
+    counts = (wa.window_attention if direction == "forward" else wa.window_attention_bwd).launches_by_route
+    assert counts == {**dict.fromkeys(wa.ROUTES, 0), want: 2}, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_streamed_geometry_is_the_same_at_every_head_dim_and_window_on_card(card, dtype):
+    """Both streamed directions report 4 warps and `_stream_smem_bytes`
+    (48 KB) at every head dim and window, in every mode, and at least two
+    CTAs an SM."""
+    bf16 = dtype == "bfloat16"
+    for N in (4, 49, 144, 343, 1000):
+        for D in (1, 64, 129, 648):
+            for has_ids, has_mask in ((False, False), (True, False), (False, True)):
+                for backward, geometry in ((False, wa._stream_fwd_geometry), (True, wa._stream_bwd_geometry)):
+                    warps, smem, ctas = geometry(N, D, has_ids, has_mask, bf16, card.index)
+                    assert (warps, smem) == (4, wa._stream_smem_bytes(backward)) and ctas >= 2, (N, D, ctas)
 
 
 @pytest.mark.cuda

@@ -6,10 +6,12 @@ chunk, in the backward a quad of warps).
 On the CPU: the rules the wrapper shares with the kernels (the tile, the
 chunk count, the forward's consumer warpgroups and shared memory at every
 chunk count it takes, the tile-64 backward's shared memory, the grids),
-which refuse a head dim whose chunks do not fit a CTA; and the plain versions that the kernels
+and the route each shape takes (the streamed kernels where the chunks do
+not fit a CTA); and the plain versions that the kernels
 are held against on the card (`test_torch_window_attention_card.py`)
-against the JAX package at head dims 72, 80 (SwinUNETR fs240) and 128
-(fs384): the forward and its row log-sum-exp against the Pallas kernel in
+against the JAX package at head dims 72, 80 (SwinUNETR fs240), 128
+(fs384), 144 (fs432), 192 (a Swin-UNet at 192 a head) and 256: the
+forward and its row log-sum-exp against the Pallas kernel in
 interpret mode, the saved-LSE backward against `jax.vjp` of
 `window_attention_fused`. No mask, region ids and a dense mask, N = 16
 and 49; tolerances as `test_torch_window_attention_lse.py` states them
@@ -59,8 +61,10 @@ def test_head_dims_above_64_run_tile_64_in_chunks(D):
     chunks; at 2 chunks the f32 forward's CTA is a pair of consumer
     warpgroups on one block of 64 rows, a chunk each, at every N, the bf16
     forward's one to three warpgroups on rows of their own where N's row
-    blocks come in threes, twos or neither, and both directions fit; at 3
-    chunks f32 fits neither direction."""
+    blocks come in threes, twos or neither, and both directions fit, the
+    chunked kernels ("wide") take them; at 3 chunks f32 fits neither
+    direction, nor bf16's backward at N = 343, and the streamed kernels
+    take those ("stream")."""
     chunks = -(-D // 64)
     assert wa.head_dim_tile(D) == 64 and wa.head_dim_chunks(D) == chunks
     assert wa.head_dim_chunks(64) == wa.head_dim_chunks(33) == 1
@@ -71,6 +75,8 @@ def test_head_dims_above_64_run_tile_64_in_chunks(D):
             assert wa._fwd_warps(N, D, bf16=True) == 4 * (wa._fwd64_groups(N, D, bf16=True) + 1)
             assert wa._fwd_smem_bytes(N, D) == FWD_F32_C2 and wa._fwd_fits(N, D)
             assert wa._bwd64_smem_bytes(N, D) == BWD_F32_C2 == 221_440
+            assert wa._route(N, D) == wa._route(N, D, backward=True, region=True) == "wide"
+            assert wa._route(N, D, True) == wa._route(N, D, True, backward=True, region=True) == "wide"
         assert FWD_F32_C2 == 230_688 <= wa._MAX_SMEM_BYTES
         assert [wa._fwd64_groups(N, D, bf16=True) for N in (343, 216, 144, 49, 4)] == [3, 2, 3, 1, 1]
         assert wa._fwd_smem_bytes(343, D, bf16=True) == wa._fwd_smem_bytes(144, D, bf16=True) == FWD_BF16_C2_G3
@@ -83,6 +89,9 @@ def test_head_dims_above_64_run_tile_64_in_chunks(D):
         assert wa._bwd64_smem_bytes(49, D) > wa._MAX_SMEM_BYTES
         assert wa._bwd64_smem_bytes(343, D, bf16=True) > wa._MAX_SMEM_BYTES  # the resident window
         assert wa._bwd64_smem_bytes(49, D, bf16=True) <= wa._MAX_SMEM_BYTES
+        assert wa._route(49, D) == wa._route(49, D, backward=True) == "stream"
+        assert wa._route(343, D, True) == wa._route(49, D, True, backward=True) == "wide"
+        assert wa._route(343, D, True, backward=True) == "stream"
 
 
 def _bf16_forward_bytes(C: int, groups: int) -> int:
@@ -104,7 +113,9 @@ def test_forward_layout_fits_at_every_chunk_count_it_takes(C):
     divide its six row blocks and fit with two ring slots, and as many
     slots as fit, up to six (four at one warpgroup); 11 chunks are
     refused. f32 fits at C = 2 at
-    every N of GEOMETRY, the pair with two slots, and at no larger C."""
+    every N of GEOMETRY, the pair with two slots, and at no larger C. The
+    route follows: the chunked kernel where it fits, else the streamed one
+    (f32 above two chunks, bf16 at 11)."""
     groups = next(g for g in (3, 2, 1) if g == 1 or KB + (g * C * 8 + 2 * (C + 2) * 4) * KB + 2 * 144
                   <= wa._MAX_SMEM_BYTES)
     for D in (64 * C - 63, 64 * C):
@@ -113,11 +124,13 @@ def test_forward_layout_fits_at_every_chunk_count_it_takes(C):
         assert wa._fwd_fits(343, D, bf16=True)
         for N in sorted(GEOMETRY):
             assert wa._fwd_fits(N, D) == (C == 2) and wa._fwd_fits(N, D, bf16=True)
+            assert wa._route(N, D) == ("wide" if C == 2 else "stream") and wa._route(N, D, True) == "wide"
     if C == 2:
         assert wa._fwd_smem_bytes(343, 128) == KB + (2 * 32 + 2 * 4 * 16 + 32) * KB + 2 * 144
     if C == 10:
         assert wa._fwd_smem_bytes(343, 640, bf16=True) == FWD_BF16_C10 == 230_832
         assert not wa._fwd_fits(343, 641, bf16=True)  # 11 chunks
+        assert wa._route(343, 641, bf16=True) == "stream"
 
 
 def test_largest_head_dims_each_kernel_takes():
@@ -126,7 +139,8 @@ def test_largest_head_dims_each_kernel_takes():
     the most a consumer warpgroup holds Q of: 80 KB, three ring slots of 48
     KB), the bf16 backward 128
     at N = 343 (its resident window of 3 chunks would need 323 KB) and
-    448 at N = 49."""
+    448 at N = 49. Each largest runs its chunked kernel, and the next head
+    dim the streamed one."""
     def largest(fits):
         return max(D for D in range(1, 1025) if fits(D))
 
@@ -136,6 +150,12 @@ def test_largest_head_dims_each_kernel_takes():
         assert largest(lambda D: wa._bwd64_smem_bytes(N, D, region=True) <= wa._MAX_SMEM_BYTES) == 128
     assert largest(lambda D: wa._bwd64_smem_bytes(343, D, True, True) <= wa._MAX_SMEM_BYTES) == 128
     assert largest(lambda D: wa._bwd64_smem_bytes(49, D, True, True) <= wa._MAX_SMEM_BYTES) == 448
+    for N in (343, 49):
+        assert (wa._route(N, 128), wa._route(N, 129)) == ("wide", "stream")
+        assert (wa._route(N, 640, True), wa._route(N, 641, True)) == ("wide", "stream")
+        assert [wa._route(N, D, backward=True, region=True) for D in (128, 129)] == ["wide", "stream"]
+    assert [wa._route(343, D, True, True, True) for D in (128, 129)] == ["wide", "stream"]
+    assert [wa._route(49, D, True, True, True) for D in (448, 449)] == ["wide", "stream"]
 
 
 @pytest.mark.parametrize("region", [False, True])
@@ -173,12 +193,15 @@ def test_backward_takes_a_pass_per_pair_of_output_chunks(D, passes):
     function's C chunk-products of S a step (the parent's quads formed 2 C);
     above two (bf16 at N = 49: 3 chunks at D 192, 7 at 448) every pass
     forms all C, and the grid has `passes` CTAs a block and head. bf16
-    takes these windows, f32 does not above two chunks."""
+    takes these windows, f32 does not above two chunks (the streamed
+    kernels take those)."""
     C = wa.head_dim_chunks(D)
     assert -(-C // wa._BWD64_QUADS) == passes
     assert sum(_pair_partials(C)) == C and max(_pair_partials(C)) == -(-C // 2)
     assert wa._bwd64_smem_bytes(49, D, bf16=True, region=True) <= wa._MAX_SMEM_BYTES
     assert (wa._bwd64_smem_bytes(49, D, region=True) <= wa._MAX_SMEM_BYTES) == (C == 2)
+    assert wa._route(49, D, True, backward=True, region=True) == "wide"
+    assert wa._route(49, D, backward=True, region=True) == ("wide" if C == 2 else "stream")
     B, H, slots = 512, 3, 132
     per_cta, groups = wa._grid_of(B, H, 49, D, slots, 64, wa._BWD64_QUADS)
     ctas = H * 1 * passes  # one row block at N = 49
@@ -188,17 +211,14 @@ def test_backward_takes_a_pass_per_pair_of_output_chunks(D, passes):
 
 @pytest.mark.parametrize("D,dtype", [(129, torch.float32), (192, torch.bfloat16)])
 def test_check_names_the_head_dim_and_window_it_refuses(D, dtype):
-    """The wrapper's refusal names D and N: the f32 forward at 129, the
-    bf16 backward at N = 343 and 192 (whose forward fits)."""
+    """The shapes whose chunked kernels do not fit (which the wrapper
+    refused, naming D and N, before the streamed kernels): the f32
+    forward at 129, the bf16 backward at N = 343 and 192 (whose forward
+    fits the chunked kernel). `_check` takes them and names the route."""
     q = torch.zeros(2, 1, 343, D, dtype=dtype)
     bias = torch.zeros(1, 343, 343)
-    if dtype == torch.float32:
-        with pytest.raises(ValueError, match=f"window of 343 tokens at head dim {D} does not fit"):
-            wa._check(q, q, q, bias, None, None)
-    else:
-        wa._check(q, q, q, bias, None, None)
-    with pytest.raises(ValueError, match=f"window of 343 tokens at head dim {D} does not fit"):
-        wa._check(q, q, q, bias, None, None, q)
+    assert wa._check(q, q, q, bias, None, None) == ("stream" if dtype == torch.float32 else "wide")
+    assert wa._check(q, q, q, bias, None, None, q) == "stream"
 
 
 # (B, H, N, D, slots): fs240's and fs384's inference stage 1 and training
@@ -233,7 +253,10 @@ def test_wide_grids_have_a_cta_per_pair_of_chunks(B, H, N, D, slots):
         assert wa._grid_of(B, H, N, D, slots, 64, 2) == (63, 22)  # 3 waves of 132 CTAs
 
 
-CASES = [(d, mode, N) for d in (72, 80, 128) for mode in ("none", "region", "mask") for N in sorted(GEOMETRY)]
+# 72, 80 and 128 the chunked kernels' two chunks; 144, 192 and 256 (three
+# and four chunks) the streamed kernels' in f32
+CASES = [(d, mode, N) for d in (72, 80, 128, 144, 192, 256) for mode in ("none", "region", "mask")
+         for N in sorted(GEOMETRY)]
 
 
 @pytest.mark.parametrize("d,mode,N", CASES)
